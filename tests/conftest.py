@@ -28,6 +28,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (full tuned regressions)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
 
 
 @pytest.fixture(scope="session")
