@@ -4,7 +4,8 @@
     python3 chip_smoke.py              # one card, no arguments
 
 Builds the port's CUDA kernels from ``ray_tpu_torch/ops/csrc/`` with nvcc
-(sm_90a) and drives the serving path end to end:
+(sm_90a, one nvcc per source, all at once) and drives its two paths,
+serving and training, end to end:
 
 1. kernels vs plain: each paged-attention kernel against its plain
    PyTorch version on the same inputs at the serving shapes (H=16, D=64,
@@ -23,7 +24,24 @@ Builds the port's CUDA kernels from ``ray_tpu_torch/ops/csrc/`` with nvcc
    over two greedy requests' prompt + output must reproduce the
    engine's per-token logprobs;
 4. profile: a short engine run under ``torch.profiler``, device time by
-   kernel name and the device's busy share of the wall time.
+   kernel name and the device's busy share of the wall time;
+5. flash kernels vs plain: forward (out, lse), dQ and dK/dV against
+   their plain versions at the training shape (B 8, T 1024, H 16, D 64)
+   in bf16 and f32, causal and full, and at a ragged T of 1000; device
+   time, bound, plain time and the library time
+   (``scaled_dot_product_attention`` forward, and its backward through
+   autograd for the two backward kernels);
+6. training at the width of ``bench.py``'s GPT (the model above, bf16
+   activations over f32 masters, flash attention, bf16 logits, remat
+   "dots", dense loss, batch 8 x 1024): (a) loss and every gradient
+   leaf with flash attention against plain attention from the same
+   masters; (b) the step-0 loss near ln(vocab) + sigma^2/2, the
+   expected loss of the init's logits; (c) `make_gpt_trainer`
+   + `DevicePrefetcher` + `TrainLoop` on fresh host batches: tok/s, MFU,
+   the loop's breakdown, host syncs, flash launch counts, and the
+   device busy share from a short profiled window; (d) 25 steps on one
+   repeated batch (5 of them warm-up) must lower the loss by at least
+   1 nat.
 
 Any failed phase raises, so the exit code is non-zero. The last two
 lines of stdout are a ``{"kernels": [...]}`` JSON line and
@@ -46,6 +64,33 @@ import warnings
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak, same source
 F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
+
+# training shapes (bench.py's model at batch 8): flash attention inputs
+FB, FT, FH, FD = 8, 1024, 16, 64
+FLASH_RAGGED_T = 1000
+# Flash kernels vs plain, per element |kernel - plain| <= atol + rtol *
+# |plain|: both accumulate in f32 from the same inputs, so they differ by
+# summation order (f32; gradients sum up to T products, hence 1e-4) and,
+# in bf16, one final rounding (2**-7 of the value). The bf16 forward also
+# rounds each p to bf16 before p . V, the kernel relative to its running
+# row max and the plain version relative to the final one, so each term
+# may differ by one more bf16 rounding: + 2**-8 * (P |V|) per element.
+FLASH_TOL = {"bfloat16": (1e-4, 2 ** -7), "float32": (1e-4, 1e-5)}
+# Flash vs plain attention inside the whole bf16 model, same f32
+# masters: the two paths round at different places (the kernel rounds p
+# to bf16, the plain path keeps it f32), so activations, the loss and
+# each gradient leaf differ like two bf16 runs: a mean loss over 8192
+# positions to well under 1e-2, each leaf's gradient to a few bf16
+# roundings (2**-8 each) in relative Frobenius norm.
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_REL_TOL = 5e-2
+# At init the final RMSNorm gives x unit RMS over d_model and embed rows
+# are N(0, 0.02^2), so each logit is ~N(0, sigma^2) with sigma^2 =
+# d_model * 0.02^2 (0.41 here), and the expected loss is
+# logsumexp ~ ln(vocab) + sigma^2 / 2, not ln(vocab) itself: the step-0
+# loss must be within 0.1 of that.
+STEP0_LOSS_TOL = 0.1
+OVERFIT_DROP = 1.0
 
 # serving shapes (bench_infer.py's model, slots 8, max_len 1024, block 16)
 H, D, BS, MB = 16, 64, 16, 64
@@ -108,13 +153,17 @@ def bound(bytes_moved: float, ops: float, dtype) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check(name, got, ref, dtype_name, what) -> float:
-    atol, rtol = TOL[dtype_name]
+def check(name, got, ref, dtype_name, what, tol=None, extra=None) -> float:
+    atol, rtol = (tol or TOL)[dtype_name]
     diff = (got.float() - ref.float()).abs()
-    over = (diff - atol - rtol * ref.float().abs()).max().item()
+    limit = atol + rtol * ref.float().abs()
+    if extra is not None:
+        limit = limit + extra
+    over = (diff - limit).max().item()
     err = diff.max().item()
     print(f"  {what}: max|kernel-plain| = {err:.3e} "
-          f"(limit {atol} + {rtol:.4g}*|plain|)")
+          f"(limit {atol} + {rtol:.4g}*|plain|"
+          f"{' + 2^-8*P|V|' if extra is not None else ''})")
     if not over <= 0:
         fail(f"{name} kernel disagrees with plain ({what})")
     return err
@@ -251,7 +300,7 @@ def make_traffic(vocab: int, seed: int = 0):
 def phase_engine(dev, cfg_kwargs, seed: int, new_tokens: int = 64):
     import numpy as np
     import torch
-    from ray_tpu_torch.ops import decode_attention as da
+    from ray_tpu_torch import ops
     from ray_tpu_torch.serve import InferenceReplica
 
     t0 = time.perf_counter()
@@ -269,7 +318,7 @@ def phase_engine(dev, cfg_kwargs, seed: int, new_tokens: int = 64):
     eng.reset_stats()
 
     reqs = make_traffic(cfg_kwargs["vocab_size"], seed)
-    da.reset_kernel_launches()
+    ops.reset_kernel_launches()
     # Every host<->device synchronisation in the run is recorded: the
     # engine promises exactly one per prefill chunk and per decode tick.
     torch.cuda.set_sync_debug_mode("warn")
@@ -282,7 +331,7 @@ def phase_engine(dev, cfg_kwargs, seed: int, new_tokens: int = 64):
         wall = time.perf_counter() - t0
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    launches = da.kernel_launches()
+    launches = ops.kernel_launches()
     syncs = sum("synchroniz" in str(w.message) for w in caught)
 
     st = eng.stats()
@@ -407,6 +456,305 @@ def phase_profile(replica, vocab: int, seed: int = 2) -> dict:
     return out
 
 
+def flash_bound(t: int, causal: bool, which: str, dtype) -> tuple[float, str]:
+    """Least time for one flash kernel at [FB, t, FH, FD]: each input
+    read once and each output written once (q/k/v/dO/out/dq/dk/dv are
+    [B, T, H, D] in the working dtype, lse/delta [B*H, T] f32), against
+    4/6/8 * D flops per visible (query, key) pair (forward: q.k and p.v;
+    dQ adds dO.v; dK/dV adds both products into dk and dv)."""
+    import torch
+    es = 2 if dtype == torch.bfloat16 else 4
+    act = FB * t * FH * FD * es
+    row = FB * FH * t * 4
+    pairs = FB * FH * (t * (t + 1) // 2 if causal else t * t)
+    nbytes, per_pair = {"fwd": (4 * act + row, 4),
+                        "dq": (5 * act + 2 * row, 6),
+                        "dkv": (6 * act + 2 * row, 8)}[which]
+    return bound(nbytes, per_pair * FD * pairs, dtype)
+
+
+def phase_flash(dev) -> dict:
+    """Phase 5: the three flash kernels against their plain versions at
+    the training shape, then their times beside bound, plain and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rec = {k: {"cases": []} for k in ("fwd", "dq", "dkv")}
+    for t, causal, dt in ((FT, True, torch.bfloat16),
+                          (FT, False, torch.bfloat16),
+                          (FT, True, torch.float32),
+                          (FT, False, torch.float32),
+                          (FLASH_RAGGED_T, True, torch.bfloat16),
+                          (FLASH_RAGGED_T, False, torch.float32)):
+        name = str(dt).split(".")[-1]
+        q, k, v, do = (torch.randn((FB, t, FH, FD), generator=g,
+                                   device=dev).to(dt) for _ in range(4))
+        what = f"{name:8s} T={t} causal={causal!s:5s}"
+        out, lse = fa.flash_forward(q, k, v, causal=causal)
+        ref_out, ref_lse = fa.flash_forward_reference(q, k, v,
+                                                      causal=causal)
+        extra = None
+        if dt == torch.bfloat16:
+            extra = 2 ** -8 * fa.flash_forward_reference(
+                q.float(), k.float(), v.float().abs(), causal=causal)[0]
+        errs = [check("flash forward", out, ref_out, name,
+                      f"flash fwd out {what}", FLASH_TOL, extra),
+                check("flash forward", lse, ref_lse, "float32",
+                      f"flash fwd lse {what}", FLASH_TOL)]
+        rec["fwd"]["cases"].append({"dtype": name, "T": t, "causal": causal,
+                                    "max_abs_err": max(errs)})
+        del extra
+        delta = fa.attention_delta(ref_out, do)
+        dq = fa.flash_dq(q, k, v, do, ref_lse, delta, causal=causal)
+        dk, dv = fa.flash_dkv(q, k, v, do, ref_lse, delta, causal=causal)
+        rdq, rdk, rdv = fa.flash_backward_reference(q, k, v, do, ref_lse,
+                                                    delta, causal=causal)
+        e = check("flash dq", dq, rdq, name, f"flash dq      {what}",
+                  FLASH_TOL)
+        rec["dq"]["cases"].append({"dtype": name, "T": t, "causal": causal,
+                                   "max_abs_err": e})
+        e = max(check("flash dkv", dk, rdk, name, f"flash dk      {what}",
+                      FLASH_TOL),
+                check("flash dkv", dv, rdv, name, f"flash dv      {what}",
+                      FLASH_TOL))
+        rec["dkv"]["cases"].append({"dtype": name, "T": t, "causal": causal,
+                                    "max_abs_err": e})
+        del q, k, v, do, out, lse, ref_out, ref_lse, delta, dq, dk, dv
+        del rdq, rdk, rdv
+        torch.cuda.empty_cache()
+
+    # Times at the main path's case: bf16, causal, T 1024. Three input
+    # sets of 67 MB each, so a set is cold in the 50 MB L2 when reused.
+    dt = torch.bfloat16
+    sets = []
+    for _ in range(3):
+        q, k, v, do = (torch.randn((FB, FT, FH, FD), generator=g,
+                                   device=dev).to(dt) for _ in range(4))
+        out, lse = fa.flash_forward_reference(q, k, v, causal=True)
+        sets.append((q, k, v, do, lse, fa.attention_delta(out, do)))
+    fwd_args = [(q, k, v) for q, k, v, *_ in sets]
+    bwd_args = sets
+    rec["fwd"]["ms"] = time_ms(
+        lambda q, k, v: fa.flash_forward(q, k, v, causal=True), fwd_args)
+    rec["fwd"]["plain_ms"] = time_ms(
+        lambda q, k, v: fa.flash_forward_reference(q, k, v, causal=True),
+        fwd_args)
+    rec["dq"]["ms"] = time_ms(
+        lambda *a: fa.flash_dq(*a, causal=True), bwd_args)
+    rec["dkv"]["ms"] = time_ms(
+        lambda *a: fa.flash_dkv(*a, causal=True), bwd_args)
+    plain_bwd = time_ms(
+        lambda *a: fa.flash_backward_reference(*a, causal=True), bwd_args)
+    # the plain backward computes dq, dk and dv together
+    rec["dq"]["plain_ms"] = rec["dkv"]["plain_ms"] = plain_bwd
+    # SDPA on [B, H, T, D], layouts prepared beforehand (not timed).
+    lib = []
+    for q, k, v, do, *_ in sets:
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        lib.append((qh, kh, vh, oh, do.transpose(1, 2).contiguous()))
+    rec["fwd"]["library_ms"] = time_ms(
+        lambda qh, kh, vh, *_: F.scaled_dot_product_attention(
+            qh.detach(), kh.detach(), vh.detach(), is_causal=True), lib)
+    lib_bwd = time_ms(
+        lambda qh, kh, vh, oh, doh: torch.autograd.grad(
+            oh, (qh, kh, vh), doh, retain_graph=True), lib)
+    # one SDPA backward computes dq, dk and dv together
+    rec["dq"]["library_ms"] = rec["dkv"]["library_ms"] = lib_bwd
+    del lib, sets, fwd_args, bwd_args
+    torch.cuda.empty_cache()
+    for key in rec:
+        rec[key]["bound_ms"], rec[key]["bound_by"] = flash_bound(
+            FT, True, key, dt)
+        r = rec[key]
+        print(f"  flash {key}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+              f"[bf16 causal B={FB} T={FT} H={FH} D={FD}]")
+    return rec
+
+
+def _train_cfg(**kw):
+    from ray_tpu_torch.models import gpt
+    return gpt.GPTConfig(**{**dict(
+        vocab_size=50304, d_model=1024, n_layers=12, n_heads=16, d_ff=4096,
+        max_seq_len=1024, dtype="bfloat16", attn_impl="flash",
+        logits_dtype="bfloat16", remat=True, remat_policy="dots",
+        loss_impl="dense"), **kw})
+
+
+def _host_batches(cfg, batch: int, seed: int):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    while True:
+        toks = rng.integers(0, cfg.vocab_size,
+                            (batch, cfg.max_seq_len + 1)).astype(np.int32)
+        yield {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def phase_train(dev) -> dict:
+    """Phase 6: training at full width (see the module docstring)."""
+    import dataclasses
+    import math
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.train import loop, spmd
+
+    cfg = _train_cfg()
+    batch, unroll, prefetch, interval = 8, 2, 2, 4
+    out = {"config": dataclasses.asdict(cfg), "batch": batch,
+           "unroll": unroll, "prefetch": prefetch, "interval": interval}
+
+    # (a) + (b): one batch, flash against plain attention, same masters.
+    t0 = time.perf_counter()
+    state, step_fn, place = spmd.make_gpt_trainer(cfg, seed=0, device=dev)
+    model = state.params
+    leaves = [(n, p) for n, p in model.named_parameters()]
+    b0 = place(next(_host_batches(cfg, batch, seed=1)))
+    res = {}
+    for impl in ("flash", "xla"):
+        loss = spmd.gpt_loss_fn(model, b0,
+                                dataclasses.replace(cfg, attn_impl=impl))
+        grads = torch.autograd.grad(loss, [p for _, p in leaves])
+        res[impl] = (loss.item(), grads)
+    dloss = abs(res["flash"][0] - res["xla"][0])
+    rel = {n: ((gf.float() - gx.float()).norm()
+               / gx.float().norm().clamp_min(1e-30)).item()
+           for (n, _), gf, gx in zip(leaves, res["flash"][1], res["xla"][1])}
+    worst = max(rel, key=rel.get)
+    print(f"  (a) loss flash {res['flash'][0]:.6f} vs plain "
+          f"{res['xla'][0]:.6f}: |diff| {dloss:.2e} (limit "
+          f"{TRAIN_LOSS_TOL}); worst leaf gradient rel. error "
+          f"{rel[worst]:.2e} ({worst}, limit {TRAIN_GRAD_REL_TOL})")
+    if not dloss <= TRAIN_LOSS_TOL:
+        fail(f"flash vs plain-attention loss differ by {dloss}")
+    if not rel[worst] <= TRAIN_GRAD_REL_TOL:
+        fail(f"flash vs plain-attention gradient of {worst} off by "
+             f"{rel[worst]}")
+    ln_v = math.log(cfg.vocab_size)
+    want0 = ln_v + cfg.d_model * 0.02 ** 2 / 2
+    print(f"  (b) step-0 loss {res['flash'][0]:.4f}: ln(vocab) {ln_v:.4f}, "
+          f"+ sigma^2/2 of the init's logits = {want0:.4f} (limit "
+          f"{STEP0_LOSS_TOL})")
+    if not abs(res["flash"][0] - want0) <= STEP0_LOSS_TOL:
+        fail(f"step-0 loss {res['flash'][0]} is not near {want0}")
+    out.update(loss_flash=res["flash"][0], loss_plain=res["xla"][0],
+               loss_abs_diff=dloss, grad_rel_err=rel,
+               grad_rel_err_max=rel[worst], step0_loss=res["flash"][0],
+               step0_expected=want0, ln_vocab=ln_v)
+    del res, grads, loss
+    torch.cuda.empty_cache()
+    out["check_s"] = time.perf_counter() - t0
+
+    # (c) the trainer through the prefetcher and the loop.
+    tokens_per_step = batch * cfg.max_seq_len
+    flops_step = spmd.train_flops_per_token(cfg, cfg.max_seq_len) \
+        * tokens_per_step
+    batches = loop.DevicePrefetcher(_host_batches(cfg, batch, seed=2),
+                                    place, depth=prefetch, group=unroll)
+    train = loop.TrainLoop(step_fn, unroll=unroll, metrics_interval=interval,
+                           flops_per_step=flops_step, device=dev)
+    t0 = time.perf_counter()
+    state, warm = train.run(state, batches, num_steps=2 * unroll)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    steps = 12
+    ops.reset_kernel_launches()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        state, hist = train.run(state, batches, num_steps=steps)
+        wall = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("default")
+    launches = ops.kernel_launches()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    fetches = train.last_ring.fetches
+    losses = [float(m["loss"]) for m in hist]
+    if len(hist) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"train loop returned {len(hist)} steps, losses {losses}")
+    for name in ("flash_forward", "flash_dq", "flash_dkv"):
+        if launches[name] <= 0:
+            fail(f"{name} was not launched on the training path")
+    tok_s = tokens_per_step * steps / wall
+    mfu = train.last_mfu
+    print(f"  (c) warm-up {2 * unroll} steps in {warm_s:.1f} s; {steps} "
+          f"steps in {wall:.3f} s: {wall / steps * 1e3:.1f} ms/step, "
+          f"{tok_s:.0f} tok/s, MFU {mfu:.4f} (of 989 TFLOP/s); losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    print(f"      host syncs {syncs} ({fetches} metric fetches); "
+          f"launches {launches}")
+    print(f"      breakdown {json.dumps(train.last_breakdown)}")
+    if syncs > fetches:
+        fail(f"{syncs} host syncs in {steps} steps, the metrics ring made "
+             f"{fetches} fetches (want none outside them)")
+    out.update(warmup_s=warm_s, steps=steps, wall_s=wall,
+               step_ms=wall / steps * 1e3, tok_s=tok_s, mfu=mfu,
+               breakdown=train.last_breakdown, host_syncs=syncs,
+               metric_fetches=fetches, launches=launches,
+               launches_per_step={k: v / steps for k, v in launches.items()},
+               losses=losses,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    # Device busy share and time by kernel over one dispatch (2 steps).
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = train.run(state, batches, num_steps=unroll)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    kernels = sorted(((e.key, e.self_device_time_total, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda k: -k[1])
+    busy_us = sum(t for _, t, _ in kernels)
+    flash_us = sum(t for n, t, _ in kernels if "flash_" in n)
+    print(f"      profiled {unroll} steps: wall {pwall * 1e3:.1f} ms, device"
+          f" busy {busy_us * 1e-3:.1f} ms ({busy_us * 1e-6 / pwall:.1%}); "
+          f"flash kernels {flash_us * 1e-3:.1f} ms "
+          f"({flash_us / max(busy_us, 1e-9):.1%} of device time)")
+    for n, t, c in kernels[:12]:
+        print(f"    {t * 1e-3:9.3f} ms  {c:6d}  {n[:80]}")
+    out["profile"] = {
+        "wall_s": pwall, "device_busy_s": busy_us * 1e-6,
+        "device_busy_share": busy_us * 1e-6 / pwall,
+        "flash_share_of_device": flash_us / max(busy_us, 1e-9),
+        "top_kernels": [{"name": n[:80], "device_ms": t * 1e-3, "calls": c}
+                        for n, t, c in kernels[:16]]}
+    del state, step_fn, model, batches, train, prof, leaves, b0
+    torch.cuda.empty_cache()
+
+    # (d) overfit one repeated batch: 5 warm-up steps, then 20.
+    opt = spmd.default_optimizer(learning_rate=1e-3, warmup_steps=5,
+                                 total_steps=25)
+    state, step_fn, place = spmd.make_gpt_trainer(cfg, seed=3, device=dev,
+                                                  optimizer=opt)
+    one = place(next(_host_batches(cfg, batch, seed=4)))
+    fit = []
+    for _ in range(25):
+        state, m = step_fn(state, one)
+        fit.append(m["loss"])
+    fit = [x.item() for x in fit]
+    drop = fit[0] - fit[-1]
+    print(f"  (d) one batch, 25 steps: loss {fit[0]:.4f} -> {fit[-1]:.4f} "
+          f"(drop {drop:.3f}, want >= {OVERFIT_DROP})")
+    if not drop >= OVERFIT_DROP:
+        fail(f"overfitting one batch lowered the loss by only {drop}")
+    out.update(overfit_losses=fit, overfit_drop=drop)
+    del state, step_fn, one
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -429,9 +777,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     t0 = time.perf_counter()
-    lib, ptxas = _build.build()
+    libs, ptxas = _build.build()
     build_s = time.perf_counter() - t0
-    print(f"built {os.path.relpath(lib)} in {build_s:.1f} s")
+    print(f"built {', '.join(os.path.relpath(p) for p in libs)} in "
+          f"{build_s:.1f} s")
     regs = [int(w) for w in re.findall(r"Used (\d+) registers", ptxas)]
     spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill", ptxas))
     if regs:
@@ -439,41 +788,64 @@ def main() -> int:
               f"registers, {spills} bytes spilled")
     _build.load()
 
-    print("phase 1: kernels vs plain")
-    kern = phase_kernels(dev)
     result = {"card": smi, "torch": torch.__version__,
               "torch_cuda": torch.version.cuda, "nvcc": nvcc,
-              "build_s": build_s, "kernels": kern}
+              "build_s": build_s, "phase_s": {}}
     cfg_kwargs = dict(vocab_size=50304, d_model=1024, n_layers=12,
                       n_heads=16, d_ff=4096, max_seq_len=1024,
                       dtype="bfloat16")
-    print("phase 2: engine at full width")
-    replica, reqs, outs, eng = phase_engine(dev, cfg_kwargs, seed=0)
-    launches = eng["launches"]
-    print("phase 3: teacher-forced logprobs vs dense f32 forward")
-    tf = phase_teacher_forced(dev, cfg_kwargs, 0, reqs, outs)
-    print("phase 4: engine under torch.profiler")
-    prof = phase_profile(replica, cfg_kwargs["vocab_size"])
-    result.update(engine=eng, teacher_forced=tf, profile=prof)
+
+    def phase(n, title, fn, *args):
+        print(f"phase {n}: {title}")
+        t0 = time.perf_counter()
+        got = fn(*args)
+        result["phase_s"][n] = time.perf_counter() - t0
+        print(f"  phase {n} took {result['phase_s'][n]:.1f} s")
+        return got
+
+    kern = phase(1, "paged kernels vs plain", phase_kernels, dev)
+    replica, reqs, outs, eng = phase(2, "engine at full width",
+                                     phase_engine, dev, cfg_kwargs, 0)
+    tf = phase(3, "teacher-forced logprobs vs dense f32 forward",
+               phase_teacher_forced, dev, cfg_kwargs, 0, reqs, outs)
+    prof = phase(4, "engine under torch.profiler", phase_profile, replica,
+                 cfg_kwargs["vocab_size"])
+    del replica
+    torch.cuda.empty_cache()
+    flash = phase(5, "flash kernels vs plain", phase_flash, dev)
+    train = phase(6, "training at full width", phase_train, dev)
+    result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
+                  flash=flash, train=train)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
-    src = "ray_tpu_torch/ops/csrc/paged_attention.cu"
     rows = []
-    for key, wrapper, replaces in (
+    # launches: each kernel's count over its own path's main run (phase 2
+    # for serving, phase 6 (c) for training), counters zeroed just before
+    for key, wrapper, replaces, rec, launches, src in (
             ("paged_decode", "paged_decode_attention",
-             "ray_tpu/ops/decode_attention.py:282"),
+             "ray_tpu/ops/decode_attention.py:282", kern["paged_decode"],
+             eng["launches"], "paged_attention.cu"),
             ("paged_prefill", "paged_prefill_attention",
-             "ray_tpu/ops/decode_attention.py:424")):
-        k = kern[key]
-        rows.append({"name": key, "route": "cuda", "source": src,
+             "ray_tpu/ops/decode_attention.py:424", kern["paged_prefill"],
+             eng["launches"], "paged_attention.cu"),
+            ("flash_forward", "flash_forward",
+             "ray_tpu/ops/flash_attention.py:63", flash["fwd"],
+             train["launches"], "flash_attention.cu"),
+            ("flash_dq", "flash_dq", "ray_tpu/ops/flash_attention.py:189",
+             flash["dq"], train["launches"], "flash_attention.cu"),
+            ("flash_dkv", "flash_dkv", "ray_tpu/ops/flash_attention.py:219",
+             flash["dkv"], train["launches"], "flash_attention.cu")):
+        rows.append({"name": key, "route": "cuda",
+                     "source": f"ray_tpu_torch/ops/csrc/{src}",
                      "replaces": replaces, "launches": launches[wrapper],
                      "max_abs_err": max(c["max_abs_err"]
-                                        for c in k["cases"]),
-                     "ms": k["ms"], "plain_ms": k["plain_ms"],
-                     "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                     "library_ms": k["library_ms"]})
+                                        for c in rec["cases"]),
+                     "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                     "bound_ms": rec["bound_ms"],
+                     "bound_by": rec["bound_by"],
+                     "library_ms": rec["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

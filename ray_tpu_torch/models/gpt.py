@@ -1,20 +1,27 @@
-"""GPT-style decoder-only transformer in PyTorch: the serving half of
-`ray_tpu/models/gpt.py`.
+"""GPT-style decoder-only transformer in PyTorch: the counterpart of
+`ray_tpu/models/gpt.py` for paged serving and for training.
 
 Same configuration fields, same parameter tree (stacked ``[L, ...]``
 layer leaves in JAX's ``[in, out]`` orientation, so weights carried over
-from the JAX package are copied, never transposed) and the same paged
-inference math: token + learned position embeddings, then L blocks of
-RMSNorm -> QKV -> attention -> ``wo`` -> RMSNorm -> SwiGLU, a final
-RMSNorm and the unembed against the tied ``embed``.
+from the JAX package are copied, never transposed) and the same math:
+token + learned position embeddings, then L blocks of RMSNorm -> QKV ->
+attention -> ``wo`` -> RMSNorm -> SwiGLU, a final RMSNorm and the
+unembed against the tied ``embed``.
 
 Differences from the JAX module, all deliberate:
 
-- `GPT` holds the weights in ONE dtype (the activation dtype for
-  serving). The JAX forwards cast f32 master weights at every use
-  (``params[...].astype(adt)``); done per step in eager PyTorch that
-  would read and write the whole model every decode tick. Casting once at
-  load gives the same numbers.
+- `GPT` holds the weights in ONE dtype: the activation dtype for
+  serving (cast once at load, so a decode tick never re-reads f32
+  masters), float32 trainable masters for training. Every block casts
+  its weights to the activation dtype at use, as JAX does
+  (``lp["wq"].astype(adt)``), so gradients land on the f32 masters; on
+  the serving model the cast is a no-op.
+- Per-block remat is `torch.utils.checkpoint` (non-reentrant):
+  ``remat_policy="nothing"`` recomputes the whole block, ``"dots"`` and
+  ``"attn_out"`` are selective checkpointing that save the block's
+  matmul outputs or the flash kernel's output (the plain ``"xla"``
+  attention is recomputed under ``"attn_out"``). Remat never changes
+  the numbers.
 - The paged pool is updated in place (JAX donates it to the jit). Each
   layer's pool storage carries one extra row past its last block, the
   *sink*: writes JAX drops (``.at[].set(mode="drop")`` for padded chunk
@@ -26,20 +33,23 @@ Differences from the JAX module, all deliberate:
   as the JAX package leaves them to XLA; only attention is a kernel of
   this repository.
 
-Training (`forward_features` with flash attention, the fused loss) and
-the int8 paths are later slices of the port (ROADMAP); their config
-values raise `NotImplementedError` here.
+Not ported yet (ROADMAP): ring attention (``attn_impl="ring"``, A9), the
+fused cross-entropy loss (``loss_impl="fused"``, B3/B4) and the int8
+paths; their config values raise `NotImplementedError`.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ray_tpu_torch.ops import decode_attention as da
+from ray_tpu_torch.ops import flash_attention as fa
 
 @dataclass(frozen=True)
 class GPTConfig:
@@ -155,23 +165,25 @@ def init_params(seed: int, cfg: GPTConfig, device=None) -> dict:
 
 
 class GPT(nn.Module):
-    """The model's weights, in one dtype on one device. ``params`` is a
-    tree shaped like `init_params`'s (tensors or numpy arrays); each leaf
-    is copied in as a frozen parameter of ``dtype`` (default: the
-    config's activation dtype)."""
+    """The model's weights, in one dtype on one device (`resolve_device`:
+    the card unless ``device`` says otherwise). ``params`` is a tree
+    shaped like `init_params`'s (tensors or numpy arrays); each leaf is
+    copied in as a parameter of ``dtype`` (default: the config's
+    activation dtype), frozen unless ``trainable`` (training holds f32
+    masters: ``dtype=torch.float32, trainable=True``)."""
 
     def __init__(self, cfg: GPTConfig, params: dict, *, device=None,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         dtype = cfg.activation_dtype() if dtype is None else dtype
+        device = resolve_device(device)
 
         def leaf(x):
             t = (x if isinstance(x, torch.Tensor)
                  else torch.from_numpy(np.array(x)))   # writable copy
-            t = t.to(device=device if device is not None else t.device,
-                     dtype=dtype)
-            return nn.Parameter(t.contiguous(), requires_grad=False)
+            t = t.to(device=device, dtype=dtype)
+            return nn.Parameter(t.contiguous(), requires_grad=trainable)
 
         n, d, h, f = (cfg.n_layers, cfg.d_model,
                       cfg.n_heads * cfg.head_dim, cfg.d_ff)
@@ -199,13 +211,34 @@ class GPT(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def layer_params(self) -> list[dict]:
+        """Per-layer views ``[{name: leaf[i]}]`` of the stacked layer
+        leaves, through one `unbind` per leaf, whose backward stacks the
+        L layer gradients in one op (indexing ``leaf[i]`` per layer
+        would materialise a full-size gradient per layer)."""
+        names = list(self.layers.keys())
+        return [dict(zip(names, per)) for per in
+                zip(*(self.layers[n].unbind(0) for n in names))]
+
 
 def params_from_numpy(tree: dict, cfg: GPTConfig, device=None,
-                      dtype: torch.dtype | None = None) -> GPT:
+                      dtype: torch.dtype | None = None,
+                      trainable: bool = False) -> GPT:
     """Carry a JAX param pytree across: ``tree`` is
     ``jax.tree.map(np.asarray, params)`` (nested dict of numpy arrays,
-    stacked ``[L, ...]`` layer leaves, ``[in, out]`` weights)."""
-    return GPT(cfg, tree, device=resolve_device(device), dtype=dtype)
+    stacked ``[L, ...]`` layer leaves, ``[in, out]`` weights). For
+    training pass ``dtype=torch.float32, trainable=True``."""
+    return GPT(cfg, tree, device=device, dtype=dtype, trainable=trainable)
+
+
+def params_to_numpy(model: GPT) -> dict:
+    """The reverse carry: the model's parameters as the JAX package's
+    nested dict of float32 numpy arrays."""
+    def host(p):
+        return p.detach().float().cpu().numpy()
+    return {"embed": host(model.embed), "pos_embed": host(model.pos_embed),
+            "final_ln_scale": host(model.final_ln_scale),
+            "layers": {n: host(p) for n, p in model.layers.items()}}
 
 
 def _rms_norm(x, scale):
@@ -220,9 +253,11 @@ def _mm_f32(x, w):
     AND an f32 result (JAX's ``preferred_element_type=float32``)."""
     if x.dtype == torch.float32:
         return torch.matmul(x, w)
-    if x.is_cuda:
+    if x.is_cuda and not (torch.is_grad_enabled()
+                          and (x.requires_grad or w.requires_grad)):
         return torch.mm(x, w, out_dtype=torch.float32)
-    return torch.matmul(x.float(), w.float())   # exact: bf16 fits in f32
+    # exact operands (bf16 fits in f32), and differentiable
+    return torch.matmul(x.float(), w.float())
 
 
 def _mm(x, w, cfg: GPTConfig):
@@ -233,64 +268,154 @@ def _mm(x, w, cfg: GPTConfig):
     return torch.matmul(x, w)
 
 
-def _layer(model: GPT, x, i: int, cfg: GPTConfig, attend):
-    """Block ``i`` on rows ``x [N, D]``; ``attend(q, k, v)`` takes
-    ``[N, H, Dh]`` projections and returns ``[N, H*Dh]``."""
-    lp = model.layers
+def _layer(lp: dict, x, cfg: GPTConfig, attend):
+    """One block on rows ``x [N, D]`` with this layer's weights ``lp``
+    (one entry of `GPT.layer_params`), each cast to x's dtype at use;
+    ``attend(q, k, v)`` takes ``[N, H, Dh]`` projections and returns
+    ``[N, H*Dh]``."""
+    adt = x.dtype
     n = x.shape[0]
     nh, hd = cfg.n_heads, cfg.head_dim
-    h = _rms_norm(x, lp["ln1_scale"][i])
-    q = _mm(h, lp["wq"][i], cfg).view(n, nh, hd)
-    k = _mm(h, lp["wk"][i], cfg).view(n, nh, hd)
-    v = _mm(h, lp["wv"][i], cfg).view(n, nh, hd)
-    x = x + _mm(attend(q, k, v), lp["wo"][i], cfg)
-    h = _rms_norm(x, lp["ln2_scale"][i])
-    up = _mm(h, lp["w_up"][i], cfg)
-    gate = _mm(h, lp["w_gate"][i], cfg)
-    return x + _mm(nn.functional.silu(gate) * up, lp["w_down"][i], cfg)
+
+    def w(name):
+        return lp[name].to(adt)
+
+    h = _rms_norm(x, w("ln1_scale"))
+    q = _mm(h, w("wq"), cfg).view(n, nh, hd)
+    k = _mm(h, w("wk"), cfg).view(n, nh, hd)
+    v = _mm(h, w("wv"), cfg).view(n, nh, hd)
+    x = x + _mm(attend(q, k, v), w("wo"), cfg)
+    h = _rms_norm(x, w("ln2_scale"))
+    up = _mm(h, w("w_up"), cfg)
+    gate = _mm(h, w("w_gate"), cfg)
+    return x + _mm(nn.functional.silu(gate) * up, w("w_down"), cfg)
 
 
 def _unembed(model: GPT, x):
-    x = _rms_norm(x, model.final_ln_scale)
-    return _mm_f32(x, model.embed.t())
+    x = _rms_norm(x, model.final_ln_scale.to(x.dtype))
+    return _mm_f32(x, model.embed.to(x.dtype).t())
 
 
 # ---------------------------------------------------------------------------
-# dense forward (plain attention): the teacher-forced reference
+# training forward: flash attention, remat, dense loss
 # ---------------------------------------------------------------------------
 
-def forward(model: GPT, tokens) -> torch.Tensor:
-    """tokens [B, T] int -> logits [B, T, vocab] in ``cfg.logits_dtype``
-    (rounded from the f32 product, as JAX's preferred_element_type), with
-    plain causal attention (``attn_impl="xla"``: the math of
-    `ray_tpu.parallel.ring_attention.reference_attention`). The flash
-    attention kernel path and ring attention are later slices (ROADMAP
-    queue B) and raise."""
-    cfg = model.cfg
-    if cfg.attn_impl != "xla":
+def _attention(q, k, v, cfg: GPTConfig):
+    """Causal attention on ``[B, T, H, Dh]``: ``"auto"``/``"flash"`` take
+    the flash kernels, ``"xla"`` the plain version (the only way to
+    plain attention on the card, as in the reference)."""
+    impl = cfg.attn_impl
+    if impl in ("auto", "flash"):
+        return fa.flash_attention(q, k, v, causal=True)
+    if impl == "xla":
+        return fa.reference_attention(q, k, v, causal=True)
+    if impl == "ring":
         raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r}: only the plain 'xla' attention "
-            "is ported (flash attention: ROADMAP queue B)")
-    b, t = tokens.shape
-    x = model.embed[tokens] + model.pos_embed[:t][None]
-    causal = torch.ones(t, t, dtype=torch.bool,
-                        device=tokens.device).tril()
+            "attn_impl='ring' (sequence-parallel ring attention) is not "
+            "ported yet (ROADMAP A9: multi-rank parallelism)")
+    raise ValueError(f"unknown attn_impl {impl!r} (expected 'auto' | "
+                     "'ring' | 'flash' | 'xla')")
 
-    def attend(q, k, v):                       # [B*T, H, Dh] rows
+
+def _block(lp: dict, x, cfg: GPTConfig):
+    """One transformer block on ``x [B, T, D]`` in the activation dtype,
+    attention through `_attention`."""
+    b, t, d = x.shape
+
+    def attend(q, k, v):
         nh, hd = q.shape[1], q.shape[2]
-        q, k, v = (z.view(b, t, nh, hd) for z in (q, k, v))
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
-            * (hd ** -0.5)
-        s = torch.where(causal, s, da.NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+        o = _attention(*(z.view(b, t, nh, hd) for z in (q, k, v)), cfg)
         return o.reshape(b * t, nh * hd)
 
-    x = x.reshape(b * t, -1)
-    for i in range(cfg.n_layers):
-        x = _layer(model, x, i, cfg, attend)
-    logits = _unembed(model, x).view(b, t, -1)
-    return logits.to(getattr(torch, cfg.logits_dtype))
+    return _layer(lp, x.reshape(b * t, d), cfg, attend).view(b, t, d)
+
+
+# What each selective remat policy saves for the backward: the block's
+# matmul outputs (JAX's checkpoint_dots_with_no_batch_dims: the batched
+# attention products are recomputed) or the flash kernel's output.
+_SAVED_OPS = {
+    "dots": lambda: {torch.ops.aten.mm.default},
+    "attn_out": lambda: {torch.ops.ray_tpu_torch.flash_fwd.default},
+}
+
+
+def _remat_context(cfg: GPTConfig):
+    """``context_fn`` for `torch.utils.checkpoint` under
+    ``cfg.remat_policy`` (None: recompute everything)."""
+    if cfg.remat_policy == "nothing":
+        return None
+    if cfg.remat_policy not in _SAVED_OPS:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
+                         "(expected 'nothing' | 'dots' | 'attn_out')")
+    saved = _SAVED_OPS[cfg.remat_policy]()
+
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             policy)
+
+
+def _features(model: GPT, tokens, cfg: GPTConfig, emb):
+    t = tokens.shape[1]
+    adt = cfg.activation_dtype()
+    x = emb[tokens] + model.pos_embed[:t].to(adt)[None]
+    remat = cfg.remat and torch.is_grad_enabled()
+    context = _remat_context(cfg) if cfg.remat else None
+    for lp in model.layer_params():
+        if remat:
+            kw = {} if context is None else {"context_fn": context}
+            x = ckpt.checkpoint(_block, lp, x, cfg, use_reentrant=False,
+                                **kw)
+        else:
+            x = _block(lp, x, cfg)
+    return _rms_norm(x, model.final_ln_scale.to(adt))
+
+
+def forward_features(model: GPT, tokens, cfg: GPTConfig | None = None):
+    """tokens [B, T] int -> final-norm activations [B, T, d_model] in
+    the activation dtype: everything except the unembed matmul."""
+    cfg = model.cfg if cfg is None else cfg
+    return _features(model, tokens, cfg,
+                     model.embed.to(cfg.activation_dtype()))
+
+
+def forward(model: GPT, tokens, cfg: GPTConfig | None = None):
+    """tokens [B, T] int -> logits [B, T, vocab] in ``cfg.logits_dtype``
+    (f32 accumulation, rounded once, as JAX's preferred_element_type),
+    attention per ``cfg.attn_impl``."""
+    cfg = model.cfg if cfg is None else cfg
+    emb = model.embed.to(cfg.activation_dtype())
+    x = _features(model, tokens, cfg, emb)
+    if cfg.logits_dtype == "float32":
+        return _mm_f32(x, emb.t())
+    return torch.matmul(x, emb.t()).to(getattr(torch, cfg.logits_dtype))
+
+
+def check_loss_impl(cfg: GPTConfig) -> str:
+    """Validate the loss_impl knob; the fused loss is not ported yet."""
+    if cfg.loss_impl not in ("dense", "fused"):
+        raise ValueError(f"unknown loss_impl {cfg.loss_impl!r} "
+                         "(expected 'dense' | 'fused')")
+    if cfg.loss_impl == "fused":
+        raise NotImplementedError(
+            "loss_impl='fused' (the fused cross-entropy kernels) is not "
+            "ported yet (ROADMAP B3/B4); use loss_impl='dense'")
+    return cfg.loss_impl
+
+
+def loss_fn(model: GPT, batch: dict, cfg: GPTConfig | None = None):
+    """Next-token cross entropy. batch: {"tokens": [B, T]}; token t
+    predicts token t+1."""
+    cfg = model.cfg if cfg is None else cfg
+    check_loss_impl(cfg)
+    tokens = batch["tokens"]
+    logits = forward(model, tokens[:, :-1], cfg)
+    # upcast before the softmax, so bf16 logits keep an f32 logsumexp
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, tokens[:, 1:].long()[..., None])[..., 0]
+    return -ll.mean()
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +485,7 @@ def prefill_paged(model: GPT, tokens, cache: dict, cfg: GPTConfig, *,
     x = model.embed[tokens[0]] + model.pos_embed[
         torch.clamp(positions, max=cfg.max_seq_len - 1)]
     start_t = positions[:1].to(torch.int32)   # device-resident start
+    layers = model.layer_params()
 
     for i in range(cfg.n_layers):
         def attend(q, k, v, i=i):
@@ -368,7 +494,7 @@ def prefill_paged(model: GPT, tokens, cache: dict, cfg: GPTConfig, *,
                 q, cache["k"][i], cache["v"][i], table, start_t,
                 impl=cfg.prefill_attn_impl).reshape(c, -1)
 
-        x = _layer(model, x, i, cfg, attend)
+        x = _layer(layers[i], x, cfg, attend)
     logits = _unembed(model, x[length - 1:length])
     return logits, cache
 
@@ -392,6 +518,7 @@ def decode_step_paged(model: GPT, tokens, cache: dict, pos, tables,
     x = model.embed[tokens] + model.pos_embed[
         torch.clamp(pos_l, max=cfg.max_seq_len - 1)]
     b = tokens.shape[0]
+    layers = model.layer_params()
 
     for i in range(cfg.n_layers):
         def attend(q, k, v, i=i):
@@ -400,5 +527,5 @@ def decode_step_paged(model: GPT, tokens, cache: dict, pos, tables,
                 q, cache["k"][i], cache["v"][i], tables, pos,
                 impl=cfg.decode_attn_impl).reshape(b, -1)
 
-        x = _layer(model, x, i, cfg, attend)
+        x = _layer(layers[i], x, cfg, attend)
     return _unembed(model, x), cache

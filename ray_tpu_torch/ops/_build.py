@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-The source under ``csrc/`` exposes a plain C interface, so it is
-compiled by ``nvcc`` straight into a shared library and bound with
-`ctypes` (no PyTorch headers, so a build takes seconds, not minutes).
-The library is built at first use into ``ray_tpu_torch/_build/`` (listed
-in ``.gitignore``), named by a hash of its source and flags, so an edited
-source rebuilds and an unchanged one loads from disk.
+Every source under ``csrc/`` (``*.cu``) exposes a plain C interface, so
+each is compiled by ``nvcc`` straight into a shared library of its own
+and bound with `ctypes` (no PyTorch headers, so a build takes seconds,
+not minutes). The libraries are built at first use into
+``ray_tpu_torch/_build/`` (listed in ``.gitignore``), each named by a
+hash of its own source and the flags, so an edited source rebuilds and
+an unchanged one loads from disk. Sources that need building are
+compiled in parallel, one ``nvcc`` process each, all started together.
 
 Nothing here runs at import time: this module is imported on machines
 without ``nvcc`` (the CPU tests), and only a CUDA tensor reaching a
@@ -20,9 +22,10 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import types
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,7 +40,17 @@ SIGNATURES = {
     "rtt_paged_mq": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                       _I, _P], _I),
     "rtt_error_string": ([_I], ctypes.c_char_p),
+    "rtt_flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+                      _I),
+    "rtt_flash_dq": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                      _I, _P], _I),
+    "rtt_flash_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                       _I, _I, _P], _I),
 }
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
 
 
 def nvcc_path() -> str:
@@ -54,41 +67,55 @@ def _lib_path(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernel source (if its library is not on disk yet);
-    returns the library path and nvcc's ptxas report (empty when
-    cached)."""
-    src = SOURCE
-    out = _lib_path(src)
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-                               str(src)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)   # atomic: a half-written .so is never loaded
-    finally:
+def build() -> tuple[list[Path], str]:
+    """Compile every kernel source whose library is not on disk yet, all
+    at once; returns the library paths (one per source) and nvcc's
+    ptxas reports (empty for libraries loaded from disk)."""
+    todo = {}
+    for src in sources():
+        out = _lib_path(src)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            todo[src] = (proc, tmp, out)
+    reports, failed = [], []
+    for src, (proc, tmp, out) in todo.items():
+        log = proc.communicate()[0]
+        if proc.returncode == 0:
+            os.replace(tmp, out)   # atomic: a half-written .so is never loaded
+            reports.append(log)
+        else:
+            failed.append(f"nvcc failed on {src.name}:\n{log}")
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [_lib_path(s) for s in sources()], "".join(reports)
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first call, with every entry point's
-    ctypes signature declared (pointers and the stream as ``c_void_p``,
-    so 64-bit addresses are never cut to ``int``)."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for fn, (argtypes, restype) in SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
-    return lib
+def load() -> types.SimpleNamespace:
+    """Every C entry point of every kernel library (built on first call),
+    as attributes, each with its ctypes signature declared (pointers and
+    the stream as ``c_void_p``, so 64-bit addresses are never cut to
+    ``int``)."""
+    paths, _ = build()
+    libs = [ctypes.CDLL(str(p)) for p in paths]
+    fns = {}
+    for name, (argtypes, restype) in SIGNATURES.items():
+        found = [lib for lib in libs if hasattr(lib, name)]
+        if len(found) != 1:
+            raise RuntimeError(f"entry point {name} is in {len(found)} "
+                               "kernel libraries, want exactly one")
+        fn = getattr(found[0], name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        fns[name] = fn
+    return types.SimpleNamespace(**fns)
 
 
 def check(err: int, what: str) -> None:

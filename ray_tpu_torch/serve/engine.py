@@ -882,7 +882,8 @@ class InferenceReplica:
                  engine_kwargs: dict | None = None, device=None):
         device = gpt.resolve_device(device)
         cfg = gpt.small(**(cfg_kwargs or {}))
-        model = gpt.GPT(cfg, gpt.init_params(seed, cfg, device))
+        model = gpt.GPT(cfg, gpt.init_params(seed, cfg, device),
+                        device=device)
         self.engine = InferenceEngine(model, cfg, slots=slots,
                                       max_len=max_len, device=device,
                                       **dict(engine_kwargs or {}))

@@ -1,0 +1,126 @@
+"""Parity of the port's flash attention (`ray_tpu_torch.ops.flash_attention`)
+with the JAX package's Pallas flash kernels on the CPU: the forward, and
+dq/dk/dv through autograd against `jax.vjp` (the Pallas kernels run in
+interpret mode, as `tests/test_models_ops.py` runs them; on the CPU the
+port runs its plain versions, the kernels' math). Also: the plain
+backward against autograd through plain attention, and the CPU path
+never counting a kernel launch.
+
+Tolerances: f32 atol/rtol 1e-4 (same math, another summation order).
+bf16: atol 2e-2, rtol 2**-6: each side rounds its output (and dq/dk/dv)
+to bf16 once (one ulp is 2**-7 of the value), and the forward rounds
+each p to bf16 relative to a different row max (JAX's 128-row blocks vs
+the plain version's whole row), which moves out, and through
+delta = rowsum(dO * O) the gradients, by a few more bf16 ulps at most."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.ops.flash_attention import flash_attention as jflash
+from ray_tpu_torch.ops import flash_attention as fa
+
+TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
+       "bfloat16": dict(atol=2e-2, rtol=2 ** -6)}
+
+
+def _inputs(seed, t, d, dtype, b=1, h=2):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, t, h, d)).astype(np.float32)
+            for _ in range(4)]
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _both(arrs, dtype, causal, block):
+    """(JAX out, JAX grads, port out, port grads) for one random
+    cotangent, the same numpy inputs on both sides."""
+    q, k, v, g = arrs
+    jdt = jnp.dtype(dtype)
+    jq, jk, jv, jg = (jnp.asarray(a, jdt) for a in (q, k, v, g))
+    jout, vjp = jax.vjp(lambda q, k, v: jflash(q, k, v, causal, block,
+                                               block), jq, jk, jv)
+    jgrads = vjp(jg)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt).requires_grad_()
+                  for a in (q, k, v))
+    tout = fa.flash_attention(tq, tk, tv, causal, block, block)
+    tgrads = torch.autograd.grad(tout, (tq, tk, tv),
+                                 torch.from_numpy(g).to(tdt))
+    return jout, jgrads, tout, tgrads
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("t,block", [(128, 1024), (256, 128), (384, 1024)])
+def test_forward_and_grads_match_jax_f32(causal, d, t, block):
+    jout, jgrads, tout, tgrads = _both(_inputs(t + d, t, d, "float32"),
+                                       "float32", causal, block)
+    np.testing.assert_allclose(_np(tout), _np(jout), **TOL["float32"])
+    for a, b in zip(tgrads, jgrads):
+        np.testing.assert_allclose(_np(a), _np(b), **TOL["float32"])
+
+
+@pytest.mark.parametrize("causal,t,block", [(True, 256, 128),
+                                            (False, 128, 1024)])
+def test_forward_and_grads_match_jax_bf16(causal, t, block):
+    jout, jgrads, tout, tgrads = _both(_inputs(7, t, 32, "bfloat16"),
+                                       "bfloat16", causal, block)
+    assert tout.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(tout), _np(jout), **TOL["bfloat16"])
+    for a, b in zip(tgrads, jgrads):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(a), _np(b), **TOL["bfloat16"])
+
+
+def test_sum_of_squares_grad_matches_jax():
+    """The reference's own test loss, sum(out**2), through both."""
+    q, k, v, _ = _inputs(3, 128, 16, "float32")
+    jg = jax.grad(lambda q, k, v: jnp.sum(jflash(q, k, v, True) ** 2),
+                  argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    (fa.flash_attention(tq, tk, tv, True) ** 2).sum().backward()
+    for a, b in zip((tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(_np(a), _np(b), **TOL["float32"])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_backward_matches_autograd_of_plain_attention(causal):
+    """flash_backward_reference (the kernels' math: P from lse, delta)
+    against autograd through reference_attention, ragged T included."""
+    q, k, v, g = (torch.from_numpy(a) for a in _inputs(5, 70, 32,
+                                                       "float32"))
+    out, lse = fa.flash_forward_reference(q, k, v, causal=causal)
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    ref = fa.reference_attention(qr, kr, vr, causal=causal)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    want = torch.autograd.grad(ref, (qr, kr, vr), g)
+    got = fa.flash_backward_reference(q, k, v, g, lse,
+                                      fa.attention_delta(out, g),
+                                      causal=causal)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    assert lse.shape == (2, 70) and lse.dtype == torch.float32
+
+
+def test_cpu_path_counts_no_launches_and_skips_lse_without_grad():
+    from ray_tpu_torch import ops
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(1, 64, 32,
+                                                       "float32"))
+    before = ops.kernel_launches()
+    assert {"flash_forward", "flash_dq", "flash_dkv",
+            "paged_decode_attention"} <= set(before)
+    out = fa.flash_attention(q, k, v, causal=True)
+    qg = q.clone().requires_grad_()
+    fa.flash_attention(qg, k, v, causal=True).sum().backward()
+    assert ops.kernel_launches() == before
+    assert fa.flash_forward(q, k, v, causal=True, with_lse=False)[1] is None
+    torch.testing.assert_close(
+        out, fa.reference_attention(q, k, v, causal=True), atol=1e-5,
+        rtol=1e-5)

@@ -103,10 +103,18 @@ def test_dense_forward_matches_jax(tree):
     jl = jgpt.forward(_j(tree), jnp.asarray(toks, jnp.int32), jcfg)
     tl = tgpt.forward(model, torch.from_numpy(toks))
     np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-4, rtol=0)
-    with pytest.raises(NotImplementedError, match="flash"):
+    # the default attn_impl ("auto") routes to flash attention, as in
+    # the reference; ring attention is not ported
+    jl = jgpt.forward(_j(tree), jnp.asarray(toks, jnp.int32),
+                      jgpt.GPTConfig(**CFG, dtype="float32"))
+    tl = tgpt.forward(tgpt.params_from_numpy(
+        tree, tgpt.GPTConfig(**CFG, dtype="float32"), device="cpu"),
+        torch.from_numpy(toks))
+    np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-4, rtol=0)
+    with pytest.raises(NotImplementedError, match="ring"):
         tgpt.forward(tgpt.params_from_numpy(
-            tree, tgpt.GPTConfig(**CFG, dtype="float32"), device="cpu"),
-            torch.from_numpy(toks))
+            tree, tgpt.GPTConfig(**CFG, dtype="float32", attn_impl="ring"),
+            device="cpu"), torch.from_numpy(toks))
 
 
 def test_out_of_bounds_writes_drop(tree):

@@ -26,7 +26,8 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_ray_tpu():
     mods = _modules()
-    assert "ray_tpu_torch.serve.engine" in mods
+    assert {"ray_tpu_torch.serve.engine", "ray_tpu_torch.ops.flash_attention",
+            "ray_tpu_torch.train.spmd", "ray_tpu_torch.train.loop"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -61,10 +62,56 @@ def test_default_device_is_cuda_and_raises_without_one():
     from ray_tpu_torch.serve import InferenceEngine, InferenceReplica
     cfg = gpt.GPTConfig(vocab_size=64, d_model=16, n_layers=1, n_heads=2,
                         d_ff=32, max_seq_len=16, dtype="float32")
-    model = gpt.GPT(cfg, gpt.init_params(0, cfg, device="cpu"))
+    model = gpt.GPT(cfg, gpt.init_params(0, cfg, device="cpu"),
+                    device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(model, cfg, slots=1, max_len=16)
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceReplica({"vocab_size": 64}, max_len=16)
     with pytest.raises(RuntimeError, match="CUDA"):
         gpt.init_kv_pool(cfg, 4, 8)
+
+
+def test_training_entry_points_and_numpy_model_need_a_card():
+    """Training entry points and `GPT(cfg, numpy_tree)` run on the card
+    unless given device="cpu"; without one they raise (a numpy tree once
+    stayed on the CPU silently)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    import numpy as np
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.train import loop, spmd
+    cfg = gpt.GPTConfig(vocab_size=64, d_model=16, n_layers=1, n_heads=2,
+                        d_ff=32, max_seq_len=16, dtype="float32")
+    tree = {k: (v.numpy() if not isinstance(v, dict) else
+                {n: x.numpy() for n, x in v.items()})
+            for k, v in gpt.init_params(0, cfg, device="cpu").items()}
+    assert isinstance(tree["embed"], np.ndarray)
+    for call in (lambda: gpt.GPT(cfg, tree),
+                 lambda: gpt.params_from_numpy(tree, cfg),
+                 lambda: gpt.init_params(0, cfg),
+                 lambda: spmd.make_gpt_trainer(cfg),
+                 lambda: loop.make_placer()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert gpt.GPT(cfg, tree, device="cpu").device == torch.device("cpu")
+    state, _, place = spmd.make_gpt_trainer(cfg, device="cpu")
+    assert state.params.device == place.device == torch.device("cpu")
+
+
+def test_build_compiles_every_source_into_its_own_library():
+    """Each `csrc/*.cu` is its own library, named by the hash of its own
+    source, and every entry point the wrappers call is declared."""
+    from ray_tpu_torch.ops import _build
+    names = [p.name for p in _build.sources()]
+    assert names == sorted(["flash_attention.cu", "paged_attention.cu"])
+    libs = [_build._lib_path(p) for p in _build.sources()]
+    assert len(set(libs)) == len(libs)
+    assert all(p.name.startswith(s.stem + "-")
+               for p, s in zip(libs, _build.sources()))
+    assert {"rtt_flash_fwd", "rtt_flash_dq", "rtt_flash_dkv",
+            "rtt_paged_decode", "rtt_paged_mq"} <= set(_build.SIGNATURES)
+    for name in ("rtt_flash_fwd", "rtt_flash_dq", "rtt_flash_dkv"):
+        src = (_build.CSRC / "flash_attention.cu").read_text()
+        assert f'extern "C" int {name}(' in src

@@ -83,3 +83,68 @@ def test_unsupported_inputs_raise_instead_of_falling_back(dev):
         da.paged_decode_attention(q, kp, vp, tables, pos)
     with pytest.raises(TypeError, match="int32"):
         da.paged_decode_attention(q, kp, vp, tables.long(), pos)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: forward, dQ, dK/dV against the plain versions
+# ---------------------------------------------------------------------------
+# Forward out/lse and all three gradients: both sides accumulate in f32
+# from the same inputs, so they differ by summation order (f32: 2e-5
+# absolute at these unit-scale values; dq/dk/dv sum up to T products,
+# hence 1e-4) plus, in bf16, one final rounding to bf16 (2**-7 of the
+# value). lse is f32 on both sides. The bf16 forward also rounds each p
+# to bf16 before p . V, the kernel relative to its running row max and
+# the plain version relative to the final one, so each term may differ
+# by one more bf16 rounding (2**-8 of it): per element the forward may
+# differ by 2**-8 * (P |V|) on top.
+FLASH_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-5),
+             torch.bfloat16: dict(atol=1e-4, rtol=2 ** -7)}
+
+
+def _forward_ok(out, ref, q, k, v, causal):
+    from ray_tpu_torch.ops import flash_attention as fa
+    tol = FLASH_TOL[q.dtype]
+    limit = tol["atol"] + tol["rtol"] * ref.float().abs()
+    if q.dtype == torch.bfloat16:
+        p_abs_v = fa.flash_forward_reference(
+            q.float(), k.float(), v.float().abs(), causal=causal)[0]
+        limit = limit + 2 ** -8 * p_abs_v
+    over = (out.float() - ref.float()).abs() - limit
+    assert over.max().item() <= 0, (
+        f"forward off by {over.max().item():.3e} beyond its limit")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", [64, 1000, 1024])
+def test_flash_kernels_match_plain(dev, dtype, d, causal, t):
+    from ray_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(t + d)
+    b, h = 2, 2
+    q, k, v, do = (torch.randn((b, t, h, d), generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    n = [f.launches for f in fa.WRAPPERS]
+    out, lse = fa.flash_forward(q, k, v, causal=causal)
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, causal=causal)
+    _forward_ok(out, ref_out, q, k, v, causal)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    delta = fa.attention_delta(ref_out, do)
+    dq = fa.flash_dq(q, k, v, do, ref_lse, delta, causal=causal)
+    dk, dv = fa.flash_dkv(q, k, v, do, ref_lse, delta, causal=causal)
+    refs = fa.flash_backward_reference(q, k, v, do, ref_lse, delta,
+                                       causal=causal)
+    for got, ref in zip((dq, dk, dv), refs):
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   **FLASH_TOL[dtype])
+    assert [f.launches for f in fa.WRAPPERS] == [x + 1 for x in n]
+
+
+def test_flash_unsupported_inputs_raise(dev):
+    from ray_tpu_torch.ops import flash_attention as fa
+    q = torch.zeros((1, 8, 2, 48), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_forward(q, q, q, causal=True)
+    q = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_forward(q, q, q, causal=True)
