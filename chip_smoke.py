@@ -4,8 +4,8 @@
     python3 chip_smoke.py              # one card, no arguments
 
 Builds the port's CUDA kernels from ``ray_tpu_torch/ops/csrc/`` with nvcc
-(sm_90a, one nvcc per source, all at once) and drives its two paths,
-serving and training, end to end:
+(sm_90a, one nvcc per source, all at once) and drives its paths, paged
+serving, training (dense and fused loss) and unpaged decode, end to end:
 
 1. kernels vs plain: each paged-attention kernel against its plain
    PyTorch version on the same inputs at the serving shapes (H=16, D=64,
@@ -41,7 +41,26 @@ serving and training, end to end:
    the loop's breakdown, host syncs, flash launch counts, and the
    device busy share from a short profiled window; (d) 25 steps on one
    repeated batch (5 of them warm-up) must lower the loss by at least
-   1 nat.
+   1 nat;
+7. fused cross-entropy kernels vs plain: forward (lse, target logit), dx
+   and dE against their plain versions at bench.py's loss shape (N 24576
+   rows, vocab 50304, D 1024) in bf16 and f32 and at a ragged N 1000,
+   V 50257; device time, bound, plain time and cuBLAS's time for the same
+   products;
+8. bench.py's own training configuration (phase 6's model with the fused
+   loss at batch 24, unroll 4, prefetch 2, metrics interval 10; 4
+   warm-up and 20 timed steps): (a) fused against dense loss and every
+   gradient leaf from the same masters; (b) the step-0 loss; (c) tok/s,
+   MFU, host syncs and the launches of all six training kernels; (d) the
+   peak memory of one forward + backward, fused against dense: dense must
+   exceed fused by at least the bf16 logits' bytes; (e) a profiled
+   window with the fused kernels' share of device time;
+9. the unpaged KV-cache path at the serving model's width: the decode
+   kernel against its plain version at [8, 1024, 16, 64] with its times,
+   then `prefill` of 8 ragged prompts (100-300 tokens), a slot-targeted
+   prefill and 64 greedy `decode_step`s, with step p50/p99, tok/s,
+   launches, and the emitted tokens' logprobs against a dense f32
+   forward (phase 3's limits).
 
 Any failed phase raises, so the exit code is non-zero. The last two
 lines of stdout are a ``{"kernels": [...]}`` JSON line and
@@ -91,6 +110,19 @@ TRAIN_GRAD_REL_TOL = 5e-2
 # loss must be within 0.1 of that.
 STEP0_LOSS_TOL = 0.1
 OVERFIT_DROP = 1.0
+
+# fused cross-entropy at bench.py's loss shape (batch 24 x 1024 rows,
+# vocab 50304, d_model 1024) and one ragged case
+XN, XV, XD = 24 * 1024, 50304, 1024
+XENT_RAGGED = (1000, 50257)
+# Fused-xent kernels vs plain, per element |kernel - plain| <= XENT_TOL *
+# (max|plain| + |plain|): lse, the target logit, dx and dE are f32 on both
+# sides, summed in f32 from the same inputs (bf16 products are exact in
+# f32) in another order, over D = 1024 products per logit and V (dx) or N
+# (dE) terms per gradient element: ~1e-6 relative, far under the limit,
+# and a masking or indexing fault is far over it.
+XENT_TOL = 1e-4
+FUSED_STEPS, FUSED_WARMUP = 20, 4
 
 # serving shapes (bench_infer.py's model, slots 8, max_len 1024, block 16)
 H, D, BS, MB = 16, 64, 16, 64
@@ -142,6 +174,26 @@ def time_ms(fn, args, reps: int = 21, per_rep: int = 16) -> float:
                 fail("the host cannot queue the timed calls ahead of the card")
             continue
         out.append(start.elapsed_time(end) / per_rep)
+    return statistics.median(out)
+
+
+def time_long_ms(fn, args, reps: int = 5) -> float:
+    """Device time of one call that runs for many milliseconds: median
+    over `reps` of CUDA events around a single call between two
+    synchronisations. At that length the host queues a call's launches
+    far faster than the card runs them, so no spin kernel is needed."""
+    import torch
+    fn(*args)
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
     return statistics.median(out)
 
 
@@ -755,6 +807,422 @@ def phase_train(dev) -> dict:
     return out
 
 
+def xent_bound(n: int, v: int, d: int, which: str, dtype) -> tuple[float, str]:
+    """Least time for one fused-xent kernel: x [n, d] and E [v, d] read
+    once in the working dtype, the [n] rows (targets; lse and the two
+    cotangents for the backward) once, the outputs (lse and tgt; dx [n, d]
+    f32; dE [v, d] f32) written once; 2 n v d flops for the forward's
+    product, 4 n v d for dx and dE (the rebuilt logits and the gradient
+    product)."""
+    import torch
+    es = 2 if dtype == torch.bfloat16 else 4
+    inputs = (n + v) * d * es
+    nbytes, ops = {"fwd": (inputs + 4 * n + 8 * n, 2),
+                   "dx": (inputs + 16 * n + 4 * n * d, 4),
+                   "de": (inputs + 16 * n + 4 * v * d, 4)}[which]
+    return bound(nbytes, ops * n * v * d, dtype)
+
+
+def _xent_inputs(g, dev, n, v, dtype):
+    """x at unit scale and embedding rows N(0, 0.02^2), as the model's
+    final-norm activations and its init give them."""
+    import torch
+    x = torch.randn((n, XD), generator=g, device=dev).to(dtype)
+    e = (torch.randn((v, XD), generator=g, device=dev) * 0.02).to(dtype)
+    t = torch.randint(0, v, (n,), generator=g, device=dev, dtype=torch.int32)
+    return x, e, t
+
+
+def _xent_check(what, got, ref) -> float:
+    diff = (got.float() - ref.float()).abs()
+    limit = XENT_TOL * (ref.abs().max() + ref.abs())
+    err = diff.max().item()
+    print(f"  {what}: max|kernel-plain| = {err:.3e} (limit {XENT_TOL} * "
+          f"(max|plain| + |plain|), max|plain| {ref.abs().max().item():.3e})")
+    if not (diff - limit).max().item() <= 0:
+        fail(f"fused-xent kernel disagrees with plain ({what})")
+    return err
+
+
+def phase_xent(dev) -> dict:
+    """Phase 7: the three fused cross-entropy kernels against their plain
+    versions at bench.py's loss shape (bf16 and f32) and a ragged one,
+    then their times beside bound, plain and cuBLAS."""
+    import torch
+    from ray_tpu_torch.ops import fused_xent as fx
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    rec = {k: {"cases": []} for k in ("fwd", "dx", "de")}
+    for n, v, dt in ((XN, XV, torch.bfloat16), (XN, XV, torch.float32),
+                     (*XENT_RAGGED, torch.bfloat16)):
+        name = str(dt).split(".")[-1]
+        x, e, t = _xent_inputs(g, dev, n, v, dt)
+        what = f"{name:8s} N={n} V={v}"
+        lse, tgt = fx.fused_xent_fwd(x, e, t)
+        ref_lse, ref_tgt = fx.lse_target_reference(x, e, t)
+        err = max(_xent_check(f"xent fwd lse {what}", lse, ref_lse),
+                  _xent_check(f"xent fwd tgt {what}", tgt, ref_tgt))
+        rec["fwd"]["cases"].append({"dtype": name, "N": n, "V": v,
+                                    "max_abs_err": err})
+        del lse, tgt
+        cl = torch.full((n,), 1.0 / n, device=dev)
+        ct = -cl
+        ref_dx, ref_de = fx.xent_backward_reference(x, e, t, ref_lse, cl, ct)
+        dx = fx.fused_xent_dx(x, e, t, ref_lse, cl, ct)
+        rec["dx"]["cases"].append({"dtype": name, "N": n, "V": v,
+                                   "max_abs_err": _xent_check(
+                                       f"xent dx      {what}", dx, ref_dx)})
+        del dx, ref_dx
+        de = fx.fused_xent_de(x, e, t, ref_lse, cl, ct)
+        rec["de"]["cases"].append({"dtype": name, "N": n, "V": v,
+                                   "max_abs_err": _xent_check(
+                                       f"xent dE      {what}", de, ref_de)})
+        del x, e, t, de, ref_de, ref_lse, ref_tgt, cl, ct
+        torch.cuda.empty_cache()
+
+    # Times at the main path's case: bf16, N 24576, V 50304, D 1024. One
+    # input set (x 50 MB + E 103 MB) already exceeds the 50 MB L2.
+    dt = torch.bfloat16
+    x, e, t = _xent_inputs(g, dev, XN, XV, dt)
+    lse, _ = fx.lse_target_reference(x, e, t)
+    cl = torch.full((XN,), 1.0 / XN, device=dev)
+    bwd = (x, e, t, lse, cl, -cl)
+    rec["fwd"]["ms"] = time_long_ms(fx.fused_xent_fwd, (x, e, t))
+    rec["fwd"]["plain_ms"] = time_long_ms(fx.lse_target_reference, (x, e, t))
+    rec["dx"]["ms"] = time_long_ms(fx.fused_xent_dx, bwd)
+    rec["de"]["ms"] = time_long_ms(fx.fused_xent_de, bwd)
+    # the plain backward computes dx and dE together
+    rec["dx"]["plain_ms"] = rec["de"]["plain_ms"] = time_long_ms(
+        fx.xent_backward_reference, bwd)
+    # cuBLAS (bf16 in, bf16 out, f32 accumulation) for the same products:
+    # x . E^T for the forward, and that plus the second product for dx and
+    # dE. Timed here only; the port never calls it.
+    rec["fwd"]["library_ms"] = time_long_ms(lambda a, b: a @ b.t(), (x, e))
+    rec["dx"]["library_ms"] = time_long_ms(lambda a, b: (a @ b.t()) @ b,
+                                           (x, e))
+    rec["de"]["library_ms"] = time_long_ms(lambda a, b: (a @ b.t()).t() @ a,
+                                           (x, e))
+    del x, e, t, lse, cl, bwd
+    torch.cuda.empty_cache()
+    for key, r in rec.items():
+        r["bound_ms"], r["bound_by"] = xent_bound(XN, XV, XD, key, dt)
+        print(f"  xent {key}: kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, cuBLAS {r['library_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) "
+              f"[bf16 N={XN} V={XV} D={XD}]")
+    return rec
+
+
+def phase_fused_train(dev) -> dict:
+    """Phase 8: bench.py's training configuration at full width, fused
+    loss at batch 24 (see the module docstring)."""
+    import dataclasses
+    import math
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.train import loop, spmd
+
+    cfg = _train_cfg(loss_impl="fused")
+    batch, unroll, prefetch, interval = 24, 4, 2, 10
+    out = {"config": dataclasses.asdict(cfg), "batch": batch,
+           "unroll": unroll, "prefetch": prefetch, "interval": interval}
+
+    # (a), (b), (d): one batch, fused against dense loss from the same
+    # masters, with the peak memory of each forward + backward.
+    state, step_fn, place = spmd.make_gpt_trainer(cfg, seed=0, device=dev)
+    model = state.params
+    leaves = list(model.named_parameters())
+    b0 = place(next(_host_batches(cfg, batch, seed=11)))
+    res, peak = {}, {}
+    for impl in ("fused", "dense"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = spmd.gpt_loss_fn(model, b0,
+                                dataclasses.replace(cfg, loss_impl=impl))
+        grads = torch.autograd.grad(loss, [p for _, p in leaves])
+        torch.cuda.synchronize()
+        peak[impl] = torch.cuda.max_memory_allocated() - base
+        res[impl] = (loss.item(), grads)
+        del loss, grads
+    dloss = abs(res["fused"][0] - res["dense"][0])
+    rel = {n: ((gf.float() - gd.float()).norm()
+               / gd.float().norm().clamp_min(1e-30)).item()
+           for (n, _), gf, gd in zip(leaves, res["fused"][1],
+                                     res["dense"][1])}
+    worst = max(rel, key=rel.get)
+    # The fused loss keeps the unembed in f32 from bf16 operands; the
+    # dense one rounds the logits and their cotangent to bf16: they
+    # differ like two bf16 runs (phase 6's limits).
+    print(f"  (a) loss fused {res['fused'][0]:.6f} vs dense "
+          f"{res['dense'][0]:.6f}: |diff| {dloss:.2e} (limit "
+          f"{TRAIN_LOSS_TOL}); worst leaf gradient rel. error "
+          f"{rel[worst]:.2e} ({worst}, limit {TRAIN_GRAD_REL_TOL})")
+    if not dloss <= TRAIN_LOSS_TOL:
+        fail(f"fused vs dense loss differ by {dloss}")
+    if not rel[worst] <= TRAIN_GRAD_REL_TOL:
+        fail(f"fused vs dense gradient of {worst} off by {rel[worst]}")
+    want0 = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+    print(f"  (b) step-0 loss {res['fused'][0]:.4f}, expected {want0:.4f} "
+          f"(limit {STEP0_LOSS_TOL})")
+    if not abs(res["fused"][0] - want0) <= STEP0_LOSS_TOL:
+        fail(f"step-0 loss {res['fused'][0]} is not near {want0}")
+    logits_bytes = batch * cfg.max_seq_len * cfg.vocab_size * 2
+    print(f"  (d) peak memory of one forward + backward at batch {batch}: "
+          f"fused {peak['fused'] / 2**30:.2f} GiB, dense "
+          f"{peak['dense'] / 2**30:.2f} GiB (dense - fused "
+          f"{(peak['dense'] - peak['fused']) / 2**30:.2f} GiB, want >= the "
+          f"bf16 logits' {logits_bytes / 2**30:.2f} GiB)")
+    if not peak["dense"] - peak["fused"] >= logits_bytes:
+        fail("the fused loss does not save the logits' memory")
+    out.update(loss_fused=res["fused"][0], loss_dense=res["dense"][0],
+               loss_abs_diff=dloss, grad_rel_err=rel,
+               grad_rel_err_max=rel[worst], step0_loss=res["fused"][0],
+               step0_expected=want0, peak_fused_gib=peak["fused"] / 2**30,
+               peak_dense_gib=peak["dense"] / 2**30,
+               logits_bf16_gib=logits_bytes / 2**30)
+    del res
+    torch.cuda.empty_cache()
+
+    # (c) the trainer through the prefetcher and the loop.
+    tokens_per_step = batch * cfg.max_seq_len
+    flops_step = spmd.train_flops_per_token(cfg, cfg.max_seq_len) \
+        * tokens_per_step
+    batches = loop.DevicePrefetcher(_host_batches(cfg, batch, seed=12),
+                                    place, depth=prefetch, group=unroll)
+    train = loop.TrainLoop(step_fn, unroll=unroll, metrics_interval=interval,
+                           flops_per_step=flops_step, device=dev)
+    t0 = time.perf_counter()
+    state, _ = train.run(state, batches, num_steps=FUSED_WARMUP)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        state, hist = train.run(state, batches, num_steps=FUSED_STEPS)
+        wall = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("default")
+    launches = ops.kernel_launches()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    fetches = train.last_ring.fetches
+    losses = [float(m["loss"]) for m in hist]
+    if len(hist) != FUSED_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"train loop returned {len(hist)} steps, losses {losses}")
+    for name in ("flash_forward", "flash_dq", "flash_dkv", "fused_xent_fwd",
+                 "fused_xent_dx", "fused_xent_de"):
+        if launches[name] <= 0:
+            fail(f"{name} was not launched on the fused training path")
+    tok_s = tokens_per_step * FUSED_STEPS / wall
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  (c) warm-up {FUSED_WARMUP} steps in {warm_s:.1f} s; "
+          f"{FUSED_STEPS} steps in {wall:.3f} s: "
+          f"{wall / FUSED_STEPS * 1e3:.1f} ms/step, {tok_s:.0f} tok/s, MFU "
+          f"{train.last_mfu:.4f} (of 989 TFLOP/s); losses {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f}; peak memory {peak_gib:.1f} GiB")
+    print(f"      host syncs {syncs} ({fetches} metric fetches); "
+          f"launches {launches}")
+    print(f"      breakdown {json.dumps(train.last_breakdown)}")
+    if syncs > fetches:
+        fail(f"{syncs} host syncs in {FUSED_STEPS} steps, the metrics ring "
+             f"made {fetches} fetches (want none outside them)")
+    out.update(warmup_s=warm_s, steps=FUSED_STEPS, wall_s=wall,
+               step_ms=wall / FUSED_STEPS * 1e3, tok_s=tok_s,
+               mfu=train.last_mfu, breakdown=train.last_breakdown,
+               host_syncs=syncs, metric_fetches=fetches, launches=launches,
+               launches_per_step={k: v / FUSED_STEPS
+                                  for k, v in launches.items()},
+               losses=losses, peak_mem_gib=peak_gib)
+
+    # (e) device busy share and time by kernel over one dispatch.
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = train.run(state, batches, num_steps=unroll)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    kernels = sorted(((e.key, e.self_device_time_total, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda k: -k[1])
+    busy_us = sum(t for _, t, _ in kernels)
+    xent_us = sum(t for n, t, _ in kernels if "xent_" in n)
+    flash_us = sum(t for n, t, _ in kernels if "flash_" in n)
+    print(f"  (e) profiled {unroll} steps: wall {pwall * 1e3:.1f} ms, device"
+          f" busy {busy_us * 1e-3:.1f} ms ({busy_us * 1e-6 / pwall:.1%}); "
+          f"fused-xent kernels {xent_us * 1e-3:.1f} ms "
+          f"({xent_us / max(busy_us, 1e-9):.1%} of device time), flash "
+          f"{flash_us * 1e-3:.1f} ms ({flash_us / max(busy_us, 1e-9):.1%})")
+    for n, t, c in kernels[:12]:
+        print(f"    {t * 1e-3:9.3f} ms  {c:6d}  {n[:80]}")
+    out["profile"] = {
+        "wall_s": pwall, "device_busy_s": busy_us * 1e-6,
+        "device_busy_share": busy_us * 1e-6 / pwall,
+        "xent_share_of_device": xent_us / max(busy_us, 1e-9),
+        "flash_share_of_device": flash_us / max(busy_us, 1e-9),
+        "top_kernels": [{"name": n[:80], "device_ms": t * 1e-3, "calls": c}
+                        for n, t, c in kernels[:16]]}
+    del state, step_fn, model, batches, train, prof, leaves, b0
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_unpaged(dev, cfg_kwargs, seed: int = 0) -> dict:
+    """Phase 9: the unpaged KV-cache path at bench_infer.py's model width:
+    (a) the decode kernel against its plain version at the path's shape
+    (8 slots, cache 1024, 16 heads of 64) with its times; (b) `prefill` of
+    8 ragged prompts (100-300 tokens) and one slot-targeted prefill, then
+    64 greedy `decode_step`s; (c) the emitted tokens' logprobs against a
+    dense f32 forward with plain attention, as phase 3."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import decode_attention as da
+
+    slots, max_len, new_tokens = 8, 1024, 64
+    out = {}
+    # (a) kernel vs plain at [8, 1024, 16, 64]
+    g = torch.Generator(device=dev).manual_seed(9)
+    shape = (slots, max_len, H, D)
+    k32, v32 = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
+    q32 = torch.randn((slots, H, D), generator=g, device=dev)
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
+    rec = {"cases": []}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+        err = check("decode", da.decode_attention(q, k, v, pos),
+                    da.reference_decode_attention(q, k, v, pos), name,
+                    f"decode {name:8s} B={slots} S={max_len} "
+                    f"pos={DECODE_POS}")
+        rec["cases"].append({"dtype": name, "max_abs_err": err,
+                             "atol_rtol": TOL[name]})
+    del k32, v32
+    # 8 bf16 cache sets of 33.6 MB (K+V): 268 MB between two uses.
+    q = q32.bfloat16()
+    sets = [(q, torch.randn(shape, generator=g, device=dev,
+                            dtype=torch.bfloat16),
+             torch.randn(shape, generator=g, device=dev,
+                         dtype=torch.bfloat16), pos)
+            for _ in range(TIME_SETS)]
+    rec["ms"] = time_ms(da.decode_attention, sets)
+    rec["plain_ms"] = time_ms(da.reference_decode_attention, sets)
+    mask = (torch.arange(max_len, device=dev)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    lib = [(q_[:, :, None], k_.transpose(1, 2).contiguous(),
+            v_.transpose(1, 2).contiguous(), mask) for q_, k_, v_, _ in sets]
+    rec["library_ms"] = time_ms(
+        lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=m_), lib)
+    del lib, sets
+    rows_seen = sum(p + 1 for p in DECODE_POS)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        2 * q.numel() * 2 + rows_seen * H * D * 2 * 2 + slots * 4,
+        rows_seen * H * D * 4, torch.bfloat16)
+    rec["shape"] = (f"bf16 q[{slots},{H},{D}] cache[{slots},{max_len},{H},"
+                    f"{D}] pos={list(DECODE_POS)}")
+    print(f"  decode: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
+          f" ms, sdpa {rec['library_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) [{rec['shape']}]")
+    out["kernel"] = rec
+    torch.cuda.empty_cache()
+
+    # (b) the path: ragged prefill, a slot-targeted prefill, greedy decode
+    cfg = gpt.GPTConfig(**cfg_kwargs)
+    model = gpt.GPT(cfg, gpt.init_params(seed, cfg, dev))
+    cache = gpt.init_kv_cache(cfg, slots, max_len, dev)
+    rng = np.random.default_rng(seed + 9)
+    lens = rng.integers(100, 301, slots)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    toks = np.zeros((slots, lens.max()), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    slot, again = 5, rng.integers(0, cfg.vocab_size, 150)
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    logits, cache = gpt.prefill(model, torch.from_numpy(toks).to(dev), cache,
+                                cfg, lengths=torch.from_numpy(lens).to(dev))
+    one, cache = gpt.prefill(model, torch.from_numpy(again)[None].to(dev),
+                             cache, cfg, slot=slot)
+    logits[slot] = one[0]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prompts[slot], lens[slot] = again, len(again)
+    pos = torch.from_numpy(lens).to(dev, torch.int32)
+    tok = logits.argmax(-1)
+    emitted, logps, step_s = [tok], [], []
+    for _ in range(new_tokens):
+        logps.append(torch.log_softmax(logits, -1).gather(
+            1, tok[:, None])[:, 0])
+        t0 = time.perf_counter()
+        logits, cache = gpt.decode_step(model, tok, cache, pos, cfg)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        pos += 1
+        tok = logits.argmax(-1)
+        emitted.append(tok)
+    launches = ops.kernel_launches()
+    want = cfg.n_layers * new_tokens
+    if launches["decode_attention"] != want:
+        fail(f"decode_attention launched {launches['decode_attention']} "
+             f"times in {new_tokens} decode steps, want {want}")
+    emitted = torch.stack(emitted[:-1], 1).cpu().numpy()     # [B, 64]
+    logps = torch.stack(logps, 1).cpu()
+    step_ms = sorted(x * 1e3 for x in step_s)
+    p50, p99 = (step_ms[int(q * (len(step_ms) - 1))] for q in (0.5, 0.99))
+    tok_s = slots * new_tokens / sum(step_s)
+    print(f"  (b) prefill of {slots} ragged prompts ({int(lens.min())}-"
+          f"{int(lens.max())} tokens) + one slot prefill in "
+          f"{prefill_s * 1e3:.1f} ms; {new_tokens} decode steps: p50 "
+          f"{p50:.3f} ms, p99 {p99:.3f} ms, {tok_s:.1f} tok/s; launches "
+          f"{launches}")
+
+    # (c) logprobs of every emitted token vs a dense f32 forward
+    ref_cfg = dataclasses.replace(cfg, dtype="float32", attn_impl="xla")
+    ref = gpt.GPT(ref_cfg, gpt.init_params(seed, ref_cfg, dev))
+    worst, decisive = 0.0, 0
+    for i in range(slots):
+        seq = np.concatenate([prompts[i], emitted[i, :-1]])
+        with torch.inference_mode():
+            lp = torch.log_softmax(gpt.forward(
+                ref, torch.from_numpy(seq)[None].to(dev))[0], -1)
+        rows = lp[len(prompts[i]) - 1:].cpu()
+        got = torch.from_numpy(emitted[i]).long()
+        ref_lp = rows.gather(1, got[:, None])[:, 0]
+        worst = max(worst, (ref_lp - logps[i]).abs().max().item())
+        top2 = rows.topk(2, dim=-1)
+        sure = (top2.values[:, 0] - top2.values[:, 1]) > 2 * LOGPROB_TOL
+        if not bool((top2.indices[:, 0] == got)[sure].all()):
+            fail(f"slot {i}: greedy token differs from the f32 reference's "
+                 "argmax at a decisive position")
+        decisive += int(sure.sum())
+    print(f"  (c) {slots * new_tokens} tokens: max|logprob - f32 ref| = "
+          f"{worst:.4f} (tol {LOGPROB_TOL}); {decisive} decisive positions "
+          "agree with the reference's argmax")
+    if not worst <= LOGPROB_TOL:
+        fail(f"unpaged logprobs off the f32 reference by {worst:.4f}")
+    out.update(prefill_s=prefill_s, decode_step_ms_p50=p50,
+               decode_step_ms_p99=p99, decode_tok_s=tok_s,
+               launches=launches, prompt_lens=[int(x) for x in lens],
+               max_abs_logprob_err=worst, decisive_tokens=decisive)
+    del model, ref, cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -814,15 +1282,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash = phase(5, "flash kernels vs plain", phase_flash, dev)
     train = phase(6, "training at full width", phase_train, dev)
+    xent = phase(7, "fused cross-entropy kernels vs plain", phase_xent, dev)
+    fused = phase(8, "bench.py's training configuration (fused loss, "
+                  "batch 24)", phase_fused_train, dev)
+    unpaged = phase(9, "unpaged KV-cache path at full width", phase_unpaged,
+                    dev, cfg_kwargs)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
-                  flash=flash, train=train)
+                  flash=flash, train=train, xent=xent, fused_train=fused,
+                  unpaged=unpaged)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
     rows = []
     # launches: each kernel's count over its own path's main run (phase 2
-    # for serving, phase 6 (c) for training), counters zeroed just before
+    # for serving, phase 6 (c) for training with the dense loss, phase 8
+    # (c) for bench.py's fused-loss training, phase 9 (b) for the unpaged
+    # path), counters zeroed just before
     for key, wrapper, replaces, rec, launches, src in (
             ("paged_decode", "paged_decode_attention",
              "ray_tpu/ops/decode_attention.py:282", kern["paged_decode"],
@@ -836,7 +1312,19 @@ def main() -> int:
             ("flash_dq", "flash_dq", "ray_tpu/ops/flash_attention.py:189",
              flash["dq"], train["launches"], "flash_attention.cu"),
             ("flash_dkv", "flash_dkv", "ray_tpu/ops/flash_attention.py:219",
-             flash["dkv"], train["launches"], "flash_attention.cu")):
+             flash["dkv"], train["launches"], "flash_attention.cu"),
+            ("fused_xent_fwd", "fused_xent_fwd",
+             "ray_tpu/ops/fused_xent.py:138", xent["fwd"], fused["launches"],
+             "fused_xent.cu"),
+            ("fused_xent_dx", "fused_xent_dx",
+             "ray_tpu/ops/fused_xent.py:187", xent["dx"], fused["launches"],
+             "fused_xent.cu"),
+            ("fused_xent_de", "fused_xent_de",
+             "ray_tpu/ops/fused_xent.py:206", xent["de"], fused["launches"],
+             "fused_xent.cu"),
+            ("decode", "decode_attention",
+             "ray_tpu/ops/decode_attention.py:110", unpaged["kernel"],
+             unpaged["launches"], "paged_attention.cu")):
         rows.append({"name": key, "route": "cuda",
                      "source": f"ray_tpu_torch/ops/csrc/{src}",
                      "replaces": replaces, "launches": launches[wrapper],

@@ -1,5 +1,6 @@
 """GPT-style decoder-only transformer in PyTorch: the counterpart of
-`ray_tpu/models/gpt.py` for paged serving and for training.
+`ray_tpu/models/gpt.py` for paged serving, for the unpaged KV-cache path
+(`init_kv_cache`, `prefill`, `decode_step`) and for training.
 
 Same configuration fields, same parameter tree (stacked ``[L, ...]``
 layer leaves in JAX's ``[in, out]`` orientation, so weights carried over
@@ -22,20 +23,22 @@ Differences from the JAX module, all deliberate:
   matmul outputs or the flash kernel's output (the plain ``"xla"``
   attention is recomputed under ``"attn_out"``). Remat never changes
   the numbers.
-- The paged pool is updated in place (JAX donates it to the jit). Each
-  layer's pool storage carries one extra row past its last block, the
+- The KV caches are updated in place (JAX donates them to the jit). Each
+  layer's paged pool storage carries one extra row past its last block, the
   *sink*: writes JAX drops (``.at[].set(mode="drop")`` for padded chunk
   rows and positions past the table) go there, so no write needs a host
   sync or a boolean mask, and no block table can ever name the sink.
 - Reads JAX clamps (``table[positions // bs]``, ``pos_embed[positions]``
   for padded rows) are clamped explicitly.
-- Large products (QKV, ``wo``, the MLP, the unembed) are `torch.matmul`,
-  as the JAX package leaves them to XLA; only attention is a kernel of
-  this repository.
+- Large products (QKV, ``wo``, the MLP, the dense unembed) are
+  `torch.matmul`, as the JAX package leaves them to XLA; attention and
+  the fused loss (``loss_impl="fused"``: `ops.fused_xent`, whose
+  kernels do the unembed products themselves, so the ``[B, T, V]``
+  logits never exist) are kernels of this repository.
 
-Not ported yet (ROADMAP): ring attention (``attn_impl="ring"``, A9), the
-fused cross-entropy loss (``loss_impl="fused"``, B3/B4) and the int8
-paths; their config values raise `NotImplementedError`.
+Not ported yet (ROADMAP): ring attention (``attn_impl="ring"``), meshes
+(A9) and the int8 paths; their config values raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from torch.utils import checkpoint as ckpt
 
 from ray_tpu_torch.ops import decode_attention as da
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.ops import fused_xent as fx
 
 @dataclass(frozen=True)
 class GPTConfig:
@@ -317,15 +321,18 @@ def _attention(q, k, v, cfg: GPTConfig):
                      "'ring' | 'flash' | 'xla')")
 
 
-def _block(lp: dict, x, cfg: GPTConfig):
+def _block(lp: dict, x, cfg: GPTConfig, kv: list | None = None):
     """One transformer block on ``x [B, T, D]`` in the activation dtype,
-    attention through `_attention`."""
+    attention through `_attention`; with ``kv`` the block's (k, v)
+    ``[B, T, H, Dh]`` are appended to it (what a KV cache stores)."""
     b, t, d = x.shape
 
     def attend(q, k, v):
         nh, hd = q.shape[1], q.shape[2]
-        o = _attention(*(z.view(b, t, nh, hd) for z in (q, k, v)), cfg)
-        return o.reshape(b * t, nh * hd)
+        q, k, v = (z.view(b, t, nh, hd) for z in (q, k, v))
+        if kv is not None:
+            kv.append((k, v))
+        return _attention(q, k, v, cfg).reshape(b * t, nh * hd)
 
     return _layer(lp, x.reshape(b * t, d), cfg, attend).view(b, t, d)
 
@@ -357,10 +364,16 @@ def _remat_context(cfg: GPTConfig):
                              policy)
 
 
-def _features(model: GPT, tokens, cfg: GPTConfig, emb):
+def _features(model: GPT, tokens, cfg: GPTConfig, emb, with_kv=False):
     t = tokens.shape[1]
     adt = cfg.activation_dtype()
     x = emb[tokens] + model.pos_embed[:t].to(adt)[None]
+    if with_kv:
+        kv = []
+        for lp in model.layer_params():
+            x = _block(lp, x, cfg, kv)
+        ks, vs = (torch.stack(z) for z in zip(*kv))
+        return _rms_norm(x, model.final_ln_scale.to(adt)), (ks, vs)
     remat = cfg.remat and torch.is_grad_enabled()
     context = _remat_context(cfg) if cfg.remat else None
     for lp in model.layer_params():
@@ -373,12 +386,18 @@ def _features(model: GPT, tokens, cfg: GPTConfig, emb):
     return _rms_norm(x, model.final_ln_scale.to(adt))
 
 
-def forward_features(model: GPT, tokens, cfg: GPTConfig | None = None):
+def forward_features(model: GPT, tokens, cfg: GPTConfig | None = None, *,
+                     with_kv: bool = False):
     """tokens [B, T] int -> final-norm activations [B, T, d_model] in
-    the activation dtype: everything except the unembed matmul."""
+    the activation dtype: everything except the unembed matmul (the fused
+    loss consumes these, so the logits never exist).
+
+    With ``with_kv`` (the prefill path) it also returns every layer's
+    attention keys and values stacked as ``(k, v)``, each ``[L, B, T, H,
+    Dh]``, the KV cache's layout; no remat in that mode."""
     cfg = model.cfg if cfg is None else cfg
     return _features(model, tokens, cfg,
-                     model.embed.to(cfg.activation_dtype()))
+                     model.embed.to(cfg.activation_dtype()), with_kv)
 
 
 def forward(model: GPT, tokens, cfg: GPTConfig | None = None):
@@ -394,28 +413,129 @@ def forward(model: GPT, tokens, cfg: GPTConfig | None = None):
 
 
 def check_loss_impl(cfg: GPTConfig) -> str:
-    """Validate the loss_impl knob; the fused loss is not ported yet."""
+    """Validate the loss_impl knob (a typo fails the first step)."""
     if cfg.loss_impl not in ("dense", "fused"):
         raise ValueError(f"unknown loss_impl {cfg.loss_impl!r} "
                          "(expected 'dense' | 'fused')")
-    if cfg.loss_impl == "fused":
-        raise NotImplementedError(
-            "loss_impl='fused' (the fused cross-entropy kernels) is not "
-            "ported yet (ROADMAP B3/B4); use loss_impl='dense'")
     return cfg.loss_impl
+
+
+def fused_nll(model: GPT, inputs, targets, cfg: GPTConfig):
+    """Per-token nll [B, T] f32 through the fused cross-entropy kernels:
+    the final-norm activations against the tied embedding, with no
+    ``[B, T, V]`` logits in the forward or the backward."""
+    x = forward_features(model, inputs, cfg)
+    return fx.fused_softmax_xent(x, model.embed.to(cfg.activation_dtype()),
+                                 targets, vocab_chunk=cfg.loss_chunk)
 
 
 def loss_fn(model: GPT, batch: dict, cfg: GPTConfig | None = None):
     """Next-token cross entropy. batch: {"tokens": [B, T]}; token t
     predicts token t+1."""
     cfg = model.cfg if cfg is None else cfg
-    check_loss_impl(cfg)
     tokens = batch["tokens"]
+    if check_loss_impl(cfg) == "fused":
+        return fused_nll(model, tokens[:, :-1], tokens[:, 1:], cfg).mean()
     logits = forward(model, tokens[:, :-1], cfg)
     # upcast before the softmax, so bf16 logits keep an f32 logsumexp
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(-1, tokens[:, 1:].long()[..., None])[..., 0]
     return -ll.mean()
+
+
+# ---------------------------------------------------------------------------
+# unpaged KV cache: one contiguous row per slot
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int, device=None,
+                  mesh=None) -> dict:
+    """Preallocated cache {"k", "v"} of ``[L, batch, max_len, H, Dh]`` in
+    the activation dtype, zero-filled. ``batch`` is the number of resident
+    decode slots."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "init_kv_cache: sharded caches (mesh=) are not ported yet "
+            "(ROADMAP A9: multi-rank parallelism)")
+    if max_len > cfg.max_seq_len:
+        raise ValueError(f"max_len {max_len} exceeds cfg.max_seq_len "
+                         f"{cfg.max_seq_len} (pos_embed table size)")
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_heads, cfg.head_dim)
+    return {name: torch.zeros(shape, dtype=cfg.activation_dtype(),
+                              device=device) for name in ("k", "v")}
+
+
+@torch.no_grad()
+def prefill(model: GPT, tokens, cache: dict, cfg: GPTConfig | None = None,
+            *, lengths=None, slot=None):
+    """Prompt tokens ``[B, T]`` (right-padded; ``lengths [B]`` gives each
+    row's true length, default T) in one full-sequence forward: their K/V
+    are written into the cache in place, rows 1:1 onto slots, or into
+    slot ``slot`` for ``tokens [1, T]``. Returns ``(logits [B, vocab] f32
+    at each row's last real position, cache)``; only those positions are
+    unembedded. Padding past a row's length is written too and masked by
+    decode's position mask."""
+    cfg = model.cfg if cfg is None else cfg
+    b, t = tokens.shape
+    cache_b, max_len = cache["k"].shape[1], cache["k"].shape[2]
+    if slot is None and b != cache_b:
+        raise ValueError(f"prefill batch {b} != cache slots {cache_b}; pass "
+                         "slot= to target one slot")
+    if slot is not None and b != 1:
+        raise ValueError(f"slot-targeted prefill wants tokens [1, T], got "
+                         f"batch {b}")
+    if t > max_len:
+        raise ValueError(f"prompt length {t} exceeds cache max_len "
+                         f"{max_len}")
+    adt = cfg.activation_dtype()
+    x, (ks, vs) = forward_features(model, tokens, cfg, with_kv=True)
+    if lengths is None:
+        last = x[:, -1]
+    else:
+        idx = torch.as_tensor(lengths, device=x.device).long() - 1
+        last = x[torch.arange(b, device=x.device), idx]
+    logits = _mm_f32(last, model.embed.to(adt).t())
+    rows = slice(None) if slot is None else slice(int(slot), int(slot) + 1)
+    cache["k"][:, rows, :t] = ks
+    cache["v"][:, rows, :t] = vs
+    return logits, cache
+
+
+@torch.no_grad()
+def decode_step(model: GPT, tokens, cache: dict, pos,
+                cfg: GPTConfig | None = None):
+    """One autoregressive step for every slot: ``tokens [B]`` at
+    positions ``pos [B]``. Writes each token's K/V at ``pos`` in place,
+    then attends over cache positions ``<= pos``
+    (`ops.decode_attention.decode_attention`, ``cfg.decode_attn_impl``).
+    A row at or past max_len writes nothing and attends to the whole
+    cache, as JAX's dropped out-of-bounds scatter does, without a host
+    sync. Returns ``(logits [B, vocab] f32, cache)``."""
+    cfg = model.cfg if cfg is None else cfg
+    check_quant_cfg(cfg)
+    adt = cfg.activation_dtype()
+    b = tokens.shape[0]
+    max_len = cache["k"].shape[2]
+    rows = torch.arange(b, device=tokens.device)
+    pos = pos.to(device=tokens.device, dtype=torch.int32).contiguous()
+    pos_l = pos.long()
+    live = (pos_l < max_len)[:, None, None]
+    widx = torch.clamp(pos_l, max=max_len - 1)
+    x = model.embed[tokens].to(adt) + model.pos_embed[
+        torch.clamp(pos_l, max=cfg.max_seq_len - 1)].to(adt)
+    layers = model.layer_params()
+
+    for i in range(cfg.n_layers):
+        def attend(q, k, v, i=i):
+            kc, vc = cache["k"][i], cache["v"][i]
+            kc[rows, widx] = torch.where(live, k.to(kc.dtype), kc[rows, widx])
+            vc[rows, widx] = torch.where(live, v.to(vc.dtype), vc[rows, widx])
+            return da.decode_attention(q, kc, vc, pos,
+                                       impl=cfg.decode_attn_impl
+                                       ).reshape(b, -1)
+
+        x = _layer(layers[i], x, cfg, attend)
+    return _unembed(model, x), cache
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,8 @@ kernels its main path went through."""
 
 
 def _modules():
-    from ray_tpu_torch.ops import decode_attention, flash_attention
-    return decode_attention, flash_attention
+    from ray_tpu_torch.ops import decode_attention, flash_attention, fused_xent
+    return decode_attention, flash_attention, fused_xent
 
 
 def kernel_launches() -> dict:

@@ -39,6 +39,7 @@ SIGNATURES = {
                           _I, _P], _I),
     "rtt_paged_mq": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                       _I, _P], _I),
+    "rtt_decode": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
     "rtt_error_string": ([_I], ctypes.c_char_p),
     "rtt_flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
                       _I),
@@ -46,6 +47,9 @@ SIGNATURES = {
                       _I, _P], _I),
     "rtt_flash_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                        _I, _I, _P], _I),
+    "rtt_xent_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "rtt_xent_dx": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "rtt_xent_de": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
 }
 
 

@@ -1,6 +1,10 @@
-// Paged attention over a block-table KV pool, hand-written for Hopper
-// (sm_90a). Two kernels, one per TPU kernel they replace:
+// Decode and paged attention over a KV cache, hand-written for Hopper
+// (sm_90a). Three kernels, one per TPU kernel they replace:
 //
+//   decode_kernel        replaces ray_tpu/ops/decode_attention.py::_decode_kernel
+//                        (single query per (row, head) over a contiguous
+//                        [B, S, H, D] cache, read in place: the TPU wrapper's
+//                        transpose to [BH, S, D] and head padding are gone)
 //   paged_decode_kernel  replaces ray_tpu/ops/decode_attention.py::_paged_kernel
 //                        (single query per (row, head), decode tick)
 //   paged_mq_kernel      replaces ray_tpu/ops/decode_attention.py::_paged_mq_kernel
@@ -25,7 +29,8 @@
 // with enough loads in flight, and to skip blocks past the last visible
 // position at run time:
 //
-// - decode: one CTA per (b, h). Groups of G = D / VEC threads own one key
+// - decode (both): one CTA per (b, h), the same device code
+//   (decode_attend) over a map from position to cache row. Groups of G = D / VEC threads own one key
 //   row each (16-byte vector loads, so a group reads one whole row in one
 //   instruction); the CTA walks the visible positions NG = 256 / G rows at
 //   a time, U steps unrolled so U K rows and U V rows are in flight per
@@ -97,15 +102,35 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// q [B, H, D]; pools [n_blocks, bs, H, D]; tables [B, mb] i32; pos [B] i32;
-// out [B, H, D]. Row b attends to logical positions 0..min(pos[b], mb*bs-1).
-template <typename T, int D, int U>
-__global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                        const T* __restrict__ v_pool,
-                        const int* __restrict__ tables,
-                        const int* __restrict__ pos, T* __restrict__ out,
-                        int H, int bs, int mb, float scale) {
+// Where cache position t of row b lives, as a row index into storage seen
+// as [rows, H, D]: through the block table (paged pool [n_blocks, bs, H, D])
+// or directly (contiguous cache [B, S, H, D]).
+struct PagedRows {
+  const int* tables;  // [B, mb] i32
+  int bs, mb;
+  __device__ int limit() const { return mb * bs; }
+  __device__ size_t row(int b, int t) const {
+    return (size_t)tables[(size_t)b * mb + t / bs] * bs + t % bs;
+  }
+};
+
+struct DenseRows {
+  int S;
+  __device__ int limit() const { return S; }
+  __device__ size_t row(int b, int t) const { return (size_t)b * S + t; }
+};
+
+// Single-query attention for one (b, h) per CTA: q [B, H, D]; k, v seen as
+// [rows, H, D] through `rows`; pos [B] i32; out [B, H, D]. Row b attends
+// to positions 0..min(pos[b], rows.limit() - 1).
+template <typename T, int D, int U, typename Rows>
+__device__ __forceinline__ void decode_attend(const T* __restrict__ q,
+                                              const T* __restrict__ k_pool,
+                                              const T* __restrict__ v_pool,
+                                              Rows rows,
+                                              const int* __restrict__ pos,
+                                              T* __restrict__ out, int H,
+                                              float scale) {
   constexpr int VEC = Vec16<T>::N;
   constexpr int G = D / VEC;        // threads per key row
   constexpr int NG = kThreads / G;  // key rows per CTA step
@@ -122,8 +147,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < VEC; ++i) qf[i] *= scale;
 
-  const int last = min(pos[b], mb * bs - 1);
-  const int* tbl = tables + (size_t)b * mb;
+  const int last = min(pos[b], rows.limit() - 1);
 
   float m = kNegInf, l = 0.f;
   float acc[VEC];
@@ -139,7 +163,7 @@ __global__ void __launch_bounds__(kThreads)
       const int t = t0 + u * NG + g;
       live[u] = t <= last;
       if (live[u]) {
-        const size_t row = ((size_t)tbl[t / bs] * bs + t % bs) * H + h;
+        const size_t row = rows.row(b, t) * H + h;
         Vec16<T>::load(k_pool + row * D + gl * VEC, kf[u]);
         Vec16<T>::load(v_pool + row * D + gl * VEC, vf[u]);
       } else {
@@ -200,6 +224,29 @@ __global__ void __launch_bounds__(kThreads)
     }
     out[(size_t)bh * D + d] = from_f32<T>(o / lsum);
   }
+}
+
+// q [B, H, D]; pools [n_blocks, bs, H, D]; tables [B, mb] i32; pos [B] i32;
+// out [B, H, D]. Row b attends to logical positions 0..min(pos[b], mb*bs-1).
+template <typename T, int D, int U>
+__global__ void __launch_bounds__(kThreads)
+    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                        const T* __restrict__ v_pool,
+                        const int* __restrict__ tables,
+                        const int* __restrict__ pos, T* __restrict__ out,
+                        int H, int bs, int mb, float scale) {
+  decode_attend<T, D, U>(q, k_pool, v_pool, PagedRows{tables, bs, mb}, pos,
+                         out, H, scale);
+}
+
+// q [B, H, D]; k, v [B, S, H, D] read in place; pos [B] i32; out [B, H, D].
+// Row b attends to positions 0..min(pos[b], S-1).
+template <typename T, int D, int U>
+__global__ void __launch_bounds__(kThreads)
+    decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const int* __restrict__ pos,
+                  T* __restrict__ out, int H, int S, float scale) {
+  decode_attend<T, D, U>(q, k, v, DenseRows{S}, pos, out, H, scale);
 }
 
 // q [B, W, H, D]; pools [n_blocks, BS, H, D]; tables [B, mb] i32; pos [B]
@@ -318,6 +365,27 @@ void launch_decode(const void* q, const void* k, const void* v,
       scale);
 }
 
+template <typename T, int D>
+void launch_dense_decode(const void* q, const void* k, const void* v,
+                         const int* pos, void* out, int B, int H, int S,
+                         float scale, cudaStream_t stream) {
+  decode_kernel<T, D, 4><<<B * H, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), pos, static_cast<T*>(out), H, S, scale);
+}
+
+template <typename T>
+bool dispatch_dense_decode(int D, const void* q, const void* k, const void* v,
+                           const int* pos, void* out, int B, int H, int S,
+                           float scale, cudaStream_t s) {
+  switch (D) {
+    case 32: launch_dense_decode<T, 32>(q, k, v, pos, out, B, H, S, scale, s); return true;
+    case 64: launch_dense_decode<T, 64>(q, k, v, pos, out, B, H, S, scale, s); return true;
+    case 128: launch_dense_decode<T, 128>(q, k, v, pos, out, B, H, S, scale, s); return true;
+    default: return false;
+  }
+}
+
 template <typename T, int D, int BS>
 void launch_mq(const void* q, const void* k, const void* v, const int* tables,
                const int* pos, void* out, int B, int W, int H, int mb,
@@ -382,6 +450,21 @@ extern "C" int rtt_paged_decode(const void* q, const void* k_pool,
     ok = dispatch_decode<float>(D, q, k_pool, v_pool, t, p, out, B, H, bs, mb, scale, s);
   else if (dtype == 1)
     ok = dispatch_decode<__nv_bfloat16>(D, q, k_pool, v_pool, t, p, out, B, H, bs, mb, scale, s);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q [B, H, D]; k, v [B, S, H, D] contiguous; pos [B] i32; out [B, H, D].
+extern "C" int rtt_decode(const void* q, const void* k, const void* v,
+                          const void* pos, void* out, int B, int S, int H,
+                          int D, float scale, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  bool ok = false;
+  if (dtype == 0)
+    ok = dispatch_dense_decode<float>(D, q, k, v, p, out, B, H, S, scale, s);
+  else if (dtype == 1)
+    ok = dispatch_dense_decode<__nv_bfloat16>(D, q, k, v, p, out, B, H, S, scale, s);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,14 +1,16 @@
-"""Paged attention over a block-table KV pool: hand-written CUDA kernels
-for Hopper (``csrc/paged_attention.cu``) beside plain PyTorch versions
-with the same math.
+"""Decode attention over a contiguous KV cache and paged attention over a
+block-table KV pool: hand-written CUDA kernels for Hopper
+(``csrc/paged_attention.cu``) beside plain PyTorch versions with the same
+math.
 
 Counterpart of `ray_tpu/ops/decode_attention.py`, with the same public
-names, signatures and layouts: pools ``[n_blocks, block_size, H, D]``
-(logical block j of row b is physical block ``tables[b, j]``), queries
-``[B, H, D]`` (decode), ``[B, W, H, D]`` (verify) or ``[C, H, D]``
-(chunked prefill). Every path masks logical positions past the row's
-horizon with the finite ``NEG_INF`` and accumulates in float32; outputs
-come back in q's dtype.
+names, signatures and layouts: a contiguous cache ``[B, S, H, D]``
+(`decode_attention`, read in place by the kernel), pools ``[n_blocks,
+block_size, H, D]`` (logical block j of row b is physical block
+``tables[b, j]``), queries ``[B, H, D]`` (decode), ``[B, W, H, D]``
+(verify) or ``[C, H, D]`` (chunked prefill). Every path masks logical
+positions past the row's horizon with the finite ``NEG_INF`` and
+accumulates in float32; outputs come back in q's dtype.
 
 Dispatch: ``impl="jax"`` names the plain version (its meaning in the JAX
 package, where it is the everywhere-correct path). ``"auto"`` and
@@ -136,8 +138,9 @@ def _resolve_impl(impl: str, op: str, x) -> str:
     return "kernel"
 
 
-def _check_kernel_inputs(op, q, k_pool, v_pool, tables, pos):
-    """What the CUDA kernels take; anything else raises (no fallback)."""
+def _check_kernel_inputs(op, q, k_pool, v_pool, **indices):
+    """What the CUDA kernels take; anything else raises (no fallback).
+    ``indices`` are the int32 tensors the kernel reads (tables, pos)."""
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"{op}: kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
@@ -145,11 +148,11 @@ def _check_kernel_inputs(op, q, k_pool, v_pool, tables, pos):
         if t.dtype != q.dtype:
             raise TypeError(f"{op}: {name} dtype {t.dtype} != q dtype "
                             f"{q.dtype}")
-    for name, t in (("tables", tables), ("pos", pos)):
+    for name, t in indices.items():
         if t.dtype != torch.int32:
             raise TypeError(f"{op}: {name} must be int32, got {t.dtype}")
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("tables", tables), ("pos", pos)):
+                    *indices.items()):
         if t.device != q.device:
             raise ValueError(f"{op}: {name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -171,10 +174,29 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _launch_dense_decode(q, k, v, pos):
+    """q [B, H, D] against a contiguous cache k, v [B, S, H, D]."""
+    from ray_tpu_torch.ops import _build
+    op = "decode_attention"
+    _check_kernel_inputs(op, q, k, v, pos=pos)
+    b, s, h, d = k.shape
+    if q.shape[0] != b or pos.shape != (b,):
+        raise ValueError(f"{op}: q {tuple(q.shape)} / pos "
+                         f"{tuple(pos.shape)} do not match batch {b}")
+    out = torch.empty_like(q)
+    err = _build.load().rtt_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), b, s, h, d, d ** -0.5, _KERNEL_DTYPES[q.dtype],
+        _stream(q))
+    _build.check(err, op)
+    decode_attention.launches += 1
+    return out
+
+
 def _launch_decode(q, k_pool, v_pool, tables, pos):
     from ray_tpu_torch.ops import _build
     op = "paged_decode_attention"
-    _check_kernel_inputs(op, q, k_pool, v_pool, tables, pos)
+    _check_kernel_inputs(op, q, k_pool, v_pool, tables=tables, pos=pos)
     b, h, d = q.shape
     bs = k_pool.shape[1]
     if tables.shape[0] != b or pos.shape != (b,):
@@ -194,7 +216,7 @@ def _launch_decode(q, k_pool, v_pool, tables, pos):
 def _launch_mq(op, q, k_pool, v_pool, tables, pos):
     """q [B, W, H, D] through the multi-query kernel."""
     from ray_tpu_torch.ops import _build
-    _check_kernel_inputs(op, q, k_pool, v_pool, tables, pos)
+    _check_kernel_inputs(op, q, k_pool, v_pool, tables=tables, pos=pos)
     b, w, h, d = q.shape
     bs = k_pool.shape[1]
     if bs not in _KERNEL_BLOCK_SIZES:
@@ -216,6 +238,30 @@ def _launch_mq(op, q, k_pool, v_pool, tables, pos):
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
+
+def decode_attention(q, k, v, pos, *, impl: str = "auto",
+                     block_kv: int = 512):
+    """Decode-step attention over a contiguous KV cache: ``q [B, H, D]``
+    against ``k, v [B, S, H, D]``, attending to positions ``<= pos[b]``
+    (``pos [B]`` int32, the position of the token q was computed from).
+    Returns ``[B, H, D]`` in q.dtype. ``block_kv`` is accepted for
+    signature parity with the JAX package and ignored: the kernel skips
+    every position past ``pos[b]`` at run time.
+
+    The kernel replaces `ray_tpu/ops/decode_attention.py::_decode_kernel`.
+    """
+    del block_kv
+    if q.ndim != 3 or k.ndim != 4:
+        raise ValueError(
+            f"decode_attention wants q [B, H, D] and k/v [B, S, H, D]; "
+            f"got {tuple(q.shape)} and {tuple(k.shape)}")
+    if _resolve_impl(impl, "decode_attention", q) == "plain":
+        return reference_decode_attention(q, k, v, pos)
+    return _launch_dense_decode(q, k, v, pos)
+
+
+decode_attention.launches = 0
+
 
 def paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
                            k_scale=None, v_scale=None, impl: str = "auto"):
@@ -301,15 +347,16 @@ def paged_prefill_attention(q, k_pool, v_pool, table, start, *,
 paged_prefill_attention.launches = 0
 
 
+WRAPPERS = (decode_attention, paged_decode_attention,
+            paged_prefill_attention, paged_verify_attention)
+
+
 def kernel_launches() -> dict:
     """Launch count of each kernel wrapper (the counters themselves live
     on the wrappers as ``.launches``)."""
-    return {f.__name__: f.launches for f in
-            (paged_decode_attention, paged_prefill_attention,
-             paged_verify_attention)}
+    return {f.__name__: f.launches for f in WRAPPERS}
 
 
 def reset_kernel_launches() -> None:
-    for f in (paged_decode_attention, paged_prefill_attention,
-              paged_verify_attention):
+    for f in WRAPPERS:
         f.launches = 0

@@ -1,0 +1,308 @@
+"""Fused cross-entropy over a tied embedding: the LM loss without the
+``[B, T, V]`` logits. Hand-written CUDA kernels for Hopper
+(``csrc/fused_xent.cu``) beside plain PyTorch versions with the same math.
+
+Counterpart of `ray_tpu/ops/fused_xent.py`. ``fused_softmax_xent(x,
+embed, targets)`` takes the final-norm activations ``x [B, T, D]`` and
+the tied embedding ``embed [V, D]`` and returns the per-token nll
+``[B, T]`` f32, as ``logsumexp(x . embed^T) - x . embed[target]``. The
+differentiable op is the pair (lse, target logit), a
+`torch.autograd.Function` whose forward saves only (x, embed, targets,
+lse); its backward rebuilds each logits block from lse:
+
+    dlog = c_lse * softmax + c_tgt * onehot(target)
+    dx   = dlog . embed          dembed = dlog^T . x
+
+The implied logits are f32 products of f32-cast inputs (a bf16 product
+of bf16 operands is exact in f32), summed in f32. A target outside
+[0, V) contributes a target logit of 0 (the reference's tensor-parallel
+shard case).
+
+Dispatch: ``impl="scan"`` names the plain version (its meaning in the
+reference, a loop over vocab chunks of ``vocab_chunk`` rows). ``"auto"``
+and ``"pallas"`` name the kernels: a CUDA tensor launches them, or raises
+if they cannot take the inputs; a CPU tensor takes the plain version,
+because there is no kernel on the CPU. Any N and V run on the kernels
+(ragged edges are masked inside them); the kernels choose their own
+tiles, so ``vocab_chunk`` only shapes the plain version. The
+vocab-sharded composition (``mesh=``) waits for multi-rank parallelism.
+
+Each kernel wrapper carries a plain-integer ``launches`` counter that
+grows by one per kernel launch (never on the plain path).
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG = -1e30   # finite -inf stand-in, as the reference's _NEG
+
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_WIDTHS = (64, 128, 256, 512, 768, 1024)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the CPU path and the on-card reference)
+# ---------------------------------------------------------------------------
+
+def _chunked_embed(embed, chunk: int):
+    """[V, D] -> ([nc, chunk, D], padded V); zero rows past V are masked
+    by the callers through their column index."""
+    v, d = embed.shape
+    nc = -(-v // chunk)
+    vpad = nc * chunk
+    if vpad != v:
+        embed = torch.cat([embed, embed.new_zeros((vpad - v, d))])
+    return embed.reshape(nc, chunk, d), vpad
+
+
+def lse_target_reference(x, embed, targets, chunk: int = 512):
+    """x [N, D], embed [V, D], targets [N] int -> (lse [N], target logit
+    [N]) f32, streaming the vocabulary in chunks of ``chunk`` rows with a
+    running max / sum-exp (the reference's `_lse_tgt_scan`)."""
+    n, v = x.shape[0], embed.shape[0]
+    chunk = min(chunk, v)
+    emb, _ = _chunked_embed(embed, chunk)
+    xf = x.float()
+    tg_ids = targets.long()[:, None]
+    m = torch.full((n,), NEG, dtype=torch.float32, device=x.device)
+    l = torch.zeros((n,), dtype=torch.float32, device=x.device)
+    tg = torch.zeros((n,), dtype=torch.float32, device=x.device)
+    for i in range(emb.shape[0]):
+        s = xf @ emb[i].float().t()                          # [N, chunk]
+        col = i * chunk + torch.arange(chunk, device=x.device)
+        valid = col < v
+        s = torch.where(valid, s, NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new[:, None]).sum(-1)
+        hit = (col == tg_ids) & valid
+        tg = tg + torch.where(hit, s, 0.0).sum(-1)
+        m = m_new
+    return m + torch.log(l), tg
+
+
+def xent_backward_reference(x, embed, targets, lse, c_lse, c_tgt,
+                            chunk: int = 512):
+    """f32 (dx [N, D], dembed [V, D]) from the saved lse and the
+    cotangents of (lse, target logit), rebuilding each chunk's logits
+    (the reference's `_bwd_scan`)."""
+    v, d = embed.shape
+    chunk = min(chunk, v)
+    emb, vpad = _chunked_embed(embed, chunk)
+    xf = x.float()
+    tg_ids = targets.long()[:, None]
+    lse, c_lse, c_tgt = (a.float()[:, None] for a in (lse, c_lse, c_tgt))
+    dx = torch.zeros(xf.shape, dtype=torch.float32, device=x.device)
+    de = []
+    for i in range(emb.shape[0]):
+        e_c = emb[i].float()
+        s = xf @ e_c.t()
+        col = i * chunk + torch.arange(chunk, device=x.device)
+        valid = col < v
+        p = torch.where(valid, torch.exp(s - lse), 0.0)
+        hit = ((col == tg_ids) & valid).float()
+        dlog = c_lse * p + c_tgt * hit
+        dx = dx + dlog @ e_c
+        de.append(dlog.t() @ xf)
+    return dx, torch.cat(de)[:v]
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+def _on_kernel(op: str, x) -> bool:
+    """True for a CUDA tensor (launch the kernel), False on the CPU."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{op}: no kernel for device {x.device}")
+    return True
+
+
+def _check(op, x, embed, targets, rows=()):
+    """What the CUDA kernels take; anything else raises (no fallback).
+    Returns (N, V, D)."""
+    if x.ndim != 2 or embed.ndim != 2 or x.shape[1] != embed.shape[1]:
+        raise ValueError(f"{op} wants x [N, D] and embed [V, D]; got "
+                         f"{tuple(x.shape)} and {tuple(embed.shape)}")
+    if x.dtype not in _KERNEL_DTYPES or embed.dtype != x.dtype:
+        raise TypeError(f"{op}: kernels take float32 or bfloat16 x and "
+                        f"embed of one dtype, got {x.dtype} / {embed.dtype}")
+    n, d = x.shape
+    v = embed.shape[0]
+    if d not in _KERNEL_WIDTHS:
+        raise ValueError(f"{op}: kernel width D must be one of "
+                         f"{_KERNEL_WIDTHS}, got {d}")
+    if targets.shape != (n,) or targets.dtype != torch.int32:
+        raise ValueError(f"{op}: targets must be [N] int32 = ({n},), got "
+                         f"{tuple(targets.shape)} {targets.dtype}")
+    for a in rows:
+        if a.shape != (n,) or a.dtype != torch.float32:
+            raise ValueError(f"{op}: lse and cotangents must be [N] "
+                             f"float32, got {tuple(a.shape)} {a.dtype}")
+    for a in (x, embed, targets, *rows):
+        if a.device != x.device:
+            raise ValueError(f"{op}: inputs on {a.device} and {x.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{op}: inputs must be contiguous")
+        if a.data_ptr() % 16:
+            raise ValueError(f"{op}: inputs must be 16-byte aligned")
+    return n, v, d
+
+
+def _stream(x) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _i32(t):
+    return t.to(torch.int32).contiguous()
+
+
+def _f32(t):
+    return t.to(torch.float32).contiguous()
+
+
+def fused_xent_fwd(x, embed, targets, *, chunk: int = 512):
+    """(lse [N], target logit [N]) f32 for x [N, D], embed [V, D],
+    targets [N]. The kernel replaces
+    `ray_tpu/ops/fused_xent.py::_fwd_kernel`."""
+    if not _on_kernel("fused_xent_fwd", x):
+        return lse_target_reference(x, embed, targets, chunk)
+    from ray_tpu_torch.ops import _build
+    x, embed, targets = x.contiguous(), embed.contiguous(), _i32(targets)
+    n, v, d = _check("fused_xent_fwd", x, embed, targets)
+    lse = torch.empty((n,), dtype=torch.float32, device=x.device)
+    tgt = torch.empty((n,), dtype=torch.float32, device=x.device)
+    err = _build.load().rtt_xent_fwd(
+        x.data_ptr(), embed.data_ptr(), targets.data_ptr(), lse.data_ptr(),
+        tgt.data_ptr(), n, v, d, _KERNEL_DTYPES[x.dtype], _stream(x))
+    _build.check(err, "fused_xent_fwd")
+    fused_xent_fwd.launches += 1
+    return lse, tgt
+
+
+fused_xent_fwd.launches = 0
+
+
+def _launch_bwd(op, which, x, embed, targets, lse, c_lse, c_tgt):
+    from ray_tpu_torch.ops import _build
+    x, embed, targets = x.contiguous(), embed.contiguous(), _i32(targets)
+    lse, c_lse, c_tgt = _f32(lse), _f32(c_lse), _f32(c_tgt)
+    n, v, d = _check(op, x, embed, targets, rows=(lse, c_lse, c_tgt))
+    out = torch.empty((n if which == "dx" else v, d), dtype=torch.float32,
+                      device=x.device)
+    fn = getattr(_build.load(), f"rtt_xent_{which}")
+    err = fn(x.data_ptr(), embed.data_ptr(), targets.data_ptr(),
+             lse.data_ptr(), c_lse.data_ptr(), c_tgt.data_ptr(),
+             out.data_ptr(), n, v, d, _KERNEL_DTYPES[x.dtype], _stream(x))
+    _build.check(err, op)
+    return out
+
+
+def fused_xent_dx(x, embed, targets, lse, c_lse, c_tgt, *,
+                  chunk: int = 512):
+    """dx [N, D] f32; the kernel replaces
+    `ray_tpu/ops/fused_xent.py::_dx_kernel`."""
+    if not _on_kernel("fused_xent_dx", x):
+        return xent_backward_reference(x, embed, targets, lse, c_lse, c_tgt,
+                                       chunk)[0]
+    out = _launch_bwd("fused_xent_dx", "dx", x, embed, targets, lse, c_lse,
+                      c_tgt)
+    fused_xent_dx.launches += 1
+    return out
+
+
+fused_xent_dx.launches = 0
+
+
+def fused_xent_de(x, embed, targets, lse, c_lse, c_tgt, *,
+                  chunk: int = 512):
+    """dembed [V, D] f32; the kernel replaces
+    `ray_tpu/ops/fused_xent.py::_de_kernel`."""
+    if not _on_kernel("fused_xent_de", x):
+        return xent_backward_reference(x, embed, targets, lse, c_lse, c_tgt,
+                                       chunk)[1]
+    out = _launch_bwd("fused_xent_de", "de", x, embed, targets, lse, c_lse,
+                      c_tgt)
+    fused_xent_de.launches += 1
+    return out
+
+
+fused_xent_de.launches = 0
+
+WRAPPERS = (fused_xent_fwd, fused_xent_dx, fused_xent_de)
+
+
+# ---------------------------------------------------------------------------
+# public API
+# ---------------------------------------------------------------------------
+
+def _resolve_impl(impl: str) -> str:
+    """"scan" (plain) or "kernel" (the wrappers: kernels on the card, the
+    plain version for CPU tensors)."""
+    if impl not in ("auto", "pallas", "scan"):
+        raise ValueError(f"unknown fused-xent impl {impl!r} (expected "
+                         "'auto' | 'pallas' | 'scan')")
+    return "scan" if impl == "scan" else "kernel"
+
+
+class _LseAndTarget(torch.autograd.Function):
+    """(lse, target logit) over x [N, D] and embed [V, D]; the backward
+    returns dx in x's dtype and dembed in embed's dtype, as the
+    reference's custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, x, embed, targets, chunk, kind):
+        if kind == "scan":
+            lse, tgt = lse_target_reference(x, embed, targets, chunk)
+        else:
+            lse, tgt = fused_xent_fwd(x, embed, targets, chunk=chunk)
+        ctx.save_for_backward(x, embed, targets, lse)
+        ctx.chunk, ctx.kind = chunk, kind
+        return lse, tgt
+
+    @staticmethod
+    def backward(ctx, c_lse, c_tgt):
+        x, embed, targets, lse = ctx.saved_tensors
+        args = (x, embed, targets, lse, c_lse, c_tgt)
+        if ctx.kind == "scan":
+            dx, de = xent_backward_reference(*args, ctx.chunk)
+        else:
+            dx = fused_xent_dx(*args, chunk=ctx.chunk)
+            de = fused_xent_de(*args, chunk=ctx.chunk)
+        return dx.to(x.dtype), de.to(embed.dtype), None, None, None
+
+
+def fused_softmax_xent(x, embed, targets, *, vocab_chunk: int = 512,
+                       impl: str = "auto", mesh=None, rules=None):
+    """Per-token nll ``[B, T]`` f32 from the final-norm activations ``x
+    [B, T, D]`` and the tied embedding ``embed [V, D]``, never
+    materialising the ``[B, T, V]`` logits, forward or backward. The same
+    contract as `train.spmd.softmax_xent(x @ embed.T, targets)`."""
+    if x.ndim != 3 or embed.ndim != 2:
+        raise ValueError(
+            f"fused_softmax_xent wants x [B, T, D] and embed [V, D]; got "
+            f"{tuple(x.shape)} and {tuple(embed.shape)}")
+    kind = _resolve_impl(impl)
+    if mesh is not None:
+        raise NotImplementedError(
+            "fused_softmax_xent: the vocab-sharded composition (mesh=) is "
+            "not ported yet (ROADMAP A9: multi-rank parallelism)")
+    del rules
+    b, t, d = x.shape
+    lse, tgt = _LseAndTarget.apply(x.reshape(b * t, d), embed,
+                                   targets.reshape(b * t), int(vocab_chunk),
+                                   kind)
+    return (lse - tgt).view(b, t)
+
+
+def kernel_launches() -> dict:
+    """Launch count of each fused-xent kernel wrapper (the counters live
+    on the wrappers as ``.launches``)."""
+    return {f.__name__: f.launches for f in WRAPPERS}
+
+
+def reset_kernel_launches() -> None:
+    for f in WRAPPERS:
+        f.launches = 0

@@ -6,11 +6,11 @@ on one card there is nothing to shard, so this module keeps the same
 pieces in eager PyTorch: `TrainState`, an optimizer with optax's exact
 semantics (`default_optimizer`), `make_train_step` with gradient
 accumulation as a running f32 mean over microbatches, the GPT loss
-(`softmax_xent`, `gpt_loss_fn` with its padding mask), the one-call
-`make_gpt_trainer` and `train_flops_per_token` (copied as it is, so MFU
-reads the same work in both packages). Meshes, sharding rules and the
-pipeline and MoE trainers wait for multi-rank parallelism (ROADMAP A9,
-A10).
+(`softmax_xent`, `gpt_loss_fn` with its padding mask, dense or fused),
+the one-call `make_gpt_trainer` and `train_flops_per_token` (copied as
+it is, so MFU reads the same work in both packages). Meshes, sharding
+rules and the pipeline and MoE trainers wait for multi-rank parallelism
+(ROADMAP A9, A10).
 
 The step updates parameters and optimizer state in place and never
 synchronises with the host: its metrics come back as device tensors.
@@ -191,11 +191,14 @@ def softmax_xent(logits, targets):
 
 def gpt_loss_fn(model, batch: dict, cfg=None):
     """Cross entropy over pre-shifted ``inputs``/``targets`` [B, T], with
-    an optional padding ``mask`` [B, T] (masked mean)."""
+    an optional padding ``mask`` [B, T] (masked mean); dense logits or,
+    under ``loss_impl="fused"``, the fused cross-entropy kernels."""
     cfg = model.cfg if cfg is None else cfg
-    gpt.check_loss_impl(cfg)
-    nll = softmax_xent(gpt.forward(model, batch["inputs"], cfg),
-                       batch["targets"])
+    if gpt.check_loss_impl(cfg) == "fused":
+        nll = gpt.fused_nll(model, batch["inputs"], batch["targets"], cfg)
+    else:
+        nll = softmax_xent(gpt.forward(model, batch["inputs"], cfg),
+                           batch["targets"])
     mask = batch.get("mask")
     if mask is not None:
         mask = mask.float()

@@ -1,0 +1,147 @@
+"""Parity of the port's fused cross-entropy (`ray_tpu_torch.ops.fused_xent`)
+with the JAX package's on the CPU: the same numpy inputs go through JAX's
+`fused_softmax_xent` with ``impl="scan"`` and, where the reference has a
+block plan (V a multiple of 128), ``impl="pallas"`` (its three kernels in
+interpret mode), and through the port's plain path (CPU tensors).
+
+Tolerances: f32 nll 1e-5 absolute, dx and dembed 1e-5 of each gradient's
+largest magnitude (both sides form f32 products of the same inputs and
+differ only in summation order). bf16: nll 1e-4 (the same f32 math from
+bf16 inputs, whose products are exact in f32); dx and dembed per element
+2**-7 |ref| + 1e-6, since both are rounded once to bf16 at the autograd
+boundary and may land one bf16 ulp apart."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.ops import fused_xent as jfx
+from ray_tpu_torch.ops import fused_xent as tfx
+from ray_tpu_torch.train import spmd as tspmd
+
+B, T, D = 2, 16, 64
+
+
+def _inputs(v, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    emb = (rng.standard_normal((v, D)) * 0.1).astype(np.float32)
+    tgt = rng.integers(0, v, (B, T)).astype(np.int32)
+    return x, emb, tgt
+
+
+def _jax(x, emb, tgt, impl, dtype):
+    xj, ej = (jnp.asarray(a, dtype) for a in (x, emb))
+    tj = jnp.asarray(tgt)
+    nll = jfx.fused_softmax_xent(xj, ej, tj, vocab_chunk=128, impl=impl)
+    gx, ge = jax.grad(
+        lambda a, e: jfx.fused_softmax_xent(a, e, tj, vocab_chunk=128,
+                                            impl=impl).mean(),
+        argnums=(0, 1))(xj, ej)
+    return [np.asarray(a, np.float32) for a in (nll, gx, ge)]
+
+
+def _torch(x, emb, tgt, dtype, impl="auto"):
+    xt = torch.from_numpy(x).to(dtype).requires_grad_()
+    et = torch.from_numpy(emb).to(dtype).requires_grad_()
+    nll = tfx.fused_softmax_xent(xt, et, torch.from_numpy(tgt),
+                                 vocab_chunk=128, impl=impl)
+    nll.mean().backward()
+    assert xt.grad.dtype == dtype and et.grad.dtype == dtype
+    return [a.detach().float().numpy() for a in (nll, xt.grad, et.grad)]
+
+
+def _impls(v):
+    return ("scan", "pallas") if v % 128 == 0 else ("scan",)
+
+
+@pytest.mark.parametrize("v", [512, 517, 130, 96])
+def test_f32_matches_jax(v):
+    x, emb, tgt = _inputs(v)
+    got = _torch(x, emb, tgt, torch.float32)
+    for impl in _impls(v):
+        want = _jax(x, emb, tgt, impl, jnp.float32)
+        np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=0)
+        for g, w in zip(got[1:], want[1:]):
+            np.testing.assert_allclose(g, w, rtol=0,
+                                       atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("v", [512, 517, 130, 96])
+def test_bf16_matches_jax(v):
+    x, emb, tgt = _inputs(v, seed=1)
+    got = _torch(x, emb, tgt, torch.bfloat16)
+    for impl in _impls(v):
+        want = _jax(x, emb, tgt, impl, jnp.bfloat16)
+        np.testing.assert_allclose(got[0], want[0], atol=1e-4, rtol=0)
+        for g, w in zip(got[1:], want[1:]):
+            assert np.all(np.abs(g - w) <= 2 ** -7 * np.abs(w) + 1e-6)
+
+
+def test_target_outside_vocab_has_zero_target_logit():
+    """Targets outside [0, V) (the tensor-parallel shard case) give a
+    target logit of 0, so the nll is the bare logsumexp."""
+    x, emb, tgt = _inputs(130, seed=2)
+    tgt[0, :4] = [130, 131, -1, 500]
+    xt, et = torch.from_numpy(x), torch.from_numpy(emb)
+    nll = tfx.fused_softmax_xent(xt, et, torch.from_numpy(tgt),
+                                 vocab_chunk=128)
+    lse = torch.logsumexp(xt @ et.t(), dim=-1)
+    torch.testing.assert_close(nll[0, :4], lse[0, :4], atol=1e-5, rtol=0)
+    lse_j, tgt_j = jfx._lse_tgt_scan(jnp.asarray(x), jnp.asarray(emb),
+                                     jnp.asarray(tgt), 128)
+    assert np.all(np.asarray(tgt_j)[0, :4] == 0)
+    np.testing.assert_allclose(nll.numpy(),
+                               np.asarray(lse_j - tgt_j), atol=1e-5)
+
+
+def test_fused_matches_dense_in_the_port():
+    """Fused against the dense loss of the port (`spmd.softmax_xent` over
+    materialised logits), value and both gradients, f32."""
+    x, emb, tgt = _inputs(517, seed=3)
+    out = []
+    for fused in (True, False):
+        xt = torch.from_numpy(x).requires_grad_()
+        et = torch.from_numpy(emb).requires_grad_()
+        tt = torch.from_numpy(tgt)
+        nll = (tfx.fused_softmax_xent(xt, et, tt, vocab_chunk=128) if fused
+               else tspmd.softmax_xent(xt @ et.t(), tt))
+        nll.mean().backward()
+        out.append((nll.detach(), xt.grad, et.grad))
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+def test_plain_versions_match_each_other_and_count_nothing():
+    """On the CPU "auto" and "pallas" take the plain version (no kernel
+    there) exactly as "scan" does, and the launch counters stay put; the
+    wrappers' plain halves agree with the autograd op."""
+    x, emb, tgt = _inputs(130, seed=4)
+    before = tfx.kernel_launches()
+    outs = [_torch(x, emb, tgt, torch.float32, impl=impl)
+            for impl in ("auto", "pallas", "scan")]
+    assert tfx.kernel_launches() == before
+    for o in outs[1:]:
+        for a, b in zip(o, outs[0]):
+            np.testing.assert_array_equal(a, b)
+    xt, et = torch.from_numpy(x).view(B * T, D), torch.from_numpy(emb)
+    tt = torch.from_numpy(tgt).view(-1)
+    lse, tg = tfx.fused_xent_fwd(xt, et, tt, chunk=128)
+    np.testing.assert_allclose((lse - tg).numpy(), outs[0][0].ravel())
+    g = torch.full((B * T,), 1.0 / (B * T))
+    dx = tfx.fused_xent_dx(xt, et, tt, lse, g, -g, chunk=128)
+    de = tfx.fused_xent_de(xt, et, tt, lse, g, -g, chunk=128)
+    np.testing.assert_allclose(dx.view(B, T, D).numpy(), outs[0][1])
+    np.testing.assert_allclose(de.numpy(), outs[0][2])
+
+
+def test_bad_impl_and_mesh_raise():
+    x, emb, tgt = (torch.from_numpy(a) for a in _inputs(96))
+    with pytest.raises(ValueError, match="impl"):
+        tfx.fused_softmax_xent(x, emb, tgt, impl="tensorcore")
+    with pytest.raises(NotImplementedError, match="A9"):
+        tfx.fused_softmax_xent(x, emb, tgt, mesh=object())
+    with pytest.raises(ValueError, match="wants x"):
+        tfx.fused_softmax_xent(x[0], emb, tgt)

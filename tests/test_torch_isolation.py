@@ -27,7 +27,8 @@ def _modules():
 def test_every_module_imports_without_jax_or_ray_tpu():
     mods = _modules()
     assert {"ray_tpu_torch.serve.engine", "ray_tpu_torch.ops.flash_attention",
-            "ray_tpu_torch.train.spmd", "ray_tpu_torch.train.loop"} <= set(mods)
+            "ray_tpu_torch.ops.fused_xent", "ray_tpu_torch.train.spmd",
+            "ray_tpu_torch.train.loop"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -70,6 +71,8 @@ def test_default_device_is_cuda_and_raises_without_one():
         InferenceReplica({"vocab_size": 64}, max_len=16)
     with pytest.raises(RuntimeError, match="CUDA"):
         gpt.init_kv_pool(cfg, 4, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gpt.init_kv_cache(cfg, 1, 8)
 
 
 def test_training_entry_points_and_numpy_model_need_a_card():
@@ -105,13 +108,23 @@ def test_build_compiles_every_source_into_its_own_library():
     source, and every entry point the wrappers call is declared."""
     from ray_tpu_torch.ops import _build
     names = [p.name for p in _build.sources()]
-    assert names == sorted(["flash_attention.cu", "paged_attention.cu"])
+    assert names == sorted(["flash_attention.cu", "fused_xent.cu",
+                            "paged_attention.cu"])
     libs = [_build._lib_path(p) for p in _build.sources()]
     assert len(set(libs)) == len(libs)
     assert all(p.name.startswith(s.stem + "-")
                for p, s in zip(libs, _build.sources()))
     assert {"rtt_flash_fwd", "rtt_flash_dq", "rtt_flash_dkv",
-            "rtt_paged_decode", "rtt_paged_mq"} <= set(_build.SIGNATURES)
-    for name in ("rtt_flash_fwd", "rtt_flash_dq", "rtt_flash_dkv"):
-        src = (_build.CSRC / "flash_attention.cu").read_text()
-        assert f'extern "C" int {name}(' in src
+            "rtt_paged_decode", "rtt_paged_mq", "rtt_decode",
+            "rtt_xent_fwd", "rtt_xent_dx", "rtt_xent_de"} \
+        <= set(_build.SIGNATURES)
+    for src, names in (
+            ("flash_attention.cu", ("rtt_flash_fwd", "rtt_flash_dq",
+                                    "rtt_flash_dkv")),
+            ("paged_attention.cu", ("rtt_paged_decode", "rtt_paged_mq",
+                                    "rtt_decode")),
+            ("fused_xent.cu", ("rtt_xent_fwd", "rtt_xent_dx",
+                               "rtt_xent_de"))):
+        text = (_build.CSRC / src).read_text()
+        for name in names:
+            assert f'extern "C" int {name}(' in text

@@ -148,3 +148,79 @@ def test_flash_unsupported_inputs_raise(dev):
     q = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_forward(q, q, q, causal=True)
+
+
+# ---------------------------------------------------------------------------
+# decode attention over a contiguous cache
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_dense_decode_kernel_matches_plain(dev, dtype, d):
+    """A ragged cache length, pos 0, mid-cache, S - 1 and past S."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    b, s, h = 4, 300, 3
+    q = torch.randn((b, h, d), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    pos = torch.tensor([0, 100, s - 1, s + 50], dtype=torch.int32,
+                       device=dev)
+    n = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, pos)
+    assert da.decode_attention.launches == n + 1
+    ref = da.reference_decode_attention(q, k, v, pos)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# fused cross-entropy: forward, dx, dE against the plain versions
+# ---------------------------------------------------------------------------
+# lse, the target logit, dx and dE are f32 on both sides, summed in f32
+# from the same inputs (bf16 products are exact in f32) in another order:
+# over D products per logit and over V (dx) or N (dE) terms per gradient
+# element. Per element |kernel - plain| <= 1e-4 * max|plain| + 1e-4 *
+# |plain|, far above that rounding (~1e-6 relative) and far below any
+# masking or indexing fault.
+
+def _xent_close(got, ref):
+    limit = 1e-4 * ref.abs().max() + 1e-4 * ref.abs()
+    over = ((got - ref).abs() - limit).max().item()
+    assert over <= 0, f"off by {over:.3e} beyond its limit"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 1024])
+@pytest.mark.parametrize("n,v", [(256, 1024), (77, 517)])
+def test_fused_xent_kernels_match_plain(dev, dtype, d, n, v):
+    from ray_tpu_torch.ops import fused_xent as fx
+    g = torch.Generator(device=dev).manual_seed(n + v + d)
+    x = torch.randn((n, d), generator=g, device=dev).to(dtype)
+    e = (torch.randn((v, d), generator=g, device=dev) * d ** -0.5).to(dtype)
+    t = torch.randint(0, v, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    t[:3] = torch.tensor([-1, v, v + 7])        # outside [0, V): tgt 0
+    cl = torch.rand((n,), generator=g, device=dev)
+    ct = -torch.rand((n,), generator=g, device=dev)
+    before = [f.launches for f in fx.WRAPPERS]
+    lse, tgt = fx.fused_xent_fwd(x, e, t)
+    ref_lse, ref_tgt = fx.lse_target_reference(x, e, t)
+    _xent_close(lse, ref_lse)
+    _xent_close(tgt, ref_tgt)
+    assert torch.all(tgt[:3] == 0)
+    dx = fx.fused_xent_dx(x, e, t, ref_lse, cl, ct)
+    de = fx.fused_xent_de(x, e, t, ref_lse, cl, ct)
+    ref_dx, ref_de = fx.xent_backward_reference(x, e, t, ref_lse, cl, ct)
+    _xent_close(dx, ref_dx)
+    _xent_close(de, ref_de)
+    assert [f.launches for f in fx.WRAPPERS] == [b + 1 for b in before]
+
+
+def test_fused_xent_unsupported_inputs_raise(dev):
+    from ray_tpu_torch.ops import fused_xent as fx
+    x = torch.zeros((8, 96), device=dev)
+    t = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="width"):
+        fx.fused_xent_fwd(x, x, t)
+    x = torch.zeros((8, 64), device=dev)
+    with pytest.raises(TypeError, match="one dtype"):
+        fx.fused_xent_fwd(x, x.bfloat16(), t)

@@ -25,6 +25,7 @@ from ray_tpu.models import gpt as jgpt
 from ray_tpu.parallel import MeshSpec
 from ray_tpu.train import spmd as jspmd
 from ray_tpu_torch.models import gpt as tgpt
+from ray_tpu_torch.ops import fused_xent as tfx
 from ray_tpu_torch.train import spmd as tspmd
 
 T = 32
@@ -90,6 +91,76 @@ def test_loss_and_grads_match_jax(cfgs, tree, mask):
     loss.backward()
     assert abs(loss.item() - float(jloss)) < 1e-5
     _assert_tree_close(_grad_leaves(model), jgrads, 1e-4)
+
+
+@pytest.mark.parametrize("mask", [False, True])
+def test_fused_loss_and_grads_match_jax(cfgs, tree, mask):
+    """loss_impl="fused" (the port's fused cross-entropy, its plain
+    version on the CPU) against JAX's fused loss on the same config,
+    through `gpt_loss_fn` with and without a padding mask."""
+    jcfg, tcfg = (dataclasses.replace(c, loss_impl="fused") for c in cfgs)
+    batch = _batch(jcfg.vocab_size, seed=6, mask=mask)
+    jloss, jgrads = jax.value_and_grad(jspmd.gpt_loss_fn)(
+        jax.tree.map(jnp.asarray, tree),
+        jax.tree.map(jnp.asarray, batch), jcfg)
+    model = _model(tree, tcfg)
+    loss = tspmd.gpt_loss_fn(model, _tb(batch), tcfg)
+    loss.backward()
+    assert abs(loss.item() - float(jloss)) < 1e-5
+    _assert_tree_close(_grad_leaves(model), jgrads, 1e-4)
+
+
+def test_fused_loss_fn_tokens_form_matches_jax_and_dense(cfgs, tree):
+    """models.gpt.loss_fn under loss_impl="fused" against JAX's, and
+    against the port's own dense loss."""
+    jcfg, tcfg = (dataclasses.replace(c, loss_impl="fused") for c in cfgs)
+    toks = np.random.default_rng(7).integers(0, jcfg.vocab_size,
+                                             (2, T + 1)).astype(np.int32)
+    jloss = jgpt.loss_fn(jax.tree.map(jnp.asarray, tree),
+                         {"tokens": jnp.asarray(toks)}, jcfg)
+    model = _model(tree, tcfg)
+    fused = tgpt.loss_fn(model, {"tokens": torch.from_numpy(toks)}, tcfg)
+    dense = tgpt.loss_fn(model, {"tokens": torch.from_numpy(toks)},
+                         cfgs[1])
+    assert abs(fused.item() - float(jloss)) < 1e-5
+    assert abs(fused.item() - dense.item()) < 1e-4
+
+
+def test_fused_loss_never_materializes_logits(tree):
+    """Every op output of the fused forward + backward is recorded (a
+    TorchDispatchMode): none has B*T*V elements, the size of the logits.
+    The dense graph is the positive control."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Sizes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.numels = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for o in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(o, torch.Tensor):
+                    self.numels.add(o.numel())
+            return out
+
+    # vocab 768, so B*T*V collides with no other activation, and a chunk
+    # below it, or the single chunk would be the logits
+    tcfg = tgpt.small(dtype="float32", attn_impl="flash", vocab_size=768,
+                      loss_chunk=128)
+    params = tgpt.init_params(0, tcfg, device="cpu")
+    b, v = 2, tcfg.vocab_size
+    batch = _tb(_batch(v, b=b, seed=8))
+    seen = {}
+    for impl in ("dense", "fused"):
+        cfg = dataclasses.replace(tcfg, loss_impl=impl)
+        model = tgpt.GPT(cfg, params, device="cpu", dtype=torch.float32,
+                         trainable=True)
+        with Sizes() as mode:
+            tspmd.gpt_loss_fn(model, batch, cfg).backward()
+        seen[impl] = mode.numels
+    assert b * T * v in seen["dense"]          # the probe sees logits
+    assert b * T * v not in seen["fused"]
 
 
 def test_gpt_loss_fn_tokens_form_matches_jax(cfgs, tree):
@@ -234,9 +305,10 @@ def test_remat_does_not_change_the_numbers(cfgs, tree, policy):
 def test_unported_and_unknown_knobs_raise(cfgs, tree):
     _, tcfg = cfgs
     batch = _tb(_batch(tcfg.vocab_size))
-    with pytest.raises(NotImplementedError, match="B3/B4"):
-        tspmd.gpt_loss_fn(_model(tree, tcfg), batch,
-                          dataclasses.replace(tcfg, loss_impl="fused"))
+    model = _model(tree, tcfg)
+    with pytest.raises(NotImplementedError, match="A9"):
+        tfx.fused_softmax_xent(tgpt.forward_features(model, batch["inputs"]),
+                               model.embed, batch["targets"], mesh=object())
     with pytest.raises(NotImplementedError, match="A9"):
         tspmd.gpt_loss_fn(_model(tree, tcfg), batch,
                           dataclasses.replace(tcfg, attn_impl="ring"))
