@@ -42,16 +42,18 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    device busy share from a short profiled window; (d) 25 steps on one
    repeated batch (5 of them warm-up) must lower the loss by at least
    1 nat;
-7. fused cross-entropy kernels vs plain: forward (lse, target logit), dx
-   and dE against their plain versions at bench.py's loss shape (N 24576
-   rows, vocab 50304, D 1024) in bf16 and f32 and at a ragged N 1000,
-   V 50257; device time, bound, plain time and cuBLAS's time for the same
-   products;
+7. fused cross-entropy kernels vs plain: the forward (lse, target logit)
+   and the backward (dx, dE) against their plain versions at bench.py's
+   loss shape (N 24576 rows, vocab 50304, D 1024) in bf16 (the backward
+   on the tensor cores, 13 vocabulary chunks) and f32 (CUDA cores) and at
+   a ragged N 1000, V 50257; device time, bound, plain time and cuBLAS's
+   time for the same products, for the forward, each backward kernel
+   (summed over its chunks) and the whole backward;
 8. bench.py's own training configuration (phase 6's model with the fused
    loss at batch 24, unroll 4, prefetch 2, metrics interval 10; 4
    warm-up and 20 timed steps): (a) fused against dense loss and every
    gradient leaf from the same masters; (b) the step-0 loss; (c) tok/s,
-   MFU, host syncs and the launches of all six training kernels; (d) the
+   MFU, host syncs and the launches of all seven training kernels; (d) the
    peak memory of one forward + backward, fused against dense: dense must
    exceed fused by at least the bf16 logits' bytes; (e) a profiled
    window with the fused kernels' share of device time;
@@ -120,7 +122,9 @@ XENT_RAGGED = (1000, 50257)
 # sides, summed in f32 from the same inputs (bf16 products are exact in
 # f32) in another order, over D = 1024 products per logit and V (dx) or N
 # (dE) terms per gradient element: ~1e-6 relative, far under the limit,
-# and a masking or indexing fault is far over it.
+# and a masking or indexing fault is far over it. The bf16 backward also
+# rounds dlog to bf16 once before its two products: + 2^-8 (bf16's unit
+# roundoff) times |dlog| . |E| for dx and |dlog|^T . |x| for dE.
 XENT_TOL = 1e-4
 FUSED_STEPS, FUSED_WARMUP = 20, 4
 
@@ -808,18 +812,21 @@ def phase_train(dev) -> dict:
 
 
 def xent_bound(n: int, v: int, d: int, which: str, dtype) -> tuple[float, str]:
-    """Least time for one fused-xent kernel: x [n, d] and E [v, d] read
-    once in the working dtype, the [n] rows (targets; lse and the two
-    cotangents for the backward) once, the outputs (lse and tgt; dx [n, d]
-    f32; dE [v, d] f32) written once; 2 n v d flops for the forward's
-    product, 4 n v d for dx and dE (the rebuilt logits and the gradient
-    product)."""
+    """Least time for one fused-xent function: its inputs read once in
+    their dtype (x [n, d], E [v, d]; the [n] rows: targets, and lse and
+    the two cotangents for the backward; the bf16 dlog [n, v] for the dx
+    and dE products), its outputs written once (lse and tgt; the bf16
+    dlog; dx [n, d] f32; dE [v, d] f32), and 2 n v d flops per product:
+    one for the forward and for each of the three backward kernels
+    (dlog, dx, dE), six for the backward pair as one function."""
     import torch
     es = 2 if dtype == torch.bfloat16 else 4
-    inputs = (n + v) * d * es
-    nbytes, ops = {"fwd": (inputs + 4 * n + 8 * n, 2),
-                   "dx": (inputs + 16 * n + 4 * n * d, 4),
-                   "de": (inputs + 16 * n + 4 * v * d, 4)}[which]
+    x, e, dlog = n * d * es, v * d * es, 2 * n * v
+    nbytes, ops = {"fwd": (x + e + 4 * n + 8 * n, 2),
+                   "dlog": (x + e + 16 * n + dlog, 2),
+                   "dx": (dlog + e + 4 * n * d, 2),
+                   "de": (dlog + x + 4 * v * d, 2),
+                   "bwd": (x + e + 16 * n + 4 * n * d + 4 * v * d, 6)}[which]
     return bound(nbytes, ops * n * v * d, dtype)
 
 
@@ -833,19 +840,42 @@ def _xent_inputs(g, dev, n, v, dtype):
     return x, e, t
 
 
-def _xent_check(what, got, ref) -> float:
+def _xent_check(what, got, ref, rounding=None) -> float:
     diff = (got.float() - ref.float()).abs()
     limit = XENT_TOL * (ref.abs().max() + ref.abs())
+    if rounding is not None:
+        limit = limit + 2 ** -8 * rounding
     err = diff.max().item()
     print(f"  {what}: max|kernel-plain| = {err:.3e} (limit {XENT_TOL} * "
-          f"(max|plain| + |plain|), max|plain| {ref.abs().max().item():.3e})")
+          f"(max|plain| + |plain|){' + 2^-8 * bound' if rounding is not None else ''}"
+          f", max|plain| {ref.abs().max().item():.3e})")
     if not (diff - limit).max().item() <= 0:
         fail(f"fused-xent kernel disagrees with plain ({what})")
     return err
 
 
+def device_ms_by_kernel(fn, args, reps: int = 3) -> dict:
+    """{kernel name: device ms per call of fn}, summed over the call's
+    launches of that kernel, from torch.profiler over `reps` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            out[e.key] = out.get(e.key, 0.0) + \
+                e.self_device_time_total * 1e-3 / reps
+    return out
+
+
 def phase_xent(dev) -> dict:
-    """Phase 7: the three fused cross-entropy kernels against their plain
+    """Phase 7: the fused cross-entropy kernels against their plain
     versions at bench.py's loss shape (bf16 and f32) and a ragged one,
     then their times beside bound, plain and cuBLAS."""
     import torch
@@ -866,18 +896,20 @@ def phase_xent(dev) -> dict:
                                     "max_abs_err": err})
         del lse, tgt
         cl = torch.full((n,), 1.0 / n, device=dev)
-        ct = -cl
-        ref_dx, ref_de = fx.xent_backward_reference(x, e, t, ref_lse, cl, ct)
-        dx = fx.fused_xent_dx(x, e, t, ref_lse, cl, ct)
-        rec["dx"]["cases"].append({"dtype": name, "N": n, "V": v,
-                                   "max_abs_err": _xent_check(
-                                       f"xent dx      {what}", dx, ref_dx)})
-        del dx, ref_dx
-        de = fx.fused_xent_de(x, e, t, ref_lse, cl, ct)
-        rec["de"]["cases"].append({"dtype": name, "N": n, "V": v,
-                                   "max_abs_err": _xent_check(
-                                       f"xent dE      {what}", de, ref_de)})
-        del x, e, t, de, ref_de, ref_lse, ref_tgt, cl, ct
+        args = (x, e, t, ref_lse, cl, -cl)
+        # bf16: the kernels round dlog to bf16 once (bf16's unit roundoff
+        # 2^-8 times |dlog| . |E| for dx, |dlog|^T . |x| for dE)
+        rounding = (fx.xent_backward_abs_bound(*args)
+                    if dt == torch.bfloat16 else (None, None))
+        grads = fx.fused_xent_bwd(*args)
+        for key, got, ref, r in zip(("dx", "de"), grads,
+                                    fx.xent_backward_reference(*args),
+                                    rounding):
+            rec[key]["cases"].append({
+                "dtype": name, "N": n, "V": v,
+                "max_abs_err": _xent_check(f"xent {key}      {what}", got,
+                                           ref, r)})
+        del x, e, t, grads, rounding, ref_lse, ref_tgt, cl, args
         torch.cuda.empty_cache()
 
     # Times at the main path's case: bf16, N 24576, V 50304, D 1024. One
@@ -889,27 +921,63 @@ def phase_xent(dev) -> dict:
     bwd = (x, e, t, lse, cl, -cl)
     rec["fwd"]["ms"] = time_long_ms(fx.fused_xent_fwd, (x, e, t))
     rec["fwd"]["plain_ms"] = time_long_ms(fx.lse_target_reference, (x, e, t))
-    rec["dx"]["ms"] = time_long_ms(fx.fused_xent_dx, bwd)
-    rec["de"]["ms"] = time_long_ms(fx.fused_xent_de, bwd)
-    # the plain backward computes dx and dE together
-    rec["dx"]["plain_ms"] = rec["de"]["plain_ms"] = time_long_ms(
-        fx.xent_backward_reference, bwd)
+    whole = {"ms": time_long_ms(fx.fused_xent_bwd, bwd),
+             "plain_ms": time_long_ms(fx.xent_backward_reference, bwd)}
+    # each backward kernel's device time, summed over its launches (one
+    # per vocabulary chunk) in one backward
+    by_name = device_ms_by_kernel(fx.fused_xent_bwd, bwd)
+    chunks = -(-XV // fx.BWD_CHUNK)
+    parts = {k: {"ms": sum(ms for n, ms in by_name.items()
+                           if f"{k}_kernel" in n), "launches_per_call": chunks}
+             for k in ("xent_dlog", "xent_dx", "xent_de")}
     # cuBLAS (bf16 in, bf16 out, f32 accumulation) for the same products:
-    # x . E^T for the forward, and that plus the second product for dx and
-    # dE. Timed here only; the port never calls it.
-    rec["fwd"]["library_ms"] = time_long_ms(lambda a, b: a @ b.t(), (x, e))
-    rec["dx"]["library_ms"] = time_long_ms(lambda a, b: (a @ b.t()) @ b,
-                                           (x, e))
-    rec["de"]["library_ms"] = time_long_ms(lambda a, b: (a @ b.t()).t() @ a,
-                                           (x, e))
+    # the logits s = x . E^T (the forward's and the dlog kernel's), s . E
+    # (dx's), s^T . x (dE's), and the three in a row (the backward). Timed
+    # here only; the port never calls it.
+    rec["fwd"]["library_ms"] = parts["xent_dlog"]["library_ms"] = \
+        time_long_ms(lambda a, b: a @ b.t(), (x, e))
+    s = x @ e.t()
+    parts["xent_dx"]["library_ms"] = time_long_ms(lambda a, b: a @ b, (s, e))
+    parts["xent_de"]["library_ms"] = time_long_ms(lambda a, b: a.t() @ b,
+                                                  (s, x))
+    del s
+    whole["library_ms"] = time_long_ms(
+        lambda a, b: (lambda s: (s @ b, s.t() @ a))(a @ b.t()), (x, e))
     del x, e, t, lse, cl, bwd
     torch.cuda.empty_cache()
-    for key, r in rec.items():
-        r["bound_ms"], r["bound_by"] = xent_bound(XN, XV, XD, key, dt)
-        print(f"  xent {key}: kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms, cuBLAS {r['library_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) "
-              f"[bf16 N={XN} V={XV} D={XD}]")
+    rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = xent_bound(
+        XN, XV, XD, "fwd", dt)
+    whole["bound_ms"], whole["bound_by"] = xent_bound(XN, XV, XD, "bwd", dt)
+    for k, p in parts.items():
+        p["bound_ms"], p["bound_by"] = xent_bound(XN, XV, XD,
+                                                  k.split("_")[1], dt)
+    # The TPU's _dx_kernel and _de_kernel each rebuild dlog; here one
+    # kernel rebuilds it for both, so each row takes its own product's
+    # kernel and half of the shared dlog kernel (the rows add up to the
+    # whole backward). Plain: the whole plain backward, which computes
+    # both.
+    half = parts["xent_dlog"]
+    for key in ("dx", "de"):
+        own = parts[f"xent_{key}"]
+        rec[key].update(
+            ms=own["ms"] + half["ms"] / 2, plain_ms=whole["plain_ms"],
+            library_ms=own["library_ms"] + half["library_ms"] / 2,
+            bound_ms=own["bound_ms"] + half["bound_ms"] / 2,
+            bound_by=own["bound_by"])
+    rec["bwd"], rec["bwd_kernels"] = whole, parts
+    shape = f"[bf16 N={XN} V={XV} D={XD}]"
+    print(f"  xent fwd: kernel {rec['fwd']['ms']:.3f} ms, plain "
+          f"{rec['fwd']['plain_ms']:.3f} ms, cuBLAS "
+          f"{rec['fwd']['library_ms']:.3f} ms, bound "
+          f"{rec['fwd']['bound_ms']:.3f} ms ({rec['fwd']['bound_by']}) {shape}")
+    for k, p in parts.items():
+        print(f"  {k}_kernel x {chunks}: {p['ms']:.3f} ms, cuBLAS "
+              f"{p['library_ms']:.3f} ms, bound {p['bound_ms']:.3f} ms "
+              f"({p['bound_by']}) {shape}")
+    print(f"  xent backward (dlog + dx + dE): {whole['ms']:.3f} ms, plain "
+          f"{whole['plain_ms']:.3f} ms, cuBLAS (s = x@E^T; s@E; s^T@x) "
+          f"{whole['library_ms']:.3f} ms, bound {whole['bound_ms']:.3f} ms "
+          f"({whole['bound_by']}) {shape}")
     return rec
 
 
@@ -1016,7 +1084,7 @@ def phase_fused_train(dev) -> dict:
     if len(hist) != FUSED_STEPS or not all(math.isfinite(x) for x in losses):
         fail(f"train loop returned {len(hist)} steps, losses {losses}")
     for name in ("flash_forward", "flash_dq", "flash_dkv", "fused_xent_fwd",
-                 "fused_xent_dx", "fused_xent_de"):
+                 "xent_dlog", "xent_dx", "xent_de"):
         if launches[name] <= 0:
             fail(f"{name} was not launched on the fused training path")
     tok_s = tokens_per_step * FUSED_STEPS / wall
@@ -1316,10 +1384,10 @@ def main() -> int:
             ("fused_xent_fwd", "fused_xent_fwd",
              "ray_tpu/ops/fused_xent.py:138", xent["fwd"], fused["launches"],
              "fused_xent.cu"),
-            ("fused_xent_dx", "fused_xent_dx",
+            ("fused_xent_dx", "xent_dx",
              "ray_tpu/ops/fused_xent.py:187", xent["dx"], fused["launches"],
              "fused_xent.cu"),
-            ("fused_xent_de", "fused_xent_de",
+            ("fused_xent_de", "xent_de",
              "ray_tpu/ops/fused_xent.py:206", xent["de"], fused["launches"],
              "fused_xent.cu"),
             ("decode", "decode_attention",
@@ -1334,6 +1402,11 @@ def main() -> int:
                      "bound_ms": rec["bound_ms"],
                      "bound_by": rec["bound_by"],
                      "library_ms": rec["library_ms"]})
+        if key in ("fused_xent_dx", "fused_xent_de"):
+            # the bf16 backward: this row's product kernel and half of the
+            # dlog kernel that both rows share (phase 7)
+            rows[-1].update(kernels=[f"{wrapper}_kernel", "xent_dlog_kernel"],
+                            dlog_launches=launches["xent_dlog"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

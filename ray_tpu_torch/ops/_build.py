@@ -48,8 +48,12 @@ SIGNATURES = {
     "rtt_flash_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                        _I, _I, _P], _I),
     "rtt_xent_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "rtt_xent_dx": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "rtt_xent_de": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "rtt_xent_dx": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "rtt_xent_de": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "rtt_xent_dlog": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P], _I),
+    "rtt_xent_dx_tc": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "rtt_xent_de_tc": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
 }
 
 

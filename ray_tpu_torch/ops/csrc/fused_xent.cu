@@ -1,24 +1,69 @@
 // Fused cross-entropy over a tied embedding, hand-written for Hopper
-// (sm_90a). Three kernels, one per TPU kernel they replace:
+// (sm_90a). The kernels and the TPU kernels they replace:
 //
 //   xent_fwd_kernel  replaces ray_tpu/ops/fused_xent.py::_fwd_kernel
 //                    (per row: logsumexp of x . E^T over the vocabulary and
 //                    the raw target logit, without the [N, V] logits)
-//   xent_bwd_kernel<ROW_PANEL = true>
-//                    replaces ray_tpu/ops/fused_xent.py::_dx_kernel
-//                    (dx = sum_v dlog[:, v] E[v])
-//   xent_bwd_kernel<ROW_PANEL = false>
-//                    replaces ray_tpu/ops/fused_xent.py::_de_kernel
-//                    (dE = sum_n dlog[n, :]^T x[n])
+//   bf16 backward, per vocabulary chunk of C rows (E_c = E[v0 : v0 + C]):
+//   xent_dlog_kernel dlog_c = c_lse * exp(x . E_c^T - lse) + c_tgt * onehot,
+//                    stored once as bf16 [N_pad, C]; shared by the two
+//                    kernels below, as _recompute_dlog is shared by
+//                    _dx_kernel and _de_kernel
+//   xent_dx_kernel   replaces _dx_kernel: dx (+)= dlog_c . E_c
+//   xent_de_kernel   replaces _de_kernel: dE_c = dlog_c^T . x
+//   f32 backward (exact in f32 on CUDA cores, for f32 inputs):
+//   xent_bwd_kernel<ROW_PANEL = true>   replaces _dx_kernel
+//   xent_bwd_kernel<ROW_PANEL = false>  replaces _de_kernel
 //
 // with dlog = c_lse * exp(s - lse) + c_tgt * onehot(target), s = x . E^T
-// rebuilt per tile from the forward's saved lse, exactly as the shared
-// _recompute_dlog does. Inputs are read in the activation dtype and cast
-// to f32 (bf16 products are exact in f32), every sum is f32, and dx / dE
-// are written as f32 (the wrapper casts at the autograd boundary, as the
-// reference's custom_vjp does).
+// rebuilt from the forward's saved lse, exactly as the shared
+// _recompute_dlog does. The logits are f32 sums of exact products (bf16
+// products are exact in f32; the f32 kernels cast the inputs to f32), dx
+// and dE are written as f32 (the wrapper casts at the autograd boundary,
+// as the reference's custom_vjp does).
 //
-// What carries over from the Pallas kernels and what does not:
+// The bf16 backward on the tensor cores. At bench.py's loss shape (N
+// 24576, V 50304, D 1024) the backward is three products of 2 N V D =
+// 2.53 TFLOP each (the rebuilt logits, dx, dE): 7.6 TFLOP against ~0.2 GB
+// of inputs, so the tensor cores' 989 TFLOP/s bound it (7.7 ms). The
+// design:
+// - One GEMM core (`gemm`) serves all three kernels: a 128 x 256 CTA
+//   tile, Hopper's wgmma.mma_async.m64n256k16 (bf16 in, f32 accumulators,
+//   128 a thread) issued by two consumer warpgroups of 64 rows each, K
+//   streamed 64 at a time through a 4-stage ring in shared memory (192
+//   KB). One producer warp fills the ring with TMA (cp.async.bulk.tensor,
+//   one mbarrier per stage for "full" and one for "empty"), so no thread
+//   spends instructions on loads. Each operand is staged as it lies in
+//   memory, 128-byte swizzled: K-major (x and E rows for the logits, dlog
+//   rows for dx) or MN-major (E_c for dx; dlog and x for dE, read with
+//   wgmma's transpose bit). Rows and columns past an operand's map read as
+//   zeros (TMA's out-of-bounds fill), so ragged N and V need no masking on
+//   the way in. The tensor maps are encoded per launch through
+//   cudaGetDriverEntryPoint("cuTensorMapEncodeTiled"), so the library
+//   does not link libcuda.
+// - The logits are rebuilt once per chunk, not once per product: dlog is
+//   formed in the accumulators' registers (exp2f with a log2(e)
+//   prescale, masked past N and past V) and written as bf16 to a scratch
+//   buffer that the dx and dE kernels read. That is the only rounding
+//   the bf16 backward adds: |d dx| <= 2^-8 |dlog| . |E| and |d dE| <=
+//   2^-8 |dlog|^T . |x| per element.
+// - The sequential reduction axes of the Pallas kernels become launch
+//   order: dx reads, adds and writes its own tile once per chunk (the
+//   first chunk writes), and each chunk's dE rows are written once from
+//   a K loop over all N. Every output element has one owner per launch
+//   and launches run in stream order: no atomics, deterministic results.
+// - Wide tiles against short K: a 128 x 1024 f32 panel of dx or dE
+//   cannot live in one CTA's registers (the f32 kernels below keep 32
+//   rows and re-stream the other operand twice per panel), so a CTA owns
+//   a 128 x 256 tile and the chunk loop splits the vocabulary sum.
+// What is left: with one CTA an SM, the dlog and dx epilogues (exp2f and
+// bf16 stores; the f32 read-add-write of dx) are not overlapped with any
+// mainloop, and the dlog kernel's K loop is short (16 steps at D 1024),
+// so those two run well below the dE kernel's rate. A persistent grid
+// that overlaps one tile's epilogue with the next tile's loads is the
+// next step.
+//
+// The f32 kernels, and what carries over from the Pallas kernels:
 //
 // - The sequential grid axis (vocab blocks for fwd/dx, row blocks for dE)
 //   becomes a loop inside one CTA; nothing is reduced across CTAs, so there
@@ -37,20 +82,20 @@
 //   N load as zeros and are not written; columns past V are masked), so no
 //   shape leaves the kernel path.
 //
-// What bounds them on an H100: at bench.py's loss shape (N 24576, V 50304,
-// D 1024, bf16) the forward does 2 N V D = 2.53 TFLOP and dx / dE 5.07 each
-// against ~0.2 GB of inputs, so the tensor cores' 989 TFLOP/s set the
-// bound (2.56 / 5.12 / 5.12 ms). This first version is the simple one: f32
-// FMA on CUDA cores from shared memory (each thread owns a 4 x 4 block of
-// scores, read as one broadcast float4 and one float4 per k, and a 4-row
-// block of the accumulator across D), so it runs at the CUDA cores' rate,
-// far from the bound. Tensor-core tiles (mma.sync / wgmma), TMA and a
-// producer warp are later work.
+// What bounds the forward on an H100: at bench.py's loss shape it does 2 N
+// V D = 2.53 TFLOP against ~0.2 GB of inputs, so the tensor cores' 989
+// TFLOP/s set the bound (2.56 ms). It and the f32 backward are the simple
+// version: f32 FMA on CUDA cores from shared memory (each thread owns a
+// 4 x 4 block of scores, read as one broadcast float4 and one float4 per
+// k, and a 4-row block of the accumulator across D), so they run at the
+// CUDA cores' rate, far from the bound. The forward's move to the tensor
+// cores is later work.
 //
 // Each extern "C" entry launches on the given stream and returns
-// cudaGetLastError() (or cudaErrorInvalidValue for a width it has no
-// instantiation for); the Python wrapper raises on non-zero.
+// cudaGetLastError() (or cudaErrorInvalidValue for a width or shape it
+// does not take); the Python wrapper raises on non-zero.
 
+#include <cuda.h>   // CUtensorMap and its enums (libcuda is not linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -426,6 +471,408 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward on the tensor cores: one wgmma GEMM core, three epilogues
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int BM = 128, BN = 256, BK = 64;   // CTA tile; K step per stage
+constexpr int STAGES = 4;
+constexpr int CONSUMERS = 256;               // 2 warpgroups of 64 x 256
+constexpr int THREADS = CONSUMERS + 32;      // + the producer warp
+constexpr int A_BYTES = BM * BK * 2;         // 16 KB a stage
+constexpr int B_BYTES = BN * BK * 2;         // 32 KB a stage
+constexpr int ATOM = 64 * BK * 2;            // 64 rows (or columns) x BK
+constexpr int SMEM = 1024 + STAGES * (A_BYTES + B_BYTES) + 2 * STAGES * 8;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spins until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box of the 2-D map at (column c0, row c1) into shared memory,
+// completing on barrier `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets, all >> 4.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d[0:128] += A (64 x 16, descriptor da) . B (16 x 256, descriptor db):
+// one wgmma.m64n256k16, bf16 in, f32 accumulators. TA / TB: the operand
+// is MN-major (1) or K-major (0) in shared memory.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// acc = A[m0 : m0 + BM, 0 : K] . B[0 : K, n0 : n0 + BN] for this consumer
+// thread's part; returns false in the producer warp, whose work ends
+// here. A_K: A is K-major in memory (a row of its map is one m, its K
+// values contiguous), else M-major (a row is one k); B_K likewise. The
+// tensor maps are 2-D, bf16, 128-byte swizzled, with boxes of 64 columns
+// by BM (A, K-major), BN (B, K-major) or 64 rows (MN-major); (a_mn, a_k)
+// and (b_mn, b_k) are the operands' base coordinates. Out-of-range boxes
+// read as zeros. Stage ring: the producer's TMA loads complete on
+// full[s]; the 256 consumer threads arrive on empty[s] once the
+// wgmmas that read stage s have retired.
+//
+// Accumulator order (wgmma m64n256 f32): acc[4 j + 2 h + c] is row 64 wg
+// + 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + c of the tile,
+// wg = the consumer's warpgroup, warp its warp within the warpgroup.
+template <bool A_K, bool B_K>
+__device__ __forceinline__ bool gemm(float (&acc)[128], const CUtensorMap& ma,
+                                     const CUtensorMap& mb, int a_mn, int a_k,
+                                     int b_mn, int b_k, int K,
+                                     unsigned char* smem) {
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t sa = (raw + 1023) & ~1023u;   // swizzle atoms: 1 KB aligned
+  const uint32_t sb = sa + STAGES * A_BYTES;
+  const uint32_t full = sb + STAGES * B_BYTES, empty = full + STAGES * 8;
+  const int KT = (K + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {   // producer warp: one thread issues TMA
+    if (threadIdx.x == CONSUMERS) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int st = kt % STAGES, k0 = kt * BK;
+        if (kt >= STAGES) mbar_wait(empty + 8 * st, (kt / STAGES - 1) & 1);
+        const uint32_t bar = full + 8 * st;
+        mbar_expect_tx(bar, A_BYTES + B_BYTES);
+        const uint32_t ta = sa + st * A_BYTES, tb = sb + st * B_BYTES;
+        if constexpr (A_K) {
+          tma_load(ta, &ma, a_k + k0, a_mn, bar);
+        } else {
+#pragma unroll
+          for (int j = 0; j < BM / 64; ++j)
+            tma_load(ta + j * ATOM, &ma, a_mn + 64 * j, a_k + k0, bar);
+        }
+        if constexpr (B_K) {
+          tma_load(tb, &mb, b_k + k0, b_mn, bar);
+        } else {
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load(tb + j * ATOM, &mb, b_mn + 64 * j, b_k + k0, bar);
+        }
+      }
+    }
+    return false;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  // This warpgroup's 64 rows of A: rows 64 wg of a K-major tile (64 rows
+  // x 128 B) or the wg-th 64-column atom of an M-major one; both 8 KB in.
+  const uint32_t a_off = (threadIdx.x >> 7) * ATOM;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int st = kt % STAGES;
+    mbar_wait(full + 8 * st, (kt / STAGES) & 1);
+    const uint32_t ta = sa + st * A_BYTES + a_off, tb = sb + st * B_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // K-major: the next 16 k are 32 bytes along the swizzled row (LBO
+      // unused, SBO = 8 rows x 128 B). MN-major: the next 16 k are 16
+      // rows of 128 B further (LBO = the next 64-wide MN atom, SBO = 8
+      // k rows).
+      const uint64_t da = A_K ? smem_desc(ta + 32 * kk, 16, 1024)
+                              : smem_desc(ta + 2048 * kk, ATOM, 1024);
+      const uint64_t db = B_K ? smem_desc(tb + 32 * kk, 16, 1024)
+                              : smem_desc(tb + 2048 * kk, ATOM, 1024);
+      wgmma_256<A_K ? 0 : 1, B_K ? 0 : 1>(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous stage's wgmmas have retired
+    if (kt > 0) mbar_arrive(empty + 8 * ((kt - 1) % STAGES));
+  }
+  wgmma_wait<0>();
+  return true;
+}
+
+struct DlogArgs {
+  const float* lse;
+  const float* cl;
+  const float* ct;
+  const int* tgt;
+  bf16* dlog;     // [n_pad, ldd]
+  int N, D, v0, cw, ldd;
+};
+
+// dlog[n, c] for the chunk's column c < cw (vocabulary row v0 + c) and
+// x row n < N; 0 past either (rows up to n_pad, columns up to the tile's
+// end), so the dx and dE kernels may read whole tiles. mx: x [N, D];
+// me: E [v0 + cw, D], both K-major.
+__global__ void __launch_bounds__(THREADS, 1)
+    xent_dlog_kernel(const __grid_constant__ CUtensorMap mx,
+                     const __grid_constant__ CUtensorMap me,
+                     const DlogArgs p) {
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  float acc[128];
+  if (!gemm<true, true>(acc, mx, me, m0, 0, p.v0 + n0, 0, p.D, tc_smem))
+    return;
+
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int t = threadIdx.x;
+  const int row0 = m0 + 64 * (t >> 7) + 16 * ((t >> 5) & 3) + ((t & 31) >> 2);
+  const int col0 = n0 + 2 * (t & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const bool live = row < p.N;
+    const float lse2 = live ? p.lse[row] * kLog2e : 0.f;
+    const float cl = live ? p.cl[row] : 0.f;
+    const float ct = live ? p.ct[row] : 0.f;
+    const int hit = live ? p.tgt[row] - p.v0 : -1;   // column of the target
+    bf16* out = p.dlog + (size_t)row * p.ldd;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = col0 + 8 * j;
+      float d[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float v = 0.f;
+        if (live && col + c < p.cw) {
+          v = cl * exp2f(fmaf(acc[4 * j + 2 * h + c], kLog2e, -lse2));
+          if (col + c == hit) v += ct;
+        }
+        d[c] = v;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(out + col) =
+          __floats2bfloat162_rn(d[0], d[1]);
+    }
+  }
+}
+
+struct GradArgs {
+  float* out;   // [rows, cols] f32, row-major
+  int rows, cols, K, accumulate;
+};
+
+// out[m0 .., n0 ..] (+)= acc for rows < rows, columns < cols.
+__device__ __forceinline__ void store_f32(const float (&acc)[128],
+                                          const GradArgs& p, int m0, int n0) {
+  const int t = threadIdx.x;
+  const int row0 = m0 + 64 * (t >> 7) + 16 * ((t >> 5) & 3) + ((t & 31) >> 2);
+  const int col0 = n0 + 2 * (t & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= p.rows) continue;
+    float* out = p.out + (size_t)row * p.cols;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = col0 + 8 * j;
+      if (col >= p.cols) continue;
+      float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      float2* q = reinterpret_cast<float2*>(out + col);
+      if (p.accumulate) {
+        const float2 o = *q;
+        v.x += o.x;
+        v.y += o.y;
+      }
+      *q = v;
+    }
+  }
+}
+
+// dx [N, D] (+)= dlog_c [n_pad, cw] . E_c [cw, D]. ma: the dlog buffer,
+// K-major; mb: E [v0 + cw, D], MN-major, its chunk starting at row v0.
+__global__ void __launch_bounds__(THREADS, 1)
+    xent_dx_kernel(const __grid_constant__ CUtensorMap ma,
+                   const __grid_constant__ CUtensorMap mb, const int v0,
+                   const GradArgs p) {
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  float acc[128];
+  if (!gemm<true, false>(acc, ma, mb, m0, 0, n0, v0, p.K, tc_smem)) return;
+  store_f32(acc, p, m0, n0);
+}
+
+// dE_c [cw, D] = dlog_c^T . x. ma: the dlog buffer, read M-major (a row
+// is one x row, a column one vocabulary row of the chunk); mb: x [N, D],
+// MN-major. K runs over all n_pad rows.
+__global__ void __launch_bounds__(THREADS, 1)
+    xent_de_kernel(const __grid_constant__ CUtensorMap ma,
+                   const __grid_constant__ CUtensorMap mb, const GradArgs p) {
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  float acc[128];
+  if (!gemm<false, false>(acc, ma, mb, m0, 0, n0, 0, p.K, tc_smem)) return;
+  store_f32(acc, p, m0, n0);
+}
+
+// cuTensorMapEncodeTiled, fetched through the runtime so that the library
+// does not link libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D bf16 map over a row-major [rows, cols] matrix, boxes of 64
+// columns (128 B, the swizzle span) by box_rows rows; out-of-range
+// elements read as zero.
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+              int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename... Args>
+cudaError_t launch(void (*kernel)(CUtensorMap, CUtensorMap, Args...),
+                   int rows, int cols, const CUtensorMap& ma,
+                   const CUtensorMap& mb, cudaStream_t s, Args... args) {
+  // Above 48 KB a kernel takes dynamic shared memory only after opting in.
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((cols + BN - 1) / BN, (rows + BM - 1) / BM);
+  kernel<<<grid, THREADS, SMEM, s>>>(ma, mb, args...);
+  return cudaGetLastError();
+}
+
+// The chunk geometry every bf16 backward entry checks: the dlog buffer is
+// [n_pad, ldd] with n_pad a multiple of BM covering N, ldd a multiple of
+// BN holding the chunk's cw columns, and D a multiple of 64.
+bool bad_chunk(int N, int n_pad, int D, int cw, int ldd) {
+  return N <= 0 || n_pad < N || n_pad % BM != 0 || D <= 0 || D % 64 != 0 ||
+         cw <= 0 || cw > ldd || ldd % BN != 0;
+}
+
+}  // namespace tc
+
 template <typename T, int D>
 cudaError_t launch_fwd(const void* x, const void* e, const int* ids,
                        float* lse, float* tgt, int N, int V, cudaStream_t s) {
@@ -453,27 +900,19 @@ cudaError_t launch_bwd(const void* x, const void* e, const int* ids,
   return cudaGetLastError();
 }
 
-// Calls F<T, D>::run(args...) for the runtime (dtype, D);
+// Calls F<T, D>::run(args...) for the runtime width D;
 // cudaErrorInvalidValue when there is no such instantiation.
-template <template <typename, int> class F, typename... A>
-cudaError_t dispatch(int dtype, int D, A... args) {
-#define RTT_CASE(T, DD) \
-  if (D == DD) return F<T, DD>::run(args...);
-#define RTT_WIDTHS(T) \
-  RTT_CASE(T, 64)     \
-  RTT_CASE(T, 128)    \
-  RTT_CASE(T, 256)    \
-  RTT_CASE(T, 512)    \
-  RTT_CASE(T, 768)    \
-  RTT_CASE(T, 1024)
-  if (dtype == 0) {
-    RTT_WIDTHS(float)
-  } else if (dtype == 1) {
-    RTT_WIDTHS(__nv_bfloat16)
+template <template <typename, int> class F, typename T, typename... A>
+cudaError_t dispatch_width(int D, A... args) {
+  switch (D) {
+    case 64: return F<T, 64>::run(args...);
+    case 128: return F<T, 128>::run(args...);
+    case 256: return F<T, 256>::run(args...);
+    case 512: return F<T, 512>::run(args...);
+    case 768: return F<T, 768>::run(args...);
+    case 1024: return F<T, 1024>::run(args...);
+    default: return cudaErrorInvalidValue;
   }
-#undef RTT_WIDTHS
-#undef RTT_CASE
-  return cudaErrorInvalidValue;
 }
 
 template <typename T, int D>
@@ -510,19 +949,24 @@ struct De {
 extern "C" int rtt_xent_fwd(const void* x, const void* e, const void* targets,
                             void* lse, void* tgt, int N, int V, int D,
                             int dtype, void* stream) {
-  return static_cast<int>(dispatch<Fwd>(
-      dtype, D, x, e, static_cast<const int*>(targets),
-      static_cast<float*>(lse), static_cast<float*>(tgt), N, V,
-      static_cast<cudaStream_t>(stream)));
+  const int* ids = static_cast<const int*>(targets);
+  float* l = static_cast<float*>(lse);
+  float* t = static_cast<float*>(tgt);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_width<Fwd, float>(D, x, e, ids, l, t, N, V, s);
+  if (dtype == 1)
+    return dispatch_width<Fwd, __nv_bfloat16>(D, x, e, ids, l, t, N, V, s);
+  return cudaErrorInvalidValue;
 }
 
-// lse, c_lse, c_tgt [N] float32; dx [N, D] float32 output.
+// The f32 backward on CUDA cores. x [N, D], e [V, D] float32; lse, c_lse,
+// c_tgt [N] float32; dx [N, D] float32 output.
 extern "C" int rtt_xent_dx(const void* x, const void* e, const void* targets,
                            const void* lse, const void* c_lse,
                            const void* c_tgt, void* dx, int N, int V, int D,
-                           int dtype, void* stream) {
-  return static_cast<int>(dispatch<Dx>(
-      dtype, D, x, e, static_cast<const int*>(targets),
+                           void* stream) {
+  return static_cast<int>(dispatch_width<Dx, float>(
+      D, x, e, static_cast<const int*>(targets),
       static_cast<const float*>(lse), static_cast<const float*>(c_lse),
       static_cast<const float*>(c_tgt), static_cast<float*>(dx), N, V,
       static_cast<cudaStream_t>(stream)));
@@ -532,10 +976,62 @@ extern "C" int rtt_xent_dx(const void* x, const void* e, const void* targets,
 extern "C" int rtt_xent_de(const void* x, const void* e, const void* targets,
                            const void* lse, const void* c_lse,
                            const void* c_tgt, void* de, int N, int V, int D,
-                           int dtype, void* stream) {
-  return static_cast<int>(dispatch<De>(
-      dtype, D, x, e, static_cast<const int*>(targets),
+                           void* stream) {
+  return static_cast<int>(dispatch_width<De, float>(
+      D, x, e, static_cast<const int*>(targets),
       static_cast<const float*>(lse), static_cast<const float*>(c_lse),
       static_cast<const float*>(c_tgt), static_cast<float*>(de), N, V,
       static_cast<cudaStream_t>(stream)));
+}
+
+// The bf16 backward, one vocabulary chunk: rows v0 .. v0 + cw - 1 of E.
+// x [N, D], e [V, D] bfloat16; targets [N] int32; lse, c_lse, c_tgt [N]
+// float32; dlog the bfloat16 [n_pad, ldd] chunk buffer (written here).
+extern "C" int rtt_xent_dlog(const void* x, const void* e, const void* targets,
+                             const void* lse, const void* c_lse,
+                             const void* c_tgt, void* dlog, int N, int n_pad,
+                             int D, int v0, int cw, int ldd, void* stream) {
+  using namespace tc;
+  if (bad_chunk(N, n_pad, D, cw, ldd)) return cudaErrorInvalidValue;
+  CUtensorMap mx, me;
+  if (!make_map(&mx, x, N, D, BM) || !make_map(&me, e, v0 + cw, D, BN))
+    return cudaErrorInvalidValue;
+  const DlogArgs args{static_cast<const float*>(lse),
+                      static_cast<const float*>(c_lse),
+                      static_cast<const float*>(c_tgt),
+                      static_cast<const int*>(targets),
+                      static_cast<bf16*>(dlog), N, D, v0, cw, ldd};
+  return static_cast<int>(launch(xent_dlog_kernel, n_pad, cw, mx, me,
+                                 static_cast<cudaStream_t>(stream), args));
+}
+
+// dx [N, D] float32: written by the chunk at v0 = 0 (accumulate = 0),
+// added to by the later ones (accumulate = 1).
+extern "C" int rtt_xent_dx_tc(const void* dlog, const void* e, void* dx, int N,
+                              int n_pad, int D, int v0, int cw, int ldd,
+                              int accumulate, void* stream) {
+  using namespace tc;
+  if (bad_chunk(N, n_pad, D, cw, ldd)) return cudaErrorInvalidValue;
+  CUtensorMap ma, mb;
+  if (!make_map(&ma, dlog, n_pad, ldd, BM) ||
+      !make_map(&mb, e, v0 + cw, D, 64))
+    return cudaErrorInvalidValue;
+  const GradArgs args{static_cast<float*>(dx), N, D, cw, accumulate};
+  return static_cast<int>(launch(xent_dx_kernel, N, D, ma, mb,
+                                 static_cast<cudaStream_t>(stream), v0, args));
+}
+
+// dE [V, D] float32: rows v0 .. v0 + cw - 1 written.
+extern "C" int rtt_xent_de_tc(const void* dlog, const void* x, void* de, int N,
+                              int n_pad, int D, int v0, int cw, int ldd,
+                              void* stream) {
+  using namespace tc;
+  if (bad_chunk(N, n_pad, D, cw, ldd)) return cudaErrorInvalidValue;
+  CUtensorMap ma, mb;
+  if (!make_map(&ma, dlog, n_pad, ldd, 64) || !make_map(&mb, x, N, D, 64))
+    return cudaErrorInvalidValue;
+  const GradArgs args{static_cast<float*>(de) + (size_t)v0 * D, cw, D, n_pad,
+                      0};
+  return static_cast<int>(launch(xent_de_kernel, cw, D, ma, mb,
+                                 static_cast<cudaStream_t>(stream), args));
 }

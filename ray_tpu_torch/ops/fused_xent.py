@@ -16,7 +16,8 @@ lse); its backward rebuilds each logits block from lse:
 The implied logits are f32 products of f32-cast inputs (a bf16 product
 of bf16 operands is exact in f32), summed in f32. A target outside
 [0, V) contributes a target logit of 0 (the reference's tensor-parallel
-shard case).
+shard case). The bf16 backward kernels round dlog to bf16 once before
+their two products (see `fused_xent_bwd`); the plain version does not.
 
 Dispatch: ``impl="scan"`` names the plain version (its meaning in the
 reference, a loop over vocab chunks of ``vocab_chunk`` rows). ``"auto"``
@@ -27,8 +28,8 @@ because there is no kernel on the CPU. Any N and V run on the kernels
 tiles, so ``vocab_chunk`` only shapes the plain version. The
 vocab-sharded composition (``mesh=``) waits for multi-rank parallelism.
 
-Each kernel wrapper carries a plain-integer ``launches`` counter that
-grows by one per kernel launch (never on the plain path).
+`LAUNCHES` holds one plain-integer counter per kernel that grows by one
+per launch (never on the plain path).
 """
 
 from __future__ import annotations
@@ -39,6 +40,15 @@ NEG = -1e30   # finite -inf stand-in, as the reference's _NEG
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_WIDTHS = (64, 128, 256, 512, 768, 1024)
+# The bf16 backward's vocabulary chunk, and the row / column tile of its
+# kernels (csrc/fused_xent.cu tc::BM, tc::BN): the shared dlog buffer is
+# [N rounded up to _TILE_ROWS, BWD_CHUNK] bf16, so BWD_CHUNK is a
+# multiple of _TILE_COLS.
+BWD_CHUNK = 4096
+_TILE_ROWS, _TILE_COLS = 128, 256
+
+LAUNCHES = dict.fromkeys(("fused_xent_fwd", "xent_dlog", "xent_dx",
+                          "xent_de", "xent_bwd_dx", "xent_bwd_de"), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -81,19 +91,16 @@ def lse_target_reference(x, embed, targets, chunk: int = 512):
     return m + torch.log(l), tg
 
 
-def xent_backward_reference(x, embed, targets, lse, c_lse, c_tgt,
-                            chunk: int = 512):
-    """f32 (dx [N, D], dembed [V, D]) from the saved lse and the
-    cotangents of (lse, target logit), rebuilding each chunk's logits
-    (the reference's `_bwd_scan`)."""
-    v, d = embed.shape
+def _dlog_chunks(x, embed, targets, lse, c_lse, c_tgt, chunk):
+    """Yields (x f32, E_c f32 [chunk, D], dlog f32 [N, chunk]) per vocab
+    chunk, rebuilding the chunk's logits from lse (the reference's
+    `_recompute_dlog`); columns past V are 0."""
+    v = embed.shape[0]
     chunk = min(chunk, v)
-    emb, vpad = _chunked_embed(embed, chunk)
+    emb, _ = _chunked_embed(embed, chunk)
     xf = x.float()
     tg_ids = targets.long()[:, None]
     lse, c_lse, c_tgt = (a.float()[:, None] for a in (lse, c_lse, c_tgt))
-    dx = torch.zeros(xf.shape, dtype=torch.float32, device=x.device)
-    de = []
     for i in range(emb.shape[0]):
         e_c = emb[i].float()
         s = xf @ e_c.t()
@@ -101,10 +108,37 @@ def xent_backward_reference(x, embed, targets, lse, c_lse, c_tgt,
         valid = col < v
         p = torch.where(valid, torch.exp(s - lse), 0.0)
         hit = ((col == tg_ids) & valid).float()
-        dlog = c_lse * p + c_tgt * hit
+        yield xf, e_c, c_lse * p + c_tgt * hit
+
+
+def xent_backward_reference(x, embed, targets, lse, c_lse, c_tgt,
+                            chunk: int = 512):
+    """f32 (dx [N, D], dembed [V, D]) from the saved lse and the
+    cotangents of (lse, target logit), rebuilding each chunk's logits
+    (the reference's `_bwd_scan`)."""
+    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    de = []
+    for xf, e_c, dlog in _dlog_chunks(x, embed, targets, lse, c_lse, c_tgt,
+                                      chunk):
         dx = dx + dlog @ e_c
         de.append(dlog.t() @ xf)
-    return dx, torch.cat(de)[:v]
+    return dx, torch.cat(de)[:embed.shape[0]]
+
+
+def xent_backward_abs_bound(x, embed, targets, lse, c_lse, c_tgt,
+                            chunk: int = 512):
+    """f32 (|dlog| . |E| [N, D], |dlog|^T . |x| [V, D]), chunk by chunk:
+    the scale of the bf16 backward's one rounding of dlog, which moves
+    each dx element by at most 2**-8 times the first and each dE element
+    by at most 2**-8 times the second. For tests and on-card checks."""
+    bx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    be = []
+    for xf, e_c, dlog in _dlog_chunks(x, embed, targets, lse, c_lse, c_tgt,
+                                      chunk):
+        dlog = dlog.abs()
+        bx = bx + dlog @ e_c.abs()
+        be.append(dlog.t() @ xf.abs())
+    return bx, torch.cat(be)[:embed.shape[0]]
 
 
 # ---------------------------------------------------------------------------
@@ -178,60 +212,66 @@ def fused_xent_fwd(x, embed, targets, *, chunk: int = 512):
         x.data_ptr(), embed.data_ptr(), targets.data_ptr(), lse.data_ptr(),
         tgt.data_ptr(), n, v, d, _KERNEL_DTYPES[x.dtype], _stream(x))
     _build.check(err, "fused_xent_fwd")
-    fused_xent_fwd.launches += 1
+    LAUNCHES["fused_xent_fwd"] += 1
     return lse, tgt
 
 
-fused_xent_fwd.launches = 0
+def fused_xent_bwd(x, embed, targets, lse, c_lse, c_tgt, *,
+                   chunk: int = 512):
+    """f32 (dx [N, D], dembed [V, D]) from the saved lse and the
+    cotangents of (lse, target logit), as the reference's `_bwd_impl`.
+    The kernels replace `ray_tpu/ops/fused_xent.py::_dx_kernel` and
+    `::_de_kernel`, chosen by dtype:
 
+    - bfloat16 (the training path): per vocabulary chunk of `BWD_CHUNK`
+      embedding rows, three tensor-core kernels on one shared bf16 dlog
+      buffer: ``xent_dlog`` (dlog of the chunk), ``xent_dx`` (dx +=
+      dlog . E_c) and ``xent_de`` (dE_c = dlog^T . x). dlog is rounded to
+      bf16 once, so per element |d dx| <= 2**-8 |dlog| . |E| and |d dE| <=
+      2**-8 |dlog|^T . |x| (`xent_backward_abs_bound`).
+    - float32: the CUDA-core kernels ``xent_bwd_dx`` and ``xent_bwd_de``,
+      exact f32 sums.
 
-def _launch_bwd(op, which, x, embed, targets, lse, c_lse, c_tgt):
+    Each counter in `LAUNCHES` grows by one per launch of its kernel.
+    ``chunk`` only shapes the plain version (CPU tensors)."""
+    if not _on_kernel("fused_xent_bwd", x):
+        return xent_backward_reference(x, embed, targets, lse, c_lse, c_tgt,
+                                       chunk)
     from ray_tpu_torch.ops import _build
     x, embed, targets = x.contiguous(), embed.contiguous(), _i32(targets)
     lse, c_lse, c_tgt = _f32(lse), _f32(c_lse), _f32(c_tgt)
-    n, v, d = _check(op, x, embed, targets, rows=(lse, c_lse, c_tgt))
-    out = torch.empty((n if which == "dx" else v, d), dtype=torch.float32,
-                      device=x.device)
-    fn = getattr(_build.load(), f"rtt_xent_{which}")
-    err = fn(x.data_ptr(), embed.data_ptr(), targets.data_ptr(),
-             lse.data_ptr(), c_lse.data_ptr(), c_tgt.data_ptr(),
-             out.data_ptr(), n, v, d, _KERNEL_DTYPES[x.dtype], _stream(x))
-    _build.check(err, op)
-    return out
-
-
-def fused_xent_dx(x, embed, targets, lse, c_lse, c_tgt, *,
-                  chunk: int = 512):
-    """dx [N, D] f32; the kernel replaces
-    `ray_tpu/ops/fused_xent.py::_dx_kernel`."""
-    if not _on_kernel("fused_xent_dx", x):
-        return xent_backward_reference(x, embed, targets, lse, c_lse, c_tgt,
-                                       chunk)[0]
-    out = _launch_bwd("fused_xent_dx", "dx", x, embed, targets, lse, c_lse,
-                      c_tgt)
-    fused_xent_dx.launches += 1
-    return out
-
-
-fused_xent_dx.launches = 0
-
-
-def fused_xent_de(x, embed, targets, lse, c_lse, c_tgt, *,
-                  chunk: int = 512):
-    """dembed [V, D] f32; the kernel replaces
-    `ray_tpu/ops/fused_xent.py::_de_kernel`."""
-    if not _on_kernel("fused_xent_de", x):
-        return xent_backward_reference(x, embed, targets, lse, c_lse, c_tgt,
-                                       chunk)[1]
-    out = _launch_bwd("fused_xent_de", "de", x, embed, targets, lse, c_lse,
-                      c_tgt)
-    fused_xent_de.launches += 1
-    return out
-
-
-fused_xent_de.launches = 0
-
-WRAPPERS = (fused_xent_fwd, fused_xent_dx, fused_xent_de)
+    n, v, d = _check("fused_xent_bwd", x, embed, targets,
+                     rows=(lse, c_lse, c_tgt))
+    lib, stream = _build.load(), _stream(x)
+    rows = (targets.data_ptr(), lse.data_ptr(), c_lse.data_ptr(),
+            c_tgt.data_ptr())
+    dx = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    de = torch.empty((v, d), dtype=torch.float32, device=x.device)
+    if x.dtype == torch.float32:
+        for name, fn, out in (("xent_bwd_dx", lib.rtt_xent_dx, dx),
+                              ("xent_bwd_de", lib.rtt_xent_de, de)):
+            _build.check(fn(x.data_ptr(), embed.data_ptr(), *rows,
+                            out.data_ptr(), n, v, d, stream), name)
+            LAUNCHES[name] += 1
+        return dx, de
+    n_pad = -(-n // _TILE_ROWS) * _TILE_ROWS
+    ldd = min(BWD_CHUNK, -(-v // _TILE_COLS) * _TILE_COLS)
+    dlog = torch.empty((n_pad, ldd), dtype=torch.bfloat16, device=x.device)
+    for v0 in range(0, v, BWD_CHUNK):
+        geom = (n, n_pad, d, v0, min(BWD_CHUNK, v - v0), ldd)
+        _build.check(lib.rtt_xent_dlog(x.data_ptr(), embed.data_ptr(), *rows,
+                                       dlog.data_ptr(), *geom, stream),
+                     "xent_dlog")
+        LAUNCHES["xent_dlog"] += 1
+        _build.check(lib.rtt_xent_dx_tc(dlog.data_ptr(), embed.data_ptr(),
+                                        dx.data_ptr(), *geom, int(v0 > 0),
+                                        stream), "xent_dx")
+        LAUNCHES["xent_dx"] += 1
+        _build.check(lib.rtt_xent_de_tc(dlog.data_ptr(), x.data_ptr(),
+                                        de.data_ptr(), *geom, stream),
+                     "xent_de")
+        LAUNCHES["xent_de"] += 1
+    return dx, de
 
 
 # ---------------------------------------------------------------------------
@@ -269,8 +309,7 @@ class _LseAndTarget(torch.autograd.Function):
         if ctx.kind == "scan":
             dx, de = xent_backward_reference(*args, ctx.chunk)
         else:
-            dx = fused_xent_dx(*args, chunk=ctx.chunk)
-            de = fused_xent_de(*args, chunk=ctx.chunk)
+            dx, de = fused_xent_bwd(*args, chunk=ctx.chunk)
         return dx.to(x.dtype), de.to(embed.dtype), None, None, None
 
 
@@ -298,11 +337,10 @@ def fused_softmax_xent(x, embed, targets, *, vocab_chunk: int = 512,
 
 
 def kernel_launches() -> dict:
-    """Launch count of each fused-xent kernel wrapper (the counters live
-    on the wrappers as ``.launches``)."""
-    return {f.__name__: f.launches for f in WRAPPERS}
+    """Launch count of each fused-xent kernel (`LAUNCHES`)."""
+    return dict(LAUNCHES)
 
 
 def reset_kernel_launches() -> None:
-    for f in WRAPPERS:
-        f.launches = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -9,7 +9,14 @@ largest magnitude (both sides form f32 products of the same inputs and
 differ only in summation order). bf16: nll 1e-4 (the same f32 math from
 bf16 inputs, whose products are exact in f32); dx and dembed per element
 2**-7 |ref| + 1e-6, since both are rounded once to bf16 at the autograd
-boundary and may land one bf16 ulp apart."""
+boundary and may land one bf16 ulp apart.
+
+The bf16 backward kernels round dlog to bf16 once before their two
+products; the card tests allow for that with 2**-8 (bf16's unit
+roundoff) times `xent_backward_abs_bound`. Here that bound is checked
+against dense logits, and an emulation of the rounding is held inside
+the card's limit (and shown not to be exact, so the limit is not
+vacuous)."""
 
 import jax
 import jax.numpy as jnp
@@ -131,8 +138,7 @@ def test_plain_versions_match_each_other_and_count_nothing():
     lse, tg = tfx.fused_xent_fwd(xt, et, tt, chunk=128)
     np.testing.assert_allclose((lse - tg).numpy(), outs[0][0].ravel())
     g = torch.full((B * T,), 1.0 / (B * T))
-    dx = tfx.fused_xent_dx(xt, et, tt, lse, g, -g, chunk=128)
-    de = tfx.fused_xent_de(xt, et, tt, lse, g, -g, chunk=128)
+    dx, de = tfx.fused_xent_bwd(xt, et, tt, lse, g, -g, chunk=128)
     np.testing.assert_allclose(dx.view(B, T, D).numpy(), outs[0][1])
     np.testing.assert_allclose(de.numpy(), outs[0][2])
 
@@ -145,3 +151,78 @@ def test_bad_impl_and_mesh_raise():
         tfx.fused_softmax_xent(x, emb, tgt, mesh=object())
     with pytest.raises(ValueError, match="wants x"):
         tfx.fused_softmax_xent(x[0], emb, tgt)
+
+
+def _bwd_inputs(v, dtype, seed):
+    """Flat x [B*T, D], E [V, D] in `dtype`, targets (a few outside [0,
+    V)), the reference lse and random cotangents, all on the CPU."""
+    x, emb, tgt = _inputs(v, seed=seed)
+    xt = torch.from_numpy(x).view(B * T, D).to(dtype)
+    et = torch.from_numpy(emb).to(dtype)
+    tgt = tgt.reshape(-1)
+    tgt[:3] = [-1, v, v + 7]
+    tt = torch.from_numpy(tgt)
+    lse, _ = tfx.lse_target_reference(xt, et, tt, chunk=128)
+    rng = np.random.default_rng(seed + 100)
+    cl = torch.from_numpy(rng.random(B * T).astype(np.float32))
+    ct = -torch.from_numpy(rng.random(B * T).astype(np.float32))
+    return xt, et, tt, lse, cl, ct
+
+
+def _dense_dlog(xt, et, tt, lse, cl, ct):
+    """dlog [N, V] f32 from the materialised logits."""
+    v = et.shape[0]
+    s = xt.float() @ et.float().t()
+    inside = (tt >= 0) & (tt < v)
+    hit = torch.zeros_like(s)
+    hit[inside.nonzero()[:, 0], tt[inside].long()] = 1.0
+    return cl[:, None] * torch.exp(s - lse[:, None]) + ct[:, None] * hit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_wrapper_on_cpu_is_the_reference(dtype):
+    """`fused_xent_bwd` on CPU tensors is `xent_backward_reference`, bit
+    for bit, and launches nothing."""
+    args = _bwd_inputs(517, dtype, seed=5)
+    before = tfx.kernel_launches()
+    got = tfx.fused_xent_bwd(*args, chunk=128)
+    assert tfx.kernel_launches() == before
+    want = tfx.xent_backward_reference(*args, chunk=128)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert torch.equal(g, w)
+
+
+def test_abs_bound_matches_dense_logits():
+    """`xent_backward_abs_bound`, chunk by chunk (ragged last chunk), is
+    |dlog| . |E| and |dlog|^T . |x| of the dense dlog."""
+    xt, et, tt, lse, cl, ct = _bwd_inputs(517, torch.float32, seed=6)
+    bx, be = tfx.xent_backward_abs_bound(xt, et, tt, lse, cl, ct, chunk=128)
+    dlog = _dense_dlog(xt, et, tt, lse, cl, ct).abs()
+    torch.testing.assert_close(bx, dlog @ et.abs(), rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(be, dlog.t() @ xt.abs(), rtol=1e-5,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("v", [517, 130])
+def test_bf16_dlog_rounding_stays_inside_the_card_limit(v):
+    """dlog rounded to bf16 once, then f32 products (what the bf16
+    kernels compute) lies within 2**-8 * bound of the f32 plain backward
+    (2**-8 is bf16's unit roundoff: 8 significant bits), hence inside the
+    card tests' limit 1e-4 (max|ref| + |ref|) + 2**-8 * bound, and
+    differs from it: the rounding term carries the limit."""
+    xt, et, tt, lse, cl, ct = _bwd_inputs(v, torch.bfloat16, seed=7)
+    ref = tfx.xent_backward_reference(xt, et, tt, lse, cl, ct, chunk=128)
+    bound = tfx.xent_backward_abs_bound(xt, et, tt, lse, cl, ct, chunk=128)
+    dlog = _dense_dlog(xt, et, tt, lse, cl, ct).bfloat16().float()
+    emu = (dlog @ et.float(), dlog.t() @ xt.float())
+    for e, r, b in zip(emu, ref, bound):
+        err = (e - r).abs()
+        f32_slack = 1e-6 * (r.abs().max() + r.abs())
+        assert torch.all(err <= 2 ** -8 * b + f32_slack)
+        limit = 1e-4 * (r.abs().max() + r.abs()) + 2 ** -8 * b
+        assert torch.all(err <= limit)
+        assert err.max() > 0
+        # the rounding, not the f32 term, is what the limit has to cover
+        assert (err / (2 ** -8 * b).clamp_min(1e-30)).max() > 0.1
+        assert err.max() > 1e-4 * r.abs().max()

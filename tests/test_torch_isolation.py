@@ -116,15 +116,16 @@ def test_build_compiles_every_source_into_its_own_library():
                for p, s in zip(libs, _build.sources()))
     assert {"rtt_flash_fwd", "rtt_flash_dq", "rtt_flash_dkv",
             "rtt_paged_decode", "rtt_paged_mq", "rtt_decode",
-            "rtt_xent_fwd", "rtt_xent_dx", "rtt_xent_de"} \
-        <= set(_build.SIGNATURES)
+            "rtt_xent_fwd", "rtt_xent_dx", "rtt_xent_de", "rtt_xent_dlog",
+            "rtt_xent_dx_tc", "rtt_xent_de_tc"} <= set(_build.SIGNATURES)
     for src, names in (
             ("flash_attention.cu", ("rtt_flash_fwd", "rtt_flash_dq",
                                     "rtt_flash_dkv")),
             ("paged_attention.cu", ("rtt_paged_decode", "rtt_paged_mq",
                                     "rtt_decode")),
             ("fused_xent.cu", ("rtt_xent_fwd", "rtt_xent_dx",
-                               "rtt_xent_de"))):
+                               "rtt_xent_de", "rtt_xent_dlog",
+                               "rtt_xent_dx_tc", "rtt_xent_de_tc"))):
         text = (_build.CSRC / src).read_text()
         for name in names:
             assert f'extern "C" int {name}(' in text

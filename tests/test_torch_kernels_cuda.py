@@ -173,25 +173,33 @@ def test_dense_decode_kernel_matches_plain(dev, dtype, d):
 
 
 # ---------------------------------------------------------------------------
-# fused cross-entropy: forward, dx, dE against the plain versions
+# fused cross-entropy: forward and backward against the plain versions
 # ---------------------------------------------------------------------------
 # lse, the target logit, dx and dE are f32 on both sides, summed in f32
 # from the same inputs (bf16 products are exact in f32) in another order:
 # over D products per logit and over V (dx) or N (dE) terms per gradient
 # element. Per element |kernel - plain| <= 1e-4 * max|plain| + 1e-4 *
 # |plain|, far above that rounding (~1e-6 relative) and far below any
-# masking or indexing fault.
+# masking or indexing fault. The bf16 backward also rounds dlog to bf16
+# once before its two products, which moves each element by at most
+# bf16's unit roundoff 2**-8 times |dlog| . |E| (dx) or |dlog|^T . |x|
+# (dE): that term is added for bf16 (`xent_backward_abs_bound`).
 
-def _xent_close(got, ref):
+def _xent_close(got, ref, bound=None):
     limit = 1e-4 * ref.abs().max() + 1e-4 * ref.abs()
+    if bound is not None:
+        limit = limit + 2 ** -8 * bound
     over = ((got - ref).abs() - limit).max().item()
     assert over <= 0, f"off by {over:.3e} beyond its limit"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128, 1024])
-@pytest.mark.parametrize("n,v", [(256, 1024), (77, 517)])
+@pytest.mark.parametrize("n,v", [(256, 1024), (77, 517), (300, 9000)])
 def test_fused_xent_kernels_match_plain(dev, dtype, d, n, v):
+    """(300, 9000): V spans three vocabulary chunks of the bf16 backward,
+    the last ragged (808 rows), and N is not a multiple of its row tile,
+    so dx's accumulation across chunks and every masked edge run."""
     from ray_tpu_torch.ops import fused_xent as fx
     g = torch.Generator(device=dev).manual_seed(n + v + d)
     x = torch.randn((n, d), generator=g, device=dev).to(dtype)
@@ -201,18 +209,28 @@ def test_fused_xent_kernels_match_plain(dev, dtype, d, n, v):
     t[:3] = torch.tensor([-1, v, v + 7])        # outside [0, V): tgt 0
     cl = torch.rand((n,), generator=g, device=dev)
     ct = -torch.rand((n,), generator=g, device=dev)
-    before = [f.launches for f in fx.WRAPPERS]
+    before = fx.kernel_launches()
     lse, tgt = fx.fused_xent_fwd(x, e, t)
     ref_lse, ref_tgt = fx.lse_target_reference(x, e, t)
     _xent_close(lse, ref_lse)
     _xent_close(tgt, ref_tgt)
     assert torch.all(tgt[:3] == 0)
-    dx = fx.fused_xent_dx(x, e, t, ref_lse, cl, ct)
-    de = fx.fused_xent_de(x, e, t, ref_lse, cl, ct)
-    ref_dx, ref_de = fx.xent_backward_reference(x, e, t, ref_lse, cl, ct)
-    _xent_close(dx, ref_dx)
-    _xent_close(de, ref_de)
-    assert [f.launches for f in fx.WRAPPERS] == [b + 1 for b in before]
+    args = (x, e, t, ref_lse, cl, ct)
+    dx, de = fx.fused_xent_bwd(*args)
+    ref_dx, ref_de = fx.xent_backward_reference(*args)
+    bound = (fx.xent_backward_abs_bound(*args) if dtype == torch.bfloat16
+             else (None, None))
+    _xent_close(dx, ref_dx, bound[0])
+    _xent_close(de, ref_de, bound[1])
+    # bf16: three kernels per vocabulary chunk; f32: one launch each
+    chunks = -(-v // fx.BWD_CHUNK)
+    grew = (dict.fromkeys(("xent_dlog", "xent_dx", "xent_de"), chunks)
+            if dtype == torch.bfloat16 else
+            dict.fromkeys(("xent_bwd_dx", "xent_bwd_de"), 1))
+    grew["fused_xent_fwd"] = 1
+    after = fx.kernel_launches()
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: grew.get(k, 0) for k in after}
 
 
 def test_fused_xent_unsupported_inputs_raise(dev):
