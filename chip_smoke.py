@@ -25,12 +25,13 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    engine's per-token logprobs;
 4. profile: a short engine run under ``torch.profiler``, device time by
    kernel name and the device's busy share of the wall time;
-5. flash kernels vs plain: forward (out, lse), dQ and dK/dV against
-   their plain versions at the training shape (B 8, T 1024, H 16, D 64)
-   in bf16 and f32, causal and full, and at a ragged T of 1000; device
-   time, bound, plain time and the library time
-   (``scaled_dot_product_attention`` forward, and its backward through
-   autograd for the two backward kernels);
+5. flash kernels vs plain: forward (out, lse; bf16 on the tensor-core
+   kernel, f32 on the CUDA-core one), dQ and dK/dV against their plain
+   versions at the training shape (B 8, T 1024, H 16, D 64) in bf16 and
+   f32, causal and full, and at a ragged T of 1000; device time, bound,
+   plain time and the library time (``scaled_dot_product_attention``
+   forward, and its backward through autograd for the two backward
+   kernels);
 6. training at the width of ``bench.py``'s GPT (the model above, bf16
    activations over f32 masters, flash attention, bf16 logits, remat
    "dots", dense loss, batch 8 x 1024): (a) loss and every gradient
@@ -44,11 +45,13 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    1 nat;
 7. fused cross-entropy kernels vs plain: the forward (lse, target logit)
    and the backward (dx, dE) against their plain versions at bench.py's
-   loss shape (N 24576 rows, vocab 50304, D 1024) in bf16 (the backward
-   on the tensor cores, 13 vocabulary chunks) and f32 (CUDA cores) and at
-   a ragged N 1000, V 50257; device time, bound, plain time and cuBLAS's
-   time for the same products, for the forward, each backward kernel
-   (summed over its chunks) and the whole backward;
+   loss shape (N 24576 rows, vocab 50304, D 1024) in bf16 (on the tensor
+   cores: the forward's tile and merge kernels, the backward's three
+   kernels over 13 vocabulary chunks) and f32 (CUDA cores) and at a
+   ragged N 1000, V 50257; device time, bound, plain time and cuBLAS's
+   time for the same products, for the forward (and each of its two
+   kernels), each backward kernel (summed over its chunks) and the whole
+   backward;
 8. bench.py's own training configuration (phase 6's model with the fused
    loss at batch 24, unroll 4, prefetch 2, metrics interval 10; 4
    warm-up and 20 timed steps): (a) fused against dense loss and every
@@ -736,9 +739,11 @@ def phase_train(dev) -> dict:
     losses = [float(m["loss"]) for m in hist]
     if len(hist) != steps or not all(math.isfinite(x) for x in losses):
         fail(f"train loop returned {len(hist)} steps, losses {losses}")
-    for name in ("flash_forward", "flash_dq", "flash_dkv"):
+    for name in ("flash_forward", "flash_fwd_tc", "flash_dq", "flash_dkv"):
         if launches[name] <= 0:
             fail(f"{name} was not launched on the training path")
+    if launches["flash_fwd_simt"]:
+        fail("the bf16 training path ran the CUDA-core flash forward")
     tok_s = tokens_per_step * steps / wall
     mfu = train.last_mfu
     print(f"  (c) warm-up {2 * unroll} steps in {warm_s:.1f} s; {steps} "
@@ -854,23 +859,39 @@ def _xent_check(what, got, ref, rounding=None) -> float:
     return err
 
 
-def device_ms_by_kernel(fn, args, reps: int = 3) -> dict:
-    """{kernel name: device ms per call of fn}, summed over the call's
-    launches of that kernel, from torch.profiler over `reps` calls."""
+def device_ms_by_kernel(fn, args, launches: dict, reps: int = 3) -> dict:
+    """{kernel: {"ms": device ms per call of fn, "records": launches the
+    profiler recorded, "launched": launches made}} for each kernel name
+    in `launches` (name -> launches per call of fn), from torch.profiler
+    over `reps` calls: the mean device time of a recorded launch times
+    the launches per call, so a launch the profiler did not record
+    cannot shrink the time (the two counts show whether one was lost)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # The profiler has missed the first 3 launches of a window on an
+        # H100: short spin kernels take their place.
+        for _ in range(4):
+            torch.cuda._sleep(1000)
         for _ in range(reps):
             fn(*args)
         torch.cuda.synchronize()
-    out = {}
+    out = {k: {"ms": 0.0, "records": 0, "launched": n * reps}
+           for k, n in launches.items()}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            out[e.key] = out.get(e.key, 0.0) + \
-                e.self_device_time_total * 1e-3 / reps
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k, rec in out.items():
+            if f"{k}_kernel" in e.key:
+                rec["ms"] += e.self_device_time_total * 1e-3
+                rec["records"] += e.count
+    for k, rec in out.items():
+        if not rec["records"]:
+            fail(f"the profiler recorded no launch of {k}_kernel")
+        rec["ms"] *= launches[k] / rec["records"]
     return out
 
 
@@ -921,15 +942,20 @@ def phase_xent(dev) -> dict:
     bwd = (x, e, t, lse, cl, -cl)
     rec["fwd"]["ms"] = time_long_ms(fx.fused_xent_fwd, (x, e, t))
     rec["fwd"]["plain_ms"] = time_long_ms(fx.lse_target_reference, (x, e, t))
+    # the forward's two kernels: tile partials, then their merge
+    rec["fwd"]["kernels"] = device_ms_by_kernel(
+        fx.fused_xent_fwd, (x, e, t), {"xent_fwd_tc": 1, "xent_fwd_merge": 1})
+    rec["fwd"]["workspace_mib"] = -(-XV // 256) * XN * 8 / 2 ** 20
     whole = {"ms": time_long_ms(fx.fused_xent_bwd, bwd),
              "plain_ms": time_long_ms(fx.xent_backward_reference, bwd)}
     # each backward kernel's device time, summed over its launches (one
     # per vocabulary chunk) in one backward
-    by_name = device_ms_by_kernel(fx.fused_xent_bwd, bwd)
     chunks = -(-XV // fx.BWD_CHUNK)
-    parts = {k: {"ms": sum(ms for n, ms in by_name.items()
-                           if f"{k}_kernel" in n), "launches_per_call": chunks}
-             for k in ("xent_dlog", "xent_dx", "xent_de")}
+    parts = device_ms_by_kernel(fx.fused_xent_bwd, bwd,
+                                dict.fromkeys(("xent_dlog", "xent_dx",
+                                               "xent_de"), chunks))
+    for p in parts.values():
+        p["launches_per_call"] = chunks
     # cuBLAS (bf16 in, bf16 out, f32 accumulation) for the same products:
     # the logits s = x . E^T (the forward's and the dlog kernel's), s . E
     # (dx's), s^T . x (dE's), and the three in a row (the backward). Timed
@@ -966,12 +992,20 @@ def phase_xent(dev) -> dict:
             bound_by=own["bound_by"])
     rec["bwd"], rec["bwd_kernels"] = whole, parts
     shape = f"[bf16 N={XN} V={XV} D={XD}]"
-    print(f"  xent fwd: kernel {rec['fwd']['ms']:.3f} ms, plain "
+    fk = rec["fwd"]["kernels"]
+    print(f"  xent fwd: kernels {rec['fwd']['ms']:.3f} ms (xent_fwd_tc "
+          f"{fk['xent_fwd_tc']['ms']:.3f} + xent_fwd_merge "
+          f"{fk['xent_fwd_merge']['ms']:.3f}, profiler records "
+          f"{fk['xent_fwd_tc']['records']}/{fk['xent_fwd_tc']['launched']} "
+          f"and {fk['xent_fwd_merge']['records']}/"
+          f"{fk['xent_fwd_merge']['launched']}; workspace "
+          f"{rec['fwd']['workspace_mib']:.1f} MiB), plain "
           f"{rec['fwd']['plain_ms']:.3f} ms, cuBLAS "
           f"{rec['fwd']['library_ms']:.3f} ms, bound "
           f"{rec['fwd']['bound_ms']:.3f} ms ({rec['fwd']['bound_by']}) {shape}")
     for k, p in parts.items():
-        print(f"  {k}_kernel x {chunks}: {p['ms']:.3f} ms, cuBLAS "
+        print(f"  {k}_kernel x {chunks} ({p['records']}/{p['launched']} "
+              f"profiler records): {p['ms']:.3f} ms, cuBLAS "
               f"{p['library_ms']:.3f} ms, bound {p['bound_ms']:.3f} ms "
               f"({p['bound_by']}) {shape}")
     print(f"  xent backward (dlog + dx + dE): {whole['ms']:.3f} ms, plain "
@@ -1083,10 +1117,14 @@ def phase_fused_train(dev) -> dict:
     losses = [float(m["loss"]) for m in hist]
     if len(hist) != FUSED_STEPS or not all(math.isfinite(x) for x in losses):
         fail(f"train loop returned {len(hist)} steps, losses {losses}")
-    for name in ("flash_forward", "flash_dq", "flash_dkv", "fused_xent_fwd",
+    for name in ("flash_forward", "flash_fwd_tc", "flash_dq", "flash_dkv",
+                 "fused_xent_fwd", "xent_fwd_tc", "xent_fwd_merge",
                  "xent_dlog", "xent_dx", "xent_de"):
         if launches[name] <= 0:
             fail(f"{name} was not launched on the fused training path")
+    for name in ("flash_fwd_simt", "xent_fwd_simt"):
+        if launches[name]:
+            fail(f"the bf16 fused training path ran {name} (CUDA cores)")
     tok_s = tokens_per_step * FUSED_STEPS / wall
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"  (c) warm-up {FUSED_WARMUP} steps in {warm_s:.1f} s; "
@@ -1407,6 +1445,20 @@ def main() -> int:
             # dlog kernel that both rows share (phase 7)
             rows[-1].update(kernels=[f"{wrapper}_kernel", "xent_dlog_kernel"],
                             dlog_launches=launches["xent_dlog"])
+        elif key == "flash_forward":
+            # bf16 at D 64: the tensor-core kernel (phase 5)
+            rows[-1].update(kernels=["flash_fwd_tc_kernel"],
+                            kernel_launches={"flash_fwd_tc":
+                                             launches["flash_fwd_tc"]})
+        elif key == "fused_xent_fwd":
+            # bf16: the tile kernel and the merge, one launch each per call
+            rows[-1].update(kernels=["xent_fwd_tc_kernel",
+                                     "xent_fwd_merge_kernel"],
+                            kernel_launches={
+                                k: launches[k]
+                                for k in ("xent_fwd_tc", "xent_fwd_merge")},
+                            kernel_ms={k: v["ms"]
+                                       for k, v in rec["kernels"].items()})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

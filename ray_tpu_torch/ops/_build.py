@@ -3,11 +3,13 @@
 Every source under ``csrc/`` (``*.cu``) exposes a plain C interface, so
 each is compiled by ``nvcc`` straight into a shared library of its own
 and bound with `ctypes` (no PyTorch headers, so a build takes seconds,
-not minutes). The libraries are built at first use into
+not minutes). The headers beside them (``*.cuh``) hold device code that
+several sources include. The libraries are built at first use into
 ``ray_tpu_torch/_build/`` (listed in ``.gitignore``), each named by a
-hash of its own source and the flags, so an edited source rebuilds and
-an unchanged one loads from disk. Sources that need building are
-compiled in parallel, one ``nvcc`` process each, all started together.
+hash of its own source, the headers and the flags, so an edited source
+or header rebuilds and an unchanged one loads from disk. Sources that
+need building are compiled in parallel, one ``nvcc`` process each, all
+started together.
 
 Nothing here runs at import time: this module is imported on machines
 without ``nvcc`` (the CPU tests), and only a CUDA tensor reaching a
@@ -43,11 +45,15 @@ SIGNATURES = {
     "rtt_error_string": ([_I], ctypes.c_char_p),
     "rtt_flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
                       _I),
+    "rtt_flash_fwd_tc": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+                         _I),
     "rtt_flash_dq": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                       _I, _P], _I),
     "rtt_flash_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                        _I, _I, _P], _I),
-    "rtt_xent_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "rtt_xent_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "rtt_xent_fwd_tc": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "rtt_xent_fwd_merge": ([_P, _P, _P, _P, _I, _I, _P], _I),
     "rtt_xent_dx": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "rtt_xent_de": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "rtt_xent_dlog": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -71,6 +77,8 @@ def nvcc_path() -> str:
 
 def _lib_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared by the sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

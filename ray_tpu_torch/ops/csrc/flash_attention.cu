@@ -1,12 +1,14 @@
 // Flash attention, forward and backward, hand-written for Hopper (sm_90a).
-// Three kernels, one per TPU kernel they replace:
+// The kernels and the TPU kernels they replace:
 //
-//   flash_fwd_kernel  replaces ray_tpu/ops/flash_attention.py::_flash_kernel
-//                     (online-softmax forward, causal tile skip, lse)
-//   flash_dq_kernel   replaces ray_tpu/ops/flash_attention.py::_dq_kernel
-//                     (dQ = sm * sum_kv dS K, P rebuilt from lse)
-//   flash_dkv_kernel  replaces ray_tpu/ops/flash_attention.py::_dkv_kernel
-//                     (dV = sum_q P^T dO, dK = sm * sum_q dS^T Q)
+//   flash_fwd_tc_kernel  replaces ray_tpu/ops/flash_attention.py::_flash_kernel
+//                        (online-softmax forward, causal tile skip, lse) for
+//                        bf16 at D 64 and 128, on the tensor cores
+//   flash_fwd_kernel     the same on CUDA cores, for f32 and for bf16 at D 32
+//   flash_dq_kernel      replaces ray_tpu/ops/flash_attention.py::_dq_kernel
+//                        (dQ = sm * sum_kv dS K, P rebuilt from lse)
+//   flash_dkv_kernel     replaces ray_tpu/ops/flash_attention.py::_dkv_kernel
+//                        (dV = sum_q P^T dO, dK = sm * sum_q dS^T Q)
 //
 // They compute what the Pallas kernels compute, not block by block:
 //
@@ -23,22 +25,50 @@
 //   runs here; the reference's XLA fallback for T without a 128-multiple
 //   divisor has no counterpart.
 //
-// Numerics follow the reference: scores in f32 from (q * sm_scale) . k;
-// masked scores are the finite NEG_INF; the forward rounds p to v's
-// dtype before p . V (so bf16 outputs match JAX's) while l sums the f32
-// p; the backward rebuilds p = exp(s - lse) and dS = p * (dO . V^T -
-// delta) in f32 and writes dq/dk/dv in the input dtype.
+// Numerics follow the reference: scores in f32 from (q * sm_scale) . k
+// (the tensor-core forward scales the f32 product q . k instead: the same
+// value at D 64, where sm_scale is a power of two, and one f32 rounding
+// apart otherwise); masked scores are the finite NEG_INF; the forward
+// rounds p to v's dtype before p . V, relative to the running row max (so
+// bf16 outputs match JAX's), while l sums the f32 p; the backward
+// rebuilds p = exp(s - lse) and dS = p * (dO . V^T - delta) in f32 and
+// writes dq/dk/dv in the input dtype.
 //
-// What bounds them on an H100: at the training shape (T 1024, D 64,
-// bf16) each kernel does ~D/2 flops per byte it must move, so the
-// tensor cores' 989 TFLOP/s (not the 3.35 TB/s) set the bound: ~20 us
-// forward, ~26 us dQ, ~35 us dK/dV causal. This first version is the
-// simple one: 64 x 64 tiles of f32 FMA on CUDA cores from shared memory
-// (each thread owns a 4 x 8 block of scores and a 4 x D/8 block of the
-// accumulator, rows spaced 16 apart and columns 8 apart so a warp reads
-// shared memory without bank conflicts), so it runs at the CUDA cores'
-// rate, far from the bound. Tensor-core tiles (mma/wgmma), TMA/cp.async
-// double buffering and split work for short causal rows are later work.
+// What bounds them on an H100: at the training shape (B 8, T 1024, H 16,
+// D 64, causal, bf16) the forward moves 67 MB and does 2.1 GFLOP, so the
+// 3.35 TB/s bound it (~20 us); dQ and dK/dV add products and are bound by
+// the tensor cores' 989 TFLOP/s (~26 and ~35 us).
+//
+// The bf16 forward on the tensor cores (flash_fwd_tc_kernel): a CTA owns
+// 128 query rows of one (b, h), two consumer warpgroups of 64 rows each,
+// and one producer warp that loads the Q tile once and then streams K and
+// V tiles of 128 keys by TMA through a 2-stage mbarrier ring; the maps
+// are 4-D, (D, H, T, B) over [B, T, H, D] with boxes of 64 columns x 1
+// head x 128 rows, so a box never crosses into another head or batch and
+// rows past T read as zeros. Per kv tile, S = Q K^T is a
+// wgmma.m64n128k16 chain (both operands K-major, 128-byte swizzled); the
+// online softmax runs on S's accumulators (row max and sum across the 4
+// lanes of a quad, exp2f of scores prescaled by sm_scale * log2(e), masks
+// only on the diagonal and ragged tiles); P is rounded to bf16 straight
+// into the A registers of O += P V, a wgmma.m64n{D}k16 chain with V read
+// MN-major through the transpose bit. O is rescaled by exp(m_old - m_new)
+// between tiles and divided by l at the end. Causal CTAs skip the tiles
+// above the diagonal, and the grid starts the heaviest query tiles first.
+// This is the simple version: each warpgroup waits for its products
+// before the softmax (no ping-pong between the warpgroups; issuing the
+// next S and this P . V together, with the softmax under P . V, measured
+// no faster at the training shape), O is stored from registers, and at
+// 167 registers a thread one CTA fills an SM, so a CTA's first loads are
+// not overlapped with another's work.
+//
+// The CUDA-core kernels (f32, the backward, and bf16 forward at D 32,
+// whose 64-byte rows are under the 128-byte swizzle span the
+// tensor-core kernel's TMA boxes use) are the simple first version: 64 x
+// 64 tiles of f32 FMA from shared memory (each thread owns a 4 x 8 block
+// of scores and a 4 x D/8 block of the accumulator, rows spaced 16 apart
+// and columns 8 apart so a warp reads shared memory without bank
+// conflicts), so they run at the CUDA cores' rate, far from the bound.
+// Tensor-core tiles for the backward are later work.
 //
 // Each extern "C" entry launches on the given stream and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a head dim it has no
@@ -47,6 +77,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -499,6 +531,345 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forward on the tensor cores (D 64 and 128)
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using namespace hopper;
+using bf16 = __nv_bfloat16;
+constexpr int BM = 128;                  // query rows of a CTA
+constexpr int BN = 128;                  // keys of a kv tile
+constexpr int STAGES = 2;                // kv tiles in flight
+constexpr int CONSUMERS = 256;           // 2 warpgroups of 64 query rows
+constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
+constexpr int BOX = 128;                 // bytes of a box row: 64 bf16 columns
+
+template <int D>
+struct Geom {
+  static_assert(D == 64 || D == 128, "the tensor-core forward takes D 64, 128");
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;   // one of K, V
+  static constexpr int SMEM =
+      1024 + Q_BYTES + STAGES * 2 * KV_BYTES + (1 + 2 * STAGES) * 8;
+};
+
+// d[0:64] (+)= A (64 x 16, descriptor da) . B (16 x 128, descriptor db),
+// both K-major: one wgmma.m64n128k16, bf16 in, f32 accumulators; with
+// accumulate = 0 the product overwrites d.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[0:32] += A (64 x 16: four registers of bf16 pairs) . B (16 x 64,
+// descriptor db, MN-major): one wgmma.m64n64k16 with A from registers.
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0:64] += A (64 x 16: four registers of bf16 pairs) . B (16 x 128,
+// descriptor db, MN-major): one wgmma.m64n128k16 with A from registers.
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// out = softmax(q k^T * scale, causal) v and lse for 128 query rows of one
+// (b, h): CTA (bh, i) takes query tile nt - 1 - i, so the heaviest causal
+// tiles start first. mq, mk, mv: 4-D maps (D, H, T, B) over [B, T, H, D]
+// with boxes of 64 columns x 1 head x 128 rows x 1 batch (rows past T
+// read as zeros). Shared memory: Q [D / 64 atoms][128 rows][128 B], then
+// per stage K and V alike, all 128-byte swizzled.
+//
+// Register layouts (wgmma m64nN f32 accumulators): s[4 j + 2 hh + c] is
+// query row 64 wg + 16 warp + lane / 4 + 8 hh of the CTA's tile, key
+// 8 j + 2 (lane % 4) + c of the kv tile; o the same with column d. The
+// bf16 A fragment of k step kk of P . V is s[8 kk + 2 r], s[8 kk + 2 r + 1]
+// for register r < 4, so P goes from S's accumulators to A registers
+// without a shuffle.
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                        const __grid_constant__ CUtensorMap mk,
+                        const __grid_constant__ CUtensorMap mv,
+                        bf16* __restrict__ out, float* __restrict__ lse,
+                        int Tn, int H, float scale_log2) {
+  using G = Geom<D>;
+  constexpr int ATOMS = D / 64;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sq = (smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t skv = sq + G::Q_BYTES;   // stage s: K, then V
+  const uint32_t q_full = skv + STAGES * 2 * G::KV_BYTES;
+  const uint32_t full = q_full + 8, empty = full + 8 * STAGES;
+
+  const int nt = (Tn + BM - 1) / BM;
+  const int q0 = (nt - 1 - static_cast<int>(blockIdx.y)) * BM;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int last = min(q0 + BM, Tn) - 1;
+  const int n_kv = CAUSAL ? last / BN + 1 : (Tn + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {   // producer warp: one thread issues TMA
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(q_full, G::Q_BYTES);
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a)
+        tma_load_4d(sq + a * BM * BOX, &mq, 64 * a, h, q0, b, q_full);
+      for (int t = 0; t < n_kv; ++t) {
+        const int st = t % STAGES;
+        if (t >= STAGES) mbar_wait(empty + 8 * st, (t / STAGES - 1) & 1);
+        const uint32_t bar = full + 8 * st;
+        mbar_expect_tx(bar, 2 * G::KV_BYTES);
+        const uint32_t sk = skv + st * 2 * G::KV_BYTES;
+        const uint32_t sv = sk + G::KV_BYTES;
+#pragma unroll
+        for (int a = 0; a < ATOMS; ++a) {
+          tma_load_4d(sk + a * BN * BOX, &mk, 64 * a, h, t * BN, b, bar);
+          tma_load_4d(sv + a * BN * BOX, &mv, 64 * a, h, t * BN, b, bar);
+        }
+      }
+    }
+    return;
+  }
+
+  constexpr float kLn2 = 0.6931471805599453f;
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  const int row_lo = q0 + 64 * wg + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  // Scores in log2 units: x = q . k * scale * log2(e); m is the running
+  // max of x, l this thread's part of the running sum of exp2(x - m).
+  float s[64], o[D / 2];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_kv; ++t) {
+    const int st = t % STAGES, k0 = t * BN;
+    const uint32_t sk = skv + st * 2 * G::KV_BYTES;
+    const uint32_t sv = sk + G::KV_BYTES;
+    mbar_wait(full + 8 * st, (t / STAGES) & 1);
+
+    // S = Q K^T: K-major operands, the next 16 d are 32 bytes along the
+    // swizzled row, the next 64 d the next atom.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = smem_desc(
+          sq + (kk >> 2) * BM * BOX + wg * 64 * BOX + (kk & 3) * 32, 16, 1024);
+      const uint64_t db =
+          smem_desc(sk + (kk >> 2) * BN * BOX + (kk & 3) * 32, 16, 1024);
+      wgmma_qk(s, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // Online softmax. Only the diagonal tile (causal) and the ragged last
+    // tile mask; the 4 lanes of a quad hold a row's 128 keys.
+    const bool edge = k0 + BN > Tn || (CAUSAL && k0 + BN - 1 > q0 + 64 * wg);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row_lo + 8 * hh;
+      float mt = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float x = s[4 * j + 2 * hh + c] * scale_log2;
+          if (edge) {
+            const int col = k0 + 8 * j + cq + c;
+            if (col >= Tn || (CAUSAL && col > row)) x = kNegInf;
+          }
+          s[4 * j + 2 * hh + c] = x;
+          mt = fmaxf(mt, x);
+        }
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float m_new = fmaxf(m[hh], mt);
+      const float corr = exp2f(m[hh] - m_new);
+      m[hh] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = exp2f(s[4 * j + 2 * hh + c] - m_new);
+          s[4 * j + 2 * hh + c] = p;
+          rs += p;
+        }
+      l[hh] = l[hh] * corr + rs;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) o[4 * j + 2 * hh + c] *= corr;
+    }
+
+    // O += P V: P rounded to bf16 (v's dtype) in A registers; V is
+    // MN-major (d contiguous): the next 16 keys are 16 rows of 128 B
+    // further, the next 64 d the next atom (BN rows of 128 B).
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const __nv_bfloat162 pr =
+            __floats2bfloat162_rn(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        pa[kk][r] = *reinterpret_cast<const uint32_t*>(&pr);
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_pv(o, pa[kk], smem_desc(sv + kk * 16 * BOX, BN * BOX, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(empty + 8 * st);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lt = l[hh];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int row = row_lo + 8 * hh;
+    if (row < Tn) {
+      const float inv = 1.f / lt;
+      bf16* op = out + ((size_t)(b * Tn + row) * H + h) * D + cq;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
+            o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[(size_t)bh * Tn + row] = (m[hh] + log2f(lt)) * kLn2;
+    }
+  }
+}
+
+// A 4-D map (D, H, T, B) over a contiguous [B, T, H, D] bf16 tensor with
+// boxes of 64 columns x 1 x BM rows x 1.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int Tn, int H, int D) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(Tn),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(H) * D * 2,
+                                 static_cast<cuuint64_t>(Tn) * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, BM, 1};
+  return encode_bf16(map, ptr, 4, dims, strides, box);
+}
+
+template <int D, bool C>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
+                       float* lse, int B, int Tn, int H, float scale,
+                       cudaStream_t s) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, B, Tn, H, D) || !make_map(&mk, k, B, Tn, H, D) ||
+      !make_map(&mv, v, B, Tn, H, D))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<D, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Geom<D>::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Tn + BM - 1) / BM);
+  flash_fwd_tc_kernel<D, C><<<grid, THREADS, Geom<D>::SMEM, s>>>(
+      mq, mk, mv, static_cast<bf16*>(out), lse, Tn, H,
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 constexpr size_t fwd_smem(int D) {
   return (size_t)(2 * D * LD + BT * D + BT * LD) * sizeof(float);
 }
@@ -564,8 +935,11 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 // Calls F<T, D, causal>::run(args...) for the runtime (dtype, D, causal);
-// cudaErrorInvalidValue when there is no such instantiation.
-template <template <typename, int, bool> class F, typename... A>
+// cudaErrorInvalidValue when there is no such instantiation. Without
+// kBf16Wide, bf16 takes D 32 only (the forward: wider bf16 heads run on
+// the tensor cores).
+template <template <typename, int, bool> class F, bool kBf16Wide = true,
+          typename... A>
 cudaError_t dispatch(int dtype, int D, int causal, A... args) {
 #define RTT_CASE(T, DD)                                              \
   if (D == DD)                                                       \
@@ -577,8 +951,10 @@ cudaError_t dispatch(int dtype, int D, int causal, A... args) {
     RTT_CASE(float, 128)
   } else if (dtype == 1) {
     RTT_CASE(__nv_bfloat16, 32)
-    RTT_CASE(__nv_bfloat16, 64)
-    RTT_CASE(__nv_bfloat16, 128)
+    if constexpr (kBf16Wide) {
+      RTT_CASE(__nv_bfloat16, 64)
+      RTT_CASE(__nv_bfloat16, 128)
+    }
   }
 #undef RTT_CASE
   return cudaErrorInvalidValue;
@@ -617,15 +993,37 @@ struct Dkv {
 
 }  // namespace
 
-// q, k, v, out: [B, T, H, D] contiguous; lse: [B*H, T] f32 or null (the
-// inference variant skips its write). dtype: 0 = float32, 1 = bfloat16.
+// The forward on CUDA cores: float32 (dtype 0) at D 32, 64, 128 and
+// bfloat16 (dtype 1) at D 32. q, k, v, out: [B, T, H, D] contiguous; lse:
+// [B*H, T] f32 or null (the inference variant skips its write).
 extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int T, int H, int D,
                              float scale, int causal, int dtype,
                              void* stream) {
-  return static_cast<int>(dispatch<Fwd>(
+  return static_cast<int>(dispatch<Fwd, false>(
       dtype, D, causal, q, k, v, out, static_cast<float*>(lse), B, T, H,
       scale, static_cast<cudaStream_t>(stream)));
+}
+
+// The bfloat16 forward on the tensor cores at D 64 and 128: the same
+// arguments, 16-byte-aligned tensors.
+extern "C" int rtt_flash_fwd_tc(const void* q, const void* k, const void* v,
+                                void* out, void* lse, int B, int T, int H,
+                                int D, float scale, int causal,
+                                void* stream) {
+  float* l = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || T <= 0 || H <= 0) return cudaErrorInvalidValue;
+  if (D == 64)
+    return causal ? tc::launch_fwd<64, true>(q, k, v, out, l, B, T, H, scale, s)
+                  : tc::launch_fwd<64, false>(q, k, v, out, l, B, T, H, scale,
+                                              s);
+  if (D == 128)
+    return causal
+               ? tc::launch_fwd<128, true>(q, k, v, out, l, B, T, H, scale, s)
+               : tc::launch_fwd<128, false>(q, k, v, out, l, B, T, H, scale,
+                                            s);
+  return cudaErrorInvalidValue;
 }
 
 // dout, dq: [B, T, H, D]; lse, delta: [B*H, T] f32.

@@ -1,9 +1,15 @@
 // Fused cross-entropy over a tied embedding, hand-written for Hopper
 // (sm_90a). The kernels and the TPU kernels they replace:
 //
-//   xent_fwd_kernel  replaces ray_tpu/ops/fused_xent.py::_fwd_kernel
-//                    (per row: logsumexp of x . E^T over the vocabulary and
-//                    the raw target logit, without the [N, V] logits)
+//   forward, replacing ray_tpu/ops/fused_xent.py::_fwd_kernel (per row:
+//   logsumexp of x . E^T over the vocabulary and the raw target logit,
+//   without the [N, V] logits):
+//   bf16 (tensor cores), two kernels:
+//   xent_fwd_tc_kernel    per (128-row tile, 256-column vocabulary tile):
+//                         the tile's max and sum of exp for each row into a
+//                         [V / 256, N] workspace, and the target logit
+//   xent_fwd_merge_kernel per row: logsumexp of its partials, in tile order
+//   f32 (CUDA cores): xent_fwd_kernel
 //   bf16 backward, per vocabulary chunk of C rows (E_c = E[v0 : v0 + C]):
 //   xent_dlog_kernel dlog_c = c_lse * exp(x . E_c^T - lse) + c_tgt * onehot,
 //                    stored once as bf16 [N_pad, C]; shared by the two
@@ -22,25 +28,37 @@
 // and dE are written as f32 (the wrapper casts at the autograd boundary,
 // as the reference's custom_vjp does).
 //
-// The bf16 backward on the tensor cores. At bench.py's loss shape (N
-// 24576, V 50304, D 1024) the backward is three products of 2 N V D =
-// 2.53 TFLOP each (the rebuilt logits, dx, dE): 7.6 TFLOP against ~0.2 GB
-// of inputs, so the tensor cores' 989 TFLOP/s bound it (7.7 ms). The
-// design:
-// - One GEMM core (`gemm`) serves all three kernels: a 128 x 256 CTA
-//   tile, Hopper's wgmma.mma_async.m64n256k16 (bf16 in, f32 accumulators,
-//   128 a thread) issued by two consumer warpgroups of 64 rows each, K
-//   streamed 64 at a time through a 4-stage ring in shared memory (192
-//   KB). One producer warp fills the ring with TMA (cp.async.bulk.tensor,
-//   one mbarrier per stage for "full" and one for "empty"), so no thread
-//   spends instructions on loads. Each operand is staged as it lies in
-//   memory, 128-byte swizzled: K-major (x and E rows for the logits, dlog
-//   rows for dx) or MN-major (E_c for dx; dlog and x for dE, read with
-//   wgmma's transpose bit). Rows and columns past an operand's map read as
-//   zeros (TMA's out-of-bounds fill), so ragged N and V need no masking on
-//   the way in. The tensor maps are encoded per launch through
-//   cudaGetDriverEntryPoint("cuTensorMapEncodeTiled"), so the library
-//   does not link libcuda.
+// The bf16 kernels on the tensor cores. At bench.py's loss shape (N
+// 24576, V 50304, D 1024) the forward is one product of 2 N V D = 2.53
+// TFLOP (the logits) and the backward three (the rebuilt logits, dx, dE):
+// 2.5 and 7.6 TFLOP against ~0.2 GB of inputs, so the tensor cores' 989
+// TFLOP/s bound them (2.6 and 7.7 ms). The design:
+// - One GEMM core (`gemm`) serves all four product kernels: a 128 x 256
+//   CTA tile, Hopper's wgmma.mma_async.m64n256k16 (bf16 in, f32
+//   accumulators, 128 a thread) issued by two consumer warpgroups of 64
+//   rows each, K streamed 64 at a time through a 4-stage ring in shared
+//   memory (192 KB). One producer warp fills the ring with TMA
+//   (cp.async.bulk.tensor, one mbarrier per stage for "full" and one for
+//   "empty"), so no thread spends instructions on loads. Each operand is
+//   staged as it lies in memory, 128-byte swizzled: K-major (x and E rows
+//   for the logits, dlog rows for dx) or MN-major (E_c for dx; dlog and x
+//   for dE, read with wgmma's transpose bit). Rows and columns past an
+//   operand's map read as zeros (TMA's out-of-bounds fill), so ragged N
+//   and V need no masking on the way in. The tensor maps are encoded per
+//   launch through cudaGetDriverEntryPoint("cuTensorMapEncodeTiled")
+//   (hopper.cuh), so the library does not link libcuda.
+// - The forward reduces in the accumulators' registers: per row, the max
+//   and the sum of exp2f (log2(e) prescale) over the tile's columns < V
+//   (TMA's zero-filled columns past V would add exp(0 - m)), across the
+//   4 lanes of a quad with two xor shuffles, and one (m, l) per (row,
+//   tile) into an f32 workspace (8 B x N x V / 256: 39 MB at the loss
+//   shape). The lane that holds a row's target column writes the target
+//   logit; a second kernel merges each row's partials in tile order.
+//   Every value has one writer: no atomics, deterministic results. The
+//   CTAs run band by band (16 vocabulary tiles, 4096 rows of E), every
+//   row tile passing through a band before the next starts, so the 8 MB of
+//   E in a band stays in L2 and E is read from device memory once (x once
+//   per band: 13 times, 0.65 GB at the loss shape).
 // - The logits are rebuilt once per chunk, not once per product: dlog is
 //   formed in the accumulators' registers (exp2f with a log2(e)
 //   prescale, masked past N and past V) and written as bf16 to a scratch
@@ -56,10 +74,10 @@
 //   cannot live in one CTA's registers (the f32 kernels below keep 32
 //   rows and re-stream the other operand twice per panel), so a CTA owns
 //   a 128 x 256 tile and the chunk loop splits the vocabulary sum.
-// What is left: with one CTA an SM, the dlog and dx epilogues (exp2f and
-// bf16 stores; the f32 read-add-write of dx) are not overlapped with any
-// mainloop, and the dlog kernel's K loop is short (16 steps at D 1024),
-// so those two run well below the dE kernel's rate. A persistent grid
+// What is left: with one CTA an SM, the epilogues (the forward's
+// reductions, dlog's exp2f and bf16 stores, dx's f32 read-add-write) are
+// not overlapped with any mainloop, and the K loops are short (16 steps
+// at D 1024), so these run below the dE kernel's rate. A persistent grid
 // that overlaps one tile's epilogue with the next tile's loads is the
 // next step.
 //
@@ -82,23 +100,21 @@
 //   N load as zeros and are not written; columns past V are masked), so no
 //   shape leaves the kernel path.
 //
-// What bounds the forward on an H100: at bench.py's loss shape it does 2 N
-// V D = 2.53 TFLOP against ~0.2 GB of inputs, so the tensor cores' 989
-// TFLOP/s set the bound (2.56 ms). It and the f32 backward are the simple
-// version: f32 FMA on CUDA cores from shared memory (each thread owns a
-// 4 x 4 block of scores, read as one broadcast float4 and one float4 per
-// k, and a 4-row block of the accumulator across D), so they run at the
-// CUDA cores' rate, far from the bound. The forward's move to the tensor
-// cores is later work.
+// The f32 forward and backward are the simple version: f32 FMA on CUDA
+// cores from shared memory (each thread owns a 4 x 4 block of scores, read
+// as one broadcast float4 and one float4 per k, and a 4-row block of the
+// accumulator across D), so they run at the CUDA cores' rate (67 TFLOP/s
+// at most), far from the tensor cores.
 //
 // Each extern "C" entry launches on the given stream and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a width or shape it
 // does not take); the Python wrapper raises on non-zero.
 
-#include <cuda.h>   // CUtensorMap and its enums (libcuda is not linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -125,21 +141,6 @@ struct Vec16<float> {
     out[1] = v.y;
     out[2] = v.z;
     out[3] = v.w;
-  }
-};
-
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
   }
 };
 
@@ -472,10 +473,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward on the tensor cores: one wgmma GEMM core, three epilogues
+// bf16 on the tensor cores: one wgmma GEMM core, four epilogues
 // ---------------------------------------------------------------------------
 namespace tc {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 constexpr int BM = 128, BN = 256, BK = 64;   // CTA tile; K step per stage
 constexpr int STAGES = 4;
@@ -485,72 +487,6 @@ constexpr int A_BYTES = BM * BK * 2;         // 16 KB a stage
 constexpr int B_BYTES = BN * BK * 2;         // 32 KB a stage
 constexpr int ATOM = 64 * BK * 2;            // 64 rows (or columns) x BK
 constexpr int SMEM = 1024 + STAGES * (A_BYTES + B_BYTES) + 2 * STAGES * 8;
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spins until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box of the 2-D map at (column c0, row c1) into shared memory,
-// completing on barrier `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled tile: start
-// address, leading and stride byte offsets, all >> 4.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
 
 // d[0:128] += A (64 x 16, descriptor da) . B (16 x 256, descriptor db):
 // one wgmma.m64n256k16, bf16 in, f32 accumulators. TA / TB: the operand
@@ -626,7 +562,7 @@ __device__ __forceinline__ bool gemm(float (&acc)[128], const CUtensorMap& ma,
                                      const CUtensorMap& mb, int a_mn, int a_k,
                                      int b_mn, int b_k, int K,
                                      unsigned char* smem) {
-  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t raw = smem_addr(smem);
   const uint32_t sa = (raw + 1023) & ~1023u;   // swizzle atoms: 1 KB aligned
   const uint32_t sb = sa + STAGES * A_BYTES;
   const uint32_t full = sb + STAGES * B_BYTES, empty = full + STAGES * 8;
@@ -636,7 +572,7 @@ __device__ __forceinline__ bool gemm(float (&acc)[128], const CUtensorMap& ma,
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, CONSUMERS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -649,18 +585,18 @@ __device__ __forceinline__ bool gemm(float (&acc)[128], const CUtensorMap& ma,
         mbar_expect_tx(bar, A_BYTES + B_BYTES);
         const uint32_t ta = sa + st * A_BYTES, tb = sb + st * B_BYTES;
         if constexpr (A_K) {
-          tma_load(ta, &ma, a_k + k0, a_mn, bar);
+          tma_load_2d(ta, &ma, a_k + k0, a_mn, bar);
         } else {
 #pragma unroll
           for (int j = 0; j < BM / 64; ++j)
-            tma_load(ta + j * ATOM, &ma, a_mn + 64 * j, a_k + k0, bar);
+            tma_load_2d(ta + j * ATOM, &ma, a_mn + 64 * j, a_k + k0, bar);
         }
         if constexpr (B_K) {
-          tma_load(tb, &mb, b_k + k0, b_mn, bar);
+          tma_load_2d(tb, &mb, b_k + k0, b_mn, bar);
         } else {
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j)
-            tma_load(tb + j * ATOM, &mb, b_mn + 64 * j, b_k + k0, bar);
+            tma_load_2d(tb + j * ATOM, &mb, b_mn + 64 * j, b_k + k0, bar);
         }
       }
     }
@@ -695,6 +631,114 @@ __device__ __forceinline__ bool gemm(float (&acc)[128], const CUtensorMap& ma,
   }
   wgmma_wait<0>();
   return true;
+}
+
+// The forward's vocabulary bands: FWD_BAND tiles of BN embedding rows
+// (4096 rows, 8 MB of E at D 1024) that every row tile passes through
+// before the next band starts, so E is read from device memory once.
+constexpr int FWD_BAND = 16;
+
+struct FwdArgs {
+  const int* tgt_ids;   // [N]
+  float2* part;         // [nvt, N]: (max, sum of exp(s - max)) per tile
+  float* tgt;           // [N]: the target logit, written by its tile
+  int N, V, D, nrt, nvt;
+};
+
+// Per (row tile, vocabulary tile): s = x . E_tile^T on the GEMM core, then
+// for each x row its max and sum of exp over the tile's columns < V (the
+// zero-filled columns past V are left out) as one partial (m, l), and the
+// target logit where a column is the row's target. mx: x [N, D]; me: E
+// [V, D], both K-major. CTA b takes band b / (FWD_BAND nrt), then row
+// tiles in order, each over the band's vocabulary tiles.
+__global__ void __launch_bounds__(THREADS, 1)
+    xent_fwd_tc_kernel(const __grid_constant__ CUtensorMap mx,
+                       const __grid_constant__ CUtensorMap me,
+                       const FwdArgs p) {
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const int per_band = FWD_BAND * p.nrt;
+  const int band = blockIdx.x / per_band;
+  const int r = blockIdx.x - band * per_band;
+  const int width = min(FWD_BAND, p.nvt - band * FWD_BAND);
+  const int rt = r / width;
+  const int vt = band * FWD_BAND + (r - rt * width);
+  const int m0 = rt * BM, n0 = vt * BN;
+  float acc[128];
+  if (!gemm<true, true>(acc, mx, me, m0, 0, n0, 0, p.D, tc_smem)) return;
+
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int t = threadIdx.x;
+  const int row0 = m0 + 64 * (t >> 7) + 16 * ((t >> 5) & 3) + ((t & 31) >> 2);
+  const int col0 = n0 + 2 * (t & 3);
+  // The last tile's columns past V (TMA's zeros) drop out of the max and
+  // the sum as kNeg, masked in place once (per-element masks in the loops
+  // below would hold 64 predicates live and spill).
+  if (n0 + BN > p.V) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if (col0 + 8 * j + c >= p.V) acc[4 * j + c] = acc[4 * j + 2 + c] = kNeg;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    // The 4 lanes of a quad hold all 256 columns of the row; every tile
+    // has a column < V, so the max is a real logit.
+    float m = kNeg;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) m = fmaxf(m, acc[4 * j + 2 * h + c]);
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float m2 = m * kLog2e;
+    float l = 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        l += exp2f(fmaf(acc[4 * j + 2 * h + c], kLog2e, -m2));
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (row < p.N) {
+      if ((t & 3) == 0) p.part[(size_t)vt * p.N + row] = make_float2(m, l);
+      // This lane holds the target's column if it is 8 j + c (c < 2)
+      // past col0 and below V.
+      const int id = p.tgt_ids[row];
+      const int rel = id - col0;
+      if (id < p.V && rel >= 0 && rel < BN && (rel & 6) == 0) {
+        float v = 0.f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            v = rel == 8 * j + c ? acc[4 * j + 2 * h + c] : v;
+        p.tgt[row] = v;
+      }
+    }
+  }
+}
+
+// lse[n] = logsumexp over the nvt partials of row n, merged in tile
+// order; tgt[n] = 0 for a target outside [0, V) (no tile wrote it).
+__global__ void __launch_bounds__(256)
+    xent_fwd_merge_kernel(const float2* __restrict__ part,
+                          const int* __restrict__ tgt_ids,
+                          float* __restrict__ lse, float* __restrict__ tgt,
+                          int N, int V, int nvt) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  float m = kNeg, l = 0.f;
+  for (int i = 0; i < nvt; ++i) {
+    const float2 q = part[(size_t)i * N + n];
+    const float m_new = fmaxf(m, q.x);
+    l = l * expf(m - m_new) + q.y * expf(q.x - m_new);
+    m = m_new;
+  }
+  lse[n] = m + logf(l);
+  const int id = tgt_ids[n];
+  if (id < 0 || id >= V) tgt[n] = 0.f;
 }
 
 struct DlogArgs {
@@ -810,44 +854,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   store_f32(acc, p, m0, n0);
 }
 
-// cuTensorMapEncodeTiled, fetched through the runtime so that the library
-// does not link libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 2-D bf16 map over a row-major [rows, cols] matrix, boxes of 64
 // columns (128 B, the swizzle span) by box_rows rows; out-of-range
 // elements read as zero.
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
               int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::encode_bf16(map, ptr, 2, dims, strides, box);
 }
 
 template <typename... Args>
@@ -944,19 +960,53 @@ struct De {
 
 }  // namespace
 
-// x [N, D], e [V, D] contiguous in one dtype (0 = float32, 1 = bfloat16);
-// targets [N] int32; lse, tgt [N] float32 outputs.
+// The f32 forward on CUDA cores. x [N, D], e [V, D] float32; targets [N]
+// int32; lse, tgt [N] float32 outputs.
 extern "C" int rtt_xent_fwd(const void* x, const void* e, const void* targets,
                             void* lse, void* tgt, int N, int V, int D,
-                            int dtype, void* stream) {
-  const int* ids = static_cast<const int*>(targets);
-  float* l = static_cast<float*>(lse);
-  float* t = static_cast<float*>(tgt);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_width<Fwd, float>(D, x, e, ids, l, t, N, V, s);
-  if (dtype == 1)
-    return dispatch_width<Fwd, __nv_bfloat16>(D, x, e, ids, l, t, N, V, s);
-  return cudaErrorInvalidValue;
+                            void* stream) {
+  return static_cast<int>(dispatch_width<Fwd, float>(
+      D, x, e, static_cast<const int*>(targets), static_cast<float*>(lse),
+      static_cast<float*>(tgt), N, V, static_cast<cudaStream_t>(stream)));
+}
+
+// The bf16 forward on the tensor cores, first kernel: x [N, D], e [V, D]
+// bfloat16, targets [N] int32; part the float32 [ceil(V / 256), N, 2]
+// workspace of per-tile partials; tgt [N] float32 (the in-vocabulary
+// targets' logits written here, the others by rtt_xent_fwd_merge).
+extern "C" int rtt_xent_fwd_tc(const void* x, const void* e,
+                               const void* targets, void* part, void* tgt,
+                               int N, int V, int D, void* stream) {
+  using namespace tc;
+  if (N <= 0 || V <= 0 || D <= 0 || D % BK != 0) return cudaErrorInvalidValue;
+  CUtensorMap mx, me;
+  if (!make_map(&mx, x, N, D, BM) || !make_map(&me, e, V, D, BN))
+    return cudaErrorInvalidValue;
+  const int nrt = (N + BM - 1) / BM, nvt = (V + BN - 1) / BN;
+  const FwdArgs args{static_cast<const int*>(targets),
+                     static_cast<float2*>(part), static_cast<float*>(tgt), N,
+                     V, D, nrt, nvt};
+  cudaError_t err = cudaFuncSetAttribute(
+      xent_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  xent_fwd_tc_kernel<<<nrt * nvt, THREADS, SMEM,
+                       static_cast<cudaStream_t>(stream)>>>(mx, me, args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Second kernel: lse [N] float32 from the partials; tgt [N] zeroed for
+// targets outside [0, V).
+extern "C" int rtt_xent_fwd_merge(const void* part, const void* targets,
+                                  void* lse, void* tgt, int N, int V,
+                                  void* stream) {
+  using namespace tc;
+  if (N <= 0 || V <= 0) return cudaErrorInvalidValue;
+  xent_fwd_merge_kernel<<<(N + 255) / 256, 256, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(part), static_cast<const int*>(targets),
+      static_cast<float*>(lse), static_cast<float*>(tgt), N, V,
+      (V + BN - 1) / BN);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The f32 backward on CUDA cores. x [N, D], e [V, D] float32; lse, c_lse,

@@ -18,8 +18,9 @@ masked inside it, so there is no fallback to plain attention.
 Dispatch: a CUDA tensor launches the kernel, or raises if the kernel
 cannot take the inputs; a CPU tensor takes the plain version, because
 there is no kernel on the CPU. Each kernel wrapper carries a
-plain-integer ``launches`` counter that grows by one per kernel launch
-(never on the plain path).
+plain-integer ``launches`` counter that grows by one per kernel launch,
+and the forward's two kernels (tensor cores for bf16 at D 64 and 128,
+CUDA cores otherwise) one each in `LAUNCHES` (never on the plain path).
 
 The forward is also registered as the custom operator
 ``ray_tpu_torch::flash_fwd``, so selective activation checkpointing
@@ -34,6 +35,13 @@ NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
+# bf16 head dims the tensor-core forward takes: rows of whole 128-byte
+# TMA boxes (D 32 rows are 64 bytes and stay on the CUDA-core kernel)
+_TC_HEAD_DIMS = (64, 128)
+
+# The forward's two kernels, one counter each (the wrappers below count
+# their calls in ``.launches``).
+LAUNCHES = dict.fromkeys(("flash_fwd_tc", "flash_fwd_simt"), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -168,8 +176,19 @@ def _stream(x) -> int:
 def flash_forward(q, k, v, *, causal: bool, with_lse: bool = True):
     """Forward attention on ``[B, T, H, D]``: ``(out, lse)``, lse
     ``[B*H, T]`` f32 (None without ``with_lse``: the inference variant
-    skips its write). The kernel replaces
-    `ray_tpu/ops/flash_attention.py::_flash_kernel`."""
+    skips its write). The kernels replace
+    `ray_tpu/ops/flash_attention.py::_flash_kernel`, chosen by dtype and
+    head dim:
+
+    - bfloat16 at D 64 or 128 (the training and serving paths): the
+      tensor-core kernel ``flash_fwd_tc`` (wgmma + TMA, 128 query rows
+      against 128-key tiles, p rounded to bf16 relative to the running
+      row max, as the CUDA-core kernel does with 64-key tiles);
+    - float32, and bfloat16 at D 32: the CUDA-core kernel
+      ``flash_fwd_simt``.
+
+    ``flash_forward.launches`` grows by one per call that reaches a
+    kernel, and the kernel's counter in `LAUNCHES` by one per launch."""
     if not _on_kernel("flash_forward", q):
         out, lse = flash_forward_reference(q, k, v, causal=causal)
         return out, (lse if with_lse else None)
@@ -179,11 +198,17 @@ def flash_forward(q, k, v, *, causal: bool, with_lse: bool = True):
     out = torch.empty_like(q)
     lse = (torch.empty((b * h, t), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    err = _build.load().rtt_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if with_lse else None, b, t, h, d, d ** -0.5,
-        int(causal), _KERNEL_DTYPES[q.dtype], _stream(q))
-    _build.check(err, "flash_forward")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None, b, t, h, d, d ** -0.5,
+            int(causal))
+    lib = _build.load()
+    if q.dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
+        name, err = "flash_fwd_tc", lib.rtt_flash_fwd_tc(*ptrs, _stream(q))
+    else:
+        name, err = "flash_fwd_simt", lib.rtt_flash_fwd(
+            *ptrs, _KERNEL_DTYPES[q.dtype], _stream(q))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
     flash_forward.launches += 1
     return out, lse
 
@@ -280,10 +305,13 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = 1024,
 
 def kernel_launches() -> dict:
     """Launch count of each flash kernel wrapper (the counters live on
-    the wrappers as ``.launches``)."""
-    return {f.__name__: f.launches for f in WRAPPERS}
+    the wrappers as ``.launches``) and of each forward kernel
+    (`LAUNCHES`)."""
+    return {**{f.__name__: f.launches for f in WRAPPERS}, **LAUNCHES}
 
 
 def reset_kernel_launches() -> None:
     for f in WRAPPERS:
         f.launches = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -29,7 +29,8 @@ tiles, so ``vocab_chunk`` only shapes the plain version. The
 vocab-sharded composition (``mesh=``) waits for multi-rank parallelism.
 
 `LAUNCHES` holds one plain-integer counter per kernel that grows by one
-per launch (never on the plain path).
+per launch, and ``fused_xent_fwd`` one that grows by one per forward
+call that reaches the kernels (none grows on the plain path).
 """
 
 from __future__ import annotations
@@ -38,17 +39,19 @@ import torch
 
 NEG = -1e30   # finite -inf stand-in, as the reference's _NEG
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_WIDTHS = (64, 128, 256, 512, 768, 1024)
-# The bf16 backward's vocabulary chunk, and the row / column tile of its
-# kernels (csrc/fused_xent.cu tc::BM, tc::BN): the shared dlog buffer is
-# [N rounded up to _TILE_ROWS, BWD_CHUNK] bf16, so BWD_CHUNK is a
-# multiple of _TILE_COLS.
+# The bf16 backward's vocabulary chunk, and the row / column tile of the
+# bf16 kernels (csrc/fused_xent.cu tc::BM, tc::BN): the shared dlog buffer
+# is [N rounded up to _TILE_ROWS, BWD_CHUNK] bf16, so BWD_CHUNK is a
+# multiple of _TILE_COLS; the forward keeps one partial per row and
+# _TILE_COLS-column vocabulary tile.
 BWD_CHUNK = 4096
 _TILE_ROWS, _TILE_COLS = 128, 256
 
-LAUNCHES = dict.fromkeys(("fused_xent_fwd", "xent_dlog", "xent_dx",
-                          "xent_de", "xent_bwd_dx", "xent_bwd_de"), 0)
+LAUNCHES = dict.fromkeys(("fused_xent_fwd", "xent_fwd_tc", "xent_fwd_merge",
+                          "xent_fwd_simt", "xent_dlog", "xent_dx", "xent_de",
+                          "xent_bwd_dx", "xent_bwd_de"), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -89,6 +92,37 @@ def lse_target_reference(x, embed, targets, chunk: int = 512):
         tg = tg + torch.where(hit, s, 0.0).sum(-1)
         m = m_new
     return m + torch.log(l), tg
+
+
+def xent_fwd_partials_reference(x, embed, targets, tile: int = _TILE_COLS):
+    """The bf16 forward's first kernel in plain PyTorch: per vocabulary
+    tile of ``tile`` embedding rows, each x row's max m and sum l of
+    exp(s - m) over the tile's columns < V, as ``part [n_tiles, N, 2]``
+    f32, and the target logit ``[N]`` f32 (0 for a target outside [0,
+    V)). `xent_fwd_merge_reference` turns ``part`` into lse."""
+    n, v = x.shape[0], embed.shape[0]
+    emb, _ = _chunked_embed(embed, tile)
+    xf = x.float()
+    tg_ids = targets.long()[:, None]
+    part, tg = [], torch.zeros((n,), dtype=torch.float32, device=x.device)
+    for i in range(emb.shape[0]):
+        s = xf @ emb[i].float().t()                          # [N, tile]
+        col = i * tile + torch.arange(tile, device=x.device)
+        valid = col < v
+        m = torch.where(valid, s, NEG).amax(dim=-1)
+        l = torch.where(valid, torch.exp(s - m[:, None]), 0.0).sum(-1)
+        part.append(torch.stack([m, l], dim=-1))
+        tg = tg + torch.where((col == tg_ids) & valid, s, 0.0).sum(-1)
+    return torch.stack(part), tg
+
+
+def xent_fwd_merge_reference(part):
+    """The bf16 forward's second kernel in plain PyTorch: lse ``[N]`` of
+    the per-tile partials ``part [n_tiles, N, 2]`` (max m, sum l of exp(s
+    - m)): M + log(sum_t l_t exp(m_t - M)), M the largest m_t."""
+    m, l = part[..., 0], part[..., 1]
+    mx = m.amax(dim=0)
+    return mx + torch.log((l * torch.exp(m - mx)).sum(dim=0))
 
 
 def _dlog_chunks(x, embed, targets, lse, c_lse, c_tgt, chunk):
@@ -199,19 +233,47 @@ def _f32(t):
 
 def fused_xent_fwd(x, embed, targets, *, chunk: int = 512):
     """(lse [N], target logit [N]) f32 for x [N, D], embed [V, D],
-    targets [N]. The kernel replaces
-    `ray_tpu/ops/fused_xent.py::_fwd_kernel`."""
+    targets [N]. The kernels replace `ray_tpu/ops/fused_xent.py::
+    _fwd_kernel`, chosen by dtype:
+
+    - bfloat16 (the training path): two tensor-core kernels,
+      ``xent_fwd_tc`` (per 128-row x 256-column tile of x . E^T, each
+      row's max and sum of exp into a [ceil(V / 256), N, 2] f32 workspace,
+      and the target logit; `xent_fwd_partials_reference`) and
+      ``xent_fwd_merge`` (lse from each row's partials;
+      `xent_fwd_merge_reference`).
+    - float32: the CUDA-core kernel ``xent_fwd_simt``, exact f32 sums.
+
+    ``LAUNCHES["fused_xent_fwd"]`` grows by one per call that reaches the
+    kernels, and each kernel's own counter by one per launch. ``chunk``
+    only shapes the plain version (CPU tensors)."""
     if not _on_kernel("fused_xent_fwd", x):
         return lse_target_reference(x, embed, targets, chunk)
     from ray_tpu_torch.ops import _build
     x, embed, targets = x.contiguous(), embed.contiguous(), _i32(targets)
     n, v, d = _check("fused_xent_fwd", x, embed, targets)
+    lib, stream = _build.load(), _stream(x)
     lse = torch.empty((n,), dtype=torch.float32, device=x.device)
     tgt = torch.empty((n,), dtype=torch.float32, device=x.device)
-    err = _build.load().rtt_xent_fwd(
-        x.data_ptr(), embed.data_ptr(), targets.data_ptr(), lse.data_ptr(),
-        tgt.data_ptr(), n, v, d, _KERNEL_DTYPES[x.dtype], _stream(x))
-    _build.check(err, "fused_xent_fwd")
+    if x.dtype == torch.float32:
+        _build.check(lib.rtt_xent_fwd(x.data_ptr(), embed.data_ptr(),
+                                      targets.data_ptr(), lse.data_ptr(),
+                                      tgt.data_ptr(), n, v, d, stream),
+                     "xent_fwd_simt")
+        LAUNCHES["xent_fwd_simt"] += 1
+    else:
+        part = torch.empty((-(-v // _TILE_COLS), n, 2), dtype=torch.float32,
+                           device=x.device)
+        _build.check(lib.rtt_xent_fwd_tc(x.data_ptr(), embed.data_ptr(),
+                                         targets.data_ptr(), part.data_ptr(),
+                                         tgt.data_ptr(), n, v, d, stream),
+                     "xent_fwd_tc")
+        LAUNCHES["xent_fwd_tc"] += 1
+        _build.check(lib.rtt_xent_fwd_merge(part.data_ptr(),
+                                            targets.data_ptr(),
+                                            lse.data_ptr(), tgt.data_ptr(),
+                                            n, v, stream), "xent_fwd_merge")
+        LAUNCHES["xent_fwd_merge"] += 1
     LAUNCHES["fused_xent_fwd"] += 1
     return lse, tgt
 

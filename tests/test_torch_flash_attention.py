@@ -11,7 +11,16 @@ bf16: atol 2e-2, rtol 2**-6: each side rounds its output (and dq/dk/dv)
 to bf16 once (one ulp is 2**-7 of the value), and the forward rounds
 each p to bf16 relative to a different row max (JAX's 128-row blocks vs
 the plain version's whole row), which moves out, and through
-delta = rowsum(dO * O) the gradients, by a few more bf16 ulps at most."""
+delta = rowsum(dO * O) the gradients, by a few more bf16 ulps at most.
+
+The bf16 forward on the card (tensor cores, D 64 and 128) walks kv tiles
+of 128 keys and rounds p to bf16 relative to the running row max; a
+plain emulation of that walk is held against JAX's Pallas forward within
+the card's bf16 limit (1e-4 + 2**-7 |ref| + 2**-8 P|V|), and its f32
+output against the plain version's within the limit's rounding term
+2**-8 P|V| alone (+ 1e-6 for f32 summation order)."""
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -124,3 +133,55 @@ def test_cpu_path_counts_no_launches_and_skips_lse_without_grad():
     torch.testing.assert_close(
         out, fa.reference_attention(q, k, v, causal=True), atol=1e-5,
         rtol=1e-5)
+
+
+def _tile_walk_forward(q, k, v, causal, block_kv=128):
+    """The tensor-core forward's arithmetic, in plain PyTorch: per kv
+    tile of ``block_kv`` keys, scores in log2 units (q . k * D**-0.5 *
+    log2(e)), the running row max m, p = exp2(x - m) rounded to bf16
+    before p . V, O and l rescaled by exp2(m_old - m_new). Returns the
+    f32 output (before its rounding to q's dtype) and lse [B*H, T]."""
+    b, t, h, d = q.shape
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+    sl = d ** -0.5 * math.log2(math.e)
+    m = torch.full((b, h, t), fa.NEG_INF)
+    l = torch.zeros((b, h, t))
+    o = torch.zeros((b, h, t, d))
+    rows = torch.arange(t)[:, None]
+    for k0 in range(0, t, block_kv):
+        kt, vt = kf[:, :, k0:k0 + block_kv], vf[:, :, k0:k0 + block_kv]
+        x = (qf @ kt.transpose(-1, -2)) * sl
+        if causal:
+            cols = k0 + torch.arange(kt.shape[2])[None, :]
+            x = torch.where(cols <= rows, x, fa.NEG_INF)
+        m_new = torch.maximum(m, x.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + p.bfloat16().float() @ vt
+        m = m_new
+    out = (o / l[..., None]).transpose(1, 2)
+    return out, ((m + torch.log2(l)) * math.log(2)).reshape(b * h, t)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_tile_walk_rounding_is_inside_the_card_limit(causal):
+    """T 256 (two kv tiles), D 64, bf16 inputs. JAX's forward runs one
+    256-key block, so it rounds p against the final row max, as the
+    plain version does; the tile walk rounds against the running max."""
+    q, k, v, _ = _inputs(11, 256, 64, "bfloat16")
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    emu, emu_lse = _tile_walk_forward(tq, tk, tv, causal)
+    jout = _np(jflash(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                      causal, 256, 256))
+    p_abs_v = fa.flash_forward_reference(tq.float(), tk.float(),
+                                         tv.float().abs(), causal=causal)[0]
+    limit = 1e-4 + 2 ** -7 * np.abs(jout) + 2 ** -8 * p_abs_v.numpy()
+    assert np.all(np.abs(_np(emu.bfloat16()) - jout) <= limit)
+    # p rounded against the final max (the plain version, f32 output)
+    plain, plain_lse = fa.flash_forward_reference(tq.float(), tk.float(), tv,
+                                                  causal=causal)
+    err = (emu - plain).abs()
+    assert err.max() > 0
+    assert torch.all(err <= 2 ** -8 * p_abs_v + 1e-6)
+    torch.testing.assert_close(emu_lse, plain_lse, atol=1e-4, rtol=1e-5)

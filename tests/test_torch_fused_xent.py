@@ -11,6 +11,12 @@ bf16 inputs, whose products are exact in f32); dx and dembed per element
 2**-7 |ref| + 1e-6, since both are rounded once to bf16 at the autograd
 boundary and may land one bf16 ulp apart.
 
+The bf16 forward kernels keep one (max, sum of exp) partial per row and
+256-column vocabulary tile and merge them; their plain form
+(`xent_fwd_partials_reference` + `xent_fwd_merge_reference`) is held
+against the JAX package's scan forward: f32 lse and target logit 1e-5
+absolute (summation order), bf16 inputs 1e-4 (as the nll above).
+
 The bf16 backward kernels round dlog to bf16 once before their two
 products; the card tests allow for that with 2**-8 (bf16's unit
 roundoff) times `xent_backward_abs_bound`. Here that bound is checked
@@ -226,3 +232,37 @@ def test_bf16_dlog_rounding_stays_inside_the_card_limit(v):
         # the rounding, not the f32 term, is what the limit has to cover
         assert (err / (2 ** -8 * b).clamp_min(1e-30)).max() > 0.1
         assert err.max() > 1e-4 * r.abs().max()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-4)])
+def test_tile_partials_and_merge_match_jax(dtype, tol):
+    """The bf16 forward's two kernels in plain form, per-tile partials
+    then the merge, against the JAX package's fused forward (its scan:
+    V 1000 is no multiple of 128, so the reference has no Pallas plan):
+    N 300, V 1000 (ragged against the 256-column tile), D 64, targets at
+    0 and V - 1 and one outside [0, V)."""
+    rng = np.random.default_rng(8)
+    n, v, d = 300, 1000, 64
+    x = rng.standard_normal((1, n, d)).astype(np.float32)
+    emb = (rng.standard_normal((v, d)) * 0.1).astype(np.float32)
+    tgt = rng.integers(0, v, (1, n)).astype(np.int32)
+    tgt[0, :3] = [0, v - 1, v + 5]
+    xt = torch.from_numpy(x[0]).to(dtype)
+    et = torch.from_numpy(emb).to(dtype)
+    part, tg = tfx.xent_fwd_partials_reference(xt, et,
+                                               torch.from_numpy(tgt[0]))
+    assert part.shape == (4, n, 2) and part.dtype == torch.float32
+    lse = tfx.xent_fwd_merge_reference(part)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    xj, ej = jnp.asarray(x, jdt), jnp.asarray(emb, jdt)
+    lse_j, tgt_j = jfx._lse_tgt_scan(xj, ej, jnp.asarray(tgt), 128)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[0], atol=tol,
+                               rtol=0)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(tgt_j)[0], atol=tol,
+                               rtol=0)
+    assert tg[2] == 0
+    nll_j = jfx.fused_softmax_xent(xj, ej, jnp.asarray(tgt), vocab_chunk=128,
+                                   impl="scan")
+    np.testing.assert_allclose((lse - tg).numpy(), np.asarray(nll_j)[0],
+                               atol=tol, rtol=0)

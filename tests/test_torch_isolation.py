@@ -105,7 +105,8 @@ def test_training_entry_points_and_numpy_model_need_a_card():
 
 def test_build_compiles_every_source_into_its_own_library():
     """Each `csrc/*.cu` is its own library, named by the hash of its own
-    source, and every entry point the wrappers call is declared."""
+    source (and of the `csrc/*.cuh` headers the sources share), and every
+    entry point the wrappers call is declared."""
     from ray_tpu_torch.ops import _build
     names = [p.name for p in _build.sources()]
     assert names == sorted(["flash_attention.cu", "fused_xent.cu",
@@ -114,16 +115,19 @@ def test_build_compiles_every_source_into_its_own_library():
     assert len(set(libs)) == len(libs)
     assert all(p.name.startswith(s.stem + "-")
                for p, s in zip(libs, _build.sources()))
-    assert {"rtt_flash_fwd", "rtt_flash_dq", "rtt_flash_dkv",
-            "rtt_paged_decode", "rtt_paged_mq", "rtt_decode",
-            "rtt_xent_fwd", "rtt_xent_dx", "rtt_xent_de", "rtt_xent_dlog",
-            "rtt_xent_dx_tc", "rtt_xent_de_tc"} <= set(_build.SIGNATURES)
+    assert {"rtt_flash_fwd", "rtt_flash_fwd_tc", "rtt_flash_dq",
+            "rtt_flash_dkv", "rtt_paged_decode", "rtt_paged_mq", "rtt_decode",
+            "rtt_xent_fwd", "rtt_xent_fwd_tc", "rtt_xent_fwd_merge",
+            "rtt_xent_dx", "rtt_xent_de", "rtt_xent_dlog", "rtt_xent_dx_tc",
+            "rtt_xent_de_tc"} <= set(_build.SIGNATURES)
+    assert [p.name for p in _build.CSRC.glob("*.cuh")] == ["hopper.cuh"]
     for src, names in (
-            ("flash_attention.cu", ("rtt_flash_fwd", "rtt_flash_dq",
-                                    "rtt_flash_dkv")),
+            ("flash_attention.cu", ("rtt_flash_fwd", "rtt_flash_fwd_tc",
+                                    "rtt_flash_dq", "rtt_flash_dkv")),
             ("paged_attention.cu", ("rtt_paged_decode", "rtt_paged_mq",
                                     "rtt_decode")),
-            ("fused_xent.cu", ("rtt_xent_fwd", "rtt_xent_dx",
+            ("fused_xent.cu", ("rtt_xent_fwd", "rtt_xent_fwd_tc",
+                               "rtt_xent_fwd_merge", "rtt_xent_dx",
                                "rtt_xent_de", "rtt_xent_dlog",
                                "rtt_xent_dx_tc", "rtt_xent_de_tc"))):
         text = (_build.CSRC / src).read_text()

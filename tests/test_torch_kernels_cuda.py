@@ -117,14 +117,18 @@ def _forward_ok(out, ref, q, k, v, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("t", [64, 1000, 1024])
+@pytest.mark.parametrize("t", [1, 64, 129, 1000, 1024])
 def test_flash_kernels_match_plain(dev, dtype, d, causal, t):
+    """T 1 and 129 (one row past a 128-row tile) put whole tensor-core
+    tiles past T; bf16 at D 64 and 128 runs the forward on the tensor
+    cores, everything else on the CUDA-core kernel."""
     from ray_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(t + d)
     b, h = 2, 2
     q, k, v, do = (torch.randn((b, t, h, d), generator=g, device=dev)
                    .to(dtype) for _ in range(4))
     n = [f.launches for f in fa.WRAPPERS]
+    fwd = dict(fa.LAUNCHES)
     out, lse = fa.flash_forward(q, k, v, causal=causal)
     ref_out, ref_lse = fa.flash_forward_reference(q, k, v, causal=causal)
     _forward_ok(out, ref_out, q, k, v, causal)
@@ -138,6 +142,10 @@ def test_flash_kernels_match_plain(dev, dtype, d, causal, t):
         torch.testing.assert_close(got.float(), ref.float(),
                                    **FLASH_TOL[dtype])
     assert [f.launches for f in fa.WRAPPERS] == [x + 1 for x in n]
+    ran = ("flash_fwd_tc" if dtype == torch.bfloat16 and d in (64, 128)
+           else "flash_fwd_simt")
+    assert {k: fa.LAUNCHES[k] - fwd[k] for k in fwd} == \
+        {k: int(k == ran) for k in fwd}
 
 
 def test_flash_unsupported_inputs_raise(dev):
@@ -199,7 +207,10 @@ def _xent_close(got, ref, bound=None):
 def test_fused_xent_kernels_match_plain(dev, dtype, d, n, v):
     """(300, 9000): V spans three vocabulary chunks of the bf16 backward,
     the last ragged (808 rows), and N is not a multiple of its row tile,
-    so dx's accumulation across chunks and every masked edge run."""
+    so dx's accumulation across chunks and every masked edge run.
+    Targets include column 0, V - 1, the first column of the last
+    256-column tile of the bf16 forward (ragged unless V is a multiple
+    of 256) and three outside [0, V)."""
     from ray_tpu_torch.ops import fused_xent as fx
     g = torch.Generator(device=dev).manual_seed(n + v + d)
     x = torch.randn((n, d), generator=g, device=dev).to(dtype)
@@ -207,6 +218,7 @@ def test_fused_xent_kernels_match_plain(dev, dtype, d, n, v):
     t = torch.randint(0, v, (n,), generator=g, device=dev,
                       dtype=torch.int32)
     t[:3] = torch.tensor([-1, v, v + 7])        # outside [0, V): tgt 0
+    t[3:6] = torch.tensor([0, v - 1, (v - 1) // 256 * 256])
     cl = torch.rand((n,), generator=g, device=dev)
     ct = -torch.rand((n,), generator=g, device=dev)
     before = fx.kernel_launches()
@@ -228,6 +240,8 @@ def test_fused_xent_kernels_match_plain(dev, dtype, d, n, v):
             if dtype == torch.bfloat16 else
             dict.fromkeys(("xent_bwd_dx", "xent_bwd_de"), 1))
     grew["fused_xent_fwd"] = 1
+    grew.update(dict.fromkeys(("xent_fwd_tc", "xent_fwd_merge"), 1)
+                if dtype == torch.bfloat16 else {"xent_fwd_simt": 1})
     after = fx.kernel_launches()
     assert {k: after[k] - before[k] for k in after} == \
         {k: grew.get(k, 0) for k in after}
