@@ -25,13 +25,13 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    engine's per-token logprobs;
 4. profile: a short engine run under ``torch.profiler``, device time by
    kernel name and the device's busy share of the wall time;
-5. flash kernels vs plain: forward (out, lse; bf16 on the tensor-core
-   kernel, f32 on the CUDA-core one), dQ and dK/dV against their plain
-   versions at the training shape (B 8, T 1024, H 16, D 64) in bf16 and
-   f32, causal and full, and at a ragged T of 1000; device time, bound,
-   plain time and the library time (``scaled_dot_product_attention``
-   forward, and its backward through autograd for the two backward
-   kernels);
+5. flash kernels vs plain: forward (out, lse), dQ and dK/dV (bf16 on
+   the tensor-core kernels, f32 on the CUDA-core ones) against their
+   plain versions at the training shape (B 8, T 1024, H 16, D 64) in
+   bf16 and f32, causal and full, at ragged T of 1000 and 129, and at
+   D 128; device time, bound, plain time and the library time
+   (``scaled_dot_product_attention`` forward, and its backward through
+   autograd for the two backward kernels);
 6. training at the width of ``bench.py``'s GPT (the model above, bf16
    activations over f32 masters, flash attention, bf16 logits, remat
    "dots", dense loss, batch 8 x 1024): (a) loss and every gradient
@@ -39,8 +39,10 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    masters; (b) the step-0 loss near ln(vocab) + sigma^2/2, the
    expected loss of the init's logits; (c) `make_gpt_trainer`
    + `DevicePrefetcher` + `TrainLoop` on fresh host batches: tok/s, MFU,
-   the loop's breakdown, host syncs, flash launch counts, and the
-   device busy share from a short profiled window; (d) 25 steps on one
+   the loop's breakdown, host syncs, flash launch counts (per step one
+   tensor-core dQ and dK/dV launch per layer, no CUDA-core flash
+   kernel), and the device busy share from a short profiled window;
+   (d) 25 steps on one
    repeated batch (5 of them warm-up) must lower the loss by at least
    1 nat;
 7. fused cross-entropy kernels vs plain: the forward (lse, target logit)
@@ -59,13 +61,24 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    MFU, host syncs and the launches of all seven training kernels; (d) the
    peak memory of one forward + backward, fused against dense: dense must
    exceed fused by at least the bf16 logits' bytes; (e) a profiled
-   window with the fused kernels' share of device time;
+   window with the fused kernels' share of device time and the device
+   time of each of the port's kernels;
 9. the unpaged KV-cache path at the serving model's width: the decode
    kernel against its plain version at [8, 1024, 16, 64] with its times,
    then `prefill` of 8 ragged prompts (100-300 tokens), a slot-targeted
    prefill and 64 greedy `decode_step`s, with step p50/p99, tok/s,
    launches, and the emitted tokens' logprobs against a dense f32
-   forward (phase 3's limits).
+   forward (phase 3's limits);
+10. the shapes the kernels once refused (head dim 96, pool block 64,
+   fused-loss width 384; depth cut to 2 layers): the decode and
+   multi-query kernels at D 96 over a block-64 pool against plain, a
+   D 96 training step (flash against plain attention, then a trainer
+   step on the tensor-core kernels), an engine at block 64 on the D 96
+   model against a dense f32 forward, and the fused loss at d_model 384
+   against the dense loss.
+
+Before the phases it prints the registers and spilled bytes of every
+tensor-core kernel from nvcc's ptxas report.
 
 Any failed phase raises, so the exit code is non-zero. The last two
 lines of stdout are a ``{"kernels": [...]}`` JSON line and
@@ -100,6 +113,16 @@ FLASH_RAGGED_T = 1000
 # row max and the plain version relative to the final one, so each term
 # may differ by one more bf16 rounding: + 2**-8 * (P |V|) per element.
 FLASH_TOL = {"bfloat16": (1e-4, 2 ** -7), "float32": (1e-4, 1e-5)}
+# The bf16 tensor-core backward (D 64 and 128) rounds P and dS to bf16
+# once before its products: + 2**-8 times scale |dS| |K| (dq), scale
+# |dS|^T |Q| (dk) and |P|^T |dO| (dv), from the plain version's f32 P and
+# dS (`flash_backward_abs_bound`). f32 and D 32 keep the limit above.
+# Phase 5's cases: (T, causal, dtype, D); the main path's is the first.
+FLASH_CASES = ((FT, True, "bfloat16", FD), (FT, False, "bfloat16", FD),
+               (FT, True, "float32", FD), (FT, False, "float32", FD),
+               (FLASH_RAGGED_T, True, "bfloat16", FD),
+               (FLASH_RAGGED_T, False, "float32", FD),
+               (129, True, "bfloat16", FD), (FT, True, "bfloat16", 128))
 # Flash vs plain attention inside the whole bf16 model, same f32
 # masters: the two paths round at different places (the kernel rounds p
 # to bf16, the plain path keeps it f32), so activations, the loss and
@@ -212,7 +235,8 @@ def bound(bytes_moved: float, ops: float, dtype) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check(name, got, ref, dtype_name, what, tol=None, extra=None) -> float:
+def check(name, got, ref, dtype_name, what, tol=None, extra=None,
+          extra_name="2^-8*P|V|") -> float:
     atol, rtol = (tol or TOL)[dtype_name]
     diff = (got.float() - ref.float()).abs()
     limit = atol + rtol * ref.float().abs()
@@ -222,7 +246,7 @@ def check(name, got, ref, dtype_name, what, tol=None, extra=None) -> float:
     err = diff.max().item()
     print(f"  {what}: max|kernel-plain| = {err:.3e} "
           f"(limit {atol} + {rtol:.4g}*|plain|"
-          f"{' + 2^-8*P|V|' if extra is not None else ''})")
+          f"{' + ' + extra_name if extra is not None else ''})")
     if not over <= 0:
         fail(f"{name} kernel disagrees with plain ({what})")
     return err
@@ -541,16 +565,14 @@ def phase_flash(dev) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(5)
     rec = {k: {"cases": []} for k in ("fwd", "dq", "dkv")}
-    for t, causal, dt in ((FT, True, torch.bfloat16),
-                          (FT, False, torch.bfloat16),
-                          (FT, True, torch.float32),
-                          (FT, False, torch.float32),
-                          (FLASH_RAGGED_T, True, torch.bfloat16),
-                          (FLASH_RAGGED_T, False, torch.float32)):
-        name = str(dt).split(".")[-1]
-        q, k, v, do = (torch.randn((FB, t, FH, FD), generator=g,
+    for t, causal, name, d in FLASH_CASES:
+        dt = getattr(torch, name)
+        tc = dt == torch.bfloat16 and d in (64, 128)
+        q, k, v, do = (torch.randn((FB, t, FH, d), generator=g,
                                    device=dev).to(dt) for _ in range(4))
-        what = f"{name:8s} T={t} causal={causal!s:5s}"
+        what = f"{name:8s} T={t} D={d} causal={causal!s:5s}"
+        case = {"dtype": name, "T": t, "D": d, "causal": causal,
+                "kernel": "tc" if tc else "simt"}
         out, lse = fa.flash_forward(q, k, v, causal=causal)
         ref_out, ref_lse = fa.flash_forward_reference(q, k, v,
                                                       causal=causal)
@@ -562,26 +584,27 @@ def phase_flash(dev) -> dict:
                       f"flash fwd out {what}", FLASH_TOL, extra),
                 check("flash forward", lse, ref_lse, "float32",
                       f"flash fwd lse {what}", FLASH_TOL)]
-        rec["fwd"]["cases"].append({"dtype": name, "T": t, "causal": causal,
-                                    "max_abs_err": max(errs)})
+        rec["fwd"]["cases"].append({**case, "max_abs_err": max(errs)})
         del extra
         delta = fa.attention_delta(ref_out, do)
         dq = fa.flash_dq(q, k, v, do, ref_lse, delta, causal=causal)
         dk, dv = fa.flash_dkv(q, k, v, do, ref_lse, delta, causal=causal)
         rdq, rdk, rdv = fa.flash_backward_reference(q, k, v, do, ref_lse,
                                                     delta, causal=causal)
+        bq = bk = bv = None
+        if tc:
+            bq, bk, bv = (2 ** -8 * x for x in fa.flash_backward_abs_bound(
+                q, k, v, do, ref_lse, delta, causal=causal))
         e = check("flash dq", dq, rdq, name, f"flash dq      {what}",
-                  FLASH_TOL)
-        rec["dq"]["cases"].append({"dtype": name, "T": t, "causal": causal,
-                                   "max_abs_err": e})
+                  FLASH_TOL, bq, "2^-8*sm|dS||K|")
+        rec["dq"]["cases"].append({**case, "max_abs_err": e})
         e = max(check("flash dkv", dk, rdk, name, f"flash dk      {what}",
-                      FLASH_TOL),
+                      FLASH_TOL, bk, "2^-8*sm|dS|^T|Q|"),
                 check("flash dkv", dv, rdv, name, f"flash dv      {what}",
-                      FLASH_TOL))
-        rec["dkv"]["cases"].append({"dtype": name, "T": t, "causal": causal,
-                                    "max_abs_err": e})
+                      FLASH_TOL, bv, "2^-8*|P|^T|dO|"))
+        rec["dkv"]["cases"].append({**case, "max_abs_err": e})
         del q, k, v, do, out, lse, ref_out, ref_lse, delta, dq, dk, dv
-        del rdq, rdk, rdv
+        del rdq, rdk, rdv, bq, bk, bv
         torch.cuda.empty_cache()
 
     # Times at the main path's case: bf16, causal, T 1024. Three input
@@ -654,6 +677,44 @@ def _host_batches(cfg, batch: int, seed: int):
         yield {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
 
 
+def _loss_and_grads(model, batch, cfg) -> tuple[float, list]:
+    import torch
+    from ray_tpu_torch.train import spmd
+    loss = spmd.gpt_loss_fn(model, batch, cfg)
+    return loss.item(), torch.autograd.grad(loss, list(model.parameters()))
+
+
+def _compare_runs(what, model, a, b) -> dict:
+    """Loss and every gradient leaf of two runs of one model, each a
+    (loss, grads) pair, held to TRAIN_LOSS_TOL and TRAIN_GRAD_REL_TOL."""
+    dloss = abs(a[0] - b[0])
+    rel = {n: ((ga.float() - gb.float()).norm()
+               / gb.float().norm().clamp_min(1e-30)).item()
+           for (n, _), ga, gb in zip(model.named_parameters(), a[1], b[1])}
+    worst = max(rel, key=rel.get)
+    print(f"  {what}: loss {a[0]:.6f} vs {b[0]:.6f}, |diff| {dloss:.2e} "
+          f"(limit {TRAIN_LOSS_TOL}); worst leaf gradient rel. error "
+          f"{rel[worst]:.2e} ({worst}, limit {TRAIN_GRAD_REL_TOL})")
+    if not dloss <= TRAIN_LOSS_TOL:
+        fail(f"{what}: losses differ by {dloss}")
+    if not rel[worst] <= TRAIN_GRAD_REL_TOL:
+        fail(f"{what}: gradient of {worst} off by {rel[worst]}")
+    return {"loss": a[0], "loss_plain": b[0], "loss_abs_diff": dloss,
+            "grad_rel_err": rel, "grad_rel_err_max": rel[worst]}
+
+
+def check_flash_backward_launches(launches, steps: int, layers: int):
+    """A bf16 training run at D 64: per step one tensor-core dQ and one
+    dK/dV launch per layer, and no CUDA-core flash kernel."""
+    for name in ("flash_dq_tc", "flash_dkv_tc"):
+        if launches[name] != steps * layers:
+            fail(f"{name} launched {launches[name]} times in {steps} steps "
+                 f"of {layers} layers (want {steps * layers})")
+    for name in ("flash_fwd_simt", "flash_dq_simt", "flash_dkv_simt"):
+        if launches[name]:
+            fail(f"the bf16 training path ran {name} (CUDA cores)")
+
+
 def phase_train(dev) -> dict:
     """Phase 6: training at full width (see the module docstring)."""
     import dataclasses
@@ -675,28 +736,12 @@ def phase_train(dev) -> dict:
     t0 = time.perf_counter()
     state, step_fn, place = spmd.make_gpt_trainer(cfg, seed=0, device=dev)
     model = state.params
-    leaves = [(n, p) for n, p in model.named_parameters()]
     b0 = place(next(_host_batches(cfg, batch, seed=1)))
-    res = {}
-    for impl in ("flash", "xla"):
-        loss = spmd.gpt_loss_fn(model, b0,
-                                dataclasses.replace(cfg, attn_impl=impl))
-        grads = torch.autograd.grad(loss, [p for _, p in leaves])
-        res[impl] = (loss.item(), grads)
-    dloss = abs(res["flash"][0] - res["xla"][0])
-    rel = {n: ((gf.float() - gx.float()).norm()
-               / gx.float().norm().clamp_min(1e-30)).item()
-           for (n, _), gf, gx in zip(leaves, res["flash"][1], res["xla"][1])}
-    worst = max(rel, key=rel.get)
-    print(f"  (a) loss flash {res['flash'][0]:.6f} vs plain "
-          f"{res['xla'][0]:.6f}: |diff| {dloss:.2e} (limit "
-          f"{TRAIN_LOSS_TOL}); worst leaf gradient rel. error "
-          f"{rel[worst]:.2e} ({worst}, limit {TRAIN_GRAD_REL_TOL})")
-    if not dloss <= TRAIN_LOSS_TOL:
-        fail(f"flash vs plain-attention loss differ by {dloss}")
-    if not rel[worst] <= TRAIN_GRAD_REL_TOL:
-        fail(f"flash vs plain-attention gradient of {worst} off by "
-             f"{rel[worst]}")
+    res = {impl: _loss_and_grads(model, b0,
+                                 dataclasses.replace(cfg, attn_impl=impl))
+           for impl in ("flash", "xla")}
+    cmp = _compare_runs("(a) flash vs plain attention", model, res["flash"],
+                        res["xla"])
     ln_v = math.log(cfg.vocab_size)
     want0 = ln_v + cfg.d_model * 0.02 ** 2 / 2
     print(f"  (b) step-0 loss {res['flash'][0]:.4f}: ln(vocab) {ln_v:.4f}, "
@@ -704,11 +749,13 @@ def phase_train(dev) -> dict:
           f"{STEP0_LOSS_TOL})")
     if not abs(res["flash"][0] - want0) <= STEP0_LOSS_TOL:
         fail(f"step-0 loss {res['flash'][0]} is not near {want0}")
-    out.update(loss_flash=res["flash"][0], loss_plain=res["xla"][0],
-               loss_abs_diff=dloss, grad_rel_err=rel,
-               grad_rel_err_max=rel[worst], step0_loss=res["flash"][0],
-               step0_expected=want0, ln_vocab=ln_v)
-    del res, grads, loss
+    out.update(loss_flash=cmp["loss"], loss_plain=cmp["loss_plain"],
+               loss_abs_diff=cmp["loss_abs_diff"],
+               grad_rel_err=cmp["grad_rel_err"],
+               grad_rel_err_max=cmp["grad_rel_err_max"],
+               step0_loss=res["flash"][0], step0_expected=want0,
+               ln_vocab=ln_v)
+    del res
     torch.cuda.empty_cache()
     out["check_s"] = time.perf_counter() - t0
 
@@ -742,8 +789,7 @@ def phase_train(dev) -> dict:
     for name in ("flash_forward", "flash_fwd_tc", "flash_dq", "flash_dkv"):
         if launches[name] <= 0:
             fail(f"{name} was not launched on the training path")
-    if launches["flash_fwd_simt"]:
-        fail("the bf16 training path ran the CUDA-core flash forward")
+    check_flash_backward_launches(launches, steps, cfg.n_layers)
     tok_s = tokens_per_step * steps / wall
     mfu = train.last_mfu
     print(f"  (c) warm-up {2 * unroll} steps in {warm_s:.1f} s; {steps} "
@@ -791,7 +837,7 @@ def phase_train(dev) -> dict:
         "flash_share_of_device": flash_us / max(busy_us, 1e-9),
         "top_kernels": [{"name": n[:80], "device_ms": t * 1e-3, "calls": c}
                         for n, t, c in kernels[:16]]}
-    del state, step_fn, model, batches, train, prof, leaves, b0
+    del state, step_fn, model, batches, train, prof, b0
     torch.cuda.empty_cache()
 
     # (d) overfit one repeated batch: 5 warm-up steps, then 20.
@@ -1037,7 +1083,6 @@ def phase_fused_train(dev) -> dict:
     # masters, with the peak memory of each forward + backward.
     state, step_fn, place = spmd.make_gpt_trainer(cfg, seed=0, device=dev)
     model = state.params
-    leaves = list(model.named_parameters())
     b0 = place(next(_host_batches(cfg, batch, seed=11)))
     res, peak = {}, {}
     for impl in ("fused", "dense"):
@@ -1045,30 +1090,15 @@ def phase_fused_train(dev) -> dict:
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        loss = spmd.gpt_loss_fn(model, b0,
-                                dataclasses.replace(cfg, loss_impl=impl))
-        grads = torch.autograd.grad(loss, [p for _, p in leaves])
+        res[impl] = _loss_and_grads(model, b0,
+                                    dataclasses.replace(cfg, loss_impl=impl))
         torch.cuda.synchronize()
         peak[impl] = torch.cuda.max_memory_allocated() - base
-        res[impl] = (loss.item(), grads)
-        del loss, grads
-    dloss = abs(res["fused"][0] - res["dense"][0])
-    rel = {n: ((gf.float() - gd.float()).norm()
-               / gd.float().norm().clamp_min(1e-30)).item()
-           for (n, _), gf, gd in zip(leaves, res["fused"][1],
-                                     res["dense"][1])}
-    worst = max(rel, key=rel.get)
     # The fused loss keeps the unembed in f32 from bf16 operands; the
     # dense one rounds the logits and their cotangent to bf16: they
     # differ like two bf16 runs (phase 6's limits).
-    print(f"  (a) loss fused {res['fused'][0]:.6f} vs dense "
-          f"{res['dense'][0]:.6f}: |diff| {dloss:.2e} (limit "
-          f"{TRAIN_LOSS_TOL}); worst leaf gradient rel. error "
-          f"{rel[worst]:.2e} ({worst}, limit {TRAIN_GRAD_REL_TOL})")
-    if not dloss <= TRAIN_LOSS_TOL:
-        fail(f"fused vs dense loss differ by {dloss}")
-    if not rel[worst] <= TRAIN_GRAD_REL_TOL:
-        fail(f"fused vs dense gradient of {worst} off by {rel[worst]}")
+    cmp = _compare_runs("(a) fused vs dense loss", model, res["fused"],
+                        res["dense"])
     want0 = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
     print(f"  (b) step-0 loss {res['fused'][0]:.4f}, expected {want0:.4f} "
           f"(limit {STEP0_LOSS_TOL})")
@@ -1082,9 +1112,11 @@ def phase_fused_train(dev) -> dict:
           f"bf16 logits' {logits_bytes / 2**30:.2f} GiB)")
     if not peak["dense"] - peak["fused"] >= logits_bytes:
         fail("the fused loss does not save the logits' memory")
-    out.update(loss_fused=res["fused"][0], loss_dense=res["dense"][0],
-               loss_abs_diff=dloss, grad_rel_err=rel,
-               grad_rel_err_max=rel[worst], step0_loss=res["fused"][0],
+    out.update(loss_fused=cmp["loss"], loss_dense=cmp["loss_plain"],
+               loss_abs_diff=cmp["loss_abs_diff"],
+               grad_rel_err=cmp["grad_rel_err"],
+               grad_rel_err_max=cmp["grad_rel_err_max"],
+               step0_loss=res["fused"][0],
                step0_expected=want0, peak_fused_gib=peak["fused"] / 2**30,
                peak_dense_gib=peak["dense"] / 2**30,
                logits_bf16_gib=logits_bytes / 2**30)
@@ -1122,9 +1154,9 @@ def phase_fused_train(dev) -> dict:
                  "xent_dlog", "xent_dx", "xent_de"):
         if launches[name] <= 0:
             fail(f"{name} was not launched on the fused training path")
-    for name in ("flash_fwd_simt", "xent_fwd_simt"):
-        if launches[name]:
-            fail(f"the bf16 fused training path ran {name} (CUDA cores)")
+    if launches["xent_fwd_simt"]:
+        fail("the bf16 fused training path ran xent_fwd_simt (CUDA cores)")
+    check_flash_backward_launches(launches, FUSED_STEPS, cfg.n_layers)
     tok_s = tokens_per_step * FUSED_STEPS / wall
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"  (c) warm-up {FUSED_WARMUP} steps in {warm_s:.1f} s; "
@@ -1168,14 +1200,26 @@ def phase_fused_train(dev) -> dict:
           f"{flash_us * 1e-3:.1f} ms ({flash_us / max(busy_us, 1e-9):.1%})")
     for n, t, c in kernels[:12]:
         print(f"    {t * 1e-3:9.3f} ms  {c:6d}  {n[:80]}")
+    # device time of each of the port's kernels over the window
+    ours = {}
+    for n, t, c in kernels:
+        m = re.search(r"(\w+_kernel)\b", n)
+        if m and ("flash_" in n or "xent_" in n):
+            k = ours.setdefault(m.group(1), {"device_ms": 0.0, "calls": 0})
+            k["device_ms"] += t * 1e-3
+            k["calls"] += c
+    print("      the port's kernels over the window: " + ", ".join(
+        f"{k} {v['device_ms']:.1f} ms ({v['calls']})"
+        for k, v in sorted(ours.items(), key=lambda kv: -kv[1]["device_ms"])))
     out["profile"] = {
         "wall_s": pwall, "device_busy_s": busy_us * 1e-6,
         "device_busy_share": busy_us * 1e-6 / pwall,
+        "kernel_device_ms": ours,
         "xent_share_of_device": xent_us / max(busy_us, 1e-9),
         "flash_share_of_device": flash_us / max(busy_us, 1e-9),
         "top_kernels": [{"name": n[:80], "device_ms": t * 1e-3, "calls": c}
                         for n, t, c in kernels[:16]]}
-    del state, step_fn, model, batches, train, prof, leaves, b0
+    del state, step_fn, model, batches, train, prof, b0
     torch.cuda.empty_cache()
     return out
 
@@ -1329,6 +1373,187 @@ def phase_unpaged(dev, cfg_kwargs, seed: int = 0) -> dict:
     return out
 
 
+# Phase 10's shapes, which the card refused before: head dim 96
+# (d_model 768 over 8 heads: the flash kernels pad it to 128, the decode
+# kernels take it as it is), pool block 64 (the multi-query kernel sees
+# it as blocks of 32) and a fused-loss width of 384. Widths are these
+# shapes' own; depth is cut to 2 layers (ROADMAP C1).
+C1_D96 = dict(vocab_size=50304, d_model=768, n_layers=2, n_heads=8,
+              d_ff=3072, max_seq_len=1024)
+C1_BLOCK = 64
+C1_XENT = dict(vocab_size=50304, d_model=384, n_layers=2, n_heads=6,
+               d_ff=1536, max_seq_len=1024)
+C1_BATCH = 4
+
+
+def phase_c1(dev) -> dict:
+    """Phase 10: the three configurations the card refused before (ROADMAP
+    C1), each through its entry points against a plain version: (a) the
+    decode kernels and the multi-query kernel (prefill and verify) at head
+    dim 96 over a block-64 pool, against their plain versions; (b) a
+    training step at head dim 96 (d_model 768, 8 heads), loss and
+    gradients with flash attention against plain attention, then one
+    trainer step on the tensor-core kernels; (c) an `InferenceReplica`
+    with block size 64 on the same head dim answering 3 requests, its
+    logprobs against a dense f32 forward (phase 3's check); (d) the fused
+    loss at d_model 384 against the dense loss."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.ops import decode_attention as da
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.serve import InferenceReplica
+    from ray_tpu_torch.train import spmd
+
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(10)
+    dt, d, h = torch.bfloat16, 96, 8
+    # (a) kernels at D 96 over a block-64 pool: 8 rows of 16 blocks
+    b, mb = 8, 16
+    nb = b * mb + 1
+    kp, vp = (torch.randn((nb, C1_BLOCK, h, d), generator=g,
+                          device=dev).to(dt) for _ in range(2))
+    tables = (torch.randperm(nb - 1, generator=g, device=dev)[:b * mb] + 1) \
+        .view(b, mb).to(torch.int32).contiguous()
+    pos = torch.tensor([0, 63, 64, 100, 511, 700, 1000, 1023],
+                       dtype=torch.int32, device=dev)
+    q = torch.randn((b, h, d), generator=g, device=dev).to(dt)
+    errs = {"paged_decode": check(
+        "paged decode", da.paged_decode_attention(q, kp, vp, tables, pos),
+        da.reference_paged_decode_attention(q, kp, vp, tables, pos),
+        "bfloat16", "(a) paged decode D=96 block=64")}
+    qc = torch.randn((64, h, d), generator=g, device=dev).to(dt)
+    errs["paged_prefill"] = check(
+        "paged prefill", da.paged_prefill_attention(qc, kp, vp, tables[0],
+                                                    960),
+        da.reference_paged_prefill_attention(qc, kp, vp, tables[0], 960),
+        "bfloat16", "(a) paged prefill D=96 block=64 C=64 start=960")
+    qv = torch.randn((b, 4, h, d), generator=g, device=dev).to(dt)
+    errs["paged_verify"] = check(
+        "paged verify", da.paged_verify_attention(qv, kp, vp, tables, pos),
+        da.reference_paged_verify_attention(qv, kp, vp, tables, pos),
+        "bfloat16", "(a) paged verify D=96 block=64 W=4")
+    kc, vc = (torch.randn((b, 1024, h, d), generator=g, device=dev).to(dt)
+              for _ in range(2))
+    errs["decode"] = check(
+        "decode", da.decode_attention(q, kc, vc, pos),
+        da.reference_decode_attention(q, kc, vc, pos), "bfloat16",
+        "(a) decode D=96 S=1024")
+    out["kernel_max_abs_err"] = errs
+    del kp, vp, kc, vc
+
+    # (b) a training step at D 96
+    cfg = _train_cfg(**C1_D96)
+    state, step_fn, place = spmd.make_gpt_trainer(cfg, seed=0, device=dev)
+    batch = place(next(_host_batches(cfg, C1_BATCH, seed=20)))
+    runs = {impl: _loss_and_grads(state.params, batch,
+                                  dataclasses.replace(cfg, attn_impl=impl))
+            for impl in ("flash", "xla")}
+    out["train_d96"] = _compare_runs(
+        "(b) D=96 flash vs plain attention", state.params, runs["flash"],
+        runs["xla"])
+    del runs
+    ops.reset_kernel_launches()
+    state, m = step_fn(state, batch)
+    loss = m["loss"].item()
+    launches = ops.kernel_launches()
+    if not np.isfinite(loss):
+        fail(f"D 96 train step loss {loss}")
+    for name in ("flash_fwd_tc", "flash_dq_tc", "flash_dkv_tc"):
+        if launches[name] < cfg.n_layers:
+            fail(f"D 96 train step: {name} launched {launches[name]} times")
+    for name in ("flash_fwd_simt", "flash_dq_simt", "flash_dkv_simt"):
+        if launches[name]:
+            fail(f"D 96 train step ran {name}")
+    print(f"  (b) one D=96 trainer step: loss {loss:.4f}; launches "
+          f"{ {k: v for k, v in launches.items() if k.startswith('flash')} }")
+    out["train_d96"].update(step_loss=loss, launches=launches)
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # (c) the engine at block 64 on the D 96 model
+    cfg_kwargs = {**C1_D96, "dtype": "bfloat16"}
+    replica = InferenceReplica(cfg_kwargs, slots=4, max_len=1024, seed=0,
+                               engine_kwargs=dict(block_size=C1_BLOCK),
+                               device=dev)
+    rng = np.random.default_rng(21)
+    reqs = [(rng.integers(0, cfg_kwargs["vocab_size"], n).astype(np.int32),
+             0.0) for n in (300, 128, 70)]
+    ops.reset_kernel_launches()
+    outs = [list(gen) for gen in [replica(p, max_new_tokens=16)
+                                  for p, _ in reqs]]
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    for name in ("paged_prefill_attention", "paged_decode_attention"):
+        if launches[name] <= 0:
+            fail(f"the block-64 engine did not launch {name}")
+    if any(len(o) != 16 for o in outs):
+        fail("the block-64 engine cut a request short")
+    st = replica.engine.stats()
+    replica.engine.check_invariants()
+    print(f"  (c) engine at block {C1_BLOCK}, D=96: {len(reqs)} requests, "
+          f"{st['prefill_chunks']} prefill chunks, {st['decode_steps']} "
+          f"decode ticks; launches "
+          f"{ {k: launches[k] for k in ('paged_prefill_attention', 'paged_decode_attention')} }")
+    del replica
+    torch.cuda.empty_cache()
+    out["engine_block64"] = phase_teacher_forced(dev, cfg_kwargs, 0, reqs,
+                                                 outs)
+    out["engine_block64"]["launches"] = launches
+
+    # (d) the fused loss at width 384
+    cfg = _train_cfg(**C1_XENT, loss_impl="fused")
+    state, _, place = spmd.make_gpt_trainer(cfg, seed=0, device=dev)
+    batch = place(next(_host_batches(cfg, C1_BATCH, seed=22)))
+    ops.reset_kernel_launches()
+    fused = _loss_and_grads(state.params, batch, cfg)
+    launches = ops.kernel_launches()
+    dense = _loss_and_grads(state.params, batch,
+                            dataclasses.replace(cfg, loss_impl="dense"))
+    for name in ("xent_fwd_tc", "xent_fwd_merge", "xent_dlog", "xent_dx",
+                 "xent_de"):
+        if launches[name] <= 0:
+            fail(f"the width-384 fused loss did not launch {name}")
+    out["fused_loss_384"] = _compare_runs(
+        "(d) d_model=384 fused vs dense loss", state.params, fused, dense)
+    out["fused_loss_384"]["launches"] = {
+        k: v for k, v in launches.items() if k.startswith("xent")}
+    del state, batch, fused, dense
+    torch.cuda.empty_cache()
+    return out
+
+
+def tensor_core_registers(ptxas: str) -> dict:
+    """Registers and spilled bytes (stores + loads) of each instantiation
+    of the tensor-core kernels, from nvcc's ptxas report, by a readable
+    name such as ``flash_dq_tc_kernel<64, true>``."""
+    out, name = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"((?:flash|xent)_[a-z_]*?tc_kernel)"
+                          r"(?:ILi(\d+)ELb([01])E)?", m.group(1))
+            name = None
+            if k:
+                name = k.group(1) + (
+                    f"<{k.group(2)}, {'true' if k.group(3) == '1' else 'false'}>"
+                    if k.group(2) else "")
+                out[name] = {"registers": None, "spill_bytes": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1360,11 +1585,16 @@ def main() -> int:
     if regs:
         print(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
               f"registers, {spills} bytes spilled")
+    tc_regs = tensor_core_registers(ptxas)
+    for name, r in tc_regs.items():
+        print(f"  ptxas {name}: {r['registers']} registers, "
+              f"{r['spill_bytes']} bytes spilled")
     _build.load()
 
     result = {"card": smi, "torch": torch.__version__,
               "torch_cuda": torch.version.cuda, "nvcc": nvcc,
-              "build_s": build_s, "phase_s": {}}
+              "build_s": build_s, "ptxas_tensor_core": tc_regs,
+              "phase_s": {}}
     cfg_kwargs = dict(vocab_size=50304, d_model=1024, n_layers=12,
                       n_heads=16, d_ff=4096, max_seq_len=1024,
                       dtype="bfloat16")
@@ -1393,9 +1623,11 @@ def main() -> int:
                   "batch 24)", phase_fused_train, dev)
     unpaged = phase(9, "unpaged KV-cache path at full width", phase_unpaged,
                     dev, cfg_kwargs)
+    c1 = phase(10, "head dim 96, pool block 64, loss width 384",
+               phase_c1, dev)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
                   flash=flash, train=train, xent=xent, fused_train=fused,
-                  unpaged=unpaged)
+                  unpaged=unpaged, c1=c1)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1445,11 +1677,12 @@ def main() -> int:
             # dlog kernel that both rows share (phase 7)
             rows[-1].update(kernels=[f"{wrapper}_kernel", "xent_dlog_kernel"],
                             dlog_launches=launches["xent_dlog"])
-        elif key == "flash_forward":
+        elif key in ("flash_forward", "flash_dq", "flash_dkv"):
             # bf16 at D 64: the tensor-core kernel (phase 5)
-            rows[-1].update(kernels=["flash_fwd_tc_kernel"],
-                            kernel_launches={"flash_fwd_tc":
-                                             launches["flash_fwd_tc"]})
+            kname = {"flash_forward": "flash_fwd_tc", "flash_dq":
+                     "flash_dq_tc", "flash_dkv": "flash_dkv_tc"}[key]
+            rows[-1].update(kernels=[f"{kname}_kernel"],
+                            kernel_launches={kname: launches[kname]})
         elif key == "fused_xent_fwd":
             # bf16: the tile kernel and the merge, one launch each per call
             rows[-1].update(kernels=["xent_fwd_tc_kernel",

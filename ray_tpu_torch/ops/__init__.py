@@ -5,6 +5,8 @@ beside a plain PyTorch version with the same math.
 counter of every kernel wrapper in the package, so a run can show which
 kernels its main path went through."""
 
+import torch
+
 
 def _modules():
     from ray_tpu_torch.ops import decode_attention, flash_attention, fused_xent
@@ -22,3 +24,17 @@ def kernel_launches() -> dict:
 def reset_kernel_launches() -> None:
     for m in _modules():
         m.reset_kernel_launches()
+
+
+def pad_last_dim(x, n: int):
+    """``x`` with zero columns appended to its last dim up to ``n`` (x
+    itself if it is ``n`` wide): how the wrappers present a head dim or
+    loss width to a kernel built for a wider one."""
+    d = x.shape[-1]
+    return x if d == n else torch.nn.functional.pad(x, (0, n - d))
+
+
+def trim_last_dim(x, n: int):
+    """The first ``n`` columns of ``x``'s last dim, contiguous (x itself
+    if it is ``n`` wide): a padded kernel output sliced back."""
+    return x if x.shape[-1] == n else x[..., :n].contiguous()

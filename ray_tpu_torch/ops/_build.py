@@ -51,6 +51,10 @@ SIGNATURES = {
                       _I, _P], _I),
     "rtt_flash_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                        _I, _I, _P], _I),
+    "rtt_flash_dq_tc": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                         _P], _I),
+    "rtt_flash_dkv_tc": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                          _I, _P], _I),
     "rtt_xent_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "rtt_xent_fwd_tc": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "rtt_xent_fwd_merge": ([_P, _P, _P, _P, _I, _I, _P], _I),

@@ -5,10 +5,18 @@
 //                        (online-softmax forward, causal tile skip, lse) for
 //                        bf16 at D 64 and 128, on the tensor cores
 //   flash_fwd_kernel     the same on CUDA cores, for f32 and for bf16 at D 32
-//   flash_dq_kernel      replaces ray_tpu/ops/flash_attention.py::_dq_kernel
-//                        (dQ = sm * sum_kv dS K, P rebuilt from lse)
-//   flash_dkv_kernel     replaces ray_tpu/ops/flash_attention.py::_dkv_kernel
-//                        (dV = sum_q P^T dO, dK = sm * sum_q dS^T Q)
+//   flash_dq_tc_kernel   replaces ray_tpu/ops/flash_attention.py::_dq_kernel
+//                        (dQ = sm * sum_kv dS K, P rebuilt from lse) for bf16
+//                        at D 64 and 128, on the tensor cores
+//   flash_dkv_tc_kernel  replaces ray_tpu/ops/flash_attention.py::_dkv_kernel
+//                        (dV = sum_q P^T dO, dK = sm * sum_q dS^T Q) likewise
+//   flash_dq_kernel,     the two backward kernels on CUDA cores, for f32 and
+//   flash_dkv_kernel     for bf16 at D 32
+//
+// The kernels are built for head dims 32, 64 and 128; the Python wrapper
+// zero-pads any other multiple of 8 up to the next of those and passes
+// the true head dim's softmax scale (zero columns add nothing to q . k or
+// to delta, and dq, dk, dv come out zero there).
 //
 // They compute what the Pallas kernels compute, not block by block:
 //
@@ -26,18 +34,22 @@
 //   divisor has no counterpart.
 //
 // Numerics follow the reference: scores in f32 from (q * sm_scale) . k
-// (the tensor-core forward scales the f32 product q . k instead: the same
+// (the tensor-core kernels scale the f32 product q . k instead: the same
 // value at D 64, where sm_scale is a power of two, and one f32 rounding
 // apart otherwise); masked scores are the finite NEG_INF; the forward
 // rounds p to v's dtype before p . V, relative to the running row max (so
 // bf16 outputs match JAX's), while l sums the f32 p; the backward
 // rebuilds p = exp(s - lse) and dS = p * (dO . V^T - delta) in f32 and
-// writes dq/dk/dv in the input dtype.
+// writes dq/dk/dv in the input dtype. The tensor-core backward rounds P
+// and dS to bf16 once before its products (P^T dO, dS K, dS^T Q), which
+// moves each element by at most 2^-8 of the same product of absolute
+// values (flash_attention.py's flash_backward_abs_bound).
 //
 // What bounds them on an H100: at the training shape (B 8, T 1024, H 16,
-// D 64, causal, bf16) the forward moves 67 MB and does 2.1 GFLOP, so the
-// 3.35 TB/s bound it (~20 us); dQ and dK/dV add products and are bound by
-// the tensor cores' 989 TFLOP/s (~26 and ~35 us).
+// D 64, causal, bf16) the forward moves 67 MB and does 17.2 GFLOP, so the
+// 3.35 TB/s bound it (~20 us); dQ (25.8 GFLOP) and dK/dV (34.4 GFLOP) add
+// products and are bound by the tensor cores' 989 TFLOP/s (~26 and
+// ~35 us).
 //
 // The bf16 forward on the tensor cores (flash_fwd_tc_kernel): a CTA owns
 // 128 query rows of one (b, h), two consumer warpgroups of 64 rows each,
@@ -61,14 +73,35 @@
 // 167 registers a thread one CTA fills an SM, so a CTA's first loads are
 // not overlapped with another's work.
 //
-// The CUDA-core kernels (f32, the backward, and bf16 forward at D 32,
-// whose 64-byte rows are under the 128-byte swizzle span the
-// tensor-core kernel's TMA boxes use) are the simple first version: 64 x
-// 64 tiles of f32 FMA from shared memory (each thread owns a 4 x 8 block
-// of scores and a 4 x D/8 block of the accumulator, rows spaced 16 apart
-// and columns 8 apart so a warp reads shared memory without bank
-// conflicts), so they run at the CUDA cores' rate, far from the bound.
-// Tensor-core tiles for the backward are later work.
+// The bf16 backward on the tensor cores keeps the reference's split into
+// a dQ pass and a dK/dV pass, each owning 128 rows of one (b, h) (two
+// consumer warpgroups of 64) and streaming 64-row tiles of the other side
+// through a 3-stage TMA ring (64-row boxes of the same 4-D maps):
+// - flash_dq_tc_kernel owns query rows (Q, dO, lse, delta loaded once) and
+//   streams K, V: S = Q K^T and dP = dO V^T (wgmma.m64n64k16, K-major),
+//   P = exp2(s sm log2(e) - lse log2(e)) while dP runs, dS = P (dP -
+//   delta) rounded to bf16 from the accumulators into the A registers of
+//   dQ += dS K (K read MN-major). Heaviest causal tiles first.
+// - flash_dkv_tc_kernel owns key rows (K, V loaded once) and streams Q,
+//   dO with their lse and delta (copied into the stage by the producer
+//   warp's 32 lanes; lse is +1e30 past T, so TMA's zero rows give P = 0):
+//   it works in the transposed form, S^T = K Q^T and dP^T = V dO^T, so
+//   P^T and dS^T come out as the A fragments of dV += P^T dO and dK +=
+//   dS^T Q, with no shared-memory round trip. Causal CTAs start at their
+//   diagonal, the low key tiles (the most query rows) first. Its two f32
+//   accumulators (128 registers a thread at D 128) do not fit the 168
+//   registers 9 warps leave, so its producer is a warpgroup that gives
+//   registers to the consumers (setmaxnreg: 40 and 232).
+// Each warpgroup waits for its products before the next tile (no overlap
+// of one tile's softmax with the next tile's products).
+//
+// The CUDA-core kernels (f32, and bf16 at D 32, whose 64-byte rows are
+// under the 128-byte swizzle span the tensor-core kernels' TMA boxes use)
+// are the simple first version: 64 x 64 tiles of f32 FMA from shared
+// memory (each thread owns a 4 x 8 block of scores and a 4 x D/8 block of
+// the accumulator, rows spaced 16 apart and columns 8 apart so a warp
+// reads shared memory without bank conflicts), so they run at the CUDA
+// cores' rate, far from the bound.
 //
 // Each extern "C" entry launches on the given stream and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a head dim it has no
@@ -589,6 +622,31 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// The same at N 64: d[0:32] (+)= A (64 x 16) . B (16 x 64), both K-major,
+// one wgmma.m64n64k16.
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d[0:32] += A (64 x 16: four registers of bf16 pairs) . B (16 x 64,
 // descriptor db, MN-major): one wgmma.m64n64k16 with A from registers.
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
@@ -836,8 +894,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // A 4-D map (D, H, T, B) over a contiguous [B, T, H, D] bf16 tensor with
-// boxes of 64 columns x 1 x BM rows x 1.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int Tn, int H, int D) {
+// boxes of 64 columns x 1 x `rows` rows x 1.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int Tn, int H, int D,
+              int rows = BM) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(Tn),
@@ -845,7 +904,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int Tn, int H, int D) {
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(H) * D * 2,
                                  static_cast<cuuint64_t>(Tn) * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, BM, 1};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   return encode_bf16(map, ptr, 4, dims, strides, box);
 }
 
@@ -865,6 +924,482 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
   flash_fwd_tc_kernel<D, C><<<grid, THREADS, Geom<D>::SMEM, s>>>(
       mq, mk, mv, static_cast<bf16*>(out), lse, Tn, H,
       scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// bf16 backward on the tensor cores (D 64 and 128)
+// ---------------------------------------------------------------------------
+// Both kernels own 128 rows of one (b, h) (query rows for dQ, key rows
+// for dK/dV), two consumer warpgroups of 64 rows each, and stream tiles of
+// SB = 64 rows of the other side through a STAGES-deep TMA ring fed by one
+// producer warp. The owned tensors are loaded once. All products are
+// wgmma with f32 accumulators; P and dS are rounded to bf16 straight from
+// the accumulator layout into A registers (no shared-memory round trip).
+constexpr int OWN = 128;    // rows a CTA owns
+constexpr int SB = 64;      // rows of a streamed tile
+constexpr int BSTAGES = 3;  // streamed tiles in flight
+// dK/dV holds two 64 x D f32 accumulators a warpgroup (128 registers a
+// thread at D 128) besides S^T and dP^T: more than the 168 registers a
+// thread that 9 or 12 warps leave. Its producer is a whole warpgroup that
+// gives registers back (setmaxnreg) to the two consumer warpgroups: per
+// SM sub-partition one producer warp at 40 and two consumer warps at 232
+// fill the 16,384 registers.
+constexpr int DKV_THREADS = CONSUMERS + 128;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+
+template <int D>
+struct BwdGeom {
+  static_assert(D == 64 || D == 128, "the tensor-core backward takes D 64, 128");
+  static constexpr int OWN_BYTES = OWN * D * 2;   // one owned tensor
+  static constexpr int TILE_BYTES = SB * D * 2;   // one streamed tensor
+  static constexpr int ROW_BYTES = 2 * SB * 4;    // a tile's lse and delta
+  static constexpr int SMEM = 1024 + 2 * OWN_BYTES + BSTAGES * 2 * TILE_BYTES +
+                              BSTAGES * ROW_BYTES + (1 + 2 * BSTAGES) * 8;
+};
+
+// Keeps the compiler from reusing A-fragment registers that an in-flight
+// wgmma still reads.
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Loads `rows` rows from row r0 of map m into a tile of D / 64 atoms of
+// [tile_rows][128 B], in boxes of SB rows.
+template <int D>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* m,
+                                          int tile_rows, int rows, int h,
+                                          int r0, int b, uint32_t bar) {
+#pragma unroll
+  for (int a = 0; a < D / 64; ++a)
+    for (int r = 0; r < rows; r += SB)
+      tma_load_4d(dst + (a * tile_rows + r) * BOX, m, 64 * a, h, r0 + r, b,
+                  bar);
+}
+
+// dq = scale * sum_kv dS K for 128 query rows of one (b, h), with P =
+// exp(s - lse) and dS = P * (dO V^T - delta) rebuilt per kv tile: CTA
+// (bh, i) takes query tile nt - 1 - i, so the heaviest causal tiles start
+// first. mq, mdo: maps with 64-row boxes over q, dO (loaded once); mk, mv:
+// the same over k, v (streamed, 64 keys a stage). lse, delta: [B*H, T] f32.
+//
+// Per kv tile each warpgroup runs S = Q K^T and dP = dO V^T (m64n64k16,
+// both operands K-major), P and dS in registers, and dQ += dS K with dS
+// from registers and K read MN-major (m64n{D}k16). Register layouts as in
+// flash_fwd_tc_kernel.
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv,
+                       const __grid_constant__ CUtensorMap mdo,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       int Tn, int H, float scale) {
+  using G = BwdGeom<D>;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sq = (smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t sdo = sq + G::OWN_BYTES;
+  const uint32_t skv = sdo + G::OWN_BYTES;  // stage s: K, then V
+  const uint32_t own_full = skv + BSTAGES * 2 * G::TILE_BYTES +
+                            BSTAGES * G::ROW_BYTES;
+  const uint32_t full = own_full + 8, empty = full + 8 * BSTAGES;
+
+  const int nt = (Tn + OWN - 1) / OWN;
+  const int q0 = (nt - 1 - static_cast<int>(blockIdx.y)) * OWN;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int last = min(q0 + OWN, Tn) - 1;
+  const int n_kv = CAUSAL ? last / SB + 1 : (Tn + SB - 1) / SB;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < BSTAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {   // producer warp: one thread issues TMA
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(own_full, 2 * G::OWN_BYTES);
+      load_rows<D>(sq, &mq, OWN, OWN, h, q0, b, own_full);
+      load_rows<D>(sdo, &mdo, OWN, OWN, h, q0, b, own_full);
+      for (int t = 0; t < n_kv; ++t) {
+        const int st = t % BSTAGES;
+        if (t >= BSTAGES) mbar_wait(empty + 8 * st, (t / BSTAGES - 1) & 1);
+        const uint32_t bar = full + 8 * st;
+        mbar_expect_tx(bar, 2 * G::TILE_BYTES);
+        const uint32_t sk = skv + st * 2 * G::TILE_BYTES;
+        load_rows<D>(sk, &mk, SB, SB, h, t * SB, b, bar);
+        load_rows<D>(sk + G::TILE_BYTES, &mv, SB, SB, h, t * SB, b, bar);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  const int wrow0 = q0 + 64 * wg;   // the warpgroup's first query row
+  const int row_lo = wrow0 + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row_lo + 8 * hh;
+    lse2[hh] = row < Tn ? lse[(size_t)bh * Tn + row] * kLog2e : 0.f;
+    dlt[hh] = row < Tn ? delta[(size_t)bh * Tn + row] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(own_full, 0);
+  for (int t = 0; t < n_kv; ++t) {
+    const int st = t % BSTAGES, k0 = t * SB;
+    const uint32_t sk = skv + st * 2 * G::TILE_BYTES;
+    const uint32_t sv = sk + G::TILE_BYTES;
+    mbar_wait(full + 8 * st, (t / BSTAGES) & 1);
+    if (CAUSAL && k0 > wrow0 + 63) {   // every key after every row
+      mbar_arrive(empty + 8 * st);
+      continue;
+    }
+
+    // S = Q K^T and dP = dO V^T, two commit groups.
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_qk(s,
+               smem_desc(sq + (kk >> 2) * OWN * BOX + wg * 64 * BOX +
+                             (kk & 3) * 32, 16, 1024),
+               smem_desc(sk + (kk >> 2) * SB * BOX + (kk & 3) * 32, 16, 1024),
+               kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_qk(dp,
+               smem_desc(sdo + (kk >> 2) * OWN * BOX + wg * 64 * BOX +
+                             (kk & 3) * 32, 16, 1024),
+               smem_desc(sv + (kk >> 2) * SB * BOX + (kk & 3) * 32, 16, 1024),
+               kk > 0);
+    wgmma_commit();
+
+    // P = exp2(s * scale * log2(e) - lse * log2(e)) while dP runs; masks
+    // only on the diagonal and ragged tiles (keys past T are zeros).
+    wgmma_wait<1>();
+    fence_regs(s);
+    const bool edge = k0 + SB > Tn || (CAUSAL && k0 + SB - 1 > wrow0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int i = 4 * j + 2 * hh + c;
+          float p = exp2f(fmaf(s[i], scale_log2, -lse2[hh]));
+          if (edge) {
+            const int col = k0 + 8 * j + cq + c;
+            if (col >= Tn || (CAUSAL && col > row_lo + 8 * hh)) p = 0.f;
+          }
+          s[i] = p;
+        }
+    wgmma_wait<0>();
+    fence_regs(dp);
+
+    // dS = P (dP - delta), rounded to bf16 into the A fragments of
+    // dQ += dS K: register r of k step kk is elements 8 kk + 2 r, + 1.
+    uint32_t ds[SB / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < SB / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r;
+        const float d0 = dlt[r & 1];
+        ds[kk][r] = pack_bf16(s[i] * (dp[i] - d0), s[i + 1] * (dp[i + 1] - d0));
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SB / 16; ++kk)
+      wgmma_pv(acc, ds[kk], smem_desc(sk + kk * 16 * BOX, SB * BOX, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_frags(ds);
+    mbar_arrive(empty + 8 * st);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row_lo + 8 * hh;
+    if (row < Tn) {
+      bf16* op = dq + ((size_t)(b * Tn + row) * H + h) * D + cq;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);
+    }
+  }
+}
+
+// dk = scale * sum_q dS^T Q and dv = sum_q P^T dO for 128 key rows of one
+// (b, h): CTA (bh, i) takes key tile i, so the low tiles, which see the
+// most query rows under a causal mask, start first; under a causal mask
+// the query tiles start at the CTA's diagonal. mk, mv: maps with 64-row
+// boxes over k, v (loaded once); mq, mdo: the same over q, dO (streamed,
+// 64 query rows a stage, with their lse and delta, which the producer
+// warp's 32 lanes copy into the stage: lse * log2(e), and +1e30 for rows
+// past T, so that a row TMA filled with zeros gets P = 0).
+//
+// Per query tile each warpgroup runs the transposed products S^T = K Q^T
+// and dP^T = V dO^T (m64n64k16, both operands K-major), so P^T and dS^T
+// come out in the accumulator layout that is the A fragment of dV += P^T
+// dO and dK += dS^T Q (dO and Q read MN-major, m64n{D}k16).
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(DKV_THREADS, 1)
+    flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                        const __grid_constant__ CUtensorMap mk,
+                        const __grid_constant__ CUtensorMap mv,
+                        const __grid_constant__ CUtensorMap mdo,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int Tn,
+                        int H, float scale) {
+  using G = BwdGeom<D>;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t sk = base;
+  const uint32_t sv = sk + G::OWN_BYTES;
+  const uint32_t sqd = sv + G::OWN_BYTES;   // stage s: Q, then dO
+  const uint32_t srow = sqd + BSTAGES * 2 * G::TILE_BYTES;
+  // stage s: lse * log2(e) [SB], then delta [SB]
+  float* rows = reinterpret_cast<float*>(smem + (srow - smem_addr(smem)));
+  const uint32_t own_full = srow + BSTAGES * G::ROW_BYTES;
+  const uint32_t full = own_full + 8, empty = full + 8 * BSTAGES;
+
+  const int k0 = blockIdx.y * OWN;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int t0 = CAUSAL ? k0 / SB : 0;
+  const int n_q = (Tn + SB - 1) / SB - t0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < BSTAGES; ++s) {
+      // the expect_tx arrival, then one arrival per producer lane after
+      // its lse / delta stores
+      mbar_init(full + 8 * s, 1 + 32);
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {   // producer warpgroup: its first warp
+    reg_dealloc<PRODUCER_REGS>();
+    const int pl = threadIdx.x - CONSUMERS;
+    if (pl >= 32) return;
+    if (pl == 0) {
+      mbar_expect_tx(own_full, 2 * G::OWN_BYTES);
+      load_rows<D>(sk, &mk, OWN, OWN, h, k0, b, own_full);
+      load_rows<D>(sv, &mv, OWN, OWN, h, k0, b, own_full);
+    }
+    for (int i = 0; i < n_q; ++i) {
+      const int st = i % BSTAGES, q0 = (t0 + i) * SB;
+      if (i >= BSTAGES) mbar_wait(empty + 8 * st, (i / BSTAGES - 1) & 1);
+      const uint32_t bar = full + 8 * st;
+      if (pl == 0) {
+        mbar_expect_tx(bar, 2 * G::TILE_BYTES);
+        const uint32_t sq = sqd + st * 2 * G::TILE_BYTES;
+        load_rows<D>(sq, &mq, SB, SB, h, q0, b, bar);
+        load_rows<D>(sq + G::TILE_BYTES, &mdo, SB, SB, h, q0, b, bar);
+      }
+      float* rl = rows + st * 2 * SB;
+      for (int r = pl; r < SB; r += 32) {
+        const int row = q0 + r;
+        const bool live = row < Tn;
+        rl[r] = live ? lse[(size_t)bh * Tn + row] * kLog2e : 1e30f;
+        rl[SB + r] = live ? delta[(size_t)bh * Tn + row] : 0.f;
+      }
+      mbar_arrive(bar);
+    }
+    return;
+  }
+
+  reg_alloc<CONSUMER_REGS>();
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  const int wrow0 = k0 + 64 * wg;   // the warpgroup's first key row
+  const int row_lo = wrow0 + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  const float scale_log2 = scale * kLog2e;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  mbar_wait(own_full, 0);
+  for (int i = 0; i < n_q; ++i) {
+    const int st = i % BSTAGES, q0 = (t0 + i) * SB;
+    const uint32_t sq = sqd + st * 2 * G::TILE_BYTES;
+    const uint32_t sdo = sq + G::TILE_BYTES;
+    const float* rl = rows + st * 2 * SB;
+    mbar_wait(full + 8 * st, (i / BSTAGES) & 1);
+    if (CAUSAL && q0 + SB - 1 < wrow0) {   // every query before every key
+      mbar_arrive(empty + 8 * st);
+      continue;
+    }
+
+    // S^T = K Q^T and dP^T = V dO^T, two commit groups.
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_qk(s,
+               smem_desc(sk + (kk >> 2) * OWN * BOX + wg * 64 * BOX +
+                             (kk & 3) * 32, 16, 1024),
+               smem_desc(sq + (kk >> 2) * SB * BOX + (kk & 3) * 32, 16, 1024),
+               kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_qk(dp,
+               smem_desc(sv + (kk >> 2) * OWN * BOX + wg * 64 * BOX +
+                             (kk & 3) * 32, 16, 1024),
+               smem_desc(sdo + (kk >> 2) * SB * BOX + (kk & 3) * 32, 16, 1024),
+               kk > 0);
+    wgmma_commit();
+
+    // P^T = exp2(s * scale * log2(e) - lse[q] * log2(e)), zero where the
+    // query precedes the key (diagonal tiles only).
+    wgmma_wait<1>();
+    fence_regs(s);
+    const bool diag = CAUSAL && q0 < wrow0 + 63;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * j + cq + c;
+        const float l2 = rl[col];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i2 = 4 * j + 2 * hh + c;
+          float p = exp2f(fmaf(s[i2], scale_log2, -l2));
+          if (diag && q0 + col < row_lo + 8 * hh) p = 0.f;
+          s[i2] = p;
+        }
+      }
+    wgmma_wait<0>();
+    fence_regs(dp);
+
+    // P^T and dS^T = P^T (dP^T - delta[q]) rounded to bf16 into A
+    // fragments: register r of k step kk is elements 8 kk + 2 r, + 1,
+    // query columns 16 kk + 8 (r >> 1) + cq, + 1.
+    uint32_t pf[SB / 16][4], df[SB / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < SB / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i2 = 8 * kk + 2 * r;
+        const int col = 16 * kk + 8 * (r >> 1) + cq;
+        pf[kk][r] = pack_bf16(s[i2], s[i2 + 1]);
+        df[kk][r] = pack_bf16(s[i2] * (dp[i2] - rl[SB + col]),
+                              s[i2 + 1] * (dp[i2 + 1] - rl[SB + col + 1]));
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SB / 16; ++kk)
+      wgmma_pv(dva, pf[kk], smem_desc(sdo + kk * 16 * BOX, SB * BOX, 1024));
+#pragma unroll
+    for (int kk = 0; kk < SB / 16; ++kk)
+      wgmma_pv(dka, df[kk], smem_desc(sq + kk * 16 * BOX, SB * BOX, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_frags(pf);
+    fence_frags(df);
+    mbar_arrive(empty + 8 * st);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row_lo + 8 * hh;
+    if (row < Tn) {
+      const size_t off = ((size_t)(b * Tn + row) * H + h) * D + cq;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
+            __floats2bfloat162_rn(dka[4 * j + 2 * hh] * scale,
+                                  dka[4 * j + 2 * hh + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+            __floats2bfloat162_rn(dva[4 * j + 2 * hh], dva[4 * j + 2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// The four maps of a backward launch, 64-row boxes.
+bool make_bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k,
+                   const void* v, const void* dout, int B, int Tn, int H,
+                   int D) {
+  return make_map(&m[0], q, B, Tn, H, D, SB) &&
+         make_map(&m[1], k, B, Tn, H, D, SB) &&
+         make_map(&m[2], v, B, Tn, H, D, SB) &&
+         make_map(&m[3], dout, B, Tn, H, D, SB);
+}
+
+template <int D, bool C>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int B, int Tn, int H, float scale,
+                      cudaStream_t s) {
+  CUtensorMap m[4];
+  if (!make_bwd_maps(m, q, k, v, dout, B, Tn, H, D))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dq_tc_kernel<D, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BwdGeom<D>::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Tn + OWN - 1) / OWN);
+  flash_dq_tc_kernel<D, C><<<grid, THREADS, BwdGeom<D>::SMEM, s>>>(
+      m[0], m[1], m[2], m[3], lse, delta, static_cast<bf16*>(dq), Tn, H,
+      scale);
+  return cudaGetLastError();
+}
+
+template <int D, bool C>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta,
+                       void* dk, void* dv, int B, int Tn, int H, float scale,
+                       cudaStream_t s) {
+  CUtensorMap m[4];
+  if (!make_bwd_maps(m, q, k, v, dout, B, Tn, H, D))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dkv_tc_kernel<D, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BwdGeom<D>::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Tn + OWN - 1) / OWN);
+  flash_dkv_tc_kernel<D, C><<<grid, DKV_THREADS, BwdGeom<D>::SMEM, s>>>(
+      m[0], m[1], m[2], m[3], lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Tn, H, scale);
   return cudaGetLastError();
 }
 
@@ -935,11 +1470,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 // Calls F<T, D, causal>::run(args...) for the runtime (dtype, D, causal);
-// cudaErrorInvalidValue when there is no such instantiation. Without
-// kBf16Wide, bf16 takes D 32 only (the forward: wider bf16 heads run on
-// the tensor cores).
-template <template <typename, int, bool> class F, bool kBf16Wide = true,
-          typename... A>
+// cudaErrorInvalidValue when there is no such instantiation. bf16 takes
+// D 32 only: wider bf16 heads run on the tensor cores.
+template <template <typename, int, bool> class F, typename... A>
 cudaError_t dispatch(int dtype, int D, int causal, A... args) {
 #define RTT_CASE(T, DD)                                              \
   if (D == DD)                                                       \
@@ -951,10 +1484,6 @@ cudaError_t dispatch(int dtype, int D, int causal, A... args) {
     RTT_CASE(float, 128)
   } else if (dtype == 1) {
     RTT_CASE(__nv_bfloat16, 32)
-    if constexpr (kBf16Wide) {
-      RTT_CASE(__nv_bfloat16, 64)
-      RTT_CASE(__nv_bfloat16, 128)
-    }
   }
 #undef RTT_CASE
   return cudaErrorInvalidValue;
@@ -1000,7 +1529,7 @@ extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int T, int H, int D,
                              float scale, int causal, int dtype,
                              void* stream) {
-  return static_cast<int>(dispatch<Fwd, false>(
+  return static_cast<int>(dispatch<Fwd>(
       dtype, D, causal, q, k, v, out, static_cast<float*>(lse), B, T, H,
       scale, static_cast<cudaStream_t>(stream)));
 }
@@ -1026,6 +1555,7 @@ extern "C" int rtt_flash_fwd_tc(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
+// The backward on CUDA cores (float32 at D 32, 64, 128; bfloat16 at D 32).
 // dout, dq: [B, T, H, D]; lse, delta: [B*H, T] f32.
 extern "C" int rtt_flash_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
@@ -1047,4 +1577,51 @@ extern "C" int rtt_flash_dkv(const void* q, const void* k, const void* v,
       dtype, D, causal, q, k, v, dout, static_cast<const float*>(lse),
       static_cast<const float*>(delta), dk, dv, B, T, H, scale,
       static_cast<cudaStream_t>(stream)));
+}
+
+// The bfloat16 backward on the tensor cores at D 64 and 128: the same
+// arguments as rtt_flash_dq / rtt_flash_dkv without the dtype,
+// 16-byte-aligned tensors.
+extern "C" int rtt_flash_dq_tc(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, int B, int T,
+                               int H, int D, float scale, int causal,
+                               void* stream) {
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || T <= 0 || H <= 0) return cudaErrorInvalidValue;
+  if (D == 64)
+    return causal ? tc::launch_dq<64, true>(q, k, v, dout, l, dl, dq, B, T, H,
+                                            scale, s)
+                  : tc::launch_dq<64, false>(q, k, v, dout, l, dl, dq, B, T,
+                                             H, scale, s);
+  if (D == 128)
+    return causal ? tc::launch_dq<128, true>(q, k, v, dout, l, dl, dq, B, T,
+                                             H, scale, s)
+                  : tc::launch_dq<128, false>(q, k, v, dout, l, dl, dq, B, T,
+                                              H, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int rtt_flash_dkv_tc(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dk, void* dv, int B,
+                                int T, int H, int D, float scale, int causal,
+                                void* stream) {
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || T <= 0 || H <= 0) return cudaErrorInvalidValue;
+  if (D == 64)
+    return causal ? tc::launch_dkv<64, true>(q, k, v, dout, l, dl, dk, dv, B,
+                                             T, H, scale, s)
+                  : tc::launch_dkv<64, false>(q, k, v, dout, l, dl, dk, dv, B,
+                                              T, H, scale, s);
+  if (D == 128)
+    return causal ? tc::launch_dkv<128, true>(q, k, v, dout, l, dl, dk, dv, B,
+                                              T, H, scale, s)
+                  : tc::launch_dkv<128, false>(q, k, v, dout, l, dl, dk, dv,
+                                               B, T, H, scale, s);
+  return cudaErrorInvalidValue;
 }

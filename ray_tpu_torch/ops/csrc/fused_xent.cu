@@ -26,7 +26,10 @@
 // _recompute_dlog does. The logits are f32 sums of exact products (bf16
 // products are exact in f32; the f32 kernels cast the inputs to f32), dx
 // and dE are written as f32 (the wrapper casts at the autograd boundary,
-// as the reference's custom_vjp does).
+// as the reference's custom_vjp does). Widths D 64 and every multiple of
+// 128 up to 1024 are instantiated (the f32 kernels' accumulator columns
+// need one of those; the tensor-core kernels take any multiple of 64);
+// the Python wrapper zero-pads any other width up to the next of them.
 //
 // The bf16 kernels on the tensor cores. At bench.py's loss shape (N
 // 24576, V 50304, D 1024) the forward is one product of 2 N V D = 2.53
@@ -924,8 +927,11 @@ cudaError_t dispatch_width(int D, A... args) {
     case 64: return F<T, 64>::run(args...);
     case 128: return F<T, 128>::run(args...);
     case 256: return F<T, 256>::run(args...);
+    case 384: return F<T, 384>::run(args...);
     case 512: return F<T, 512>::run(args...);
+    case 640: return F<T, 640>::run(args...);
     case 768: return F<T, 768>::run(args...);
+    case 896: return F<T, 896>::run(args...);
     case 1024: return F<T, 1024>::run(args...);
     default: return cudaErrorInvalidValue;
   }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives shared by the tensor-core kernels of
 // fused_xent.cu and flash_attention.cu: mbarriers, TMA tile loads,
-// wgmma synchronisation and shared-memory matrix descriptors, and the
+// wgmma synchronisation, register reallocation between warpgroups and
+// shared-memory matrix descriptors, and the
 // driver's tensor-map encoder fetched through the runtime (so no kernel
 // library links libcuda). Each .cu file is its own library; this header
 // is compiled into each that includes it.
@@ -97,6 +98,19 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Moves registers between warpgroups (sm_90a): every warp of a warpgroup
+// runs one of these with the same count, a multiple of 8 in [24, 256].
+// dec gives registers back to the SM's pool, inc waits for them there.
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled tile: start

@@ -30,19 +30,25 @@
 // position at run time:
 //
 // - decode (both): one CTA per (b, h), the same device code
-//   (decode_attend) over a map from position to cache row. Groups of G = D / VEC threads own one key
-//   row each (16-byte vector loads, so a group reads one whole row in one
-//   instruction); the CTA walks the visible positions NG = 256 / G rows at
-//   a time, U steps unrolled so U K rows and U V rows are in flight per
-//   group. Each group keeps its own online-softmax state (m, l, acc), so
-//   the loop needs no block-wide synchronisation; the groups' states are
-//   merged once through shared memory at the end.
+//   (decode_attend) over a map from position to cache row. Groups of GP
+//   threads own one key row each (16-byte vector loads, so a group reads
+//   one whole row in one instruction): GP is D / VEC rounded up to a
+//   power of two, and the lanes past D idle (bf16 D 96 is 12 lanes of a
+//   16-lane group), so every head dim that is a multiple of 8 up to 128
+//   runs unpadded. The CTA walks the visible positions NG = 256 / GP rows
+//   at a time, U steps unrolled so U K rows and U V rows are in flight
+//   per group. Each group keeps its own online-softmax state (m, l, acc),
+//   so the loop needs no block-wide synchronisation; the groups' states
+//   are merged once through shared memory at the end.
 // - multi-query: one CTA per (b*h, tile of QT = 256 / BS query rows). Each
-//   logical block's K and V tile is staged in shared memory (f32) and
-//   shared by the QT rows; one thread per (row, column) score, row
-//   reductions by warp shuffles, P and the per-row rescale go through
-//   shared memory to the P V product, whose outputs stay in registers.
-//   Padded query rows reuse the last real row's mask and are not written.
+//   logical block's K and V tile is staged in shared memory (f32, columns
+//   past D zero up to the kernel's width DP, 32, 64 or 128) and shared by
+//   the QT rows; one thread per (row, column) score, row reductions by
+//   warp shuffles, P and the per-row rescale go through shared memory to
+//   the P V product, whose outputs stay in registers. Padded query rows
+//   reuse the last real row's mask and are not written. It takes block
+//   sizes 8, 16 and 32; the Python wrapper presents any other multiple of
+//   8 as one of them (a [n, 64, H, D] pool is a [2n, 32, H, D] pool).
 //
 // Simple and right first: wgmma, TMA and split-K over long contexts are
 // later work. Each extern "C" entry launches on the given stream and
@@ -122,28 +128,35 @@ struct DenseRows {
 
 // Single-query attention for one (b, h) per CTA: q [B, H, D]; k, v seen as
 // [rows, H, D] through `rows`; pos [B] i32; out [B, H, D]. Row b attends
-// to positions 0..min(pos[b], rows.limit() - 1).
-template <typename T, int D, int U, typename Rows>
+// to positions 0..min(pos[b], rows.limit() - 1). Groups of GP lanes read a
+// key row; lanes at or past D / VEC idle (D a multiple of VEC, at most
+// GP * VEC).
+template <typename T, int GP, int U, typename Rows>
 __device__ __forceinline__ void decode_attend(const T* __restrict__ q,
                                               const T* __restrict__ k_pool,
                                               const T* __restrict__ v_pool,
                                               Rows rows,
                                               const int* __restrict__ pos,
                                               T* __restrict__ out, int H,
-                                              float scale) {
+                                              int D, float scale) {
   constexpr int VEC = Vec16<T>::N;
-  constexpr int G = D / VEC;        // threads per key row
-  constexpr int NG = kThreads / G;  // key rows per CTA step
-  static_assert(D % VEC == 0 && G <= 32 && 32 % G == 0, "bad head dim");
+  constexpr int NG = kThreads / GP;  // key rows per CTA step
+  static_assert(GP <= 32 && 32 % GP == 0, "bad lane group");
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int g = threadIdx.x / G;
-  const int gl = threadIdx.x - g * G;
+  const int g = threadIdx.x / GP;
+  const int gl = threadIdx.x - g * GP;
+  const bool lane_live = gl * VEC < D;
 
   float qf[VEC];
-  Vec16<T>::load(q + (size_t)bh * D + gl * VEC, qf);
+  if (lane_live) {
+    Vec16<T>::load(q + (size_t)bh * D + gl * VEC, qf);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) qf[i] = 0.f;
+  }
 #pragma unroll
   for (int i = 0; i < VEC; ++i) qf[i] *= scale;
 
@@ -162,7 +175,7 @@ __device__ __forceinline__ void decode_attend(const T* __restrict__ q,
     for (int u = 0; u < U; ++u) {
       const int t = t0 + u * NG + g;
       live[u] = t <= last;
-      if (live[u]) {
+      if (live[u] && lane_live) {
         const size_t row = rows.row(b, t) * H + h;
         Vec16<T>::load(k_pool + row * D + gl * VEC, kf[u]);
         Vec16<T>::load(v_pool + row * D + gl * VEC, vf[u]);
@@ -179,7 +192,7 @@ __device__ __forceinline__ void decode_attend(const T* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < VEC; ++i) d += qf[i] * kf[u][i];
 #pragma unroll
-      for (int off = G / 2; off > 0; off >>= 1)
+      for (int off = GP / 2; off > 0; off >>= 1)
         d += __shfl_xor_sync(0xffffffffu, d, off);
       s[u] = live[u] ? d : kNegInf;
       smax = fmaxf(smax, s[u]);
@@ -201,11 +214,11 @@ __device__ __forceinline__ void decode_attend(const T* __restrict__ q,
     m = m_new;
   }
 
-  // Merge the NG per-group softmax states. A group that saw no live row
+// Merge the NG per-group softmax states. A group that saw no live row
   // holds (m = -1e30, l = 0, acc = 0) and drops out with weight exp(-huge).
   __shared__ float sm_m[NG];
   __shared__ float sm_l[NG];
-  __shared__ float sm_acc[NG][D];
+  __shared__ float sm_acc[NG][GP * VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) sm_acc[g][gl * VEC + i] = acc[i];
   if (gl == 0) {
@@ -228,46 +241,47 @@ __device__ __forceinline__ void decode_attend(const T* __restrict__ q,
 
 // q [B, H, D]; pools [n_blocks, bs, H, D]; tables [B, mb] i32; pos [B] i32;
 // out [B, H, D]. Row b attends to logical positions 0..min(pos[b], mb*bs-1).
-template <typename T, int D, int U>
+template <typename T, int GP, int U>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                         const T* __restrict__ v_pool,
                         const int* __restrict__ tables,
                         const int* __restrict__ pos, T* __restrict__ out,
-                        int H, int bs, int mb, float scale) {
-  decode_attend<T, D, U>(q, k_pool, v_pool, PagedRows{tables, bs, mb}, pos,
-                         out, H, scale);
+                        int H, int D, int bs, int mb, float scale) {
+  decode_attend<T, GP, U>(q, k_pool, v_pool, PagedRows{tables, bs, mb}, pos,
+                          out, H, D, scale);
 }
 
 // q [B, H, D]; k, v [B, S, H, D] read in place; pos [B] i32; out [B, H, D].
 // Row b attends to positions 0..min(pos[b], S-1).
-template <typename T, int D, int U>
+template <typename T, int GP, int U>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ pos,
-                  T* __restrict__ out, int H, int S, float scale) {
-  decode_attend<T, D, U>(q, k, v, DenseRows{S}, pos, out, H, scale);
+                  T* __restrict__ out, int H, int D, int S, float scale) {
+  decode_attend<T, GP, U>(q, k, v, DenseRows{S}, pos, out, H, D, scale);
 }
 
 // q [B, W, H, D]; pools [n_blocks, BS, H, D]; tables [B, mb] i32; pos [B]
 // i32; out [B, W, H, D]. Query i of row b sees logical positions
-// <= pos[b] + i (and < mb * BS).
-template <typename T, int D, int BS>
+// <= pos[b] + i (and < mb * BS). D <= DP: shared tiles are DP wide, zero
+// past D.
+template <typename T, int DP, int BS>
 __global__ void __launch_bounds__(kThreads)
     paged_mq_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                     const T* __restrict__ v_pool,
                     const int* __restrict__ tables,
                     const int* __restrict__ pos, T* __restrict__ out, int W,
-                    int H, int mb, float scale) {
+                    int H, int D, int mb, float scale) {
   constexpr int QT = kThreads / BS;         // query rows per CTA
-  constexpr int OSTEP = kThreads / D;       // output rows per thread pass
-  constexpr int NR = QT * D / kThreads;     // outputs per thread
+  constexpr int OSTEP = kThreads / DP;      // output rows per thread pass
+  constexpr int NR = QT * DP / kThreads;    // outputs per thread
   static_assert(BS <= 32 && 32 % BS == 0, "bad block size");
-  static_assert(kThreads % D == 0 && NR >= 1, "bad head dim");
+  static_assert(kThreads % DP == 0 && NR >= 1, "bad head dim");
 
-  __shared__ float qs[QT][D + 1];  // +1: conflict-free column walks
-  __shared__ float ks[BS][D + 1];
-  __shared__ float vs[BS][D + 1];
+  __shared__ float qs[QT][DP + 1];  // +1: conflict-free column walks
+  __shared__ float ks[BS][DP + 1];
+  __shared__ float vs[BS][DP + 1];
   __shared__ float ps[QT][BS + 1];
   __shared__ float cs[QT];
 
@@ -279,10 +293,12 @@ __global__ void __launch_bounds__(kThreads)
   const int p0 = pos[b];
   const int* tbl = tables + (size_t)b * mb;
 
-  for (int e = tid; e < QT * D; e += kThreads) {
-    const int i = e / D, d = e - (e / D) * D;
+  for (int e = tid; e < QT * DP; e += kThreads) {
+    const int i = e / DP, d = e - (e / DP) * DP;
     const int qi = min(i0 + i, W - 1);  // padded rows copy the last real row
-    qs[i][d] = to_f32(q[((size_t)(b * W + qi) * H + h) * D + d]) * scale;
+    qs[i][d] =
+        d < D ? to_f32(q[((size_t)(b * W + qi) * H + h) * D + d]) * scale
+              : 0.f;
   }
 
   // Score role: thread (si, st) owns score column st of query row si.
@@ -292,8 +308,8 @@ __global__ void __launch_bounds__(kThreads)
   float m = kNegInf, l = 0.f;
 
   // Output role: thread owns (oi0 + r * OSTEP, od) for r < NR.
-  const int od = tid % D;
-  const int oi0 = tid / D;
+  const int od = tid % DP;
+  const int oi0 = tid / DP;
   float acc[NR];
 #pragma unroll
   for (int r = 0; r < NR; ++r) acc[r] = 0.f;
@@ -304,17 +320,17 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < n_blk; ++j) {
     __syncthreads();  // the previous block's ks/vs/ps are consumed
     const size_t base = (size_t)tbl[j] * BS;
-    for (int e = tid; e < BS * D; e += kThreads) {
-      const int t = e / D, d = e - (e / D) * D;
+    for (int e = tid; e < BS * DP; e += kThreads) {
+      const int t = e / DP, d = e - (e / DP) * DP;
       const size_t off = ((base + t) * H + h) * D + d;
-      ks[t][d] = to_f32(k_pool[off]);
-      vs[t][d] = to_f32(v_pool[off]);
+      ks[t][d] = d < D ? to_f32(k_pool[off]) : 0.f;
+      vs[t][d] = d < D ? to_f32(v_pool[off]) : 0.f;
     }
     __syncthreads();
 
     float s = 0.f;
 #pragma unroll 16
-    for (int d = 0; d < D; ++d) s += qs[si][d] * ks[st][d];
+    for (int d = 0; d < DP; ++d) s += qs[si][d] * ks[st][d];
     s = (j * BS + st <= limit) ? s : kNegInf;
     float bmax = s;
 #pragma unroll
@@ -349,94 +365,103 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < NR; ++r) {
     const int oi = oi0 + r * OSTEP;
     const int qi = i0 + oi;
-    if (qi < W)
+    if (qi < W && od < D)
       out[((size_t)(b * W + qi) * H + h) * D + od] =
           from_f32<T>(acc[r] / cs[oi]);
   }
 }
 
-template <typename T, int D>
-void launch_decode(const void* q, const void* k, const void* v,
-                   const int* tables, const int* pos, void* out, int B, int H,
-                   int bs, int mb, float scale, cudaStream_t stream) {
-  paged_decode_kernel<T, D, 4><<<B * H, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), tables, pos, static_cast<T*>(out), H, bs, mb,
-      scale);
-}
-
-template <typename T, int D>
-void launch_dense_decode(const void* q, const void* k, const void* v,
-                         const int* pos, void* out, int B, int H, int S,
-                         float scale, cudaStream_t stream) {
-  decode_kernel<T, D, 4><<<B * H, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos, static_cast<T*>(out), H, S, scale);
-}
-
+// Threads per key row for a runtime head dim: D / VEC rounded up to a
+// power of two (0 when D is not a multiple of VEC in 1 .. 32 * VEC).
 template <typename T>
-bool dispatch_dense_decode(int D, const void* q, const void* k, const void* v,
-                           const int* pos, void* out, int B, int H, int S,
-                           float scale, cudaStream_t s) {
-  switch (D) {
-    case 32: launch_dense_decode<T, 32>(q, k, v, pos, out, B, H, S, scale, s); return true;
-    case 64: launch_dense_decode<T, 64>(q, k, v, pos, out, B, H, S, scale, s); return true;
-    case 128: launch_dense_decode<T, 128>(q, k, v, pos, out, B, H, S, scale, s); return true;
+int lane_group(int D) {
+  constexpr int VEC = Vec16<T>::N;
+  if (D <= 0 || D % VEC != 0 || D > 32 * VEC) return 0;
+  int gp = 1;
+  while (gp * VEC < D) gp *= 2;
+  return gp;
+}
+
+// Calls F<T, GP>::run(args...) for the lane group of head dim D; false when
+// there is none.
+template <template <typename, int> class F, typename T, typename... A>
+bool dispatch_group(int D, A... args) {
+  switch (lane_group<T>(D)) {
+    case 1: F<T, 1>::run(args...); return true;
+    case 2: F<T, 2>::run(args...); return true;
+    case 4: F<T, 4>::run(args...); return true;
+    case 8: F<T, 8>::run(args...); return true;
+    case 16: F<T, 16>::run(args...); return true;
+    case 32: F<T, 32>::run(args...); return true;
     default: return false;
   }
 }
 
-template <typename T, int D, int BS>
+template <typename T, int GP>
+struct PagedDecode {
+  static void run(const void* q, const void* k, const void* v,
+                  const int* tables, const int* pos, void* out, int B, int H,
+                  int D, int bs, int mb, float scale, cudaStream_t stream) {
+    paged_decode_kernel<T, GP, 4><<<B * H, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), tables, pos, static_cast<T*>(out), H, D, bs,
+        mb, scale);
+  }
+};
+
+template <typename T, int GP>
+struct DenseDecode {
+  static void run(const void* q, const void* k, const void* v, const int* pos,
+                  void* out, int B, int H, int D, int S, float scale,
+                  cudaStream_t stream) {
+    decode_kernel<T, GP, 4><<<B * H, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), pos, static_cast<T*>(out), H, D, S, scale);
+  }
+};
+
+template <typename T, int DP, int BS>
 void launch_mq(const void* q, const void* k, const void* v, const int* tables,
-               const int* pos, void* out, int B, int W, int H, int mb,
+               const int* pos, void* out, int B, int W, int H, int D, int mb,
                float scale, cudaStream_t stream) {
   constexpr int QT = kThreads / BS;
   const dim3 grid(B * H, (W + QT - 1) / QT);
-  paged_mq_kernel<T, D, BS><<<grid, kThreads, 0, stream>>>(
+  paged_mq_kernel<T, DP, BS><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), tables, pos, static_cast<T*>(out), W, H, mb,
+      static_cast<const T*>(v), tables, pos, static_cast<T*>(out), W, H, D, mb,
       scale);
 }
 
-template <typename T>
-bool dispatch_decode(int D, const void* q, const void* k, const void* v,
-                     const int* tables, const int* pos, void* out, int B,
-                     int H, int bs, int mb, float scale, cudaStream_t s) {
-  switch (D) {
-    case 32: launch_decode<T, 32>(q, k, v, tables, pos, out, B, H, bs, mb, scale, s); return true;
-    case 64: launch_decode<T, 64>(q, k, v, tables, pos, out, B, H, bs, mb, scale, s); return true;
-    case 128: launch_decode<T, 128>(q, k, v, tables, pos, out, B, H, bs, mb, scale, s); return true;
-    default: return false;
-  }
-}
-
-template <typename T, int D>
+template <typename T, int DP>
 bool dispatch_mq_bs(int bs, const void* q, const void* k, const void* v,
                     const int* tables, const int* pos, void* out, int B, int W,
-                    int H, int mb, float scale, cudaStream_t s) {
+                    int H, int D, int mb, float scale, cudaStream_t s) {
   switch (bs) {
-    case 8: launch_mq<T, D, 8>(q, k, v, tables, pos, out, B, W, H, mb, scale, s); return true;
-    case 16: launch_mq<T, D, 16>(q, k, v, tables, pos, out, B, W, H, mb, scale, s); return true;
-    case 32: launch_mq<T, D, 32>(q, k, v, tables, pos, out, B, W, H, mb, scale, s); return true;
+    case 8: launch_mq<T, DP, 8>(q, k, v, tables, pos, out, B, W, H, D, mb, scale, s); return true;
+    case 16: launch_mq<T, DP, 16>(q, k, v, tables, pos, out, B, W, H, D, mb, scale, s); return true;
+    case 32: launch_mq<T, DP, 32>(q, k, v, tables, pos, out, B, W, H, D, mb, scale, s); return true;
     default: return false;
   }
 }
 
+// Head dims that are multiples of 8 up to 128, on the narrowest of the
+// 32-, 64- and 128-wide tiles that holds them.
 template <typename T>
 bool dispatch_mq(int D, int bs, const void* q, const void* k, const void* v,
                  const int* tables, const int* pos, void* out, int B, int W,
                  int H, int mb, float scale, cudaStream_t s) {
-  switch (D) {
-    case 32: return dispatch_mq_bs<T, 32>(bs, q, k, v, tables, pos, out, B, W, H, mb, scale, s);
-    case 64: return dispatch_mq_bs<T, 64>(bs, q, k, v, tables, pos, out, B, W, H, mb, scale, s);
-    case 128: return dispatch_mq_bs<T, 128>(bs, q, k, v, tables, pos, out, B, W, H, mb, scale, s);
-    default: return false;
-  }
+  if (D <= 0 || D % 8 != 0 || D > 128) return false;
+  if (D <= 32)
+    return dispatch_mq_bs<T, 32>(bs, q, k, v, tables, pos, out, B, W, H, D, mb, scale, s);
+  if (D <= 64)
+    return dispatch_mq_bs<T, 64>(bs, q, k, v, tables, pos, out, B, W, H, D, mb, scale, s);
+  return dispatch_mq_bs<T, 128>(bs, q, k, v, tables, pos, out, B, W, H, D, mb, scale, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16; D a multiple of 8 up to 128 (the
+// multi-query kernel's block size bs one of 8, 16, 32).
 extern "C" int rtt_paged_decode(const void* q, const void* k_pool,
                                 const void* v_pool, const void* tables,
                                 const void* pos, void* out, int B, int H,
@@ -447,9 +472,9 @@ extern "C" int rtt_paged_decode(const void* q, const void* k_pool,
   const int* p = static_cast<const int*>(pos);
   bool ok = false;
   if (dtype == 0)
-    ok = dispatch_decode<float>(D, q, k_pool, v_pool, t, p, out, B, H, bs, mb, scale, s);
+    ok = dispatch_group<PagedDecode, float>(D, q, k_pool, v_pool, t, p, out, B, H, D, bs, mb, scale, s);
   else if (dtype == 1)
-    ok = dispatch_decode<__nv_bfloat16>(D, q, k_pool, v_pool, t, p, out, B, H, bs, mb, scale, s);
+    ok = dispatch_group<PagedDecode, __nv_bfloat16>(D, q, k_pool, v_pool, t, p, out, B, H, D, bs, mb, scale, s);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
@@ -462,9 +487,9 @@ extern "C" int rtt_decode(const void* q, const void* k, const void* v,
   const int* p = static_cast<const int*>(pos);
   bool ok = false;
   if (dtype == 0)
-    ok = dispatch_dense_decode<float>(D, q, k, v, p, out, B, H, S, scale, s);
+    ok = dispatch_group<DenseDecode, float>(D, q, k, v, p, out, B, H, D, S, scale, s);
   else if (dtype == 1)
-    ok = dispatch_dense_decode<__nv_bfloat16>(D, q, k, v, p, out, B, H, S, scale, s);
+    ok = dispatch_group<DenseDecode, __nv_bfloat16>(D, q, k, v, p, out, B, H, D, S, scale, s);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

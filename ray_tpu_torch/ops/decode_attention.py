@@ -23,6 +23,14 @@ Each kernel wrapper carries a plain-integer ``launches`` counter that
 grows by one per kernel launch (never on the plain path), so a run can
 show that its main path went through the kernels.
 
+The kernels take every head dim that is a multiple of 8 up to 128
+unpadded (the lanes or tile columns past D idle), so pools and caches
+keep their head dim. The multi-query kernel is built for block sizes 8,
+16 and 32; a pool of any other multiple of 8 is handed to it re-viewed
+(`split_blocks`): a contiguous ``[n, 64, H, D]`` pool is ``[2n, 32, H,
+D]``, with table entry j of a row expanded to ``2 tables[j]`` and
+``2 tables[j] + 1``. The decode kernels take any block size.
+
 Int8 pools (``k_scale``/``v_scale``) are not ported yet and raise
 `NotImplementedError`.
 """
@@ -34,8 +42,8 @@ import torch
 NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (32, 64, 128)
-_KERNEL_BLOCK_SIZES = (8, 16, 32)   # multi-query kernel; decode takes any
+_MAX_HEAD_DIM = 128                 # head dims: multiples of 8 up to this
+_KERNEL_BLOCK_SIZES = (32, 16, 8)   # multi-query kernel; decode takes any
 
 
 # ---------------------------------------------------------------------------
@@ -161,9 +169,9 @@ def _check_kernel_inputs(op, q, k_pool, v_pool, **indices):
         if t.data_ptr() % 16:
             raise ValueError(f"{op}: {name} must be 16-byte aligned")
     d = q.shape[-1]
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"{op}: kernel head dim must be one of "
-                         f"{_KERNEL_HEAD_DIMS}, got {d}")
+    if d % 8 or not 8 <= d <= _MAX_HEAD_DIM:
+        raise ValueError(f"{op}: kernel head dim must be a multiple of 8 "
+                         f"from 8 to {_MAX_HEAD_DIM}, got {d}")
     if k_pool.shape != v_pool.shape or k_pool.shape[2:] != q.shape[-2:]:
         raise ValueError(f"{op}: pool shapes {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)} do not match q "
@@ -213,15 +221,37 @@ def _launch_decode(q, k_pool, v_pool, tables, pos):
     return out
 
 
+def split_blocks(k_pool, v_pool, tables):
+    """The same pools and block tables seen at the largest of the
+    multi-query kernel's block sizes (32, 16, 8) that divides the pool's
+    block size ``bs``: with f = bs / that size, pools ``[n, bs, H, D]``
+    become ``[f n, bs / f, H, D]`` views (no copy; the pools must be
+    contiguous) and ``tables [..., mb]`` becomes ``[..., f mb]`` int32
+    with entry ``f j + i`` = ``f tables[j] + i``: logical position p still
+    lives at the same element. Raises for a block size that is not a
+    multiple of 8."""
+    bs = k_pool.shape[1]
+    sub = next((s for s in _KERNEL_BLOCK_SIZES if bs % s == 0), None)
+    if sub is None:
+        raise ValueError(f"paged multi-query attention: block size must be "
+                         f"a multiple of 8, got {bs}")
+    f = bs // sub
+    if f == 1:
+        return k_pool, v_pool, tables
+    nb, rest = k_pool.shape[0], tuple(k_pool.shape[2:])
+    k_pool, v_pool = (p.view((nb * f, sub) + rest) for p in (k_pool, v_pool))
+    parts = torch.arange(f, dtype=torch.int32, device=tables.device)
+    tables = (tables[..., None] * f + parts).flatten(-2).to(torch.int32)
+    return k_pool, v_pool, tables
+
+
 def _launch_mq(op, q, k_pool, v_pool, tables, pos):
     """q [B, W, H, D] through the multi-query kernel."""
     from ray_tpu_torch.ops import _build
     _check_kernel_inputs(op, q, k_pool, v_pool, tables=tables, pos=pos)
     b, w, h, d = q.shape
+    k_pool, v_pool, tables = split_blocks(k_pool, v_pool, tables)
     bs = k_pool.shape[1]
-    if bs not in _KERNEL_BLOCK_SIZES:
-        raise ValueError(f"{op}: kernel block size must be one of "
-                         f"{_KERNEL_BLOCK_SIZES}, got {bs}")
     if tables.shape[0] != b or pos.shape != (b,):
         raise ValueError(f"{op}: tables {tuple(tables.shape)} / pos "
                          f"{tuple(pos.shape)} do not match batch {b}")

@@ -10,17 +10,24 @@ over the forward's saved logsumexp). ``block_q``/``block_kv`` are
 accepted for signature parity; the CUDA kernels choose their own tiles.
 
 Layouts differ from the Pallas wrappers where those were TPU artefacts:
-q/k/v/dO stay ``[B, T, H, D]`` (no transpose to ``[BH, T, D]``, no head
-padding), and ``lse``/``delta`` are ``[B*H, T]`` float32 rows (no
-128-lane broadcast). Every T runs on the kernel: ragged lengths are
-masked inside it, so there is no fallback to plain attention.
+q/k/v/dO stay ``[B, T, H, D]`` (no transpose to ``[BH, T, D]``), and
+``lse``/``delta`` are ``[B*H, T]`` float32 rows (no 128-lane broadcast).
+Every T runs on the kernel: ragged lengths are masked inside it, so
+there is no fallback to plain attention. Every head dim that is a
+multiple of 8 up to 128 runs on the kernels, the set the reference runs
+unpadded: the kernels are built for D 32, 64 and 128, and the wrappers
+zero-pad q, k, v (and dO) up to the next of those (`kernel_head_dim`,
+`ops.pad_last_dim`) and slice the outputs, with the softmax scale of the
+true head dim. Zero columns add nothing to q.k^T or to delta, and dq,
+dk, dv come out zero there, so the padding is exact.
 
 Dispatch: a CUDA tensor launches the kernel, or raises if the kernel
 cannot take the inputs; a CPU tensor takes the plain version, because
 there is no kernel on the CPU. Each kernel wrapper carries a
-plain-integer ``launches`` counter that grows by one per kernel launch,
-and the forward's two kernels (tensor cores for bf16 at D 64 and 128,
-CUDA cores otherwise) one each in `LAUNCHES` (never on the plain path).
+plain-integer ``launches`` counter that grows by one per call that
+reaches a kernel, and each kernel (tensor cores for bf16 at kernel dim
+64 and 128, CUDA cores otherwise) a counter in `LAUNCHES` that grows by
+one per launch (never on the plain path).
 
 The forward is also registered as the custom operator
 ``ray_tpu_torch::flash_fwd``, so selective activation checkpointing
@@ -31,17 +38,22 @@ from __future__ import annotations
 
 import torch
 
+from ray_tpu_torch.ops import pad_last_dim, trim_last_dim
+
 NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# head dims the kernels are built for; others pad up to the next
 _KERNEL_HEAD_DIMS = (32, 64, 128)
-# bf16 head dims the tensor-core forward takes: rows of whole 128-byte
-# TMA boxes (D 32 rows are 64 bytes and stay on the CUDA-core kernel)
+# bf16 head dims the tensor-core kernels take: rows of whole 128-byte
+# TMA boxes (D 32 rows are 64 bytes and stay on the CUDA-core kernels)
 _TC_HEAD_DIMS = (64, 128)
 
-# The forward's two kernels, one counter each (the wrappers below count
-# their calls in ``.launches``).
-LAUNCHES = dict.fromkeys(("flash_fwd_tc", "flash_fwd_simt"), 0)
+# One counter per kernel (the wrappers below count their calls in
+# ``.launches``).
+LAUNCHES = dict.fromkeys(("flash_fwd_tc", "flash_fwd_simt", "flash_dq_tc",
+                          "flash_dq_simt", "flash_dkv_tc", "flash_dkv_simt"),
+                         0)
 
 
 # ---------------------------------------------------------------------------
@@ -64,11 +76,13 @@ def reference_attention(q, k, v, *, causal: bool = False):
     return out.to(q.dtype)
 
 
-def _scores(q, k, causal: bool):
-    """``(q * D**-0.5) . k`` as ``[B, H, T, T]`` f32 with NEG_INF where
-    the causal mask hides a key, and the mask (or None)."""
+def _scores(q, k, causal: bool, scale=None):
+    """``(q * scale) . k`` as ``[B, H, T, T]`` f32 (scale D**-0.5 unless
+    given) with NEG_INF where the causal mask hides a key, and the mask
+    (or None)."""
     t, d = q.shape[1], q.shape[-1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * d ** -0.5, k.float())
+    scale = d ** -0.5 if scale is None else scale
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
     if not causal:
         return s, None
     live = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
@@ -80,13 +94,14 @@ def _rows(x, b: int, h: int):
     return x.reshape(b * h, -1).contiguous()
 
 
-def flash_forward_reference(q, k, v, *, causal: bool):
+def flash_forward_reference(q, k, v, *, causal: bool, scale=None):
     """The forward kernel's math in plain PyTorch: ``(out [B, T, H, D]``
-    in q's dtype, ``lse [B*H, T]`` f32). Like the kernel (and the Pallas
-    kernel), p is rounded to v's dtype before ``p . V`` while the
-    normaliser sums the f32 p."""
+    in q's dtype, ``lse [B*H, T]`` f32), softmax scale D**-0.5 unless
+    ``scale`` is given. Like the kernel (and the Pallas kernel), p is
+    rounded to v's dtype before ``p . V`` while the normaliser sums the
+    f32 p."""
     b, _, h, _ = q.shape
-    s, _ = _scores(q, k, causal)
+    s, _ = _scores(q, k, causal, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -96,25 +111,46 @@ def flash_forward_reference(q, k, v, *, causal: bool):
     return out, _rows(lse, b, h)
 
 
-def flash_backward_reference(q, k, v, do, lse, delta, *, causal: bool):
+def flash_backward_reference(q, k, v, do, lse, delta, *, causal: bool,
+                             scale=None):
     """The backward kernels' math in plain PyTorch: ``(dq, dk, dv)`` in
     the inputs' dtypes, from the forward's ``lse`` and ``delta =
     rowsum(dO * O)`` (both ``[B*H, T]`` f32): p = exp(s - lse), dS =
     p * (dO . V^T - delta), dq = sm * dS . K, dk = sm * dS^T . Q,
-    dv = P^T . dO."""
-    b, t, h, d = q.shape
-    sm = d ** -0.5
-    s, live = _scores(q, k, causal)
+    dv = P^T . dO, with sm = D**-0.5 unless ``scale`` is given."""
+    sm = q.shape[-1] ** -0.5 if scale is None else scale
+    p, ds = p_and_ds(q, k, v, do, lse, delta, causal=causal, scale=sm)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * sm
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * sm
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def p_and_ds(q, k, v, do, lse, delta, *, causal: bool, scale=None):
+    """The core the backward kernels share, in plain PyTorch: ``P =
+    exp(s - lse)`` (0 where the causal mask hides a key) and ``dS = P *
+    (dO . V^T - delta)``, both ``[B, H, T, T]`` f32."""
+    b, t, h, _ = q.shape
+    s, live = _scores(q, k, causal, scale)
     p = torch.exp(s - lse.view(b, h, t, 1))
     if live is not None:
         p = torch.where(live, p, 0.0)
-    dof = do.float()
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
-    ds = p * (dp - delta.view(b, h, t, 1))
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * sm
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * sm
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta.view(b, h, t, 1))
+
+
+def flash_backward_abs_bound(q, k, v, do, lse, delta, *, causal: bool):
+    """f32 ``(sm |dS| . |K|, sm |dS|^T . |Q|, |P|^T . |dO|)``, each
+    ``[B, T, H, D]``, from the plain version's f32 P and dS: the scale of
+    the bf16 tensor-core backward's roundings of P and dS to bf16 before
+    its products, which move each dq, dk and dv element by at most
+    2**-8 times these. For tests and on-card checks."""
+    sm = q.shape[-1] ** -0.5
+    p, ds = p_and_ds(q, k, v, do, lse, delta, causal=causal)
+    ds = ds.abs()
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float().abs()) * sm,
+            torch.einsum("bhqk,bqhd->bkhd", ds, q.float().abs()) * sm,
+            torch.einsum("bhqk,bqhd->bkhd", p, do.float().abs()))
 
 
 def attention_delta(out, do):
@@ -138,9 +174,20 @@ def _on_kernel(op: str, x) -> bool:
     return True
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim a kernel runs ``d`` at: the smallest of 32, 64 and
+    128 that holds it. ``d`` must be a multiple of 8 from 8 to 128 (the
+    head dims the reference runs unpadded); others raise."""
+    if d % 8 or not 8 <= d <= _KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"flash attention kernels take a head dim that is "
+                         f"a multiple of 8 from 8 to {_KERNEL_HEAD_DIMS[-1]}, "
+                         f"got {d}")
+    return next(k for k in _KERNEL_HEAD_DIMS if k >= d)
+
+
 def _check(op, q, *others, rows=()):
     """What the CUDA kernels take; anything else raises (no fallback).
-    Returns (B, T, H, D)."""
+    Returns (B, T, H, D) with the true head dim D."""
     if q.ndim != 4:
         raise ValueError(f"{op} wants [B, T, H, D] tensors, got "
                          f"{tuple(q.shape)}")
@@ -148,9 +195,7 @@ def _check(op, q, *others, rows=()):
         raise TypeError(f"{op}: kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
     b, t, h, d = q.shape
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"{op}: kernel head dim must be one of "
-                         f"{_KERNEL_HEAD_DIMS}, got {d}")
+    kernel_head_dim(d)
     for x in (q, *others):
         if x.shape != q.shape or x.dtype != q.dtype:
             raise ValueError(f"{op}: {tuple(x.shape)} {x.dtype} does not "
@@ -173,18 +218,23 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _on_tc(q, dp: int) -> bool:
+    """bf16 at kernel dim 64 or 128 runs on the tensor-core kernels."""
+    return q.dtype == torch.bfloat16 and dp in _TC_HEAD_DIMS
+
+
 def flash_forward(q, k, v, *, causal: bool, with_lse: bool = True):
     """Forward attention on ``[B, T, H, D]``: ``(out, lse)``, lse
     ``[B*H, T]`` f32 (None without ``with_lse``: the inference variant
     skips its write). The kernels replace
     `ray_tpu/ops/flash_attention.py::_flash_kernel`, chosen by dtype and
-    head dim:
+    kernel head dim (`kernel_head_dim`):
 
-    - bfloat16 at D 64 or 128 (the training and serving paths): the
+    - bfloat16 at 64 or 128 (the training and serving paths): the
       tensor-core kernel ``flash_fwd_tc`` (wgmma + TMA, 128 query rows
       against 128-key tiles, p rounded to bf16 relative to the running
       row max, as the CUDA-core kernel does with 64-key tiles);
-    - float32, and bfloat16 at D 32: the CUDA-core kernel
+    - float32, and bfloat16 at 32: the CUDA-core kernel
       ``flash_fwd_simt``.
 
     ``flash_forward.launches`` grows by one per call that reaches a
@@ -195,14 +245,16 @@ def flash_forward(q, k, v, *, causal: bool, with_lse: bool = True):
     from ray_tpu_torch.ops import _build
     q, k, v = (x.contiguous() for x in (q, k, v))
     b, t, h, d = _check("flash_forward", q, k, v)
+    dp = kernel_head_dim(d)
+    q, k, v = (pad_last_dim(x, dp) for x in (q, k, v))
     out = torch.empty_like(q)
     lse = (torch.empty((b * h, t), dtype=torch.float32, device=q.device)
            if with_lse else None)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None, b, t, h, d, d ** -0.5,
+            lse.data_ptr() if with_lse else None, b, t, h, dp, d ** -0.5,
             int(causal))
     lib = _build.load()
-    if q.dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
+    if _on_tc(q, dp):
         name, err = "flash_fwd_tc", lib.rtt_flash_fwd_tc(*ptrs, _stream(q))
     else:
         name, err = "flash_fwd_simt", lib.rtt_flash_fwd(
@@ -210,52 +262,84 @@ def flash_forward(q, k, v, *, causal: bool, with_lse: bool = True):
     _build.check(err, name)
     LAUNCHES[name] += 1
     flash_forward.launches += 1
-    return out, lse
+    return trim_last_dim(out, d), lse
 
 
 flash_forward.launches = 0
 
 
+def _backward_inputs(op, q, k, v, do, lse, delta):
+    """The backward kernels' inputs, contiguous and zero-padded to the
+    kernel head dim: (q, k, v, do, (B, T, H, D), kernel head dim)."""
+    q, k, v, do = (x.contiguous() for x in (q, k, v, do))
+    shape = _check(op, q, k, v, do, rows=(lse, delta))
+    dp = kernel_head_dim(shape[3])
+    q, k, v, do = (pad_last_dim(x, dp) for x in (q, k, v, do))
+    return q, k, v, do, shape, dp
+
+
 def flash_dq(q, k, v, do, lse, delta, *, causal: bool):
-    """dQ from the forward's lse and ``delta``; the kernel replaces
-    `ray_tpu/ops/flash_attention.py::_dq_kernel`."""
+    """dQ from the forward's lse and ``delta``; the kernels replace
+    `ray_tpu/ops/flash_attention.py::_dq_kernel`: ``flash_dq_tc`` (wgmma
+    + TMA, 128 query rows against 64-key tiles) for bfloat16 at kernel
+    head dim 64 and 128, ``flash_dq_simt`` (CUDA cores) otherwise. The
+    tensor-core kernel rounds P (through dS) and dS to bf16 before dS . K,
+    so per element it may differ from the plain version by 2**-8 * scale
+    * |dS| . |K| more."""
     if not _on_kernel("flash_dq", q):
         return flash_backward_reference(q, k, v, do, lse, delta,
                                         causal=causal)[0]
     from ray_tpu_torch.ops import _build
-    q, k, v, do = (x.contiguous() for x in (q, k, v, do))
-    b, t, h, d = _check("flash_dq", q, k, v, do, rows=(lse, delta))
+    q, k, v, do, (b, t, h, d), dp = _backward_inputs("flash_dq", q, k, v,
+                                                     do, lse, delta)
     dq = torch.empty_like(q)
-    err = _build.load().rtt_flash_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, t, h, d,
-        d ** -0.5, int(causal), _KERNEL_DTYPES[q.dtype], _stream(q))
-    _build.check(err, "flash_dq")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, t, h, dp,
+            d ** -0.5, int(causal))
+    lib = _build.load()
+    if _on_tc(q, dp):
+        name, err = "flash_dq_tc", lib.rtt_flash_dq_tc(*args, _stream(q))
+    else:
+        name, err = "flash_dq_simt", lib.rtt_flash_dq(
+            *args, _KERNEL_DTYPES[q.dtype], _stream(q))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
     flash_dq.launches += 1
-    return dq
+    return trim_last_dim(dq, d)
 
 
 flash_dq.launches = 0
 
 
 def flash_dkv(q, k, v, do, lse, delta, *, causal: bool):
-    """(dK, dV) from the forward's lse and ``delta``; the kernel replaces
-    `ray_tpu/ops/flash_attention.py::_dkv_kernel`."""
+    """(dK, dV) from the forward's lse and ``delta``; the kernels replace
+    `ray_tpu/ops/flash_attention.py::_dkv_kernel`: ``flash_dkv_tc``
+    (wgmma + TMA, 128 key rows against 64-row query tiles, in the
+    transposed form S^T = K Q^T) for bfloat16 at kernel head dim 64 and
+    128, ``flash_dkv_simt`` (CUDA cores) otherwise. The tensor-core
+    kernel rounds P and dS to bf16 before P^T . dO and dS^T . Q, so per
+    element dV may differ from the plain version by 2**-8 * |P|^T . |dO|
+    and dK by 2**-8 * scale * |dS|^T . |Q| more."""
     if not _on_kernel("flash_dkv", q):
         return flash_backward_reference(q, k, v, do, lse, delta,
                                         causal=causal)[1:]
     from ray_tpu_torch.ops import _build
-    q, k, v, do = (x.contiguous() for x in (q, k, v, do))
-    b, t, h, d = _check("flash_dkv", q, k, v, do, rows=(lse, delta))
+    q, k, v, do, (b, t, h, d), dp = _backward_inputs("flash_dkv", q, k, v,
+                                                     do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _build.load().rtt_flash_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
-        t, h, d, d ** -0.5, int(causal), _KERNEL_DTYPES[q.dtype],
-        _stream(q))
-    _build.check(err, "flash_dkv")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, t, h, dp, d ** -0.5, int(causal))
+    lib = _build.load()
+    if _on_tc(q, dp):
+        name, err = "flash_dkv_tc", lib.rtt_flash_dkv_tc(*args, _stream(q))
+    else:
+        name, err = "flash_dkv_simt", lib.rtt_flash_dkv(
+            *args, _KERNEL_DTYPES[q.dtype], _stream(q))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
     flash_dkv.launches += 1
-    return dk, dv
+    return trim_last_dim(dk, d), trim_last_dim(dv, d)
 
 
 flash_dkv.launches = 0
@@ -305,8 +389,7 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = 1024,
 
 def kernel_launches() -> dict:
     """Launch count of each flash kernel wrapper (the counters live on
-    the wrappers as ``.launches``) and of each forward kernel
-    (`LAUNCHES`)."""
+    the wrappers as ``.launches``) and of each kernel (`LAUNCHES`)."""
     return {**{f.__name__: f.launches for f in WRAPPERS}, **LAUNCHES}
 
 

@@ -25,8 +25,12 @@ and ``"pallas"`` name the kernels: a CUDA tensor launches them, or raises
 if they cannot take the inputs; a CPU tensor takes the plain version,
 because there is no kernel on the CPU. Any N and V run on the kernels
 (ragged edges are masked inside them); the kernels choose their own
-tiles, so ``vocab_chunk`` only shapes the plain version. The
-vocab-sharded composition (``mesh=``) waits for multi-rank parallelism.
+tiles, so ``vocab_chunk`` only shapes the plain version. The kernels are
+built for widths 64 and every multiple of 128 up to 1024; any other
+width up to 1024 runs zero-padded to the next of those (`kernel_width`,
+`ops.pad_last_dim`): zero columns of x and E add nothing to a logit, and
+dx and dE are sliced back. The vocab-sharded composition (``mesh=``)
+waits for multi-rank parallelism.
 
 `LAUNCHES` holds one plain-integer counter per kernel that grows by one
 per launch, and ``fused_xent_fwd`` one that grows by one per forward
@@ -37,10 +41,13 @@ from __future__ import annotations
 
 import torch
 
+from ray_tpu_torch.ops import pad_last_dim, trim_last_dim
+
 NEG = -1e30   # finite -inf stand-in, as the reference's _NEG
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_KERNEL_WIDTHS = (64, 128, 256, 512, 768, 1024)
+# widths the kernels are built for; others pad up to the next
+_KERNEL_WIDTHS = (64, 128, 256, 384, 512, 640, 768, 896, 1024)
 # The bf16 backward's vocabulary chunk, and the row / column tile of the
 # bf16 kernels (csrc/fused_xent.cu tc::BM, tc::BN): the shared dlog buffer
 # is [N rounded up to _TILE_ROWS, BWD_CHUNK] bf16, so BWD_CHUNK is a
@@ -199,9 +206,7 @@ def _check(op, x, embed, targets, rows=()):
                         f"embed of one dtype, got {x.dtype} / {embed.dtype}")
     n, d = x.shape
     v = embed.shape[0]
-    if d not in _KERNEL_WIDTHS:
-        raise ValueError(f"{op}: kernel width D must be one of "
-                         f"{_KERNEL_WIDTHS}, got {d}")
+    kernel_width(d)
     if targets.shape != (n,) or targets.dtype != torch.int32:
         raise ValueError(f"{op}: targets must be [N] int32 = ({n},), got "
                          f"{tuple(targets.shape)} {targets.dtype}")
@@ -217,6 +222,15 @@ def _check(op, x, embed, targets, rows=()):
         if a.data_ptr() % 16:
             raise ValueError(f"{op}: inputs must be 16-byte aligned")
     return n, v, d
+
+
+def kernel_width(d: int) -> int:
+    """The width a kernel runs ``d`` at: the smallest of `_KERNEL_WIDTHS`
+    that holds it. Widths above 1024 raise."""
+    if not 1 <= d <= _KERNEL_WIDTHS[-1]:
+        raise ValueError(f"fused cross-entropy kernels take a width D from "
+                         f"1 to {_KERNEL_WIDTHS[-1]}, got {d}")
+    return next(w for w in _KERNEL_WIDTHS if w >= d)
 
 
 def _stream(x) -> int:
@@ -252,6 +266,8 @@ def fused_xent_fwd(x, embed, targets, *, chunk: int = 512):
     from ray_tpu_torch.ops import _build
     x, embed, targets = x.contiguous(), embed.contiguous(), _i32(targets)
     n, v, d = _check("fused_xent_fwd", x, embed, targets)
+    d = kernel_width(d)
+    x, embed = pad_last_dim(x, d), pad_last_dim(embed, d)
     lib, stream = _build.load(), _stream(x)
     lse = torch.empty((n,), dtype=torch.float32, device=x.device)
     tgt = torch.empty((n,), dtype=torch.float32, device=x.device)
@@ -302,8 +318,10 @@ def fused_xent_bwd(x, embed, targets, lse, c_lse, c_tgt, *,
     from ray_tpu_torch.ops import _build
     x, embed, targets = x.contiguous(), embed.contiguous(), _i32(targets)
     lse, c_lse, c_tgt = _f32(lse), _f32(c_lse), _f32(c_tgt)
-    n, v, d = _check("fused_xent_bwd", x, embed, targets,
-                     rows=(lse, c_lse, c_tgt))
+    n, v, d_true = _check("fused_xent_bwd", x, embed, targets,
+                          rows=(lse, c_lse, c_tgt))
+    d = kernel_width(d_true)
+    x, embed = pad_last_dim(x, d), pad_last_dim(embed, d)
     lib, stream = _build.load(), _stream(x)
     rows = (targets.data_ptr(), lse.data_ptr(), c_lse.data_ptr(),
             c_tgt.data_ptr())
@@ -315,7 +333,7 @@ def fused_xent_bwd(x, embed, targets, lse, c_lse, c_tgt, *,
             _build.check(fn(x.data_ptr(), embed.data_ptr(), *rows,
                             out.data_ptr(), n, v, d, stream), name)
             LAUNCHES[name] += 1
-        return dx, de
+        return trim_last_dim(dx, d_true), trim_last_dim(de, d_true)
     n_pad = -(-n // _TILE_ROWS) * _TILE_ROWS
     ldd = min(BWD_CHUNK, -(-v // _TILE_COLS) * _TILE_COLS)
     dlog = torch.empty((n_pad, ldd), dtype=torch.bfloat16, device=x.device)
@@ -333,7 +351,7 @@ def fused_xent_bwd(x, embed, targets, lse, c_lse, c_tgt, *,
                                         de.data_ptr(), *geom, stream),
                      "xent_de")
         LAUNCHES["xent_de"] += 1
-    return dx, de
+    return trim_last_dim(dx, d_true), trim_last_dim(de, d_true)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,14 @@ decode_attention`) with the JAX package's, on the CPU: the same numpy
 inputs go through JAX's pure-JAX path (``impl="jax"``), its Pallas
 kernels in interpret mode (``impl="pallas"``) and the port's plain
 PyTorch versions. f32 throughout, atol 1e-5: both sides accumulate in
-f32 and differ only in summation order."""
+f32 and differ only in summation order.
+
+The multi-query kernel is built for pool blocks of 8, 16 and 32; a pool
+of any other multiple of 8 reaches it re-viewed (`split_blocks`). The
+plain versions on the re-viewed pool and expanded tables must give
+exactly what they give on the original pool, and the JAX package's
+plain path at block 64 and head dim 96 what the port's gives on the
+re-viewed pool."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -129,3 +136,104 @@ def test_rejects_bad_impl_and_int8_pools():
                                    v_scale=torch.ones(3, 8, 2))
     with pytest.raises(ValueError, match="paged_prefill_attention"):
         tda.paged_prefill_attention(q, pool, pool, tables, 0)
+
+
+def _split_case(bs, kind, seed):
+    """(q, k_pool, v_pool, tables, pos) as numpy for a block-``bs`` pool
+    of 3 rows x 4 blocks, H 2, D 16: decode ([B, H, D]), verify
+    ([B, W, H, D]) or prefill ([C, H, D] through row 0's table)."""
+    rng = np.random.default_rng(seed)
+    b, mb, h, d = 3, 4, 2, 16
+    kp, vp = _pool(rng, b * mb + 1, bs, h, d)
+    tables = _tables(rng, b, mb, b * mb + 1)
+    span = mb * bs
+    if kind == "prefill":
+        c = min(bs + 3, span)
+        return (rng.standard_normal((c, h, d)).astype(np.float32), kp, vp,
+                tables[0], span - c)
+    pos = np.asarray([0, bs - 1, span - 2], np.int32)
+    shape = (b, h, d) if kind == "decode" else (b, 3, h, d)
+    return rng.standard_normal(shape).astype(np.float32), kp, vp, tables, pos
+
+
+_PLAIN = {"decode": tda.reference_paged_decode_attention,
+          "verify": tda.reference_paged_verify_attention,
+          "prefill": tda.reference_paged_prefill_attention}
+
+
+@pytest.mark.parametrize("kind", ["prefill", "verify"])
+@pytest.mark.parametrize("bs", [8, 16, 24, 32, 40, 48, 64, 96, 128])
+def test_split_blocks_gives_the_same_attention(kind, bs):
+    """Every logical position lands on the same pool element after the
+    re-view, so the plain versions agree bit for bit."""
+    q, kp, vp, tables, pos = (torch.from_numpy(a)
+                              if isinstance(a, np.ndarray) else a
+                              for a in _split_case(bs, kind, bs))
+    k2, v2, t2 = tda.split_blocks(kp, vp, tables)
+    sub = next(x for x in (32, 16, 8) if bs % x == 0)
+    f = bs // sub
+    assert k2.shape == (kp.shape[0] * f, sub) + tuple(kp.shape[2:])
+    assert v2.shape == k2.shape and t2.dtype == torch.int32
+    assert t2.shape[-1] == tables.shape[-1] * f
+    assert k2.data_ptr() == kp.data_ptr()          # a view, not a copy
+    np.testing.assert_array_equal(
+        tda.gather_kv_pages(k2, t2.reshape(-1, t2.shape[-1])).numpy(),
+        tda.gather_kv_pages(kp, tables.reshape(-1, tables.shape[-1]))
+        .numpy())
+    want = _PLAIN[kind](q, kp, vp, tables, pos)
+    got = _PLAIN[kind](q, k2, v2, t2, pos)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bs", [4, 12, 20, 36])
+def test_split_blocks_rejects_block_sizes_off_the_multiples_of_8(bs):
+    kp = torch.zeros((3, bs, 2, 16))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tda.split_blocks(kp, kp, torch.zeros((1, 2), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill", "verify"])
+def test_block64_head_dim96_matches_jax(kind):
+    """The configuration the card used to refuse (an engine at block 64
+    over a model with head dim 96): JAX's plain path on the original
+    pool against the port's plain versions on the re-viewed one."""
+    rng = np.random.default_rng(96)
+    b, mb, h, d, bs = 2, 3, 2, 96, 64
+    kp, vp = _pool(rng, b * mb + 1, bs, h, d)
+    tables = _tables(rng, b, mb, b * mb + 1)
+    pos = np.asarray([5, 150], np.int32)
+    if kind == "decode":
+        q = rng.standard_normal((b, h, d)).astype(np.float32)
+        args, jfn = (q, kp, vp, tables, pos), jda.paged_decode_attention
+    elif kind == "verify":
+        q = rng.standard_normal((b, 4, h, d)).astype(np.float32)
+        args, jfn = (q, kp, vp, tables, pos), jda.paged_verify_attention
+    else:
+        q = rng.standard_normal((40, h, d)).astype(np.float32)
+        args, jfn = (q, kp, vp, tables[1], 100), jda.paged_prefill_attention
+    want = np.asarray(jfn(*[jnp.asarray(a) if isinstance(a, np.ndarray)
+                            else a for a in args], impl="jax"))
+    q, kp, vp, tbl = (torch.from_numpy(a) for a in args[:4])
+    k2, v2, t2 = tda.split_blocks(kp, vp, tbl)
+    got = _PLAIN[kind](q, k2, v2, t2, args[4] if kind == "prefill"
+                       else torch.from_numpy(args[4]))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("d,ok", [(8, True), (48, True), (96, True),
+                                  (120, True), (128, True), (100, False),
+                                  (136, False), (4, False)])
+def test_kernel_input_check_takes_every_multiple_of_8_up_to_128(d, ok):
+    """The kernels' input check (device-independent): every head dim that
+    is a multiple of 8 from 8 to 128 passes, others raise."""
+    q = torch.zeros((2, 2, d))
+    pool = torch.zeros((3, 8, 2, d))
+    tables = torch.zeros((2, 2), dtype=torch.int32)
+    pos = torch.zeros(2, dtype=torch.int32)
+    if ok:
+        tda._check_kernel_inputs("op", q, pool, pool, tables=tables,
+                                 pos=pos)
+    else:
+        with pytest.raises(ValueError, match="head dim"):
+            tda._check_kernel_inputs("op", q, pool, pool, tables=tables,
+                                     pos=pos)

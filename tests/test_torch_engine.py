@@ -83,6 +83,41 @@ def test_greedy_tokens_identical_to_jax_engine(tree):
     assert ts["kernel_launches"] == launches
 
 
+@pytest.mark.parametrize("block_size", [24, 64])
+def test_block_sizes_off_the_kernel_list_at_head_dim_96_match_jax(
+        block_size):
+    """Pool blocks of 24 and 64 (the multi-query kernel sees them as
+    blocks of 8 and 32) under a model with head dim 96, prompts of up to
+    90 tokens in 32-token chunks: greedy tokens identical to the JAX
+    engine's, logprobs to 1e-4."""
+    cfg_kw = dict(vocab_size=128, d_model=96, n_layers=2, n_heads=1,
+                  d_ff=64, max_seq_len=160, dtype="float32")
+    eng_kw = dict(slots=2, max_len=144, prefill_buckets=(16, 32),
+                  block_size=block_size, prefill_chunk=32)
+    jcfg = jgpt.GPTConfig(**cfg_kw)
+    params = jgpt.init_params(jax.random.PRNGKey(3), jcfg)
+    tree = jax.tree.map(np.asarray,
+                        {**params, "embed": params["embed"] * 8})
+    tcfg = tgpt.GPTConfig(**cfg_kw)
+    assert tcfg.head_dim == 96
+    teng = InferenceEngine(tgpt.params_from_numpy(tree, tcfg, device="cpu"),
+                           tcfg, device="cpu", **eng_kw)
+    jeng = JaxEngine(jax.tree.map(jax.numpy.asarray, tree), jcfg, **eng_kw)
+    rng = np.random.default_rng(block_size)
+    prefix = rng.integers(0, 128, 50)
+    prompts = [np.concatenate([prefix, rng.integers(0, 128, 40)]),
+               np.concatenate([prefix, rng.integers(0, 128, 20)]),
+               rng.integers(0, 128, 33), rng.integers(0, 128, 7)]
+    jouts = _run(jeng, prompts)
+    touts = _run(teng, prompts)
+    for j, t in zip(jouts, touts):
+        assert [int(x) for x in t] == [int(x) for x in j]
+        np.testing.assert_allclose([x.logprob for x in t],
+                                   [x.logprob for x in j], atol=1e-4,
+                                   rtol=0)
+    assert teng.stats()["prefill_chunks"] == jeng.stats()["prefill_chunks"]
+
+
 def test_cancel_mid_decode_releases_blocks(tree):
     eng = _port(tree)
     keep, drop = [eng.submit(p, max_new_tokens=8) for p in _traffic()[2:4]]

@@ -18,7 +18,19 @@ of 128 keys and rounds p to bf16 relative to the running row max; a
 plain emulation of that walk is held against JAX's Pallas forward within
 the card's bf16 limit (1e-4 + 2**-7 |ref| + 2**-8 P|V|), and its f32
 output against the plain version's within the limit's rounding term
-2**-8 P|V| alone (+ 1e-6 for f32 summation order)."""
+2**-8 P|V| alone (+ 1e-6 for f32 summation order).
+
+The bf16 backward on the card (tensor cores) rounds P and dS to bf16
+before its three products; an emulation of that arithmetic is held
+against JAX's Pallas backward (through `jax.vjp`) within the card's
+limit, FLASH_TOL's bf16 terms plus 2**-8 times
+`flash_backward_abs_bound`, and its f32 result against the plain
+version's within the rounding term alone (+ 1e-6).
+
+Head dims the kernels are not built for run zero-padded to the next of
+32, 64 and 128 with the true head dim's softmax scale; the plain
+versions on padded inputs, with that scale, are held against the
+unpadded ones, and the padded columns of dq, dk and dv must be zero."""
 
 import math
 
@@ -30,6 +42,7 @@ import torch
 
 from ray_tpu.ops.flash_attention import flash_attention as jflash
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.ops import pad_last_dim
 
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=2e-2, rtol=2 ** -6)}
@@ -66,7 +79,7 @@ def _both(arrs, dtype, causal, block):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", [16, 32, 48, 96])
 @pytest.mark.parametrize("t,block", [(128, 1024), (256, 128), (384, 1024)])
 def test_forward_and_grads_match_jax_f32(causal, d, t, block):
     jout, jgrads, tout, tgrads = _both(_inputs(t + d, t, d, "float32"),
@@ -185,3 +198,91 @@ def test_tile_walk_rounding_is_inside_the_card_limit(causal):
     assert err.max() > 0
     assert torch.all(err <= 2 ** -8 * p_abs_v + 1e-6)
     torch.testing.assert_close(emu_lse, plain_lse, atol=1e-4, rtol=1e-5)
+
+
+def _tensor_core_backward(q, k, v, do, lse, delta, causal):
+    """The tensor-core backward's arithmetic in plain PyTorch: S, dP, P =
+    exp(s - lse) and dS = P (dP - delta) in f32 as the plain version
+    computes them, then P and dS rounded to bf16 before dq = sm dS . K,
+    dk = sm dS^T . Q and dv = P^T . dO (f32 sums). Returns f32 (dq, dk,
+    dv) before their rounding to the inputs' dtype."""
+    sm = q.shape[-1] ** -0.5
+    p, ds = fa.p_and_ds(q, k, v, do, lse, delta, causal=causal)
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+    return (torch.einsum("bhqk,bkhd->bqhd", ds16, k.float()) * sm,
+            torch.einsum("bhqk,bqhd->bkhd", ds16, q.float()) * sm,
+            torch.einsum("bhqk,bqhd->bkhd", p16, do.float()))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,d", [(256, 64), (128, 128)])
+def test_tensor_core_backward_rounding_is_inside_the_card_limit(causal, t,
+                                                                 d):
+    """bf16 inputs; JAX runs one block over the whole sequence, so its
+    forward rounds p against the final row max as the plain forward
+    does, and both backwards start from (almost) the same lse and
+    delta."""
+    q, k, v, g = _inputs(13 + d, t, d, "bfloat16")
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g))
+    _, vjp = jax.vjp(lambda q, k, v: jflash(q, k, v, causal, t, t), jq, jk,
+                     jv)
+    jgrads = [_np(x) for x in vjp(jg)]
+    tq, tk, tv, tg = (torch.from_numpy(a).bfloat16() for a in (q, k, v, g))
+    out, lse = fa.flash_forward_reference(tq, tk, tv, causal=causal)
+    delta = fa.attention_delta(out, tg)
+    emu = _tensor_core_backward(tq, tk, tv, tg, lse, delta, causal)
+    bounds = fa.flash_backward_abs_bound(tq, tk, tv, tg, lse, delta,
+                                         causal=causal)
+    plain = fa.flash_backward_reference(tq.float(), tk.float(), tv.float(),
+                                        tg.float(), lse, delta,
+                                        causal=causal)
+    for got, want, bound, ref in zip(emu, jgrads, bounds, plain):
+        limit = (1e-4 + 2 ** -7 * np.abs(want) + 2 ** -8 * bound.numpy())
+        assert np.all(np.abs(_np(got.bfloat16()) - want) <= limit)
+        # the rounding term alone covers the emulation against the plain
+        # f32 backward, and is not vacuous
+        err = (got - ref).abs()
+        assert err.max() > 0
+        assert torch.all(err <= 2 ** -8 * bound + 1e-6)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [8, 16, 24, 40, 48, 56, 72, 80, 88, 96, 104,
+                               112, 120])
+def test_padded_heads_with_the_true_scale_match_unpadded(causal, d):
+    """What the wrappers do for head dims without a kernel of their own:
+    zero columns up to `kernel_head_dim`, the softmax scale of the true
+    head dim, outputs sliced back. Forward, lse and the three gradients
+    agree with the unpadded plain versions (up to f32 summation order),
+    and the padded columns of dq, dk and dv are exactly zero."""
+    q, k, v, g = (torch.from_numpy(a)
+                  for a in _inputs(d + causal, 40, d, "float32", h=2))
+    dp = fa.kernel_head_dim(d)
+    assert dp == min(x for x in (32, 64, 128) if x >= d)
+    pq, pk, pv, pg = (pad_last_dim(x, dp) for x in (q, k, v, g))
+    assert pq.shape[-1] == dp and torch.all(pq[..., d:] == 0)
+    sm = d ** -0.5
+    out, lse = fa.flash_forward_reference(q, k, v, causal=causal)
+    pout, plse = fa.flash_forward_reference(pq, pk, pv, causal=causal,
+                                            scale=sm)
+    torch.testing.assert_close(pout[..., :d], out, atol=1e-6, rtol=1e-6)
+    assert torch.all(pout[..., d:] == 0)
+    torch.testing.assert_close(plse, lse, atol=1e-6, rtol=1e-6)
+    delta = fa.attention_delta(out, g)
+    torch.testing.assert_close(fa.attention_delta(pout, pg), delta,
+                               atol=1e-6, rtol=1e-6)
+    want = fa.flash_backward_reference(q, k, v, g, lse, delta,
+                                       causal=causal)
+    got = fa.flash_backward_reference(pq, pk, pv, pg, lse, delta,
+                                      causal=causal, scale=sm)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a[..., :d], b, atol=1e-6, rtol=1e-6)
+        assert torch.all(a[..., d:] == 0)
+
+
+@pytest.mark.parametrize("d", [0, 4, 12, 100, 132, 136, 256])
+def test_head_dims_without_a_kernel_raise(d):
+    """Head dims that are not a multiple of 8, or above 128, have no
+    kernel (the reference pads those to a multiple of 8 itself)."""
+    with pytest.raises(ValueError, match="head dim"):
+        fa.kernel_head_dim(d)

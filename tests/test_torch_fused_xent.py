@@ -22,7 +22,14 @@ products; the card tests allow for that with 2**-8 (bf16's unit
 roundoff) times `xent_backward_abs_bound`. Here that bound is checked
 against dense logits, and an emulation of the rounding is held inside
 the card's limit (and shown not to be exact, so the limit is not
-vacuous)."""
+vacuous).
+
+The kernels are built for widths 64 and the multiples of 128 up to
+1024; other widths run zero-padded to the next of those. The plain
+versions on zero-padded x and E are held against the unpadded ones (the
+padded columns of dx and dE exactly zero), and the port's fused loss at
+width 384 and at a width off the kernels' list against the JAX
+package's."""
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +39,7 @@ import torch
 
 from ray_tpu.ops import fused_xent as jfx
 from ray_tpu_torch.ops import fused_xent as tfx
+from ray_tpu_torch.ops import pad_last_dim
 from ray_tpu_torch.train import spmd as tspmd
 
 B, T, D = 2, 16, 64
@@ -266,3 +274,71 @@ def test_tile_partials_and_merge_match_jax(dtype, tol):
                                    impl="scan")
     np.testing.assert_allclose((lse - tg).numpy(), np.asarray(nll_j)[0],
                                atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("d,want", [(1, 64), (40, 64), (64, 64), (65, 128),
+                                    (96, 128), (200, 256), (300, 384),
+                                    (384, 384), (500, 512), (640, 640),
+                                    (700, 768), (896, 896), (1000, 1024),
+                                    (1024, 1024)])
+def test_kernel_width_is_the_next_built_width(d, want):
+    assert tfx.kernel_width(d) == want
+
+
+@pytest.mark.parametrize("d", [0, 1025, 2048])
+def test_widths_without_a_kernel_raise(d):
+    with pytest.raises(ValueError, match="width"):
+        tfx.kernel_width(d)
+
+
+@pytest.mark.parametrize("d", [40, 96, 200, 300])
+def test_padded_width_matches_unpadded(d):
+    """What the wrappers do for a width without kernels of its own: zero
+    columns of x and E up to `kernel_width` add nothing to a logit, so
+    lse, the target logit, dx and dE agree with the unpadded plain
+    versions (up to f32 summation order) and dx, dE are zero past D."""
+    rng = np.random.default_rng(d)
+    n, v = 50, 300
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    e = torch.from_numpy((rng.standard_normal((v, d)) * d ** -0.5)
+                         .astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, v, n).astype(np.int32))
+    dp = tfx.kernel_width(d)
+    px, pe = pad_last_dim(x, dp), pad_last_dim(e, dp)
+    assert px.shape == (n, dp) and torch.all(pe[:, d:] == 0)
+    lse, tg = tfx.lse_target_reference(x, e, t, 128)
+    plse, ptg = tfx.lse_target_reference(px, pe, t, 128)
+    torch.testing.assert_close(plse, lse, atol=1e-5, rtol=1e-6)
+    torch.testing.assert_close(ptg, tg, atol=1e-5, rtol=1e-6)
+    cl = torch.from_numpy(rng.random(n).astype(np.float32))
+    ct = -torch.from_numpy(rng.random(n).astype(np.float32))
+    dx, de = tfx.xent_backward_reference(x, e, t, lse, cl, ct, 128)
+    pdx, pde = tfx.xent_backward_reference(px, pe, t, lse, cl, ct, 128)
+    for a, b in ((pdx, dx), (pde, de)):
+        torch.testing.assert_close(a[:, :d], b, atol=1e-5, rtol=1e-5)
+        assert torch.all(a[:, d:] == 0)
+
+
+@pytest.mark.parametrize("d", [384, 200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_widths_384_and_200_match_jax(d, dtype):
+    """The width the card used to refuse (d_model 384) and one off the
+    kernels' list, through the port's fused loss and JAX's (scan), value
+    and both gradients, with the tolerances above."""
+    rng = np.random.default_rng(d)
+    v = 517
+    x = rng.standard_normal((B, T, d)).astype(np.float32)
+    emb = (rng.standard_normal((v, d)) * d ** -0.5).astype(np.float32)
+    tgt = rng.integers(0, v, (B, T)).astype(np.int32)
+    tdt = getattr(torch, dtype)
+    got = _torch(x, emb, tgt, tdt)
+    want = _jax(x, emb, tgt, "scan", jnp.dtype(dtype))
+    if dtype == "float32":
+        np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=0)
+        for g, w in zip(got[1:], want[1:]):
+            np.testing.assert_allclose(g, w, rtol=0,
+                                       atol=1e-5 * np.abs(w).max())
+    else:
+        np.testing.assert_allclose(got[0], want[0], atol=1e-4, rtol=0)
+        for g, w in zip(got[1:], want[1:]):
+            assert np.all(np.abs(g - w) <= 2 ** -7 * np.abs(w) + 1e-6)

@@ -40,8 +40,8 @@ def _inputs(dev, dtype, b, h, d, bs, mb, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
 def test_decode_kernel_matches_plain(dev, dtype, d, bs):
     b, h, mb = 4, 3, 5
     g, kp, vp, tables = _inputs(dev, dtype, b, h, d, bs, mb)
@@ -56,14 +56,18 @@ def test_decode_kernel_matches_plain(dev, dtype, d, bs):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("bs", [8, 16, 24, 32, 64])
 def test_prefill_and_verify_kernel_match_plain(dev, dtype, d, bs):
+    """Block sizes 24 and 64 reach the kernel re-viewed as blocks of 8
+    and 32 (`split_blocks`); D 96 runs on the 128-wide tiles."""
     b, h, mb = 3, 2, 6
     g, kp, vp, tables = _inputs(dev, dtype, b, h, d, bs, mb, seed=1)
     for c, start in ((5, 0), (bs, bs), (40, 3)):
         q = torch.randn((c, h, d), generator=g, device=dev).to(dtype)
+        n = da.paged_prefill_attention.launches
         got = da.paged_prefill_attention(q, kp, vp, tables[0], start)
+        assert da.paged_prefill_attention.launches == n + 1
         ref = da.reference_paged_prefill_attention(q, kp, vp, tables[0],
                                                    start)
         torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
@@ -76,11 +80,19 @@ def test_prefill_and_verify_kernel_match_plain(dev, dtype, d, bs):
 
 
 def test_unsupported_inputs_raise_instead_of_falling_back(dev):
-    _, kp, vp, tables = _inputs(dev, torch.float32, 1, 2, 48, 16, 2)
-    q = torch.zeros((1, 2, 48), device=dev)
+    """Head dims above 128 or not a multiple of 8, block sizes not a
+    multiple of 8, and index tensors that are not int32 raise."""
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="head dim"):
-        da.paged_decode_attention(q, kp, vp, tables, pos)
+    for d in (136, 100):
+        _, kp, vp, tables = _inputs(dev, torch.float32, 1, 2, d, 16, 2)
+        q = torch.zeros((1, 2, d), device=dev)
+        with pytest.raises(ValueError, match="head dim"):
+            da.paged_decode_attention(q, kp, vp, tables, pos)
+    _, kp, vp, tables = _inputs(dev, torch.float32, 1, 2, 64, 12, 2)
+    with pytest.raises(ValueError, match="block size"):
+        da.paged_prefill_attention(torch.zeros((4, 2, 64), device=dev), kp,
+                                   vp, tables[0], 0)
+    q = torch.zeros((1, 2, 64), device=dev)
     with pytest.raises(TypeError, match="int32"):
         da.paged_decode_attention(q, kp, vp, tables.long(), pos)
 
@@ -99,6 +111,20 @@ def test_unsupported_inputs_raise_instead_of_falling_back(dev):
 # differ by 2**-8 * (P |V|) on top.
 FLASH_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-5),
              torch.bfloat16: dict(atol=1e-4, rtol=2 ** -7)}
+# The bf16 tensor-core backward (kernel head dim 64 and 128) also rounds
+# P and dS to bf16 once before its products, which moves each element by
+# at most bf16's unit roundoff 2**-8 times the same product of absolute
+# values: scale |dS| |K| (dq), scale |dS|^T |Q| (dk), |P|^T |dO| (dv),
+# from the plain version's f32 P and dS (`flash_backward_abs_bound`).
+
+
+def _close_with(got, ref, tol, extra=None):
+    limit = tol["atol"] + tol["rtol"] * ref.float().abs()
+    if extra is not None:
+        limit = limit + 2 ** -8 * extra
+    over = (got.float() - ref.float()).abs() - limit
+    assert over.max().item() <= 0, (
+        f"off by {over.max().item():.3e} beyond its limit")
 
 
 def _forward_ok(out, ref, q, k, v, causal):
@@ -115,13 +141,14 @@ def _forward_ok(out, ref, q, k, v, causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 48, 64, 96, 128])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("t", [1, 64, 129, 1000, 1024])
 def test_flash_kernels_match_plain(dev, dtype, d, causal, t):
     """T 1 and 129 (one row past a 128-row tile) put whole tensor-core
-    tiles past T; bf16 at D 64 and 128 runs the forward on the tensor
-    cores, everything else on the CUDA-core kernel."""
+    tiles past T; bf16 at kernel head dim 64 and 128 runs on the tensor
+    cores, everything else on the CUDA-core kernels. D 48 and 96 run
+    zero-padded to 64 and 128."""
     from ray_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(t + d)
     b, h = 2, 2
@@ -138,21 +165,27 @@ def test_flash_kernels_match_plain(dev, dtype, d, causal, t):
     dk, dv = fa.flash_dkv(q, k, v, do, ref_lse, delta, causal=causal)
     refs = fa.flash_backward_reference(q, k, v, do, ref_lse, delta,
                                        causal=causal)
-    for got, ref in zip((dq, dk, dv), refs):
-        torch.testing.assert_close(got.float(), ref.float(),
-                                   **FLASH_TOL[dtype])
+    tc = dtype == torch.bfloat16 and fa.kernel_head_dim(d) in (64, 128)
+    extra = (fa.flash_backward_abs_bound(q, k, v, do, ref_lse, delta,
+                                         causal=causal) if tc
+             else (None,) * 3)
+    for got, ref, bound in zip((dq, dk, dv), refs, extra):
+        assert got.shape == ref.shape and got.dtype == dtype
+        _close_with(got, ref, FLASH_TOL[dtype], bound)
     assert [f.launches for f in fa.WRAPPERS] == [x + 1 for x in n]
-    ran = ("flash_fwd_tc" if dtype == torch.bfloat16 and d in (64, 128)
-           else "flash_fwd_simt")
+    ran = {f"flash_{k}_{'tc' if tc else 'simt'}" for k in ("fwd", "dq",
+                                                           "dkv")}
     assert {k: fa.LAUNCHES[k] - fwd[k] for k in fwd} == \
-        {k: int(k == ran) for k in fwd}
+        {k: int(k in ran) for k in fwd}
 
 
 def test_flash_unsupported_inputs_raise(dev):
+    """Head dims above 128 or not a multiple of 8, and float16, raise."""
     from ray_tpu_torch.ops import flash_attention as fa
-    q = torch.zeros((1, 8, 2, 48), device=dev)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_forward(q, q, q, causal=True)
+    for d in (136, 100):
+        q = torch.zeros((1, 8, 2, d), device=dev)
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_forward(q, q, q, causal=True)
     q = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_forward(q, q, q, causal=True)
@@ -163,7 +196,7 @@ def test_flash_unsupported_inputs_raise(dev):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [8, 32, 48, 64, 96, 120, 128])
 def test_dense_decode_kernel_matches_plain(dev, dtype, d):
     """A ragged cache length, pos 0, mid-cache, S - 1 and past S."""
     g = torch.Generator(device=dev).manual_seed(d)
@@ -202,7 +235,7 @@ def _xent_close(got, ref, bound=None):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128, 1024])
+@pytest.mark.parametrize("d", [64, 128, 200, 384, 1024])
 @pytest.mark.parametrize("n,v", [(256, 1024), (77, 517), (300, 9000)])
 def test_fused_xent_kernels_match_plain(dev, dtype, d, n, v):
     """(300, 9000): V spans three vocabulary chunks of the bf16 backward,
@@ -210,7 +243,8 @@ def test_fused_xent_kernels_match_plain(dev, dtype, d, n, v):
     so dx's accumulation across chunks and every masked edge run.
     Targets include column 0, V - 1, the first column of the last
     256-column tile of the bf16 forward (ragged unless V is a multiple
-    of 256) and three outside [0, V)."""
+    of 256) and three outside [0, V). Width 384 runs on its own kernel
+    instantiations, 200 zero-padded to 256."""
     from ray_tpu_torch.ops import fused_xent as fx
     g = torch.Generator(device=dev).manual_seed(n + v + d)
     x = torch.randn((n, d), generator=g, device=dev).to(dtype)
@@ -230,6 +264,7 @@ def test_fused_xent_kernels_match_plain(dev, dtype, d, n, v):
     args = (x, e, t, ref_lse, cl, ct)
     dx, de = fx.fused_xent_bwd(*args)
     ref_dx, ref_de = fx.xent_backward_reference(*args)
+    assert dx.shape == (n, d) and de.shape == (v, d)
     bound = (fx.xent_backward_abs_bound(*args) if dtype == torch.bfloat16
              else (None, None))
     _xent_close(dx, ref_dx, bound[0])
@@ -248,8 +283,9 @@ def test_fused_xent_kernels_match_plain(dev, dtype, d, n, v):
 
 
 def test_fused_xent_unsupported_inputs_raise(dev):
+    """Widths above 1024 and mixed dtypes raise."""
     from ray_tpu_torch.ops import fused_xent as fx
-    x = torch.zeros((8, 96), device=dev)
+    x = torch.zeros((8, 1100), device=dev)
     t = torch.zeros(8, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="width"):
         fx.fused_xent_fwd(x, x, t)

@@ -93,6 +93,32 @@ def test_loss_and_grads_match_jax(cfgs, tree, mask):
     _assert_tree_close(_grad_leaves(model), jgrads, 1e-4)
 
 
+@pytest.mark.parametrize("d_model,n_heads,loss_impl", [
+    (96, 1, "dense"), (192, 2, "dense"), (384, 4, "fused"), (200, 5, "fused")])
+def test_once_refused_shapes_loss_and_grads_match_jax(d_model, n_heads,
+                                                     loss_impl):
+    """Shapes the card's kernels used to refuse, through the whole
+    training loss against JAX's: head dim 96 (d_model 96 over one head,
+    192 over two), the fused loss at width 384 (four heads of 96) and at
+    width 200 (five heads of 40: a width and a head dim the kernels run
+    zero-padded)."""
+    kw = dict(d_model=d_model, n_heads=n_heads, d_ff=2 * d_model,
+              dtype="float32", attn_impl="flash", loss_impl=loss_impl)
+    jcfg, tcfg = jgpt.small(**kw), tgpt.small(**kw)
+    assert tcfg.head_dim in (96, 40)
+    tree = jax.tree.map(np.asarray,
+                        jgpt.init_params(jax.random.PRNGKey(1), jcfg))
+    batch = _batch(jcfg.vocab_size, b=2, seed=9)
+    jloss, jgrads = jax.value_and_grad(jspmd.gpt_loss_fn)(
+        jax.tree.map(jnp.asarray, tree),
+        jax.tree.map(jnp.asarray, batch), jcfg)
+    model = _model(tree, tcfg)
+    loss = tspmd.gpt_loss_fn(model, _tb(batch), tcfg)
+    loss.backward()
+    assert abs(loss.item() - float(jloss)) < 1e-5
+    _assert_tree_close(_grad_leaves(model), jgrads, 1e-4)
+
+
 @pytest.mark.parametrize("mask", [False, True])
 def test_fused_loss_and_grads_match_jax(cfgs, tree, mask):
     """loss_impl="fused" (the port's fused cross-entropy, its plain
