@@ -9,22 +9,30 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
 
 1. kernels vs plain: each paged-attention kernel against its plain
    PyTorch version on the same inputs at the serving shapes (H=16, D=64,
-   block 16, 513 pool blocks, 64-entry tables), in bf16 and f32, with
-   its device time per call, the plain version's, one PyTorch library
-   call's (``scaled_dot_product_attention`` over K/V gathered
-   beforehand, the gather not timed) and the least time the card could
-   take (the bound);
+   block 16, 513 pool blocks, 64-entry tables), in bf16 (the split-K
+   decode kernel and the tensor-core multi-query kernel, the latter
+   within an extra 2^-8 P|V| for its bf16 P) and f32, each bf16 kernel
+   called twice for bit-identical outputs, with its device time per
+   call, the plain version's, one PyTorch library call's
+   (``scaled_dot_product_attention`` over K/V gathered beforehand, the
+   gather not timed), the least time the card could take (the bound)
+   and its registers and spills;
 2. the engine: `InferenceReplica` at the width of the model
    ``bench_infer.py`` serves (vocab 50304, d_model 1024, 12 layers, 16
    heads, d_ff 4096, bf16, random weights from a seed) answers 17
    requests (a shared 64-token prefix, a repeated prompt that forces a
    copy-on-write, a 300-token prompt prefilled in several chunks, one
-   sampled request), with every kernel's launch counter read around it;
+   sampled request), with every kernel's launch counter read around it
+   (12 split-K decode launches a tick, 12 tensor-core multi-query
+   launches a prefill chunk, no CUDA-core multi-query launch), prefill
+   tok/s and decode p50/p99 printed beside the paged kernels' numbers
+   before split-K;
 3. teacher-forced check: a dense float32 forward with plain attention
    over two greedy requests' prompt + output must reproduce the
    engine's per-token logprobs;
 4. profile: a short engine run under ``torch.profiler``, device time by
-   kernel name and the device's busy share of the wall time;
+   kernel name, the device's busy share of the wall time, and the paged
+   kernels' launches by name (one each per layer call: no merge kernel);
 5. flash kernels vs plain: forward (out, lse), dQ and dK/dV (bf16 on
    the tensor-core kernels, f32 on the CUDA-core ones) against their
    plain versions at the training shape (B 8, T 1024, H 16, D 64) in
@@ -69,16 +77,18 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    prefill and 64 greedy `decode_step`s, with step p50/p99, tok/s,
    launches, and the emitted tokens' logprobs against a dense f32
    forward (phase 3's limits);
-10. the shapes the kernels once refused (head dim 96, pool block 64,
-   fused-loss width 384; depth cut to 2 layers): the decode and
-   multi-query kernels at D 96 over a block-64 pool against plain, a
-   D 96 training step (flash against plain attention, then a trainer
-   step on the tensor-core kernels), an engine at block 64 on the D 96
-   model against a dense f32 forward, and the fused loss at d_model 384
-   against the dense loss.
+10. the shapes the kernels once refused (head dims 96, 100 and 256, pool
+   block 64, fused-loss widths 384, 1600 and 4096; depth cut to 2
+   layers): the decode and multi-query kernels at each head dim over a
+   block-64 pool against plain, a training step at each head dim (flash
+   against plain attention, then a trainer step: tensor-core kernels at
+   96 and 100, padded to 128, CUDA-core kernels at 256), an engine at
+   block 64 on the D 96 model against a dense f32 forward, and the fused
+   loss at each width against the dense loss.
 
 Before the phases it prints the registers and spilled bytes of every
-tensor-core kernel from nvcc's ptxas report.
+tensor-core kernel and of the split-K decode kernel from nvcc's ptxas
+report.
 
 Any failed phase raises, so the exit code is non-zero. The last two
 lines of stdout are a ``{"kernels": [...]}`` JSON line and
@@ -164,8 +174,16 @@ PREFILL_CASES = ((8, 0), (8, 17), (8, 960), (64, 0), (64, 17), (64, 960))
 # order; in bf16 by at most one final rounding, one bf16 ulp, which is at
 # most 2**-7 of the value.
 TOL = {"bfloat16": (1e-5, 2 ** -7), "float32": (2e-5, 0.0)}
+# The bf16 multi-query kernel (tensor cores) also rounds p to bf16 before
+# p . V, relative to its running row max: + 2**-8 * (P |V|) per element.
 TIME_SETS = 8
 LOGPROB_TOL = 0.1
+# The engine of phases 2 and 4 with the paged kernels before split-K (one
+# CTA per (row, head) for decode, the CUDA-core multi-query kernel for
+# prefill), on an NVIDIA H100 80GB HBM3 at 700 W: printed beside this
+# run's numbers.
+SERVING_BEFORE = {"prefill_tok_s": 5622.8, "p50_token_latency_ms": 9.489,
+                  "p99_token_latency_ms": 13.377, "device_busy_share": 0.0889}
 
 
 def fail(msg: str):
@@ -252,7 +270,15 @@ def check(name, got, ref, dtype_name, what, tol=None, extra=None,
     return err
 
 
-def phase_kernels(dev) -> dict:
+def same_twice(name, fn, args):
+    """Fails unless two calls of ``fn`` give bit-identical outputs."""
+    import torch
+    if not torch.equal(fn(*args), fn(*args)):
+        fail(f"{name}: two calls on the same inputs differ")
+    return True
+
+
+def phase_kernels(dev, regs) -> dict:
     import torch
     import torch.nn.functional as F
     from ray_tpu_torch.ops import decode_attention as da
@@ -289,6 +315,10 @@ def phase_kernels(dev) -> dict:
     q = q32.bfloat16()
     # 8 sets x 13.8 MB read per call: 97 MB between two uses of a set.
     args = [(q, kp, vp, tables, pos) for kp, vp in pools]
+    rec["deterministic"] = same_twice("paged decode",
+                                      da.paged_decode_attention, args[0])
+    rec["split"] = dict(zip(("ks", "n_split"), da.split_geometry(MB * BS)))
+    rec["ptxas"] = regs.get("paged_decode_kernel<bf16, 8, 1>")
     rec["ms"] = time_ms(da.paged_decode_attention, args)
     rec["plain_ms"] = time_ms(da.reference_paged_decode_attention, args)
     mask = (torch.arange(MB * BS, device=dev)[None, :]
@@ -316,12 +346,22 @@ def phase_kernels(dev) -> dict:
         for dt in (torch.float32, torch.bfloat16):
             q, kp, vp = q32.to(dt), k32.to(dt), v32.to(dt)
             name = str(dt).split(".")[-1]
-            err = check("paged prefill",
-                        da.paged_prefill_attention(q, kp, vp, table, start),
+            extra = None
+            if dt == torch.bfloat16:
+                extra = 2 ** -8 * da.reference_paged_prefill_attention(
+                    q.float(), kp.float(), vp.float().abs(), table, start)
+            kernels = dict(da.LAUNCHES)
+            got = da.paged_prefill_attention(q, kp, vp, table, start)
+            want = "paged_mq_tc" if dt == torch.bfloat16 else "paged_mq_simt"
+            if {k: da.LAUNCHES[k] - kernels[k] for k in kernels} != \
+                    {k: int(k == want) for k in kernels}:
+                fail(f"paged prefill {name} did not launch {want} once")
+            err = check("paged prefill", got,
                         da.reference_paged_prefill_attention(q, kp, vp,
                                                              table, start),
                         name,
-                        f"paged_prefill {name:8s} C={c:2d} start={start:3d}")
+                        f"paged_prefill {name:8s} C={c:2d} start={start:3d}",
+                        extra=extra)
             rec["cases"].append({"dtype": name, "C": c, "start": start,
                                  "max_abs_err": err, "atol_rtol": TOL[name]})
     c, start = PREFILL_CASES[-1]
@@ -332,6 +372,10 @@ def phase_kernels(dev) -> dict:
     # 4.2 MB read per call.
     rows = [tables[r].contiguous() for r in range(8)]
     args = [(q, kp, vp, t, start_t) for kp, vp in pools for t in rows]
+    rec["deterministic"] = same_twice("paged prefill",
+                                      da.paged_prefill_attention, args[0])
+    rec["split"] = dict(zip(("ks", "n_split"), da.split_geometry(MB * BS)))
+    rec["ptxas"] = regs.get("paged_mq_tc_kernel<64>")
     rec["ms"] = time_ms(da.paged_prefill_attention, args)
     rec["plain_ms"] = time_ms(da.reference_paged_prefill_attention, args)
     mask = (torch.arange(s, device=dev)[None, :]
@@ -356,7 +400,9 @@ def phase_kernels(dev) -> dict:
     for name, r in report.items():
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
               f" ms, sdpa (gather excluded) {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{r['shape']}]")
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{r['shape']}]"
+              f"; splits {r['split']}, bit-identical twice, ptxas "
+              f"{r['ptxas']}")
     return report
 
 
@@ -426,6 +472,8 @@ def phase_engine(dev, cfg_kwargs, seed: int, new_tokens: int = 64):
     for name in ("paged_decode_attention", "paged_prefill_attention"):
         if launches[name] <= 0:
             fail(f"{name} was not launched on the main path")
+    check_paged_launches(launches, cfg_kwargs["n_layers"],
+                         st["decode_steps"], st["prefill_chunks"])
     if st["prefix_hit_tokens"] <= 0 or st["cow_copies"] <= 0:
         fail(f"prefix sharing / copy-on-write did not run: "
              f"hit {st['prefix_hit_tokens']} cow {st['cow_copies']}")
@@ -434,11 +482,15 @@ def phase_engine(dev, cfg_kwargs, seed: int, new_tokens: int = 64):
     if syncs != st["decode_steps"] + st["prefill_chunks"]:
         fail(f"{syncs} host syncs for {st['decode_steps']} decode ticks "
              f"and {st['prefill_chunks']} prefill chunks (want one each)")
+    before = SERVING_BEFORE
     print(f"  {len(reqs)} requests, {st['decode_tokens']} decode tokens in "
-          f"{wall:.2f} s wall; prefill {st['prefill_tok_s']:.1f} tok/s, "
+          f"{wall:.2f} s wall; prefill {st['prefill_tok_s']:.1f} tok/s "
+          f"(before split-K {before['prefill_tok_s']}), "
           f"decode {st['decode_tok_s']:.1f} tok/s, decode step "
           f"p50 {st['p50_token_latency_ms']:.3f} ms "
-          f"p99 {st['p99_token_latency_ms']:.3f} ms; launches {launches}; "
+          f"({before['p50_token_latency_ms']}) "
+          f"p99 {st['p99_token_latency_ms']:.3f} ms "
+          f"({before['p99_token_latency_ms']}); launches {launches}; "
           f"{syncs} host syncs")
     keep = ("prefill_tokens", "decode_tokens", "prefill_chunks",
             "decode_steps", "prefill_time_s", "decode_time_s",
@@ -496,11 +548,25 @@ def phase_teacher_forced(dev, cfg_kwargs, seed, reqs, outs) -> dict:
             "tokens_checked": checked, "decisive_tokens": decisive}
 
 
-def phase_profile(replica, vocab: int, seed: int = 2) -> dict:
+def check_paged_launches(launches: dict, layers: int, ticks: int,
+                         chunks: int):
+    """The bf16 engine's paged kernels: one split-K decode launch per
+    layer a tick, one tensor-core multi-query launch per layer a prefill
+    chunk, and never the CUDA-core multi-query kernel."""
+    want = {"paged_decode_attention": layers * ticks,
+            "paged_prefill_attention": layers * chunks,
+            "paged_mq_tc": layers * chunks, "paged_mq_simt": 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"paged kernel launches {got}, want {want}")
+
+
+def phase_profile(replica, vocab: int, layers: int, seed: int = 2) -> dict:
     """Where the engine's time goes: 8 requests of 128 prompt + 32 new
     tokens under `torch.profiler`, device time summed by kernel name, and
     the device busy share (summed kernel time over wall time; one stream,
-    so kernels do not overlap)."""
+    so kernels do not overlap). The paged kernels' launches by name must
+    be one per layer call: no merge kernel beside them."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -524,16 +590,29 @@ def phase_profile(replica, vocab: int, seed: int = 2) -> dict:
                      key=lambda k: -k[1])
     busy_us = sum(t for _, t, _ in kernels)
     st = eng.stats()
+    by_name = {k: sum(n for name, _, n in kernels if f"::{k}<" in name)
+               for k in ("paged_decode_kernel", "paged_mq_tc_kernel",
+                         "paged_mq_kernel")}
+    want = {"paged_decode_kernel": layers * st["decode_steps"],
+            "paged_mq_tc_kernel": layers * st["prefill_chunks"],
+            "paged_mq_kernel": 0}
+    if by_name != want:
+        fail(f"profiled paged kernel launches {by_name}, want {want}")
+    paged_ms = {k: sum(t for name, t, _ in kernels if f"::{k}<" in name)
+                * 1e-3 for k in by_name}
     out = {"wall_s": wall, "device_busy_s": busy_us * 1e-6,
            "device_busy_share": busy_us * 1e-6 / wall,
            "decode_steps": st["decode_steps"],
            "prefill_chunks": st["prefill_chunks"],
+           "paged_launches": by_name, "paged_device_ms": paged_ms,
            "top_kernels": [{"name": k[:80], "device_ms": t * 1e-3,
                             "calls": n} for k, t, n in kernels[:12]]}
     print(f"  wall {wall * 1e3:.1f} ms, device busy "
-          f"{busy_us * 1e-3:.1f} ms ({out['device_busy_share']:.1%}); "
+          f"{busy_us * 1e-3:.1f} ms ({out['device_busy_share']:.1%}; "
+          f"before split-K {SERVING_BEFORE['device_busy_share']:.1%}); "
           f"{st['decode_steps']} decode ticks, {st['prefill_chunks']} "
-          f"prefill chunks")
+          f"prefill chunks; paged kernels {by_name}, device ms "
+          f"{ {k: round(v, 3) for k, v in paged_ms.items()} }")
     for k in out["top_kernels"]:
         print(f"    {k['device_ms']:9.3f} ms  {k['calls']:6d}  {k['name']}")
     return out
@@ -1373,44 +1452,39 @@ def phase_unpaged(dev, cfg_kwargs, seed: int = 0) -> dict:
     return out
 
 
-# Phase 10's shapes, which the card refused before: head dim 96
-# (d_model 768 over 8 heads: the flash kernels pad it to 128, the decode
-# kernels take it as it is), pool block 64 (the multi-query kernel sees
-# it as blocks of 32) and a fused-loss width of 384. Widths are these
-# shapes' own; depth is cut to 2 layers (ROADMAP C1).
-C1_D96 = dict(vocab_size=50304, d_model=768, n_layers=2, n_heads=8,
-              d_ff=3072, max_seq_len=1024)
+# Phase 10's shapes, which the card refused before. Head dims: 96
+# (d_model 768 over 8 heads), 100 (d_model 800 over 8 heads; the flash
+# kernels pad both to 128, the decode kernels take 96 as it is and 100
+# padded to 104) and 256 (d_model 2048 over 8 heads, as Gemma's heads;
+# the CUDA-core flash kernels at 256, the decode kernels as it is); pool
+# block 64 (read as it is by the bf16 multi-query kernel); fused-loss
+# widths 384, 1600 (GPT-2 XL's d_model, 25 heads of 64) and 4096 (a
+# Llama-2-7B-wide model, 32 heads of 128). Widths are these shapes' own;
+# depth is cut to 2 layers, the widest loss's batch to 2 sequences.
+C1_HEADS = {96: dict(vocab_size=50304, d_model=768, n_layers=2, n_heads=8,
+                     d_ff=3072, max_seq_len=1024),
+            100: dict(vocab_size=50304, d_model=800, n_layers=2, n_heads=8,
+                      d_ff=3200, max_seq_len=1024),
+            256: dict(vocab_size=50304, d_model=2048, n_layers=2, n_heads=8,
+                      d_ff=8192, max_seq_len=1024)}
 C1_BLOCK = 64
-C1_XENT = dict(vocab_size=50304, d_model=384, n_layers=2, n_heads=6,
-               d_ff=1536, max_seq_len=1024)
+C1_XENT = {384: (dict(vocab_size=50304, d_model=384, n_layers=2, n_heads=6,
+                      d_ff=1536, max_seq_len=1024), 4),
+           1600: (dict(vocab_size=50304, d_model=1600, n_layers=2,
+                       n_heads=25, d_ff=6400, max_seq_len=1024), 4),
+           4096: (dict(vocab_size=50304, d_model=4096, n_layers=2,
+                       n_heads=32, d_ff=16384, max_seq_len=1024), 2)}
 C1_BATCH = 4
 
 
-def phase_c1(dev) -> dict:
-    """Phase 10: the three configurations the card refused before (ROADMAP
-    C1), each through its entry points against a plain version: (a) the
-    decode kernels and the multi-query kernel (prefill and verify) at head
-    dim 96 over a block-64 pool, against their plain versions; (b) a
-    training step at head dim 96 (d_model 768, 8 heads), loss and
-    gradients with flash attention against plain attention, then one
-    trainer step on the tensor-core kernels; (c) an `InferenceReplica`
-    with block size 64 on the same head dim answering 3 requests, its
-    logprobs against a dense f32 forward (phase 3's check); (d) the fused
-    loss at d_model 384 against the dense loss."""
-    import dataclasses
-
-    import numpy as np
+def _c1_kernels(dev, g, d: int) -> dict:
+    """(a) the paged decode, prefill and verify kernels over a block-64
+    pool and the contiguous-cache decode kernel at head dim ``d``, bf16,
+    against their plain versions (the multi-query kernel within an extra
+    2^-8 P|V|)."""
     import torch
-    from ray_tpu_torch import ops
     from ray_tpu_torch.ops import decode_attention as da
-    from ray_tpu_torch.ops import flash_attention as fa
-    from ray_tpu_torch.serve import InferenceReplica
-    from ray_tpu_torch.train import spmd
-
-    out = {}
-    g = torch.Generator(device=dev).manual_seed(10)
-    dt, d, h = torch.bfloat16, 96, 8
-    # (a) kernels at D 96 over a block-64 pool: 8 rows of 16 blocks
+    dt, h = torch.bfloat16, 8
     b, mb = 8, 16
     nb = b * mb + 1
     kp, vp = (torch.randn((nb, C1_BLOCK, h, d), generator=g,
@@ -1419,62 +1493,133 @@ def phase_c1(dev) -> dict:
         .view(b, mb).to(torch.int32).contiguous()
     pos = torch.tensor([0, 63, 64, 100, 511, 700, 1000, 1023],
                        dtype=torch.int32, device=dev)
+
+    def pv_extra(qv, tbl, p):
+        return 2 ** -8 * da.reference_paged_verify_attention(
+            qv.float(), kp.float(), vp.float().abs(), tbl, p)
+
     q = torch.randn((b, h, d), generator=g, device=dev).to(dt)
     errs = {"paged_decode": check(
         "paged decode", da.paged_decode_attention(q, kp, vp, tables, pos),
         da.reference_paged_decode_attention(q, kp, vp, tables, pos),
-        "bfloat16", "(a) paged decode D=96 block=64")}
+        "bfloat16", f"(a) paged decode D={d} block={C1_BLOCK}")}
     qc = torch.randn((64, h, d), generator=g, device=dev).to(dt)
     errs["paged_prefill"] = check(
         "paged prefill", da.paged_prefill_attention(qc, kp, vp, tables[0],
                                                     960),
         da.reference_paged_prefill_attention(qc, kp, vp, tables[0], 960),
-        "bfloat16", "(a) paged prefill D=96 block=64 C=64 start=960")
+        "bfloat16", f"(a) paged prefill D={d} block={C1_BLOCK} C=64 "
+        f"start=960", extra=pv_extra(qc[None], tables[:1], pos[-1:] - 63))
     qv = torch.randn((b, 4, h, d), generator=g, device=dev).to(dt)
     errs["paged_verify"] = check(
         "paged verify", da.paged_verify_attention(qv, kp, vp, tables, pos),
         da.reference_paged_verify_attention(qv, kp, vp, tables, pos),
-        "bfloat16", "(a) paged verify D=96 block=64 W=4")
+        "bfloat16", f"(a) paged verify D={d} block={C1_BLOCK} W=4",
+        extra=pv_extra(qv, tables, pos))
     kc, vc = (torch.randn((b, 1024, h, d), generator=g, device=dev).to(dt)
               for _ in range(2))
     errs["decode"] = check(
         "decode", da.decode_attention(q, kc, vc, pos),
         da.reference_decode_attention(q, kc, vc, pos), "bfloat16",
-        "(a) decode D=96 S=1024")
-    out["kernel_max_abs_err"] = errs
-    del kp, vp, kc, vc
+        f"(a) decode D={d} S=1024")
+    return errs
 
-    # (b) a training step at D 96
-    cfg = _train_cfg(**C1_D96)
+
+def _c1_train(dev, d: int) -> dict:
+    """(b) a training step at head dim ``d``: loss and gradients with
+    flash attention against plain attention, then one trainer step on
+    the kernels its kernel head dim takes (tensor cores at 128, CUDA
+    cores at 256)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.train import spmd
+    cfg = _train_cfg(**C1_HEADS[d])
     state, step_fn, place = spmd.make_gpt_trainer(cfg, seed=0, device=dev)
     batch = place(next(_host_batches(cfg, C1_BATCH, seed=20)))
     runs = {impl: _loss_and_grads(state.params, batch,
                                   dataclasses.replace(cfg, attn_impl=impl))
             for impl in ("flash", "xla")}
-    out["train_d96"] = _compare_runs(
-        "(b) D=96 flash vs plain attention", state.params, runs["flash"],
-        runs["xla"])
+    out = _compare_runs(f"(b) D={d} flash vs plain attention", state.params,
+                        runs["flash"], runs["xla"])
     del runs
     ops.reset_kernel_launches()
     state, m = step_fn(state, batch)
     loss = m["loss"].item()
     launches = ops.kernel_launches()
     if not np.isfinite(loss):
-        fail(f"D 96 train step loss {loss}")
-    for name in ("flash_fwd_tc", "flash_dq_tc", "flash_dkv_tc"):
-        if launches[name] < cfg.n_layers:
-            fail(f"D 96 train step: {name} launched {launches[name]} times")
-    for name in ("flash_fwd_simt", "flash_dq_simt", "flash_dkv_simt"):
-        if launches[name]:
-            fail(f"D 96 train step ran {name}")
-    print(f"  (b) one D=96 trainer step: loss {loss:.4f}; launches "
+        fail(f"D {d} train step loss {loss}")
+    on, off = ("tc", "simt") if fa.kernel_head_dim(d) in (64, 128) \
+        else ("simt", "tc")
+    for k in ("fwd", "dq", "dkv"):
+        if launches[f"flash_{k}_{on}"] < cfg.n_layers:
+            fail(f"D {d} train step: flash_{k}_{on} launched "
+                 f"{launches[f'flash_{k}_{on}']} times")
+        if launches[f"flash_{k}_{off}"]:
+            fail(f"D {d} train step ran flash_{k}_{off}")
+    print(f"  (b) one D={d} trainer step: loss {loss:.4f}; launches "
           f"{ {k: v for k, v in launches.items() if k.startswith('flash')} }")
-    out["train_d96"].update(step_loss=loss, launches=launches)
+    out.update(step_loss=loss, launches=launches)
     del state, step_fn, batch
     torch.cuda.empty_cache()
+    return out
+
+
+def _c1_fused_loss(dev, width: int) -> dict:
+    """(d) the fused loss at d_model ``width`` against the dense loss,
+    loss and every gradient leaf, on the fused-xent kernels."""
+    import dataclasses
+
+    import torch
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.train import spmd
+    shape, batch_rows = C1_XENT[width]
+    cfg = _train_cfg(**shape, loss_impl="fused")
+    state, _, place = spmd.make_gpt_trainer(cfg, seed=0, device=dev)
+    batch = place(next(_host_batches(cfg, batch_rows, seed=22)))
+    ops.reset_kernel_launches()
+    fused = _loss_and_grads(state.params, batch, cfg)
+    launches = ops.kernel_launches()
+    dense = _loss_and_grads(state.params, batch,
+                            dataclasses.replace(cfg, loss_impl="dense"))
+    for name in ("xent_fwd_tc", "xent_fwd_merge", "xent_dlog", "xent_dx",
+                 "xent_de"):
+        if launches[name] <= 0:
+            fail(f"the width-{width} fused loss did not launch {name}")
+    out = _compare_runs(f"(d) d_model={width} fused vs dense loss",
+                        state.params, fused, dense)
+    out.update(batch=batch_rows, launches={
+        k: v for k, v in launches.items() if k.startswith("xent")})
+    del state, batch, fused, dense
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_c1(dev) -> dict:
+    """Phase 10: the configurations the card refused before (ROADMAP C1),
+    each through its entry points against a plain version: (a) the
+    decode kernels and the multi-query kernel (prefill and verify) at
+    head dims 96, 100 and 256 over a block-64 pool; (b) a training step
+    at each of those head dims; (c) an `InferenceReplica` with block size
+    64 on the D 96 model answering 3 requests, its logprobs against a
+    dense f32 forward (phase 3's check); (d) the fused loss at d_model
+    384, 1600 and 4096 against the dense loss."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.serve import InferenceReplica
+
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(10)
+    out["kernel_max_abs_err"] = {d: _c1_kernels(dev, g, d) for d in C1_HEADS}
+    torch.cuda.empty_cache()
+    out["train"] = {d: _c1_train(dev, d) for d in C1_HEADS}
 
     # (c) the engine at block 64 on the D 96 model
-    cfg_kwargs = {**C1_D96, "dtype": "bfloat16"}
+    cfg_kwargs = {**C1_HEADS[96], "dtype": "bfloat16"}
     replica = InferenceReplica(cfg_kwargs, slots=4, max_len=1024, seed=0,
                                engine_kwargs=dict(block_size=C1_BLOCK),
                                device=dev)
@@ -1486,60 +1631,58 @@ def phase_c1(dev) -> dict:
                                   for p, _ in reqs]]
     torch.cuda.synchronize()
     launches = ops.kernel_launches()
-    for name in ("paged_prefill_attention", "paged_decode_attention"):
-        if launches[name] <= 0:
-            fail(f"the block-64 engine did not launch {name}")
+    st = replica.engine.stats()
+    check_paged_launches(launches, cfg_kwargs["n_layers"], st["decode_steps"],
+                         st["prefill_chunks"])
     if any(len(o) != 16 for o in outs):
         fail("the block-64 engine cut a request short")
-    st = replica.engine.stats()
     replica.engine.check_invariants()
     print(f"  (c) engine at block {C1_BLOCK}, D=96: {len(reqs)} requests, "
           f"{st['prefill_chunks']} prefill chunks, {st['decode_steps']} "
           f"decode ticks; launches "
-          f"{ {k: launches[k] for k in ('paged_prefill_attention', 'paged_decode_attention')} }")
+          f"{ {k: launches[k] for k in ('paged_prefill_attention', 'paged_decode_attention', 'paged_mq_tc')} }")
     del replica
     torch.cuda.empty_cache()
     out["engine_block64"] = phase_teacher_forced(dev, cfg_kwargs, 0, reqs,
                                                  outs)
     out["engine_block64"]["launches"] = launches
 
-    # (d) the fused loss at width 384
-    cfg = _train_cfg(**C1_XENT, loss_impl="fused")
-    state, _, place = spmd.make_gpt_trainer(cfg, seed=0, device=dev)
-    batch = place(next(_host_batches(cfg, C1_BATCH, seed=22)))
-    ops.reset_kernel_launches()
-    fused = _loss_and_grads(state.params, batch, cfg)
-    launches = ops.kernel_launches()
-    dense = _loss_and_grads(state.params, batch,
-                            dataclasses.replace(cfg, loss_impl="dense"))
-    for name in ("xent_fwd_tc", "xent_fwd_merge", "xent_dlog", "xent_dx",
-                 "xent_de"):
-        if launches[name] <= 0:
-            fail(f"the width-384 fused loss did not launch {name}")
-    out["fused_loss_384"] = _compare_runs(
-        "(d) d_model=384 fused vs dense loss", state.params, fused, dense)
-    out["fused_loss_384"]["launches"] = {
-        k: v for k, v in launches.items() if k.startswith("xent")}
-    del state, batch, fused, dense
-    torch.cuda.empty_cache()
+    out["fused_loss"] = {w: _c1_fused_loss(dev, w) for w in C1_XENT}
     return out
 
 
-def tensor_core_registers(ptxas: str) -> dict:
+def _readable_kernel(mangled: str):
+    """A readable name for an instantiation of a tensor-core kernel or of
+    the split-K decode kernel (``flash_dq_tc_kernel<64, true>``,
+    ``paged_mq_tc_kernel<64>``, ``paged_decode_kernel<bf16, 8, 1>``), or
+    None for the others."""
+    k = re.search(r"((?:flash|xent)_[a-z_]*?tc_kernel)(?:ILi(\d+)ELb([01])E)?",
+                  mangled)
+    if k:
+        return k.group(1) + (
+            f"<{k.group(2)}, {'true' if k.group(3) == '1' else 'false'}>"
+            if k.group(2) else "")
+    k = re.search(r"paged_mq_tc_kernelILi(\d+)E", mangled)
+    if k:
+        return f"paged_mq_tc_kernel<{k.group(1)}>"
+    k = re.search(r"paged_decode_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                  mangled)
+    if k:
+        dt = "f32" if k.group(1) == "f" else "bf16"
+        return f"paged_decode_kernel<{dt}, {k.group(2)}, {k.group(3)}>"
+    return None
+
+
+def kernel_registers(ptxas: str) -> dict:
     """Registers and spilled bytes (stores + loads) of each instantiation
-    of the tensor-core kernels, from nvcc's ptxas report, by a readable
-    name such as ``flash_dq_tc_kernel<64, true>``."""
+    of the tensor-core kernels and of the split-K decode kernel, from
+    nvcc's ptxas report, by a readable name (`_readable_kernel`)."""
     out, name = {}, None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"((?:flash|xent)_[a-z_]*?tc_kernel)"
-                          r"(?:ILi(\d+)ELb([01])E)?", m.group(1))
-            name = None
-            if k:
-                name = k.group(1) + (
-                    f"<{k.group(2)}, {'true' if k.group(3) == '1' else 'false'}>"
-                    if k.group(2) else "")
+            name = _readable_kernel(m.group(1))
+            if name:
                 out[name] = {"registers": None, "spill_bytes": 0}
             continue
         if name is None:
@@ -1585,15 +1728,15 @@ def main() -> int:
     if regs:
         print(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
               f"registers, {spills} bytes spilled")
-    tc_regs = tensor_core_registers(ptxas)
-    for name, r in tc_regs.items():
+    kern_regs = kernel_registers(ptxas)
+    for name, r in kern_regs.items():
         print(f"  ptxas {name}: {r['registers']} registers, "
               f"{r['spill_bytes']} bytes spilled")
     _build.load()
 
     result = {"card": smi, "torch": torch.__version__,
               "torch_cuda": torch.version.cuda, "nvcc": nvcc,
-              "build_s": build_s, "ptxas_tensor_core": tc_regs,
+              "build_s": build_s, "ptxas_kernels": kern_regs,
               "phase_s": {}}
     cfg_kwargs = dict(vocab_size=50304, d_model=1024, n_layers=12,
                       n_heads=16, d_ff=4096, max_seq_len=1024,
@@ -1607,13 +1750,13 @@ def main() -> int:
         print(f"  phase {n} took {result['phase_s'][n]:.1f} s")
         return got
 
-    kern = phase(1, "paged kernels vs plain", phase_kernels, dev)
+    kern = phase(1, "paged kernels vs plain", phase_kernels, dev, kern_regs)
     replica, reqs, outs, eng = phase(2, "engine at full width",
                                      phase_engine, dev, cfg_kwargs, 0)
     tf = phase(3, "teacher-forced logprobs vs dense f32 forward",
                phase_teacher_forced, dev, cfg_kwargs, 0, reqs, outs)
     prof = phase(4, "engine under torch.profiler", phase_profile, replica,
-                 cfg_kwargs["vocab_size"])
+                 cfg_kwargs["vocab_size"], cfg_kwargs["n_layers"])
     del replica
     torch.cuda.empty_cache()
     flash = phase(5, "flash kernels vs plain", phase_flash, dev)
@@ -1623,8 +1766,8 @@ def main() -> int:
                   "batch 24)", phase_fused_train, dev)
     unpaged = phase(9, "unpaged KV-cache path at full width", phase_unpaged,
                     dev, cfg_kwargs)
-    c1 = phase(10, "head dim 96, pool block 64, loss width 384",
-               phase_c1, dev)
+    c1 = phase(10, "head dims 96, 100, 256, pool block 64, loss widths 384, "
+               "1600, 4096", phase_c1, dev)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
                   flash=flash, train=train, xent=xent, fused_train=fused,
                   unpaged=unpaged, c1=c1)
@@ -1683,6 +1826,17 @@ def main() -> int:
                      "flash_dq_tc", "flash_dkv": "flash_dkv_tc"}[key]
             rows[-1].update(kernels=[f"{kname}_kernel"],
                             kernel_launches={kname: launches[kname]})
+        elif key == "paged_decode":
+            # bf16 and f32: the split-K kernel, one launch per call
+            rows[-1].update(kernels=["paged_decode_kernel"],
+                            split=rec["split"], ptxas=rec["ptxas"])
+        elif key == "paged_prefill":
+            # bf16: the tensor-core split-K kernel, one launch per call
+            rows[-1].update(kernels=["paged_mq_tc_kernel"],
+                            kernel_launches={
+                                k: launches[k]
+                                for k in ("paged_mq_tc", "paged_mq_simt")},
+                            split=rec["split"], ptxas=rec["ptxas"])
         elif key == "fused_xent_fwd":
             # bf16: the tile kernel and the merge, one launch each per call
             rows[-1].update(kernels=["xent_fwd_tc_kernel",

@@ -37,10 +37,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> (argtypes, restype) of every C entry point the wrappers call.
 SIGNATURES = {
-    "rtt_paged_decode": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                          _I, _P], _I),
+    "rtt_paged_decode": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _I, _F, _I, _P], _I),
     "rtt_paged_mq": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                      _I, _P], _I),
+                      _P], _I),
+    "rtt_paged_mq_tc": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _F, _P], _I),
     "rtt_decode": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
     "rtt_error_string": ([_I], ctypes.c_char_p),
     "rtt_flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],

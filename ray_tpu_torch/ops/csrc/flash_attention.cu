@@ -5,16 +5,18 @@
 //                        (online-softmax forward, causal tile skip, lse) for
 //                        bf16 at D 64 and 128, on the tensor cores
 //   flash_fwd_kernel     the same on CUDA cores, for f32 and for bf16 at D 32
+//                        and 256
 //   flash_dq_tc_kernel   replaces ray_tpu/ops/flash_attention.py::_dq_kernel
 //                        (dQ = sm * sum_kv dS K, P rebuilt from lse) for bf16
 //                        at D 64 and 128, on the tensor cores
 //   flash_dkv_tc_kernel  replaces ray_tpu/ops/flash_attention.py::_dkv_kernel
 //                        (dV = sum_q P^T dO, dK = sm * sum_q dS^T Q) likewise
 //   flash_dq_kernel,     the two backward kernels on CUDA cores, for f32 and
-//   flash_dkv_kernel     for bf16 at D 32
+//   flash_dkv_kernel     for bf16 at D 32 and 256
 //
-// The kernels are built for head dims 32, 64 and 128; the Python wrapper
-// zero-pads any other multiple of 8 up to the next of those and passes
+// The kernels are built for head dims 32, 64, 128 and 256 (256 on the CUDA
+// cores only, above 48 KB of dynamic shared memory); the Python wrapper
+// zero-pads any other head dim up to 256 to the next of those and passes
 // the true head dim's softmax scale (zero columns add nothing to q . k or
 // to delta, and dq, dk, dv come out zero there).
 //
@@ -95,13 +97,14 @@
 // Each warpgroup waits for its products before the next tile (no overlap
 // of one tile's softmax with the next tile's products).
 //
-// The CUDA-core kernels (f32, and bf16 at D 32, whose 64-byte rows are
-// under the 128-byte swizzle span the tensor-core kernels' TMA boxes use)
-// are the simple first version: 64 x 64 tiles of f32 FMA from shared
-// memory (each thread owns a 4 x 8 block of scores and a 4 x D/8 block of
-// the accumulator, rows spaced 16 apart and columns 8 apart so a warp
-// reads shared memory without bank conflicts), so they run at the CUDA
-// cores' rate, far from the bound.
+// The CUDA-core kernels (f32, bf16 at D 32, whose 64-byte rows are under
+// the 128-byte swizzle span the tensor-core kernels' TMA boxes use, and
+// bf16 at D 256) are the simple first version: 64 x 64 tiles (32 x 32 at
+// D 256) of f32 FMA from shared memory (each thread owns a 4 x 8 block of
+// scores and a 4 x D/8 block of the accumulator, 2 x 4 and 2 x D/8 at D
+// 256, rows spaced 16 apart and columns 8 apart so a warp reads shared
+// memory without bank conflicts), so they run at the CUDA cores' rate,
+// far from the bound.
 //
 // Each extern "C" entry launches on the given stream and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a head dim it has no
@@ -117,13 +120,22 @@ namespace {
 
 constexpr float kNegInf = -1e30f;  // finite, as flash_attention.py's NEG_INF
 constexpr int kThreads = 128;      // 4 warps
-constexpr int BT = 64;             // rows of a q tile and of a kv tile
-constexpr int LD = BT + 1;         // padded row of a transposed tile
-// Thread t owns tile rows rg + 16*i (i < 4) and columns cg + 8*j (j < 8),
-// rg = t / 8, cg = t % 8: the 8 threads of one row group are 8
-// consecutive lanes, so row reductions are three xor shuffles.
-constexpr int RI = 4;
-constexpr int CJ = 8;
+constexpr int G = 8;               // lanes of a row group
+
+// The CUDA-core kernels' tiles at head dim D: BT rows of a q tile and of
+// a kv tile (64, and 32 at D 256 so that four transposed f32 tiles fit in
+// an SM's shared memory and dK/dV's two accumulators in registers), LD
+// the padded row of a transposed tile. Thread t owns tile rows rg + 16*i
+// (i < RI) and columns cg + 8*j (j < CJ), rg = t / 8, cg = t % 8: the G
+// = 8 threads of one row group are 8 consecutive lanes, so row
+// reductions are three xor shuffles.
+template <int D>
+struct Tile {
+  static constexpr int BT = D > 128 ? 32 : 64;
+  static constexpr int LD = BT + 1;
+  static constexpr int RI = BT / 16;
+  static constexpr int CJ = BT / G;
+};
 
 template <typename T>
 struct Vec16;
@@ -176,14 +188,14 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
 
 __device__ __forceinline__ float group_max(float x) {
 #pragma unroll
-  for (int off = 1; off < CJ; off <<= 1)
+  for (int off = 1; off < G; off <<= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
 }
 
 __device__ __forceinline__ float group_sum(float x) {
 #pragma unroll
-  for (int off = 1; off < CJ; off <<= 1)
+  for (int off = 1; off < G; off <<= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
@@ -196,6 +208,7 @@ __device__ __forceinline__ void stage_t(float* xt, const T* base, int row0,
                                         int Tn, int HD, float scale) {
   constexpr int VEC = Vec16<T>::N;
   constexpr int CH = D / VEC;
+  constexpr int BT = Tile<D>::BT, LD = Tile<D>::LD;
   for (int e = threadIdx.x; e < BT * CH; e += kThreads) {
     const int r = e / CH;
     const int c = (e - r * CH) * VEC;
@@ -217,6 +230,7 @@ __device__ __forceinline__ void stage_rows(float* xs, const T* base, int row0,
                                            int Tn, int HD) {
   constexpr int VEC = Vec16<T>::N;
   constexpr int CH = D / VEC;
+  constexpr int BT = Tile<D>::BT;
   for (int e = threadIdx.x; e < BT * CH; e += kThreads) {
     const int r = e / CH;
     const int c = (e - r * CH) * VEC;
@@ -232,11 +246,13 @@ __device__ __forceinline__ void stage_rows(float* xs, const T* base, int row0,
   }
 }
 
-// acc[i][j] += sum_d at[d][rg + 16 i] * bt[d][cg + 8 j]: a 64 x 64 tile of
-// A . B^T from two transposed tiles.
+// acc[i][j] += sum_d at[d][rg + 16 i] * bt[d][cg + 8 j]: a BT x BT tile
+// of A . B^T from two transposed tiles.
 template <int D>
-__device__ __forceinline__ void tile_abt(float (&acc)[RI][CJ], const float* at,
-                                         const float* bt, int rg, int cg) {
+__device__ __forceinline__ void tile_abt(
+    float (&acc)[Tile<D>::RI][Tile<D>::CJ], const float* at, const float* bt,
+    int rg, int cg) {
+  constexpr int LD = Tile<D>::LD, RI = Tile<D>::RI, CJ = Tile<D>::CJ;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
     float a[RI], b[CJ];
@@ -256,6 +272,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, int Tn, int H, float scale) {
+  constexpr int BT = Tile<D>::BT, LD = Tile<D>::LD, RI = Tile<D>::RI,
+                CJ = Tile<D>::CJ;
   constexpr int DJ = D / 8;
   extern __shared__ float smem[];
   float* qt = smem;            // [D][LD], q * scale
@@ -363,6 +381,8 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int Tn, int H, float scale) {
+  constexpr int BT = Tile<D>::BT, LD = Tile<D>::LD, RI = Tile<D>::RI,
+                CJ = Tile<D>::CJ;
   constexpr int DJ = D / 8;
   extern __shared__ float smem[];
   float* qt = smem;            // [D][LD], q * scale
@@ -458,6 +478,8 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int Tn, int H, float scale) {
+  constexpr int BT = Tile<D>::BT, LD = Tile<D>::LD, RI = Tile<D>::RI,
+                CJ = Tile<D>::CJ;
   constexpr int DJ = D / 8;
   extern __shared__ float smem[];
   float* kt = smem;            // [D][LD]
@@ -1405,13 +1427,19 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace tc
 
-constexpr size_t fwd_smem(int D) {
+template <int D>
+constexpr size_t fwd_smem() {
+  constexpr int BT = Tile<D>::BT, LD = Tile<D>::LD;
   return (size_t)(2 * D * LD + BT * D + BT * LD) * sizeof(float);
 }
-constexpr size_t dq_smem(int D) {
+template <int D>
+constexpr size_t dq_smem() {
+  constexpr int BT = Tile<D>::BT, LD = Tile<D>::LD;
   return (size_t)(4 * D * LD + BT * LD) * sizeof(float);
 }
-constexpr size_t dkv_smem(int D) {
+template <int D>
+constexpr size_t dkv_smem() {
+  constexpr int BT = Tile<D>::BT, LD = Tile<D>::LD;
   return (size_t)(4 * D * LD + 2 * BT * LD + 2 * BT) * sizeof(float);
 }
 
@@ -1427,7 +1455,8 @@ template <typename T, int D, bool C>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
                        float* lse, int B, int Tn, int H, float scale,
                        cudaStream_t s) {
-  const size_t smem = fwd_smem(D);
+  const size_t smem = fwd_smem<D>();
+  constexpr int BT = Tile<D>::BT;
   cudaError_t err = allow_smem(flash_fwd_kernel<T, D, C>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tn + BT - 1) / BT, B * H);
@@ -1442,7 +1471,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int B, int Tn, int H, float scale,
                       cudaStream_t s) {
-  const size_t smem = dq_smem(D);
+  const size_t smem = dq_smem<D>();
+  constexpr int BT = Tile<D>::BT;
   cudaError_t err = allow_smem(flash_dq_kernel<T, D, C>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tn + BT - 1) / BT, B * H);
@@ -1458,7 +1488,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, int B, int Tn, int H, float scale,
                        cudaStream_t s) {
-  const size_t smem = dkv_smem(D);
+  const size_t smem = dkv_smem<D>();
+  constexpr int BT = Tile<D>::BT;
   cudaError_t err = allow_smem(flash_dkv_kernel<T, D, C>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tn + BT - 1) / BT, B * H);
@@ -1471,7 +1502,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 // Calls F<T, D, causal>::run(args...) for the runtime (dtype, D, causal);
 // cudaErrorInvalidValue when there is no such instantiation. bf16 takes
-// D 32 only: wider bf16 heads run on the tensor cores.
+// D 32 and 256 only: bf16 heads of 64 and 128 run on the tensor cores.
 template <template <typename, int, bool> class F, typename... A>
 cudaError_t dispatch(int dtype, int D, int causal, A... args) {
 #define RTT_CASE(T, DD)                                              \
@@ -1482,8 +1513,10 @@ cudaError_t dispatch(int dtype, int D, int causal, A... args) {
     RTT_CASE(float, 32)
     RTT_CASE(float, 64)
     RTT_CASE(float, 128)
+    RTT_CASE(float, 256)
   } else if (dtype == 1) {
     RTT_CASE(__nv_bfloat16, 32)
+    RTT_CASE(__nv_bfloat16, 256)
   }
 #undef RTT_CASE
   return cudaErrorInvalidValue;
@@ -1522,8 +1555,8 @@ struct Dkv {
 
 }  // namespace
 
-// The forward on CUDA cores: float32 (dtype 0) at D 32, 64, 128 and
-// bfloat16 (dtype 1) at D 32. q, k, v, out: [B, T, H, D] contiguous; lse:
+// The forward on CUDA cores: float32 (dtype 0) at D 32, 64, 128, 256 and
+// bfloat16 (dtype 1) at D 32 and 256. q, k, v, out: [B, T, H, D] contiguous; lse:
 // [B*H, T] f32 or null (the inference variant skips its write).
 extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int T, int H, int D,
@@ -1555,7 +1588,8 @@ extern "C" int rtt_flash_fwd_tc(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// The backward on CUDA cores (float32 at D 32, 64, 128; bfloat16 at D 32).
+// The backward on CUDA cores (float32 at D 32, 64, 128, 256; bfloat16 at
+// D 32 and 256).
 // dout, dq: [B, T, H, D]; lse, delta: [B*H, T] f32.
 extern "C" int rtt_flash_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,

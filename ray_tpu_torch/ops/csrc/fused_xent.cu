@@ -26,10 +26,14 @@
 // _recompute_dlog does. The logits are f32 sums of exact products (bf16
 // products are exact in f32; the f32 kernels cast the inputs to f32), dx
 // and dE are written as f32 (the wrapper casts at the autograd boundary,
-// as the reference's custom_vjp does). Widths D 64 and every multiple of
-// 128 up to 1024 are instantiated (the f32 kernels' accumulator columns
-// need one of those; the tensor-core kernels take any multiple of 64);
-// the Python wrapper zero-pads any other width up to the next of them.
+// as the reference's custom_vjp does). The tensor-core kernels take any
+// width D that is a multiple of 64 (D is their K loop, or the columns of
+// dx's output tiles). The f32 forward takes any multiple of 32; the f32
+// backward keeps a [32, DC] accumulator panel in registers, with DC 64 or
+// a multiple of 128 up to 1024 instantiated, and splits a width D into
+// n = ceil(D / 1024) column chunks of DC = D / n (a grid axis; each chunk
+// rebuilds the scores over all of D). The Python wrapper zero-pads any
+// other width up to one the kernels take.
 //
 // The bf16 kernels on the tensor cores. At bench.py's loss shape (N
 // 24576, V 50304, D 1024) the forward is one product of 2 N V D = 2.53
@@ -92,8 +96,9 @@
 // - The Pallas blocks do not fit an SM: the dx scratch is [256, 1024] f32
 //   (1 MB) and the dE scratch [384, 1024] f32 (1.5 MB). Here a CTA owns a
 //   *panel* of RT = 32 rows (x rows for fwd/dx, embedding rows for dE) and
-//   keeps its [32, D] f32 accumulator in registers (D / 8 floats a thread
-//   for 256 threads: 128 at D = 1024). It streams the other operand in
+//   keeps its [32, DC] f32 accumulator in registers (DC / 8 floats a
+//   thread for 256 threads: 128 at DC = 1024; widths above 1024 take
+//   several column chunks, one CTA each). It streams the other operand in
 //   tiles of ST = 128 rows: (A) the [32 x 128] score tile, D streamed
 //   through shared memory in chunks of KC = 32 columns (both chunks staged
 //   transposed in f32); (B) dlog formed in registers and parked in shared
@@ -149,10 +154,10 @@ struct Vec16<float> {
 
 // Stage columns k0 .. k0 + KC - 1 of rows row0 .. row0 + ROWS - 1 of a
 // [n, D] matrix, transposed to dst[KC][ld] (f32). Rows past n are zeros.
-template <typename T, int D, int ROWS>
+template <typename T, int ROWS>
 __device__ __forceinline__ void stage_chunk_t(float* dst, int ld,
                                               const T* src, int row0, int n,
-                                              int k0) {
+                                              int k0, int D) {
   constexpr int VEC = Vec16<T>::N;
   constexpr int CH = KC / VEC;
   for (int e = threadIdx.x; e < ROWS * CH; e += kThreads) {
@@ -170,36 +175,36 @@ __device__ __forceinline__ void stage_chunk_t(float* dst, int ld,
   }
 }
 
-// Stage whole rows row0 .. row0 + VK - 1 of a [n, D] matrix into
-// dst[VK][D] (f32). Rows past n are zeros.
-template <typename T, int D>
+// Stage columns c0 .. c0 + DC - 1 of rows row0 .. row0 + VK - 1 of a
+// [n, D] matrix into dst[VK][DC] (f32). Rows past n are zeros.
+template <typename T, int DC>
 __device__ __forceinline__ void stage_rows(float* dst, const T* src, int row0,
-                                           int n) {
+                                           int n, int D, int c0) {
   constexpr int VEC = Vec16<T>::N;
-  constexpr int CH = D / VEC;
+  constexpr int CH = DC / VEC;
   for (int e = threadIdx.x; e < VK * CH; e += kThreads) {
     const int r = e / CH;
     const int c = (e - r * CH) * VEC;
     float v[VEC];
     if (row0 + r < n) {
-      Vec16<T>::load(src + (size_t)(row0 + r) * D + c, v);
+      Vec16<T>::load(src + (size_t)(row0 + r) * D + c0 + c, v);
     } else {
 #pragma unroll
       for (int i = 0; i < VEC; ++i) v[i] = 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) dst[r * D + c + i] = v[i];
+    for (int i = 0; i < VEC; ++i) dst[r * DC + c + i] = v[i];
   }
 }
 
 // s[i][j] = panel row (p0 + 4 ty + i) . stream row (s0 + 4 tx + j), over
-// all of D, in f32. pt / st are the chunk buffers. Starts and ends at a
-// point where every thread may overwrite pt / st.
-template <typename T, int D>
+// all of D (a multiple of KC), in f32. pt / st are the chunk buffers.
+// Starts and ends at a point where every thread may overwrite pt / st.
+template <typename T>
 __device__ __forceinline__ void score_tile(float (&s)[4][4], float* pt,
                                            float* st, const T* P, int p0,
                                            int np, const T* S, int s0,
-                                           int ns) {
+                                           int ns, int D) {
   const int ty = threadIdx.x >> 5;
   const int tx = threadIdx.x & 31;
 #pragma unroll
@@ -208,8 +213,8 @@ __device__ __forceinline__ void score_tile(float (&s)[4][4], float* pt,
     for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
   for (int k0 = 0; k0 < D; k0 += KC) {
     __syncthreads();  // the previous chunk is consumed
-    stage_chunk_t<T, D, RT>(pt, LDP, P, p0, np, k0);
-    stage_chunk_t<T, D, ST>(st, LDS, S, s0, ns, k0);
+    stage_chunk_t<T, RT>(pt, LDP, P, p0, np, k0, D);
+    stage_chunk_t<T, ST>(st, LDS, S, s0, ns, k0, D);
     __syncthreads();
 #pragma unroll 8
     for (int k = 0; k < KC; ++k) {
@@ -240,11 +245,11 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // x [N, D], e [V, D], tgt_ids [N] i32 -> lse [N], tgt [N] f32.
-template <typename T, int D>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     xent_fwd_kernel(const T* __restrict__ x, const T* __restrict__ e,
                     const int* __restrict__ tgt_ids, float* __restrict__ lse,
-                    float* __restrict__ tgt, int N, int V) {
+                    float* __restrict__ tgt, int N, int V, int D) {
   __shared__ __align__(16) float pt[KC * LDP];
   __shared__ __align__(16) float st[KC * LDS];
   const int ty = threadIdx.x >> 5;
@@ -264,7 +269,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int v0 = 0; v0 < V; v0 += ST) {
     float s[4][4];
-    score_tile<T, D>(s, pt, st, x, p0, N, e, v0, V);
+    score_tile<T>(s, pt, st, x, p0, N, e, v0, V, D);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mx = kNeg;
@@ -330,30 +335,32 @@ __device__ __forceinline__ void st_vec(float* p, const float* v) {
   }
 }
 
-template <int D>
+template <int DC>
 constexpr size_t bwd_smem() {
-  return (size_t)(KC * LDP + KC * LDS + ST * LDP + VK * D + 4 * ST) *
+  return (size_t)(KC * LDP + KC * LDS + ST * LDP + VK * DC + 4 * ST) *
          sizeof(float);
 }
 
 // ROW_PANEL (dx): the panel is RT rows of x, the stream is E, out = dx
 // [N, D]. !ROW_PANEL (dE): the panel is RT rows of E, the stream is x, out
 // = dE [V, D]. lse, c_lse, c_tgt [N] f32 and tgt_ids [N] i32 are per x row.
-template <typename T, int D, bool ROW_PANEL>
+// The CTA writes the panel's output columns c0 .. c0 + DC - 1, c0 =
+// blockIdx.y * DC; its scores run over all of D.
+template <typename T, int DC, bool ROW_PANEL>
 __global__ void __launch_bounds__(kThreads, 1)
     xent_bwd_kernel(const T* __restrict__ x, const T* __restrict__ e,
                     const int* __restrict__ tgt_ids,
                     const float* __restrict__ lse,
                     const float* __restrict__ c_lse,
                     const float* __restrict__ c_tgt, float* __restrict__ out,
-                    int N, int V) {
-  using C = AccCols<D>;
+                    int N, int V, int D) {
+  using C = AccCols<DC>;
   extern __shared__ __align__(16) float smem[];
   float* pt = smem;                 // [KC][LDP]
   float* st = pt + KC * LDP;        // [KC][LDS]
   float* dl = st + KC * LDS;        // [ST][LDP], dlog (stream row, panel row)
-  float* rs = dl + ST * LDP;        // [VK][D], stream rows for (C)
-  float* st_lse = rs + VK * D;      // [ST] stream-row stats (dE only)
+  float* rs = dl + ST * LDP;        // [VK][DC], stream rows for (C)
+  float* st_lse = rs + VK * DC;     // [ST] stream-row stats (dE only)
   float* st_cl = st_lse + ST;
   float* st_ct = st_cl + ST;
   int* st_id = reinterpret_cast<int*>(st_ct + ST);
@@ -365,6 +372,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int ty = threadIdx.x >> 5;
   const int tx = threadIdx.x & 31;
   const int p0 = blockIdx.x * RT;
+  const int c0 = blockIdx.y * DC;
 
   // dx: the panel rows' stats, once.
   float r_lse[4], r_cl[4], r_ct[4];
@@ -402,7 +410,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     // (A) scores; its barriers also publish the stats above.
     float s[4][4];
-    score_tile<T, D>(s, pt, st, P, p0, np, S, s0, ns);
+    score_tile<T>(s, pt, st, P, p0, np, S, s0, ns, D);
 
     // (B) dlog, parked as dl[stream row][panel row].
 #pragma unroll
@@ -442,7 +450,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // (C) acc[i][col] += sum_r dl[r][i] * stream[s0 + r][col].
     for (int r0 = 0; r0 < ST; r0 += VK) {
       __syncthreads();  // dl is complete; the previous rows are consumed
-      stage_rows<T, D>(rs, S, s0 + r0, ns);
+      stage_rows<T, DC>(rs, S, s0 + r0, ns, D, c0);
       __syncthreads();
 #pragma unroll 4
       for (int r = 0; r < VK; ++r) {
@@ -452,7 +460,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int j = 0; j < C::NJ; ++j) {
           float ev[C::VW];
-          lds_vec<C::VW>(rs + r * D + tx * C::VW + 32 * C::VW * j, ev);
+          lds_vec<C::VW>(rs + r * DC + tx * C::VW + 32 * C::VW * j, ev);
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -469,8 +477,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (row < np) {
 #pragma unroll
       for (int j = 0; j < C::NJ; ++j)
-        st_vec<C::VW>(out + (size_t)row * D + tx * C::VW + 32 * C::VW * j,
-                      acc[i][j]);
+        st_vec<C::VW>(
+            out + (size_t)row * D + c0 + tx * C::VW + 32 * C::VW * j,
+            acc[i][j]);
     }
   }
 }
@@ -892,38 +901,32 @@ bool bad_chunk(int N, int n_pad, int D, int cw, int ldd) {
 
 }  // namespace tc
 
-template <typename T, int D>
-cudaError_t launch_fwd(const void* x, const void* e, const int* ids,
-                       float* lse, float* tgt, int N, int V, cudaStream_t s) {
-  xent_fwd_kernel<T, D><<<(N + RT - 1) / RT, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(e), ids, lse, tgt, N,
-      V);
-  return cudaGetLastError();
-}
-
-template <typename T, int D, bool ROW_PANEL>
+template <typename T, int DC, bool ROW_PANEL>
 cudaError_t launch_bwd(const void* x, const void* e, const int* ids,
                        const float* lse, const float* cl, const float* ct,
-                       float* out, int N, int V, cudaStream_t s) {
-  constexpr size_t smem = bwd_smem<D>();
+                       float* out, int N, int V, int D, cudaStream_t s) {
+  constexpr size_t smem = bwd_smem<DC>();
   // Above 48 KB a kernel takes dynamic shared memory only after opting in.
   cudaError_t err = cudaFuncSetAttribute(
-      xent_bwd_kernel<T, D, ROW_PANEL>,
+      xent_bwd_kernel<T, DC, ROW_PANEL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int panels = ROW_PANEL ? N : V;
-  xent_bwd_kernel<T, D, ROW_PANEL>
-      <<<(panels + RT - 1) / RT, kThreads, smem, s>>>(
-          static_cast<const T*>(x), static_cast<const T*>(e), ids, lse, cl,
-          ct, out, N, V);
+  const dim3 grid((panels + RT - 1) / RT, D / DC);
+  xent_bwd_kernel<T, DC, ROW_PANEL><<<grid, kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(e), ids, lse, cl, ct,
+      out, N, V, D);
   return cudaGetLastError();
 }
 
-// Calls F<T, D>::run(args...) for the runtime width D;
-// cudaErrorInvalidValue when there is no such instantiation.
+// Calls F<T, DC>::run(args...) for the column chunk of the runtime width
+// D: DC = D / n with n = ceil(D / 1024) chunks; cudaErrorInvalidValue
+// when D does not split so or DC has no instantiation.
 template <template <typename, int> class F, typename T, typename... A>
 cudaError_t dispatch_width(int D, A... args) {
-  switch (D) {
+  const int n = (D + 1023) / 1024;
+  if (D <= 0 || D % n != 0) return cudaErrorInvalidValue;
+  switch (D / n) {
     case 64: return F<T, 64>::run(args...);
     case 128: return F<T, 128>::run(args...);
     case 256: return F<T, 256>::run(args...);
@@ -937,43 +940,38 @@ cudaError_t dispatch_width(int D, A... args) {
   }
 }
 
-template <typename T, int D>
-struct Fwd {
-  static cudaError_t run(const void* x, const void* e, const int* ids,
-                         float* lse, float* tgt, int N, int V,
-                         cudaStream_t s) {
-    return launch_fwd<T, D>(x, e, ids, lse, tgt, N, V, s);
-  }
-};
-
-template <typename T, int D>
+template <typename T, int DC>
 struct Dx {
   static cudaError_t run(const void* x, const void* e, const int* ids,
                          const float* lse, const float* cl, const float* ct,
-                         float* out, int N, int V, cudaStream_t s) {
-    return launch_bwd<T, D, true>(x, e, ids, lse, cl, ct, out, N, V, s);
+                         float* out, int N, int V, int D, cudaStream_t s) {
+    return launch_bwd<T, DC, true>(x, e, ids, lse, cl, ct, out, N, V, D, s);
   }
 };
 
-template <typename T, int D>
+template <typename T, int DC>
 struct De {
   static cudaError_t run(const void* x, const void* e, const int* ids,
                          const float* lse, const float* cl, const float* ct,
-                         float* out, int N, int V, cudaStream_t s) {
-    return launch_bwd<T, D, false>(x, e, ids, lse, cl, ct, out, N, V, s);
+                         float* out, int N, int V, int D, cudaStream_t s) {
+    return launch_bwd<T, DC, false>(x, e, ids, lse, cl, ct, out, N, V, D, s);
   }
 };
 
 }  // namespace
 
-// The f32 forward on CUDA cores. x [N, D], e [V, D] float32; targets [N]
-// int32; lse, tgt [N] float32 outputs.
+// The f32 forward on CUDA cores. x [N, D], e [V, D] float32, D a multiple
+// of 32; targets [N] int32; lse, tgt [N] float32 outputs.
 extern "C" int rtt_xent_fwd(const void* x, const void* e, const void* targets,
                             void* lse, void* tgt, int N, int V, int D,
                             void* stream) {
-  return static_cast<int>(dispatch_width<Fwd, float>(
-      D, x, e, static_cast<const int*>(targets), static_cast<float*>(lse),
-      static_cast<float*>(tgt), N, V, static_cast<cudaStream_t>(stream)));
+  if (N <= 0 || V <= 0 || D <= 0 || D % KC != 0) return cudaErrorInvalidValue;
+  xent_fwd_kernel<float><<<(N + RT - 1) / RT, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(e),
+      static_cast<const int*>(targets), static_cast<float*>(lse),
+      static_cast<float*>(tgt), N, V, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The bf16 forward on the tensor cores, first kernel: x [N, D], e [V, D]
@@ -1015,8 +1013,9 @@ extern "C" int rtt_xent_fwd_merge(const void* part, const void* targets,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The f32 backward on CUDA cores. x [N, D], e [V, D] float32; lse, c_lse,
-// c_tgt [N] float32; dx [N, D] float32 output.
+// The f32 backward on CUDA cores. x [N, D], e [V, D] float32 (D split in
+// n = ceil(D / 1024) equal column chunks, each 64 or a multiple of 128);
+// lse, c_lse, c_tgt [N] float32; dx [N, D] float32 output.
 extern "C" int rtt_xent_dx(const void* x, const void* e, const void* targets,
                            const void* lse, const void* c_lse,
                            const void* c_tgt, void* dx, int N, int V, int D,
@@ -1024,7 +1023,7 @@ extern "C" int rtt_xent_dx(const void* x, const void* e, const void* targets,
   return static_cast<int>(dispatch_width<Dx, float>(
       D, x, e, static_cast<const int*>(targets),
       static_cast<const float*>(lse), static_cast<const float*>(c_lse),
-      static_cast<const float*>(c_tgt), static_cast<float*>(dx), N, V,
+      static_cast<const float*>(c_tgt), static_cast<float*>(dx), N, V, D,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -1036,7 +1035,7 @@ extern "C" int rtt_xent_de(const void* x, const void* e, const void* targets,
   return static_cast<int>(dispatch_width<De, float>(
       D, x, e, static_cast<const int*>(targets),
       static_cast<const float*>(lse), static_cast<const float*>(c_lse),
-      static_cast<const float*>(c_tgt), static_cast<float*>(de), N, V,
+      static_cast<const float*>(c_tgt), static_cast<float*>(de), N, V, D,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -20,16 +20,29 @@ because there is no kernel on the CPU. There is no fallback from the
 kernel to the plain version on the card.
 
 Each kernel wrapper carries a plain-integer ``launches`` counter that
-grows by one per kernel launch (never on the plain path), so a run can
-show that its main path went through the kernels.
+grows by one per call that reaches a kernel (never on the plain path),
+so a run can show that its main path went through the kernels; the
+multi-query wrappers share two kernels, counted per launch in
+`LAUNCHES`: ``paged_mq_tc`` (bf16, tensor cores) and ``paged_mq_simt``
+(f32, CUDA cores).
 
-The kernels take every head dim that is a multiple of 8 up to 128
+The kernels take every head dim that is a multiple of 8 up to 256
 unpadded (the lanes or tile columns past D idle), so pools and caches
-keep their head dim. The multi-query kernel is built for block sizes 8,
-16 and 32; a pool of any other multiple of 8 is handed to it re-viewed
-(`split_blocks`): a contiguous ``[n, 64, H, D]`` pool is ``[2n, 32, H,
-D]``, with table entry j of a row expanded to ``2 tables[j]`` and
-``2 tables[j] + 1``. The decode kernels take any block size.
+keep their head dim. Any other head dim up to 256 runs as the reference
+runs it: the wrapper zero-pads q and the pools (or caches) to the next
+multiple of 8 for that call and trims the output, with the softmax scale
+of the true head dim (`kernel_head_dim`). That copies the pools on every
+call, so it is for such head dims only; no model the port serves has
+one. The paged kernels split each row's key range across CTAs (split-K,
+`split_geometry`) and merge the partial softmax states in split order
+inside the same launch (`paged_mq_partials_reference`,
+`paged_merge_reference`). The bf16 multi-query kernel and the decode
+kernels take any block size (the multi-query wrappers ask for a multiple
+of 8, as the reference does); the f32 multi-query kernel is built for
+block sizes 8, 16 and 32, and a pool of any other multiple of 8 is
+handed to it re-viewed (`split_blocks`): a contiguous ``[n, 64, H, D]``
+pool is ``[2n, 32, H, D]``, with table entry j of a row expanded to
+``2 tables[j]`` and ``2 tables[j] + 1``.
 
 Int8 pools (``k_scale``/``v_scale``) are not ported yet and raise
 `NotImplementedError`.
@@ -39,11 +52,22 @@ from __future__ import annotations
 
 import torch
 
+from ray_tpu_torch.ops import pad_last_dim, trim_last_dim
+
 NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 128                 # head dims: multiples of 8 up to this
-_KERNEL_BLOCK_SIZES = (32, 16, 8)   # multi-query kernel; decode takes any
+_MAX_HEAD_DIM = 256                 # head dims: multiples of 8 up to this
+_KERNEL_BLOCK_SIZES = (32, 16, 8)   # f32 multi-query kernel
+# Split-K: a split is a multiple of _SPLIT_UNIT key positions, at most
+# _MAX_SPLITS splits a row (csrc/paged_attention.cu).
+_SPLIT_UNIT, _MAX_SPLITS = 128, 16
+# query rows of a bf16 multi-query CTA (csrc/paged_attention.cu tc::QR)
+_MQ_TILE = 64
+
+# One counter per multi-query kernel (the wrappers count their calls in
+# ``.launches``).
+LAUNCHES = dict.fromkeys(("paged_mq_tc", "paged_mq_simt"), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +133,70 @@ def reference_paged_verify_attention(q, k_pool, v_pool, tables, pos, *,
     return torch.einsum("bhws,bshd->bwhd", p, v_seq.float()).to(q.dtype)
 
 
+def split_geometry(span: int) -> tuple[int, int]:
+    """``(ks, n_split)`` of the split-K kernels for a table that reaches
+    ``span = max_blocks * block_size`` positions: splits of ``ks``
+    positions (a multiple of 128, the least that keeps ``n_split =
+    ceil(span / ks)`` at 16 or fewer). Fixed by shapes, so a captured
+    graph keeps its grid."""
+    ks = _SPLIT_UNIT * -(-span // (_SPLIT_UNIT * _MAX_SPLITS))
+    return ks, -(-span // ks)
+
+
+def paged_mq_partials_reference(q, k_pool, v_pool, tables, pos, ks: int,
+                                scale=None):
+    """The split-K kernels' first half in plain PyTorch: for q ``[B, W,
+    H, D]`` (query i of row b sees logical positions ``<= pos[b] + i``)
+    and each split of ``ks`` positions of the table's reach, every
+    query's softmax state over the positions of that split it may see:
+    ``(m, l, acc)``, f32, ``m, l [n_split, B, W, H]``, ``acc [n_split, B,
+    W, H, D]``: the max score (softmax scale ``D**-0.5`` unless
+    ``scale`` is given, as for a zero-padded head dim), the sum of
+    ``exp(s - m)`` and the unnormalised ``sum exp(s - m) v``. A split a
+    query sees nothing of holds ``(NEG_INF, 0, 0)``.
+    `paged_merge_reference` turns the states into the attention
+    output."""
+    k_seq = gather_kv_pages(k_pool, tables).float()
+    v_seq = gather_kv_pages(v_pool, tables).float()
+    s_len, d = k_seq.shape[1], k_seq.shape[3]
+    w = q.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    scores = torch.einsum("bwhd,bshd->bwhs", q.float(), k_seq) * scale
+    limit = pos.long()[:, None] + torch.arange(w, device=q.device)
+    cols = torch.arange(s_len, device=q.device)
+    live = (cols[None, None, :] <= limit[:, :, None])[:, :, None, :]
+    ms, ls, accs = [], [], []
+    for k0 in range(0, s_len, ks):
+        sl = slice(k0, min(k0 + ks, s_len))
+        see = live[..., sl]
+        sc = torch.where(see, scores[..., sl], NEG_INF)
+        m = sc.amax(dim=-1)
+        p = torch.where(see, torch.exp(sc - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bwhs,bshd->bwhd", p, v_seq[:, sl]))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def paged_decode_partials_reference(q, k_pool, v_pool, tables, pos,
+                                    ks: int, scale=None):
+    """`paged_mq_partials_reference` for the decode kernel's one query
+    per row: q ``[B, H, D]``; states ``[n_split, B, H]`` and ``[n_split,
+    B, H, D]``."""
+    m, l, acc = paged_mq_partials_reference(q[:, None], k_pool, v_pool,
+                                            tables, pos, ks, scale)
+    return m[:, :, 0], l[:, :, 0], acc[:, :, 0]
+
+
+def paged_merge_reference(m, l, acc):
+    """The split-K kernels' merge in plain PyTorch: the attention output
+    (f32) from per-split states ``m, l [n_split, ...]`` and ``acc
+    [n_split, ..., D]``, taken in split order: ``sum_s acc_s w_s / sum_s
+    l_s w_s`` with ``w_s = exp(m_s - max_s m_s)``."""
+    w = torch.exp(m - m.amax(dim=0))
+    return (acc * w[..., None]).sum(dim=0) / (l * w).sum(dim=0)[..., None]
+
+
 def reference_paged_prefill_attention(q, k_pool, v_pool, table, start, *,
                                       k_scale=None, v_scale=None):
     """Chunked-prefill attention for ONE sequence: q [C, H, D], chunk
@@ -146,9 +234,20 @@ def _resolve_impl(impl: str, op: str, x) -> str:
     return "kernel"
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run ``d`` at: ``d`` rounded up to a
+    multiple of 8 (as the reference pads it), for ``d`` from 1 to 256;
+    others raise."""
+    if not 1 <= d <= _MAX_HEAD_DIM:
+        raise ValueError(f"paged attention kernels take a head dim from 1 "
+                         f"to {_MAX_HEAD_DIM}, got {d}")
+    return -(-d // 8) * 8
+
+
 def _check_kernel_inputs(op, q, k_pool, v_pool, **indices):
     """What the CUDA kernels take; anything else raises (no fallback).
-    ``indices`` are the int32 tensors the kernel reads (tables, pos)."""
+    ``indices`` are the int32 tensors the kernel reads (tables, pos).
+    The head dim is the kernel's (`kernel_head_dim`)."""
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"{op}: kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
@@ -182,47 +281,80 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+# (device index, stream) -> zeroed int32 ticket buffers of the split-K
+# kernels, newest last. A buffer outgrown is kept, not freed: a captured
+# graph may still point at it.
+_TICKETS: dict = {}
+
+
+def _tickets(x, n: int):
+    """At least ``n`` int32 tickets on x's device for its current stream,
+    zero between calls: each split-K launch leaves them as it found them,
+    so one buffer serves every call (and every replay of a captured one)
+    on that stream."""
+    key = (x.device.index, _stream(x))
+    bufs = _TICKETS.setdefault(key, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32,
+                                device=x.device))
+    return bufs[-1]
+
+
+def _padded_heads(*xs):
+    """``xs`` zero-padded on the last dim to `kernel_head_dim` (the
+    tensors themselves when it is a multiple of 8), and the true head
+    dim."""
+    d = xs[0].shape[-1]
+    dk = kernel_head_dim(d)
+    return tuple(pad_last_dim(x, dk) for x in xs), d
+
+
 def _launch_dense_decode(q, k, v, pos):
     """q [B, H, D] against a contiguous cache k, v [B, S, H, D]."""
     from ray_tpu_torch.ops import _build
     op = "decode_attention"
+    (q, k, v), d = _padded_heads(q, k, v)
     _check_kernel_inputs(op, q, k, v, pos=pos)
-    b, s, h, d = k.shape
+    b, s, h, dk = k.shape
     if q.shape[0] != b or pos.shape != (b,):
         raise ValueError(f"{op}: q {tuple(q.shape)} / pos "
                          f"{tuple(pos.shape)} do not match batch {b}")
     out = torch.empty_like(q)
     err = _build.load().rtt_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), b, s, h, d, d ** -0.5, _KERNEL_DTYPES[q.dtype],
+        out.data_ptr(), b, s, h, dk, d ** -0.5, _KERNEL_DTYPES[q.dtype],
         _stream(q))
     _build.check(err, op)
     decode_attention.launches += 1
-    return out
+    return trim_last_dim(out, d)
 
 
 def _launch_decode(q, k_pool, v_pool, tables, pos):
     from ray_tpu_torch.ops import _build
     op = "paged_decode_attention"
+    (q, k_pool, v_pool), d = _padded_heads(q, k_pool, v_pool)
     _check_kernel_inputs(op, q, k_pool, v_pool, tables=tables, pos=pos)
-    b, h, d = q.shape
-    bs = k_pool.shape[1]
+    b, h, dk = q.shape
+    bs, mb = k_pool.shape[1], tables.shape[1]
     if tables.shape[0] != b or pos.shape != (b,):
         raise ValueError(f"{op}: tables {tuple(tables.shape)} / pos "
                          f"{tuple(pos.shape)} do not match batch {b}")
+    ks, n_split = split_geometry(mb * bs)
     out = torch.empty_like(q)
-    lib = _build.load()
-    err = lib.rtt_paged_decode(
+    ws = torch.empty(b * h * n_split * (2 + dk), dtype=torch.float32,
+                     device=q.device)
+    err = _build.load().rtt_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h, d, bs,
-        tables.shape[1], d ** -0.5, _KERNEL_DTYPES[q.dtype], _stream(q))
+        tables.data_ptr(), pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        _tickets(q, b * h).data_ptr(), b, h, dk, bs, mb, ks, n_split,
+        d ** -0.5, _KERNEL_DTYPES[q.dtype], _stream(q))
     _build.check(err, op)
     paged_decode_attention.launches += 1
-    return out
+    return trim_last_dim(out, d)
 
 
 def split_blocks(k_pool, v_pool, tables):
-    """The same pools and block tables seen at the largest of the
+    """The same pools and block tables seen at the largest of the f32
     multi-query kernel's block sizes (32, 16, 8) that divides the pool's
     block size ``bs``: with f = bs / that size, pools ``[n, bs, H, D]``
     become ``[f n, bs / f, H, D]`` views (no copy; the pools must be
@@ -231,10 +363,8 @@ def split_blocks(k_pool, v_pool, tables):
     lives at the same element. Raises for a block size that is not a
     multiple of 8."""
     bs = k_pool.shape[1]
-    sub = next((s for s in _KERNEL_BLOCK_SIZES if bs % s == 0), None)
-    if sub is None:
-        raise ValueError(f"paged multi-query attention: block size must be "
-                         f"a multiple of 8, got {bs}")
+    _check_block_size(bs)
+    sub = next(s for s in _KERNEL_BLOCK_SIZES if bs % s == 0)
     f = bs // sub
     if f == 1:
         return k_pool, v_pool, tables
@@ -245,24 +375,46 @@ def split_blocks(k_pool, v_pool, tables):
     return k_pool, v_pool, tables
 
 
+def _check_block_size(bs: int) -> None:
+    if bs % 8:
+        raise ValueError(f"paged multi-query attention: block size must be "
+                         f"a multiple of 8, got {bs}")
+
+
 def _launch_mq(op, q, k_pool, v_pool, tables, pos):
-    """q [B, W, H, D] through the multi-query kernel."""
+    """q [B, W, H, D] through a multi-query kernel: ``paged_mq_tc`` for
+    bf16 (the pool as it is), ``paged_mq_simt`` for f32 (the pool
+    re-viewed at block 8, 16 or 32 by `split_blocks`)."""
     from ray_tpu_torch.ops import _build
+    (q, k_pool, v_pool), d = _padded_heads(q, k_pool, v_pool)
     _check_kernel_inputs(op, q, k_pool, v_pool, tables=tables, pos=pos)
-    b, w, h, d = q.shape
-    k_pool, v_pool, tables = split_blocks(k_pool, v_pool, tables)
-    bs = k_pool.shape[1]
+    b, w, h, dk = q.shape
     if tables.shape[0] != b or pos.shape != (b,):
         raise ValueError(f"{op}: tables {tuple(tables.shape)} / pos "
                          f"{tuple(pos.shape)} do not match batch {b}")
     out = torch.empty_like(q)
     lib = _build.load()
-    err = lib.rtt_paged_mq(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b, w, h, d, bs,
-        tables.shape[1], d ** -0.5, _KERNEL_DTYPES[q.dtype], _stream(q))
+    if q.dtype == torch.bfloat16:
+        bs, mb = k_pool.shape[1], tables.shape[1]
+        _check_block_size(bs)
+        ks, n_split = split_geometry(mb * bs)
+        n_tiles = -(-w // _MQ_TILE)
+        ws = torch.empty(b * h * n_tiles * n_split * min(w, _MQ_TILE)
+                         * (2 + dk), dtype=torch.float32, device=q.device)
+        name, err = "paged_mq_tc", lib.rtt_paged_mq_tc(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), _tickets(q, b * h * n_tiles).data_ptr(), b, w,
+            h, dk, bs, mb, ks, n_split, d ** -0.5, _stream(q))
+    else:
+        k_pool, v_pool, tables = split_blocks(k_pool, v_pool, tables)
+        name, err = "paged_mq_simt", lib.rtt_paged_mq(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b, w, h, dk,
+            k_pool.shape[1], tables.shape[1], d ** -0.5, _stream(q))
     _build.check(err, op)
-    return out
+    LAUNCHES[name] += 1
+    return trim_last_dim(out, d)
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +428,8 @@ def decode_attention(q, k, v, pos, *, impl: str = "auto",
     (``pos [B]`` int32, the position of the token q was computed from).
     Returns ``[B, H, D]`` in q.dtype. ``block_kv`` is accepted for
     signature parity with the JAX package and ignored: the kernel skips
-    every position past ``pos[b]`` at run time.
+    every position past ``pos[b]`` at run time. A head dim that is not a
+    multiple of 8 runs zero-padded (a copy of the cache per call).
 
     The kernel replaces `ray_tpu/ops/decode_attention.py::_decode_kernel`.
     """
@@ -300,7 +453,13 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
     [B, max_blocks]`` int32, attending to logical positions ``<= pos[b]``
     (``pos [B]`` int32, each >= 0). Returns ``[B, H, D]`` in q.dtype.
 
-    The kernel replaces `ray_tpu/ops/decode_attention.py::_paged_kernel`.
+    The kernel replaces `ray_tpu/ops/decode_attention.py::_paged_kernel`:
+    one launch per call, each row's key range split across CTAs
+    (`split_geometry`) and merged in split order inside the launch; the
+    grid is fixed by shapes and pos and tables are read on the device,
+    so the call can be captured in a CUDA graph. A head dim that is not
+    a multiple of 8 runs zero-padded, q and both pools copied for that
+    call (the reference's padding); others up to 256 run as they are.
     """
     if q.ndim != 3 or k_pool.ndim != 4 or tables.ndim != 2:
         raise ValueError(
@@ -324,7 +483,10 @@ def paged_verify_attention(q, k_pool, v_pool, tables, pos, *,
     attending to positions ``<= pos[b] + i``. Returns ``[B, W, H, D]``.
 
     The kernel replaces `ray_tpu/ops/decode_attention.py::_paged_mq_kernel`
-    (shared with `paged_prefill_attention`)."""
+    (shared with `paged_prefill_attention`): bf16 runs ``paged_mq_tc``
+    (tensor cores, split-K, one launch, capturable), f32
+    ``paged_mq_simt``. A head dim that is not a multiple of 8 runs
+    zero-padded, q and both pools copied for that call."""
     if q.ndim != 4 or k_pool.ndim != 4 or tables.ndim != 2:
         raise ValueError(
             "paged_verify_attention wants q [B, W, H, D], pools "
@@ -382,11 +544,14 @@ WRAPPERS = (decode_attention, paged_decode_attention,
 
 
 def kernel_launches() -> dict:
-    """Launch count of each kernel wrapper (the counters themselves live
-    on the wrappers as ``.launches``)."""
-    return {f.__name__: f.launches for f in WRAPPERS}
+    """Launch count of each kernel wrapper (the counters live on the
+    wrappers as ``.launches``) and of each multi-query kernel
+    (`LAUNCHES`)."""
+    return {**{f.__name__: f.launches for f in WRAPPERS}, **LAUNCHES}
 
 
 def reset_kernel_launches() -> None:
     for f in WRAPPERS:
         f.launches = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -13,21 +13,22 @@ Layouts differ from the Pallas wrappers where those were TPU artefacts:
 q/k/v/dO stay ``[B, T, H, D]`` (no transpose to ``[BH, T, D]``), and
 ``lse``/``delta`` are ``[B*H, T]`` float32 rows (no 128-lane broadcast).
 Every T runs on the kernel: ragged lengths are masked inside it, so
-there is no fallback to plain attention. Every head dim that is a
-multiple of 8 up to 128 runs on the kernels, the set the reference runs
-unpadded: the kernels are built for D 32, 64 and 128, and the wrappers
-zero-pad q, k, v (and dO) up to the next of those (`kernel_head_dim`,
-`ops.pad_last_dim`) and slice the outputs, with the softmax scale of the
-true head dim. Zero columns add nothing to q.k^T or to delta, and dq,
-dk, dv come out zero there, so the padding is exact.
+there is no fallback to plain attention. Every head dim from 1 to 256
+runs on the kernels (the reference pads a head dim that is not a
+multiple of 8 and runs the rest as they are): the kernels are built for
+D 32, 64, 128 and 256, and the wrappers zero-pad q, k, v (and dO) up to
+the next of those (`kernel_head_dim`, `ops.pad_last_dim`) and slice the
+outputs, with the softmax scale of the true head dim. Zero columns add
+nothing to q.k^T or to delta, and dq, dk, dv come out zero there, so the
+padding is exact.
 
 Dispatch: a CUDA tensor launches the kernel, or raises if the kernel
 cannot take the inputs; a CPU tensor takes the plain version, because
 there is no kernel on the CPU. Each kernel wrapper carries a
 plain-integer ``launches`` counter that grows by one per call that
 reaches a kernel, and each kernel (tensor cores for bf16 at kernel dim
-64 and 128, CUDA cores otherwise) a counter in `LAUNCHES` that grows by
-one per launch (never on the plain path).
+64 and 128, CUDA cores otherwise, D 256 included) a counter in
+`LAUNCHES` that grows by one per launch (never on the plain path).
 
 The forward is also registered as the custom operator
 ``ray_tpu_torch::flash_fwd``, so selective activation checkpointing
@@ -43,8 +44,9 @@ from ray_tpu_torch.ops import pad_last_dim, trim_last_dim
 NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims the kernels are built for; others pad up to the next
-_KERNEL_HEAD_DIMS = (32, 64, 128)
+# head dims the kernels are built for; others pad up to the next (256 on
+# the CUDA-core kernels only)
+_KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 # bf16 head dims the tensor-core kernels take: rows of whole 128-byte
 # TMA boxes (D 32 rows are 64 bytes and stay on the CUDA-core kernels)
 _TC_HEAD_DIMS = (64, 128)
@@ -175,13 +177,13 @@ def _on_kernel(op: str, x) -> bool:
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim a kernel runs ``d`` at: the smallest of 32, 64 and
-    128 that holds it. ``d`` must be a multiple of 8 from 8 to 128 (the
-    head dims the reference runs unpadded); others raise."""
-    if d % 8 or not 8 <= d <= _KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(f"flash attention kernels take a head dim that is "
-                         f"a multiple of 8 from 8 to {_KERNEL_HEAD_DIMS[-1]}, "
-                         f"got {d}")
+    """The head dim a kernel runs ``d`` at: the smallest of 32, 64, 128
+    and 256 that holds it. ``d`` from 1 to 256 (the reference pads a
+    ragged head dim to a multiple of 8 and runs every one up to 256);
+    others raise."""
+    if not 1 <= d <= _KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"flash attention kernels take a head dim from 1 "
+                         f"to {_KERNEL_HEAD_DIMS[-1]}, got {d}")
     return next(k for k in _KERNEL_HEAD_DIMS if k >= d)
 
 
@@ -234,7 +236,7 @@ def flash_forward(q, k, v, *, causal: bool, with_lse: bool = True):
       tensor-core kernel ``flash_fwd_tc`` (wgmma + TMA, 128 query rows
       against 128-key tiles, p rounded to bf16 relative to the running
       row max, as the CUDA-core kernel does with 64-key tiles);
-    - float32, and bfloat16 at 32: the CUDA-core kernel
+    - float32, and bfloat16 at 32 and 256: the CUDA-core kernel
       ``flash_fwd_simt``.
 
     ``flash_forward.launches`` grows by one per call that reaches a

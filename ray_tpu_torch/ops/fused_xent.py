@@ -25,12 +25,14 @@ and ``"pallas"`` name the kernels: a CUDA tensor launches them, or raises
 if they cannot take the inputs; a CPU tensor takes the plain version,
 because there is no kernel on the CPU. Any N and V run on the kernels
 (ragged edges are masked inside them); the kernels choose their own
-tiles, so ``vocab_chunk`` only shapes the plain version. The kernels are
-built for widths 64 and every multiple of 128 up to 1024; any other
-width up to 1024 runs zero-padded to the next of those (`kernel_width`,
-`ops.pad_last_dim`): zero columns of x and E add nothing to a logit, and
-dx and dE are sliced back. The vocab-sharded composition (``mesh=``)
-waits for multi-rank parallelism.
+tiles, so ``vocab_chunk`` only shapes the plain version. Every width
+runs on the kernels: up to 1024 they are built for 64 and every multiple
+of 128; above 1024 the bf16 kernels take any multiple of 64 and the f32
+backward splits the width into equal column chunks of those built
+widths. Any other width runs zero-padded to one the kernels take
+(`kernel_width`, `ops.pad_last_dim`): zero columns of x and E add
+nothing to a logit, and dx and dE are sliced back. The vocab-sharded
+composition (``mesh=``) waits for multi-rank parallelism.
 
 `LAUNCHES` holds one plain-integer counter per kernel that grows by one
 per launch, and ``fused_xent_fwd`` one that grows by one per forward
@@ -46,7 +48,8 @@ from ray_tpu_torch.ops import pad_last_dim, trim_last_dim
 NEG = -1e30   # finite -inf stand-in, as the reference's _NEG
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# widths the kernels are built for; others pad up to the next
+# widths up to 1024 the kernels are built for; others pad up to the next
+# (wider ones: `kernel_width`)
 _KERNEL_WIDTHS = (64, 128, 256, 384, 512, 640, 768, 896, 1024)
 # The bf16 backward's vocabulary chunk, and the row / column tile of the
 # bf16 kernels (csrc/fused_xent.cu tc::BM, tc::BN): the shared dlog buffer
@@ -206,7 +209,7 @@ def _check(op, x, embed, targets, rows=()):
                         f"embed of one dtype, got {x.dtype} / {embed.dtype}")
     n, d = x.shape
     v = embed.shape[0]
-    kernel_width(d)
+    kernel_width(d, x.dtype)
     if targets.shape != (n,) or targets.dtype != torch.int32:
         raise ValueError(f"{op}: targets must be [N] int32 = ({n},), got "
                          f"{tuple(targets.shape)} {targets.dtype}")
@@ -224,13 +227,25 @@ def _check(op, x, embed, targets, rows=()):
     return n, v, d
 
 
-def kernel_width(d: int) -> int:
-    """The width a kernel runs ``d`` at: the smallest of `_KERNEL_WIDTHS`
-    that holds it. Widths above 1024 raise."""
-    if not 1 <= d <= _KERNEL_WIDTHS[-1]:
-        raise ValueError(f"fused cross-entropy kernels take a width D from "
-                         f"1 to {_KERNEL_WIDTHS[-1]}, got {d}")
-    return next(w for w in _KERNEL_WIDTHS if w >= d)
+def kernel_width(d: int, dtype=torch.float32) -> int:
+    """The width the kernels for ``dtype`` run ``d`` at. Up to 1024 the
+    smallest of `_KERNEL_WIDTHS` that holds it (both dtypes, so the main
+    path's width 1024 runs as it is). Above: for bfloat16 the next
+    multiple of 64 (the tensor-core kernels take any); for float32, with
+    n = ceil(d / 1024) column chunks, n times the next multiple of 128 at
+    or above d / n (the f32 backward keeps one chunk's accumulator in
+    registers, built for multiples of 128 up to 1024). Widths below 1
+    raise."""
+    if d < 1:
+        raise ValueError(f"fused cross-entropy kernels take a width D of "
+                         f"at least 1, got {d}")
+    if d <= _KERNEL_WIDTHS[-1]:
+        return next(w for w in _KERNEL_WIDTHS if w >= d)
+    if dtype == torch.bfloat16:
+        return -(-d // 64) * 64
+    n = -(-d // _KERNEL_WIDTHS[-1])      # column chunks
+    chunk = -(-d // n)
+    return n * (-(-chunk // 128) * 128)
 
 
 def _stream(x) -> int:
@@ -266,7 +281,7 @@ def fused_xent_fwd(x, embed, targets, *, chunk: int = 512):
     from ray_tpu_torch.ops import _build
     x, embed, targets = x.contiguous(), embed.contiguous(), _i32(targets)
     n, v, d = _check("fused_xent_fwd", x, embed, targets)
-    d = kernel_width(d)
+    d = kernel_width(d, x.dtype)
     x, embed = pad_last_dim(x, d), pad_last_dim(embed, d)
     lib, stream = _build.load(), _stream(x)
     lse = torch.empty((n,), dtype=torch.float32, device=x.device)
@@ -320,7 +335,7 @@ def fused_xent_bwd(x, embed, targets, lse, c_lse, c_tgt, *,
     lse, c_lse, c_tgt = _f32(lse), _f32(c_lse), _f32(c_tgt)
     n, v, d_true = _check("fused_xent_bwd", x, embed, targets,
                           rows=(lse, c_lse, c_tgt))
-    d = kernel_width(d_true)
+    d = kernel_width(d_true, x.dtype)
     x, embed = pad_last_dim(x, d), pad_last_dim(embed, d)
     lib, stream = _build.load(), _stream(x)
     rows = (targets.data_ptr(), lse.data_ptr(), c_lse.data_ptr(),

@@ -19,6 +19,7 @@ import torch
 
 from ray_tpu.ops import decode_attention as jda
 from ray_tpu_torch.ops import decode_attention as tda
+from ray_tpu_torch.ops import pad_last_dim
 
 ATOL = 1e-5
 
@@ -220,20 +221,207 @@ def test_block64_head_dim96_matches_jax(kind):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=ATOL)
 
 
-@pytest.mark.parametrize("d,ok", [(8, True), (48, True), (96, True),
-                                  (120, True), (128, True), (100, False),
-                                  (136, False), (4, False)])
-def test_kernel_input_check_takes_every_multiple_of_8_up_to_128(d, ok):
-    """The kernels' input check (device-independent): every head dim that
-    is a multiple of 8 from 8 to 128 passes, others raise."""
-    q = torch.zeros((2, 2, d))
-    pool = torch.zeros((3, 8, 2, d))
+# head dim -> the kernel head dim the wrappers run it at (None: raises)
+_KERNEL_DIMS = {8: 8, 48: 48, 96: 96, 120: 120, 128: 128, 100: 104,
+                136: 136, 4: 8, 256: 256, 0: None, 264: None}
+
+
+@pytest.mark.parametrize("d", list(_KERNEL_DIMS))
+def test_kernel_input_check_takes_every_multiple_of_8_up_to_128(d):
+    """The kernels' head dims (device-independent): every multiple of 8
+    from 8 to 256 runs as it is and passes the kernels' input check; any
+    other head dim up to 256 maps to the next multiple of 8
+    (`kernel_head_dim`, the wrappers zero-pad to it), which passes, while
+    the unpadded width does not; 0 and widths above 256 raise."""
+    want = _KERNEL_DIMS[d]
     tables = torch.zeros((2, 2), dtype=torch.int32)
     pos = torch.zeros(2, dtype=torch.int32)
-    if ok:
-        tda._check_kernel_inputs("op", q, pool, pool, tables=tables,
-                                 pos=pos)
-    else:
+
+    def check(width):
+        tda._check_kernel_inputs("op", torch.zeros((2, 2, width)),
+                                 torch.zeros((3, 8, 2, width)),
+                                 torch.zeros((3, 8, 2, width)),
+                                 tables=tables, pos=pos)
+
+    if want is None:
         with pytest.raises(ValueError, match="head dim"):
-            tda._check_kernel_inputs("op", q, pool, pool, tables=tables,
-                                     pos=pos)
+            tda.kernel_head_dim(d)
+        return
+    assert tda.kernel_head_dim(d) == want
+    check(want)
+    if want != d:
+        with pytest.raises(ValueError, match="head dim"):
+            check(d)
+
+
+# ---------------------------------------------------------------------------
+# split-K: the plain versions of the kernels' partial states and merge
+# ---------------------------------------------------------------------------
+# (block size, head dim): blocks 8, 16, 24, 64 and D 8, 96, 100, 256; each
+# table reaches 320 or more positions, so past the 128-position splits.
+_SPLIT_SHAPES = [(8, 8), (16, 96), (24, 100), (64, 256)]
+NEG_INF_F32 = torch.tensor(tda.NEG_INF, dtype=torch.float32).item()
+
+
+def _split_inputs(kind, bs, d, seed):
+    """numpy (q, k_pool, v_pool, tables, pos) for 3 rows (prefill: row 0's
+    table, pos = start) whose windows put KS - 1, KS and KS + 1 positions
+    in view, start at 0 and reach the table's last row."""
+    rng = np.random.default_rng(seed)
+    h = 2
+    mb = -(-320 // bs)
+    span = mb * bs
+    ks, _ = tda.split_geometry(span)
+    b = 3
+    kp, vp = _pool(rng, b * mb + 1, bs, h, d)
+    tables = _tables(rng, b, mb, b * mb + 1)
+    w = {"decode": 1, "verify1": 1, "verify4": 4, "prefill64": 64}[kind]
+    if kind == "prefill64":
+        # the chunk runs from ks - 33 to ks + 30: its rows see KS - 32 ..
+        # KS + 31 positions, across the first split boundary
+        pos = np.asarray([ks - 33], np.int32)
+        tables = tables[:1]
+    elif kind == "decode":
+        pos = np.asarray([ks - 2, ks - 1, ks], np.int32)    # KS-1, KS, KS+1
+    else:
+        pos = np.asarray([0, ks - w, span - w], np.int32)   # last row: S-1
+    shape = (len(pos), h, d) if kind == "decode" else (len(pos), w, h, d)
+    return (rng.standard_normal(shape).astype(np.float32), kp, vp, tables,
+            pos)
+
+
+def _jax_pallas(kind, q, kp, vp, tables, pos):
+    j = [jnp.asarray(a) for a in (q, kp, vp, tables, pos)]
+    if kind == "decode":
+        return np.asarray(jda.paged_decode_attention(*j, impl="pallas"))
+    if kind == "prefill64":
+        return np.asarray(jda.paged_prefill_attention(
+            j[0][0], j[1], j[2], j[3][0], int(pos[0]), impl="pallas"))[None]
+    return np.asarray(jda.paged_verify_attention(*j, impl="pallas"))
+
+
+@pytest.mark.parametrize("kind", ["decode", "verify1", "verify4",
+                                  "prefill64"])
+@pytest.mark.parametrize("bs,d", _SPLIT_SHAPES)
+def test_split_partials_and_merge_match_jax(kind, bs, d):
+    """The split-K kernels' arithmetic in plain PyTorch (per-split softmax
+    states, merged in split order) against JAX's Pallas kernels in
+    interpret mode (which pad D 100 to 104 themselves), f32, atol 1e-5:
+    the two differ only in summation order."""
+    q, kp, vp, tables, pos = _split_inputs(kind, bs, d, seed=bs + d)
+    want = _jax_pallas(kind, q, kp, vp, tables, pos)
+    tq, tk, tv, tt, tp = (torch.from_numpy(a)
+                          for a in (q, kp, vp, tables, pos))
+    ks, n_split = tda.split_geometry(tables.shape[1] * bs)
+    assert ks == 128 and n_split >= 3
+    if kind == "decode":
+        parts = tda.paged_decode_partials_reference(tq, tk, tv, tt, tp, ks)
+    else:
+        parts = tda.paged_mq_partials_reference(tq, tk, tv, tt, tp, ks)
+    m, l, acc = parts
+    assert m.shape[0] == n_split and acc.shape == (n_split,) + want.shape
+    # a split a query sees nothing of holds (NEG_INF, 0, 0)
+    dead = m == NEG_INF_F32
+    assert dead.any() and torch.all(l[dead] == 0)
+    got = tda.paged_merge_reference(m, l, acc)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("span,ks,n", [(100, 128, 1), (1024, 128, 8),
+                                        (2048, 128, 16), (4091, 256, 16),
+                                        (4219, 384, 11)])
+def test_split_geometry_is_fixed_by_shapes(span, ks, n):
+    """Splits of a multiple of 128 positions, at most 16 a row, and the
+    fewest positions a split that keeps to 16."""
+    assert tda.split_geometry(span) == (ks, n)
+
+
+def _tc_walk(q, kp, vp, tables, pos, ks, kt):
+    """The bf16 multi-query kernel's arithmetic on the f32 values of bf16
+    inputs: per split of ``ks`` positions, key tiles of ``kt``, the
+    online softmax with p rounded to bf16 relative to the running row max
+    before p . V (l sums the f32 p), then the split-order merge."""
+    k_seq = tda.gather_kv_pages(kp, tables).float()
+    v_seq = tda.gather_kv_pages(vp, tables).float()
+    _, w, _, d = q.shape
+    span = k_seq.shape[1]
+    s = torch.einsum("bwhd,bshd->bwhs", q.float(), k_seq) * d ** -0.5
+    limit = pos.long()[:, None] + torch.arange(w)
+    live = (torch.arange(span)[None, None, :] <= limit[:, :, None])[:, :, None]
+    ms, ls, accs = [], [], []
+    for k0 in range(0, span, ks):
+        m = torch.full(s.shape[:-1], tda.NEG_INF)
+        l = torch.zeros(s.shape[:-1])
+        acc = torch.zeros(q.shape)
+        for t0 in range(k0, min(k0 + ks, span), kt):
+            sl = slice(t0, min(t0 + kt, k0 + ks, span))
+            see = live[..., sl]
+            sc = torch.where(see, s[..., sl], tda.NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.where(see, torch.exp(sc - m_new[..., None]), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bwhs,bshd->bwhd", p.bfloat16().float(), v_seq[:, sl])
+            m = m_new
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    return tda.paged_merge_reference(torch.stack(ms), torch.stack(ls),
+                                     torch.stack(accs))
+
+
+@pytest.mark.parametrize("kind,bs,d", [("prefill64", 16, 64),
+                                       ("verify4", 24, 96),
+                                       ("verify1", 64, 256)])
+def test_tensor_core_walk_stays_inside_the_card_limit(kind, bs, d):
+    """The bf16 multi-query kernel (key tiles of 64, 32 at D 256; splits
+    of 128) rounds p to bf16 relative to its running row max before
+    p . V. Its emulation, rounded to bf16, is held against JAX's Pallas
+    kernel on the same bf16 inputs within the card's limit: 1e-5 + 2**-7
+    |ref| + 2**-8 P|V|. Its f32 output is held against the plain version
+    within the rounding term alone (+ 1e-6 for summation order), and
+    that term is not vacuous: the two differ."""
+    q, kp, vp, tables, pos = _split_inputs(kind, bs, d, seed=7 * d)
+    q, kp, vp = (torch.from_numpy(a).bfloat16() for a in (q, kp, vp))
+    tt, tp = torch.from_numpy(tables), torch.from_numpy(pos)
+    ks, _ = tda.split_geometry(tables.shape[1] * bs)
+    emu = _tc_walk(q, kp, vp, tt, tp, ks, 32 if d > 128 else 64)
+    want = _jax_pallas(kind, *(np.asarray(x.float().numpy()
+                                          if isinstance(x, torch.Tensor)
+                                          else x)
+                               for x in (q, kp, vp, tables, pos)))
+    pv = tda.reference_paged_verify_attention(q.float(), kp.float(),
+                                              vp.float().abs(), tt, tp)
+    limit = 1e-5 + 2 ** -7 * np.abs(want) + 2 ** -8 * pv.numpy()
+    assert np.all(np.abs(emu.bfloat16().float().numpy() - want) <= limit)
+    plain = tda.reference_paged_verify_attention(q.float(), kp.float(),
+                                                 vp.float(), tt, tp)
+    err = (emu - plain).abs()
+    assert err.max() > 0
+    assert torch.all(err <= 2 ** -8 * pv + 1e-6)
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill64"])
+@pytest.mark.parametrize("d", [4, 12, 36, 100, 132])
+def test_padded_ragged_head_dims_match_jax(kind, d):
+    """What the wrappers hand the kernels for a head dim that is not a
+    multiple of 8: q and the pools zero-padded to `kernel_head_dim` and
+    the softmax scale of the true head dim. The split-K plain versions on
+    those inputs, trimmed, against JAX's Pallas kernels on the unpadded
+    inputs (which pad the same way themselves), f32, atol 1e-5."""
+    q, kp, vp, tables, pos = _split_inputs(kind, 16, d, seed=d)
+    want = _jax_pallas(kind, q, kp, vp, tables, pos)
+    dk = tda.kernel_head_dim(d)
+    assert dk % 8 == 0 and 0 < dk - d < 8
+    tq, tk, tv = (pad_last_dim(torch.from_numpy(a), dk) for a in (q, kp, vp))
+    assert torch.all(tk[..., d:] == 0)
+    ks, _ = tda.split_geometry(tables.shape[1] * 16)
+    fn = (tda.paged_decode_partials_reference if kind == "decode"
+          else tda.paged_mq_partials_reference)
+    got = tda.paged_merge_reference(*fn(tq, tk, tv, torch.from_numpy(tables),
+                                        torch.from_numpy(pos), ks,
+                                        d ** -0.5))
+    assert torch.all(got[..., d:] == 0)
+    np.testing.assert_allclose(got[..., :d].numpy(), want, atol=ATOL,
+                               rtol=ATOL)

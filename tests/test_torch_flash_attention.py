@@ -28,9 +28,11 @@ limit, FLASH_TOL's bf16 terms plus 2**-8 times
 version's within the rounding term alone (+ 1e-6).
 
 Head dims the kernels are not built for run zero-padded to the next of
-32, 64 and 128 with the true head dim's softmax scale; the plain
+32, 64, 128 and 256 with the true head dim's softmax scale; the plain
 versions on padded inputs, with that scale, are held against the
-unpadded ones, and the padded columns of dq, dk and dv must be zero."""
+unpadded ones, and the padded columns of dq, dk and dv must be zero.
+Head dims 160 and 256 (CUDA-core kernels at 256 on the card) are held
+against JAX like the narrower ones."""
 
 import math
 
@@ -84,6 +86,18 @@ def _both(arrs, dtype, causal, block):
 def test_forward_and_grads_match_jax_f32(causal, d, t, block):
     jout, jgrads, tout, tgrads = _both(_inputs(t + d, t, d, "float32"),
                                        "float32", causal, block)
+    np.testing.assert_allclose(_np(tout), _np(jout), **TOL["float32"])
+    for a, b in zip(tgrads, jgrads):
+        np.testing.assert_allclose(_np(a), _np(b), **TOL["float32"])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [160, 256])
+def test_wide_head_dims_match_jax_f32(causal, d):
+    """Head dims above 128: 160 runs zero-padded to 256 on the card, 256
+    as it is; the port's forward and gradients against JAX's."""
+    jout, jgrads, tout, tgrads = _both(_inputs(d, 256, d, "float32"),
+                                       "float32", causal, 128)
     np.testing.assert_allclose(_np(tout), _np(jout), **TOL["float32"])
     for a, b in zip(tgrads, jgrads):
         np.testing.assert_allclose(_np(a), _np(b), **TOL["float32"])
@@ -248,7 +262,7 @@ def test_tensor_core_backward_rounding_is_inside_the_card_limit(causal, t,
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [8, 16, 24, 40, 48, 56, 72, 80, 88, 96, 104,
-                               112, 120])
+                               112, 120, 4, 100, 132, 160, 200])
 def test_padded_heads_with_the_true_scale_match_unpadded(causal, d):
     """What the wrappers do for head dims without a kernel of their own:
     zero columns up to `kernel_head_dim`, the softmax scale of the true
@@ -258,7 +272,7 @@ def test_padded_heads_with_the_true_scale_match_unpadded(causal, d):
     q, k, v, g = (torch.from_numpy(a)
                   for a in _inputs(d + causal, 40, d, "float32", h=2))
     dp = fa.kernel_head_dim(d)
-    assert dp == min(x for x in (32, 64, 128) if x >= d)
+    assert dp == min(x for x in (32, 64, 128, 256) if x >= d)
     pq, pk, pv, pg = (pad_last_dim(x, dp) for x in (q, k, v, g))
     assert pq.shape[-1] == dp and torch.all(pq[..., d:] == 0)
     sm = d ** -0.5
@@ -280,9 +294,19 @@ def test_padded_heads_with_the_true_scale_match_unpadded(causal, d):
         assert torch.all(a[..., d:] == 0)
 
 
-@pytest.mark.parametrize("d", [0, 4, 12, 100, 132, 136, 256])
+# head dim -> the kernel head dim it runs at (None: raises)
+_KERNEL_DIMS = {0: None, 4: 32, 12: 32, 100: 128, 132: 256, 136: 256,
+                256: 256, 264: None}
+
+
+@pytest.mark.parametrize("d", list(_KERNEL_DIMS))
 def test_head_dims_without_a_kernel_raise(d):
-    """Head dims that are not a multiple of 8, or above 128, have no
-    kernel (the reference pads those to a multiple of 8 itself)."""
-    with pytest.raises(ValueError, match="head dim"):
-        fa.kernel_head_dim(d)
+    """Every head dim from 1 to 256 runs on a kernel, zero-padded to the
+    next of 32, 64, 128 and 256 (ragged ones included, as the reference
+    pads them); 0 and head dims above 256 have no kernel and raise."""
+    want = _KERNEL_DIMS[d]
+    if want is None:
+        with pytest.raises(ValueError, match="head dim"):
+            fa.kernel_head_dim(d)
+    else:
+        assert fa.kernel_head_dim(d) == want

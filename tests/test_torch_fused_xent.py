@@ -285,13 +285,41 @@ def test_kernel_width_is_the_next_built_width(d, want):
     assert tfx.kernel_width(d) == want
 
 
-@pytest.mark.parametrize("d", [0, 1025, 2048])
+# width -> (f32 kernel width, bf16 kernel width); None: raises
+_WIDE = {0: None, 1025: (1280, 1088), 2048: (2048, 2048)}
+
+
+@pytest.mark.parametrize("d", list(_WIDE))
 def test_widths_without_a_kernel_raise(d):
-    with pytest.raises(ValueError, match="width"):
-        tfx.kernel_width(d)
+    """Every width from 1 runs on the kernels, zero-padded where they are
+    not built for it (above 1024 for bf16 to a multiple of 64, for f32 to
+    equal column chunks that are multiples of 128); 0 raises."""
+    if _WIDE[d] is None:
+        with pytest.raises(ValueError, match="width"):
+            tfx.kernel_width(d)
+        return
+    assert (tfx.kernel_width(d), tfx.kernel_width(d, torch.bfloat16)) == \
+        _WIDE[d]
 
 
-@pytest.mark.parametrize("d", [40, 96, 200, 300])
+@pytest.mark.parametrize("d,f32,bf16", [(1280, 1280, 1280),
+                                        (1600, 1792, 1600),
+                                        (4096, 4096, 4096),
+                                        (5000, 5120, 5056),
+                                        (8192, 8192, 8192)])
+def test_kernel_width_above_1024(d, f32, bf16):
+    """Above 1024: bf16 pads to the next multiple of 64; f32 splits the
+    width into n = ceil(d / 1024) column chunks, each the next multiple
+    of 128 at or above d / n (so each is a width the f32 backward is
+    built for)."""
+    assert tfx.kernel_width(d) == f32
+    assert tfx.kernel_width(d, torch.bfloat16) == bf16
+    n = -(-f32 // 1024)
+    assert f32 % n == 0 and (f32 // n) % 128 == 0 and f32 // n <= 1024
+    assert bf16 % 64 == 0 and 0 <= bf16 - d < 64
+
+
+@pytest.mark.parametrize("d", [40, 96, 200, 300, 1100, 1600])
 def test_padded_width_matches_unpadded(d):
     """What the wrappers do for a width without kernels of its own: zero
     columns of x and E up to `kernel_width` add nothing to a logit, so
@@ -325,6 +353,19 @@ def test_widths_384_and_200_match_jax(d, dtype):
     """The width the card used to refuse (d_model 384) and one off the
     kernels' list, through the port's fused loss and JAX's (scan), value
     and both gradients, with the tolerances above."""
+    _check_width_against_jax(d, dtype)
+
+
+@pytest.mark.parametrize("d", [1280, 1600])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_widths_above_1024_match_jax(d, dtype):
+    """GPT-2 large's and XL's widths (the card refused every width above
+    1024 before), through the port's fused loss and JAX's (scan), with
+    the tolerances above."""
+    _check_width_against_jax(d, dtype)
+
+
+def _check_width_against_jax(d, dtype):
     rng = np.random.default_rng(d)
     v = 517
     x = rng.standard_normal((B, T, d)).astype(np.float32)

@@ -9,7 +9,10 @@ Tolerances, per element |kernel - plain| <= atol + rtol * |plain|: f32
 atol 2e-5 (summation order and expf only); bf16 atol 1e-5, rtol 2**-7
 (the kernel and the plain version both accumulate in f32 from the same
 bf16 inputs, so they differ by at most the final rounding to bf16, one
-ulp, which is at most 2**-7 of the value)."""
+ulp, which is at most 2**-7 of the value). The bf16 multi-query kernel
+(tensor cores) also rounds p to bf16 before p . V, relative to its
+running row max, which moves each element by at most 2**-8 (P |V|) more
+(P the softmax, from the plain version)."""
 
 import pytest
 import torch
@@ -29,6 +32,17 @@ def dev():
     return torch.device("cuda")
 
 
+def _mq_close(got, ref, q, kp, vp, tables, pos):
+    """|kernel - plain| within TOL, plus 2**-8 P|V| for bf16."""
+    tol = TOL[q.dtype]
+    limit = tol["atol"] + tol["rtol"] * ref.float().abs()
+    if q.dtype == torch.bfloat16:
+        limit = limit + 2 ** -8 * da.reference_paged_verify_attention(
+            q.float(), kp.float(), vp.float().abs(), tables, pos)
+    over = ((got.float() - ref.float()).abs() - limit).max().item()
+    assert over <= 0, f"off by {over:.3e} beyond its limit"
+
+
 def _inputs(dev, dtype, b, h, d, bs, mb, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     nb = b * mb + 1
@@ -40,14 +54,20 @@ def _inputs(dev, dtype, b, h, d, bs, mb, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 96, 128])
-@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 8, 100, 136, 256])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64, 24])
 def test_decode_kernel_matches_plain(dev, dtype, d, bs):
-    b, h, mb = 4, 3, 5
+    """Split-K decode: tables of 300 or more positions (3 splits of 128),
+    rows that see 1 position, a block's end and the next block's start,
+    KS - 1, KS and KS + 1 positions, and the table's last row. D 100 runs
+    zero-padded to 104."""
+    b, h = 8, 3
+    mb = -(-300 // bs)
+    ks, _ = da.split_geometry(mb * bs)
     g, kp, vp, tables = _inputs(dev, dtype, b, h, d, bs, mb)
     q = torch.randn((b, h, d), generator=g, device=dev).to(dtype)
-    pos = torch.tensor([0, bs - 1, bs, mb * bs - 1], dtype=torch.int32,
-                       device=dev)
+    pos = torch.tensor([0, bs - 1, bs, ks - 2, ks - 1, ks, mb * bs - 1,
+                        mb * bs + 7], dtype=torch.int32, device=dev)
     n = da.paged_decode_attention.launches
     got = da.paged_decode_attention(q, kp, vp, tables, pos)
     assert da.paged_decode_attention.launches == n + 1
@@ -56,42 +76,124 @@ def test_decode_kernel_matches_plain(dev, dtype, d, bs):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 8, 100, 256])
 @pytest.mark.parametrize("bs", [8, 16, 24, 32, 64])
 def test_prefill_and_verify_kernel_match_plain(dev, dtype, d, bs):
-    """Block sizes 24 and 64 reach the kernel re-viewed as blocks of 8
-    and 32 (`split_blocks`); D 96 runs on the 128-wide tiles."""
-    b, h, mb = 3, 2, 6
+    """bf16 runs the tensor-core kernel on the pool as it is, f32 the
+    CUDA-core kernel (blocks 24 and 64 re-viewed as blocks of 8 and 32,
+    `split_blocks`). Tables of 300 or more positions (3 splits of 128):
+    chunks at the start, at a block start, ragged, and of 64 rows
+    across the first split boundary; verify W 1, 4 and 64 with windows
+    that see KS - 1, KS and KS + 1 positions or run past the table's
+    reach. D 100 runs zero-padded to 104."""
+    b, h = 3, 2
+    mb = -(-300 // bs)
+    ks, _ = da.split_geometry(mb * bs)
     g, kp, vp, tables = _inputs(dev, dtype, b, h, d, bs, mb, seed=1)
-    for c, start in ((5, 0), (bs, bs), (40, 3)):
+    kind = "paged_mq_tc" if dtype == torch.bfloat16 else "paged_mq_simt"
+    one = tables.new_zeros(1)
+    for c, start in ((5, 0), (bs, bs), (40, 3), (64, ks - 33)):
         q = torch.randn((c, h, d), generator=g, device=dev).to(dtype)
         n = da.paged_prefill_attention.launches
+        kernels = dict(da.LAUNCHES)
         got = da.paged_prefill_attention(q, kp, vp, tables[0], start)
         assert da.paged_prefill_attention.launches == n + 1
+        assert {k: da.LAUNCHES[k] - kernels[k] for k in kernels} == \
+            {k: int(k == kind) for k in kernels}
         ref = da.reference_paged_prefill_attention(q, kp, vp, tables[0],
                                                    start)
-        torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
-    # verify: the last row's window runs past the table's reach
-    q = torch.randn((b, 5, h, d), generator=g, device=dev).to(dtype)
-    pos = torch.tensor([0, 7, mb * bs - 3], dtype=torch.int32, device=dev)
-    got = da.paged_verify_attention(q, kp, vp, tables, pos)
-    ref = da.reference_paged_verify_attention(q, kp, vp, tables, pos)
-    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+        _mq_close(got[None], ref[None], q[None], kp, vp, tables[:1],
+                  one + start)
+    for w in (1, 4, 64):
+        q = torch.randn((b, w, h, d), generator=g, device=dev).to(dtype)
+        pos = torch.tensor([ks - w - 1, ks - w + 1, mb * bs - 3],
+                           dtype=torch.int32, device=dev)
+        n = da.paged_verify_attention.launches
+        got = da.paged_verify_attention(q, kp, vp, tables, pos)
+        assert da.paged_verify_attention.launches == n + 1
+        ref = da.reference_paged_verify_attention(q, kp, vp, tables, pos)
+        _mq_close(got, ref, q, kp, vp, tables, pos)
+
+
+_SERVING = dict(b=8, h=16, d=64, bs=16, mb=64)   # bench_infer.py's pool
+
+
+def _serving_call(dev, kind):
+    """(fn, args, pos index) for one split-K call at the serving shapes
+    (bf16): decode at B 8, a 64-token prefill chunk at start 960, or a
+    W 4 verify; pos is args[pos index], a device tensor."""
+    sv = _SERVING
+    g, kp, vp, tables = _inputs(dev, torch.bfloat16, sv["b"], sv["h"],
+                                sv["d"], sv["bs"], sv["mb"], seed=3)
+    pos = torch.tensor([0, 15, 16, 100, 511, 700, 1000, 1023],
+                       dtype=torch.int32, device=dev)
+    if kind == "decode":
+        q = torch.randn((sv["b"], sv["h"], sv["d"]), generator=g,
+                        device=dev).bfloat16()
+        return da.paged_decode_attention, [q, kp, vp, tables, pos], 4
+    if kind == "prefill":
+        q = torch.randn((64, sv["h"], sv["d"]), generator=g,
+                        device=dev).bfloat16()
+        start = torch.tensor([960], dtype=torch.int32, device=dev)
+        return da.paged_prefill_attention, [q, kp, vp, tables[0], start], 4
+    q = torch.randn((sv["b"], 4, sv["h"], sv["d"]), generator=g,
+                    device=dev).bfloat16()
+    pos[-1] = 1020                      # the last window ends at 1023
+    return da.paged_verify_attention, [q, kp, vp, tables, pos], 4
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill", "verify"])
+def test_split_kernels_are_deterministic_and_capturable(dev, kind):
+    """At the serving shapes: two calls give bit-identical outputs (the
+    split-order merge), the output matches the plain version, and a CUDA
+    graph that captured one call, replayed after pos changed on the
+    device, gives exactly what an eager call with the new pos gives
+    (grid fixed by shapes, pos read on the device, the ticket buffer
+    reused)."""
+    fn, args, ip = _serving_call(dev, kind)
+    first, second = fn(*args), fn(*args)
+    assert torch.equal(first, second)
+    ref_fn = {da.paged_decode_attention:
+              da.reference_paged_decode_attention,
+              da.paged_prefill_attention:
+              da.reference_paged_prefill_attention,
+              da.paged_verify_attention:
+              da.reference_paged_verify_attention}[fn]
+    if kind == "decode":
+        torch.testing.assert_close(first.float(), ref_fn(*args).float(),
+                                   **TOL[torch.bfloat16])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)                       # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = fn(*args)
+    new_pos = args[ip].flip(0) if kind != "prefill" else args[ip] - 900
+    args[ip].copy_(new_pos)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, fn(*args))
+    assert not torch.equal(captured, first)
 
 
 def test_unsupported_inputs_raise_instead_of_falling_back(dev):
-    """Head dims above 128 or not a multiple of 8, block sizes not a
+    """Head dims above 256 (and 0), multi-query block sizes not a
     multiple of 8, and index tensors that are not int32 raise."""
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
-    for d in (136, 100):
+    for d in (264, 0):
         _, kp, vp, tables = _inputs(dev, torch.float32, 1, 2, d, 16, 2)
         q = torch.zeros((1, 2, d), device=dev)
         with pytest.raises(ValueError, match="head dim"):
             da.paged_decode_attention(q, kp, vp, tables, pos)
-    _, kp, vp, tables = _inputs(dev, torch.float32, 1, 2, 64, 12, 2)
-    with pytest.raises(ValueError, match="block size"):
-        da.paged_prefill_attention(torch.zeros((4, 2, 64), device=dev), kp,
-                                   vp, tables[0], 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        _, kp, vp, tables = _inputs(dev, dtype, 1, 2, 64, 12, 2)
+        with pytest.raises(ValueError, match="block size"):
+            da.paged_prefill_attention(
+                torch.zeros((4, 2, 64), device=dev, dtype=dtype), kp, vp,
+                tables[0], 0)
+    _, kp, vp, tables = _inputs(dev, torch.float32, 1, 2, 64, 16, 2)
     q = torch.zeros((1, 2, 64), device=dev)
     with pytest.raises(TypeError, match="int32"):
         da.paged_decode_attention(q, kp, vp, tables.long(), pos)
@@ -141,14 +243,15 @@ def _forward_ok(out, ref, q, k, v, causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 48, 64, 96, 128])
+@pytest.mark.parametrize("d", [32, 48, 64, 96, 128, 100, 160, 256])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("t", [1, 64, 129, 1000, 1024])
 def test_flash_kernels_match_plain(dev, dtype, d, causal, t):
     """T 1 and 129 (one row past a 128-row tile) put whole tensor-core
     tiles past T; bf16 at kernel head dim 64 and 128 runs on the tensor
-    cores, everything else on the CUDA-core kernels. D 48 and 96 run
-    zero-padded to 64 and 128."""
+    cores, everything else on the CUDA-core kernels (D 256 on 32-row
+    tiles). D 48, 96, 100 and 160 run zero-padded to 64, 128, 128 and
+    256."""
     from ray_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(t + d)
     b, h = 2, 2
@@ -180,9 +283,9 @@ def test_flash_kernels_match_plain(dev, dtype, d, causal, t):
 
 
 def test_flash_unsupported_inputs_raise(dev):
-    """Head dims above 128 or not a multiple of 8, and float16, raise."""
+    """Head dims above 256 (and 0), and float16, raise."""
     from ray_tpu_torch.ops import flash_attention as fa
-    for d in (136, 100):
+    for d in (264, 0):
         q = torch.zeros((1, 8, 2, d), device=dev)
         with pytest.raises(ValueError, match="head dim"):
             fa.flash_forward(q, q, q, causal=True)
@@ -196,9 +299,10 @@ def test_flash_unsupported_inputs_raise(dev):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [8, 32, 48, 64, 96, 120, 128])
+@pytest.mark.parametrize("d", [8, 32, 48, 64, 96, 120, 128, 100, 136, 256])
 def test_dense_decode_kernel_matches_plain(dev, dtype, d):
-    """A ragged cache length, pos 0, mid-cache, S - 1 and past S."""
+    """A ragged cache length, pos 0, mid-cache, S - 1 and past S; f32
+    above 128 takes two vectors a lane, D 100 runs zero-padded to 104."""
     g = torch.Generator(device=dev).manual_seed(d)
     b, s, h = 4, 300, 3
     q = torch.randn((b, h, d), generator=g, device=dev).to(dtype)
@@ -235,7 +339,8 @@ def _xent_close(got, ref, bound=None):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128, 200, 384, 1024])
+@pytest.mark.parametrize("d", [64, 128, 200, 384, 1024, 1280, 1600, 2048,
+                               4096])
 @pytest.mark.parametrize("n,v", [(256, 1024), (77, 517), (300, 9000)])
 def test_fused_xent_kernels_match_plain(dev, dtype, d, n, v):
     """(300, 9000): V spans three vocabulary chunks of the bf16 backward,
@@ -244,7 +349,9 @@ def test_fused_xent_kernels_match_plain(dev, dtype, d, n, v):
     Targets include column 0, V - 1, the first column of the last
     256-column tile of the bf16 forward (ragged unless V is a multiple
     of 256) and three outside [0, V). Width 384 runs on its own kernel
-    instantiations, 200 zero-padded to 256."""
+    instantiations, 200 zero-padded to 256; above 1024 bf16 runs the
+    width (1600 as it is) and f32 splits it into column chunks (1600
+    padded to 2 x 896, 4096 as 4 x 1024)."""
     from ray_tpu_torch.ops import fused_xent as fx
     g = torch.Generator(device=dev).manual_seed(n + v + d)
     x = torch.randn((n, d), generator=g, device=dev).to(dtype)
@@ -283,9 +390,9 @@ def test_fused_xent_kernels_match_plain(dev, dtype, d, n, v):
 
 
 def test_fused_xent_unsupported_inputs_raise(dev):
-    """Widths above 1024 and mixed dtypes raise."""
+    """A width of 0 and mixed dtypes raise."""
     from ray_tpu_torch.ops import fused_xent as fx
-    x = torch.zeros((8, 1100), device=dev)
+    x = torch.zeros((8, 0), device=dev)
     t = torch.zeros(8, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="width"):
         fx.fused_xent_fwd(x, x, t)
