@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`ray_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py              # one card, no arguments
+    python3 chip_smoke.py --decode-times [CHECKOUT]
 
 Builds the port's CUDA kernels from ``ray_tpu_torch/ops/csrc/`` with nvcc
 (sm_90a, one nvcc per source, all at once) and drives its paths, paged
@@ -72,11 +73,13 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    window with the fused kernels' share of device time and the device
    time of each of the port's kernels;
 9. the unpaged KV-cache path at the serving model's width: the decode
-   kernel against its plain version at [8, 1024, 16, 64] with its times,
-   then `prefill` of 8 ragged prompts (100-300 tokens), a slot-targeted
-   prefill and 64 greedy `decode_step`s, with step p50/p99, tok/s,
-   launches, and the emitted tokens' logprobs against a dense f32
-   forward (phase 3's limits);
+   kernel (split-K, sharing the paged decode kernel's body) against its
+   plain version at [8, 1024, 16, 64], called twice for bit-identical
+   outputs, with its times at DECODE_POS and at the path's own contexts
+   (each with plain, SDPA and bound), then `prefill` of 8 ragged
+   prompts (100-300 tokens), a slot-targeted prefill and 64 greedy
+   `decode_step`s, with step p50/p99, tok/s, launches, and the emitted
+   tokens' logprobs against a dense f32 forward (phase 3's limits);
 10. the shapes the kernels once refused (head dims 96, 100 and 256, pool
    block 64, fused-loss widths 384, 1600 and 4096; depth cut to 2
    layers): the decode and multi-query kernels at each head dim over a
@@ -87,8 +90,15 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    loss at each width against the dense loss.
 
 Before the phases it prints the registers and spilled bytes of every
-tensor-core kernel and of the split-K decode kernel from nvcc's ptxas
-report.
+tensor-core kernel and of the two split-K decode kernels from nvcc's
+ptxas report.
+
+``--decode-times`` runs no phase: it times the two decode kernels of the
+checkout at CHECKOUT (default: this one) at the serving shapes, on the
+inputs phases 1, 4 and 9 give them, and prints its checks and then one
+JSON line (`decode_times`). Run it once a checkout, in one call, in the
+order parent, change, change, parent, to hold a change against its
+parent.
 
 Any failed phase raises, so the exit code is non-zero. The last two
 lines of stdout are a ``{"kernels": [...]}`` JSON line and
@@ -177,7 +187,16 @@ TOL = {"bfloat16": (1e-5, 2 ** -7), "float32": (2e-5, 0.0)}
 # The bf16 multi-query kernel (tensor cores) also rounds p to bf16 before
 # p . V, relative to its running row max: + 2**-8 * (P |V|) per element.
 TIME_SETS = 8
+# Phase 9 (a) times the decode kernel at these of (b)'s 64 decode steps:
+# row b at position (its prompt length) + i.
+CONTEXT_STEPS = (0, 9, 18, 27, 36, 45, 54, 63)
 LOGPROB_TOL = 0.1
+# The model bench_infer.py serves (phases 2-4 and 9).
+SERVE_CFG = dict(vocab_size=50304, d_model=1024, n_layers=12, n_heads=16,
+                 d_ff=4096, max_seq_len=1024, dtype="bfloat16")
+# Phase 4's traffic: 8 requests of PROFILE_PROMPT tokens, PROFILE_NEW new
+# tokens each.
+PROFILE_PROMPT, PROFILE_NEW = 128, 32
 # The engine of phases 2 and 4 with the paged kernels before split-K (one
 # CTA per (row, head) for decode, the CUDA-core multi-query kernel for
 # prefill), on an NVIDIA H100 80GB HBM3 at 700 W: printed beside this
@@ -317,7 +336,8 @@ def phase_kernels(dev, regs) -> dict:
     args = [(q, kp, vp, tables, pos) for kp, vp in pools]
     rec["deterministic"] = same_twice("paged decode",
                                       da.paged_decode_attention, args[0])
-    rec["split"] = dict(zip(("ks", "n_split"), da.split_geometry(MB * BS)))
+    rec["split"] = {"n_split": da.split_geometry(MB * BS)[1],
+                    "one_cta": da._ONE_CTA}
     rec["ptxas"] = regs.get("paged_decode_kernel<bf16, 8, 1>")
     rec["ms"] = time_ms(da.paged_decode_attention, args)
     rec["plain_ms"] = time_ms(da.reference_paged_decode_attention, args)
@@ -574,13 +594,13 @@ def phase_profile(replica, vocab: int, layers: int, seed: int = 2) -> dict:
 
     eng = replica.engine
     rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, vocab, 128) for _ in range(8)]
+    prompts = [rng.integers(0, vocab, PROFILE_PROMPT) for _ in range(8)]
     eng.reset_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for p in prompts:
-            eng.submit(p, max_new_tokens=32)
+            eng.submit(p, max_new_tokens=PROFILE_NEW)
         eng.run_until_idle()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1303,18 +1323,64 @@ def phase_fused_train(dev) -> dict:
     return out
 
 
-def phase_unpaged(dev, cfg_kwargs, seed: int = 0) -> dict:
+def unpaged_traffic(vocab: int, seed: int = 0):
+    """Phase 9 (b)'s requests: 8 prompts of 100-300 tokens, then slot 5
+    prefilled again with 150: (the 8 prompt lengths, the prompts, the
+    slot, its new prompt)."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 9)
+    lens = rng.integers(100, 301, 8)
+    prompts = [rng.integers(0, vocab, n) for n in lens]
+    slot, again = 5, rng.integers(0, vocab, 150)
+    return lens, prompts, slot, again
+
+
+def unpaged_contexts(vocab: int, seed: int = 0) -> list:
+    """pos of phase 9 (b)'s decode steps CONTEXT_STEPS: row b at its
+    prompt length (after the slot prefill) + i, i of the 64 steps."""
+    lens, _, slot, again = unpaged_traffic(vocab, seed)
+    lens[slot] = len(again)
+    return [[int(n) + i for n in lens] for i in CONTEXT_STEPS]
+
+
+def decode_record(dev, fn, plain, sets, rows_seen: float) -> dict:
+    """Device time of ``fn`` over ``sets`` (q, k, v, pos) of bf16 caches
+    [B, S, H, D], of the plain version and of SDPA over K/V laid out
+    beforehand, and the bound for ``rows_seen`` key rows a call (mean
+    over the sets)."""
+    import torch
+    import torch.nn.functional as F
+    q, k = sets[0][0], sets[0][1]
+    rec = {"ms": time_ms(fn, sets), "plain_ms": time_ms(plain, sets)}
+    lib = [(q_[:, :, None], k_.transpose(1, 2).contiguous(),
+            v_.transpose(1, 2).contiguous(),
+            (torch.arange(k.shape[1], device=dev)[None, :]
+             <= p_.long()[:, None])[:, None, None, :])
+           for q_, k_, v_, p_ in sets]
+    rec["library_ms"] = time_ms(
+        lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=m_), lib)
+    del lib
+    h, d = k.shape[2], k.shape[3]
+    rec["bound_ms"], rec["bound_by"] = bound(
+        2 * q.numel() * 2 + rows_seen * h * d * 2 * 2 + q.shape[0] * 4,
+        rows_seen * h * d * 4, torch.bfloat16)
+    return rec
+
+
+def phase_unpaged(dev, cfg_kwargs, regs, seed: int = 0) -> dict:
     """Phase 9: the unpaged KV-cache path at bench_infer.py's model width:
     (a) the decode kernel against its plain version at the path's shape
-    (8 slots, cache 1024, 16 heads of 64) with its times; (b) `prefill` of
-    8 ragged prompts (100-300 tokens) and one slot-targeted prefill, then
-    64 greedy `decode_step`s; (c) the emitted tokens' logprobs against a
-    dense f32 forward with plain attention, as phase 3."""
+    (8 slots, cache 1024, 16 heads of 64), with its times at DECODE_POS
+    and at (b)'s own contexts, and two calls bit-identical; (b)
+    `prefill` of 8 ragged prompts (100-300 tokens) and one slot-targeted
+    prefill, then 64 greedy `decode_step`s; (c) the emitted tokens'
+    logprobs against a dense f32 forward with plain attention, as phase
+    3."""
     import dataclasses
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from ray_tpu_torch import ops
     from ray_tpu_torch.models import gpt
@@ -1328,57 +1394,65 @@ def phase_unpaged(dev, cfg_kwargs, seed: int = 0) -> dict:
     k32, v32 = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
     q32 = torch.randn((slots, H, D), generator=g, device=dev)
     pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
+    contexts = [torch.tensor(p, dtype=torch.int32, device=dev)
+                for p in unpaged_contexts(cfg_kwargs["vocab_size"], seed)]
     rec = {"cases": []}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
         q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
-        err = check("decode", da.decode_attention(q, k, v, pos),
-                    da.reference_decode_attention(q, k, v, pos), name,
-                    f"decode {name:8s} B={slots} S={max_len} "
-                    f"pos={DECODE_POS}")
-        rec["cases"].append({"dtype": name, "max_abs_err": err,
-                             "atol_rtol": TOL[name]})
+        last = contexts[-1]
+        for p, what in ((pos, f"pos={DECODE_POS}"),
+                        (last, f"(b)'s last step, pos={last.tolist()}")):
+            err = check("decode", da.decode_attention(q, k, v, p),
+                        da.reference_decode_attention(q, k, v, p), name,
+                        f"decode {name:8s} B={slots} S={max_len} {what}")
+            rec["cases"].append({"dtype": name, "pos": p.tolist(),
+                                 "max_abs_err": err, "atol_rtol": TOL[name]})
     del k32, v32
     # 8 bf16 cache sets of 33.6 MB (K+V): 268 MB between two uses.
     q = q32.bfloat16()
-    sets = [(q, torch.randn(shape, generator=g, device=dev,
-                            dtype=torch.bfloat16),
-             torch.randn(shape, generator=g, device=dev,
-                         dtype=torch.bfloat16), pos)
-            for _ in range(TIME_SETS)]
-    rec["ms"] = time_ms(da.decode_attention, sets)
-    rec["plain_ms"] = time_ms(da.reference_decode_attention, sets)
-    mask = (torch.arange(max_len, device=dev)[None, :]
-            <= pos.long()[:, None])[:, None, None, :]
-    lib = [(q_[:, :, None], k_.transpose(1, 2).contiguous(),
-            v_.transpose(1, 2).contiguous(), mask) for q_, k_, v_, _ in sets]
-    rec["library_ms"] = time_ms(
-        lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
-            q_, k_, v_, attn_mask=m_), lib)
-    del lib, sets
-    rows_seen = sum(p + 1 for p in DECODE_POS)
-    rec["bound_ms"], rec["bound_by"] = bound(
-        2 * q.numel() * 2 + rows_seen * H * D * 2 * 2 + slots * 4,
-        rows_seen * H * D * 4, torch.bfloat16)
+    caches = [tuple(torch.randn(shape, generator=g, device=dev,
+                                dtype=torch.bfloat16) for _ in range(2))
+              for _ in range(TIME_SETS)]
+    sets = [(q, k_, v_, pos) for k_, v_ in caches]
+    # (b)'s contexts: one decode step's pos a set
+    ctx_sets = [(q, k_, v_, p_) for (k_, v_), p_ in zip(caches, contexts)]
+    rec["deterministic"] = same_twice("decode", da.decode_attention, sets[0])
+    rec["split"] = {"n_split": da.split_geometry(max_len)[1],
+                    "one_cta": da._ONE_CTA}
+    rec["ptxas"] = regs.get("decode_kernel<bf16, 8, 1>")
+    rec.update(decode_record(dev, da.decode_attention,
+                             da.reference_decode_attention, sets,
+                             sum(p + 1 for p in DECODE_POS)))
+    ctx_seen = statistics.mean(int(p_.sum()) + slots for p_ in contexts)
+    rec["contexts"] = decode_record(dev, da.decode_attention,
+                                    da.reference_decode_attention, ctx_sets,
+                                    ctx_seen)
+    rec["contexts"]["pos"] = [p_.tolist() for p_ in contexts]
     rec["shape"] = (f"bf16 q[{slots},{H},{D}] cache[{slots},{max_len},{H},"
                     f"{D}] pos={list(DECODE_POS)}")
+    c = rec["contexts"]
     print(f"  decode: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
           f" ms, sdpa {rec['library_ms']:.4f} ms, bound "
-          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) [{rec['shape']}]")
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) [{rec['shape']}]; "
+          f"splits {rec['split']}, bit-identical twice, ptxas "
+          f"{rec['ptxas']}")
+    print(f"  decode at (b)'s contexts ({ctx_seen:.1f} rows seen a call): "
+          f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, sdpa "
+          f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+          f"({c['bound_by']})")
     out["kernel"] = rec
+    del caches, sets, ctx_sets
     torch.cuda.empty_cache()
 
     # (b) the path: ragged prefill, a slot-targeted prefill, greedy decode
     cfg = gpt.GPTConfig(**cfg_kwargs)
     model = gpt.GPT(cfg, gpt.init_params(seed, cfg, dev))
     cache = gpt.init_kv_cache(cfg, slots, max_len, dev)
-    rng = np.random.default_rng(seed + 9)
-    lens = rng.integers(100, 301, slots)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    lens, prompts, slot, again = unpaged_traffic(cfg.vocab_size, seed)
     toks = np.zeros((slots, lens.max()), np.int64)
     for i, p in enumerate(prompts):
         toks[i, :len(p)] = p
-    slot, again = 5, rng.integers(0, cfg.vocab_size, 150)
     torch.cuda.synchronize()
     ops.reset_kernel_launches()
     t0 = time.perf_counter()
@@ -1653,9 +1727,9 @@ def phase_c1(dev) -> dict:
 
 def _readable_kernel(mangled: str):
     """A readable name for an instantiation of a tensor-core kernel or of
-    the split-K decode kernel (``flash_dq_tc_kernel<64, true>``,
-    ``paged_mq_tc_kernel<64>``, ``paged_decode_kernel<bf16, 8, 1>``), or
-    None for the others."""
+    a split-K decode kernel (``flash_dq_tc_kernel<64, true>``,
+    ``paged_mq_tc_kernel<64>``, ``paged_decode_kernel<bf16, 8, 1>``,
+    ``decode_kernel<bf16, 8, 1>``), or None for the others."""
     k = re.search(r"((?:flash|xent)_[a-z_]*?tc_kernel)(?:ILi(\d+)ELb([01])E)?",
                   mangled)
     if k:
@@ -1665,17 +1739,18 @@ def _readable_kernel(mangled: str):
     k = re.search(r"paged_mq_tc_kernelILi(\d+)E", mangled)
     if k:
         return f"paged_mq_tc_kernel<{k.group(1)}>"
-    k = re.search(r"paged_decode_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
-                  mangled)
+    k = re.search(r"(paged_|\d)decode_kernelI(f|13__nv_bfloat16)"
+                  r"Li(\d+)ELi(\d+)E", mangled)
     if k:
-        dt = "f32" if k.group(1) == "f" else "bf16"
-        return f"paged_decode_kernel<{dt}, {k.group(2)}, {k.group(3)}>"
+        name = "paged_decode" if k.group(1) == "paged_" else "decode"
+        dt = "f32" if k.group(2) == "f" else "bf16"
+        return f"{name}_kernel<{dt}, {k.group(3)}, {k.group(4)}>"
     return None
 
 
 def kernel_registers(ptxas: str) -> dict:
     """Registers and spilled bytes (stores + loads) of each instantiation
-    of the tensor-core kernels and of the split-K decode kernel, from
+    of the tensor-core kernels and of the split-K decode kernels, from
     nvcc's ptxas report, by a readable name (`_readable_kernel`)."""
     out, name = {}, None
     for line in ptxas.splitlines():
@@ -1697,11 +1772,80 @@ def kernel_registers(ptxas: str) -> dict:
     return out
 
 
+def decode_times(root: str) -> dict:
+    """``--decode-times``: the device time per call (`time_ms`, inputs
+    cold in L2) of the two decode kernels of the checkout at ``root``,
+    bf16 at the serving shapes (8 rows, 16 heads of 64), through their
+    public wrappers: `decode_attention` over [8, 1024, 16, 64] caches at
+    DECODE_POS and at phase 9 (b)'s contexts (`unpaged_contexts`), and
+    `paged_decode_attention` over pools of NB blocks of BS through
+    scrambled MB-entry tables at DECODE_POS and at phase 4's contexts
+    (every row at PROFILE_PROMPT + i for i up to PROFILE_NEW). Each
+    kernel is held against its plain version first. The checkout builds
+    its own kernels; nothing of this repo's ``ray_tpu_torch`` is
+    imported."""
+    import torch
+    sys.path.insert(0, root)
+    from ray_tpu_torch.ops import decode_attention as da
+    if not os.path.abspath(da.__file__).startswith(root + os.sep):
+        fail(f"imported {da.__file__}, not {root}'s")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    b = 8
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    def pos_sets(rows):
+        return [torch.tensor(p, dtype=torch.int32, device=dev) for p in rows]
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout
+    out = {"root": root, "card": smi.strip().splitlines()[0]}
+    q = randn(b, H, D)
+    caches = [(randn(b, MB * BS, H, D), randn(b, MB * BS, H, D))
+              for _ in range(TIME_SETS)]
+    paged_steps = range(0, PROFILE_NEW, PROFILE_NEW // TIME_SETS)
+    for name, rows in (
+            ("decode_pos", [DECODE_POS] * TIME_SETS),
+            ("contexts", unpaged_contexts(SERVE_CFG["vocab_size"]))):
+        sets = [(q, k, v, p) for (k, v), p in zip(caches, pos_sets(rows))]
+        check("decode", da.decode_attention(*sets[-1]),
+              da.reference_decode_attention(*sets[-1]), "bfloat16",
+              f"decode {name}")
+        out[f"decode_{name}_ms"] = time_ms(da.decode_attention, sets)
+    del caches
+    pools = [(randn(NB, BS, H, D), randn(NB, BS, H, D))
+             for _ in range(TIME_SETS)]
+    perm = torch.randperm(NB - 1, generator=g, device=dev) + 1
+    tables = perm[:b * MB].view(b, MB).to(torch.int32).contiguous()
+    for name, rows in (
+            ("decode_pos", [DECODE_POS] * TIME_SETS),
+            ("phase4_contexts", [[PROFILE_PROMPT + i] * b
+                                 for i in paged_steps])):
+        sets = [(q, kp, vp, tables, p)
+                for (kp, vp), p in zip(pools, pos_sets(rows))]
+        check("paged_decode", da.paged_decode_attention(*sets[-1]),
+              da.reference_paged_decode_attention(*sets[-1]), "bfloat16",
+              f"paged decode {name}")
+        out[f"paged_{name}_ms"] = time_ms(da.paged_decode_attention, sets)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--decode-times"] and len(sys.argv) <= 3:
+        root = os.path.abspath(sys.argv[2] if len(sys.argv) == 3 else
+                               os.path.dirname(__file__))
+        print(json.dumps(decode_times(root)))
+        return 0
+    if len(sys.argv) > 1:
+        fail(f"unknown arguments {sys.argv[1:]} (see the docstring)")
     from ray_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
@@ -1738,9 +1882,7 @@ def main() -> int:
               "torch_cuda": torch.version.cuda, "nvcc": nvcc,
               "build_s": build_s, "ptxas_kernels": kern_regs,
               "phase_s": {}}
-    cfg_kwargs = dict(vocab_size=50304, d_model=1024, n_layers=12,
-                      n_heads=16, d_ff=4096, max_seq_len=1024,
-                      dtype="bfloat16")
+    cfg_kwargs = dict(SERVE_CFG)
 
     def phase(n, title, fn, *args):
         print(f"phase {n}: {title}")
@@ -1765,7 +1907,7 @@ def main() -> int:
     fused = phase(8, "bench.py's training configuration (fused loss, "
                   "batch 24)", phase_fused_train, dev)
     unpaged = phase(9, "unpaged KV-cache path at full width", phase_unpaged,
-                    dev, cfg_kwargs)
+                    dev, cfg_kwargs, kern_regs)
     c1 = phase(10, "head dims 96, 100, 256, pool block 64, loss widths 384, "
                "1600, 4096", phase_c1, dev)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
@@ -1826,10 +1968,16 @@ def main() -> int:
                      "flash_dq_tc", "flash_dkv": "flash_dkv_tc"}[key]
             rows[-1].update(kernels=[f"{kname}_kernel"],
                             kernel_launches={kname: launches[kname]})
-        elif key == "paged_decode":
-            # bf16 and f32: the split-K kernel, one launch per call
-            rows[-1].update(kernels=["paged_decode_kernel"],
-                            split=rec["split"], ptxas=rec["ptxas"])
+        elif key in ("paged_decode", "decode"):
+            # bf16 and f32: the split-K kernel, one launch per call (the
+            # two share one body)
+            rows[-1].update(kernels=[f"{key}_kernel"], split=rec["split"],
+                            ptxas=rec["ptxas"])
+            if key == "decode":
+                rows[-1]["contexts"] = {
+                    k: rec["contexts"][k] for k in (
+                        "ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by")}
         elif key == "paged_prefill":
             # bf16: the tensor-core split-K kernel, one launch per call
             rows[-1].update(kernels=["paged_mq_tc_kernel"],

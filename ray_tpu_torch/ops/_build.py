@@ -43,7 +43,8 @@ SIGNATURES = {
                       _P], _I),
     "rtt_paged_mq_tc": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _F, _P], _I),
-    "rtt_decode": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
+    "rtt_decode": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                    _I, _P], _I),
     "rtt_error_string": ([_I], ctypes.c_char_p),
     "rtt_flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
                       _I),

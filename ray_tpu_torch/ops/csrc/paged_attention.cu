@@ -4,9 +4,11 @@
 //   decode_kernel        replaces ray_tpu/ops/decode_attention.py::_decode_kernel
 //                        (single query per (row, head) over a contiguous
 //                        [B, S, H, D] cache, read in place: the TPU wrapper's
-//                        transpose to [BH, S, D] and head padding are gone)
+//                        transpose to [BH, S, D] and head padding are gone;
+//                        split-K)
 //   paged_decode_kernel  replaces ray_tpu/ops/decode_attention.py::_paged_kernel
-//                        (single query per (row, head), decode tick; split-K)
+//                        (single query per (row, head), decode tick; the
+//                        same split-K body as decode_kernel)
 //   paged_mq_tc_kernel   replaces ray_tpu/ops/decode_attention.py::_paged_mq_kernel
 //                        for bf16 (W queries per (row, head) with the
 //                        staircase mask col <= pos + i: chunked prefill and
@@ -32,15 +34,13 @@
 // enough loads in flight across enough SMs, and to skip positions past
 // the last visible one at run time.
 //
-// Split-K (both paged kernels). The key range of the table, S = mb * bs
-// positions, is cut into n_split = ceil(S / KS) splits of KS positions
-// (KS a multiple of 128, chosen by the wrapper from the shapes so that
-// n_split <= 16), one CTA each, so a long row no longer runs on one SM
-// while short rows leave the others idle. The grid is fixed by shapes;
-// pos is read on the device, and a CTA whose split starts past the last
-// position its rows may see returns at once. Each live CTA reads its
-// split's table entries once into shared memory. With one live split
-// (n_live = last visible position / KS + 1) the CTA writes the output
+// Split-K. The grid is fixed by shapes: one CTA per (row, head, split)
+// and n_split <= 16 splits (chosen by the wrapper from the cache's span);
+// pos is read on the device, and no host work depends on it. Each CTA
+// takes one piece of its row's visible positions (paged_mq_tc_kernel:
+// splits of KS positions, a multiple of 128 the wrapper's split_geometry
+// fixes; the decode kernels: see below) and returns at once when its
+// piece is empty. With one live split the CTA writes the output
 // itself. Otherwise each live CTA writes its rows' softmax state (max m,
 // sum l, unnormalised acc[D], f32) to a workspace sized by shapes, and
 // the last of them to finish -- found by an int32 ticket per (row, head,
@@ -52,14 +52,23 @@
 // ticket buffer lives across calls (one per device and stream, zeroed
 // once), so a CUDA graph may capture and replay a call as it is.
 //
-// - paged_decode_kernel: one CTA per (b, h, split), 128 threads (measured
-//   faster than 256 at the serving shapes: more CTAs fit an SM, and most
-//   of a short row's splits return at once). Groups of GP lanes own one
-//   key row each (16-byte vector loads, NV vectors a lane: GP is D / VEC
-//   rounded up to a power of two, NV 2 only for f32 above 128), and keep
-//   U rows in flight (128 rows a CTA step, at most 8 / NV a group), so at
-//   the serving shape (bf16, D 64, KS 128) all 128 rows of a split are
-//   loaded at once.
+// - decode_kernel (contiguous cache) and paged_decode_kernel (pool through
+//   the table) share one body, decode_split, templated on how a position
+//   maps to its row of K and V (CacheRows: b * S + t; PoolRows: through
+//   the split's table entries, read once into shared memory). Each row
+//   picks its split length on the device from pos (split_length): a row
+//   that sees at most one_cta positions runs in one CTA, which walks it
+//   128 rows a step and writes the output with no workspace and no merge
+//   (short rows pay for neither); a longer row is cut into splits of the
+//   least multiple of 128 positions that keeps it to n_split of them, so
+//   it no longer runs on one SM. one_cta is a constant of the wrapper
+//   (decode_attention.py's _ONE_CTA, chosen by measurement). 128 threads
+//   a CTA (faster than 256 at the serving shapes: more CTAs fit an SM,
+//   and the dead ones cost less). Groups of GP lanes own one key row each
+//   (16-byte vector loads, NV vectors a lane: GP is D / VEC rounded up to
+//   a power of two, NV 2 only for f32 above 128), and keep U rows in
+//   flight (128 rows a CTA step, at most 8 / NV a group), so at the
+//   serving shape (bf16, D 64) a 128-position split is loaded at once.
 //   Each group keeps its own online-softmax state; the groups merge once
 //   through shared memory.
 // - paged_mq_tc_kernel (bf16): one CTA per (b*h, tile of 64 query rows,
@@ -90,8 +99,6 @@
 //   through shared memory to the P V product. It takes block sizes 8, 16
 //   and 32; the Python wrapper presents any other multiple of 8 as one of
 //   them (a [n, 64, H, D] pool is a [2n, 32, H, D] pool).
-// - decode_kernel: one CTA per (b, h) over the whole contiguous cache,
-//   with the decode kernel's lane groups (U = 4 rows in flight a group).
 //
 // Each extern "C" entry launches on the given stream and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a shape it has no
@@ -101,12 +108,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // finite, as decode_attention.py's NEG_INF
 constexpr int kThreads = 256;
 constexpr int kMaxSplits = 16;     // decode_attention.py's _MAX_SPLITS
-constexpr int kDecodeThreads = 128;   // paged_decode_kernel's CTA
+constexpr int kSplitUnit = 128;    // decode_attention.py's _SPLIT_UNIT
+constexpr int kDecodeThreads = 128;   // the decode kernels' CTA
 
 template <typename T>
 struct Vec16;
@@ -120,9 +130,6 @@ struct Vec16<float> {
     out[1] = v.y;
     out[2] = v.z;
     out[3] = v.w;
-  }
-  __device__ static void load(const float* p, float* out) {
-    unpack(__ldg(reinterpret_cast<const uint4*>(p)), out);
   }
 };
 
@@ -138,9 +145,6 @@ struct Vec16<__nv_bfloat16> {
       out[2 * i + 1] = f.y;
     }
   }
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    unpack(__ldg(reinterpret_cast<const uint4*>(p)), out);
-  }
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -155,141 +159,6 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// Single-query attention for one (b, h) per CTA over a contiguous cache:
-// q [B, H, D]; k, v [B, S, H, D]; pos [B] i32; out [B, H, D]. Row b attends
-// to positions 0..min(pos[b], S - 1). Groups of GP lanes read a key row,
-// NV 16-byte vectors a lane (lane gl's vector j holds columns (j * GP +
-// gl) * VEC ..); vectors at or past D idle (D a multiple of VEC, at most
-// GP * NV * VEC).
-template <typename T, int GP, int U, int NV>
-__device__ __forceinline__ void decode_attend(const T* __restrict__ q,
-                                              const T* __restrict__ k,
-                                              const T* __restrict__ v,
-                                              int S,
-                                              const int* __restrict__ pos,
-                                              T* __restrict__ out, int H,
-                                              int D, float scale) {
-  constexpr int VEC = Vec16<T>::N;
-  constexpr int CV = NV * VEC;
-  constexpr int NG = kThreads / GP;  // key rows per CTA step
-  static_assert(GP <= 32 && 32 % GP == 0, "bad lane group");
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int g = threadIdx.x / GP;
-  const int gl = threadIdx.x - g * GP;
-
-  float qf[CV];
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int col = (j * GP + gl) * VEC;
-    if (col < D) {
-      Vec16<T>::load(q + (size_t)bh * D + col, qf + j * VEC);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) qf[j * VEC + i] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < CV; ++i) qf[i] *= scale;
-
-  const int last = min(pos[b], S - 1);
-
-  float m = kNegInf, l = 0.f;
-  float acc[CV];
-#pragma unroll
-  for (int i = 0; i < CV; ++i) acc[i] = 0.f;
-
-  // t0 is uniform across the CTA, so every lane reaches every shuffle.
-  for (int t0 = 0; t0 <= last; t0 += NG * U) {
-    float kf[U][CV], vf[U][CV];
-    bool live[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int t = t0 + u * NG + g;
-      live[u] = t <= last;
-      const size_t row = ((size_t)b * S + t) * H + h;
-#pragma unroll
-      for (int j = 0; j < NV; ++j) {
-        const int col = (j * GP + gl) * VEC;
-        if (live[u] && col < D) {
-          Vec16<T>::load(k + row * D + col, kf[u] + j * VEC);
-          Vec16<T>::load(v + row * D + col, vf[u] + j * VEC);
-        } else {
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) kf[u][j * VEC + i] = vf[u][j * VEC + i] = 0.f;
-        }
-      }
-    }
-    float s[U];
-    float smax = kNegInf;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float d = 0.f;
-#pragma unroll
-      for (int i = 0; i < CV; ++i) d += qf[i] * kf[u][i];
-#pragma unroll
-      for (int off = GP / 2; off > 0; off >>= 1)
-        d += __shfl_xor_sync(0xffffffffu, d, off);
-      s[u] = live[u] ? d : kNegInf;
-      smax = fmaxf(smax, s[u]);
-    }
-    const float m_new = fmaxf(m, smax);
-    const float corr = expf(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int i = 0; i < CV; ++i) acc[i] *= corr;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (live[u]) {
-        const float p = expf(s[u] - m_new);
-        l += p;
-#pragma unroll
-        for (int i = 0; i < CV; ++i) acc[i] += p * vf[u][i];
-      }
-    }
-    m = m_new;
-  }
-
-  // Merge the NG per-group softmax states. A group that saw no live row
-  // holds (m = -1e30, l = 0, acc = 0) and drops out with weight exp(-huge).
-  __shared__ float sm_m[NG];
-  __shared__ float sm_l[NG];
-  __shared__ float sm_acc[NG][GP * CV];
-#pragma unroll
-  for (int j = 0; j < NV; ++j)
-#pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      sm_acc[g][(j * GP + gl) * VEC + i] = acc[j * VEC + i];
-  if (gl == 0) {
-    sm_m[g] = m;
-    sm_l[g] = l;
-  }
-  __syncthreads();
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    float mx = kNegInf;
-    for (int gg = 0; gg < NG; ++gg) mx = fmaxf(mx, sm_m[gg]);
-    float lsum = 0.f, o = 0.f;
-    for (int gg = 0; gg < NG; ++gg) {
-      const float w = expf(sm_m[gg] - mx);
-      lsum += sm_l[gg] * w;
-      o += sm_acc[gg][d] * w;
-    }
-    out[(size_t)bh * D + d] = from_f32<T>(o / lsum);
-  }
-}
-
-// q [B, H, D]; k, v [B, S, H, D] read in place; pos [B] i32; out [B, H, D].
-// Row b attends to positions 0..min(pos[b], S-1).
-template <typename T, int GP, int NV>
-__global__ void __launch_bounds__(kThreads)
-    decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const int* __restrict__ pos,
-                  T* __restrict__ out, int H, int D, int S, float scale) {
-  decode_attend<T, GP, 4, NV>(q, k, v, S, pos, out, H, D, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -311,19 +180,65 @@ __device__ __forceinline__ bool last_to_finish(int* ticket, int n_live) {
   return is_last;
 }
 
-// q [B, H, D]; pools [n_blocks, bs, H, D]; tables [B, mb] i32; pos [B] i32;
-// out [B, H, D]. Row b attends to logical positions 0..min(pos[b], mb*bs
-// - 1); this CTA to those of split blockIdx.y, positions [split * ks,
-// split * ks + ks). ws: B * H * n_split * D floats of acc, then B * H *
-// n_split (m, l) pairs; tickets [B * H] i32, zero between calls.
-template <typename T, int GP, int NV>
-__global__ void __launch_bounds__(kDecodeThreads)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                        const T* __restrict__ v_pool,
-                        const int* __restrict__ tables,
-                        const int* __restrict__ pos, T* __restrict__ out,
-                        float* __restrict__ ws, int* __restrict__ tickets,
-                        int H, int D, int bs, int mb, int ks, float scale) {
+// ---------------------------------------------------------------------------
+// single-query decode: one body for the contiguous cache and the paged pool
+// ---------------------------------------------------------------------------
+
+// Where position t of row b lives for head h: its row of the [*, H, D]
+// view of k and v. The body calls stage() once with its split's range
+// [t0, t1) (then __syncthreads) and row() for every key row it reads.
+struct CacheRows {   // contiguous cache [B, S, H, D]: row (b * S + t) * H + h
+  int S;
+  __device__ int span() const { return S; }
+  __device__ void stage(int, int, int) {}
+  __device__ size_t row(int b, int t, int h, int H) const {
+    return ((size_t)b * S + t) * H + h;
+  }
+};
+
+struct PoolRows {    // pool [n_blocks, bs, H, D] through tables [B, mb]
+  const int* tables;
+  int bs, mb;
+  int* tbl;          // shared memory: the split's table entries
+  int blk0;          // the split's first logical block
+  __device__ int span() const { return mb * bs; }
+  __device__ void stage(int b, int t0, int t1) {
+    blk0 = t0 / bs;
+    const int* src = tables + (size_t)b * mb + blk0;
+    for (int i = threadIdx.x; i <= (t1 - 1) / bs - blk0; i += kDecodeThreads)
+      tbl[i] = src[i];
+  }
+  __device__ size_t row(int, int t, int h, int H) const {
+    const int j = t / bs;
+    return ((size_t)tbl[j - blk0] * bs + (t - j * bs)) * H + h;
+  }
+};
+
+// Positions a split of a row that sees `seen` positions: all of them when
+// seen <= one_cta (one CTA, which writes the output itself), else the
+// least multiple of kSplitUnit that cuts the row into n_split splits or
+// fewer (decode_attention.py's decode_split_length).
+__host__ __device__ __forceinline__ int split_length(int seen, int n_split,
+                                                     int one_cta) {
+  if (seen <= one_cta) return seen;
+  const int unit = kSplitUnit * n_split;
+  return kSplitUnit * ((seen + unit - 1) / unit);
+}
+
+// q [B, H, D]; k, v read through `rows`; pos [B] i32; out [B, H, D]. Row
+// b attends to positions 0..min(pos[b], span - 1); this CTA (bh =
+// blockIdx.x, split = blockIdx.y) to [split * ks, split * ks + ks) of
+// them, ks = split_length(seen, gridDim.y, one_cta). ws: B * H * n_split
+// * D floats of acc, then B * H * n_split (m, l) pairs; tickets [B * H]
+// i32, zero between calls. Groups of GP lanes read a key row, NV 16-byte
+// vectors a lane (lane gl's vector j holds columns (j * GP + gl) * VEC
+// ..); vectors at or past D idle.
+template <typename T, int GP, int NV, typename Rows>
+__device__ __forceinline__ void decode_split(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, Rows rows, const int* __restrict__ pos,
+    T* __restrict__ out, float* __restrict__ ws, int* __restrict__ tickets,
+    int H, int D, int one_cta, float scale) {
   constexpr int VEC = Vec16<T>::N;
   constexpr int CV = NV * VEC;
   constexpr int NG = kDecodeThreads / GP;   // key rows per CTA step
@@ -331,7 +246,6 @@ __global__ void __launch_bounds__(kDecodeThreads)
   // most 8 16-byte vectors of K and of V a lane
   constexpr int U = 128 / NG < 1 ? 1 : (128 / NG > 8 / NV ? 8 / NV : 128 / NG);
   static_assert(GP <= 32 && 32 % GP == 0, "bad lane group");
-  extern __shared__ int dec_tbl[];    // the split's table entries
   __shared__ float sm_m[NG];
   __shared__ float sm_l[NG];
   __shared__ float sm_acc[NG][GP * CV];
@@ -340,32 +254,36 @@ __global__ void __launch_bounds__(kDecodeThreads)
   const int b = bh / H;
   const int h = bh - b * H;
   const int split = blockIdx.y;
-  const int last = min(pos[b], mb * bs - 1);
-  const int t0 = split * ks;
-  if (t0 > last) return;                  // uniform: nothing to see here
-  const int t1 = min(t0 + ks, last + 1);  // this split's end, exclusive
-  const int n_live = last / ks + 1;
-  const int blk0 = t0 / bs;
-  const int* tbl = tables + (size_t)b * mb + blk0;
-  for (int i = threadIdx.x; i <= (t1 - 1) / bs - blk0; i += kDecodeThreads)
-    dec_tbl[i] = tbl[i];
-
   const int g = threadIdx.x / GP;
   const int gl = threadIdx.x - g * GP;
-  float qf[CV];
+  // q's load goes out with pos's, not after it
+  uint4 qr[NV];
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     const int col = (j * GP + gl) * VEC;
-    if (col < D) {
-      Vec16<T>::load(q + (size_t)bh * D + col, qf + j * VEC);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) qf[j * VEC + i] = 0.f;
-    }
+    qr[j] = col < D ? __ldg(reinterpret_cast<const uint4*>(q + (size_t)bh * D + col))
+                    : make_uint4(0, 0, 0, 0);
   }
+  // positions this row sees (pos < 0 sees none: split 0 writes zeros)
+  const int seen = min(max(pos[b], -1), rows.span() - 1) + 1;
+  const int ks = split_length(seen, gridDim.y, one_cta);
+  const int t0 = split * ks;
+  if (t0 >= seen) {                       // uniform: nothing to see here
+    if (seen == 0 && split == 0)
+      for (int d = threadIdx.x; d < D; d += kDecodeThreads)
+        out[(size_t)bh * D + d] = from_f32<T>(0.f);
+    return;
+  }
+  const int t1 = min(t0 + ks, seen);      // this split's end, exclusive
+  const int n_live = (seen + ks - 1) / ks;
+  rows.stage(b, t0, t1);
+  float qf[CV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) Vec16<T>::unpack(qr[j], qf + j * VEC);
 #pragma unroll
   for (int i = 0; i < CV; ++i) qf[i] *= scale;
-  __syncthreads();   // dec_tbl
+  __syncthreads();   // the staged rows
+
 
   float m = kNegInf, l = 0.f;
   float acc[CV];
@@ -380,17 +298,13 @@ __global__ void __launch_bounds__(kDecodeThreads)
     for (int u = 0; u < U; ++u) {
       const int t = tb + u * NG + g;
       live[u] = t < t1;
-      size_t row = 0;
-      if (live[u]) {
-        const int j = t / bs;
-        row = ((size_t)dec_tbl[j - blk0] * bs + (t - j * bs)) * H + h;
-      }
+      const size_t row = live[u] ? rows.row(b, t, h, H) : 0;
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
         const int col = (j * GP + gl) * VEC;
         if (live[u] && col < D) {
-          kr[u][j] = __ldg(reinterpret_cast<const uint4*>(k_pool + row * D + col));
-          vr[u][j] = __ldg(reinterpret_cast<const uint4*>(v_pool + row * D + col));
+          kr[u][j] = __ldg(reinterpret_cast<const uint4*>(k + row * D + col));
+          vr[u][j] = __ldg(reinterpret_cast<const uint4*>(v + row * D + col));
         } else {
           kr[u][j] = vr[u][j] = make_uint4(0, 0, 0, 0);
         }
@@ -504,6 +418,36 @@ __global__ void __launch_bounds__(kDecodeThreads)
     o_row[d] = from_f32<T>(o / lt);
   }
 }
+
+// Contiguous cache: k, v [B, S, H, D] read in place.
+template <typename T, int GP, int NV>
+__global__ void __launch_bounds__(kDecodeThreads)
+    decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const int* __restrict__ pos,
+                  T* __restrict__ out, float* __restrict__ ws,
+                  int* __restrict__ tickets, int H, int D, int S,
+                  int one_cta, float scale) {
+  decode_split<T, GP, NV>(q, k, v, CacheRows{S}, pos, out, ws, tickets, H,
+                          D, one_cta, scale);
+}
+
+// Paged pool: pools [n_blocks, bs, H, D]; tables [B, mb] i32; dynamic
+// shared memory for the longest split's table entries.
+template <typename T, int GP, int NV>
+__global__ void __launch_bounds__(kDecodeThreads)
+    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                        const T* __restrict__ v_pool,
+                        const int* __restrict__ tables,
+                        const int* __restrict__ pos, T* __restrict__ out,
+                        float* __restrict__ ws, int* __restrict__ tickets,
+                        int H, int D, int bs, int mb, int one_cta,
+                        float scale) {
+  extern __shared__ int dec_tbl[];
+  decode_split<T, GP, NV>(q, k_pool, v_pool,
+                          PoolRows{tables, bs, mb, dec_tbl, 0}, pos, out, ws,
+                          tickets, H, D, one_cta, scale);
+}
+
 
 // ---------------------------------------------------------------------------
 // paged multi-query, f32 on CUDA cores
@@ -1063,29 +1007,34 @@ bool dispatch_group(int D, A... args) {
   }
 }
 
+// One decode launch: grid (B * H, n_split) of kDecodeThreads. A
+// contiguous cache comes as tables == nullptr with bs = S and mb = 1 (its
+// row b is one block of S positions); a paged pool takes dynamic shared
+// memory for the longest split's table entries.
 template <typename T, int GP, int NV>
-struct PagedDecode {
+struct SplitDecode {
   static void run(const void* q, const void* k, const void* v,
                   const int* tables, const int* pos, void* out, float* ws,
-                  int* tickets, int B, int H, int D, int bs, int mb, int ks,
-                  int n_split, float scale, cudaStream_t stream) {
+                  int* tickets, int B, int H, int D, int bs, int mb,
+                  int n_split, int one_cta, float scale,
+                  cudaStream_t stream) {
+    const dim3 grid(B * H, n_split);
+    if (tables == nullptr) {
+      decode_kernel<T, GP, NV><<<grid, kDecodeThreads, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), pos, static_cast<T*>(out), ws, tickets,
+          H, D, bs, one_cta, scale);
+      return;
+    }
+    const int span = mb * bs;
+    const int ks =
+        std::max(std::min(one_cta, span), split_length(span, n_split, 0));
     const size_t smem = (size_t)(ks / bs + 2) * sizeof(int);
     paged_decode_kernel<T, GP, NV>
-        <<<dim3(B * H, n_split), kDecodeThreads, smem, stream>>>(
+        <<<grid, kDecodeThreads, smem, stream>>>(
             static_cast<const T*>(q), static_cast<const T*>(k),
             static_cast<const T*>(v), tables, pos, static_cast<T*>(out), ws,
-            tickets, H, D, bs, mb, ks, scale);
-  }
-};
-
-template <typename T, int GP, int NV>
-struct DenseDecode {
-  static void run(const void* q, const void* k, const void* v, const int* pos,
-                  void* out, int B, int H, int D, int S, float scale,
-                  cudaStream_t stream) {
-    decode_kernel<T, GP, NV><<<B * H, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), pos, static_cast<T*>(out), H, D, S, scale);
+            tickets, H, D, bs, mb, one_cta, scale);
   }
 };
 
@@ -1132,48 +1081,58 @@ int tile_width(int D) {
   return dp;
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16; D a multiple of 8 up to 256 (of 4 for
-// f32 decode). The split-K kernels also take ks (positions a split, a
-// multiple of 128), n_split = ceil(mb * bs / ks), the f32 workspace ws
-// (see the kernels) and the zeroed int32 tickets.
-extern "C" int rtt_paged_decode(const void* q, const void* k_pool,
-                                const void* v_pool, const void* tables,
-                                const void* pos, void* out, void* ws,
-                                void* tickets, int B, int H, int D, int bs,
-                                int mb, int ks, int n_split, float scale,
-                                int dtype, void* stream) {
+// The decode kernels of both caches (SplitDecode's arguments).
+int launch_decode(const void* q, const void* k, const void* v,
+                  const int* tables, const void* pos, void* out, void* ws,
+                  void* tickets, int B, int H, int D, int bs, int mb,
+                  int n_split, int one_cta, float scale, int dtype,
+                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* t = static_cast<const int*>(tables);
   const int* p = static_cast<const int*>(pos);
   float* w = static_cast<float*>(ws);
   int* tk = static_cast<int*>(tickets);
-  if (B <= 0 || H <= 0 || bs <= 0 || mb <= 0 || ks <= 0 || ks % 128 != 0 ||
-      n_split != (mb * bs + ks - 1) / ks || n_split > kMaxSplits)
+  if (B <= 0 || H <= 0 || bs <= 0 || mb <= 0 || n_split < 1 ||
+      n_split > kMaxSplits || one_cta < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   bool ok = false;
   if (dtype == 0)
-    ok = dispatch_group<PagedDecode, float>(D, q, k_pool, v_pool, t, p, out, w, tk, B, H, D, bs, mb, ks, n_split, scale, s);
+    ok = dispatch_group<SplitDecode, float>(D, q, k, v, tables, p, out, w, tk, B, H, D, bs, mb, n_split, one_cta, scale, s);
   else if (dtype == 1)
-    ok = dispatch_group<PagedDecode, __nv_bfloat16>(D, q, k_pool, v_pool, t, p, out, w, tk, B, H, D, bs, mb, ks, n_split, scale, s);
+    ok = dispatch_group<SplitDecode, __nv_bfloat16>(D, q, k, v, tables, p, out, w, tk, B, H, D, bs, mb, n_split, one_cta, scale, s);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-// q [B, H, D]; k, v [B, S, H, D] contiguous; pos [B] i32; out [B, H, D].
+}  // namespace
+
+// The decode kernels. dtype: 0 = float32, 1 = bfloat16; D a multiple of 8
+// up to 256 (of 4 for f32). n_split (1 .. 16) fixes the grid; a row that
+// sees at most one_cta positions runs in one CTA, a longer one in splits
+// of split_length(); ws is the f32 workspace of B * H * n_split * (D + 2)
+// floats, tickets B * H zeroed int32 (see decode_split).
+// Paged: q [B, H, D]; pools [n_blocks, bs, H, D]; tables [B, mb] i32;
+// pos [B] i32; out [B, H, D].
+extern "C" int rtt_paged_decode(const void* q, const void* k_pool,
+                                const void* v_pool, const void* tables,
+                                const void* pos, void* out, void* ws,
+                                void* tickets, int B, int H, int D, int bs,
+                                int mb, int n_split, int one_cta,
+                                float scale, int dtype, void* stream) {
+  if (tables == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_decode(q, k_pool, v_pool, static_cast<const int*>(tables),
+                       pos, out, ws, tickets, B, H, D, bs, mb, n_split,
+                       one_cta, scale, dtype, stream);
+}
+
+// Contiguous cache: q [B, H, D]; k, v [B, S, H, D]; pos [B] i32; out
+// [B, H, D].
 extern "C" int rtt_decode(const void* q, const void* k, const void* v,
-                          const void* pos, void* out, int B, int S, int H,
-                          int D, float scale, int dtype, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pos);
-  bool ok = false;
-  if (dtype == 0)
-    ok = dispatch_group<DenseDecode, float>(D, q, k, v, p, out, B, H, D, S, scale, s);
-  else if (dtype == 1)
-    ok = dispatch_group<DenseDecode, __nv_bfloat16>(D, q, k, v, p, out, B, H, D, S, scale, s);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+                          const void* pos, void* out, void* ws,
+                          void* tickets, int B, int S, int H, int D,
+                          int n_split, int one_cta, float scale, int dtype,
+                          void* stream) {
+  return launch_decode(q, k, v, nullptr, pos, out, ws, tickets, B, H, D, S,
+                       1, n_split, one_cta, scale, dtype, stream);
 }
 
 // The f32 multi-query kernel on CUDA cores: block size bs one of 8, 16, 32.

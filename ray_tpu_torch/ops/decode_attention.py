@@ -33,16 +33,19 @@ runs it: the wrapper zero-pads q and the pools (or caches) to the next
 multiple of 8 for that call and trims the output, with the softmax scale
 of the true head dim (`kernel_head_dim`). That copies the pools on every
 call, so it is for such head dims only; no model the port serves has
-one. The paged kernels split each row's key range across CTAs (split-K,
-`split_geometry`) and merge the partial softmax states in split order
-inside the same launch (`paged_mq_partials_reference`,
-`paged_merge_reference`). The bf16 multi-query kernel and the decode
-kernels take any block size (the multi-query wrappers ask for a multiple
-of 8, as the reference does); the f32 multi-query kernel is built for
-block sizes 8, 16 and 32, and a pool of any other multiple of 8 is
-handed to it re-viewed (`split_blocks`): a contiguous ``[n, 64, H, D]``
-pool is ``[2n, 32, H, D]``, with table entry j of a row expanded to
-``2 tables[j]`` and ``2 tables[j] + 1``.
+one. Every kernel splits each row's key range across CTAs (split-K,
+grids from `split_geometry`) and merges the partial softmax states in
+split order inside the same launch (`paged_mq_partials_reference`,
+`decode_partials_reference`, `paged_merge_reference`); the two decode
+kernels share one body and cut each row on the device by its length
+(`decode_split_length`): a short row runs in one CTA, with no merge.
+The bf16 multi-query kernel and the decode kernels take any block size
+(the multi-query wrappers ask for a multiple of 8, as the reference
+does); the f32 multi-query kernel is built for block sizes 8, 16 and
+32, and a pool of any other multiple of 8 is handed to it re-viewed
+(`split_blocks`): a contiguous ``[n, 64, H, D]`` pool is ``[2n, 32, H,
+D]``, with table entry j of a row expanded to ``2 tables[j]`` and ``2
+tables[j] + 1``.
 
 Int8 pools (``k_scale``/``v_scale``) are not ported yet and raise
 `NotImplementedError`.
@@ -62,6 +65,10 @@ _KERNEL_BLOCK_SIZES = (32, 16, 8)   # f32 multi-query kernel
 # Split-K: a split is a multiple of _SPLIT_UNIT key positions, at most
 # _MAX_SPLITS splits a row (csrc/paged_attention.cu).
 _SPLIT_UNIT, _MAX_SPLITS = 128, 16
+# The decode kernels run a row that sees at most this many positions in
+# one CTA, with no workspace and no merge (`decode_split_length`; chosen
+# by an A/B on the H100, PERF.md).
+_ONE_CTA = 384
 # query rows of a bf16 multi-query CTA (csrc/paged_attention.cu tc::QR)
 _MQ_TILE = 64
 
@@ -135,18 +142,21 @@ def reference_paged_verify_attention(q, k_pool, v_pool, tables, pos, *,
 
 def split_geometry(span: int) -> tuple[int, int]:
     """``(ks, n_split)`` of the split-K kernels for a table that reaches
-    ``span = max_blocks * block_size`` positions: splits of ``ks``
-    positions (a multiple of 128, the least that keeps ``n_split =
-    ceil(span / ks)`` at 16 or fewer). Fixed by shapes, so a captured
-    graph keeps its grid."""
+    ``span = max_blocks * block_size`` positions (or a contiguous cache
+    of ``span`` positions): splits of ``ks`` positions (a multiple of
+    128, the least that keeps ``n_split = ceil(span / ks)`` at 16 or
+    fewer). Fixed by shapes, so a captured graph keeps its grid. The
+    multi-query kernel cuts every row at ``ks``; the decode kernels take
+    ``n_split`` as their grid and cut each row by its own length
+    (`decode_split_length`)."""
     ks = _SPLIT_UNIT * -(-span // (_SPLIT_UNIT * _MAX_SPLITS))
     return ks, -(-span // ks)
 
 
 def paged_mq_partials_reference(q, k_pool, v_pool, tables, pos, ks: int,
                                 scale=None):
-    """The split-K kernels' first half in plain PyTorch: for q ``[B, W,
-    H, D]`` (query i of row b sees logical positions ``<= pos[b] + i``)
+    """The multi-query kernel's first half in plain PyTorch: for q ``[B,
+    W, H, D]`` (query i of row b sees logical positions ``<= pos[b] + i``)
     and each split of ``ks`` positions of the table's reach, every
     query's softmax state over the positions of that split it may see:
     ``(m, l, acc)``, f32, ``m, l [n_split, B, W, H]``, ``acc [n_split, B,
@@ -178,14 +188,55 @@ def paged_mq_partials_reference(q, k_pool, v_pool, tables, pos, ks: int,
     return torch.stack(ms), torch.stack(ls), torch.stack(accs)
 
 
+def decode_split_length(seen, n_split: int):
+    """The decode kernels' split rule: the positions a split of a row
+    holds, for ``seen`` (int tensor) positions in view and a grid of
+    ``n_split`` splits a row. A row that sees at most `_ONE_CTA`
+    positions takes them all in one CTA, which writes the output itself;
+    a longer row is cut into splits of the least multiple of 128
+    positions that keeps it to ``n_split`` splits."""
+    unit = _SPLIT_UNIT * n_split
+    return torch.where(seen <= _ONE_CTA, seen,
+                       _SPLIT_UNIT * ((seen + unit - 1) // unit))
+
+
+def decode_partials_reference(q, k, v, pos, n_split: int, scale=None):
+    """The decode kernels' first half in plain PyTorch: for q ``[B, H,
+    D]`` against a contiguous cache ``k, v [B, S, H, D]`` (row b sees
+    positions ``<= min(pos[b], S - 1)``), cut as the kernels cut it
+    (`decode_split_length` over a grid of ``n_split`` splits a row), each
+    split's softmax state in split order: ``m, l [n_split, B, H]``,
+    ``acc [n_split, B, H, D]``, f32, as `paged_mq_partials_reference`
+    defines them (softmax scale ``D**-0.5`` unless ``scale`` is given). A
+    split past a row's last holds ``(NEG_INF, 0, 0)``.
+    `paged_merge_reference` turns the states into the output."""
+    s_len, d = k.shape[1], k.shape[3]
+    scale = d ** -0.5 if scale is None else scale
+    scores = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * scale
+    seen = pos.long().clamp(-1, s_len - 1) + 1
+    ks = decode_split_length(seen, n_split).clamp(min=1)
+    t = torch.arange(s_len, device=q.device)[None]
+    piece = torch.where(t < seen[:, None], t // ks[:, None], -1)   # [B, S]
+    ms, ls, accs = [], [], []
+    for sp in range(n_split):
+        see = (piece == sp)[:, None, :]
+        sc = torch.where(see, scores, NEG_INF)
+        m = sc.amax(dim=-1)
+        p = torch.where(see, torch.exp(sc - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhs,bshd->bhd", p, v.float()))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
 def paged_decode_partials_reference(q, k_pool, v_pool, tables, pos,
-                                    ks: int, scale=None):
-    """`paged_mq_partials_reference` for the decode kernel's one query
-    per row: q ``[B, H, D]``; states ``[n_split, B, H]`` and ``[n_split,
-    B, H, D]``."""
-    m, l, acc = paged_mq_partials_reference(q[:, None], k_pool, v_pool,
-                                            tables, pos, ks, scale)
-    return m[:, :, 0], l[:, :, 0], acc[:, :, 0]
+                                    n_split: int, scale=None):
+    """`decode_partials_reference` through a paged pool: the paged decode
+    kernel cuts a row as the contiguous-cache one does, over the table's
+    reach ``max_blocks * block_size``."""
+    return decode_partials_reference(q, gather_kv_pages(k_pool, tables),
+                                     gather_kv_pages(v_pool, tables), pos,
+                                     n_split, scale)
 
 
 def paged_merge_reference(m, l, acc):
@@ -309,47 +360,46 @@ def _padded_heads(*xs):
     return tuple(pad_last_dim(x, dk) for x in xs), d
 
 
-def _launch_dense_decode(q, k, v, pos):
-    """q [B, H, D] against a contiguous cache k, v [B, S, H, D]."""
+def _launch_split_decode(op, q, k, v, pos, tables=None):
+    """One launch of a decode kernel: q [B, H, D] against a contiguous
+    cache k, v [B, S, H, D] (``decode_kernel``, counted in
+    `decode_attention`) or, with ``tables [B, max_blocks]``, pools
+    [n_blocks, bs, H, D] (``paged_decode_kernel``, counted in
+    `paged_decode_attention`). The grid is (B * H, n_split), n_split from
+    `split_geometry` of the cache's span; each row's split length comes
+    from pos on the device (`decode_split_length`)."""
     from ray_tpu_torch.ops import _build
-    op = "decode_attention"
     (q, k, v), d = _padded_heads(q, k, v)
-    _check_kernel_inputs(op, q, k, v, pos=pos)
-    b, s, h, dk = k.shape
-    if q.shape[0] != b or pos.shape != (b,):
-        raise ValueError(f"{op}: q {tuple(q.shape)} / pos "
-                         f"{tuple(pos.shape)} do not match batch {b}")
-    out = torch.empty_like(q)
-    err = _build.load().rtt_decode(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), b, s, h, dk, d ** -0.5, _KERNEL_DTYPES[q.dtype],
-        _stream(q))
-    _build.check(err, op)
-    decode_attention.launches += 1
-    return trim_last_dim(out, d)
-
-
-def _launch_decode(q, k_pool, v_pool, tables, pos):
-    from ray_tpu_torch.ops import _build
-    op = "paged_decode_attention"
-    (q, k_pool, v_pool), d = _padded_heads(q, k_pool, v_pool)
-    _check_kernel_inputs(op, q, k_pool, v_pool, tables=tables, pos=pos)
+    index = {"pos": pos} if tables is None else {"tables": tables,
+                                                 "pos": pos}
+    _check_kernel_inputs(op, q, k, v, **index)
     b, h, dk = q.shape
-    bs, mb = k_pool.shape[1], tables.shape[1]
-    if tables.shape[0] != b or pos.shape != (b,):
-        raise ValueError(f"{op}: tables {tuple(tables.shape)} / pos "
-                         f"{tuple(pos.shape)} do not match batch {b}")
-    ks, n_split = split_geometry(mb * bs)
+    lead, name = (k, "k") if tables is None else (tables, "tables")
+    if lead.shape[0] != b or pos.shape != (b,):
+        raise ValueError(f"{op}: q {tuple(q.shape)} / {name} "
+                         f"{tuple(lead.shape)} / pos {tuple(pos.shape)} do "
+                         f"not match batch {b}")
+    bs = k.shape[1]
+    span = bs if tables is None else bs * tables.shape[1]
+    n_split = split_geometry(span)[1]
     out = torch.empty_like(q)
     ws = torch.empty(b * h * n_split * (2 + dk), dtype=torch.float32,
                      device=q.device)
-    err = _build.load().rtt_paged_decode(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        tables.data_ptr(), pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        _tickets(q, b * h).data_ptr(), b, h, dk, bs, mb, ks, n_split,
-        d ** -0.5, _KERNEL_DTYPES[q.dtype], _stream(q))
-    _build.check(err, op)
-    paged_decode_attention.launches += 1
+    lib = _build.load()
+    common = (out.data_ptr(), ws.data_ptr(), _tickets(q, b * h).data_ptr())
+    tail = (n_split, _ONE_CTA, d ** -0.5, _KERNEL_DTYPES[q.dtype],
+            _stream(q))
+    if tables is None:
+        err = lib.rtt_decode(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             pos.data_ptr(), *common, b, span, h, dk, *tail)
+        _build.check(err, op)
+        decode_attention.launches += 1
+    else:
+        err = lib.rtt_paged_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), tables.data_ptr(),
+            pos.data_ptr(), *common, b, h, dk, bs, tables.shape[1], *tail)
+        _build.check(err, op)
+        paged_decode_attention.launches += 1
     return trim_last_dim(out, d)
 
 
@@ -429,9 +479,14 @@ def decode_attention(q, k, v, pos, *, impl: str = "auto",
     Returns ``[B, H, D]`` in q.dtype. ``block_kv`` is accepted for
     signature parity with the JAX package and ignored: the kernel skips
     every position past ``pos[b]`` at run time. A head dim that is not a
-    multiple of 8 runs zero-padded (a copy of the cache per call).
+    multiple of 8 runs zero-padded (a copy of the cache per call). A row
+    with ``pos[b] < 0`` sees nothing: the kernel writes zeros there.
 
-    The kernel replaces `ray_tpu/ops/decode_attention.py::_decode_kernel`.
+    The kernel replaces `ray_tpu/ops/decode_attention.py::_decode_kernel`:
+    one launch per call, a row of more than `_ONE_CTA` positions split
+    across CTAs and merged in split order inside the launch, a shorter
+    one in one CTA; the grid is fixed by shapes and pos is read on the
+    device, so the call can be captured in a CUDA graph.
     """
     del block_kv
     if q.ndim != 3 or k.ndim != 4:
@@ -440,7 +495,7 @@ def decode_attention(q, k, v, pos, *, impl: str = "auto",
             f"got {tuple(q.shape)} and {tuple(k.shape)}")
     if _resolve_impl(impl, "decode_attention", q) == "plain":
         return reference_decode_attention(q, k, v, pos)
-    return _launch_dense_decode(q, k, v, pos)
+    return _launch_split_decode("decode_attention", q, k, v, pos)
 
 
 decode_attention.launches = 0
@@ -454,12 +509,13 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
     (``pos [B]`` int32, each >= 0). Returns ``[B, H, D]`` in q.dtype.
 
     The kernel replaces `ray_tpu/ops/decode_attention.py::_paged_kernel`:
-    one launch per call, each row's key range split across CTAs
-    (`split_geometry`) and merged in split order inside the launch; the
-    grid is fixed by shapes and pos and tables are read on the device,
-    so the call can be captured in a CUDA graph. A head dim that is not
-    a multiple of 8 runs zero-padded, q and both pools copied for that
-    call (the reference's padding); others up to 256 run as they are.
+    the body of `decode_attention`'s kernel, reading K/V through the
+    table: one launch per call, a long row's key range split across CTAs
+    and merged in split order inside the launch; the grid is fixed by
+    shapes and pos and tables are read on the device, so the call can be
+    captured in a CUDA graph. A head dim that is not a multiple of 8 runs
+    zero-padded, q and both pools copied for that call (the reference's
+    padding); others up to 256 run as they are.
     """
     if q.ndim != 3 or k_pool.ndim != 4 or tables.ndim != 2:
         raise ValueError(
@@ -470,7 +526,8 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
     if _resolve_impl(impl, "paged_decode_attention", q) == "plain":
         return reference_paged_decode_attention(q, k_pool, v_pool, tables,
                                                 pos)
-    return _launch_decode(q, k_pool, v_pool, tables, pos)
+    return _launch_split_decode("paged_decode_attention", q, k_pool,
+                                v_pool, pos, tables)
 
 
 paged_decode_attention.launches = 0

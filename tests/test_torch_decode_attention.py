@@ -266,10 +266,12 @@ NEG_INF_F32 = torch.tensor(tda.NEG_INF, dtype=torch.float32).item()
 def _split_inputs(kind, bs, d, seed):
     """numpy (q, k_pool, v_pool, tables, pos) for 3 rows (prefill: row 0's
     table, pos = start) whose windows put KS - 1, KS and KS + 1 positions
-    in view, start at 0 and reach the table's last row."""
+    in view, start at 0 and reach the table's last row. Decode rows see
+    P - 1, P and P + 1 positions for a split boundary P above `_ONE_CTA`
+    (tables of `_ONE_CTA` + 300 positions or more), so every row splits."""
     rng = np.random.default_rng(seed)
     h = 2
-    mb = -(-320 // bs)
+    mb = -(-(tda._ONE_CTA + 300 if kind == "decode" else 320) // bs)
     span = mb * bs
     ks, _ = tda.split_geometry(span)
     b = 3
@@ -282,7 +284,8 @@ def _split_inputs(kind, bs, d, seed):
         pos = np.asarray([ks - 33], np.int32)
         tables = tables[:1]
     elif kind == "decode":
-        pos = np.asarray([ks - 2, ks - 1, ks], np.int32)    # KS-1, KS, KS+1
+        edge = tda._ONE_CTA + ks
+        pos = np.asarray([edge - 2, edge - 1, edge], np.int32)
     else:
         pos = np.asarray([0, ks - w, span - w], np.int32)   # last row: S-1
     shape = (len(pos), h, d) if kind == "decode" else (len(pos), w, h, d)
@@ -315,7 +318,8 @@ def test_split_partials_and_merge_match_jax(kind, bs, d):
     ks, n_split = tda.split_geometry(tables.shape[1] * bs)
     assert ks == 128 and n_split >= 3
     if kind == "decode":
-        parts = tda.paged_decode_partials_reference(tq, tk, tv, tt, tp, ks)
+        parts = tda.paged_decode_partials_reference(tq, tk, tv, tt, tp,
+                                                    n_split)
     else:
         parts = tda.paged_mq_partials_reference(tq, tk, tv, tt, tp, ks)
     m, l, acc = parts
@@ -323,6 +327,9 @@ def test_split_partials_and_merge_match_jax(kind, bs, d):
     # a split a query sees nothing of holds (NEG_INF, 0, 0)
     dead = m == NEG_INF_F32
     assert dead.any() and torch.all(l[dead] == 0)
+    if kind == "decode":     # every row splits, the last one split more
+        live = (~dead).sum(dim=0)[:, 0].tolist()
+        assert live[0] == live[1] > 1 and live[2] == live[1] + 1
     got = tda.paged_merge_reference(m, l, acc)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=ATOL)
 
@@ -416,12 +423,88 @@ def test_padded_ragged_head_dims_match_jax(kind, d):
     assert dk % 8 == 0 and 0 < dk - d < 8
     tq, tk, tv = (pad_last_dim(torch.from_numpy(a), dk) for a in (q, kp, vp))
     assert torch.all(tk[..., d:] == 0)
-    ks, _ = tda.split_geometry(tables.shape[1] * 16)
-    fn = (tda.paged_decode_partials_reference if kind == "decode"
-          else tda.paged_mq_partials_reference)
+    ks, n_split = tda.split_geometry(tables.shape[1] * 16)
+    fn, cut = ((tda.paged_decode_partials_reference, n_split)
+               if kind == "decode" else (tda.paged_mq_partials_reference, ks))
     got = tda.paged_merge_reference(*fn(tq, tk, tv, torch.from_numpy(tables),
-                                        torch.from_numpy(pos), ks,
+                                        torch.from_numpy(pos), cut,
                                         d ** -0.5))
     assert torch.all(got[..., d:] == 0)
     np.testing.assert_allclose(got[..., :d].numpy(), want, atol=ATOL,
                                rtol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the contiguous-cache decode kernel's split rule (shared by the paged one)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_split", [1, 3, 8, 16])
+def test_decode_split_length_rule(n_split):
+    """A row that sees at most `_ONE_CTA` positions is one split of all
+    of them; a longer one is cut into splits of a multiple of 128
+    positions, at most ``n_split`` of them, the fewest positions a split
+    that does so; nothing is left over."""
+    one = tda._ONE_CTA
+    seen = torch.arange(0, 4 * 128 * n_split + 1)
+    ks = tda.decode_split_length(seen, n_split)
+    short = seen <= one
+    assert torch.equal(ks[short], seen[short])
+    long_ks, long_seen = ks[~short], seen[~short]
+    assert torch.all(long_ks % 128 == 0)
+    n_live = -(-long_seen // long_ks)
+    assert torch.all(n_live <= n_split)
+    assert torch.all(n_live >= min(2, n_split))
+    wide = long_ks > 128              # one unit less would need more splits
+    assert torch.all(-(-long_seen[wide] // (long_ks[wide] - 128)) > n_split)
+
+
+def _decode_split_case(s, d, pos, seed):
+    rng = np.random.default_rng(seed)
+    b, h = len(pos), 2
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v, np.asarray(pos, np.int32)
+
+
+def _decode_positions(s):
+    """Rows around the one-CTA threshold T and a 128-position split
+    boundary above it (seeing P - 1, P and P + 1 positions), pos 0, the
+    cache's last row and a pos past it."""
+    t = tda._ONE_CTA
+    edge = t + 128
+    return [0, t - 1, t, edge - 2, edge - 1, edge, s - 1, s + 40]
+
+
+@pytest.mark.parametrize("s,d", [(tda._ONE_CTA + 256, 64),
+                                 (tda._ONE_CTA + 172, 100)])
+def test_decode_split_partials_match_jax(s, d):
+    """The decode kernel's arithmetic in plain PyTorch (each row cut by
+    `decode_split_length`, per-split states merged in split order)
+    against JAX's Pallas `_decode_kernel` in interpret mode, f32, atol
+    1e-5. Rows that take one CTA sit beside rows that split, with
+    positions just before, at and just after a split boundary, pos 0 and
+    pos past S. Pallas takes S only at a multiple of 128 (or up to 128):
+    a ragged S runs there on the cache zero-padded to the next multiple
+    (the mask hides the padding), with pos past S clamped to S - 1 first,
+    as the kernels clamp it. D 100 runs zero-padded to 104 with the true
+    scale, as the wrapper hands it to the kernel."""
+    q, k, v, pos = _decode_split_case(s, d, _decode_positions(s), seed=s + d)
+    sp = -(-s // 128) * 128
+    pad = ((0, 0), (0, sp - s), (0, 0), (0, 0))
+    want = np.asarray(jda.decode_attention(
+        jnp.asarray(q), jnp.asarray(np.pad(k, pad)),
+        jnp.asarray(np.pad(v, pad)), jnp.asarray(np.minimum(pos, s - 1)),
+        impl="pallas"))
+    _, n_split = tda.split_geometry(s)
+    dk = tda.kernel_head_dim(d)
+    tq, tk, tv = (pad_last_dim(torch.from_numpy(a), dk) for a in (q, k, v))
+    m, l, acc = tda.decode_partials_reference(tq, tk, tv,
+                                              torch.from_numpy(pos),
+                                              n_split, d ** -0.5)
+    live = (m > NEG_INF_F32).sum(dim=0)[:, 0]       # splits per row
+    assert live.tolist()[:2] == [1, 1] and live[2] > 1
+    assert live[3] == live[4] and live[4] + 1 == live[5]
+    assert m.shape[0] == n_split
+    got = tda.paged_merge_reference(m, l, acc)[..., :d]
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=ATOL)

@@ -56,6 +56,14 @@ def test_no_source_imports_jax_or_ray_tpu():
     assert not pat.search("from ray_tpu_torch.models import gpt")
 
 
+def test_chip_smoke_imports_no_jax_or_ray_tpu():
+    """chip_smoke.py drives the port on the card, where JAX is not
+    installed: it imports neither it nor the JAX package."""
+    pat = re.compile(r"^\s*(import\s+(jax|ray_tpu)\b(?!_)"
+                     r"|from\s+(jax|ray_tpu)\b(?!_))", re.M)
+    assert not pat.search((ROOT / "chip_smoke.py").read_text())
+
+
 def test_default_device_is_cuda_and_raises_without_one():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is usable")

@@ -57,17 +57,26 @@ def _inputs(dev, dtype, b, h, d, bs, mb, seed=0):
 @pytest.mark.parametrize("d", [32, 64, 96, 128, 8, 100, 136, 256])
 @pytest.mark.parametrize("bs", [8, 16, 32, 64, 24])
 def test_decode_kernel_matches_plain(dev, dtype, d, bs):
-    """Split-K decode: tables of 300 or more positions (3 splits of 128),
-    rows that see 1 position, a block's end and the next block's start,
-    KS - 1, KS and KS + 1 positions, and the table's last row. D 100 runs
-    zero-padded to 104."""
-    b, h = 8, 3
-    mb = -(-300 // bs)
-    ks, _ = da.split_geometry(mb * bs)
+    """Split-K decode: tables of `_ONE_CTA` + 300 positions or more (6
+    splits of 128 and more). Rows that take one CTA see 1 position, a
+    block's end, the next block's start and `_ONE_CTA` positions; rows
+    that split see P - 1, P and P + 1 positions for a split boundary P
+    above `_ONE_CTA` (mid-block at block 24) and the table's last row,
+    or run past it. D 100 runs zero-padded to 104."""
+    h = 3
+    mb = -(-(da._ONE_CTA + 300) // bs)
+    ks, n_split = da.split_geometry(mb * bs)
+    edge = da._ONE_CTA + ks
+    rows = [0, bs - 1, bs, da._ONE_CTA - 1, edge - 2, edge - 1, edge,
+            mb * bs - 1, mb * bs + 7]
+    b = len(rows)
     g, kp, vp, tables = _inputs(dev, dtype, b, h, d, bs, mb)
     q = torch.randn((b, h, d), generator=g, device=dev).to(dtype)
-    pos = torch.tensor([0, bs - 1, bs, ks - 2, ks - 1, ks, mb * bs - 1,
-                        mb * bs + 7], dtype=torch.int32, device=dev)
+    pos = torch.tensor(rows, dtype=torch.int32, device=dev)
+    seen = pos.clamp(max=mb * bs - 1) + 1
+    live = -(-seen // da.decode_split_length(seen, n_split))
+    assert live[:4].tolist() == [1] * 4 and live[4] == live[5] > 1
+    assert live[6] == live[5] + 1
     n = da.paged_decode_attention.launches
     got = da.paged_decode_attention(q, kp, vp, tables, pos)
     assert da.paged_decode_attention.launches == n + 1
@@ -120,13 +129,21 @@ _SERVING = dict(b=8, h=16, d=64, bs=16, mb=64)   # bench_infer.py's pool
 
 def _serving_call(dev, kind):
     """(fn, args, pos index) for one split-K call at the serving shapes
-    (bf16): decode at B 8, a 64-token prefill chunk at start 960, or a
+    (bf16): decode at B 8 through the pool or over a contiguous [8, 1024,
+    16, 64] cache ("dense"), a 64-token prefill chunk at start 960, or a
     W 4 verify; pos is args[pos index], a device tensor."""
     sv = _SERVING
     g, kp, vp, tables = _inputs(dev, torch.bfloat16, sv["b"], sv["h"],
                                 sv["d"], sv["bs"], sv["mb"], seed=3)
     pos = torch.tensor([0, 15, 16, 100, 511, 700, 1000, 1023],
                        dtype=torch.int32, device=dev)
+    if kind == "dense":
+        q = torch.randn((sv["b"], sv["h"], sv["d"]), generator=g,
+                        device=dev).bfloat16()
+        k, v = (torch.randn((sv["b"], sv["mb"] * sv["bs"], sv["h"],
+                             sv["d"]), generator=g, device=dev).bfloat16()
+                for _ in range(2))
+        return da.decode_attention, [q, k, v, pos], 3
     if kind == "decode":
         q = torch.randn((sv["b"], sv["h"], sv["d"]), generator=g,
                         device=dev).bfloat16()
@@ -142,7 +159,7 @@ def _serving_call(dev, kind):
     return da.paged_verify_attention, [q, kp, vp, tables, pos], 4
 
 
-@pytest.mark.parametrize("kind", ["decode", "prefill", "verify"])
+@pytest.mark.parametrize("kind", ["decode", "prefill", "verify", "dense"])
 def test_split_kernels_are_deterministic_and_capturable(dev, kind):
     """At the serving shapes: two calls give bit-identical outputs (the
     split-order merge), the output matches the plain version, and a CUDA
@@ -153,13 +170,14 @@ def test_split_kernels_are_deterministic_and_capturable(dev, kind):
     fn, args, ip = _serving_call(dev, kind)
     first, second = fn(*args), fn(*args)
     assert torch.equal(first, second)
-    ref_fn = {da.paged_decode_attention:
+    ref_fn = {da.decode_attention: da.reference_decode_attention,
+              da.paged_decode_attention:
               da.reference_paged_decode_attention,
               da.paged_prefill_attention:
               da.reference_paged_prefill_attention,
               da.paged_verify_attention:
               da.reference_paged_verify_attention}[fn]
-    if kind == "decode":
+    if kind in ("decode", "dense"):
         torch.testing.assert_close(first.float(), ref_fn(*args).float(),
                                    **TOL[torch.bfloat16])
     side = torch.cuda.Stream()
@@ -176,6 +194,9 @@ def test_split_kernels_are_deterministic_and_capturable(dev, kind):
     torch.cuda.synchronize()
     assert torch.equal(captured, fn(*args))
     assert not torch.equal(captured, first)
+    if kind in ("decode", "dense"):
+        torch.testing.assert_close(captured.float(), ref_fn(*args).float(),
+                                   **TOL[torch.bfloat16])
 
 
 def test_unsupported_inputs_raise_instead_of_falling_back(dev):
@@ -301,20 +322,44 @@ def test_flash_unsupported_inputs_raise(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [8, 32, 48, 64, 96, 120, 128, 100, 136, 256])
 def test_dense_decode_kernel_matches_plain(dev, dtype, d):
-    """A ragged cache length, pos 0, mid-cache, S - 1 and past S; f32
-    above 128 takes two vectors a lane, D 100 runs zero-padded to 104."""
+    """A ragged cache length, pos 0, mid-cache, S - 1 and past S; a row
+    that takes one CTA (seeing `_ONE_CTA` positions) beside rows that
+    split (seeing one more; a split boundary's count and one more than
+    that); f32 above 128 takes two vectors a lane, D 100 runs zero-padded
+    to 104."""
     g = torch.Generator(device=dev).manual_seed(d)
-    b, s, h = 4, 300, 3
+    one = da._ONE_CTA
+    b, s, h = 8, da._ONE_CTA + 300, 3
     q = torch.randn((b, h, d), generator=g, device=dev).to(dtype)
     k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
             for _ in range(2))
-    pos = torch.tensor([0, 100, s - 1, s + 50], dtype=torch.int32,
-                       device=dev)
+    pos = torch.tensor([0, 100, one - 1, one, one + 127, one + 128,
+                        s - 1, s + 50], dtype=torch.int32, device=dev)
     n = da.decode_attention.launches
     got = da.decode_attention(q, k, v, pos)
     assert da.decode_attention.launches == n + 1
     ref = da.reference_decode_attention(q, k, v, pos)
     torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("kind", ["decode", "dense"])
+def test_decode_row_that_sees_nothing_writes_zeros(dev, kind):
+    """A row with pos < 0 sees no position: the decode kernels write
+    zeros there on every call (the output is never left unwritten),
+    and the other rows still match the plain version."""
+    fn, args, ip = _serving_call(dev, kind)
+    args[ip][2] = -1
+    out = torch.full_like(args[0], float("nan"))
+    for _ in range(2):
+        got = fn(*args)
+        assert torch.all(got[2] == 0)
+        out.copy_(got)
+    keep = torch.arange(len(args[ip]), device=dev) != 2
+    ref_fn = (da.reference_decode_attention if kind == "dense"
+              else da.reference_paged_decode_attention)
+    torch.testing.assert_close(out[keep].float(),
+                               ref_fn(*args)[keep].float(),
+                               **TOL[torch.bfloat16])
 
 
 # ---------------------------------------------------------------------------
