@@ -87,7 +87,21 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    against plain attention, then a trainer step: tensor-core kernels at
    96 and 100, padded to 128, CUDA-core kernels at 256), an engine at
    block 64 on the D 96 model against a dense f32 forward, and the fused
-   loss at each width against the dense loss.
+   loss at each width against the dense loss;
+11. int8 serving: (a) the int8 instances of the paged kernels (int8
+   pool, one f32 scale per (position, head) row) against their plain
+   versions at phase 1's shapes, decode at DECODE_POS, prefill at
+   PREFILL_CASES and verify at W 5, f32 and bf16 q (bf16 multi-query
+   within an extra 2^-8 P|V|), each once a call, bit-identical twice and
+   replayed exactly from a CUDA graph with a new pos; the decode and C 64
+   prefill times beside the bf16 kernels' (phase 1), plain and bound (no
+   library call dequantizes and attends); (b) phase 2's traffic through
+   an engine with ``kv_dtype="int8"`` and one with ``weight_dtype="int8"``
+   as well: every paged launch an int8 kernel's, ``kv_bytes_per_token``
+   2 D / (D + 4) = 1.88x under the bf16 engine's, logprobs against the
+   bf16 engine's (printed), one ``update_params`` of the same weights
+   (tokens unchanged, ``quantize_traces`` unchanged, ``params_version``
+   1), decode p50/p99 and tok/s, and phase 3's teacher-forced check.
 
 Before the phases it prints the registers and spilled bytes of every
 tensor-core kernel and of the two split-K decode kernels from nvcc's
@@ -516,7 +530,8 @@ def phase_engine(dev, cfg_kwargs, seed: int, new_tokens: int = 64):
             "decode_steps", "prefill_time_s", "decode_time_s",
             "prefill_tok_s", "decode_tok_s", "p50_token_latency_ms",
             "p99_token_latency_ms", "ttft_ms_p50", "ttft_ms_p99",
-            "prefix_hit_tokens", "cow_copies", "slot_occupancy")
+            "prefix_hit_tokens", "cow_copies", "slot_occupancy",
+            "pool_bytes", "kv_bytes_per_token")
     summary = {k: st[k] for k in keep}
     summary.update(requests=len(reqs), wall_s=wall, launches=launches,
                    host_syncs=syncs)
@@ -569,13 +584,17 @@ def phase_teacher_forced(dev, cfg_kwargs, seed, reqs, outs) -> dict:
 
 
 def check_paged_launches(launches: dict, layers: int, ticks: int,
-                         chunks: int):
+                         chunks: int, int8: bool = False):
     """The bf16 engine's paged kernels: one split-K decode launch per
     layer a tick, one tensor-core multi-query launch per layer a prefill
-    chunk, and never the CUDA-core multi-query kernel."""
+    chunk, and never the CUDA-core multi-query kernel; on an int8 pool
+    (``int8``) every one of them the int8 instance, else none."""
     want = {"paged_decode_attention": layers * ticks,
             "paged_prefill_attention": layers * chunks,
-            "paged_mq_tc": layers * chunks, "paged_mq_simt": 0}
+            "paged_decode_int8": layers * ticks * int8,
+            "paged_mq_tc": layers * chunks * (not int8),
+            "paged_mq_tc_int8": layers * chunks * int8,
+            "paged_mq_simt": 0, "paged_mq_simt_int8": 0}
     got = {k: launches[k] for k in want}
     if got != want:
         fail(f"paged kernel launches {got}, want {want}")
@@ -1725,26 +1744,357 @@ def phase_c1(dev) -> dict:
     return out
 
 
+# Phase 11: int8 serving. (a) the int8 instances of the paged kernels at
+# phase 1's shapes; (b) phase 2's traffic through an engine with an int8
+# pool ("kv") and one with int8 weights as well ("kv+w"), at SERVE_CFG.
+INT8_VERIFY_W = 5
+INT8_ENGINES = {"kv": dict(kv_dtype="int8"),
+                "kv+w": dict(kv_dtype="int8", weight_dtype="int8")}
+
+
+def same_and_capturable(name, fn, args, kw, ip, new_pos, counter) -> bool:
+    """Fails unless ``fn(*args, **kw)`` launches its kernel once a call
+    (`LAUNCHES[counter]`), gives bit-identical outputs twice, and a CUDA
+    graph that captured one call, replayed after ``args[ip]`` (pos, on
+    the device) took ``new_pos``, gives exactly what an eager call with
+    the new pos gives (and not the old output). Restores ``args[ip]``."""
+    import torch
+    from ray_tpu_torch.ops import decode_attention as da
+    n = da.LAUNCHES[counter]
+    first, second = fn(*args, **kw), fn(*args, **kw)
+    if da.LAUNCHES[counter] != n + 2:
+        fail(f"{name}: {da.LAUNCHES[counter] - n} {counter} launches for "
+             f"two calls")
+    if not torch.equal(first, second):
+        fail(f"{name}: two calls on the same inputs differ")
+    old = args[ip].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args, **kw)                 # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = fn(*args, **kw)
+    args[ip].copy_(new_pos)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = fn(*args, **kw)
+    args[ip].copy_(old)
+    if not torch.equal(captured, eager) or torch.equal(captured, first):
+        fail(f"{name}: the CUDA graph's replay with a new pos is not the "
+             f"eager call's output")
+    return True
+
+
+def phase_int8_kernels(dev, kern) -> dict:
+    """(a) The int8 paged kernels against their plain versions on the
+    same int8 payloads and scales (quantized on the card from normal
+    rows): decode at B 8 over the 513 x 16 pool at DECODE_POS, prefill
+    at PREFILL_CASES, verify at W 5, each in f32 and bf16 q (bf16
+    multi-query within an extra 2^-8 P|V|, V dequantized); one launch a
+    call, bit-identical twice and exact CUDA-graph replay with a new pos
+    (bf16); device times of decode and of the C 64 prefill beside the bf16
+    kernels' phase 1 times, the plain versions' and the bound (int8
+    payload plus 4 bytes of scale a row). No single PyTorch call
+    dequantizes and attends, so there is no library time."""
+    import torch
+    from ray_tpu_torch.ops import decode_attention as da
+    from ray_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def int8_pool():
+        (kq, ks), (vq, vs) = (quant.quantize_rows(torch.randn(
+            (NB, BS, H, D), generator=g, device=dev)) for _ in range(2))
+        return kq, vq, ks, vs
+
+    # TIME_SETS int8 pools; a decode call at DECODE_POS reads 7.3 MB of
+    # one, so 8 sets pass 58 MB between two uses of a set.
+    pools = [int8_pool() for _ in range(TIME_SETS)]
+    kq, vq, ks, vs = pools[0]
+    sc = dict(k_scale=ks, v_scale=vs)
+    kdeq, vdeq = quant.dequantize_rows(kq, ks), quant.dequantize_rows(vq, vs)
+    perm = torch.randperm(NB - 1, generator=g, device=dev) + 1
+    tables = perm[:8 * MB].view(8, MB).to(torch.int32).contiguous()
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
+    rows_seen = sum(p + 1 for p in DECODE_POS)
+    report = {}
+
+    def decode(q, kq_, vq_, t, p, ks_, vs_):
+        return da.paged_decode_attention(q, kq_, vq_, t, p, k_scale=ks_,
+                                         v_scale=vs_)
+
+    def decode_plain(q, kq_, vq_, t, p, ks_, vs_):
+        return da.reference_paged_decode_attention(q, kq_, vq_, t, p,
+                                                   k_scale=ks_, v_scale=vs_)
+
+    rec = {"cases": []}
+    q32 = torch.randn((8, H, D), generator=g, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        q = q32.to(dt)
+        name = str(dt).split(".")[-1]
+        err = check("int8 paged decode",
+                    da.paged_decode_attention(q, kq, vq, tables, pos, **sc),
+                    da.reference_paged_decode_attention(q, kq, vq, tables,
+                                                        pos, **sc),
+                    name, f"(a) paged_decode int8 {name:8s} B=8 "
+                    f"pos={DECODE_POS}")
+        rec["cases"].append({"dtype": name, "max_abs_err": err,
+                             "atol_rtol": TOL[name]})
+    q = q32.bfloat16()
+    rec["deterministic_capturable"] = same_and_capturable(
+        "int8 paged decode", da.paged_decode_attention,
+        [q, kq, vq, tables, pos.clone()], sc, 4, pos.flip(0),
+        "paged_decode_int8")
+    args = [(q, *p[:2], tables, pos, *p[2:]) for p in pools]
+    rec["ms"] = time_ms(decode, args)
+    rec["plain_ms"] = time_ms(decode_plain, args)
+    rec["library_ms"] = None
+    rec["bf16_ms"] = kern["paged_decode"]["ms"]
+    nbytes = (2 * q.numel() * 2 + rows_seen * H * (D + 4) * 2
+              + sum(p // BS + 1 for p in DECODE_POS) * 4 + 8 * 4)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        nbytes, rows_seen * H * D * 4, torch.bfloat16)
+    rec["shape"] = (f"bf16 q[8,{H},{D}] int8 pool[{NB},{BS},{H},{D}] + "
+                    f"scales pos={list(DECODE_POS)}")
+    report["paged_decode_int8"] = rec
+
+    def prefill(q, kq_, vq_, t, start, ks_, vs_):
+        return da.paged_prefill_attention(q, kq_, vq_, t, start, k_scale=ks_,
+                                          v_scale=vs_)
+
+    def prefill_plain(q, kq_, vq_, t, start, ks_, vs_):
+        return da.reference_paged_prefill_attention(q, kq_, vq_, t, start,
+                                                    k_scale=ks_, v_scale=vs_)
+
+    rec = {"cases": []}
+    table = tables[0].contiguous()
+    for c, start in PREFILL_CASES:
+        q32 = torch.randn((c, H, D), generator=g, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            q = q32.to(dt)
+            name = str(dt).split(".")[-1]
+            extra = None
+            if dt == torch.bfloat16:
+                extra = 2 ** -8 * da.reference_paged_prefill_attention(
+                    q.float(), kdeq, vdeq.abs(), table, start)
+            before = dict(da.LAUNCHES)
+            got = da.paged_prefill_attention(q, kq, vq, table, start, **sc)
+            want = ("paged_mq_tc_int8" if dt == torch.bfloat16
+                    else "paged_mq_simt_int8")
+            if {k: da.LAUNCHES[k] - before[k] for k in before} != \
+                    {k: int(k == want) for k in before}:
+                fail(f"int8 paged prefill {name} did not launch {want} once")
+            err = check("int8 paged prefill", got,
+                        prefill_plain(q, kq, vq, table, start, ks, vs), name,
+                        f"(a) paged_prefill int8 {name:8s} C={c:2d} "
+                        f"start={start:3d}", extra=extra)
+            rec["cases"].append({"dtype": name, "C": c, "start": start,
+                                 "max_abs_err": err, "atol_rtol": TOL[name]})
+    c, start = PREFILL_CASES[-1]
+    q = q32.bfloat16()
+    s_len = start + c
+    start_t = torch.full((1,), start, dtype=torch.int32, device=dev)
+    rec["deterministic_capturable"] = same_and_capturable(
+        "int8 paged prefill", da.paged_prefill_attention,
+        [q, kq, vq, table, start_t.clone()], sc, 4, start_t - 900,
+        "paged_mq_tc_int8")
+    rows = [tables[r].contiguous() for r in range(8)]
+    args = [(q, *p[:2], t, start_t, *p[2:]) for p in pools for t in rows]
+    rec["ms"] = time_ms(prefill, args)
+    rec["plain_ms"] = time_ms(prefill_plain, args)
+    rec["library_ms"] = None
+    rec["bf16_ms"] = kern["paged_prefill"]["ms"]
+    seen = sum(start + i + 1 for i in range(c))
+    nbytes = (2 * q.numel() * 2 + s_len * H * (D + 4) * 2
+              + (-(-s_len // BS)) * 4 + 4)
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, seen * H * D * 4,
+                                             torch.bfloat16)
+    rec["shape"] = (f"bf16 q[{c},{H},{D}] start={start} int8 "
+                    f"pool[{NB},{BS},{H},{D}] + scales")
+    report["paged_prefill_int8"] = rec
+
+    # verify (W 5 query rows a sequence; no path of the port calls it yet)
+    rec = {"cases": []}
+    vpos = pos.clamp(max=MB * BS - INT8_VERIFY_W)
+    q32 = torch.randn((8, INT8_VERIFY_W, H, D), generator=g, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        q = q32.to(dt)
+        name = str(dt).split(".")[-1]
+        extra = None
+        if dt == torch.bfloat16:
+            extra = 2 ** -8 * da.reference_paged_verify_attention(
+                q.float(), kdeq, vdeq.abs(), tables, vpos)
+        err = check("int8 paged verify",
+                    da.paged_verify_attention(q, kq, vq, tables, vpos, **sc),
+                    da.reference_paged_verify_attention(q, kq, vq, tables,
+                                                        vpos, **sc),
+                    name, f"(a) paged_verify int8 {name:8s} "
+                    f"W={INT8_VERIFY_W}", extra=extra)
+        rec["cases"].append({"dtype": name, "max_abs_err": err})
+    rec["deterministic_capturable"] = same_and_capturable(
+        "int8 paged verify", da.paged_verify_attention,
+        [q, kq, vq, tables, vpos.clone()], sc, 4, vpos.flip(0),
+        "paged_mq_tc_int8")
+    report["paged_verify_int8"] = rec
+    for name in ("paged_decode_int8", "paged_prefill_int8"):
+        r = report[name]
+        print(f"  (a) {name}: kernel {r['ms']:.4f} ms (bf16 pool "
+              f"{r['bf16_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
+              f"none, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+              f"[{r['shape']}]; one launch a call, bit-identical twice, "
+              f"CUDA-graph replay exact")
+    return report
+
+
+def phase_int8_engine(dev, which: str, reqs, bf16_outs, bf16_eng,
+                      seed: int = 0, new_tokens: int = 64) -> dict:
+    """(b) Phase 2's traffic through an `InferenceReplica` at SERVE_CFG
+    with ``INT8_ENGINES[which]``: every paged attention launch an int8
+    kernel's; the pool gauges against the bf16 engine's (K or V row of
+    a position: 2 D bytes against D + 4); logprobs against the bf16
+    engine's (bench_infer.py's quality proxy, printed); one
+    `update_params` of the same weights (f32 masters from the seed):
+    greedy tokens unchanged, quantize_traces unchanged, params_version 1;
+    then phase 3's teacher-forced check."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve import InferenceReplica
+
+    cfg_kwargs = {**SERVE_CFG, **INT8_ENGINES[which]}
+    layers = cfg_kwargs["n_layers"]
+    replica = InferenceReplica(cfg_kwargs, slots=8, max_len=1024, seed=seed,
+                               engine_kwargs=dict(block_size=16), device=dev)
+    eng = replica.engine
+    rng = np.random.default_rng(1)
+    for gen in [replica(rng.integers(0, cfg_kwargs["vocab_size"], 128),
+                        max_new_tokens=8) for _ in range(2)]:
+        list(gen)
+    eng.reset_stats()
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    outs = [list(gen) for gen in [replica(p, max_new_tokens=new_tokens,
+                                          temperature=t) for p, t in reqs]]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    st = eng.stats()
+    eng.check_invariants()
+    if any(len(o) != new_tokens for o in outs):
+        fail(f"int8 engine {which} cut a request short")
+    check_paged_launches(launches, layers, st["decode_steps"],
+                         st["prefill_chunks"], int8=True)
+    ratio = bf16_eng["kv_bytes_per_token"] / st["kv_bytes_per_token"]
+    want = 2 * D / (D + 4)
+    if abs(ratio / want - 1) > 1e-9:
+        fail(f"int8 engine {which}: kv_bytes_per_token {ratio:.4f}x "
+             f"smaller than bf16's, want {want:.4f}x")
+    deltas = [abs(a.logprob - b.logprob)
+              for (_, temp), mine, theirs in zip(reqs, outs, bf16_outs)
+              if temp == 0 for a, b in zip(mine, theirs)]
+    same = [int(a) == int(b) for (_, temp), mine, theirs
+            in zip(reqs, outs, bf16_outs) if temp == 0
+            for a, b in zip(mine, theirs)]
+    # the swap: fresh greedy prompts (no prefix shared with anything
+    # cached) before and after one update_params of the same weights
+    probe = [rng.integers(0, cfg_kwargs["vocab_size"], 96) for _ in range(2)]
+    before = [list(gen) for gen in [replica(p, max_new_tokens=16)
+                                    for p in probe]]
+    traces = eng.quantize_traces
+    version = eng.update_params(gpt.init_params(seed, eng.cfg, dev))
+    after = [list(gen) for gen in [replica(p, max_new_tokens=16)
+                                   for p in probe]]
+    sw = eng.stats()
+    if [[int(t) for t in o] for o in after] != \
+            [[int(t) for t in o] for o in before]:
+        fail(f"int8 engine {which}: greedy tokens changed across a swap of "
+             f"the same weights")
+    if not (version == sw["params_version"] == 1
+            and all(t.params_version == 1 for o in after for t in o)
+            and sw["quantize_traces"] == traces
+            == int("weight_dtype" in INT8_ENGINES[which])
+            and sw["swaps"] == 1):
+        fail(f"int8 engine {which}: after the swap params_version "
+             f"{sw['params_version']}, quantize_traces "
+             f"{sw['quantize_traces']} (was {traces}), swaps {sw['swaps']}")
+    eng.check_invariants()
+    paged = ("paged_decode_int8", "paged_mq_tc_int8", "paged_mq_tc",
+             "paged_mq_simt", "paged_mq_simt_int8")
+    out = {k: st[k] for k in (
+        "prefill_tokens", "decode_tokens", "prefill_chunks", "decode_steps",
+        "prefill_tok_s", "decode_tok_s", "p50_token_latency_ms",
+        "p99_token_latency_ms", "prefix_hit_tokens", "cow_copies",
+        "pool_bytes", "kv_bytes_per_token", "quantize_traces")}
+    out.update(wall_s=wall, launches=launches,
+               kv_bytes_ratio_vs_bf16=ratio,
+               pool_bytes_ratio_vs_bf16=bf16_eng["pool_bytes"]
+               / st["pool_bytes"],
+               logprob_delta_vs_bf16_mean=float(np.mean(deltas)),
+               logprob_delta_vs_bf16_max=float(np.max(deltas)),
+               tokens_same_as_bf16=float(np.mean(same)),
+               weight_swap_ms=sw["weight_swap_ms"],
+               params_version=sw["params_version"])
+    print(f"  (b) {which}: {len(reqs)} requests in {wall:.2f} s; prefill "
+          f"{st['prefill_tok_s']:.1f} tok/s, decode {st['decode_tok_s']:.1f} "
+          f"tok/s, decode step p50 {st['p50_token_latency_ms']:.3f} ms p99 "
+          f"{st['p99_token_latency_ms']:.3f} ms (bf16 engine "
+          f"{bf16_eng['p50_token_latency_ms']:.3f} / "
+          f"{bf16_eng['p99_token_latency_ms']:.3f}); kv_bytes_per_token "
+          f"{st['kv_bytes_per_token']:.0f} ({ratio:.4f}x under bf16's "
+          f"{bf16_eng['kv_bytes_per_token']:.0f}), pool "
+          f"{st['pool_bytes'] / 2**20:.1f} MiB; |logprob - bf16 engine's| "
+          f"mean {out['logprob_delta_vs_bf16_mean']:.4f} max "
+          f"{out['logprob_delta_vs_bf16_max']:.4f}, greedy tokens the same "
+          f"{out['tokens_same_as_bf16']:.1%}; launches "
+          f"{ {k: launches[k] for k in paged} }; "
+          f"swap: tokens unchanged, params_version 1, quantize_traces "
+          f"{sw['quantize_traces']}, weight_swap_ms "
+          f"{sw['weight_swap_ms']:.1f}")
+    del replica, eng
+    torch.cuda.empty_cache()
+    out["teacher_forced"] = phase_teacher_forced(dev, cfg_kwargs, seed, reqs,
+                                                 outs)
+    return out
+
+
+def phase_int8(dev, kern, reqs, bf16_outs, bf16_eng) -> dict:
+    """Phase 11: int8 serving, (a) the kernels, (b) the two engines; the
+    kernels line's int8 rows read the "kv+w" engine's launches."""
+    out = {"kernels": phase_int8_kernels(dev, kern)}
+    out["engines"] = {w: phase_int8_engine(dev, w, reqs, bf16_outs, bf16_eng)
+                      for w in INT8_ENGINES}
+    return out
+
+
 def _readable_kernel(mangled: str):
     """A readable name for an instantiation of a tensor-core kernel or of
     a split-K decode kernel (``flash_dq_tc_kernel<64, true>``,
-    ``paged_mq_tc_kernel<64>``, ``paged_decode_kernel<bf16, 8, 1>``,
-    ``decode_kernel<bf16, 8, 1>``), or None for the others."""
+    ``paged_mq_tc_kernel<64>``, ``paged_mq_tc_kernel<64, int8>``,
+    ``paged_decode_kernel<bf16, 8, 1>``, ``paged_decode_kernel<bf16,
+    int8, 8, 1>``, ``decode_kernel<bf16, 8, 1>``), or None for the
+    others."""
     k = re.search(r"((?:flash|xent)_[a-z_]*?tc_kernel)(?:ILi(\d+)ELb([01])E)?",
                   mangled)
     if k:
         return k.group(1) + (
             f"<{k.group(2)}, {'true' if k.group(3) == '1' else 'false'}>"
             if k.group(2) else "")
-    k = re.search(r"paged_mq_tc_kernelILi(\d+)E", mangled)
+    k = re.search(r"paged_mq_tc_kernelILi(\d+)ELb([01])E", mangled)
     if k:
-        return f"paged_mq_tc_kernel<{k.group(1)}>"
+        return (f"paged_mq_tc_kernel<{k.group(1)}"
+                f"{', int8' if k.group(2) == '1' else ''}>")
+    # the paged kernel's second type is its pool's: T again (f, or a
+    # substitution S_, S0_, ... for bf16) or int8_t (a)
     k = re.search(r"(paged_|\d)decode_kernelI(f|13__nv_bfloat16)"
-                  r"Li(\d+)ELi(\d+)E", mangled)
+                  r"(f|a|S\d*_)?Li(\d+)ELi(\d+)E", mangled)
     if k:
         name = "paged_decode" if k.group(1) == "paged_" else "decode"
         dt = "f32" if k.group(2) == "f" else "bf16"
-        return f"{name}_kernel<{dt}, {k.group(3)}, {k.group(4)}>"
+        pool = ", int8" if k.group(3) == "a" else ""
+        return f"{name}_kernel<{dt}{pool}, {k.group(4)}, {k.group(5)}>"
     return None
 
 
@@ -1910,9 +2260,11 @@ def main() -> int:
                     dev, cfg_kwargs, kern_regs)
     c1 = phase(10, "head dims 96, 100, 256, pool block 64, loss widths 384, "
                "1600, 4096", phase_c1, dev)
+    int8 = phase(11, "int8 serving (int8 pool, int8 weights)", phase_int8,
+                 dev, kern, reqs, outs, eng)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
                   flash=flash, train=train, xent=xent, fused_train=fused,
-                  unpaged=unpaged, c1=c1)
+                  unpaged=unpaged, c1=c1, int8=int8)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1921,7 +2273,8 @@ def main() -> int:
     # launches: each kernel's count over its own path's main run (phase 2
     # for serving, phase 6 (c) for training with the dense loss, phase 8
     # (c) for bench.py's fused-loss training, phase 9 (b) for the unpaged
-    # path), counters zeroed just before
+    # path, phase 11 (b)'s "kv+w" engine for int8 serving), counters
+    # zeroed just before
     for key, wrapper, replaces, rec, launches, src in (
             ("paged_decode", "paged_decode_attention",
              "ray_tpu/ops/decode_attention.py:282", kern["paged_decode"],
@@ -1947,7 +2300,15 @@ def main() -> int:
              "fused_xent.cu"),
             ("decode", "decode_attention",
              "ray_tpu/ops/decode_attention.py:110", unpaged["kernel"],
-             unpaged["launches"], "paged_attention.cu")):
+             unpaged["launches"], "paged_attention.cu"),
+            ("paged_decode_int8", "paged_decode_int8",
+             "ray_tpu/ops/decode_attention.py:282",
+             int8["kernels"]["paged_decode_int8"],
+             int8["engines"]["kv+w"]["launches"], "paged_attention.cu"),
+            ("paged_prefill_int8", "paged_mq_tc_int8",
+             "ray_tpu/ops/decode_attention.py:424",
+             int8["kernels"]["paged_prefill_int8"],
+             int8["engines"]["kv+w"]["launches"], "paged_attention.cu")):
         rows.append({"name": key, "route": "cuda",
                      "source": f"ray_tpu_torch/ops/csrc/{src}",
                      "replaces": replaces, "launches": launches[wrapper],
@@ -1978,6 +2339,15 @@ def main() -> int:
                     k: rec["contexts"][k] for k in (
                         "ms", "plain_ms", "library_ms", "bound_ms",
                         "bound_by")}
+        elif key in ("paged_decode_int8", "paged_prefill_int8"):
+            # the int8 branch of the TPU kernel (an int8 pool, bf16 q):
+            # the kernel's int8 instance, one launch per call, and the
+            # bf16-pool kernel's time on the same shapes (phase 1)
+            rows[-1].update(
+                kernels=["paged_decode_kernel<bf16, int8>"
+                         if key == "paged_decode_int8"
+                         else "paged_mq_tc_kernel<int8>"],
+                bf16_pool_ms=rec["bf16_ms"])
         elif key == "paged_prefill":
             # bf16: the tensor-core split-K kernel, one launch per call
             rows[-1].update(kernels=["paged_mq_tc_kernel"],

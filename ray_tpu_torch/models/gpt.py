@@ -36,9 +36,18 @@ Differences from the JAX module, all deliberate:
   kernels do the unembed products themselves, so the ``[B, T, V]``
   logits never exist) are kernels of this repository.
 
-Not ported yet (ROADMAP): ring attention (``attn_impl="ring"``), meshes
-(A9) and the int8 paths; their config values raise
-`NotImplementedError`.
+Int8 serving, as in the reference: ``kv_dtype="int8"`` makes the paged
+pool int8 with one f32 scale per (position, head) row, quantized at
+write (`ops.quant.quantize_rows`) and dequantized inside the paged
+attention kernels; ``weight_dtype="int8"`` serves a model from
+`quantize_params` (per-output-channel int8 layer weights, each
+dequantized to the activation dtype at use before its `torch.matmul`,
+as the reference's ``_w`` leaves it to XLA). Training and the unpaged
+``prefill``/``decode_step`` run full-precision weights only and refuse a
+quantized model.
+
+Not ported yet (ROADMAP): ring attention (``attn_impl="ring"``) and
+meshes (A9); their config values raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ from torch.utils import checkpoint as ckpt
 from ray_tpu_torch.ops import decode_attention as da
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import fused_xent as fx
+from ray_tpu_torch.ops import quant
 
 @dataclass(frozen=True)
 class GPTConfig:
@@ -75,8 +85,12 @@ class GPTConfig:
     # tensors (the plain version on the CPU); "jax" selects the plain
     # version everywhere, as it selects the pure-JAX path in ray_tpu.
     decode_attn_impl: str = "auto"   # auto | pallas | jax
-    kv_dtype: str = "f32"            # f32 | int8 (int8 not ported yet)
-    weight_dtype: str = "f32"        # f32 | int8 (int8 not ported yet)
+    # Paged pool payload: "f32" keeps the activation dtype; "int8" stores
+    # int8 rows plus one f32 scale per (position, head) row.
+    kv_dtype: str = "f32"            # f32 | int8
+    # Layer weights of the paged forwards: "int8" serves a model from
+    # `quantize_params` (the engine quantizes the model it is given).
+    weight_dtype: str = "f32"        # f32 | int8
     prefill_attn_impl: str = "auto"  # auto | pallas | jax
 
     @property
@@ -112,7 +126,7 @@ def resolve_device(device=None) -> torch.device:
 
 def check_quant_cfg(cfg: GPTConfig) -> bool:
     """Validate the inference knobs; returns True when the KV pool is
-    int8 (never, in this slice: int8 raises `NotImplementedError`)."""
+    int8."""
     if cfg.kv_dtype not in ("f32", "int8"):
         raise ValueError(f"unknown kv_dtype {cfg.kv_dtype!r} (expected "
                          "'f32' | 'int8')")
@@ -123,12 +137,7 @@ def check_quant_cfg(cfg: GPTConfig) -> bool:
         if getattr(cfg, knob) not in ("auto", "pallas", "jax"):
             raise ValueError(f"unknown {knob} {getattr(cfg, knob)!r} "
                              "(expected 'auto' | 'pallas' | 'jax')")
-    if cfg.kv_dtype == "int8" or cfg.weight_dtype == "int8":
-        raise NotImplementedError(
-            "int8 KV pools and int8 weights are not ported yet (ROADMAP "
-            "queue A: int8 serving; queue B: int8 paths of the paged "
-            "kernels)")
-    return False
+    return cfg.kv_dtype == "int8"
 
 
 # ---------------------------------------------------------------------------
@@ -168,13 +177,23 @@ def init_params(seed: int, cfg: GPTConfig, device=None) -> dict:
     }
 
 
+# The per-layer matmul weights the int8 weight-only path quantizes; norm
+# scales, embed and pos_embed keep their dtype.
+QUANTIZED_WEIGHTS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
+
+
 class GPT(nn.Module):
     """The model's weights, in one dtype on one device (`resolve_device`:
     the card unless ``device`` says otherwise). ``params`` is a tree
     shaped like `init_params`'s (tensors or numpy arrays); each leaf is
     copied in as a parameter of ``dtype`` (default: the config's
     activation dtype), frozen unless ``trainable`` (training holds f32
-    masters: ``dtype=torch.float32, trainable=True``)."""
+    masters: ``dtype=torch.float32, trainable=True``).
+
+    A tree from `quantize_params` (the port's or the reference's, carried
+    across) holds int8 `QUANTIZED_WEIGHTS` leaves, each beside an f32
+    ``"<name>_scale"`` ``[L, Out]`` leaf: both keep their dtypes, and the
+    model is ``quantized`` (frozen, for the paged forwards)."""
 
     def __init__(self, cfg: GPTConfig, params: dict, *, device=None,
                  dtype: torch.dtype | None = None, trainable: bool = False):
@@ -183,10 +202,10 @@ class GPT(nn.Module):
         dtype = cfg.activation_dtype() if dtype is None else dtype
         device = resolve_device(device)
 
-        def leaf(x):
+        def leaf(x, dt=dtype):
             t = (x if isinstance(x, torch.Tensor)
                  else torch.from_numpy(np.array(x)))   # writable copy
-            t = t.to(device=device, dtype=dtype)
+            t = t.to(device=device, dtype=dt)
             return nn.Parameter(t.contiguous(), requires_grad=trainable)
 
         n, d, h, f = (cfg.n_layers, cfg.d_model,
@@ -197,6 +216,13 @@ class GPT(nn.Module):
                        "wq": (n, d, h), "wk": (n, d, h), "wv": (n, d, h),
                        "wo": (n, h, d), "w_up": (n, d, f),
                        "w_gate": (n, d, f), "w_down": (n, f, d)}
+        layers = params["layers"]
+        scales = {w + "_scale": (n, want_layers[w][-1])
+                  for w in QUANTIZED_WEIGHTS if w + "_scale" in layers}
+        self.quantized = bool(scales)
+        if self.quantized and trainable:
+            raise ValueError("a quantized model (int8 weights) cannot be "
+                             "trained; train the f32 masters")
         for name, shape in want.items():
             if tuple(params[name].shape) != shape:
                 raise ValueError(f"param {name} has shape "
@@ -204,12 +230,21 @@ class GPT(nn.Module):
                                  f"{shape}")
             setattr(self, name, leaf(params[name]))
         self.layers = nn.ParameterDict()
-        for name, shape in want_layers.items():
-            x = params["layers"][name]
+        for name, shape in {**want_layers, **scales}.items():
+            x = layers[name]
             if tuple(x.shape) != shape:
                 raise ValueError(f"param layers.{name} has shape "
                                  f"{tuple(x.shape)}, config wants {shape}")
-            self.layers[name] = leaf(x)
+            dt = dtype
+            if name in scales:
+                dt = torch.float32
+            elif name + "_scale" in scales:
+                if str(x.dtype) not in ("int8", "torch.int8"):
+                    raise ValueError(f"param layers.{name} has a scale "
+                                     f"sibling but dtype {x.dtype}, want "
+                                     "int8")
+                dt = torch.int8
+            self.layers[name] = leaf(x, dt)
 
     @property
     def device(self) -> torch.device:
@@ -225,24 +260,64 @@ class GPT(nn.Module):
                 zip(*(self.layers[n].unbind(0) for n in names))]
 
 
+def param_tree(model: GPT) -> dict:
+    """The model's parameters as the reference's nested dict (the
+    tensors themselves, no copy)."""
+    return {"embed": model.embed, "pos_embed": model.pos_embed,
+            "final_ln_scale": model.final_ln_scale,
+            "layers": dict(model.layers.items())}
+
+
+def quantize_params(model: GPT) -> GPT:
+    """A new model on the same device for ``weight_dtype="int8"``
+    serving: every `QUANTIZED_WEIGHTS` leaf ``[L, In, Out]`` becomes an
+    int8 leaf beside an ``"<name>_scale"`` f32 ``[L, Out]`` leaf
+    (`ops.quant.quantize_channels` of the model's weights in f32); the
+    other leaves are copied in their dtype. ``model`` is left as it
+    was. Counterpart of the reference's ``quantize_params``."""
+    if model.quantized:
+        raise ValueError("quantize_params: the model is quantized already")
+    tree = {k: v.detach().clone() for k, v in param_tree(model).items()
+            if k != "layers"}
+    layers = {}
+    with torch.no_grad():
+        for name, w in model.layers.items():
+            if name in QUANTIZED_WEIGHTS:
+                layers[name], layers[name + "_scale"] = \
+                    quant.quantize_channels(w)
+            else:
+                layers[name] = w.detach().clone()
+    return GPT(model.cfg, {**tree, "layers": layers}, device=model.device,
+               dtype=model.embed.dtype)
+
+
 def params_from_numpy(tree: dict, cfg: GPTConfig, device=None,
                       dtype: torch.dtype | None = None,
                       trainable: bool = False) -> GPT:
     """Carry a JAX param pytree across: ``tree`` is
     ``jax.tree.map(np.asarray, params)`` (nested dict of numpy arrays,
-    stacked ``[L, ...]`` layer leaves, ``[in, out]`` weights). For
-    training pass ``dtype=torch.float32, trainable=True``."""
+    stacked ``[L, ...]`` layer leaves, ``[in, out]`` weights; a tree from
+    the reference's ``quantize_params`` keeps its int8 leaves and f32
+    scales). For training pass ``dtype=torch.float32, trainable=True``."""
     return GPT(cfg, tree, device=device, dtype=dtype, trainable=trainable)
 
 
 def params_to_numpy(model: GPT) -> dict:
     """The reverse carry: the model's parameters as the JAX package's
-    nested dict of float32 numpy arrays."""
+    nested dict of numpy arrays, float32 (int8 leaves stay int8)."""
     def host(p):
-        return p.detach().float().cpu().numpy()
-    return {"embed": host(model.embed), "pos_embed": host(model.pos_embed),
-            "final_ln_scale": host(model.final_ln_scale),
-            "layers": {n: host(p) for n, p in model.layers.items()}}
+        p = p.detach()
+        return (p if p.dtype == torch.int8 else p.float()).cpu().numpy()
+    tree = param_tree(model)
+    return {k: ({n: host(p) for n, p in v.items()} if k == "layers"
+                else host(v)) for k, v in tree.items()}
+
+
+def _full_precision(model: GPT, what: str) -> None:
+    if model.quantized:
+        raise ValueError(f"{what} runs full-precision weights only; this "
+                         "model holds int8 weights (quantize_params), which "
+                         "serve the paged forwards")
 
 
 def _rms_norm(x, scale):
@@ -282,7 +357,12 @@ def _layer(lp: dict, x, cfg: GPTConfig, attend):
     nh, hd = cfg.n_heads, cfg.head_dim
 
     def w(name):
-        return lp[name].to(adt)
+        # an int8 weight: dequantized through its per-channel scale in
+        # f32, then cast (the reference's ``_w``)
+        scale = lp.get(name + "_scale")
+        if scale is None:
+            return lp[name].to(adt)
+        return (lp[name].float() * scale[..., None, :]).to(adt)
 
     h = _rms_norm(x, w("ln1_scale"))
     q = _mm(h, w("wq"), cfg).view(n, nh, hd)
@@ -365,6 +445,7 @@ def _remat_context(cfg: GPTConfig):
 
 
 def _features(model: GPT, tokens, cfg: GPTConfig, emb, with_kv=False):
+    _full_precision(model, "the full-sequence forward")
     t = tokens.shape[1]
     adt = cfg.activation_dtype()
     x = emb[tokens] + model.pos_embed[:t].to(adt)[None]
@@ -513,6 +594,7 @@ def decode_step(model: GPT, tokens, cache: dict, pos,
     sync. Returns ``(logits [B, vocab] f32, cache)``."""
     cfg = model.cfg if cfg is None else cfg
     check_quant_cfg(cfg)
+    _full_precision(model, "decode_step")
     adt = cfg.activation_dtype()
     b = tokens.shape[0]
     max_len = cache["k"].shape[2]
@@ -544,18 +626,27 @@ def decode_step(model: GPT, tokens, cache: dict, pos,
 
 def init_kv_pool(cfg: GPTConfig, n_blocks: int, block_size: int,
                  device=None) -> dict:
-    """Paged cache {"k", "v"} of ``[L, n_blocks, block_size, H, Dh]`` in
-    the activation dtype, zero-filled. ``"k_rows"``/``"v_rows"`` are the
-    same storage seen as ``[L, n_blocks * block_size + 1, H, Dh]`` flat
-    rows: the last row of each layer is the sink that dropped writes land
-    in. Block 0 is the engine's trash block by convention."""
-    check_quant_cfg(cfg)
+    """Paged cache {"k", "v"} of ``[L, n_blocks, block_size, H, Dh]``,
+    zero-filled: the activation dtype, or for ``kv_dtype="int8"`` int8
+    payloads beside {"k_scale", "v_scale"} f32 ``[L, n_blocks,
+    block_size, H]``, one scale per (position, head) row (a zero row
+    dequantizes to zeros). Each entry's ``"<name>_rows"`` is the same
+    storage seen as flat rows, ``[L, n_blocks * block_size + 1, ...]``:
+    the last row of each layer is the sink that dropped writes land in,
+    payload and scale alike. Block 0 is the engine's trash block by
+    convention."""
+    quantized = check_quant_cfg(cfg)
     device = resolve_device(device)
     rows = n_blocks * block_size
+    payload = torch.int8 if quantized else cfg.activation_dtype()
+    entries = {"k": ((cfg.n_heads, cfg.head_dim), payload),
+               "v": ((cfg.n_heads, cfg.head_dim), payload)}
+    if quantized:
+        entries.update(k_scale=((cfg.n_heads,), torch.float32),
+                       v_scale=((cfg.n_heads,), torch.float32))
     pool = {}
-    for name in ("k", "v"):
-        flat = torch.zeros((cfg.n_layers, rows + 1, cfg.n_heads,
-                            cfg.head_dim), dtype=cfg.activation_dtype(),
+    for name, (tail, dt) in entries.items():
+        flat = torch.zeros((cfg.n_layers, rows + 1) + tail, dtype=dt,
                            device=device)
         pool[name + "_rows"] = flat
         pool[name] = flat[:, :rows].unflatten(1, (n_blocks, block_size))
@@ -563,19 +654,36 @@ def init_kv_pool(cfg: GPTConfig, n_blocks: int, block_size: int,
 
 
 def copy_block(cache: dict, src: int, dst: int) -> dict:
-    """Copy physical block ``src`` onto ``dst`` in every layer, in place —
-    the device half of copy-on-write prefix sharing."""
-    for name in ("k", "v"):
-        cache[name][:, dst].copy_(cache[name][:, src])
+    """Copy physical block ``src`` onto ``dst`` in every entry of the
+    pool (an int8 pool's scales with their payload), in place — the
+    device half of copy-on-write prefix sharing."""
+    for name, blocks in cache.items():
+        if not name.endswith("_rows"):
+            blocks[:, dst].copy_(blocks[:, src])
     return cache
 
 
-def _scatter_kv(k_rows, v_rows, k, v, widx):
-    """Write ``k``/``v`` [N, H, Dh] into one layer's flat rows (sink
+def _scatter_kv(cache: dict, i: int, k, v, widx):
+    """Write ``k``/``v`` [N, H, Dh] into layer ``i``'s flat rows (sink
     included) at ``widx [N]`` in place; rows JAX would drop point at the
-    sink (``widx == n_blocks * bs``)."""
-    k_rows.index_copy_(0, widx, k.to(k_rows.dtype))
-    v_rows.index_copy_(0, widx, v.to(v_rows.dtype))
+    sink (``widx == n_blocks * bs``). An int8 pool quantizes at the write
+    (`ops.quant.quantize_rows`) and lands each row's scale through the
+    same index."""
+    if "k_scale" in cache:
+        (k, ks), (v, vs) = quant.quantize_rows(k), quant.quantize_rows(v)
+        cache["k_scale_rows"][i].index_copy_(0, widx, ks)
+        cache["v_scale_rows"][i].index_copy_(0, widx, vs)
+    for name, x in (("k", k), ("v", v)):
+        rows = cache[name + "_rows"][i]
+        rows.index_copy_(0, widx, x.to(rows.dtype))
+
+
+def _pool_scales(cache: dict, i: int) -> dict:
+    """Layer ``i``'s scale arguments of the paged attention wrappers
+    (none for a float pool)."""
+    if "k_scale" not in cache:
+        return {}
+    return {"k_scale": cache["k_scale"][i], "v_scale": cache["v_scale"][i]}
 
 
 def prefill_paged(model: GPT, tokens, cache: dict, cfg: GPTConfig, *,
@@ -587,7 +695,9 @@ def prefill_paged(model: GPT, tokens, cache: dict, cfg: GPTConfig, *,
     over the whole prefix (`ops.decode_attention.paged_prefill_attention`,
     ``cfg.prefill_attn_impl``), and the returned logits ``[1, vocab]`` f32
     are the chunk's last real position. ``start``/``length`` are host
-    ints; the pool is updated in place and returned."""
+    ints; the pool is updated in place and returned. An int8 pool
+    quantizes the chunk's K/V at the write; a model from
+    `quantize_params` dequantizes each weight at use."""
     check_quant_cfg(cfg)
     b, c = tokens.shape
     if b != 1:
@@ -596,22 +706,24 @@ def prefill_paged(model: GPT, tokens, cache: dict, cfg: GPTConfig, *,
     length = c if length is None else int(length)
     start = int(start)
     dev = tokens.device
+    adt = cfg.activation_dtype()
     table = block_table
     mb = table.shape[0]
     offs = torch.arange(c, device=dev)
     positions = start + offs
     blk = table[torch.clamp(positions // bs, max=mb - 1)].long()
     widx = torch.where(offs < length, blk * bs + positions % bs, nb * bs)
-    x = model.embed[tokens[0]] + model.pos_embed[
-        torch.clamp(positions, max=cfg.max_seq_len - 1)]
+    x = model.embed[tokens[0]].to(adt) + model.pos_embed[
+        torch.clamp(positions, max=cfg.max_seq_len - 1)].to(adt)
     start_t = positions[:1].to(torch.int32)   # device-resident start
     layers = model.layer_params()
 
     for i in range(cfg.n_layers):
         def attend(q, k, v, i=i):
-            _scatter_kv(cache["k_rows"][i], cache["v_rows"][i], k, v, widx)
+            _scatter_kv(cache, i, k, v, widx)
             return da.paged_prefill_attention(
                 q, cache["k"][i], cache["v"][i], table, start_t,
+                **_pool_scales(cache, i),
                 impl=cfg.prefill_attn_impl).reshape(c, -1)
 
         x = _layer(layers[i], x, cfg, attend)
@@ -627,7 +739,8 @@ def decode_step_paged(model: GPT, tokens, cache: dict, pos, tables,
     table go to the sink) and attends over logical positions ``<= pos``
     (`ops.decode_attention.paged_decode_attention`,
     ``cfg.decode_attn_impl``). Returns ``(logits [B, vocab] f32, cache)``;
-    the pool is updated in place."""
+    the pool is updated in place. Int8 pools and weights as in
+    `prefill_paged`."""
     check_quant_cfg(cfg)
     nb, bs = cache["k"].shape[1], cache["k"].shape[2]
     mb = tables.shape[1]
@@ -635,16 +748,18 @@ def decode_step_paged(model: GPT, tokens, cache: dict, pos, tables,
     blk = torch.gather(tables, 1, torch.clamp(pos_l // bs, max=mb - 1)
                        [:, None])[:, 0].long()
     widx = torch.where(pos_l < mb * bs, blk * bs + pos_l % bs, nb * bs)
-    x = model.embed[tokens] + model.pos_embed[
-        torch.clamp(pos_l, max=cfg.max_seq_len - 1)]
+    adt = cfg.activation_dtype()
+    x = model.embed[tokens].to(adt) + model.pos_embed[
+        torch.clamp(pos_l, max=cfg.max_seq_len - 1)].to(adt)
     b = tokens.shape[0]
     layers = model.layer_params()
 
     for i in range(cfg.n_layers):
         def attend(q, k, v, i=i):
-            _scatter_kv(cache["k_rows"][i], cache["v_rows"][i], k, v, widx)
+            _scatter_kv(cache, i, k, v, widx)
             return da.paged_decode_attention(
                 q, cache["k"][i], cache["v"][i], tables, pos,
+                **_pool_scales(cache, i),
                 impl=cfg.decode_attn_impl).reshape(b, -1)
 
         x = _layer(layers[i], x, cfg, attend)

@@ -99,6 +99,17 @@
 //   through shared memory to the P V product. It takes block sizes 8, 16
 //   and 32; the Python wrapper presents any other multiple of 8 as one of
 //   them (a [n, 64, H, D] pool is a [2n, 32, H, D] pool).
+// - Int8 pools (the Pallas kernels' quantized branches: int8 K/V with one
+//   f32 scale per (position, head) row, ops/quant.py's quantize_rows):
+//   each paged kernel has an int8 instance that reads the payload and its
+//   row's scale and never dequantizes a pool in memory. The decode body
+//   reads 8 int8 columns (8 bytes) a lane, so it keeps the bf16 lane
+//   geometry, and dequantizes in registers: score (q . k) k_scale, value
+//   p v_scale v; the f32 multi-query kernel dequantizes as it stages a
+//   block; the tensor-core kernel widens int8 tiles to bf16 in shared
+//   memory and applies the scales in f32 around its MMAs (see
+//   paged_mq_tc_kernel). Their bound is the payload plus 4 bytes a row:
+//   at D 64, 68 bytes of K (or V) a row against bf16's 128.
 //
 // Each extern "C" entry launches on the given stream and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a shape it has no
@@ -109,6 +120,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -118,13 +130,17 @@ constexpr int kMaxSplits = 16;     // decode_attention.py's _MAX_SPLITS
 constexpr int kSplitUnit = 128;    // decode_attention.py's _SPLIT_UNIT
 constexpr int kDecodeThreads = 128;   // the decode kernels' CTA
 
+// A lane's vector of a K/V row: 16 bytes of f32 (4 columns) or bf16 (8),
+// 8 bytes of int8 (8 columns, so an int8 pool keeps bf16's lane
+// geometry and takes every head dim that is a multiple of 8).
 template <typename T>
-struct Vec16;
+struct Vec;
 
 template <>
-struct Vec16<float> {
+struct Vec<float> {
+  using Raw = uint4;
   static constexpr int N = 4;
-  __device__ static void unpack(const uint4& raw, float* out) {
+  __device__ static void unpack(const Raw& raw, float* out) {
     const float4 v = *reinterpret_cast<const float4*>(&raw);
     out[0] = v.x;
     out[1] = v.y;
@@ -134,9 +150,10 @@ struct Vec16<float> {
 };
 
 template <>
-struct Vec16<__nv_bfloat16> {
+struct Vec<__nv_bfloat16> {
+  using Raw = uint4;
   static constexpr int N = 8;
-  __device__ static void unpack(const uint4& raw, float* out) {
+  __device__ static void unpack(const Raw& raw, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -147,9 +164,23 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
+template <>
+struct Vec<int8_t> {
+  using Raw = uint2;
+  static constexpr int N = 8;
+  __device__ static void unpack(const Raw& raw, float* out) {
+    const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(c[i]);
+  }
+};
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -230,22 +261,33 @@ __host__ __device__ __forceinline__ int split_length(int seen, int n_split,
 // blockIdx.x, split = blockIdx.y) to [split * ks, split * ks + ks) of
 // them, ks = split_length(seen, gridDim.y, one_cta). ws: B * H * n_split
 // * D floats of acc, then B * H * n_split (m, l) pairs; tickets [B * H]
-// i32, zero between calls. Groups of GP lanes read a key row, NV 16-byte
-// vectors a lane (lane gl's vector j holds columns (j * GP + gl) * VEC
-// ..); vectors at or past D idle.
-template <typename T, int GP, int NV, typename Rows>
+// i32, zero between calls. Groups of GP lanes read a key row, NV vectors
+// a lane (Vec<P>: lane gl's vector j holds columns (j * GP + gl) * VEC
+// ..); vectors at or past D idle. P is the pool's element type: T, or
+// int8_t with per-row f32 scales k_scale, v_scale (one a key row, at the
+// row's index in the [*, H] view): the score of an int8 row is (q .
+// k_int8) k_scale and its value row enters as p v_scale v_int8, so the
+// payload is dequantized in registers and the math stays f32, as the
+// reference dequantizes in VMEM.
+template <typename T, typename P, int GP, int NV, typename Rows>
 __device__ __forceinline__ void decode_split(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, Rows rows, const int* __restrict__ pos,
-    T* __restrict__ out, float* __restrict__ ws, int* __restrict__ tickets,
-    int H, int D, int one_cta, float scale) {
-  constexpr int VEC = Vec16<T>::N;
+    const T* __restrict__ q, const P* __restrict__ k,
+    const P* __restrict__ v, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, Rows rows,
+    const int* __restrict__ pos, T* __restrict__ out, float* __restrict__ ws,
+    int* __restrict__ tickets, int H, int D, int one_cta, float scale) {
+  using PV = Vec<P>;
+  using QV = Vec<T>;
+  constexpr bool Q8 = std::is_same_v<P, int8_t>;
+  constexpr int VEC = PV::N;
+  constexpr int QN = VEC / QV::N;           // q's 16-byte vectors a vector
   constexpr int CV = NV * VEC;
   constexpr int NG = kDecodeThreads / GP;   // key rows per CTA step
   // key rows in flight per group: a 128-position split in one step, at
-  // most 8 16-byte vectors of K and of V a lane
+  // most 8 vectors of K and of V a lane
   constexpr int U = 128 / NG < 1 ? 1 : (128 / NG > 8 / NV ? 8 / NV : 128 / NG);
   static_assert(GP <= 32 && 32 % GP == 0, "bad lane group");
+  static_assert(QN >= 1 && VEC % QV::N == 0, "bad q vector");
   __shared__ float sm_m[NG];
   __shared__ float sm_l[NG];
   __shared__ float sm_acc[NG][GP * CV];
@@ -257,12 +299,15 @@ __device__ __forceinline__ void decode_split(
   const int g = threadIdx.x / GP;
   const int gl = threadIdx.x - g * GP;
   // q's load goes out with pos's, not after it
-  uint4 qr[NV];
+  uint4 qr[NV][QN];
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     const int col = (j * GP + gl) * VEC;
-    qr[j] = col < D ? __ldg(reinterpret_cast<const uint4*>(q + (size_t)bh * D + col))
-                    : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int i = 0; i < QN; ++i)
+      qr[j][i] = col < D ? __ldg(reinterpret_cast<const uint4*>(
+                               q + (size_t)bh * D + col + i * QV::N))
+                         : make_uint4(0, 0, 0, 0);
   }
   // positions this row sees (pos < 0 sees none: split 0 writes zeros)
   const int seen = min(max(pos[b], -1), rows.span() - 1) + 1;
@@ -279,7 +324,9 @@ __device__ __forceinline__ void decode_split(
   rows.stage(b, t0, t1);
   float qf[CV];
 #pragma unroll
-  for (int j = 0; j < NV; ++j) Vec16<T>::unpack(qr[j], qf + j * VEC);
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int i = 0; i < QN; ++i) QV::unpack(qr[j][i], qf + j * VEC + i * QV::N);
 #pragma unroll
   for (int i = 0; i < CV; ++i) qf[i] *= scale;
   __syncthreads();   // the staged rows
@@ -292,21 +339,26 @@ __device__ __forceinline__ void decode_split(
 
   // tb is uniform across the CTA, so every lane reaches every shuffle.
   for (int tb = t0; tb < t1; tb += NG * U) {
-    uint4 kr[U][NV], vr[U][NV];   // raw 16-byte vectors, all in flight
+    typename PV::Raw kr[U][NV], vr[U][NV];   // raw vectors, all in flight
+    float ksr[U], vsr[U];                    // an int8 row's scales
     bool live[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int t = tb + u * NG + g;
       live[u] = t < t1;
       const size_t row = live[u] ? rows.row(b, t, h, H) : 0;
+      if constexpr (Q8) {
+        ksr[u] = live[u] ? __ldg(k_scale + row) : 0.f;
+        vsr[u] = live[u] ? __ldg(v_scale + row) : 0.f;
+      }
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
         const int col = (j * GP + gl) * VEC;
         if (live[u] && col < D) {
-          kr[u][j] = __ldg(reinterpret_cast<const uint4*>(k + row * D + col));
-          vr[u][j] = __ldg(reinterpret_cast<const uint4*>(v + row * D + col));
+          kr[u][j] = __ldg(reinterpret_cast<const typename PV::Raw*>(k + row * D + col));
+          vr[u][j] = __ldg(reinterpret_cast<const typename PV::Raw*>(v + row * D + col));
         } else {
-          kr[u][j] = vr[u][j] = make_uint4(0, 0, 0, 0);
+          kr[u][j] = vr[u][j] = typename PV::Raw{};
         }
       }
     }
@@ -318,13 +370,14 @@ __device__ __forceinline__ void decode_split(
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
         float kf[VEC];
-        Vec16<T>::unpack(kr[u][j], kf);
+        PV::unpack(kr[u][j], kf);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) d += qf[j * VEC + i] * kf[i];
       }
 #pragma unroll
       for (int off = GP / 2; off > 0; off >>= 1)
         d += __shfl_xor_sync(0xffffffffu, d, off);
+      if constexpr (Q8) d *= ksr[u];
       s[u] = live[u] ? d : kNegInf;
       smax = fmaxf(smax, s[u]);
     }
@@ -338,12 +391,14 @@ __device__ __forceinline__ void decode_split(
       if (live[u]) {
         const float p = expf(s[u] - m_new);
         l += p;
+        float pv = p;
+        if constexpr (Q8) pv *= vsr[u];
 #pragma unroll
         for (int j = 0; j < NV; ++j) {
           float vf[VEC];
-          Vec16<T>::unpack(vr[u][j], vf);
+          PV::unpack(vr[u][j], vf);
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) acc[j * VEC + i] += p * vf[i];
+          for (int i = 0; i < VEC; ++i) acc[j * VEC + i] += pv * vf[i];
         }
       }
     }
@@ -419,7 +474,8 @@ __device__ __forceinline__ void decode_split(
   }
 }
 
-// Contiguous cache: k, v [B, S, H, D] read in place.
+// Contiguous cache: k, v [B, S, H, D] read in place (no int8 mode, as in
+// the reference).
 template <typename T, int GP, int NV>
 __global__ void __launch_bounds__(kDecodeThreads)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -427,25 +483,28 @@ __global__ void __launch_bounds__(kDecodeThreads)
                   T* __restrict__ out, float* __restrict__ ws,
                   int* __restrict__ tickets, int H, int D, int S,
                   int one_cta, float scale) {
-  decode_split<T, GP, NV>(q, k, v, CacheRows{S}, pos, out, ws, tickets, H,
-                          D, one_cta, scale);
+  decode_split<T, T, GP, NV>(q, k, v, nullptr, nullptr, CacheRows{S}, pos,
+                             out, ws, tickets, H, D, one_cta, scale);
 }
 
-// Paged pool: pools [n_blocks, bs, H, D]; tables [B, mb] i32; dynamic
-// shared memory for the longest split's table entries.
-template <typename T, int GP, int NV>
+// Paged pool: pools [n_blocks, bs, H, D] of P (T, or int8_t with k_scale,
+// v_scale [n_blocks, bs, H] f32); tables [B, mb] i32; dynamic shared
+// memory for the longest split's table entries.
+template <typename T, typename P, int GP, int NV>
 __global__ void __launch_bounds__(kDecodeThreads)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                        const T* __restrict__ v_pool,
+    paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
+                        const P* __restrict__ v_pool,
+                        const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale,
                         const int* __restrict__ tables,
                         const int* __restrict__ pos, T* __restrict__ out,
                         float* __restrict__ ws, int* __restrict__ tickets,
                         int H, int D, int bs, int mb, int one_cta,
                         float scale) {
   extern __shared__ int dec_tbl[];
-  decode_split<T, GP, NV>(q, k_pool, v_pool,
-                          PoolRows{tables, bs, mb, dec_tbl, 0}, pos, out, ws,
-                          tickets, H, D, one_cta, scale);
+  decode_split<T, P, GP, NV>(q, k_pool, v_pool, k_scale, v_scale,
+                             PoolRows{tables, bs, mb, dec_tbl, 0}, pos, out,
+                             ws, tickets, H, D, one_cta, scale);
 }
 
 
@@ -460,14 +519,17 @@ constexpr size_t mq_smem() {
          sizeof(float);
 }
 
-// q [B, W, H, D]; pools [n_blocks, BS, H, D]; tables [B, mb] i32; pos [B]
-// i32; out [B, W, H, D]. Query i of row b sees logical positions
-// <= pos[b] + i (and < mb * BS). D <= DP: shared tiles are DP wide, zero
-// past D.
-template <typename T, int DP, int BS>
+// q [B, W, H, D]; pools [n_blocks, BS, H, D] of P (T, or int8_t with
+// k_scale, v_scale [n_blocks, BS, H] f32, dequantized as they are staged:
+// the reference's k * k_scale, in f32); tables [B, mb] i32; pos [B] i32;
+// out [B, W, H, D]. Query i of row b sees logical positions <= pos[b] + i
+// (and < mb * BS). D <= DP: shared tiles are DP wide, zero past D.
+template <typename T, typename P, int DP, int BS>
 __global__ void __launch_bounds__(kThreads)
-    paged_mq_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool,
+    paged_mq_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
+                    const P* __restrict__ v_pool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int* __restrict__ tables,
                     const int* __restrict__ pos, T* __restrict__ out, int W,
                     int H, int D, int mb, float scale) {
@@ -522,9 +584,14 @@ __global__ void __launch_bounds__(kThreads)
     const size_t base = (size_t)tbl[j] * BS;
     for (int e = tid; e < BS * DP; e += kThreads) {
       const int t = e / DP, d = e - (e / DP) * DP;
-      const size_t off = ((base + t) * H + h) * D + d;
-      ks[t][d] = d < D ? to_f32(k_pool[off]) : 0.f;
-      vs[t][d] = d < D ? to_f32(v_pool[off]) : 0.f;
+      const size_t row = (base + t) * H + h;
+      if constexpr (std::is_same_v<P, int8_t>) {
+        ks[t][d] = d < D ? to_f32(k_pool[row * D + d]) * k_scale[row] : 0.f;
+        vs[t][d] = d < D ? to_f32(v_pool[row * D + d]) * v_scale[row] : 0.f;
+      } else {
+        ks[t][d] = d < D ? to_f32(k_pool[row * D + d]) : 0.f;
+        vs[t][d] = d < D ? to_f32(v_pool[row * D + d]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -582,13 +649,22 @@ constexpr int QR = 64;         // query rows of a CTA
 constexpr int STAGES = 3;      // K/V tiles in flight
 static_assert(QR <= THREADS, "one merge row a thread");
 
-template <int DP>
+// Shared memory: Q (bf16), then a ring of STAGES stages of K and V. A
+// bf16 pool's stage is its K and V tiles as the MMAs read them; an int8
+// pool's (Q8) is the K and V int8 tiles (rows I_PITCH bytes apart) and
+// their KT f32 scales each, widened to bf16 into one K and one V tile
+// (after the ring) before the MMAs read them.
+template <int DP, bool Q8>
 struct Geom {
   static constexpr int KT = DP > 128 ? 32 : 64;   // keys of a tile
-  static constexpr int PITCH = (DP + 8) * 2;      // bytes of a staged row
+  static constexpr int PITCH = (DP + 8) * 2;      // bytes of a bf16 row
+  static constexpr int I_PITCH = DP + 16;         // bytes of an int8 row
   static constexpr int Q_BYTES = QR * PITCH;
-  static constexpr int TILE_BYTES = KT * PITCH;   // one of K, V
-  static constexpr int RING = Q_BYTES + STAGES * 2 * TILE_BYTES;
+  static constexpr int TILE_BYTES = KT * PITCH;   // one of K, V (bf16)
+  static constexpr int I_TILE_BYTES = KT * I_PITCH + KT * 4;  // int8 + scales
+  static constexpr int STAGE_BYTES = 2 * (Q8 ? I_TILE_BYTES : TILE_BYTES);
+  static constexpr int WIDE = Q_BYTES + STAGES * STAGE_BYTES;  // Q8's bf16 tiles
+  static constexpr int RING = WIDE + (Q8 ? 2 * TILE_BYTES : 0);
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -600,6 +676,15 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 or 8 bytes from global to shared memory, or zeros when !valid.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(uint32_t dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+               "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0)
                : "memory");
 }
 
@@ -656,28 +741,42 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // wr = min(W, 64) rows a state; tickets [B * H * n_tiles] i32, zero
 // between calls.
 //
+// Q8: the pools are int8 [n_blocks, bs, H, D] with k_scale, v_scale
+// [n_blocks, bs, H] f32. A tile's int8 rows and its scales come in by
+// cp.async and are widened to bf16 in shared memory (exact: |x| <= 127)
+// before ldmatrix; each score column is multiplied by its key's k_scale
+// after Q K^T, in f32 (q . (k s) = s (q . k)); each key's v_scale is
+// folded into P's column before P is rounded to bf16 for P V, so the
+// product is sum_t bf16(p_t v_scale_t) v_int8_t, against the reference's
+// f32 sum_t p_t (v_scale_t v_int8_t): one more bf16 rounding of each
+// term, 2^-8 P|V| at most, as for a bf16 pool (l sums the f32 p).
+//
 // Fragments (mma.m16n8k16; lane = 4 g + t): S and O accumulators hold
 // (row g, columns 2t, 2t+1) and (row g + 8, the same columns) of each
 // 8-column block; an A operand (row g | g + 8, k 2t, 2t+1 | 2t+8, 2t+9).
-template <int DP>
+template <int DP, bool Q8>
 __global__ void __launch_bounds__(THREADS)
     paged_mq_tc_kernel(const bf16* __restrict__ q,
-                       const bf16* __restrict__ k_pool,
-                       const bf16* __restrict__ v_pool,
+                       const void* __restrict__ k_pool,
+                       const void* __restrict__ v_pool,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale,
                        const int* __restrict__ tables,
                        const int* __restrict__ pos, bf16* __restrict__ out,
                        float* __restrict__ ws, int* __restrict__ tickets,
                        int W, int H, int D, int bs, int mb, int ks,
                        float scale_log2) {
-  using G = Geom<DP>;
-  constexpr int KT = G::KT, PITCH = G::PITCH;
-  constexpr int CH = DP / 8;           // 16-byte chunks of a staged row
+  using G = Geom<DP, Q8>;
+  constexpr int KT = G::KT, PITCH = G::PITCH, I_PITCH = G::I_PITCH;
+  constexpr int CH = DP / 8;           // 8-column chunks of a staged row
   constexpr int NS = KT / 8;           // 8-key blocks of a tile
   constexpr int NO = DP / 8;           // 8-column blocks of O
   extern __shared__ __align__(16) unsigned char mq_smem_b[];
   const uint32_t sq = smem_addr(mq_smem_b);
   const uint32_t sring = sq + G::Q_BYTES;
   int* tbl_s = reinterpret_cast<int*>(mq_smem_b + G::RING);
+  const char* kp8 = static_cast<const char*>(k_pool);
+  const char* vp8 = static_cast<const char*>(v_pool);
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -709,24 +808,60 @@ __global__ void __launch_bounds__(THREADS)
   }
   __syncthreads();   // tbl_s
 
-  // Tile j's K and V rows into stage st; keys at or past kend, and
-  // columns past D, are zeros.
+  // The pool row (in the [*, H] view) of key t, t < kend.
+  auto key_row = [&](int t) {
+    const int blk = t / bs;
+    return ((size_t)tbl_s[blk - blk0] * bs + (t - blk * bs)) * H + h;
+  };
+  // Tile j's K and V rows (and, Q8, their scales) into stage st; keys at
+  // or past kend, and columns past D, are zeros.
   auto load_tile = [&](int j, int st) {
-    const uint32_t dk = sring + st * 2 * G::TILE_BYTES;
-    const uint32_t dv = dk + G::TILE_BYTES;
+    const uint32_t dk = sring + st * G::STAGE_BYTES;
     const int kt0 = k0 + j * KT;
     for (int e = tid; e < KT * CH; e += THREADS) {
       const int r = e / CH, c = e - r * CH;
       const int t = kt0 + r;
       const bool ok = t < kend && c * 8 < D;
-      size_t off = 0;
-      if (ok) {
-        const int blk = t / bs;
-        off = (((size_t)tbl_s[blk - blk0] * bs + (t - blk * bs)) * H + h) * D +
-              c * 8;
+      const size_t off = ok ? key_row(t) * D + c * 8 : 0;
+      if constexpr (Q8) {
+        const uint32_t dv = dk + KT * I_PITCH;
+        cp_async_ca<8>(dk + r * I_PITCH + c * 8, kp8 + off, ok);
+        cp_async_ca<8>(dv + r * I_PITCH + c * 8, vp8 + off, ok);
+      } else {
+        const uint32_t dv = dk + G::TILE_BYTES;
+        cp_async16(dk + r * PITCH + c * 16, kp8 + off * 2, ok);
+        cp_async16(dv + r * PITCH + c * 16, vp8 + off * 2, ok);
       }
-      cp_async16(dk + r * PITCH + c * 16, k_pool + off, ok);
-      cp_async16(dv + r * PITCH + c * 16, v_pool + off, ok);
+    }
+    if constexpr (Q8) {
+      const uint32_t dks = dk + 2 * KT * I_PITCH;
+      for (int r = tid; r < KT; r += THREADS) {
+        const int t = kt0 + r;
+        const bool ok = t < kend;
+        const size_t row = ok ? key_row(t) : 0;
+        cp_async_ca<4>(dks + r * 4, k_scale + row, ok);
+        cp_async_ca<4>(dks + (KT + r) * 4, v_scale + row, ok);
+      }
+    }
+  };
+  // Q8: stage st's int8 K and V tiles widened to the bf16 tiles the MMAs
+  // read (8 columns a chunk).
+  auto widen = [&](int st) {
+    const unsigned char* src = mq_smem_b + G::Q_BYTES + st * G::STAGE_BYTES;
+    unsigned char* dst = mq_smem_b + G::WIDE;
+    for (int e = tid; e < 2 * KT * CH; e += THREADS) {
+      const int kv = e / (KT * CH), rc = e - kv * KT * CH;
+      const int r = rc / CH, c = rc - r * CH;
+      const uint2 raw = *reinterpret_cast<const uint2*>(
+          src + kv * KT * I_PITCH + r * I_PITCH + c * 8);
+      const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
+      uint4 w;
+      w.x = pack_bf16(x[0], x[1]);
+      w.y = pack_bf16(x[2], x[3]);
+      w.z = pack_bf16(x[4], x[5]);
+      w.w = pack_bf16(x[6], x[7]);
+      *reinterpret_cast<uint4*>(dst + kv * G::TILE_BYTES + r * PITCH +
+                                c * 16) = w;
     }
   };
 
@@ -764,7 +899,17 @@ __global__ void __launch_bounds__(THREADS)
     cp_async_commit();
     cp_async_wait<STAGES - 1>();   // tile j (and Q) have landed
     __syncthreads();
-    const uint32_t tk = sring + (j % STAGES) * 2 * G::TILE_BYTES;
+    const uint32_t stage = sring + (j % STAGES) * G::STAGE_BYTES;
+    uint32_t tk = stage;
+    // Q8: this tile's scales, k_scale[KT] then v_scale[KT]
+    const float* scl = reinterpret_cast<const float*>(
+        mq_smem_b + G::Q_BYTES + (j % STAGES) * G::STAGE_BYTES +
+        2 * KT * I_PITCH);
+    if constexpr (Q8) {
+      widen(j % STAGES);
+      __syncthreads();
+      tk = sq + G::WIDE;
+    }
     const uint32_t tv = tk + G::TILE_BYTES;
 
     // S = Q K^T: K rows are the B operand as they lie (keys x d).
@@ -799,6 +944,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           float v = s[n][2 * hh + c] * scale_log2;
+          if constexpr (Q8) v *= scl[8 * n + 2 * t4 + c];
           if (!full && kt0 + 8 * n + 2 * t4 + c > hz[hh]) v = kNegInf;
           s[n][2 * hh + c] = v;
           mx = fmaxf(mx, v);
@@ -826,9 +972,15 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
 
-    // O += P V: P rounded to bf16 from S's fragments into the A operand;
-    // V through ldmatrix.trans (keys kk*16 + (mi%2)*8 + mr, d dn*16 +
-    // (mi/2)*8).
+    // O += P V: P rounded to bf16 from S's fragments into the A operand
+    // (Q8: each column times its key's v_scale first); V through
+    // ldmatrix.trans (keys kk*16 + (mi%2)*8 + mr, d dn*16 + (mi/2)*8).
+    if constexpr (Q8) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[n][c] *= scl[KT + 8 * n + 2 * t4 + (c & 1)];
+    }
 #pragma unroll
     for (int kk = 0; kk < KT / 16; ++kk) {
       const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
@@ -948,35 +1100,53 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int DP>
+template <int DP, bool Q8>
 cudaError_t launch_mq(const void* q, const void* k, const void* v,
+                      const float* k_scale, const float* v_scale,
                       const int* tables, const int* pos, void* out, float* ws,
                       int* tickets, int B, int W, int H, int D, int bs,
                       int mb, int ks, int n_split, float scale,
                       cudaStream_t s) {
-  const size_t smem = Geom<DP>::RING + (size_t)(ks / bs + 2) * sizeof(int);
+  const size_t smem =
+      Geom<DP, Q8>::RING + (size_t)(ks / bs + 2) * sizeof(int);
   // Above 48 KB a kernel takes dynamic shared memory only after opting in.
   const cudaError_t err = cudaFuncSetAttribute(
-      paged_mq_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      paged_mq_tc_kernel<DP, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (W + QR - 1) / QR, n_split);
   constexpr float kLog2e = 1.4426950408889634f;
-  paged_mq_tc_kernel<DP><<<grid, THREADS, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), tables, pos, static_cast<bf16*>(out), ws,
-      tickets, W, H, D, bs, mb, ks, scale * kLog2e);
+  paged_mq_tc_kernel<DP, Q8><<<grid, THREADS, smem, s>>>(
+      static_cast<const bf16*>(q), k, v, k_scale, v_scale, tables, pos,
+      static_cast<bf16*>(out), ws, tickets, W, H, D, bs, mb, ks,
+      scale * kLog2e);
   return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t dispatch_q8(const void* q, const void* k, const void* v,
+                        const float* k_scale, const float* v_scale,
+                        const int* tables, const int* pos, void* out,
+                        float* ws, int* tickets, int B, int W, int H, int D,
+                        int bs, int mb, int ks, int n_split, float scale,
+                        cudaStream_t s) {
+  if (k_scale != nullptr)
+    return launch_mq<DP, true>(q, k, v, k_scale, v_scale, tables, pos, out,
+                               ws, tickets, B, W, H, D, bs, mb, ks, n_split,
+                               scale, s);
+  return launch_mq<DP, false>(q, k, v, nullptr, nullptr, tables, pos, out, ws,
+                              tickets, B, W, H, D, bs, mb, ks, n_split, scale,
+                              s);
 }
 
 }  // namespace tc
 
-// Threads per key row and 16-byte vectors per lane for a runtime head
-// dim: (D / VEC rounded up to a power of two, 1), or (32, 2) for f32
-// above 128; false when D is not a multiple of VEC in 1 .. 256.
-template <typename T>
+// Threads per key row and vectors per lane for a runtime head dim: (D /
+// VEC rounded up to a power of two, 1), or (32, 2) for an f32 pool above
+// 128; false when D is not a multiple of VEC in 1 .. 256.
+template <typename P>
 bool lane_layout(int D, int* gp, int* nv) {
-  constexpr int VEC = Vec16<T>::N;
+  constexpr int VEC = Vec<P>::N;
   if (D <= 0 || D % VEC != 0 || D > 256) return false;
   *nv = D > 32 * VEC ? 2 : 1;
   *gp = 1;
@@ -984,25 +1154,26 @@ bool lane_layout(int D, int* gp, int* nv) {
   return true;
 }
 
-// Calls F<T, GP, NV>::run(args...) for the lane layout of head dim D;
-// false when there is none.
-template <template <typename, int, int> class F, typename T, typename... A>
+// Calls F<T, P, GP, NV>::run(args...) for the lane layout of head dim D
+// over a pool of P; false when there is none.
+template <template <typename, typename, int, int> class F, typename T,
+          typename P, typename... A>
 bool dispatch_group(int D, A... args) {
   int gp = 0, nv = 0;
-  if (!lane_layout<T>(D, &gp, &nv)) return false;
-  if constexpr (Vec16<T>::N == 4) {
+  if (!lane_layout<P>(D, &gp, &nv)) return false;
+  if constexpr (Vec<P>::N == 4) {
     if (nv == 2) {
-      F<T, 32, 2>::run(args...);
+      F<T, P, 32, 2>::run(args...);
       return true;
     }
   }
   switch (gp) {
-    case 1: F<T, 1, 1>::run(args...); return true;
-    case 2: F<T, 2, 1>::run(args...); return true;
-    case 4: F<T, 4, 1>::run(args...); return true;
-    case 8: F<T, 8, 1>::run(args...); return true;
-    case 16: F<T, 16, 1>::run(args...); return true;
-    case 32: F<T, 32, 1>::run(args...); return true;
+    case 1: F<T, P, 1, 1>::run(args...); return true;
+    case 2: F<T, P, 2, 1>::run(args...); return true;
+    case 4: F<T, P, 4, 1>::run(args...); return true;
+    case 8: F<T, P, 8, 1>::run(args...); return true;
+    case 16: F<T, P, 16, 1>::run(args...); return true;
+    case 32: F<T, P, 32, 1>::run(args...); return true;
     default: return false;
   }
 }
@@ -1011,35 +1182,39 @@ bool dispatch_group(int D, A... args) {
 // contiguous cache comes as tables == nullptr with bs = S and mb = 1 (its
 // row b is one block of S positions); a paged pool takes dynamic shared
 // memory for the longest split's table entries.
-template <typename T, int GP, int NV>
+template <typename T, typename P, int GP, int NV>
 struct SplitDecode {
   static void run(const void* q, const void* k, const void* v,
+                  const float* k_scale, const float* v_scale,
                   const int* tables, const int* pos, void* out, float* ws,
                   int* tickets, int B, int H, int D, int bs, int mb,
                   int n_split, int one_cta, float scale,
                   cudaStream_t stream) {
     const dim3 grid(B * H, n_split);
-    if (tables == nullptr) {
-      decode_kernel<T, GP, NV><<<grid, kDecodeThreads, 0, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), pos, static_cast<T*>(out), ws, tickets,
-          H, D, bs, one_cta, scale);
-      return;
+    if constexpr (std::is_same_v<T, P>) {
+      if (tables == nullptr) {
+        decode_kernel<T, GP, NV><<<grid, kDecodeThreads, 0, stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), pos, static_cast<T*>(out), ws,
+            tickets, H, D, bs, one_cta, scale);
+        return;
+      }
     }
     const int span = mb * bs;
     const int ks =
         std::max(std::min(one_cta, span), split_length(span, n_split, 0));
     const size_t smem = (size_t)(ks / bs + 2) * sizeof(int);
-    paged_decode_kernel<T, GP, NV>
+    paged_decode_kernel<T, P, GP, NV>
         <<<grid, kDecodeThreads, smem, stream>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), tables, pos, static_cast<T*>(out), ws,
-            tickets, H, D, bs, mb, one_cta, scale);
+            static_cast<const T*>(q), static_cast<const P*>(k),
+            static_cast<const P*>(v), k_scale, v_scale, tables, pos,
+            static_cast<T*>(out), ws, tickets, H, D, bs, mb, one_cta, scale);
   }
 };
 
-template <typename T, int DP, int BS>
+template <typename T, typename P, int DP, int BS>
 cudaError_t launch_mq(const void* q, const void* k, const void* v,
+                      const float* k_scale, const float* v_scale,
                       const int* tables, const int* pos, void* out, int B,
                       int W, int H, int D, int mb, float scale,
                       cudaStream_t stream) {
@@ -1047,27 +1222,28 @@ cudaError_t launch_mq(const void* q, const void* k, const void* v,
   constexpr size_t smem = mq_smem<DP, BS>();
   if constexpr (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_mq_kernel<T, DP, BS>,
+        paged_mq_kernel<T, P, DP, BS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(B * H, (W + QT - 1) / QT);
-  paged_mq_kernel<T, DP, BS><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), tables, pos, static_cast<T*>(out), W, H, D, mb,
-      scale);
+  paged_mq_kernel<T, P, DP, BS><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(k),
+      static_cast<const P*>(v), k_scale, v_scale, tables, pos,
+      static_cast<T*>(out), W, H, D, mb, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <typename T, typename P, int DP>
 cudaError_t dispatch_mq_bs(int bs, const void* q, const void* k,
-                           const void* v, const int* tables, const int* pos,
-                           void* out, int B, int W, int H, int D, int mb,
-                           float scale, cudaStream_t s) {
+                           const void* v, const float* ks, const float* vs,
+                           const int* tables, const int* pos, void* out,
+                           int B, int W, int H, int D, int mb, float scale,
+                           cudaStream_t s) {
   switch (bs) {
-    case 8: return launch_mq<T, DP, 8>(q, k, v, tables, pos, out, B, W, H, D, mb, scale, s);
-    case 16: return launch_mq<T, DP, 16>(q, k, v, tables, pos, out, B, W, H, D, mb, scale, s);
-    case 32: return launch_mq<T, DP, 32>(q, k, v, tables, pos, out, B, W, H, D, mb, scale, s);
+    case 8: return launch_mq<T, P, DP, 8>(q, k, v, ks, vs, tables, pos, out, B, W, H, D, mb, scale, s);
+    case 16: return launch_mq<T, P, DP, 16>(q, k, v, ks, vs, tables, pos, out, B, W, H, D, mb, scale, s);
+    case 32: return launch_mq<T, P, DP, 32>(q, k, v, ks, vs, tables, pos, out, B, W, H, D, mb, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1081,8 +1257,25 @@ int tile_width(int D) {
   return dp;
 }
 
-// The decode kernels of both caches (SplitDecode's arguments).
+template <typename P>
+cudaError_t dispatch_mq(int D, int bs, const void* q, const void* k,
+                        const void* v, const float* ks, const float* vs,
+                        const int* t, const int* p, void* out, int B, int W,
+                        int H, int mb, float scale, cudaStream_t s) {
+  switch (tile_width(D)) {
+    case 32: return dispatch_mq_bs<float, P, 32>(bs, q, k, v, ks, vs, t, p, out, B, W, H, D, mb, scale, s);
+    case 64: return dispatch_mq_bs<float, P, 64>(bs, q, k, v, ks, vs, t, p, out, B, W, H, D, mb, scale, s);
+    case 128: return dispatch_mq_bs<float, P, 128>(bs, q, k, v, ks, vs, t, p, out, B, W, H, D, mb, scale, s);
+    case 256: return dispatch_mq_bs<float, P, 256>(bs, q, k, v, ks, vs, t, p, out, B, W, H, D, mb, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The decode kernels of both caches (SplitDecode's arguments). k_scale
+// and v_scale: both null (the pool is of q's dtype), or both set (an int8
+// pool, paged only).
 int launch_decode(const void* q, const void* k, const void* v,
+                  const float* k_scale, const float* v_scale,
                   const int* tables, const void* pos, void* out, void* ws,
                   void* tickets, int B, int H, int D, int bs, int mb,
                   int n_split, int one_cta, float scale, int dtype,
@@ -1091,37 +1284,47 @@ int launch_decode(const void* q, const void* k, const void* v,
   const int* p = static_cast<const int*>(pos);
   float* w = static_cast<float*>(ws);
   int* tk = static_cast<int*>(tickets);
+  const bool q8 = k_scale != nullptr;
   if (B <= 0 || H <= 0 || bs <= 0 || mb <= 0 || n_split < 1 ||
-      n_split > kMaxSplits || one_cta < 0)
+      n_split > kMaxSplits || one_cta < 0 || q8 != (v_scale != nullptr) ||
+      (q8 && tables == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   bool ok = false;
-  if (dtype == 0)
-    ok = dispatch_group<SplitDecode, float>(D, q, k, v, tables, p, out, w, tk, B, H, D, bs, mb, n_split, one_cta, scale, s);
+  if (dtype == 0 && !q8)
+    ok = dispatch_group<SplitDecode, float, float>(D, q, k, v, k_scale, v_scale, tables, p, out, w, tk, B, H, D, bs, mb, n_split, one_cta, scale, s);
+  else if (dtype == 1 && !q8)
+    ok = dispatch_group<SplitDecode, __nv_bfloat16, __nv_bfloat16>(D, q, k, v, k_scale, v_scale, tables, p, out, w, tk, B, H, D, bs, mb, n_split, one_cta, scale, s);
+  else if (dtype == 0)
+    ok = dispatch_group<SplitDecode, float, int8_t>(D, q, k, v, k_scale, v_scale, tables, p, out, w, tk, B, H, D, bs, mb, n_split, one_cta, scale, s);
   else if (dtype == 1)
-    ok = dispatch_group<SplitDecode, __nv_bfloat16>(D, q, k, v, tables, p, out, w, tk, B, H, D, bs, mb, n_split, one_cta, scale, s);
+    ok = dispatch_group<SplitDecode, __nv_bfloat16, int8_t>(D, q, k, v, k_scale, v_scale, tables, p, out, w, tk, B, H, D, bs, mb, n_split, one_cta, scale, s);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The decode kernels. dtype: 0 = float32, 1 = bfloat16; D a multiple of 8
-// up to 256 (of 4 for f32). n_split (1 .. 16) fixes the grid; a row that
-// sees at most one_cta positions runs in one CTA, a longer one in splits
-// of split_length(); ws is the f32 workspace of B * H * n_split * (D + 2)
-// floats, tickets B * H zeroed int32 (see decode_split).
-// Paged: q [B, H, D]; pools [n_blocks, bs, H, D]; tables [B, mb] i32;
-// pos [B] i32; out [B, H, D].
+// The decode kernels. dtype (q's): 0 = float32, 1 = bfloat16; D a multiple
+// of 8 up to 256 (of 4 for f32). n_split (1 .. 16) fixes the grid; a row
+// that sees at most one_cta positions runs in one CTA, a longer one in
+// splits of split_length(); ws is the f32 workspace of B * H * n_split *
+// (D + 2) floats, tickets B * H zeroed int32 (see decode_split).
+// Paged: q [B, H, D]; pools [n_blocks, bs, H, D] of q's dtype, with
+// k_scale = v_scale = null, or int8 with k_scale, v_scale [n_blocks, bs,
+// H] f32; tables [B, mb] i32; pos [B] i32; out [B, H, D].
 extern "C" int rtt_paged_decode(const void* q, const void* k_pool,
-                                const void* v_pool, const void* tables,
+                                const void* v_pool, const void* k_scale,
+                                const void* v_scale, const void* tables,
                                 const void* pos, void* out, void* ws,
                                 void* tickets, int B, int H, int D, int bs,
                                 int mb, int n_split, int one_cta,
                                 float scale, int dtype, void* stream) {
   if (tables == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_decode(q, k_pool, v_pool, static_cast<const int*>(tables),
-                       pos, out, ws, tickets, B, H, D, bs, mb, n_split,
-                       one_cta, scale, dtype, stream);
+  return launch_decode(q, k_pool, v_pool, static_cast<const float*>(k_scale),
+                       static_cast<const float*>(v_scale),
+                       static_cast<const int*>(tables), pos, out, ws,
+                       tickets, B, H, D, bs, mb, n_split, one_cta, scale,
+                       dtype, stream);
 }
 
 // Contiguous cache: q [B, H, D]; k, v [B, S, H, D]; pos [B] i32; out
@@ -1131,34 +1334,40 @@ extern "C" int rtt_decode(const void* q, const void* k, const void* v,
                           void* tickets, int B, int S, int H, int D,
                           int n_split, int one_cta, float scale, int dtype,
                           void* stream) {
-  return launch_decode(q, k, v, nullptr, pos, out, ws, tickets, B, H, D, S,
-                       1, n_split, one_cta, scale, dtype, stream);
+  return launch_decode(q, k, v, nullptr, nullptr, nullptr, pos, out, ws,
+                       tickets, B, H, D, S, 1, n_split, one_cta, scale,
+                       dtype, stream);
 }
 
-// The f32 multi-query kernel on CUDA cores: block size bs one of 8, 16, 32.
+// The f32 multi-query kernel on CUDA cores: block size bs one of 8, 16,
+// 32; pools of f32 (k_scale = v_scale = null) or int8 (both scales set).
 extern "C" int rtt_paged_mq(const void* q, const void* k_pool,
-                            const void* v_pool, const void* tables,
+                            const void* v_pool, const void* k_scale,
+                            const void* v_scale, const void* tables,
                             const void* pos, void* out, int B, int W, int H,
                             int D, int bs, int mb, float scale,
                             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(tables);
   const int* p = static_cast<const int*>(pos);
-  switch (tile_width(D)) {
-    case 32: return static_cast<int>(dispatch_mq_bs<float, 32>(bs, q, k_pool, v_pool, t, p, out, B, W, H, D, mb, scale, s));
-    case 64: return static_cast<int>(dispatch_mq_bs<float, 64>(bs, q, k_pool, v_pool, t, p, out, B, W, H, D, mb, scale, s));
-    case 128: return static_cast<int>(dispatch_mq_bs<float, 128>(bs, q, k_pool, v_pool, t, p, out, B, W, H, D, mb, scale, s));
-    case 256: return static_cast<int>(dispatch_mq_bs<float, 256>(bs, q, k_pool, v_pool, t, p, out, B, W, H, D, mb, scale, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  if ((ks == nullptr) != (vs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      ks == nullptr
+          ? dispatch_mq<float>(D, bs, q, k_pool, v_pool, ks, vs, t, p, out, B, W, H, mb, scale, s)
+          : dispatch_mq<int8_t>(D, bs, q, k_pool, v_pool, ks, vs, t, p, out, B, W, H, mb, scale, s));
 }
 
-// The bf16 multi-query kernel on the tensor cores: any block size bs that
-// is a multiple of 8, ks and n_split as for rtt_paged_decode, ws the f32
+// The bf16 multi-query kernel on the tensor cores: pools of bf16 (k_scale
+// = v_scale = null) or int8 (both scales set), any block size bs that is
+// a multiple of 8, ks and n_split as for rtt_paged_decode, ws the f32
 // workspace of 2 + D floats for each of B * H * ceil(W / 64) * n_split *
 // min(W, 64) rows, tickets [B * H * ceil(W / 64)] zeroed int32.
 extern "C" int rtt_paged_mq_tc(const void* q, const void* k_pool,
-                               const void* v_pool, const void* tables,
+                               const void* v_pool, const void* k_scale,
+                               const void* v_scale, const void* tables,
                                const void* pos, void* out, void* ws,
                                void* tickets, int B, int W, int H, int D,
                                int bs, int mb, int ks, int n_split,
@@ -1166,17 +1375,19 @@ extern "C" int rtt_paged_mq_tc(const void* q, const void* k_pool,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(tables);
   const int* p = static_cast<const int*>(pos);
+  const float* ksc = static_cast<const float*>(k_scale);
+  const float* vsc = static_cast<const float*>(v_scale);
   float* w = static_cast<float*>(ws);
   int* tk = static_cast<int*>(tickets);
   if (B <= 0 || W <= 0 || H <= 0 || bs <= 0 || bs % 8 != 0 || mb <= 0 ||
       ks <= 0 || ks % 128 != 0 || n_split != (mb * bs + ks - 1) / ks ||
-      n_split > kMaxSplits)
+      n_split > kMaxSplits || (ksc == nullptr) != (vsc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (tile_width(D)) {
-    case 32: return static_cast<int>(tc::launch_mq<32>(q, k_pool, v_pool, t, p, out, w, tk, B, W, H, D, bs, mb, ks, n_split, scale, s));
-    case 64: return static_cast<int>(tc::launch_mq<64>(q, k_pool, v_pool, t, p, out, w, tk, B, W, H, D, bs, mb, ks, n_split, scale, s));
-    case 128: return static_cast<int>(tc::launch_mq<128>(q, k_pool, v_pool, t, p, out, w, tk, B, W, H, D, bs, mb, ks, n_split, scale, s));
-    case 256: return static_cast<int>(tc::launch_mq<256>(q, k_pool, v_pool, t, p, out, w, tk, B, W, H, D, bs, mb, ks, n_split, scale, s));
+    case 32: return static_cast<int>(tc::dispatch_q8<32>(q, k_pool, v_pool, ksc, vsc, t, p, out, w, tk, B, W, H, D, bs, mb, ks, n_split, scale, s));
+    case 64: return static_cast<int>(tc::dispatch_q8<64>(q, k_pool, v_pool, ksc, vsc, t, p, out, w, tk, B, W, H, D, bs, mb, ks, n_split, scale, s));
+    case 128: return static_cast<int>(tc::dispatch_q8<128>(q, k_pool, v_pool, ksc, vsc, t, p, out, w, tk, B, W, H, D, bs, mb, ks, n_split, scale, s));
+    case 256: return static_cast<int>(tc::dispatch_q8<256>(q, k_pool, v_pool, ksc, vsc, t, p, out, w, tk, B, W, H, D, bs, mb, ks, n_split, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -47,8 +47,14 @@ does); the f32 multi-query kernel is built for block sizes 8, 16 and
 D]``, with table entry j of a row expanded to ``2 tables[j]`` and ``2
 tables[j] + 1``.
 
-Int8 pools (``k_scale``/``v_scale``) are not ported yet and raise
-`NotImplementedError`.
+Int8 pools: every paged wrapper takes ``k_scale``/``v_scale`` ``[n_blocks,
+block_size, H]`` f32 (both or neither, `_check_scales`) beside int8
+pools, the rows of `ops.quant.quantize_rows`. The plain versions
+dequantize after the gather (`_gather_dequant`), as the reference does;
+the kernels read the int8 payload and its per-row scale and dequantize
+in registers (int8 instances of each kernel, counted under their own
+keys in `LAUNCHES`: ``paged_decode_int8``, ``paged_mq_tc_int8``,
+``paged_mq_simt_int8``). Nothing dequantizes a whole pool.
 """
 
 from __future__ import annotations
@@ -72,9 +78,10 @@ _ONE_CTA = 384
 # query rows of a bf16 multi-query CTA (csrc/paged_attention.cu tc::QR)
 _MQ_TILE = 64
 
-# One counter per multi-query kernel (the wrappers count their calls in
-# ``.launches``).
-LAUNCHES = dict.fromkeys(("paged_mq_tc", "paged_mq_simt"), 0)
+# One counter per multi-query kernel and per int8 kernel (the wrappers
+# count their calls that reach any kernel in ``.launches``).
+LAUNCHES = dict.fromkeys(("paged_mq_tc", "paged_mq_simt", "paged_mq_tc_int8",
+                          "paged_mq_simt_int8", "paged_decode_int8"), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -106,28 +113,49 @@ def gather_kv_pages(pool, tables):
     return flat[idx]
 
 
-def _no_scales(k_scale, v_scale, op: str):
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            f"{op}: int8 pools (k_scale/v_scale) are not ported yet "
-            "(ROADMAP queue B: int8 paths of the paged kernels)")
+def _gather_dequant(pool, scale, tables):
+    """`gather_kv_pages`, dequantized to f32 through the gathered
+    per-row ``scale [n_blocks, bs, H]`` when there is one (an int8
+    pool); a float pool comes back as it was gathered."""
+    seq = gather_kv_pages(pool, tables)
+    if scale is None:
+        return seq
+    return seq.float() * gather_kv_pages(scale, tables).float()[..., None]
+
+
+def _check_scales(k_scale, v_scale, k_pool, op: str) -> bool:
+    """Both scales or neither, each shaped like the pool's rows
+    ``[n_blocks, bs, H]``; True for an int8 pool."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(
+            f"{op} wants both k_scale and v_scale or neither; got "
+            f"k_scale={'set' if k_scale is not None else None}, "
+            f"v_scale={'set' if v_scale is not None else None}")
+    if k_scale is None:
+        return False
+    for t in (k_scale, v_scale):
+        if tuple(t.shape) != tuple(k_pool.shape[:3]):
+            raise ValueError(
+                f"{op} scale shape {tuple(t.shape)} != pool row shape "
+                f"{tuple(k_pool.shape[:3])} ([n_blocks, bs, H])")
+    return True
 
 
 def reference_paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
                                      k_scale=None, v_scale=None):
-    """Gather-then-attend plain version of the paged decode kernel."""
-    _no_scales(k_scale, v_scale, "reference_paged_decode_attention")
-    return reference_decode_attention(q, gather_kv_pages(k_pool, tables),
-                                      gather_kv_pages(v_pool, tables), pos)
+    """Gather-then-attend plain version of the paged decode kernel (an
+    int8 pool dequantized after the gather)."""
+    return reference_decode_attention(
+        q, _gather_dequant(k_pool, k_scale, tables),
+        _gather_dequant(v_pool, v_scale, tables), pos)
 
 
 def reference_paged_verify_attention(q, k_pool, v_pool, tables, pos, *,
                                      k_scale=None, v_scale=None):
     """q [B, W, H, D]: token i of row b attends to logical positions
     ``<= pos[b] + i``. Returns [B, W, H, D] in q.dtype."""
-    _no_scales(k_scale, v_scale, "reference_paged_verify_attention")
-    k_seq = gather_kv_pages(k_pool, tables)
-    v_seq = gather_kv_pages(v_pool, tables)
+    k_seq = _gather_dequant(k_pool, k_scale, tables)
+    v_seq = _gather_dequant(v_pool, v_scale, tables)
     s, d = k_seq.shape[1], k_seq.shape[3]
     w = q.shape[1]
     scores = torch.einsum("bwhd,bshd->bhws", q.float(),
@@ -154,8 +182,9 @@ def split_geometry(span: int) -> tuple[int, int]:
 
 
 def paged_mq_partials_reference(q, k_pool, v_pool, tables, pos, ks: int,
-                                scale=None):
-    """The multi-query kernel's first half in plain PyTorch: for q ``[B,
+                                scale=None, *, k_scale=None, v_scale=None,
+                                tile: int | None = None):
+    """The multi-query kernels' first half in plain PyTorch: for q ``[B,
     W, H, D]`` (query i of row b sees logical positions ``<= pos[b] + i``)
     and each split of ``ks`` positions of the table's reach, every
     query's softmax state over the positions of that split it may see:
@@ -165,9 +194,16 @@ def paged_mq_partials_reference(q, k_pool, v_pool, tables, pos, ks: int,
     ``exp(s - m)`` and the unnormalised ``sum exp(s - m) v``. A split a
     query sees nothing of holds ``(NEG_INF, 0, 0)``.
     `paged_merge_reference` turns the states into the attention
-    output."""
-    k_seq = gather_kv_pages(k_pool, tables).float()
-    v_seq = gather_kv_pages(v_pool, tables).float()
+    output. ``k_scale``/``v_scale`` mark int8 pools (dequantized after
+    the gather).
+
+    ``tile`` makes it the tensor-core kernel's walk: each split in key
+    tiles of ``tile`` positions, the softmax relative to the running row
+    max, and each key's factor ``p`` (``p * v_scale`` on an int8 pool)
+    rounded to bf16 before its product with the value row (bf16, or the
+    int8 payload, exact in bf16), as the kernel rounds its A operand;
+    ``l`` sums the unrounded ``p``."""
+    k_seq = _gather_dequant(k_pool, k_scale, tables).float()
     s_len, d = k_seq.shape[1], k_seq.shape[3]
     w = q.shape[1]
     scale = d ** -0.5 if scale is None else scale
@@ -175,16 +211,43 @@ def paged_mq_partials_reference(q, k_pool, v_pool, tables, pos, ks: int,
     limit = pos.long()[:, None] + torch.arange(w, device=q.device)
     cols = torch.arange(s_len, device=q.device)
     live = (cols[None, None, :] <= limit[:, :, None])[:, :, None, :]
+    if tile is None:
+        v_seq = _gather_dequant(v_pool, v_scale, tables).float()
+    else:
+        v_seq = gather_kv_pages(v_pool, tables).float()
+        v_col = (None if v_scale is None else
+                 gather_kv_pages(v_scale, tables).float().permute(0, 2, 1)
+                 [:, None])                               # [B, 1, H, S]
     ms, ls, accs = [], [], []
     for k0 in range(0, s_len, ks):
-        sl = slice(k0, min(k0 + ks, s_len))
-        see = live[..., sl]
-        sc = torch.where(see, scores[..., sl], NEG_INF)
-        m = sc.amax(dim=-1)
-        p = torch.where(see, torch.exp(sc - m[..., None]), 0.0)
+        k1 = min(k0 + ks, s_len)
+        if tile is None:
+            see = live[..., k0:k1]
+            sc = torch.where(see, scores[..., k0:k1], NEG_INF)
+            m = sc.amax(dim=-1)
+            p = torch.where(see, torch.exp(sc - m[..., None]), 0.0)
+            ms.append(m)
+            ls.append(p.sum(dim=-1))
+            accs.append(torch.einsum("bwhs,bshd->bwhd", p, v_seq[:, k0:k1]))
+            continue
+        m = torch.full(scores.shape[:-1], NEG_INF, device=q.device)
+        l = torch.zeros(scores.shape[:-1], device=q.device)
+        acc = torch.zeros(scores.shape[:-1] + (d,), device=q.device)
+        for t0 in range(k0, k1, tile):
+            sl = slice(t0, min(t0 + tile, k1))
+            see = live[..., sl]
+            sc = torch.where(see, scores[..., sl], NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.where(see, torch.exp(sc - m_new[..., None]), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            f = p if v_col is None else p * v_col[..., sl]
+            acc = acc * corr[..., None] + torch.einsum(
+                "bwhs,bshd->bwhd", f.bfloat16().float(), v_seq[:, sl])
+            m = m_new
         ms.append(m)
-        ls.append(p.sum(dim=-1))
-        accs.append(torch.einsum("bwhs,bshd->bwhd", p, v_seq[:, sl]))
+        ls.append(l)
+        accs.append(acc)
     return torch.stack(ms), torch.stack(ls), torch.stack(accs)
 
 
@@ -230,13 +293,15 @@ def decode_partials_reference(q, k, v, pos, n_split: int, scale=None):
 
 
 def paged_decode_partials_reference(q, k_pool, v_pool, tables, pos,
-                                    n_split: int, scale=None):
+                                    n_split: int, scale=None, *,
+                                    k_scale=None, v_scale=None):
     """`decode_partials_reference` through a paged pool: the paged decode
     kernel cuts a row as the contiguous-cache one does, over the table's
-    reach ``max_blocks * block_size``."""
-    return decode_partials_reference(q, gather_kv_pages(k_pool, tables),
-                                     gather_kv_pages(v_pool, tables), pos,
-                                     n_split, scale)
+    reach ``max_blocks * block_size``. ``k_scale``/``v_scale`` mark int8
+    pools (dequantized after the gather)."""
+    return decode_partials_reference(
+        q, _gather_dequant(k_pool, k_scale, tables),
+        _gather_dequant(v_pool, v_scale, tables), pos, n_split, scale)
 
 
 def paged_merge_reference(m, l, acc):
@@ -254,10 +319,9 @@ def reference_paged_prefill_attention(q, k_pool, v_pool, table, start, *,
     token t at absolute position ``start + t`` attends to gathered
     positions ``<= start + t``. table [max_blocks]; start int or 0-d/[1]
     int tensor. Returns [C, H, D] in q.dtype."""
-    _no_scales(k_scale, v_scale, "reference_paged_prefill_attention")
     c, d = q.shape[0], q.shape[2]
-    kctx = gather_kv_pages(k_pool, table[None])[0]
-    vctx = gather_kv_pages(v_pool, table[None])[0]
+    kctx = _gather_dequant(k_pool, k_scale, table[None])[0]
+    vctx = _gather_dequant(v_pool, v_scale, table[None])[0]
     start = torch.as_tensor(start, device=q.device).long().reshape(())
     positions = start + torch.arange(c, device=q.device)
     scores = torch.einsum("thd,shd->hts", q.float(),
@@ -295,22 +359,28 @@ def kernel_head_dim(d: int) -> int:
     return -(-d // 8) * 8
 
 
-def _check_kernel_inputs(op, q, k_pool, v_pool, **indices):
+def _check_kernel_inputs(op, q, k_pool, v_pool, scales=(), **indices):
     """What the CUDA kernels take; anything else raises (no fallback).
-    ``indices`` are the int32 tensors the kernel reads (tables, pos).
+    ``indices`` are the int32 tensors the kernel reads (tables, pos);
+    ``scales`` the (k_scale, v_scale) f32 rows of an int8 pool, or ().
     The head dim is the kernel's (`kernel_head_dim`)."""
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"{op}: kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
+    pool_dtype = torch.int8 if scales else q.dtype
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.dtype != q.dtype:
-            raise TypeError(f"{op}: {name} dtype {t.dtype} != q dtype "
-                            f"{q.dtype}")
+        if t.dtype != pool_dtype:
+            what = "an int8 pool" if scales else "q's dtype"
+            raise TypeError(f"{op}: {name} dtype {t.dtype} != "
+                            f"{pool_dtype} ({what})")
+    for name, t in zip(("k_scale", "v_scale"), scales):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{op}: {name} must be float32, got {t.dtype}")
     for name, t in indices.items():
         if t.dtype != torch.int32:
             raise TypeError(f"{op}: {name} must be int32, got {t.dtype}")
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    *indices.items()):
+                    *zip(("k_scale", "v_scale"), scales), *indices.items()):
         if t.device != q.device:
             raise ValueError(f"{op}: {name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -360,19 +430,26 @@ def _padded_heads(*xs):
     return tuple(pad_last_dim(x, dk) for x in xs), d
 
 
-def _launch_split_decode(op, q, k, v, pos, tables=None):
+def _scale_ptrs(scales) -> tuple:
+    """The kernels' scale arguments: both pointers, or two nulls for a
+    float pool."""
+    return tuple(t.data_ptr() for t in scales) if scales else (None, None)
+
+
+def _launch_split_decode(op, q, k, v, pos, tables=None, scales=()):
     """One launch of a decode kernel: q [B, H, D] against a contiguous
     cache k, v [B, S, H, D] (``decode_kernel``, counted in
     `decode_attention`) or, with ``tables [B, max_blocks]``, pools
     [n_blocks, bs, H, D] (``paged_decode_kernel``, counted in
-    `paged_decode_attention`). The grid is (B * H, n_split), n_split from
-    `split_geometry` of the cache's span; each row's split length comes
-    from pos on the device (`decode_split_length`)."""
+    `paged_decode_attention`, and in ``LAUNCHES["paged_decode_int8"]``
+    for an int8 pool with its ``scales``). The grid is (B * H, n_split),
+    n_split from `split_geometry` of the cache's span; each row's split
+    length comes from pos on the device (`decode_split_length`)."""
     from ray_tpu_torch.ops import _build
     (q, k, v), d = _padded_heads(q, k, v)
     index = {"pos": pos} if tables is None else {"tables": tables,
                                                  "pos": pos}
-    _check_kernel_inputs(op, q, k, v, **index)
+    _check_kernel_inputs(op, q, k, v, scales, **index)
     b, h, dk = q.shape
     lead, name = (k, "k") if tables is None else (tables, "tables")
     if lead.shape[0] != b or pos.shape != (b,):
@@ -396,33 +473,39 @@ def _launch_split_decode(op, q, k, v, pos, tables=None):
         decode_attention.launches += 1
     else:
         err = lib.rtt_paged_decode(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), tables.data_ptr(),
-            pos.data_ptr(), *common, b, h, dk, bs, tables.shape[1], *tail)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *_scale_ptrs(scales),
+            tables.data_ptr(), pos.data_ptr(), *common, b, h, dk, bs,
+            tables.shape[1], *tail)
         _build.check(err, op)
         paged_decode_attention.launches += 1
+        if scales:
+            LAUNCHES["paged_decode_int8"] += 1
     return trim_last_dim(out, d)
 
 
-def split_blocks(k_pool, v_pool, tables):
+def split_blocks(k_pool, v_pool, tables, *scales):
     """The same pools and block tables seen at the largest of the f32
     multi-query kernel's block sizes (32, 16, 8) that divides the pool's
     block size ``bs``: with f = bs / that size, pools ``[n, bs, H, D]``
     become ``[f n, bs / f, H, D]`` views (no copy; the pools must be
-    contiguous) and ``tables [..., mb]`` becomes ``[..., f mb]`` int32
-    with entry ``f j + i`` = ``f tables[j] + i``: logical position p still
-    lives at the same element. Raises for a block size that is not a
-    multiple of 8."""
+    contiguous), an int8 pool's ``scales`` (k_scale, v_scale) ``[n, bs,
+    H]`` become ``[f n, bs / f, H]`` views, and ``tables [..., mb]``
+    becomes ``[..., f mb]`` int32 with entry ``f j + i`` = ``f tables[j]
+    + i``: logical position p still lives at the same element. Returns
+    ``(k_pool, v_pool, tables, *scales)``. Raises for a block size that
+    is not a multiple of 8."""
     bs = k_pool.shape[1]
     _check_block_size(bs)
     sub = next(s for s in _KERNEL_BLOCK_SIZES if bs % s == 0)
     f = bs // sub
     if f == 1:
-        return k_pool, v_pool, tables
-    nb, rest = k_pool.shape[0], tuple(k_pool.shape[2:])
-    k_pool, v_pool = (p.view((nb * f, sub) + rest) for p in (k_pool, v_pool))
+        return (k_pool, v_pool, tables, *scales)
+    nb = k_pool.shape[0]
+    k_pool, v_pool, *scales = (t.view((nb * f, sub) + tuple(t.shape[2:]))
+                               for t in (k_pool, v_pool, *scales))
     parts = torch.arange(f, dtype=torch.int32, device=tables.device)
     tables = (tables[..., None] * f + parts).flatten(-2).to(torch.int32)
-    return k_pool, v_pool, tables
+    return (k_pool, v_pool, tables, *scales)
 
 
 def _check_block_size(bs: int) -> None:
@@ -431,13 +514,16 @@ def _check_block_size(bs: int) -> None:
                          f"a multiple of 8, got {bs}")
 
 
-def _launch_mq(op, q, k_pool, v_pool, tables, pos):
+def _launch_mq(op, q, k_pool, v_pool, tables, pos, scales=()):
     """q [B, W, H, D] through a multi-query kernel: ``paged_mq_tc`` for
     bf16 (the pool as it is), ``paged_mq_simt`` for f32 (the pool
-    re-viewed at block 8, 16 or 32 by `split_blocks`)."""
+    re-viewed at block 8, 16 or 32 by `split_blocks`); their int8
+    instances, counted as ``paged_mq_tc_int8`` and ``paged_mq_simt_int8``,
+    for an int8 pool with its ``scales``."""
     from ray_tpu_torch.ops import _build
     (q, k_pool, v_pool), d = _padded_heads(q, k_pool, v_pool)
-    _check_kernel_inputs(op, q, k_pool, v_pool, tables=tables, pos=pos)
+    _check_kernel_inputs(op, q, k_pool, v_pool, scales, tables=tables,
+                         pos=pos)
     b, w, h, dk = q.shape
     if tables.shape[0] != b or pos.shape != (b,):
         raise ValueError(f"{op}: tables {tuple(tables.shape)} / pos "
@@ -453,17 +539,20 @@ def _launch_mq(op, q, k_pool, v_pool, tables, pos):
                          * (2 + dk), dtype=torch.float32, device=q.device)
         name, err = "paged_mq_tc", lib.rtt_paged_mq_tc(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), _tickets(q, b * h * n_tiles).data_ptr(), b, w,
-            h, dk, bs, mb, ks, n_split, d ** -0.5, _stream(q))
+            *_scale_ptrs(scales), tables.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), ws.data_ptr(),
+            _tickets(q, b * h * n_tiles).data_ptr(), b, w, h, dk, bs, mb, ks,
+            n_split, d ** -0.5, _stream(q))
     else:
-        k_pool, v_pool, tables = split_blocks(k_pool, v_pool, tables)
+        k_pool, v_pool, tables, *scales = split_blocks(k_pool, v_pool,
+                                                       tables, *scales)
         name, err = "paged_mq_simt", lib.rtt_paged_mq(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b, w, h, dk,
-            k_pool.shape[1], tables.shape[1], d ** -0.5, _stream(q))
+            *_scale_ptrs(scales), tables.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), b, w, h, dk, k_pool.shape[1], tables.shape[1],
+            d ** -0.5, _stream(q))
     _build.check(err, op)
-    LAUNCHES[name] += 1
+    LAUNCHES[name + ("_int8" if scales else "")] += 1
     return trim_last_dim(out, d)
 
 
@@ -515,19 +604,22 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
     shapes and pos and tables are read on the device, so the call can be
     captured in a CUDA graph. A head dim that is not a multiple of 8 runs
     zero-padded, q and both pools copied for that call (the reference's
-    padding); others up to 256 run as they are.
+    padding); others up to 256 run as they are. ``k_scale``/``v_scale``
+    ``[n_blocks, block_size, H]`` f32 mark int8 pools, dequantized in
+    the kernel's registers (its int8 instance).
     """
     if q.ndim != 3 or k_pool.ndim != 4 or tables.ndim != 2:
         raise ValueError(
             "paged_decode_attention wants q [B, H, D], pools "
             f"[n_blocks, bs, H, D] and tables [B, max_blocks]; got "
             f"{tuple(q.shape)}, {tuple(k_pool.shape)}, {tuple(tables.shape)}")
-    _no_scales(k_scale, v_scale, "paged_decode_attention")
+    quant = _check_scales(k_scale, v_scale, k_pool, "paged_decode_attention")
     if _resolve_impl(impl, "paged_decode_attention", q) == "plain":
-        return reference_paged_decode_attention(q, k_pool, v_pool, tables,
-                                                pos)
+        return reference_paged_decode_attention(
+            q, k_pool, v_pool, tables, pos, k_scale=k_scale, v_scale=v_scale)
     return _launch_split_decode("paged_decode_attention", q, k_pool,
-                                v_pool, pos, tables)
+                                v_pool, pos, tables,
+                                (k_scale, v_scale) if quant else ())
 
 
 paged_decode_attention.launches = 0
@@ -543,18 +635,20 @@ def paged_verify_attention(q, k_pool, v_pool, tables, pos, *,
     (shared with `paged_prefill_attention`): bf16 runs ``paged_mq_tc``
     (tensor cores, split-K, one launch, capturable), f32
     ``paged_mq_simt``. A head dim that is not a multiple of 8 runs
-    zero-padded, q and both pools copied for that call."""
+    zero-padded, q and both pools copied for that call. ``k_scale``/
+    ``v_scale`` ``[n_blocks, block_size, H]`` f32 mark int8 pools, read
+    by the kernels' int8 instances."""
     if q.ndim != 4 or k_pool.ndim != 4 or tables.ndim != 2:
         raise ValueError(
             "paged_verify_attention wants q [B, W, H, D], pools "
             f"[n_blocks, bs, H, D] and tables [B, max_blocks]; got "
             f"{tuple(q.shape)}, {tuple(k_pool.shape)}, {tuple(tables.shape)}")
-    _no_scales(k_scale, v_scale, "paged_verify_attention")
+    quant = _check_scales(k_scale, v_scale, k_pool, "paged_verify_attention")
     if _resolve_impl(impl, "paged_verify_attention", q) == "plain":
-        return reference_paged_verify_attention(q, k_pool, v_pool, tables,
-                                                pos)
+        return reference_paged_verify_attention(
+            q, k_pool, v_pool, tables, pos, k_scale=k_scale, v_scale=v_scale)
     out = _launch_mq("paged_verify_attention", q, k_pool, v_pool, tables,
-                     pos)
+                     pos, (k_scale, v_scale) if quant else ())
     paged_verify_attention.launches += 1
     return out
 
@@ -572,23 +666,25 @@ def paged_prefill_attention(q, k_pool, v_pool, table, start, *,
     it there, so the host never waits). Returns ``[C, H, D]``.
 
     On the kernel path this is the multi-query kernel with B = 1, W = C
-    and pos = start: the prefill staircase is the verify mask."""
+    and pos = start: the prefill staircase is the verify mask. Int8
+    pools as in `paged_verify_attention`."""
     if q.ndim != 3 or k_pool.ndim != 4 or table.ndim != 1:
         raise ValueError(
             "paged_prefill_attention wants q [C, H, D], pools "
             f"[n_blocks, bs, H, D] and table [max_blocks]; got "
             f"{tuple(q.shape)}, {tuple(k_pool.shape)}, {tuple(table.shape)}")
-    _no_scales(k_scale, v_scale, "paged_prefill_attention")
+    quant = _check_scales(k_scale, v_scale, k_pool,
+                          "paged_prefill_attention")
     if _resolve_impl(impl, "paged_prefill_attention", q) == "plain":
-        return reference_paged_prefill_attention(q, k_pool, v_pool, table,
-                                                 start)
+        return reference_paged_prefill_attention(
+            q, k_pool, v_pool, table, start, k_scale=k_scale, v_scale=v_scale)
     if isinstance(start, torch.Tensor):
         pos = start.reshape(1)
     else:
         pos = torch.full((1,), int(start), dtype=torch.int32,
                          device=q.device)
     out = _launch_mq("paged_prefill_attention", q[None], k_pool, v_pool,
-                     table[None], pos)
+                     table[None], pos, (k_scale, v_scale) if quant else ())
     paged_prefill_attention.launches += 1
     return out[0]
 

@@ -19,6 +19,15 @@ Dh]``) and ragged traffic streamed through it via int32 block tables.
 - **decode** advances every slot one token per tick through
   `models.gpt.decode_step_paged`; idle and mid-prefill rows decode
   garbage into the trash block.
+- **int8 serving**: ``kv_dtype="int8"`` makes the pool int8 with per-row
+  scales (quantized at write, dequantized inside the paged kernels);
+  ``weight_dtype="int8"`` quantizes the model the engine is given into
+  an engine-owned copy (`models.gpt.quantize_params`), leaving the
+  caller's model as it was.
+- **weight hot swap**: `InferenceEngine.update_params` copies new weights
+  (f32 masters, quantized first on an int8-weight engine) into the
+  engine's own tensors in place between ticks, flushes the radix tree
+  and bumps ``params_version``, which every later `TokenEvent` carries.
 
 Each prefill chunk and each decode tick makes ONE host sync: the sampled
 tokens and their logprobs come back to the host together in one copy.
@@ -29,10 +38,10 @@ sampled decoding only in distribution (JAX's threefry bits are not
 reproducible here).
 
 Not ported yet, and refused with `NotImplementedError` when asked for
-(ROADMAP queue A): speculative decoding, int8 KV and weights,
-disaggregated prefill/decode handoff, priority classes and preemption,
-overload shedding and the tick watchdog, fault-injection sites, weight
-hot swap, the flight recorder and retrace sentinel, and device meshes.
+(ROADMAP queue A): speculative decoding (and with it a draft model's
+swap), disaggregated prefill/decode handoff, priority classes and
+preemption, overload shedding and the tick watchdog, fault-injection
+sites, the flight recorder and retrace sentinel, and device meshes.
 """
 
 from __future__ import annotations
@@ -287,6 +296,20 @@ class RadixTree:
         """Drop every evictable cached prefix; returns blocks freed."""
         return self.evict(self.n_blocks() or 1)
 
+    def flush(self) -> int:
+        """Drop the whole tree, every node, including those whose blocks
+        live requests still reference (the tree's references are
+        released; the requests keep theirs). Used on a weight swap:
+        cached K/V was computed under the old weights. Returns the
+        blocks whose last reference was the tree's."""
+        freed = 0
+        for nd in self._nodes():
+            for b in nd.blocks:
+                self.alloc.decref(b)
+                freed += self.alloc.refcount(b) == 0
+        self.root = _RadixNode((), [], None)
+        return freed
+
     def n_blocks(self) -> int:
         return sum(len(nd.blocks) for nd in self._nodes())
 
@@ -352,7 +375,11 @@ class InferenceEngine:
     at full length). `prefill_chunk` caps prompt tokens absorbed per tick
     while anything decodes; `prefix_cache=False` disables the radix tree.
     `device` defaults to CUDA and raises when there is none; the model
-    must live there. All device work happens in `step()`."""
+    must live there. All device work happens in `step()`.
+
+    ``cfg.weight_dtype="int8"`` serves an engine-owned quantized copy of
+    ``model`` (`models.gpt.quantize_params`); ``cfg.kv_dtype="int8"``
+    an int8 pool. `update_params` swaps weights in place."""
 
     def __init__(self, model: gpt.GPT, cfg: gpt.GPTConfig, *,
                  slots: int = 4, max_len: int | None = None,
@@ -381,6 +408,13 @@ class InferenceEngine:
                 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         gpt.check_quant_cfg(cfg)
+        # The reference counts traces of its jitted quantize, one per
+        # distinct tree: construction quantizes; a swap's tree has the
+        # config's shapes too, so it adds none.
+        self.quantize_traces = 0
+        if cfg.weight_dtype == "int8":
+            model = gpt.quantize_params(model)
+            self.quantize_traces = 1
         self.model = model
         self.cfg = cfg
         self.num_slots = slots
@@ -402,6 +436,16 @@ class InferenceEngine:
         # +1: physical block 0 is the trash block (idle rows write there).
         self.cache = gpt.init_kv_pool(cfg, self.cache_blocks + 1,
                                       block_size, self.device)
+        # Capacity gauges: the pool's device bytes (sink rows included)
+        # and the bytes one cached position costs over all layers, K and
+        # V, scales included: the lever kv_dtype pulls.
+        self._pool_bytes = sum(t.numel() * t.element_size()
+                               for n, t in self.cache.items()
+                               if n.endswith("_rows"))
+        self._kv_bytes_per_token = sum(
+            t.numel() * t.element_size() for n, t in self.cache.items()
+            if not n.endswith("_rows")) / ((self.cache_blocks + 1) *
+                                           block_size)
         self._alloc = BlockAllocator(self.cache_blocks + 1)
         self._tree = (RadixTree(block_size, self._alloc)
                       if prefix_cache else None)
@@ -416,6 +460,8 @@ class InferenceEngine:
         self._out: dict[int, collections.deque] = {}
         self._done: set[int] = set()
         self._lock = threading.RLock()
+        self._params_version = 0
+        self._swap_pending_ts = None
         self.reset_stats()
 
     # ------------------------------------------------------------------
@@ -511,6 +557,63 @@ class InferenceEngine:
     def generate(self, prompt, **kw) -> list[int]:
         """Blocking convenience: submit + drain one request."""
         return list(self.tokens_for(self.submit(prompt, **kw)))
+
+    # ------------------------------------------------------------------
+    # weights: the hot swap
+    # ------------------------------------------------------------------
+
+    def update_params(self, new_params, *, draft_params=None) -> int:
+        """Hot-swap model weights into the live engine between ticks.
+
+        ``new_params`` is a `models.gpt.GPT` or a tree shaped like
+        `models.gpt.init_params`'s (tensors or numpy arrays): f32
+        masters. They are placed in the dtype the engine's model holds
+        and, on a ``weight_dtype="int8"`` engine, quantized first, so a
+        trainer publishes f32 and never handles int8. Every leaf must then
+        match the engine's leaf for leaf in shape and dtype. The copy is
+        in place (``copy_``): the tensors later steps read stay the same
+        objects, and in-flight requests go on (on mixed old/new-weight
+        context, which their tokens' ``params_version`` shows). The radix
+        prefix cache is flushed: its K/V was computed under the old
+        weights. ``params_version`` increments and stamps every later
+        `TokenEvent`; `stats` reports ``swaps`` and ``weight_swap_ms``
+        (this call to the first token after it). Returns the new
+        ``params_version``."""
+        if draft_params is not None:
+            raise NotImplementedError(
+                "update_params(draft_params=...): the draft model comes "
+                "with speculative decoding, not ported yet (ROADMAP queue A)")
+        t0 = time.perf_counter()
+        tree = (gpt.param_tree(new_params)
+                if isinstance(new_params, gpt.GPT) else new_params)
+        placed = gpt.GPT(self.cfg, tree, device=self.device,
+                         dtype=self.model.embed.dtype)
+        if self.cfg.weight_dtype == "int8":
+            placed = gpt.quantize_params(placed)
+        old, new = (dict(m.named_parameters()) for m in (self.model, placed))
+        if list(old) != list(new):
+            raise ValueError(f"update_params: parameter names {list(new)} "
+                             f"!= {list(old)}")
+        for name, o in old.items():
+            n = new[name]
+            if n.shape != o.shape or n.dtype != o.dtype:
+                raise ValueError(
+                    f"update_params: {name} is {tuple(n.shape)}/{n.dtype}, "
+                    f"the engine holds {tuple(o.shape)}/{o.dtype}: a swap "
+                    "keeps shapes and dtypes")
+        with self._lock, torch.no_grad():
+            for name, o in old.items():
+                o.copy_(new[name])
+            if self._tree is not None:
+                self._tree.flush()
+            self._params_version += 1
+            self._swaps += 1
+            self._swap_pending_ts = t0
+            return self._params_version
+
+    @property
+    def params_version(self) -> int:
+        return self._params_version
 
     # ------------------------------------------------------------------
     # scheduler
@@ -697,8 +800,14 @@ class InferenceEngine:
                 return did
 
     def _emit(self, s: _Slot, slot_idx: int, tok: int, logp: float):
-        """Route one generated token; retire the slot when finished."""
-        self._out[s.rid].append(TokenEvent(tok, logp, 0))
+        """Route one generated token (stamped with ``params_version``);
+        retire the slot when finished."""
+        if self._swap_pending_ts is not None:
+            # the first token after a swap closes weight_swap_ms's window
+            self._last_swap_ms = (time.perf_counter()
+                                  - self._swap_pending_ts) * 1e3
+            self._swap_pending_ts = None
+        self._out[s.rid].append(TokenEvent(tok, logp, self._params_version))
         hit_eos = s.eos_id is not None and tok == s.eos_id
         # pos of the *next* token must still fit in the cache row
         if s.remaining <= 0 or hit_eos or s.pos + 1 >= self.max_len:
@@ -771,7 +880,23 @@ class InferenceEngine:
     def check_invariants(self):
         """Allocator/tree/slot cross-checks: every allocated block is
         accounted for by exactly its holders, and every request lives in
-        exactly one place with an output queue."""
+        exactly one place with an output queue. An int8 pool's scale
+        arrays must match their payload's rows (one f32 scale per
+        (position, head) row, the sink row included); they share the
+        payload's block axis, so block refcounts cover them too."""
+        if "k_scale" in self.cache:
+            for nm in ("k", "v"):
+                for sfx in ("", "_rows"):
+                    pay = self.cache[nm + sfx]
+                    sc = self.cache[nm + "_scale" + sfx]
+                    assert tuple(sc.shape) == tuple(pay.shape[:-1]), \
+                        f"{nm}_scale{sfx} shape {tuple(sc.shape)} != " \
+                        f"payload rows {tuple(pay.shape[:-1])}"
+                    assert sc.dtype == torch.float32, \
+                        f"{nm}_scale{sfx} dtype {sc.dtype} != float32"
+                    assert pay.dtype == torch.int8, \
+                        f"{nm}{sfx} payload dtype {pay.dtype} != int8 " \
+                        "despite scale arrays present"
         self._alloc.check()
         holds = collections.Counter()
         for s in self._slots:
@@ -800,8 +925,12 @@ class InferenceEngine:
 
     def reset_stats(self):
         """Zero the throughput/latency accounting (benches call this after
-        warmup). The kernels' launch counters are not touched."""
+        warmup), the ``swaps`` counter and ``weight_swap_ms``. Not reset:
+        ``params_version`` and ``quantize_traces`` (identities, not rates)
+        and the kernels' launch counters."""
         with self._lock:
+            self._swaps = 0
+            self._last_swap_ms = 0.0
             self._decode_steps = 0
             self._prefill_tokens = self._decode_tokens = 0
             self._prefill_time = self._decode_time = 0.0
@@ -824,7 +953,15 @@ class InferenceEngine:
         ``p50_token_latency_ms`` / ``p99_token_latency_ms`` decode step
         percentiles; ``ttft_ms_p50`` / ``ttft_ms_p99`` submit to first
         token. Paged cache: ``blocks_in_use``, ``cached_prefix_blocks``,
-        ``prefix_hit_tokens``, ``cow_copies``, ``cancelled``.
+        ``prefix_hit_tokens``, ``cow_copies``, ``cancelled``;
+        ``pool_bytes`` (the pool's device bytes, scales and sink rows
+        included, fixed at construction) and ``kv_bytes_per_token`` (the
+        pool bytes one cached position costs, all layers, K and V, scales
+        included). Weights: ``quantize_traces`` (quantizations of a
+        distinct tree: 0 for f32 weights, else 1 however many swaps),
+        ``params_version`` (bumped by `update_params`, stamped on every
+        `TokenEvent`), ``swaps`` and ``weight_swap_ms`` (the last
+        `update_params` call to the first token after it).
         ``kernel_launches`` — each paged-attention
         kernel wrapper's launch counter (process-wide, never reset
         here)."""
@@ -862,6 +999,12 @@ class InferenceEngine:
                 "prefix_hit_tokens": self._prefix_hit_tokens,
                 "cow_copies": self._cow_copies,
                 "cancelled": self._cancelled,
+                "pool_bytes": self._pool_bytes,
+                "kv_bytes_per_token": self._kv_bytes_per_token,
+                "quantize_traces": self.quantize_traces,
+                "params_version": self._params_version,
+                "swaps": self._swaps,
+                "weight_swap_ms": self._last_swap_ms,
                 "kernel_launches": da.kernel_launches(),
             }
 

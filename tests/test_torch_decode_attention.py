@@ -125,16 +125,30 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
 
 
 def test_rejects_bad_impl_and_int8_pools():
+    """A bad impl; int8 pools' scales are both-or-neither and shaped like
+    the pool's rows ``[n_blocks, bs, H]`` on every paged wrapper, as in
+    the reference (`_check_scales`); a prefill of the wrong rank."""
     q = torch.zeros(1, 2, 16)
     pool = torch.zeros(3, 8, 2, 16)
+    qpool = torch.zeros(3, 8, 2, 16, dtype=torch.int8)
     tables = torch.zeros(1, 2, dtype=torch.int32)
     pos = torch.zeros(1, dtype=torch.int32)
+    scale = torch.ones(3, 8, 2)
     with pytest.raises(ValueError, match="impl"):
         tda.paged_decode_attention(q, pool, pool, tables, pos, impl="xla")
-    with pytest.raises(NotImplementedError, match="int8"):
-        tda.paged_decode_attention(q, pool, pool, tables, pos,
-                                   k_scale=torch.ones(3, 8, 2),
-                                   v_scale=torch.ones(3, 8, 2))
+    calls = [(tda.paged_decode_attention, (q, qpool, qpool, tables, pos)),
+             (tda.paged_verify_attention, (q[:, None], qpool, qpool, tables,
+                                           pos)),
+             (tda.paged_prefill_attention, (q, qpool, qpool, tables[0], 0))]
+    for fn, args in calls:
+        with pytest.raises(ValueError, match="both k_scale and v_scale"):
+            fn(*args, k_scale=scale)
+        with pytest.raises(ValueError, match="both k_scale and v_scale"):
+            fn(*args, v_scale=scale)
+        with pytest.raises(ValueError, match="scale shape"):
+            fn(*args, k_scale=scale[:, :4], v_scale=scale)
+        assert fn(*args, k_scale=scale, v_scale=scale).shape == \
+            args[0].shape
     with pytest.raises(ValueError, match="paged_prefill_attention"):
         tda.paged_prefill_attention(q, pool, pool, tables, 0)
 
@@ -348,34 +362,8 @@ def _tc_walk(q, kp, vp, tables, pos, ks, kt):
     inputs: per split of ``ks`` positions, key tiles of ``kt``, the
     online softmax with p rounded to bf16 relative to the running row max
     before p . V (l sums the f32 p), then the split-order merge."""
-    k_seq = tda.gather_kv_pages(kp, tables).float()
-    v_seq = tda.gather_kv_pages(vp, tables).float()
-    _, w, _, d = q.shape
-    span = k_seq.shape[1]
-    s = torch.einsum("bwhd,bshd->bwhs", q.float(), k_seq) * d ** -0.5
-    limit = pos.long()[:, None] + torch.arange(w)
-    live = (torch.arange(span)[None, None, :] <= limit[:, :, None])[:, :, None]
-    ms, ls, accs = [], [], []
-    for k0 in range(0, span, ks):
-        m = torch.full(s.shape[:-1], tda.NEG_INF)
-        l = torch.zeros(s.shape[:-1])
-        acc = torch.zeros(q.shape)
-        for t0 in range(k0, min(k0 + ks, span), kt):
-            sl = slice(t0, min(t0 + kt, k0 + ks, span))
-            see = live[..., sl]
-            sc = torch.where(see, s[..., sl], tda.NEG_INF)
-            m_new = torch.maximum(m, sc.amax(dim=-1))
-            corr = torch.exp(m - m_new)
-            p = torch.where(see, torch.exp(sc - m_new[..., None]), 0.0)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bwhs,bshd->bwhd", p.bfloat16().float(), v_seq[:, sl])
-            m = m_new
-        ms.append(m)
-        ls.append(l)
-        accs.append(acc)
-    return tda.paged_merge_reference(torch.stack(ms), torch.stack(ls),
-                                     torch.stack(accs))
+    return tda.paged_merge_reference(*tda.paged_mq_partials_reference(
+        q, kp, vp, tables, pos, ks, tile=kt))
 
 
 @pytest.mark.parametrize("kind,bs,d", [("prefill64", 16, 64),

@@ -176,11 +176,26 @@ def test_copy_block_and_config_checks(tree):
     assert torch.equal(pool["k"][:, 2], pool["k"][:, 1])
     assert torch.equal(pool["v"][:, 2], pool["v"][:, 1])
     assert pool["k_rows"].shape == (CFG["n_layers"], 4 * BS + 1, 2, 16)
-    with pytest.raises(NotImplementedError, match="int8"):
-        tgpt.init_kv_pool(tgpt.GPTConfig(**CFG, kv_dtype="int8"), 4, BS,
+    # an int8 pool: scales beside the payload (sink row included), and a
+    # block copy carries them
+    qpool = tgpt.init_kv_pool(tgpt.GPTConfig(**CFG, kv_dtype="int8"), 4, BS,
+                              device="cpu")
+    assert set(qpool) == {"k", "v", "k_scale", "v_scale", "k_rows",
+                          "v_rows", "k_scale_rows", "v_scale_rows"}
+    assert qpool["k"].dtype == torch.int8
+    assert qpool["k_scale_rows"].shape == (CFG["n_layers"], 4 * BS + 1, 2)
+    qpool["k"][:, 1] = 3
+    qpool["v_scale"][:, 1] = 0.5
+    tgpt.copy_block(qpool, 1, 2)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(qpool[name][:, 2], qpool[name][:, 1])
+    with pytest.raises(ValueError, match="kv_dtype"):
+        tgpt.init_kv_pool(tgpt.GPTConfig(**CFG, kv_dtype="int4"), 4, BS,
                           device="cpu")
     with pytest.raises(ValueError, match="kv_dtype"):
         tgpt.check_quant_cfg(tgpt.GPTConfig(**CFG, kv_dtype="int4"))
+    with pytest.raises(ValueError, match="weight_dtype"):
+        tgpt.check_quant_cfg(tgpt.GPTConfig(**CFG, weight_dtype="int4"))
     with pytest.raises(ValueError, match="shape"):
         tgpt.params_from_numpy(tree, tgpt.GPTConfig(**{**CFG, "d_ff": 32}),
                                device="cpu")

@@ -444,3 +444,192 @@ def test_fused_xent_unsupported_inputs_raise(dev):
     x = torch.zeros((8, 64), device=dev)
     with pytest.raises(TypeError, match="one dtype"):
         fx.fused_xent_fwd(x, x.bfloat16(), t)
+
+
+# ---------------------------------------------------------------------------
+# int8 pools: the int8 instances of the paged kernels against the plain
+# versions on the same int8 payloads and scales
+# ---------------------------------------------------------------------------
+# The plain versions dequantize after the gather (k_int8 * k_scale, f32);
+# the kernels apply the scales in f32 around their products, so in f32
+# they differ by summation order and rounding (TOL). The bf16 multi-query
+# kernel rounds p * v_scale to bf16 before its product with the int8
+# value row: 2**-8 P |V| more, V the dequantized values, as for a bf16
+# pool (`_mq_close`).
+
+def _int8_inputs(dev, b, h, d, bs, mb, seed=0):
+    from ray_tpu_torch.ops import quant
+    g, kp, vp, tables = _inputs(dev, torch.float32, b, h, d, bs, mb, seed)
+    (kq, ks), (vq, vs) = quant.quantize_rows(kp), quant.quantize_rows(vp)
+    return g, kq, vq, dict(k_scale=ks, v_scale=vs), tables
+
+
+def _int8_mq_close(got, ref, q, kq, vq, sc, tables, pos):
+    from ray_tpu_torch.ops import quant
+    _mq_close(got, ref, q, quant.dequantize_rows(kq, sc["k_scale"]),
+              quant.dequantize_rows(vq, sc["v_scale"]), tables, pos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 96, 100, 128, 256])
+@pytest.mark.parametrize("bs", [8, 16, 24, 64])
+def test_int8_decode_kernel_matches_plain(dev, dtype, d, bs):
+    """The int8 paged decode kernel: rows at pos 0, a block's end and the
+    next block's start (15, 16 at block 16), `_ONE_CTA` positions, split
+    rows at P - 1, P, P + 1 for a split boundary P, the table's last row
+    and past it. D 100 runs zero-padded to 104 (the int8 pool too)."""
+    h = 3
+    mb = -(-(da._ONE_CTA + 300) // bs)
+    ks, _ = da.split_geometry(mb * bs)
+    edge = da._ONE_CTA + ks
+    rows = [0, bs - 1, bs, 15, 16, da._ONE_CTA - 1, edge - 2, edge - 1,
+            edge, mb * bs - 1, mb * bs + 7]
+    g, kq, vq, sc, tables = _int8_inputs(dev, len(rows), h, d, bs, mb)
+    q = torch.randn((len(rows), h, d), generator=g, device=dev).to(dtype)
+    pos = torch.tensor(rows, dtype=torch.int32, device=dev)
+    n = da.paged_decode_attention.launches
+    n8 = da.LAUNCHES["paged_decode_int8"]
+    got = da.paged_decode_attention(q, kq, vq, tables, pos, **sc)
+    assert da.paged_decode_attention.launches == n + 1
+    assert da.LAUNCHES["paged_decode_int8"] == n8 + 1
+    ref = da.reference_paged_decode_attention(q, kq, vq, tables, pos, **sc)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 96, 100, 128, 256])
+@pytest.mark.parametrize("bs", [8, 16, 24, 64])
+def test_int8_prefill_and_verify_kernel_match_plain(dev, dtype, d, bs):
+    """bf16 runs the tensor-core kernel's int8 instance, f32 the CUDA-core
+    kernel's (blocks 24 and 64 re-viewed with their scales). Chunks of 8
+    and 64 at the start, at a block start and across the first split
+    boundary; verify W 1 to 5 with windows that see KS - 1, KS and KS + 1
+    positions or end at the table's last row."""
+    b, h = 3, 2
+    mb = -(-300 // bs)
+    ks, _ = da.split_geometry(mb * bs)
+    g, kq, vq, sc, tables = _int8_inputs(dev, b, h, d, bs, mb, seed=1)
+    kind = ("paged_mq_tc_int8" if dtype == torch.bfloat16
+            else "paged_mq_simt_int8")
+    one = tables.new_zeros(1)
+    for c, start in ((8, 0), (8, bs), (64, 0), (64, ks - 33)):
+        q = torch.randn((c, h, d), generator=g, device=dev).to(dtype)
+        kernels = dict(da.LAUNCHES)
+        got = da.paged_prefill_attention(q, kq, vq, tables[0], start, **sc)
+        assert {k: da.LAUNCHES[k] - kernels[k] for k in kernels} == \
+            {k: int(k == kind) for k in kernels}
+        ref = da.reference_paged_prefill_attention(q, kq, vq, tables[0],
+                                                   start, **sc)
+        _int8_mq_close(got[None], ref[None], q[None], kq, vq, sc,
+                       tables[:1], one + start)
+    for w in range(1, 6):
+        q = torch.randn((b, w, h, d), generator=g, device=dev).to(dtype)
+        pos = torch.tensor([ks - w - 1, ks - w + 1, mb * bs - w],
+                           dtype=torch.int32, device=dev)
+        got = da.paged_verify_attention(q, kq, vq, tables, pos, **sc)
+        ref = da.reference_paged_verify_attention(q, kq, vq, tables, pos,
+                                                  **sc)
+        _int8_mq_close(got, ref, q, kq, vq, sc, tables, pos)
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill", "verify"])
+def test_int8_kernels_are_deterministic_and_capturable(dev, kind):
+    """At the serving shapes on an int8 pool: one launch a call, two
+    calls bit-identical, and a CUDA graph that captured one call,
+    replayed after pos changed on the device, gives exactly what an
+    eager call with the new pos gives."""
+    from ray_tpu_torch.ops import quant
+    fn, args, ip = _serving_call(dev, kind)
+    (args[1], ks), (args[2], vs) = (quant.quantize_rows(args[1].float()),
+                                    quant.quantize_rows(args[2].float()))
+    sc = dict(k_scale=ks, v_scale=vs)
+    key = {"decode": "paged_decode_int8", "prefill": "paged_mq_tc_int8",
+           "verify": "paged_mq_tc_int8"}[kind]
+    n = da.LAUNCHES[key]
+    first, second = fn(*args, **sc), fn(*args, **sc)
+    assert da.LAUNCHES[key] == n + 2
+    assert torch.equal(first, second)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args, **sc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = fn(*args, **sc)
+    new_pos = args[ip].flip(0) if kind != "prefill" else args[ip] - 900
+    args[ip].copy_(new_pos)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, fn(*args, **sc))
+    assert not torch.equal(captured, first)
+
+
+def test_int8_pool_inputs_raise_instead_of_falling_back(dev):
+    """An int8 pool without scales, scales of the wrong dtype, or a float
+    pool handed scales: the kernels raise, nothing dequantizes a pool."""
+    _, kq, vq, sc, tables = _int8_inputs(dev, 1, 2, 64, 16, 2)
+    q = torch.zeros((1, 2, 64), device=dev)
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="int8|dtype"):
+        da.paged_decode_attention(q, kq, vq, tables, pos)
+    with pytest.raises(TypeError, match="float32"):
+        da.paged_decode_attention(q, kq, vq, tables, pos,
+                                  k_scale=sc["k_scale"].double(),
+                                  v_scale=sc["v_scale"].double())
+    with pytest.raises(TypeError, match="int8"):
+        da.paged_decode_attention(q, kq.float(), vq.float(), tables, pos,
+                                  **sc)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_engine_at_block_24(dev, dtype):
+    """An engine with an int8 pool and int8 weights at block 24 on the
+    card (head dim 96): every paged attention launch goes to an int8
+    kernel, and the greedy tokens match the same engine on the CPU (the
+    plain path) on peaked weights; f32 logprobs within 1e-3 (summation
+    order, and a K/V value on a rounding edge may quantize one step
+    apart), bf16 within 0.1 of the CPU's f32."""
+    import numpy as np
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve import InferenceEngine
+    kw = dict(vocab_size=128, d_model=192, n_layers=2, n_heads=2, d_ff=256,
+              max_seq_len=160, kv_dtype="int8", weight_dtype="int8")
+    eng_kw = dict(slots=2, max_len=144, prefill_buckets=(16, 32),
+                  block_size=24, prefill_chunk=32)
+    cpu_cfg = gpt.GPTConfig(**kw, dtype="float32")
+    params = gpt.init_params(3, cpu_cfg, "cpu")
+    params["embed"] = params["embed"] * 8
+    rng = np.random.default_rng(24)
+    prefix = rng.integers(0, 128, 50)
+    prompts = [np.concatenate([prefix, rng.integers(0, 128, 40)]),
+               np.concatenate([prefix, rng.integers(0, 128, 20)]),
+               rng.integers(0, 128, 33)]
+
+    def run(cfg, device):
+        model = gpt.GPT(cfg, params, device=device, dtype=torch.float32)
+        eng = InferenceEngine(model, cfg, device=device, **eng_kw)
+        rids = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run_until_idle()
+        outs = [list(eng.tokens_for(r)) for r in rids]
+        eng.check_invariants()
+        return outs, eng.stats()
+
+    want, _ = run(cpu_cfg, "cpu")
+    ops.reset_kernel_launches()
+    got, st = run(gpt.GPTConfig(**kw, dtype=dtype), dev)
+    launches = ops.kernel_launches()
+    mq = "paged_mq_tc_int8" if dtype == "bfloat16" else "paged_mq_simt_int8"
+    assert launches["paged_decode_int8"] == \
+        launches["paged_decode_attention"] == \
+        kw["n_layers"] * st["decode_steps"] > 0
+    assert launches[mq] == launches["paged_prefill_attention"] \
+        == kw["n_layers"] * st["prefill_chunks"] > 0
+    for key in ("paged_mq_tc", "paged_mq_simt"):
+        assert launches[key] == 0
+    tol = 1e-3 if dtype == "float32" else 0.1
+    for w, g_ in zip(want, got):
+        assert [int(t) for t in g_] == [int(t) for t in w]
+        np.testing.assert_allclose([t.logprob for t in g_],
+                                   [t.logprob for t in w], atol=tol, rtol=0)
