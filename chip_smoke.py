@@ -101,7 +101,26 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    2 D / (D + 4) = 1.88x under the bf16 engine's, logprobs against the
    bf16 engine's (printed), one ``update_params`` of the same weights
    (tokens unchanged, ``quantize_traces`` unchanged, ``params_version``
-   1), decode p50/p99 and tok/s, and phase 3's teacher-forced check.
+   1), decode p50/p99 and tok/s, and phase 3's teacher-forced check;
+12. speculative decoding: (a) the verify caller of the multi-query
+   kernel (`paged_verify_attention`, as `verify_step_paged` calls it) at
+   the engine's geometry, W 2, 5 and 9 (k 1, 4, 8) in bf16 and f32 and
+   an int8 pool at W 5, each against its plain version, one launch a
+   call by name, bit-identical twice, CUDA-graph replay with a new pos;
+   the W 5 bf16 call's time beside plain, SDPA with the staircase mask,
+   the bound and the five `paged_decode_attention` calls W sequential
+   ticks would make; (b) ``bench_infer.py``'s spec traffic (16 prompts
+   tiling a 4-token motif to 128 tokens, 64 new tokens each, one
+   sampled) through phase 2's model with spec off, ``spec="ngram"`` and
+   ``spec="draft"`` (a 1-layer draft from seed + 1), k 4: decode tok/s,
+   tick p50/p99, tokens_per_step, acceptance_rate, wall time, one host
+   sync a tick, the paged launches per spec tick (12 ``paged_mq_tc`` a
+   verify, W ``paged_decode`` a draft layer's proposal), 8 ticks under
+   ``torch.profiler`` (wall and device time a tick by kernel group),
+   phase 3's teacher-forced check of each spec engine; (c) draft = target on
+   peaked weights (embed x 8) at temperature 0: acceptance_rate >= 0.9,
+   tokens_per_step >= 3, tokens identical to spec off, and
+   ``update_params(..., draft_params=...)`` of the same weights.
 
 Before the phases it prints the registers and spilled bytes of every
 tensor-core kernel and of the two split-K decode kernels from nvcc's
@@ -2069,6 +2088,389 @@ def phase_int8(dev, kern, reqs, bf16_outs, bf16_eng) -> dict:
     return out
 
 
+# Phase 12: speculative decoding. (a) the verify caller of the multi-query
+# kernel at the engine's geometry, W = k + 1 for k 1, 4 and 8; (b)
+# bench_infer.py's spec traffic (prompts tiling a 4-token motif,
+# bench_infer.py:250-256) through engines with spec off, n-gram and a
+# 1-layer draft, at SERVE_CFG with k 4; (c) a self-drafting engine on
+# peaked weights.
+SPEC_K = 4
+SPEC_WINDOWS = (2, SPEC_K + 1, 9)
+SPEC_PROMPT, SPEC_MOTIF, SPEC_REQUESTS, SPEC_NEW = 128, 4, 16, 64
+SPEC_SAMPLED = 3                  # the one request sampled at 0.8
+SPEC_DRAFT_LAYERS = 1
+SPEC_ENGINES = {"off": {}, "ngram": dict(spec="ngram", spec_k=SPEC_K),
+                "draft": dict(spec="draft", spec_k=SPEC_K,
+                              draft_layers=SPEC_DRAFT_LAYERS)}
+# (c): draft = target at temperature 0 on peaked weights (embed x 8, the
+# tests' idiom) must accept nearly everything.
+SELF_DRAFT_REQUESTS, SELF_DRAFT_ACCEPT, SELF_DRAFT_TOKENS_PER_STEP = 8, 0.9, 3.0
+
+
+def phase_verify_kernels(dev) -> dict:
+    """(a) `paged_verify_attention` at the engine's geometry (B 8, H 16,
+    D 64, block 16, the 513-block pool, 64-entry tables, windows at
+    DECODE_POS clamped into the table): W 2, 5 and 9 in bf16
+    (`paged_mq_tc`, within an extra 2^-8 P|V|) and f32 (`paged_mq_simt`),
+    and an int8 pool at W 5 (f32 and bf16 q), each against its plain
+    version, one launch a call by name, bit-identical twice and replayed
+    exactly from a CUDA graph with a new pos. Then the bf16 W 5 call's
+    device time beside the plain version's, one SDPA call with the
+    staircase mask over K/V gathered beforehand (gather not timed), the
+    bound, and the five `paged_decode_attention` calls (at pos .. pos + 4)
+    that W sequential ticks would launch."""
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import decode_attention as da
+    from ray_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    k32 = torch.randn((NB, BS, H, D), generator=g, device=dev)
+    v32 = torch.randn((NB, BS, H, D), generator=g, device=dev)
+    perm = torch.randperm(NB - 1, generator=g, device=dev) + 1
+    tables = perm[:8 * MB].view(8, MB).to(torch.int32).contiguous()
+    (kq, ks), (vq, vs) = quant.quantize_rows(k32), quant.quantize_rows(v32)
+    sc = dict(k_scale=ks, v_scale=vs)
+    kdeq, vdeq = quant.dequantize_rows(kq, ks), quant.dequantize_rows(vq, vs)
+
+    def window_pos(w):
+        return torch.tensor(DECODE_POS, dtype=torch.int32,
+                            device=dev).clamp(max=MB * BS - w)
+
+    rec = {"cases": []}
+    cases = [(w, dt, False) for w in SPEC_WINDOWS
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [(SPEC_K + 1, dt, True) for dt in (torch.bfloat16, torch.float32)]
+    for w, dt, int8 in cases:
+        pos = window_pos(w)
+        q = torch.randn((8, w, H, D), generator=g, device=dev).to(dt)
+        name = str(dt).split(".")[-1]
+        want = ("paged_mq_tc" if dt == torch.bfloat16 else "paged_mq_simt") \
+            + ("_int8" if int8 else "")
+        kp, vp, kw = ((kq, vq, sc) if int8 else
+                      (k32.to(dt), v32.to(dt), {}))
+        extra = None
+        if dt == torch.bfloat16:
+            kf, vf = (kdeq, vdeq) if int8 else (kp.float(), vp.float())
+            extra = 2 ** -8 * da.reference_paged_verify_attention(
+                q.float(), kf, vf.abs(), tables, pos)
+        what = f"(a) paged_verify {'int8 ' if int8 else ''}{name:8s} W={w}"
+        before = dict(da.LAUNCHES)
+        got = da.paged_verify_attention(q, kp, vp, tables, pos, **kw)
+        if {k: da.LAUNCHES[k] - before[k] for k in before} != \
+                {k: int(k == want) for k in before}:
+            fail(f"{what} did not launch {want} once")
+        err = check("paged verify", got, da.reference_paged_verify_attention(
+            q, kp, vp, tables, pos, **kw), name, what, extra=extra)
+        same_and_capturable(what, da.paged_verify_attention,
+                            [q, kp, vp, tables, pos.clone()], kw, 4,
+                            pos.flip(0), want)
+        rec["cases"].append({"W": w, "dtype": name, "int8_pool": int8,
+                             "kernel": want, "max_abs_err": err,
+                             "atol_rtol": TOL[name]})
+    print(f"  (a) {len(cases)} verify cases: one launch a call by name, "
+          f"bit-identical twice, CUDA-graph replay with a new pos exact")
+
+    # times at W 5, bf16: TIME_SETS pools (33.6 MB of K+V each)
+    w = SPEC_K + 1
+    pos = window_pos(w)
+    pools = [(k32.bfloat16(), v32.bfloat16())] + [
+        tuple(torch.randn((NB, BS, H, D), generator=g, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+        for _ in range(TIME_SETS - 1)]
+    q = torch.randn((8, w, H, D), generator=g, device=dev).bfloat16()
+    args = [(q, kp, vp, tables, pos) for kp, vp in pools]
+    rec["ms"] = time_ms(da.paged_verify_attention, args)
+    rec["plain_ms"] = time_ms(da.reference_paged_verify_attention, args)
+    s_len = MB * BS
+    mask = (torch.arange(s_len, device=dev)[None, None, :]
+            <= (pos.long()[:, None] + torch.arange(w, device=dev))[:, :, None]
+            )[:, None]
+    lib_args = [(q.transpose(1, 2).contiguous(),
+                 da.gather_kv_pages(kp, tables).transpose(1, 2).contiguous(),
+                 da.gather_kv_pages(vp, tables).transpose(1, 2).contiguous(),
+                 mask) for kp, vp in pools]
+    rec["library_ms"] = time_ms(
+        lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=m_), lib_args)
+    del lib_args
+    qs = [q[:, j].contiguous() for j in range(w)]
+    poss = [pos + j for j in range(w)]
+
+    def ticks(qs_, kp, vp, t, poss_):
+        for qj, pj in zip(qs_, poss_):
+            da.paged_decode_attention(qj, kp, vp, t, pj)
+
+    rec["decode_x5_ms"] = time_ms(ticks, [(qs, kp, vp, tables, poss)
+                                          for kp, vp in pools])
+    rows_read = sum(p + w for p in pos.tolist())
+    seen = sum((p + j + 1) for p in pos.tolist() for j in range(w))
+    nbytes = (2 * q.numel() * 2 + rows_read * H * D * 2 * 2
+              + sum(-(-(p + w) // BS) for p in pos.tolist()) * 4 + 8 * 4)
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, seen * H * D * 4,
+                                             torch.bfloat16)
+    rec["shape"] = (f"bf16 q[8,{w},{H},{D}] pool[{NB},{BS},{H},{D}] "
+                    f"pos={pos.tolist()}")
+    print(f"  (a) paged_verify W={w}: kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, sdpa (gather excluded) "
+          f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}), {w} paged_decode calls "
+          f"{rec['decode_x5_ms']:.4f} ms [{rec['shape']}]")
+    return rec
+
+
+def spec_traffic(vocab: int, n: int = SPEC_REQUESTS, seed: int = 0):
+    """bench_infer.py's spec traffic: ``n`` prompts, each a random 4-token
+    motif tiled to SPEC_PROMPT tokens; request SPEC_SAMPLED sampled at
+    0.8, the others greedy."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        motif = rng.integers(0, vocab, SPEC_MOTIF)
+        out.append((np.tile(motif, -(-SPEC_PROMPT // SPEC_MOTIF))
+                    [:SPEC_PROMPT].astype(np.int32),
+                    0.8 if i == SPEC_SAMPLED else 0.0))
+    return out
+
+
+def tick_profile(eng, vocab: int, ticks: int = 8) -> dict:
+    """Where a tick's time goes: every slot takes a SPEC_PROMPT-token motif
+    prompt (200 new tokens, so none retires), the prompts are prefilled,
+    then ``ticks`` ticks run under `torch.profiler`: wall and device time
+    a tick, the device busy share, and device time a tick by kernel
+    group (the multi-query kernel: verify; the paged decode kernel: plain
+    ticks and draft proposals; cuBLAS GEMMs; the rest: elementwise,
+    reduction, copy and index kernels). The requests are cancelled
+    after."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prompts = spec_traffic(vocab, eng.num_slots, seed=7)
+    rids = [eng.submit(p, max_new_tokens=200) for p, _ in prompts]
+    chunks = eng.stats()["prefill_chunks"] + sum(
+        -(-p.size // eng.prefill_chunk) for p, _ in prompts)
+    while eng.stats()["prefill_chunks"] < chunks:
+        eng.step()
+    torch.cuda.synchronize()
+    spec0 = eng.stats()["spec_steps"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spec_ticks = eng.stats()["spec_steps"] - spec0
+    for r in rids:
+        eng.cancel(r)
+    kernels = [(e.key, e.self_device_time_total * 1e-3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+
+    def group(name):
+        if "paged_mq_tc_kernel" in name:
+            return "paged_mq_tc (verify)"
+        if "paged_decode_kernel" in name:
+            return "paged_decode"
+        if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass")):
+            return "gemm"
+        return "other"
+
+    by_group = {}
+    for name, ms, _ in kernels:
+        by_group[group(name)] = by_group.get(group(name), 0.0) + ms / ticks
+    busy = sum(ms for _, ms, _ in kernels)
+    top = sorted(kernels, key=lambda k: -k[1])[:8]
+    return {"ticks": ticks, "spec_ticks": spec_ticks,
+            "wall_ms_per_tick": wall * 1e3 / ticks,
+            "device_ms_per_tick": busy / ticks,
+            "device_busy_share": busy * 1e-3 / wall,
+            "device_ms_per_tick_by_group": by_group,
+            "top_kernels": [{"name": k[:80], "device_ms": t, "calls": n}
+                            for k, t, n in top]}
+
+
+def phase_spec_engine(dev, which: str, reqs, seed: int = 0) -> dict:
+    """(b) ``reqs`` through an `InferenceReplica` at SERVE_CFG (8 slots,
+    block 16, chunk 64) with ``SPEC_ENGINES[which]``, counters zeroed
+    just before and read just after: one host sync a prefill chunk and a
+    tick (plain or speculative); per spec tick one `paged_mq_tc` launch
+    a layer (the verify forward) and, with the draft, W
+    `paged_decode_attention` launches a draft layer (the proposal); the
+    draft's prefill chunks on `paged_mq_tc` too; no `paged_mq_simt`.
+    Then `tick_profile` and phase 3's teacher-forced check of a spec
+    engine's greedy tokens."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.serve import InferenceReplica
+
+    cfg_kwargs = dict(SERVE_CFG)
+    layers = cfg_kwargs["n_layers"]
+    ek = dict(block_size=16, prefill_chunk=64, **SPEC_ENGINES[which])
+    replica = InferenceReplica(cfg_kwargs, slots=8, max_len=1024, seed=seed,
+                               engine_kwargs=ek, device=dev)
+    eng = replica.engine
+    for gen in [replica(p, max_new_tokens=8) for p, _ in
+                spec_traffic(cfg_kwargs["vocab_size"], 2, seed=9)]:
+        list(gen)
+    eng.reset_stats()
+    verify_before = eng.stats()["verify_launches"]
+    ops.reset_kernel_launches()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        outs = [list(gen) for gen in [
+            replica(p, max_new_tokens=SPEC_NEW, temperature=t)
+            for p, t in reqs]]
+        wall = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    st = eng.stats()
+    eng.check_invariants()
+    if any(len(o) != SPEC_NEW for o in outs):
+        fail(f"spec engine {which} cut a request short")
+    spec_ticks = st["spec_steps"]
+    plain_ticks = st["decode_steps"] - spec_ticks
+    dl = SPEC_DRAFT_LAYERS if which == "draft" else 0
+    w = SPEC_K + 1
+    draft_chunks = sum(-(-p.size // 64) for p, _ in reqs) if dl else 0
+    want = {"paged_verify_attention": layers * spec_ticks,
+            "paged_mq_tc": layers * (spec_ticks + st["prefill_chunks"])
+            + dl * draft_chunks,
+            "paged_prefill_attention": layers * st["prefill_chunks"]
+            + dl * draft_chunks,
+            "paged_decode_attention": layers * plain_ticks
+            + dl * w * spec_ticks,
+            "paged_mq_simt": 0, "paged_decode_int8": 0,
+            "paged_mq_tc_int8": 0, "paged_mq_simt_int8": 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"spec engine {which}: paged launches {got}, want {want}")
+    if st["verify_launches"] - verify_before != want["paged_verify_attention"]:
+        fail(f"spec engine {which}: verify_launches "
+             f"{st['verify_launches'] - verify_before}, want "
+             f"{want['paged_verify_attention']}")
+    if which != "off" and spec_ticks <= 0:
+        fail(f"spec engine {which} made no speculative tick")
+    if syncs != st["decode_steps"] + st["prefill_chunks"]:
+        fail(f"spec engine {which}: {syncs} host syncs for "
+             f"{st['decode_steps']} ticks and {st['prefill_chunks']} prefill "
+             "chunks (want one each)")
+    per_tick = {}
+    if spec_ticks:
+        per_tick = {"paged_mq_tc (verify)": want["paged_verify_attention"]
+                    / spec_ticks,
+                    "paged_decode (proposal)": dl * w}
+    out = {k: st[k] for k in (
+        "decode_steps", "spec_steps", "prefill_chunks", "decode_tokens",
+        "decode_tok_s", "p50_token_latency_ms", "p99_token_latency_ms",
+        "tokens_per_step", "acceptance_rate", "pool_bytes")}
+    out.update(wall_s=wall, launches=launches, host_syncs=syncs,
+               launches_per_spec_tick=per_tick)
+    print(f"  (b) {which}: {len(reqs)} requests in {wall:.2f} s; decode "
+          f"{st['decode_tok_s']:.1f} tok/s, tick p50 "
+          f"{st['p50_token_latency_ms']:.3f} ms p99 "
+          f"{st['p99_token_latency_ms']:.3f} ms; {st['decode_steps']} ticks "
+          f"({spec_ticks} speculative), tokens_per_step "
+          f"{st['tokens_per_step']:.3f}, acceptance_rate "
+          f"{st['acceptance_rate']:.3f}; launches per spec tick {per_tick}; "
+          f"{syncs} host syncs")
+    prof = out["tick_profile"] = tick_profile(eng, cfg_kwargs["vocab_size"])
+    print(f"  (b) {which} profile: {prof['ticks']} ticks "
+          f"({prof['spec_ticks']} speculative), wall "
+          f"{prof['wall_ms_per_tick']:.3f} ms a tick, device "
+          f"{prof['device_ms_per_tick']:.3f} ms ({prof['device_busy_share']:.1%}"
+          f" busy); device ms a tick by group "
+          f"{ {k: round(v, 3) for k, v in prof['device_ms_per_tick_by_group'].items()} }")
+    eng.check_invariants()
+    del replica, eng
+    torch.cuda.empty_cache()
+    if which != "off":
+        out["teacher_forced"] = phase_teacher_forced(dev, cfg_kwargs, seed,
+                                                     reqs, outs)
+    return out
+
+
+def phase_spec_self_draft(dev, seed: int = 0) -> dict:
+    """(c) Peaked weights (embed x 8) at SERVE_CFG, temperature 0: an
+    engine with spec off and one with ``spec="draft"``, draft = target,
+    on the same greedy requests: identical tokens, acceptance_rate >=
+    SELF_DRAFT_ACCEPT, tokens_per_step >= SELF_DRAFT_TOKENS_PER_STEP;
+    then `update_params` of the same weights into target and draft:
+    fresh prompts' tokens unchanged, params_version 1."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve import InferenceEngine
+
+    cfg = gpt.small(**SERVE_CFG)
+    tree = gpt.init_params(seed, cfg, dev)
+    tree["embed"] = tree["embed"] * 8
+    model = gpt.GPT(cfg, tree, device=dev)
+    ek = dict(slots=8, max_len=1024, block_size=16, prefill_chunk=64,
+              device=dev)
+    prompts = [p for p, _ in spec_traffic(cfg.vocab_size,
+                                          SELF_DRAFT_REQUESTS, seed=5)]
+    probe = [p for p, _ in spec_traffic(cfg.vocab_size, 2, seed=6)]
+    toks = {}
+    for which, kw in (("off", {}), ("draft", dict(
+            spec="draft", spec_k=SPEC_K, draft_params=model, draft_cfg=cfg))):
+        eng = InferenceEngine(model, cfg, **ek, **kw)
+        rids = [eng.submit(p, max_new_tokens=SPEC_NEW) for p in prompts]
+        eng.run_until_idle()
+        toks[which] = [[int(t) for t in eng.tokens_for(r)] for r in rids]
+        eng.check_invariants()
+    st = eng.stats()
+    if toks["draft"] != toks["off"]:
+        same = np.mean([a == b for x, y in zip(toks["draft"], toks["off"])
+                        for a, b in zip(x, y)])
+        fail(f"(c) self-drafting greedy tokens differ from spec off "
+             f"({same:.1%} the same)")
+    if not (st["acceptance_rate"] >= SELF_DRAFT_ACCEPT
+            and st["tokens_per_step"] >= SELF_DRAFT_TOKENS_PER_STEP):
+        fail(f"(c) self-drafting acceptance_rate {st['acceptance_rate']:.3f}"
+             f" tokens_per_step {st['tokens_per_step']:.3f}")
+    before = [[int(t) for t in eng.generate(p, max_new_tokens=16)]
+              for p in probe]
+    version = eng.update_params(tree, draft_params=tree)
+    after = [eng.generate(p, max_new_tokens=16) for p in probe]
+    if [[int(t) for t in o] for o in after] != before or version != 1 \
+            or not all(t.params_version == 1 for o in after for t in o):
+        fail("(c) a swap of the same weights changed tokens or the version")
+    eng.check_invariants()
+    print(f"  (c) draft = target, peaked weights, {len(prompts)} greedy "
+          f"requests: tokens identical to spec off, acceptance_rate "
+          f"{st['acceptance_rate']:.3f} (>= {SELF_DRAFT_ACCEPT}), "
+          f"tokens_per_step {st['tokens_per_step']:.3f} (>= "
+          f"{SELF_DRAFT_TOKENS_PER_STEP}), {st['spec_steps']} spec ticks; "
+          f"update_params(..., draft_params=...) of the same weights: tokens "
+          f"unchanged, params_version 1")
+    out = {k: st[k] for k in ("acceptance_rate", "tokens_per_step",
+                              "spec_steps", "decode_steps",
+                              "p50_token_latency_ms", "decode_tok_s")}
+    del eng, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spec(dev) -> dict:
+    """Phase 12: (a) the verify kernels, (b) the three engines, (c) the
+    self-drafting engine; the kernels line's verify row reads (b)'s two
+    spec engines' launches."""
+    out = {"kernels": phase_verify_kernels(dev)}
+    reqs = spec_traffic(SERVE_CFG["vocab_size"])
+    out["engines"] = {w: phase_spec_engine(dev, w, reqs)
+                      for w in SPEC_ENGINES}
+    out["self_draft"] = phase_spec_self_draft(dev)
+    return out
+
+
 def _readable_kernel(mangled: str):
     """A readable name for an instantiation of a tensor-core kernel or of
     a split-K decode kernel (``flash_dq_tc_kernel<64, true>``,
@@ -2262,9 +2664,11 @@ def main() -> int:
                "1600, 4096", phase_c1, dev)
     int8 = phase(11, "int8 serving (int8 pool, int8 weights)", phase_int8,
                  dev, kern, reqs, outs, eng)
+    spec = phase(12, "speculative decoding (verify kernel, n-gram and draft "
+                 "engines)", phase_spec, dev)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
                   flash=flash, train=train, xent=xent, fused_train=fused,
-                  unpaged=unpaged, c1=c1, int8=int8)
+                  unpaged=unpaged, c1=c1, int8=int8, spec=spec)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2273,8 +2677,12 @@ def main() -> int:
     # launches: each kernel's count over its own path's main run (phase 2
     # for serving, phase 6 (c) for training with the dense loss, phase 8
     # (c) for bench.py's fused-loss training, phase 9 (b) for the unpaged
-    # path, phase 11 (b)'s "kv+w" engine for int8 serving), counters
-    # zeroed just before
+    # path, phase 11 (b)'s "kv+w" engine for int8 serving, phase 12 (b)'s
+    # n-gram and draft engines for the verify caller), counters zeroed
+    # just before
+    verify = {"paged_verify_attention": sum(
+        spec["engines"][w]["launches"]["paged_verify_attention"]
+        for w in ("ngram", "draft"))}
     for key, wrapper, replaces, rec, launches, src in (
             ("paged_decode", "paged_decode_attention",
              "ray_tpu/ops/decode_attention.py:282", kern["paged_decode"],
@@ -2308,7 +2716,10 @@ def main() -> int:
             ("paged_prefill_int8", "paged_mq_tc_int8",
              "ray_tpu/ops/decode_attention.py:424",
              int8["kernels"]["paged_prefill_int8"],
-             int8["engines"]["kv+w"]["launches"], "paged_attention.cu")):
+             int8["engines"]["kv+w"]["launches"], "paged_attention.cu"),
+            ("paged_verify", "paged_verify_attention",
+             "ray_tpu/ops/decode_attention.py:424", spec["kernels"], verify,
+             "paged_attention.cu")):
         rows.append({"name": key, "route": "cuda",
                      "source": f"ray_tpu_torch/ops/csrc/{src}",
                      "replaces": replaces, "launches": launches[wrapper],
@@ -2348,6 +2759,16 @@ def main() -> int:
                          if key == "paged_decode_int8"
                          else "paged_mq_tc_kernel<int8>"],
                 bf16_pool_ms=rec["bf16_ms"])
+        elif key == "paged_verify":
+            # the verify caller at W 5, bf16: the tensor-core kernel, one
+            # launch per call, beside the W paged decode calls that W
+            # sequential ticks would make
+            rows[-1].update(kernels=["paged_mq_tc_kernel"], W=SPEC_K + 1,
+                            decode_x5_ms=rec["decode_x5_ms"],
+                            launches_by_engine={
+                                w: spec["engines"][w]["launches"][
+                                    "paged_verify_attention"]
+                                for w in ("ngram", "draft")})
         elif key == "paged_prefill":
             # bf16: the tensor-core split-K kernel, one launch per call
             rows[-1].update(kernels=["paged_mq_tc_kernel"],

@@ -764,3 +764,44 @@ def decode_step_paged(model: GPT, tokens, cache: dict, pos, tables,
 
         x = _layer(layers[i], x, cfg, attend)
     return _unembed(model, x), cache
+
+
+def verify_step_paged(model: GPT, tokens, cache: dict, pos, tables,
+                      cfg: GPTConfig):
+    """Batched W-token verify forward of speculative decoding: ``tokens
+    [B, W]`` (column 0 each slot's current token, columns 1..W-1 its
+    drafts), token j of row b at position ``pos[b] + j``, blocks named by
+    ``tables [B, max_blocks]`` int32. All W tokens' K/V are written
+    first (positions past the table go to the sink), then every token
+    attends to positions ``<= pos[b] + j`` in one
+    `ops.decode_attention.paged_verify_attention` per layer
+    (``cfg.decode_attn_impl``): the numbers W sequential
+    `decode_step_paged` calls give, up to summation order. Returns
+    ``(logits [B, W, vocab] f32, cache)``: ``logits[:, j]`` is the
+    next-token distribution after drafts 1..j. Rejected drafts need no
+    cleanup: their K/V sit past the slot's next pos, masked until
+    overwritten. Int8 pools and weights as in `prefill_paged`."""
+    check_quant_cfg(cfg)
+    b, w = tokens.shape
+    nb, bs = cache["k"].shape[1], cache["k"].shape[2]
+    mb = tables.shape[1]
+    nh, hd = cfg.n_heads, cfg.head_dim
+    positions = pos.long()[:, None] + torch.arange(w, device=tokens.device)
+    blk = torch.gather(tables, 1, torch.clamp(positions // bs, max=mb - 1))
+    widx = torch.where(positions < mb * bs, blk.long() * bs + positions % bs,
+                       nb * bs).reshape(-1)
+    adt = cfg.activation_dtype()
+    x = model.embed[tokens.reshape(-1)].to(adt) + model.pos_embed[
+        torch.clamp(positions, max=cfg.max_seq_len - 1).reshape(-1)].to(adt)
+    layers = model.layer_params()
+
+    for i in range(cfg.n_layers):
+        def attend(q, k, v, i=i):
+            _scatter_kv(cache, i, k, v, widx)
+            return da.paged_verify_attention(
+                q.view(b, w, nh, hd), cache["k"][i], cache["v"][i], tables,
+                pos, **_pool_scales(cache, i),
+                impl=cfg.decode_attn_impl).reshape(b * w, -1)
+
+        x = _layer(layers[i], x, cfg, attend)
+    return _unembed(model, x).view(b, w, -1), cache

@@ -27,21 +27,33 @@ Dh]``) and ragged traffic streamed through it via int32 block tables.
 - **weight hot swap**: `InferenceEngine.update_params` copies new weights
   (f32 masters, quantized first on an int8-weight engine) into the
   engine's own tensors in place between ticks, flushes the radix tree
-  and bumps ``params_version``, which every later `TokenEvent` carries.
+  and bumps ``params_version``, which every later `TokenEvent` carries;
+  ``draft_params=`` swaps the draft model the same way.
+- **speculative decoding** (``spec="ngram"|"draft"``, ``spec_k`` drafts
+  a tick): each slot proposes up to k tokens, by prompt lookup in its
+  own history (n-gram) or from a small draft model over its own paged
+  pool (W = k + 1 draft `models.gpt.decode_step_paged` calls, tokens
+  kept on the device); ONE `models.gpt.verify_step_paged` forward scores
+  the window ``[token, drafts]`` and `accept_drafts` keeps the longest
+  accepted run plus one corrected or bonus token. Rejection sampling
+  against the draft as a point-mass proposal keeps sampled output
+  distribution-exact for any proposal; greedy output is token-identical
+  to plain decoding.
 
-Each prefill chunk and each decode tick makes ONE host sync: the sampled
-tokens and their logprobs come back to the host together in one copy.
-Every emitted token is a `TokenEvent` carrying its natural (temperature-
-1) logprob. Sampling draws from a per-engine `torch.Generator` seeded
-with ``seed``: greedy decoding matches the JAX engine token for token,
+Each prefill chunk, each decode tick and each speculative tick makes ONE
+host sync: the sampled tokens and their logprobs (and a spec tick's
+accepted counts) come back to the host together in one copy. Every
+emitted token is a `TokenEvent` carrying its natural (temperature-1)
+logprob. Sampling draws from a per-engine `torch.Generator` seeded with
+``seed``: greedy decoding matches the JAX engine token for token,
 sampled decoding only in distribution (JAX's threefry bits are not
 reproducible here).
 
 Not ported yet, and refused with `NotImplementedError` when asked for
-(ROADMAP queue A): speculative decoding (and with it a draft model's
-swap), disaggregated prefill/decode handoff, priority classes and
-preemption, overload shedding and the tick watchdog, fault-injection
-sites, the flight recorder and retrace sentinel, and device meshes.
+(ROADMAP queue A): disaggregated prefill/decode handoff, priority
+classes and preemption, overload shedding and the tick watchdog,
+fault-injection sites, the flight recorder and retrace sentinel, and
+device meshes.
 """
 
 from __future__ import annotations
@@ -347,17 +359,75 @@ class _Slot:
     temperature: float = 0.0
     eos_id: int | None = None
     submit_ts: float = 0.0
+    # speculative decoding: the request's tokens so far (prompt + emitted,
+    # the n-gram proposer's corpus) and, with a draft model, this slot's
+    # blocks, table and prefill progress in the DRAFT pool
+    history: list = field(default_factory=list)
+    draft_blocks: list = field(default_factory=list)
+    draft_table: np.ndarray | None = None
+    draft_filled: int = 0
 
     @property
     def active(self) -> bool:
         return self.phase != "idle"
 
 
+def _gumbel_argmax(scores, gen):
+    """One categorical draw along the last dim of ``scores`` (logits or
+    log-probabilities, up to a constant) by the Gumbel-max trick, with
+    uniforms from ``gen``."""
+    u = torch.rand(scores.shape, generator=gen,
+                   device=scores.device).clamp_(min=1e-20)
+    return torch.argmax(scores - torch.log(-torch.log(u)), dim=-1)
+
+
+def accept_drafts(logits, window, temps, gen=None):
+    """The accept/correct rule of speculative decoding, on one verify
+    forward's ``logits [B, W, V]`` f32 for ``window [B, W]`` (column 0
+    each row's current token, columns 1..W-1 its drafts) and per-row
+    ``temps [B]``.
+
+    Draft j is judged against column j - 1: a greedy row (temperature 0)
+    accepts it iff it is that column's argmax; a sampled row accepts it
+    with probability p(draft) under the column's tempered softmax
+    (``u < p``). ``accepted`` counts the leading run of accepts. Column
+    ``accepted`` then gives the next token: its argmax on a greedy row;
+    on a sampled row a draw from its tempered distribution with the
+    rejected draft masked to -1e30 (the residual of rejection sampling
+    against a point-mass proposal: the emitted token follows the target
+    distribution whatever the draft was), unmasked in column W - 1 (the
+    bonus token after W - 1 accepts). ``gen`` draws the uniforms and the
+    categorical samples; None when no row samples.
+
+    Returns ``(out [B, W], out_lp [B, W] f32, accepted [B])``:
+    ``out[:, :accepted + 1]`` are the tokens to emit, ``out_lp`` each
+    column's token's natural (untempered f32) logprob."""
+    w = logits.shape[1]
+    drafts = window[:, 1:].long()
+    greedy = torch.argmax(logits, dim=-1)
+    match = drafts == greedy[:, :-1]
+    nxt = greedy
+    if gen is not None:
+        hot = (temps > 0)[:, None]
+        safe = torch.where(temps > 0, temps, 1.0)
+        logp = torch.log_softmax(logits.float() / safe[:, None, None], dim=-1)
+        p_draft = logp[:, :-1].gather(-1, drafts[..., None])[..., 0].exp()
+        u = torch.rand(drafts.shape, generator=gen, device=logits.device)
+        match = torch.where(hot, u < p_draft, match)
+        logp[:, :-1].scatter_(-1, drafts[..., None], -1e30)
+        nxt = torch.where(hot, _gumbel_argmax(logp, gen), greedy)
+    accepted = torch.cumprod(match.long(), dim=1).sum(dim=1)
+    cols = torch.arange(w, device=logits.device)
+    out = torch.where(cols < accepted[:, None],
+                      torch.nn.functional.pad(drafts, (0, 1)), nxt)
+    out_lp = torch.log_softmax(logits.float(), dim=-1).gather(
+        -1, out[..., None])[..., 0]
+    return out, out_lp, accepted
+
+
 # Engine kwargs of ray_tpu's InferenceEngine that this port does not
 # implement yet, with the value that means "off". Anything else raises.
 _NOT_PORTED = {
-    "spec": None, "spec_k": 4, "ngram_max": 3, "ngram_min": 1,
-    "draft_params": None, "draft_cfg": None, "draft_cache_blocks": None,
     "mesh": None, "telemetry_sample": None, "max_queue": None,
     "shed_high_water": None, "watchdog_s": None, "priority_classes": None,
     "priority_aging_s": None, "priority_weight_base": None,
@@ -379,15 +449,28 @@ class InferenceEngine:
 
     ``cfg.weight_dtype="int8"`` serves an engine-owned quantized copy of
     ``model`` (`models.gpt.quantize_params`); ``cfg.kv_dtype="int8"``
-    an int8 pool. `update_params` swaps weights in place."""
+    an int8 pool. `update_params` swaps weights in place.
+
+    ``spec="ngram"`` or ``"draft"`` decodes speculatively, ``spec_k``
+    drafts a tick: n-gram lookup of the last ``ngram_max`` down to
+    ``ngram_min`` tokens in the request's own history, or a draft model
+    (``draft_params``: a `models.gpt.GPT` on the engine's device, like
+    ``model``; ``draft_cfg`` its config, same vocabulary, quantized like
+    the target when its ``weight_dtype`` is "int8") over its own paged pool of
+    ``draft_cache_blocks`` usable blocks (default ``cache_blocks``),
+    which holds every resident request's full footprint and shares no
+    prefixes."""
 
     def __init__(self, model: gpt.GPT, cfg: gpt.GPTConfig, *,
                  slots: int = 4, max_len: int | None = None,
                  prefill_buckets: tuple[int, ...] | None = None,
                  block_size: int = 16, cache_blocks: int | None = None,
                  prefill_chunk: int | None = None,
-                 prefix_cache: bool = True, seed: int = 0, device=None,
-                 **not_ported):
+                 prefix_cache: bool = True, spec: str | None = None,
+                 spec_k: int = 4, ngram_max: int = 3, ngram_min: int = 1,
+                 draft_params=None, draft_cfg: gpt.GPTConfig | None = None,
+                 draft_cache_blocks: int | None = None, seed: int = 0,
+                 device=None, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"InferenceEngine got an unexpected "
@@ -396,6 +479,16 @@ class InferenceEngine:
                 raise NotImplementedError(
                     f"InferenceEngine({name}=...) is not ported yet "
                     "(ROADMAP queue A)")
+        if spec not in (None, "ngram", "draft"):
+            raise ValueError(f"unknown spec backend {spec!r}")
+        if spec is not None and spec_k < 1:
+            raise ValueError("spec_k must be >= 1")
+        if spec == "draft":
+            if draft_params is None or draft_cfg is None:
+                raise ValueError(
+                    "spec='draft' needs draft_params and draft_cfg")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft model must share the tokenizer")
         self.device = gpt.resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine runs "
@@ -408,15 +501,34 @@ class InferenceEngine:
                 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         gpt.check_quant_cfg(cfg)
+        draft = None
+        if spec == "draft":
+            gpt.check_quant_cfg(draft_cfg)
+            if not isinstance(draft_params, gpt.GPT):
+                raise TypeError("draft_params must be a models.gpt.GPT, "
+                                f"got {type(draft_params).__name__}")
+            draft = draft_params
+            if draft.device != self.device:
+                raise ValueError(f"draft model lives on {draft.device}, "
+                                 f"engine runs on {self.device}")
         # The reference counts traces of its jitted quantize, one per
-        # distinct tree: construction quantizes; a swap's tree has the
-        # config's shapes too, so it adds none.
-        self.quantize_traces = 0
+        # distinct tree shape (target and draft): construction quantizes;
+        # a swap's tree has the same shapes, so it adds none.
+        quantized = set()
         if cfg.weight_dtype == "int8":
             model = gpt.quantize_params(model)
-            self.quantize_traces = 1
+            quantized.add(cfg)
+        if draft is not None and draft_cfg.weight_dtype == "int8":
+            draft = gpt.quantize_params(draft)
+            quantized.add(draft_cfg)
+        self.quantize_traces = len(quantized)
         self.model = model
         self.cfg = cfg
+        self.spec = spec
+        self.spec_k = int(spec_k)
+        self.spec_window = self.spec_k + 1   # [current token, k drafts]
+        self.ngram_max, self.ngram_min = int(ngram_max), int(ngram_min)
+        self.draft_model, self.draft_cfg = draft, draft_cfg
         self.num_slots = slots
         self.max_len = cfg.max_seq_len if max_len is None else max_len
         self.block_size = block_size
@@ -436,11 +548,23 @@ class InferenceEngine:
         # +1: physical block 0 is the trash block (idle rows write there).
         self.cache = gpt.init_kv_pool(cfg, self.cache_blocks + 1,
                                       block_size, self.device)
-        # Capacity gauges: the pool's device bytes (sink rows included)
-        # and the bytes one cached position costs over all layers, K and
-        # V, scales included: the lever kv_dtype pulls.
+        self.draft_cache, self._draft_alloc = None, None
+        self.draft_cache_blocks = 0
+        if draft is not None:
+            self.draft_cache_blocks = (self.cache_blocks
+                                       if draft_cache_blocks is None
+                                       else draft_cache_blocks)
+            self.draft_cache = gpt.init_kv_pool(
+                draft_cfg, self.draft_cache_blocks + 1, block_size,
+                self.device)
+            self._draft_alloc = BlockAllocator(self.draft_cache_blocks + 1)
+        # Capacity gauges: the pools' device bytes (sink rows and a draft
+        # pool included) and the bytes one cached position costs over all
+        # layers, K and V, scales included: the lever kv_dtype pulls.
         self._pool_bytes = sum(t.numel() * t.element_size()
-                               for n, t in self.cache.items()
+                               for pool in (self.cache, self.draft_cache)
+                               if pool is not None
+                               for n, t in pool.items()
                                if n.endswith("_rows"))
         self._kv_bytes_per_token = sum(
             t.numel() * t.element_size() for n, t in self.cache.items()
@@ -462,6 +586,9 @@ class InferenceEngine:
         self._lock = threading.RLock()
         self._params_version = 0
         self._swap_pending_ts = None
+        # launches of the verify kernel made by this engine's verify
+        # forwards (read around each call; never reset)
+        self._verify_launches = 0
         self.reset_stats()
 
     # ------------------------------------------------------------------
@@ -495,6 +622,10 @@ class InferenceEngine:
                 f"request footprint "
                 f"{self._blocks_for(prompt.size, max_new_tokens)} blocks "
                 f"exceeds cache blocks {self.cache_blocks}")
+        if self._draft_alloc is not None and self._blocks_for(
+                prompt.size, max_new_tokens) > self.draft_cache_blocks:
+            raise ValueError(f"request footprint exceeds draft cache "
+                             f"blocks {self.draft_cache_blocks}")
         with self._lock:
             rid = self._rid
             self._rid += 1
@@ -577,39 +708,53 @@ class InferenceEngine:
         prefix cache is flushed: its K/V was computed under the old
         weights. ``params_version`` increments and stamps every later
         `TokenEvent`; `stats` reports ``swaps`` and ``weight_swap_ms``
-        (this call to the first token after it). Returns the new
-        ``params_version``."""
-        if draft_params is not None:
-            raise NotImplementedError(
-                "update_params(draft_params=...): the draft model comes "
-                "with speculative decoding, not ported yet (ROADMAP queue A)")
+        (this call to the first token after it). ``draft_params``, the
+        same kinds of tree, swaps the draft model of a ``spec="draft"``
+        engine in the same call (quantized first on an int8 draft);
+        every leaf of both is checked before anything is copied. Returns
+        the new ``params_version``."""
+        if draft_params is not None and self.draft_model is None:
+            raise ValueError("update_params: draft_params given but the "
+                             "engine has no draft model")
         t0 = time.perf_counter()
-        tree = (gpt.param_tree(new_params)
-                if isinstance(new_params, gpt.GPT) else new_params)
-        placed = gpt.GPT(self.cfg, tree, device=self.device,
-                         dtype=self.model.embed.dtype)
-        if self.cfg.weight_dtype == "int8":
-            placed = gpt.quantize_params(placed)
-        old, new = (dict(m.named_parameters()) for m in (self.model, placed))
-        if list(old) != list(new):
-            raise ValueError(f"update_params: parameter names {list(new)} "
-                             f"!= {list(old)}")
-        for name, o in old.items():
-            n = new[name]
-            if n.shape != o.shape or n.dtype != o.dtype:
-                raise ValueError(
-                    f"update_params: {name} is {tuple(n.shape)}/{n.dtype}, "
-                    f"the engine holds {tuple(o.shape)}/{o.dtype}: a swap "
-                    "keeps shapes and dtypes")
+        pairs = self._placed(self.model, self.cfg, new_params, "")
+        if draft_params is not None:
+            pairs += self._placed(self.draft_model, self.draft_cfg,
+                                  draft_params, "draft ")
         with self._lock, torch.no_grad():
-            for name, o in old.items():
-                o.copy_(new[name])
+            for old, new in pairs:
+                old.copy_(new)
             if self._tree is not None:
                 self._tree.flush()
             self._params_version += 1
             self._swaps += 1
             self._swap_pending_ts = t0
             return self._params_version
+
+    def _placed(self, model: gpt.GPT, cfg: gpt.GPTConfig, new_params,
+                what: str) -> list:
+        """``(engine leaf, new leaf)`` pairs for a swap into ``model``:
+        ``new_params`` placed on the engine's device in the dtype the
+        model holds, quantized on an int8-weight config, and checked leaf
+        for leaf in name, shape and dtype."""
+        tree = (gpt.param_tree(new_params)
+                if isinstance(new_params, gpt.GPT) else new_params)
+        placed = gpt.GPT(cfg, tree, device=self.device,
+                         dtype=model.embed.dtype)
+        if cfg.weight_dtype == "int8":
+            placed = gpt.quantize_params(placed)
+        old, new = (dict(m.named_parameters()) for m in (model, placed))
+        if list(old) != list(new):
+            raise ValueError(f"update_params: {what}parameter names "
+                             f"{list(new)} != {list(old)}")
+        for name, o in old.items():
+            n = new[name]
+            if n.shape != o.shape or n.dtype != o.dtype:
+                raise ValueError(
+                    f"update_params: {what}{name} is {tuple(n.shape)}/"
+                    f"{n.dtype}, the engine holds {tuple(o.shape)}/"
+                    f"{o.dtype}: a swap keeps shapes and dtypes")
+        return [(o, new[name]) for name, o in old.items()]
 
     @property
     def params_version(self) -> int:
@@ -626,8 +771,11 @@ class InferenceEngine:
         raise ValueError(f"no chunk bucket for length {n}")
 
     def _release(self, slot_idx: int):
-        for b in self._slots[slot_idx].blocks:
+        s = self._slots[slot_idx]
+        for b in s.blocks:
             self._alloc.decref(b)
+        for b in s.draft_blocks:
+            self._draft_alloc.decref(b)
         self._slots[slot_idx] = _Slot()
 
     def _try_admit(self, slot_idx: int, req: _Pending) -> bool:
@@ -638,6 +786,11 @@ class InferenceEngine:
         bs = self.block_size
         p = req.prompt.size
         total = self._blocks_for(p, req.max_new_tokens)
+        # The draft pool shares no prefixes and evicts nothing: its whole
+        # footprint must be free, checked before any main-pool work so a
+        # refusal needs no rollback.
+        if self._draft_alloc is not None and self._draft_alloc.free < total:
+            return False
         blocks, matched = ([], 0)
         if self._tree is not None:
             blocks, matched = self._tree.match(req.prompt)
@@ -678,6 +831,12 @@ class InferenceEngine:
         s.temperature, s.eos_id = req.temperature, req.eos_id
         s.remaining = req.max_new_tokens
         s.submit_ts = req.ts
+        s.history = req.prompt.tolist() if self.spec == "ngram" else []
+        if self._draft_alloc is not None:
+            s.draft_blocks = [self._draft_alloc.alloc() for _ in range(total)]
+            s.draft_table = np.zeros((self.max_blocks,), np.int32)
+            s.draft_table[:total] = s.draft_blocks
+            s.draft_filled = 0
         self._prefix_hit_tokens += matched
         return True
 
@@ -727,19 +886,21 @@ class InferenceEngine:
             i += a.size
         return out
 
-    def _sample(self, logits, temps, any_temp: bool):
-        """One token per row (argmax, or Gumbel-max over logits/T for rows
-        with temperature > 0) and its natural f32 logprob, returned as one
-        [2, B] int32 tensor (logprob bits in row 1) so the host fetches
-        both in one copy."""
+    def _draw(self, logits, temps, any_temp: bool):
+        """One token per row of ``logits [B, V]``: the argmax, or a draw
+        from softmax(logits / T) for rows with temperature T > 0."""
         tok = torch.argmax(logits, dim=-1)
         if any_temp:
-            u = torch.rand(logits.shape, generator=self._gen,
-                           device=logits.device).clamp_(min=1e-20)
             safe = torch.where(temps > 0, temps, 1.0)
-            sampled = torch.argmax(logits / safe[:, None]
-                                   - torch.log(-torch.log(u)), dim=-1)
-            tok = torch.where(temps > 0, sampled, tok)
+            tok = torch.where(temps > 0, _gumbel_argmax(
+                logits / safe[:, None], self._gen), tok)
+        return tok
+
+    def _sample(self, logits, temps, any_temp: bool):
+        """One token per row (`_draw`) and its natural f32 logprob,
+        returned as one [2, B] int32 tensor (logprob bits in row 1) so the
+        host fetches both in one copy."""
+        tok = self._draw(logits, temps, any_temp)
         logp = torch.log_softmax(logits.float(), dim=-1).gather(
             1, tok[:, None])[:, 0]
         return torch.stack([tok.to(torch.int32),
@@ -751,29 +912,51 @@ class InferenceEngine:
         host = packed.cpu().numpy()
         return host[0], host[1].view(np.float32)
 
+    def _chunk(self, s: _Slot, done: int, table):
+        """The next prefill chunk of ``s``'s prompt after ``done`` tokens:
+        its length and its tokens and ``table`` on the device (one copy),
+        the tokens right-padded to their chunk bucket."""
+        clen = min(self.prefill_chunk, s.prompt.size - done)
+        toks = np.zeros((1, self._chunk_bucket_for(clen)), np.int32)
+        toks[0, :clen] = s.prompt[done:done + clen]
+        return clen, *self._to_device(toks, table)
+
     @torch.inference_mode()
     def _run_prefill_chunk(self, slot_idx: int):
         s = self._slots[slot_idx]
-        clen = min(self.prefill_chunk, s.prompt.size - s.filled)
-        cap = self._chunk_bucket_for(clen)
-        toks = np.zeros((1, cap), np.int32)
-        toks[0, :clen] = s.prompt[s.filled:s.filled + clen]
-        t0 = time.perf_counter()
-        toks_d, table_d = self._to_device(toks, s.table)
-        logits, _ = gpt.prefill_paged(
-            self.model, toks_d, self.cache, self.cfg, block_table=table_d,
-            start=s.filled, length=clen)
-        temps = torch.full((1,), s.temperature, device=self.device)
-        tok, lp = self._fetch(self._sample(logits, temps,
-                                           s.temperature > 0))
-        dt = time.perf_counter() - t0
-        self._prefill_time += dt
-        self._prefill_tokens += clen
-        self._prefill_chunks += 1
-        s.filled += clen
         if s.filled < s.prompt.size:
+            t0 = time.perf_counter()
+            clen, toks_d, table_d = self._chunk(s, s.filled, s.table)
+            logits, _ = gpt.prefill_paged(
+                self.model, toks_d, self.cache, self.cfg,
+                block_table=table_d, start=s.filled, length=clen)
+            temps = torch.full((1,), s.temperature, device=self.device)
+            tok, lp = self._fetch(self._sample(logits, temps,
+                                               s.temperature > 0))
+            self._prefill_time += time.perf_counter() - t0
+            self._prefill_tokens += clen
+            self._prefill_chunks += 1
+            s.filled += clen
+            if s.filled == s.prompt.size:
+                # parked until the draft pool (if any) has the prompt too
+                s.token, s.token_logp = int(tok[0]), float(lp[0])
+        drafting = self.draft_model is not None
+        if drafting and s.draft_filled < s.prompt.size:
+            # The draft pool shares no prefixes, so it takes the whole
+            # prompt, one chunk a tick beside the main chunk. No host
+            # sync: stream order puts these writes before the first
+            # proposal.
+            t0 = time.perf_counter()
+            clen, toks_d, table_d = self._chunk(s, s.draft_filled,
+                                                s.draft_table)
+            gpt.prefill_paged(self.draft_model, toks_d, self.draft_cache,
+                              self.draft_cfg, block_table=table_d,
+                              start=s.draft_filled, length=clen)
+            self._prefill_time += time.perf_counter() - t0
+            s.draft_filled += clen
+        if s.filled < s.prompt.size or (
+                drafting and s.draft_filled < s.prompt.size):
             return
-        s.token, s.token_logp = int(tok[0]), float(lp[0])
         # Prefill complete: publish the prompt's full blocks (decode
         # writes only past them, so they are immutable), join decode.
         if self._tree is not None and s.prompt.size >= self.block_size:
@@ -808,6 +991,8 @@ class InferenceEngine:
                                   - self._swap_pending_ts) * 1e3
             self._swap_pending_ts = None
         self._out[s.rid].append(TokenEvent(tok, logp, self._params_version))
+        if self.spec == "ngram":
+            s.history.append(tok)
         hit_eos = s.eos_id is not None and tok == s.eos_id
         # pos of the *next* token must still fit in the cache row
         if s.remaining <= 0 or hit_eos or s.pos + 1 >= self.max_len:
@@ -829,23 +1014,32 @@ class InferenceEngine:
                         if s.phase == "decode"]
             if not decoding:
                 return admitted or chunked
-            self._decode_tick(decoding)
+            if self.spec is not None:
+                self._spec_tick(decoding)
+            else:
+                self._decode_tick(decoding)
             return True
 
-    @torch.inference_mode()
-    def _decode_tick(self, decoding: list):
-        """Rows not decoding (idle or mid-prefill) point at the trash
-        block with pos 0; their write collides harmlessly there and
-        their sampled token is never read."""
+    def _batch_arrays(self, field: str = "table"):
+        """Per-slot host inputs of a decode or verify step: tokens, pos,
+        block tables (each slot's ``field``: "draft_table" for the draft
+        pool) and temperatures. Rows not decoding (idle or mid-prefill)
+        point at the trash block with pos 0; their write collides
+        harmlessly there and their sampled token is never read."""
         zeros = np.zeros((self.max_blocks,), np.int32)
         dec = [s.phase == "decode" for s in self._slots]
         tokens = np.array([s.token if d else 0
                            for s, d in zip(self._slots, dec)], np.int32)
         pos = np.array([s.pos if d else 0
                         for s, d in zip(self._slots, dec)], np.int32)
-        tables = np.stack([s.table if d else zeros
+        tables = np.stack([getattr(s, field) if d else zeros
                            for s, d in zip(self._slots, dec)])
         temps = np.array([s.temperature for s in self._slots], np.float32)
+        return tokens, pos, tables, temps
+
+    @torch.inference_mode()
+    def _decode_tick(self, decoding: list):
+        tokens, pos, tables, temps = self._batch_arrays()
         t0 = time.perf_counter()
         tok_d, pos_d, tables_d, temps_bits = self._to_device(
             tokens, pos, tables, temps.view(np.int32))
@@ -858,12 +1052,118 @@ class InferenceEngine:
         self._decode_time += dt
         self._decode_steps += 1
         self._decode_tokens += len(decoding)
+        self._decode_slot_steps += len(decoding)
         self._tok_window.append((dt, len(decoding)))
         for i in decoding:
             s = self._slots[i]
             s.token, s.pos = int(nxt[i]), s.pos + 1
             s.remaining -= 1
             self._emit(s, i, s.token, float(lps[i]))
+
+    def _ngram_propose(self, s: _Slot) -> list | None:
+        """Prompt-lookup proposal: the longest n-gram (``ngram_max`` down
+        to ``ngram_min``) ending the request's history whose latest earlier
+        occurrence in it is found, and the up to ``spec_k`` tokens that
+        followed that occurrence; None when no suffix recurs."""
+        h, n_hist = s.history, len(s.history)
+        for n in range(min(self.ngram_max, n_hist - 1),
+                       self.ngram_min - 1, -1):
+            suf = h[-n:]
+            for i in range(n_hist - n - 1, -1, -1):
+                if h[i:i + n] == suf:
+                    return h[i + n:i + n + self.spec_k]
+        return None
+
+    def _draft_propose(self, tok, pos, tables, temps, any_temp: bool):
+        """The draft model's proposal, on the device: W = k + 1 draft
+        `models.gpt.decode_step_paged` calls consume c_0 (``tok``), c_1,
+        ..., c_k at ``pos .. pos + k``, writing their K/V into the draft
+        pool, and sample c_1..c_k with the engine's generator (the last
+        call only writes c_k's K/V, so the draft pool keeps step with the
+        target's). Returns the verify window ``[c_0, ..., c_k]`` [B, W]."""
+        window = [tok.long()]
+        for i in range(self.spec_window):
+            logits, _ = gpt.decode_step_paged(
+                self.draft_model, window[-1], self.draft_cache, pos + i,
+                tables, self.draft_cfg)
+            if i < self.spec_k:
+                window.append(self._draw(logits, temps, any_temp))
+        return torch.stack(window, dim=1)
+
+    @torch.inference_mode()
+    def _spec_tick(self, decoding: list):
+        """One speculative tick: propose (n-gram lookup on the host, or
+        the draft model on the device), score every slot's window in ONE
+        `models.gpt.verify_step_paged` forward, accept on the device
+        (`accept_drafts`), fetch the tokens, logprobs and accepted counts
+        in one copy and emit ``accepted + 1`` tokens a slot. Falls back to
+        a plain decode tick when nothing is worth speculating on. Only
+        slots with at least 2 tokens to go speculate; the others ride the
+        window with junk drafts (any accept is still exact)."""
+        w = self.spec_window
+        worth = [i for i in decoding if self._slots[i].remaining >= 2]
+        tokens, pos, tables, temps = self._batch_arrays()
+        any_temp = bool((temps > 0).any())
+        t0 = time.perf_counter()
+        if self.spec == "draft":
+            if not worth:
+                self._decode_tick(decoding)
+                return
+            proposed = set(worth)
+            tok_d, pos_d, tables_d, dtables_d, temps_bits = self._to_device(
+                tokens, pos, tables, self._batch_arrays("draft_table")[2],
+                temps.view(np.int32))
+            temps_d = temps_bits.view(torch.float32)
+            window_d = self._draft_propose(tok_d, pos_d, dtables_d, temps_d,
+                                           any_temp)
+        else:
+            proposals = {}
+            for i in worth:
+                prop = self._ngram_propose(self._slots[i])
+                if prop is not None:
+                    proposals[i] = prop
+            if not proposals:
+                self._decode_tick(decoding)
+                return
+            proposed = set(proposals)
+            window = np.repeat(tokens[:, None], w, axis=1)
+            for i, prop in proposals.items():
+                window[i, 1:] = (prop + [prop[-1]] * (w - 1))[:w - 1]
+            window_d, pos_d, tables_d, temps_bits = self._to_device(
+                window, pos, tables, temps.view(np.int32))
+            temps_d = temps_bits.view(torch.float32)
+        n = da.paged_verify_attention.launches
+        logits, _ = gpt.verify_step_paged(self.model, window_d, self.cache,
+                                          pos_d, tables_d, self.cfg)
+        self._verify_launches += da.paged_verify_attention.launches - n
+        out, out_lp, acc = accept_drafts(logits, window_d, temps_d,
+                                         self._gen if any_temp else None)
+        # the tick's one device->host copy (and sync)
+        host = torch.cat([out.int(), out_lp.contiguous().view(torch.int32),
+                          acc[:, None].int()], dim=1).cpu().numpy()
+        out, lps, acc = host[:, :w], host[:, w:2 * w].view(np.float32), \
+            host[:, 2 * w]
+        dt = time.perf_counter() - t0
+        self._step_times.append(dt)
+        self._decode_time += dt
+        self._decode_steps += 1
+        self._spec_steps += 1
+        self._decode_slot_steps += len(decoding)
+        emitted = 0
+        for i in decoding:
+            s = self._slots[i]
+            if i in proposed:
+                self._spec_proposed += w - 1
+                self._spec_accepted += int(acc[i])
+            for j in range(int(acc[i]) + 1):
+                if self._slots[i] is not s:
+                    break   # retired mid-window (eos, max_len, budget)
+                s.token, s.pos = int(out[i, j]), s.pos + 1
+                s.remaining -= 1
+                self._decode_tokens += 1
+                emitted += 1
+                self._emit(s, i, s.token, float(lps[i, j]))
+        self._tok_window.append((dt, emitted))
 
     def run_until_idle(self):
         """Drive the scheduler until every submitted request finished."""
@@ -883,20 +1183,33 @@ class InferenceEngine:
         exactly one place with an output queue. An int8 pool's scale
         arrays must match their payload's rows (one f32 scale per
         (position, head) row, the sink row included); they share the
-        payload's block axis, so block refcounts cover them too."""
-        if "k_scale" in self.cache:
+        payload's block axis, so block refcounts cover them too. A draft
+        pool gets the same audits, its blocks held by the slots alone."""
+        for pool, label in ((self.cache, ""), (self.draft_cache, "draft ")):
+            if pool is None or "k_scale" not in pool:
+                continue
             for nm in ("k", "v"):
                 for sfx in ("", "_rows"):
-                    pay = self.cache[nm + sfx]
-                    sc = self.cache[nm + "_scale" + sfx]
+                    pay = pool[nm + sfx]
+                    sc = pool[nm + "_scale" + sfx]
                     assert tuple(sc.shape) == tuple(pay.shape[:-1]), \
-                        f"{nm}_scale{sfx} shape {tuple(sc.shape)} != " \
-                        f"payload rows {tuple(pay.shape[:-1])}"
+                        f"{label}{nm}_scale{sfx} shape {tuple(sc.shape)} " \
+                        f"!= payload rows {tuple(pay.shape[:-1])}"
                     assert sc.dtype == torch.float32, \
-                        f"{nm}_scale{sfx} dtype {sc.dtype} != float32"
+                        f"{label}{nm}_scale{sfx} dtype {sc.dtype} != " \
+                        "float32"
                     assert pay.dtype == torch.int8, \
-                        f"{nm}{sfx} payload dtype {pay.dtype} != int8 " \
-                        "despite scale arrays present"
+                        f"{label}{nm}{sfx} payload dtype {pay.dtype} != " \
+                        "int8 despite scale arrays present"
+        if self._draft_alloc is not None:
+            self._draft_alloc.check()
+            dholds = collections.Counter()
+            for s in self._slots:
+                dholds.update(s.draft_blocks)
+            for b in range(1, self._draft_alloc.n_blocks):
+                assert self._draft_alloc.refcount(b) == dholds[b], \
+                    f"draft block {b}: refcount " \
+                    f"{self._draft_alloc.refcount(b)} != {dholds[b]} holders"
         self._alloc.check()
         holds = collections.Counter()
         for s in self._slots:
@@ -925,13 +1238,18 @@ class InferenceEngine:
 
     def reset_stats(self):
         """Zero the throughput/latency accounting (benches call this after
-        warmup), the ``swaps`` counter and ``weight_swap_ms``. Not reset:
-        ``params_version`` and ``quantize_traces`` (identities, not rates)
-        and the kernels' launch counters."""
+        warmup), the speculative counters, the ``swaps`` counter and
+        ``weight_swap_ms``. Not reset: ``params_version``,
+        ``quantize_traces`` and ``verify_launches`` (identities and
+        counts of the engine's life, not rates) and the kernels' launch
+        counters."""
         with self._lock:
             self._swaps = 0
             self._last_swap_ms = 0.0
             self._decode_steps = 0
+            self._decode_slot_steps = 0
+            self._spec_steps = 0
+            self._spec_proposed = self._spec_accepted = 0
             self._prefill_tokens = self._decode_tokens = 0
             self._prefill_time = self._decode_time = 0.0
             self._prefill_chunks = 0
@@ -945,9 +1263,11 @@ class InferenceEngine:
     def stats(self) -> dict:
         """Engine accounting since `reset_stats`:
 
-        ``active`` — occupied slots. ``decode_steps``, ``prefill_tokens`` /
-        ``decode_tokens`` and ``prefill_time_s`` / ``decode_time_s`` (host
-        wall time of each device call, ending in its sync);
+        ``active`` — occupied slots. ``decode_steps`` (plain and
+        speculative ticks), ``prefill_tokens`` / ``decode_tokens`` and
+        ``prefill_time_s`` / ``decode_time_s`` (host wall time of each
+        device call, ending in its sync; a draft prefill chunk's enqueue
+        time counts as prefill);
         ``prefill_tok_s`` / ``decode_tok_s`` the rates (decode over a
         512-tick window); ``prefill_chunks``; ``slot_occupancy``;
         ``p50_token_latency_ms`` / ``p99_token_latency_ms`` decode step
@@ -958,10 +1278,18 @@ class InferenceEngine:
         included, fixed at construction) and ``kv_bytes_per_token`` (the
         pool bytes one cached position costs, all layers, K and V, scales
         included). Weights: ``quantize_traces`` (quantizations of a
-        distinct tree: 0 for f32 weights, else 1 however many swaps),
+        distinct tree shape: 0 for f32 weights, else 1 for the target and
+        1 for a draft of other shapes, however many swaps),
         ``params_version`` (bumped by `update_params`, stamped on every
         `TokenEvent`), ``swaps`` and ``weight_swap_ms`` (the last
         `update_params` call to the first token after it).
+        Speculative decoding: ``spec`` / ``spec_k`` — backend ('' when
+        off) and drafts a tick (0 when off); ``spec_steps`` — verify
+        ticks; ``acceptance_rate`` — accepted / proposed drafts;
+        ``tokens_per_step`` — emitted decode tokens per decoding-slot step
+        (1.0 when spec is off); ``verify_launches`` — verify-kernel
+        launches of this engine's verify forwards since construction (0
+        on the CPU's plain path; never reset).
         ``kernel_launches`` — each paged-attention
         kernel wrapper's launch counter (process-wide, never reset
         here)."""
@@ -1005,6 +1333,16 @@ class InferenceEngine:
                 "params_version": self._params_version,
                 "swaps": self._swaps,
                 "weight_swap_ms": self._last_swap_ms,
+                "spec": self.spec or "",
+                "spec_k": self.spec_k if self.spec else 0,
+                "spec_steps": self._spec_steps,
+                "acceptance_rate": (
+                    self._spec_accepted / self._spec_proposed
+                    if self._spec_proposed else 0.0),
+                "tokens_per_step": (
+                    self._decode_tokens / self._decode_slot_steps
+                    if self._decode_slot_steps else 0.0),
+                "verify_launches": self._verify_launches,
                 "kernel_launches": da.kernel_launches(),
             }
 
@@ -1017,8 +1355,11 @@ class InferenceReplica:
 
     Construction takes config kwargs, not arrays: the model is built on
     the replica from `seed` (`models.gpt.small(**cfg_kwargs)`,
-    `models.gpt.init_params`). The actor/HTTP control plane around it is
-    a later slice of the port."""
+    `models.gpt.init_params`). With ``engine_kwargs={"spec": "draft"}``
+    and no ``draft_params`` the replica builds the draft too: the same
+    config kwargs with ``draft_layers`` (default 1) layers, weights from
+    ``seed + 1``. The actor/HTTP control plane around it is a later slice
+    of the port."""
 
     def __init__(self, cfg_kwargs: dict | None = None, *, slots: int = 4,
                  max_len: int = 64, seed: int = 0,
@@ -1027,9 +1368,15 @@ class InferenceReplica:
         cfg = gpt.small(**(cfg_kwargs or {}))
         model = gpt.GPT(cfg, gpt.init_params(seed, cfg, device),
                         device=device)
+        ek = dict(engine_kwargs or {})
+        if ek.get("spec") == "draft" and "draft_params" not in ek:
+            dcfg = gpt.small(**{**(cfg_kwargs or {}),
+                                "n_layers": ek.pop("draft_layers", 1)})
+            ek["draft_cfg"] = dcfg
+            ek["draft_params"] = gpt.GPT(
+                dcfg, gpt.init_params(seed + 1, dcfg, device), device=device)
         self.engine = InferenceEngine(model, cfg, slots=slots,
-                                      max_len=max_len, device=device,
-                                      **dict(engine_kwargs or {}))
+                                      max_len=max_len, device=device, **ek)
 
     def __call__(self, prompt, max_new_tokens: int = 8,
                  temperature: float = 0.0, priority: int | None = None):

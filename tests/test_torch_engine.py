@@ -163,8 +163,8 @@ def test_sampling_is_seeded_and_scored(tree):
 
 
 def test_unported_features_refuse(tree):
-    with pytest.raises(NotImplementedError, match="spec"):
-        _port(tree, spec="ngram")
+    with pytest.raises(NotImplementedError, match="role"):
+        _port(tree, role="prefill")
     with pytest.raises(TypeError, match="bogus"):
         _port(tree, bogus=1)
     eng = _port(tree)

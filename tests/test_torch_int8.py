@@ -436,8 +436,8 @@ def test_update_params_under_int8_weights(params):
     bad["layers"] = {**bad["layers"], "wq": bad["layers"]["wq"][:, :, :8]}
     with pytest.raises(ValueError, match="wq"):
         teng.update_params(bad)
-    with pytest.raises(NotImplementedError, match="draft"):
-        teng.update_params(_np_tree(params), draft_params={})
+    with pytest.raises(ValueError, match="no draft model"):
+        teng.update_params(_np_tree(params), draft_params=_np_tree(params))
     assert teng.params_version == 1
 
 

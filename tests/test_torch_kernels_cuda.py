@@ -633,3 +633,106 @@ def test_int8_engine_at_block_24(dev, dtype):
         assert [int(t) for t in g_] == [int(t) for t in w]
         np.testing.assert_allclose([t.logprob for t in g_],
                                    [t.logprob for t in w], atol=tol, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the verify caller at the serving geometry, and a speculative engine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("w", [2, 5, 9])
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+def test_verify_at_serving_geometry(dev, w, kind):
+    """`paged_verify_attention` as `models.gpt.verify_step_paged` calls it
+    in the engine (B 8, H 16, D 64, block 16, 64-entry tables, W = k + 1
+    for k 1, 4 and 8; windows at pos 0, block edges, split edges and the
+    table's end): bf16 on `paged_mq_tc`, f32 on `paged_mq_simt`, an int8
+    pool (bf16 q) on `paged_mq_tc_int8`, each once a call, against the
+    plain version, bit-identical twice, and replayed exactly from a CUDA
+    graph after pos changed on the device."""
+    from ray_tpu_torch.ops import quant
+    sv = _SERVING
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    g, kp, vp, tables = _inputs(dev, torch.float32, sv["b"], sv["h"],
+                                sv["d"], sv["bs"], sv["mb"], seed=w)
+    span = sv["mb"] * sv["bs"]
+    ks, _ = da.split_geometry(span)
+    pos = torch.tensor([0, 15, 16, ks - w, ks - w + 1, 511, 700, span - w],
+                       dtype=torch.int32, device=dev)
+    q = torch.randn((sv["b"], w, sv["h"], sv["d"]), generator=g,
+                    device=dev).to(dtype)
+    if kind == "int8":
+        (kp, k_s), (vp, v_s) = quant.quantize_rows(kp), quant.quantize_rows(vp)
+        sc, key = dict(k_scale=k_s, v_scale=v_s), "paged_mq_tc_int8"
+    else:
+        kp, vp, sc = kp.to(dtype), vp.to(dtype), {}
+        key = "paged_mq_tc" if kind == "bf16" else "paged_mq_simt"
+    kernels = dict(da.LAUNCHES)
+    first = da.paged_verify_attention(q, kp, vp, tables, pos, **sc)
+    assert {k: da.LAUNCHES[k] - kernels[k] for k in kernels} == \
+        {k: int(k == key) for k in kernels}
+    ref = da.reference_paged_verify_attention(q, kp, vp, tables, pos, **sc)
+    if kind == "int8":
+        _int8_mq_close(first, ref, q, kp, vp, sc, tables, pos)
+    else:
+        _mq_close(first, ref, q, kp, vp, tables, pos)
+    assert torch.equal(first, da.paged_verify_attention(q, kp, vp, tables,
+                                                        pos, **sc))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.paged_verify_attention(q, kp, vp, tables, pos, **sc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = da.paged_verify_attention(q, kp, vp, tables, pos, **sc)
+    pos.copy_(pos.flip(0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, da.paged_verify_attention(q, kp, vp, tables,
+                                                           pos, **sc))
+    assert not torch.equal(captured, first)
+
+
+@pytest.mark.parametrize("spec", ["ngram", "draft"])
+def test_spec_engine_at_full_width(dev, spec):
+    """A speculative engine at the serving model's widths (vocab 50304,
+    d_model 1024, 16 heads, d_ff 4096; 2 layers, bf16, peaked weights,
+    draft = target) on motif prompts, greedy: the same tokens as the
+    same engine with spec off; each verify tick launches `paged_mq_tc`
+    once a layer and no plain version runs (`verify_launches` counts
+    them); the self-draft accepts nearly everything."""
+    import numpy as np
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve import InferenceEngine
+    cfg = gpt.small(vocab_size=50304, d_model=1024, n_layers=2, n_heads=16,
+                    d_ff=4096, max_seq_len=1024, dtype="bfloat16")
+    tree = gpt.init_params(0, cfg, dev)
+    tree["embed"] = tree["embed"] * 8
+    model = gpt.GPT(cfg, tree, device=dev)
+    rng = np.random.default_rng(1)
+    prompts = [np.tile(rng.integers(0, cfg.vocab_size, 4), 24)
+               for _ in range(6)]
+    kw = dict(slots=4, max_len=256, block_size=16, prefill_chunk=64,
+              device=dev)
+
+    def run(**spec_kw):
+        eng = InferenceEngine(model, cfg, **kw, **spec_kw)
+        ops.reset_kernel_launches()
+        rids = [eng.submit(p, max_new_tokens=24) for p in prompts]
+        eng.run_until_idle()
+        outs = [[int(t) for t in eng.tokens_for(r)] for r in rids]
+        eng.check_invariants()
+        return outs, eng.stats(), ops.kernel_launches()
+
+    want, _, _ = run()
+    extra = (dict(draft_params=model, draft_cfg=cfg) if spec == "draft"
+             else {})
+    got, st, launches = run(spec=spec, spec_k=4, **extra)
+    assert got == want
+    assert st["spec_steps"] > 0
+    assert launches["paged_verify_attention"] == st["verify_launches"] \
+        == cfg.n_layers * st["spec_steps"]
+    assert launches["paged_mq_simt"] == 0
+    if spec == "draft":
+        assert st["acceptance_rate"] >= 0.9
