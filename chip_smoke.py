@@ -23,9 +23,13 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    heads, d_ff 4096, bf16, random weights from a seed) answers 17
    requests (a shared 64-token prefix, a repeated prompt that forces a
    copy-on-write, a 300-token prompt prefilled in several chunks, one
-   sampled request), with every kernel's launch counter read around it
-   (12 split-K decode launches a tick, 12 tensor-core multi-query
-   launches a prefill chunk, no CUDA-core multi-query launch), prefill
+   sampled request), after a warm-up that takes every chunk bucket and
+   arms the retrace sentinel, with every kernel's launch counter read
+   around it (12 split-K decode launches a tick, 12 tensor-core
+   multi-query launches a prefill chunk, no CUDA-core multi-query
+   launch: the engine's steps are CUDA graphs, whose launches the engine
+   counts once a replay), its steps built once (decode once, prefill
+   once a chunk bucket, no unexpected retrace, a graph pool), prefill
    tok/s and decode p50/p99 printed beside the paged kernels' numbers
    before split-K;
 3. teacher-forced check: a dense float32 forward with plain attention
@@ -33,7 +37,8 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    engine's per-token logprobs;
 4. profile: a short engine run under ``torch.profiler``, device time by
    kernel name, the device's busy share of the wall time, and the paged
-   kernels' launches by name (one each per layer call: no merge kernel);
+   kernels' launches by name as the profiler sees them inside the
+   replayed graphs (one each per layer call: no merge kernel);
 5. flash kernels vs plain: forward (out, lse), dQ and dK/dV (bf16 on
    the tensor-core kernels, f32 on the CUDA-core ones) against their
    plain versions at the training shape (B 8, T 1024, H 16, D 64) in
@@ -87,7 +92,10 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    against plain attention, then a trainer step: tensor-core kernels at
    96 and 100, padded to 128, CUDA-core kernels at 256), an engine at
    block 64 on the D 96 model against a dense f32 forward, and the fused
-   loss at each width against the dense loss;
+   loss at each width against the dense loss; and the head dims above
+   256 (264, 512, 520 and 1024: the decode, multi-query and flash
+   kernels against plain, in bf16 and, for the int8 pool and flash, f32
+   too; above 512 in slabs of 512) with an engine at head dim 520;
 11. int8 serving: (a) the int8 instances of the paged kernels (int8
    pool, one f32 scale per (position, head) row) against their plain
    versions at phase 1's shapes, decode at DECODE_POS, prefill at
@@ -120,7 +128,14 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    phase 3's teacher-forced check of each spec engine; (c) draft = target on
    peaked weights (embed x 8) at temperature 0: acceptance_rate >= 0.9,
    tokens_per_step >= 3, tokens identical to spec off, and
-   ``update_params(..., draft_params=...)`` of the same weights.
+   ``update_params(..., draft_params=...)`` of the same weights;
+13. compile-once serving: phase 2's traffic (bf16, and int8 pool and
+   weights) and phase 12's prompts (all greedy; spec off, n-gram and
+   draft) through an engine whose steps run eagerly (``_capture =
+   False``) and one whose steps are CUDA graphs: tick p50/p99, decode
+   tok/s, device busy share over 8 profiled ticks with every slot
+   decoding, the trace counters, ``retraces_unexpected`` (0),
+   ``graph_pool_bytes``, and the greedy tokens, which must be identical.
 
 Before the phases it prints the registers and spilled bytes of every
 tensor-core kernel and of the two split-K decode kernels from nvcc's
@@ -295,6 +310,15 @@ def time_long_ms(fn, args, reps: int = 5) -> float:
         end.synchronize()
         out.append(start.elapsed_time(end))
     return statistics.median(out)
+
+
+# The engine's trace counters: builds of its static steps (captures on
+# the card).
+TRACE_KEYS = ("decode_traces", "prefill_traces", "verify_traces",
+              "draft_traces", "draft_prefill_traces")
+# Warm-up prompt lengths that take every chunk bucket at chunk 64 (8, 16,
+# 32 and 64).
+WARM_PROMPTS = (5, 12, 30, 64)
 
 
 def bound(bytes_moved: float, ops: float, dtype) -> tuple[float, str]:
@@ -479,6 +503,54 @@ def make_traffic(vocab: int, seed: int = 0):
     return reqs
 
 
+def warm_up(replica, spec: bool = False):
+    """Requests that take every chunk bucket (`WARM_PROMPTS`) and, on a
+    speculative engine, motif prompts that speculate; then the retrace
+    sentinel is armed: any later build of a step is unexpected."""
+    import numpy as np
+    vocab = replica.engine.cfg.vocab_size
+    rng = np.random.default_rng(1)
+    for gen in [replica(rng.integers(0, vocab, n), max_new_tokens=8)
+                for n in WARM_PROMPTS]:
+        list(gen)
+    if spec:
+        for gen in [replica(p, max_new_tokens=8)
+                    for p, _ in spec_traffic(vocab, 2, seed=9)]:
+            list(gen)
+    replica.engine.arm_retrace_sentinel()
+
+
+def builds(before: dict, after: dict) -> dict:
+    """Static-step builds (captures) between two ``stats()`` reads."""
+    return {k: after[k] - before[k] for k in TRACE_KEYS}
+
+
+def check_compile_once(eng, what: str) -> dict:
+    """The engine's steps are CUDA graphs, each built once for the
+    engine's whole life: decode at most once (spec off: once), verify
+    and draft once where the engine speculates with them, prefill (and
+    the draft's prefill) once per chunk bucket used, no build beyond the
+    sentinel's allowances, and a graph pool."""
+    st = eng.stats()
+    used = {k: sorted(b for kind, b in eng._steps if kind == k)
+            for k in ("prefill", "draft_prefill")}
+    spec = eng.spec
+    want_ok = (eng._captures() and st["retraces_unexpected"] == 0
+               and st["graph_pool_bytes"] > 0
+               and st["decode_traces"] == (1 if spec is None
+                                           else min(st["decode_traces"], 1))
+               and st["verify_traces"] == int(spec is not None)
+               and st["draft_traces"] == int(spec == "draft")
+               and st["prefill_traces"] == len(used["prefill"]) > 0
+               and st["draft_prefill_traces"] == len(used["draft_prefill"]))
+    out = {k: st[k] for k in (*TRACE_KEYS, "retraces_unexpected",
+                              "graph_pool_bytes")}
+    out["chunk_buckets"] = used["prefill"]
+    if not want_ok:
+        fail(f"{what}: compile-once broke: {out}")
+    return out
+
+
 def phase_engine(dev, cfg_kwargs, seed: int, new_tokens: int = 64):
     import numpy as np
     import torch
@@ -492,12 +564,13 @@ def phase_engine(dev, cfg_kwargs, seed: int, new_tokens: int = 64):
     eng = replica.engine
     torch.cuda.synchronize()
     print(f"  replica built in {time.perf_counter() - t0:.1f} s")
-    # Warm-up (cuBLAS handles, allocator) outside the measured run.
-    rng = np.random.default_rng(1)
-    for g in [replica(rng.integers(0, cfg_kwargs["vocab_size"], 128),
-                      max_new_tokens=8) for _ in range(2)]:
-        list(g)
+    # Warm-up outside the measured run: every step captured (the kernels
+    # built, cuBLAS handles, the allocator), then the sentinel armed.
+    t0 = time.perf_counter()
+    warm_up(replica)
+    print(f"  warm-up (captures) {time.perf_counter() - t0:.1f} s")
     eng.reset_stats()
+    st0 = eng.stats()
 
     reqs = make_traffic(cfg_kwargs["vocab_size"], seed)
     ops.reset_kernel_launches()
@@ -517,6 +590,7 @@ def phase_engine(dev, cfg_kwargs, seed: int, new_tokens: int = 64):
     syncs = sum("synchroniz" in str(w.message) for w in caught)
 
     st = eng.stats()
+    built = builds(st0, st)
     eng.check_invariants()
     for i, o in enumerate(outs):
         if len(o) != new_tokens:
@@ -525,16 +599,19 @@ def phase_engine(dev, cfg_kwargs, seed: int, new_tokens: int = 64):
     for name in ("paged_decode_attention", "paged_prefill_attention"):
         if launches[name] <= 0:
             fail(f"{name} was not launched on the main path")
-    check_paged_launches(launches, cfg_kwargs["n_layers"],
-                         st["decode_steps"], st["prefill_chunks"])
+    check_paged_launches(launches, cfg_kwargs["n_layers"], st, built)
+    compile_once = check_compile_once(eng, "phase 2 engine")
     if st["prefix_hit_tokens"] <= 0 or st["cow_copies"] <= 0:
         fail(f"prefix sharing / copy-on-write did not run: "
              f"hit {st['prefix_hit_tokens']} cow {st['cow_copies']}")
     if st["blocks_in_use"] != st["cached_prefix_blocks"]:
         fail("blocks leaked after every request finished")
-    if syncs != st["decode_steps"] + st["prefill_chunks"]:
-        fail(f"{syncs} host syncs for {st['decode_steps']} decode ticks "
-             f"and {st['prefill_chunks']} prefill chunks (want one each)")
+    # one sync a tick and a chunk; a capture in the window adds its own
+    if syncs != st["decode_steps"] + st["prefill_chunks"] + sum(
+            built.values()):
+        fail(f"{syncs} host syncs for {st['decode_steps']} decode ticks, "
+             f"{st['prefill_chunks']} prefill chunks and {built} builds "
+             f"(want one each)")
     before = SERVING_BEFORE
     print(f"  {len(reqs)} requests, {st['decode_tokens']} decode tokens in "
           f"{wall:.2f} s wall; prefill {st['prefill_tok_s']:.1f} tok/s "
@@ -544,7 +621,7 @@ def phase_engine(dev, cfg_kwargs, seed: int, new_tokens: int = 64):
           f"({before['p50_token_latency_ms']}) "
           f"p99 {st['p99_token_latency_ms']:.3f} ms "
           f"({before['p99_token_latency_ms']}); launches {launches}; "
-          f"{syncs} host syncs")
+          f"{syncs} host syncs; compile-once {compile_once}")
     keep = ("prefill_tokens", "decode_tokens", "prefill_chunks",
             "decode_steps", "prefill_time_s", "decode_time_s",
             "prefill_tok_s", "decode_tok_s", "p50_token_latency_ms",
@@ -553,7 +630,8 @@ def phase_engine(dev, cfg_kwargs, seed: int, new_tokens: int = 64):
             "pool_bytes", "kv_bytes_per_token")
     summary = {k: st[k] for k in keep}
     summary.update(requests=len(reqs), wall_s=wall, launches=launches,
-                   host_syncs=syncs)
+                   host_syncs=syncs, compile_once=compile_once,
+                   builds_in_run=built)
     return replica, reqs, outs, summary
 
 
@@ -602,12 +680,19 @@ def phase_teacher_forced(dev, cfg_kwargs, seed, reqs, outs) -> dict:
             "tokens_checked": checked, "decisive_tokens": decisive}
 
 
-def check_paged_launches(launches: dict, layers: int, ticks: int,
-                         chunks: int, int8: bool = False):
+def check_paged_launches(launches: dict, layers: int, st: dict,
+                         built: dict, int8: bool = False):
     """The bf16 engine's paged kernels: one split-K decode launch per
     layer a tick, one tensor-core multi-query launch per layer a prefill
     chunk, and never the CUDA-core multi-query kernel; on an int8 pool
-    (``int8``) every one of them the int8 instance, else none."""
+    (``int8``) every one of them the int8 instance, else none. ``st``
+    holds the window's ticks and chunks, ``built`` the builds of steps in
+    the window (`builds`): each ran its step once eagerly before its
+    capture. The engine counts a graph's launches at every replay
+    (`ops.add_kernel_launches`); phase 4 reads the same launches by
+    kernel name from the profiler."""
+    ticks = st["decode_steps"] + built["decode_traces"]
+    chunks = st["prefill_chunks"] + built["prefill_traces"]
     want = {"paged_decode_attention": layers * ticks,
             "paged_prefill_attention": layers * chunks,
             "paged_decode_int8": layers * ticks * int8,
@@ -634,6 +719,7 @@ def phase_profile(replica, vocab: int, layers: int, seed: int = 2) -> dict:
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, vocab, PROFILE_PROMPT) for _ in range(8)]
     eng.reset_stats()
+    before = eng.stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -648,11 +734,14 @@ def phase_profile(replica, vocab: int, layers: int, seed: int = 2) -> dict:
                      key=lambda k: -k[1])
     busy_us = sum(t for _, t, _ in kernels)
     st = eng.stats()
+    built = builds(before, st)
     by_name = {k: sum(n for name, _, n in kernels if f"::{k}<" in name)
                for k in ("paged_decode_kernel", "paged_mq_tc_kernel",
                          "paged_mq_kernel")}
-    want = {"paged_decode_kernel": layers * st["decode_steps"],
-            "paged_mq_tc_kernel": layers * st["prefill_chunks"],
+    want = {"paged_decode_kernel": layers * (st["decode_steps"]
+                                             + built["decode_traces"]),
+            "paged_mq_tc_kernel": layers * (st["prefill_chunks"]
+                                            + built["prefill_traces"]),
             "paged_mq_kernel": 0}
     if by_name != want:
         fail(f"profiled paged kernel launches {by_name}, want {want}")
@@ -1709,6 +1798,136 @@ def _c1_fused_loss(dev, width: int) -> dict:
     torch.cuda.empty_cache()
     return out
 
+# Phase 10's head dims above 256 (ROADMAP C2): 264 and 512 run as they
+# are (the decode kernels on 32 lanes of 2 or 4 vectors, the multi-query
+# kernel on its CUDA-core instance at 512 columns, flash on 16-row
+# tiles; 264 padded to 512 there), 520 padded to 1024, and 1024: above
+# 512 every kernel works in slabs of 512. The engine's model has head
+# dim 520 (d_model 2080 over 4 heads), 2 layers.
+C2_HEADS = (264, 512, 520, 1024)
+C2_ENGINE = dict(vocab_size=50304, d_model=2080, n_layers=2, n_heads=4,
+                 d_ff=4096, max_seq_len=1024, dtype="bfloat16")
+
+
+def phase_c2(dev, g) -> dict:
+    """Phase 10 (e)-(g): (e) at each of `C2_HEADS` the paged decode,
+    prefill and verify kernels over a block-64 pool and the
+    contiguous-cache decode kernel (`_c1_kernels`), and the int8 pool's
+    decode and verify in bf16 and f32; (f) the flash forward, dQ and
+    dK/dV in bf16 and f32 (B 2, T 300, H 4, causal) against their plain
+    versions, each on the CUDA-core kernel; (g) an `InferenceReplica` at
+    head dim 520 answering 3 requests, its logprobs against a dense f32
+    forward (phase 3's check)."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.ops import decode_attention as da
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import quant
+    from ray_tpu_torch.serve import InferenceReplica
+
+    out = {"kernels": {}, "flash": {}}
+    for d in C2_HEADS:
+        errs = _c1_kernels(dev, g, d)
+        for name in ("float32", "bfloat16"):
+            dt = getattr(torch, name)
+            b, h, mb = 4, 4, 8
+            nb = b * mb + 1
+            kq, ks = quant.quantize_rows(torch.randn(
+                (nb, C1_BLOCK, h, d), generator=g, device=dev))
+            vq, vs = quant.quantize_rows(torch.randn(
+                (nb, C1_BLOCK, h, d), generator=g, device=dev))
+            sc = dict(k_scale=ks, v_scale=vs)
+            tables = (torch.randperm(nb - 1, generator=g, device=dev)
+                      [:b * mb] + 1).view(b, mb).to(torch.int32)
+            pos = torch.tensor([0, 100, 300, b * mb * 8 - 1],
+                               dtype=torch.int32, device=dev)
+            q = torch.randn((b, h, d), generator=g, device=dev).to(dt)
+            errs[f"int8_decode_{name}"] = check(
+                "int8 paged decode",
+                da.paged_decode_attention(q, kq, vq, tables, pos, **sc),
+                da.reference_paged_decode_attention(q, kq, vq, tables, pos,
+                                                    **sc),
+                name, f"(e) int8 paged decode {name} D={d}")
+            qv = torch.randn((b, 5, h, d), generator=g, device=dev).to(dt)
+            errs[f"int8_verify_{name}"] = check(
+                "int8 paged verify",
+                da.paged_verify_attention(qv, kq, vq, tables, pos, **sc),
+                da.reference_paged_verify_attention(qv, kq, vq, tables, pos,
+                                                    **sc),
+                name, f"(e) int8 paged verify {name} D={d} W=5")
+        out["kernels"][d] = errs
+        torch.cuda.empty_cache()
+        fl = {}
+        for name in ("bfloat16", "float32"):
+            dt = getattr(torch, name)
+            q, k, v, do = (torch.randn((2, 300, 4, d), generator=g,
+                                       device=dev).to(dt) for _ in range(4))
+            n = dict(fa.LAUNCHES)
+            o, lse = fa.flash_forward(q, k, v, causal=True)
+            ro, rl = fa.flash_forward_reference(q, k, v, causal=True)
+            extra = None
+            if dt == torch.bfloat16:
+                extra = 2 ** -8 * fa.flash_forward_reference(
+                    q.float(), k.float(), v.float().abs(), causal=True)[0]
+            e = [check("flash forward", o, ro, name,
+                       f"(f) flash fwd {name} D={d}", FLASH_TOL, extra),
+                 check("flash forward", lse, rl, "float32",
+                       f"(f) flash lse {name} D={d}", FLASH_TOL)]
+            delta = fa.attention_delta(ro, do)
+            dq = fa.flash_dq(q, k, v, do, rl, delta, causal=True)
+            dk, dv = fa.flash_dkv(q, k, v, do, rl, delta, causal=True)
+            for got, ref, what in zip((dq, dk, dv),
+                                      fa.flash_backward_reference(
+                                          q, k, v, do, rl, delta,
+                                          causal=True),
+                                      ("dq", "dk", "dv")):
+                e.append(check(f"flash {what}", got, ref, name,
+                               f"(f) flash {what} {name} D={d}", FLASH_TOL))
+            ran = {k_: fa.LAUNCHES[k_] - n[k_] for k_ in n}
+            if ran != {k_: int(k_.endswith("_simt")) for k_ in n}:
+                fail(f"(f) flash D={d} {name} launched {ran}")
+            fl[name] = max(e)
+        out["flash"][d] = fl
+        del q, k, v, do, o, lse, ro, rl, delta, dq, dk, dv, extra
+        torch.cuda.empty_cache()
+
+    replica = InferenceReplica(C2_ENGINE, slots=4, max_len=1024, seed=0,
+                               engine_kwargs=dict(block_size=16),
+                               device=dev)
+    rng = np.random.default_rng(23)
+    reqs = [(rng.integers(0, C2_ENGINE["vocab_size"], n).astype(np.int32),
+             0.0) for n in (150, 64, 20)]
+    before = replica.engine.stats()
+    ops.reset_kernel_launches()
+    outs = [list(gen) for gen in [replica(p, max_new_tokens=16)
+                                  for p, _ in reqs]]
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    st = replica.engine.stats()
+    built = builds(before, st)
+    layers = C2_ENGINE["n_layers"]
+    want = {"paged_decode_attention":
+            layers * (st["decode_steps"] + built["decode_traces"]),
+            "paged_mq_simt":
+            layers * (st["prefill_chunks"] + built["prefill_traces"]),
+            "paged_mq_tc": 0}
+    if {k: launches[k] for k in want} != want:
+        fail(f"(g) D=520 engine launches "
+             f"{ {k: launches[k] for k in want} }, want {want}")
+    if any(len(o) != 16 for o in outs):
+        fail("(g) the D=520 engine cut a request short")
+    replica.engine.check_invariants()
+    check_compile_once(replica.engine, "phase 10 D=520 engine")
+    print(f"  (g) engine at head dim 520: {len(reqs)} requests, "
+          f"{st['prefill_chunks']} prefill chunks, {st['decode_steps']} "
+          f"decode ticks; launches {want}")
+    del replica
+    torch.cuda.empty_cache()
+    out["engine_d520"] = phase_teacher_forced(dev, C2_ENGINE, 0, reqs, outs)
+    out["engine_d520"]["launches"] = want
+    return out
+
 
 def phase_c1(dev) -> dict:
     """Phase 10: the configurations the card refused before (ROADMAP C1),
@@ -1738,14 +1957,16 @@ def phase_c1(dev) -> dict:
     rng = np.random.default_rng(21)
     reqs = [(rng.integers(0, cfg_kwargs["vocab_size"], n).astype(np.int32),
              0.0) for n in (300, 128, 70)]
+    before = replica.engine.stats()
     ops.reset_kernel_launches()
     outs = [list(gen) for gen in [replica(p, max_new_tokens=16)
                                   for p, _ in reqs]]
     torch.cuda.synchronize()
     launches = ops.kernel_launches()
     st = replica.engine.stats()
-    check_paged_launches(launches, cfg_kwargs["n_layers"], st["decode_steps"],
-                         st["prefill_chunks"])
+    check_paged_launches(launches, cfg_kwargs["n_layers"], st,
+                         builds(before, st))
+    check_compile_once(replica.engine, "phase 10 block-64 engine")
     if any(len(o) != 16 for o in outs):
         fail("the block-64 engine cut a request short")
     replica.engine.check_invariants()
@@ -1760,6 +1981,7 @@ def phase_c1(dev) -> dict:
     out["engine_block64"]["launches"] = launches
 
     out["fused_loss"] = {w: _c1_fused_loss(dev, w) for w in C1_XENT}
+    out["c2"] = phase_c2(dev, g)
     return out
 
 
@@ -1989,10 +2211,9 @@ def phase_int8_engine(dev, which: str, reqs, bf16_outs, bf16_eng,
                                engine_kwargs=dict(block_size=16), device=dev)
     eng = replica.engine
     rng = np.random.default_rng(1)
-    for gen in [replica(rng.integers(0, cfg_kwargs["vocab_size"], 128),
-                        max_new_tokens=8) for _ in range(2)]:
-        list(gen)
+    warm_up(replica)
     eng.reset_stats()
+    before = eng.stats()
     ops.reset_kernel_launches()
     t0 = time.perf_counter()
     outs = [list(gen) for gen in [replica(p, max_new_tokens=new_tokens,
@@ -2004,8 +2225,9 @@ def phase_int8_engine(dev, which: str, reqs, bf16_outs, bf16_eng,
     eng.check_invariants()
     if any(len(o) != new_tokens for o in outs):
         fail(f"int8 engine {which} cut a request short")
-    check_paged_launches(launches, layers, st["decode_steps"],
-                         st["prefill_chunks"], int8=True)
+    check_paged_launches(launches, layers, st, builds(before, st),
+                         int8=True)
+    compile_once = check_compile_once(eng, f"int8 engine {which}")
     ratio = bf16_eng["kv_bytes_per_token"] / st["kv_bytes_per_token"]
     want = 2 * D / (D + 4)
     if abs(ratio / want - 1) > 1e-9:
@@ -2055,7 +2277,12 @@ def phase_int8_engine(dev, which: str, reqs, bf16_outs, bf16_eng,
                logprob_delta_vs_bf16_max=float(np.max(deltas)),
                tokens_same_as_bf16=float(np.mean(same)),
                weight_swap_ms=sw["weight_swap_ms"],
-               params_version=sw["params_version"])
+               params_version=sw["params_version"],
+               compile_once=check_compile_once(eng, f"int8 engine {which} "
+                                               "after the swap"))
+    if out["compile_once"] != compile_once:
+        fail(f"int8 engine {which}: the swap rebuilt a step: "
+             f"{compile_once} -> {out['compile_once']}")
     print(f"  (b) {which}: {len(reqs)} requests in {wall:.2f} s; prefill "
           f"{st['prefill_tok_s']:.1f} tok/s, decode {st['decode_tok_s']:.1f} "
           f"tok/s, decode step p50 {st['p50_token_latency_ms']:.3f} ms p99 "
@@ -2313,11 +2540,9 @@ def phase_spec_engine(dev, which: str, reqs, seed: int = 0) -> dict:
     replica = InferenceReplica(cfg_kwargs, slots=8, max_len=1024, seed=seed,
                                engine_kwargs=ek, device=dev)
     eng = replica.engine
-    for gen in [replica(p, max_new_tokens=8) for p, _ in
-                spec_traffic(cfg_kwargs["vocab_size"], 2, seed=9)]:
-        list(gen)
+    warm_up(replica, spec=which != "off")
     eng.reset_stats()
-    verify_before = eng.stats()["verify_launches"]
+    before = eng.stats()
     ops.reset_kernel_launches()
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
@@ -2332,6 +2557,7 @@ def phase_spec_engine(dev, which: str, reqs, seed: int = 0) -> dict:
     launches = ops.kernel_launches()
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     st = eng.stats()
+    built = builds(before, st)
     eng.check_invariants()
     if any(len(o) != SPEC_NEW for o in outs):
         fail(f"spec engine {which} cut a request short")
@@ -2340,28 +2566,29 @@ def phase_spec_engine(dev, which: str, reqs, seed: int = 0) -> dict:
     dl = SPEC_DRAFT_LAYERS if which == "draft" else 0
     w = SPEC_K + 1
     draft_chunks = sum(-(-p.size // 64) for p, _ in reqs) if dl else 0
-    want = {"paged_verify_attention": layers * spec_ticks,
-            "paged_mq_tc": layers * (spec_ticks + st["prefill_chunks"])
-            + dl * draft_chunks,
-            "paged_prefill_attention": layers * st["prefill_chunks"]
-            + dl * draft_chunks,
-            "paged_decode_attention": layers * plain_ticks
-            + dl * w * spec_ticks,
+    # a step built in the window ran once eagerly before its capture
+    verify = spec_ticks + built["verify_traces"]
+    prefill = (layers * (st["prefill_chunks"] + built["prefill_traces"])
+               + dl * (draft_chunks + built["draft_prefill_traces"]))
+    want = {"paged_verify_attention": layers * verify,
+            "paged_mq_tc": layers * verify + prefill,
+            "paged_prefill_attention": prefill,
+            "paged_decode_attention":
+                layers * (plain_ticks + built["decode_traces"])
+                + dl * w * (spec_ticks + built["draft_traces"]),
             "paged_mq_simt": 0, "paged_decode_int8": 0,
             "paged_mq_tc_int8": 0, "paged_mq_simt_int8": 0}
     got = {k: launches[k] for k in want}
     if got != want:
         fail(f"spec engine {which}: paged launches {got}, want {want}")
-    if st["verify_launches"] - verify_before != want["paged_verify_attention"]:
-        fail(f"spec engine {which}: verify_launches "
-             f"{st['verify_launches'] - verify_before}, want "
-             f"{want['paged_verify_attention']}")
+    compile_once = check_compile_once(eng, f"spec engine {which}")
     if which != "off" and spec_ticks <= 0:
         fail(f"spec engine {which} made no speculative tick")
-    if syncs != st["decode_steps"] + st["prefill_chunks"]:
+    if syncs != st["decode_steps"] + st["prefill_chunks"] + sum(
+            built.values()):
         fail(f"spec engine {which}: {syncs} host syncs for "
-             f"{st['decode_steps']} ticks and {st['prefill_chunks']} prefill "
-             "chunks (want one each)")
+             f"{st['decode_steps']} ticks, {st['prefill_chunks']} prefill "
+             f"chunks and {built} builds (want one each)")
     per_tick = {}
     if spec_ticks:
         per_tick = {"paged_mq_tc (verify)": want["paged_verify_attention"]
@@ -2372,7 +2599,8 @@ def phase_spec_engine(dev, which: str, reqs, seed: int = 0) -> dict:
         "decode_tok_s", "p50_token_latency_ms", "p99_token_latency_ms",
         "tokens_per_step", "acceptance_rate", "pool_bytes")}
     out.update(wall_s=wall, launches=launches, host_syncs=syncs,
-               launches_per_spec_tick=per_tick)
+               launches_per_spec_tick=per_tick, compile_once=compile_once,
+               builds_in_run=built)
     print(f"  (b) {which}: {len(reqs)} requests in {wall:.2f} s; decode "
           f"{st['decode_tok_s']:.1f} tok/s, tick p50 "
           f"{st['p50_token_latency_ms']:.3f} ms p99 "
@@ -2380,7 +2608,7 @@ def phase_spec_engine(dev, which: str, reqs, seed: int = 0) -> dict:
           f"({spec_ticks} speculative), tokens_per_step "
           f"{st['tokens_per_step']:.3f}, acceptance_rate "
           f"{st['acceptance_rate']:.3f}; launches per spec tick {per_tick}; "
-          f"{syncs} host syncs")
+          f"{syncs} host syncs; compile-once {compile_once}")
     prof = out["tick_profile"] = tick_profile(eng, cfg_kwargs["vocab_size"])
     print(f"  (b) {which} profile: {prof['ticks']} ticks "
           f"({prof['spec_ticks']} speculative), wall "
@@ -2468,6 +2696,99 @@ def phase_spec(dev) -> dict:
     out["engines"] = {w: phase_spec_engine(dev, w, reqs)
                       for w in SPEC_ENGINES}
     out["self_draft"] = phase_spec_self_draft(dev)
+    return out
+
+
+# Phase 13: compile-once serving, each engine eager (``_capture = False``)
+# and captured: name -> (traffic: phase 2's "serve" or phase 12's "spec"
+# prompts, config overrides, engine kwargs).
+CAPTURE_ENGINES = {"bf16": ("serve", {}, {}),
+                   "int8": ("serve", {"kv_dtype": "int8",
+                                      "weight_dtype": "int8"}, {}),
+                   "spec off": ("spec", {}, {}),
+                   "ngram": ("spec", {}, SPEC_ENGINES["ngram"]),
+                   "draft": ("spec", {}, SPEC_ENGINES["draft"])}
+
+
+def capture_run(dev, name: str, capture: bool) -> dict:
+    """One engine of phase 13: built from seed 0 at SERVE_CFG (8 slots,
+    block 16, chunk 64), warmed up (`warm_up`), then its traffic (phase
+    2's requests, or phase 12's prompts all greedy, 64 new tokens each)
+    and `tick_profile`'s 8 profiled ticks with every slot decoding."""
+    import torch
+    from ray_tpu_torch.serve import InferenceReplica
+    traffic, cfg_over, ek = CAPTURE_ENGINES[name]
+    cfg_kwargs = {**SERVE_CFG, **cfg_over}
+    vocab = cfg_kwargs["vocab_size"]
+    replica = InferenceReplica(cfg_kwargs, slots=8, max_len=1024, seed=0,
+                               engine_kwargs=dict(block_size=16,
+                                                  prefill_chunk=64, **ek),
+                               device=dev)
+    eng = replica.engine
+    eng._capture = capture
+    warm_up(replica, spec=bool(ek))
+    eng.reset_stats()
+    reqs = (make_traffic(vocab, 0) if traffic == "serve" else
+            [(p, 0.0) for p, _ in spec_traffic(vocab)])
+    t0 = time.perf_counter()
+    outs = [list(gen) for gen in [replica(p, max_new_tokens=64,
+                                          temperature=t)
+                                  for p, t in reqs]]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    eng.check_invariants()
+    prof = tick_profile(eng, vocab)
+    out = {k: st[k] for k in (
+        "decode_steps", "spec_steps", "decode_tokens", "decode_tok_s",
+        "p50_token_latency_ms", "p99_token_latency_ms", "tokens_per_step",
+        "retraces_unexpected", "graph_pool_bytes", *TRACE_KEYS)}
+    out.update(wall_s=wall, profile=prof,
+               greedy_tokens=[[int(t) for t in o]
+                              for (_, temp), o in zip(reqs, outs)
+                              if temp == 0])
+    if capture:
+        out["compile_once"] = check_compile_once(eng, f"phase 13 {name}")
+    elif st["graph_pool_bytes"] or eng._captures():
+        fail(f"phase 13 {name}: the eager engine captured a graph")
+    del replica, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_capture(dev) -> dict:
+    """Phase 13: each of `CAPTURE_ENGINES` eager, then captured, on the
+    same traffic: greedy tokens must be identical (the same kernels on the
+    same inputs), the captured engine built once a step with no unexpected
+    retrace; tick p50/p99, decode tok/s and the profiled busy share of
+    both printed side by side."""
+    out = {}
+    for name in CAPTURE_ENGINES:
+        runs = {mode: capture_run(dev, name, mode == "captured")
+                for mode in ("eager", "captured")}
+        same = (runs["eager"]["greedy_tokens"]
+                == runs["captured"]["greedy_tokens"])
+        if not same:
+            fail(f"phase 13 {name}: captured greedy tokens differ from "
+                 "eager")
+        for mode, r in runs.items():
+            p = r["profile"]
+            print(f"  {name:8s} {mode:8s}: tick p50 "
+                  f"{r['p50_token_latency_ms']:.3f} ms p99 "
+                  f"{r['p99_token_latency_ms']:.3f} ms, decode "
+                  f"{r['decode_tok_s']:.1f} tok/s, {r['decode_steps']} ticks"
+                  f" ({r['spec_steps']} spec), tokens_per_step "
+                  f"{r['tokens_per_step']:.3f}; profiled: wall "
+                  f"{p['wall_ms_per_tick']:.3f} ms a tick, device "
+                  f"{p['device_ms_per_tick']:.3f} ms, busy "
+                  f"{p['device_busy_share']:.1%}; traces "
+                  f"{ {k: r[k] for k in TRACE_KEYS} }, retraces_unexpected "
+                  f"{r['retraces_unexpected']}, graph_pool_bytes "
+                  f"{r['graph_pool_bytes']}")
+        print(f"  {name}: greedy tokens identical eager/captured: {same}")
+        for r in runs.values():
+            del r["greedy_tokens"]
+        out[name] = {**runs, "greedy_identical": same}
     return out
 
 
@@ -2661,14 +2982,17 @@ def main() -> int:
     unpaged = phase(9, "unpaged KV-cache path at full width", phase_unpaged,
                     dev, cfg_kwargs, kern_regs)
     c1 = phase(10, "head dims 96, 100, 256, pool block 64, loss widths 384, "
-               "1600, 4096", phase_c1, dev)
+               "1600, 4096; head dims 264, 512, 520, 1024", phase_c1, dev)
     int8 = phase(11, "int8 serving (int8 pool, int8 weights)", phase_int8,
                  dev, kern, reqs, outs, eng)
     spec = phase(12, "speculative decoding (verify kernel, n-gram and draft "
                  "engines)", phase_spec, dev)
+    capture = phase(13, "compile-once serving: eager against captured "
+                    "engines", phase_capture, dev)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
                   flash=flash, train=train, xent=xent, fused_train=fused,
-                  unpaged=unpaged, c1=c1, int8=int8, spec=spec)
+                  unpaged=unpaged, c1=c1, int8=int8, spec=spec,
+                  capture=capture)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

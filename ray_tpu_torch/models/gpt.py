@@ -47,7 +47,7 @@ as the reference's ``_w`` leaves it to XLA). Training and the unpaged
 quantized model.
 
 Not ported yet (ROADMAP): ring attention (``attn_impl="ring"``) and
-meshes (A9); their config values raise `NotImplementedError`.
+meshes (A6); their config values raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -396,7 +396,7 @@ def _attention(q, k, v, cfg: GPTConfig):
     if impl == "ring":
         raise NotImplementedError(
             "attn_impl='ring' (sequence-parallel ring attention) is not "
-            "ported yet (ROADMAP A9: multi-rank parallelism)")
+            "ported yet (ROADMAP A6: multi-rank parallelism)")
     raise ValueError(f"unknown attn_impl {impl!r} (expected 'auto' | "
                      "'ring' | 'flash' | 'xla')")
 
@@ -536,7 +536,7 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int, device=None,
     if mesh is not None:
         raise NotImplementedError(
             "init_kv_cache: sharded caches (mesh=) are not ported yet "
-            "(ROADMAP A9: multi-rank parallelism)")
+            "(ROADMAP A6: multi-rank parallelism)")
     if max_len > cfg.max_seq_len:
         raise ValueError(f"max_len {max_len} exceeds cfg.max_seq_len "
                          f"{cfg.max_seq_len} (pos_embed table size)")
@@ -695,22 +695,32 @@ def prefill_paged(model: GPT, tokens, cache: dict, cfg: GPTConfig, *,
     over the whole prefix (`ops.decode_attention.paged_prefill_attention`,
     ``cfg.prefill_attn_impl``), and the returned logits ``[1, vocab]`` f32
     are the chunk's last real position. ``start``/``length`` are host
-    ints; the pool is updated in place and returned. An int8 pool
-    quantizes the chunk's K/V at the write; a model from
-    `quantize_params` dequantizes each weight at use."""
+    ints, or int32 tensors of one element on the device (as the
+    reference traces them: nothing here then reads them on the host, so
+    a CUDA graph captures the chunk once for every start and length);
+    the pool is updated in place and returned. An int8 pool quantizes the
+    chunk's K/V at the write; a model from `quantize_params` dequantizes
+    each weight at use."""
     check_quant_cfg(cfg)
     b, c = tokens.shape
     if b != 1:
         raise ValueError(f"paged prefill wants tokens [1, C], got batch {b}")
     nb, bs = cache["k"].shape[1], cache["k"].shape[2]
-    length = c if length is None else int(length)
-    start = int(start)
     dev = tokens.device
     adt = cfg.activation_dtype()
     table = block_table
     mb = table.shape[0]
     offs = torch.arange(c, device=dev)
-    positions = start + offs
+    if isinstance(start, torch.Tensor):
+        positions = start.reshape(1).long() + offs
+    else:
+        positions = int(start) + offs
+    if isinstance(length, torch.Tensor):
+        length = length.reshape(1).long()
+        last = length - 1
+    else:
+        length = c if length is None else int(length)
+        last = offs[length - 1:length]
     blk = table[torch.clamp(positions // bs, max=mb - 1)].long()
     widx = torch.where(offs < length, blk * bs + positions % bs, nb * bs)
     x = model.embed[tokens[0]].to(adt) + model.pos_embed[
@@ -727,7 +737,7 @@ def prefill_paged(model: GPT, tokens, cache: dict, cfg: GPTConfig, *,
                 impl=cfg.prefill_attn_impl).reshape(c, -1)
 
         x = _layer(layers[i], x, cfg, attend)
-    logits = _unembed(model, x[length - 1:length])
+    logits = _unembed(model, x.index_select(0, last))
     return logits, cache
 
 

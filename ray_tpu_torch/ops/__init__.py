@@ -3,7 +3,9 @@ beside a plain PyTorch version with the same math.
 
 `kernel_launches` / `reset_kernel_launches` read and zero the launch
 counter of every kernel wrapper in the package, so a run can show which
-kernels its main path went through."""
+kernels its main path went through; `add_kernel_launches` adds the
+launches of a CUDA graph's replays, which never pass through the
+wrappers."""
 
 import torch
 
@@ -24,6 +26,17 @@ def kernel_launches() -> dict:
 def reset_kernel_launches() -> None:
     for m in _modules():
         m.reset_kernel_launches()
+
+
+def add_kernel_launches(counts: dict, times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (``{name: launches}``, names as
+    `kernel_launches` gives them) to the counters: the launches a CUDA
+    graph's replays make, which never pass through the wrappers."""
+    for m in _modules():
+        for f in getattr(m, "WRAPPERS", ()):
+            f.launches += times * counts.get(f.__name__, 0)
+        for name in m.LAUNCHES:
+            m.LAUNCHES[name] += times * counts.get(name, 0)
 
 
 def pad_last_dim(x, n: int):

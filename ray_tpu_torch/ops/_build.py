@@ -38,7 +38,7 @@ _F = ctypes.c_float
 # name -> (argtypes, restype) of every C entry point the wrappers call.
 SIGNATURES = {
     "rtt_paged_decode": ([_P] * 10 + [_I] * 7 + [_F, _I, _P], _I),
-    "rtt_paged_mq": ([_P] * 8 + [_I] * 6 + [_F, _P], _I),
+    "rtt_paged_mq": ([_P] * 8 + [_I] * 6 + [_F, _I, _P], _I),
     "rtt_paged_mq_tc": ([_P] * 10 + [_I] * 8 + [_F, _P], _I),
     "rtt_decode": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                     _I, _P], _I),

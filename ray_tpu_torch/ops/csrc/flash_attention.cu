@@ -14,11 +14,12 @@
 //   flash_dq_kernel,     the two backward kernels on CUDA cores, for f32 and
 //   flash_dkv_kernel     for bf16 at D 32 and 256
 //
-// The kernels are built for head dims 32, 64, 128 and 256 (256 on the CUDA
-// cores only, above 48 KB of dynamic shared memory); the Python wrapper
-// zero-pads any other head dim up to 256 to the next of those and passes
-// the true head dim's softmax scale (zero columns add nothing to q . k or
-// to delta, and dq, dk, dv come out zero there).
+// The kernels are built for head dims 32, 64, 128, 256 and 512 (256 and
+// 512 on the CUDA cores only, above 48 KB of dynamic shared memory), and
+// run a multiple of 512 above that in slabs of 512 (flash_fwd_kernel); the
+// Python wrapper zero-pads any other head dim to the next of those and
+// passes the true head dim's softmax scale (zero columns add nothing to
+// q . k or to delta, and dq, dk, dv come out zero there).
 //
 // They compute what the Pallas kernels compute, not block by block:
 //
@@ -123,15 +124,16 @@ constexpr int kThreads = 128;      // 4 warps
 constexpr int G = 8;               // lanes of a row group
 
 // The CUDA-core kernels' tiles at head dim D: BT rows of a q tile and of
-// a kv tile (64, and 32 at D 256 so that four transposed f32 tiles fit in
-// an SM's shared memory and dK/dV's two accumulators in registers), LD
+// a kv tile (64, 32 at D 256 and 16 at D 512, so that four transposed f32
+// tiles fit in an SM's shared memory and dK/dV's two accumulators in
+// registers), LD
 // the padded row of a transposed tile. Thread t owns tile rows rg + 16*i
 // (i < RI) and columns cg + 8*j (j < CJ), rg = t / 8, cg = t % 8: the G
 // = 8 threads of one row group are 8 consecutive lanes, so row
 // reductions are three xor shuffles.
 template <int D>
 struct Tile {
-  static constexpr int BT = D > 128 ? 32 : 64;
+  static constexpr int BT = D > 256 ? 16 : D > 128 ? 32 : 64;
   static constexpr int LD = BT + 1;
   static constexpr int RI = BT / 16;
   static constexpr int CJ = BT / G;
@@ -267,11 +269,17 @@ __device__ __forceinline__ void tile_abt(
   }
 }
 
+// Head dims above 512 (padded to a multiple of 512) run at D = 512 in
+// nslab slabs: blockIdx.y = bh * nslab + os, the CTA writes output slab os
+// (columns os * D ..), rows are nslab * D wide, and every score q . k sums
+// over all slabs, staged one after another (each slab's CTAs recompute
+// the scores). nslab = 1 otherwise.
 template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int Tn, int H, float scale) {
+                     float* __restrict__ lse, int Tn, int H, float scale,
+                     int nslab) {
   constexpr int BT = Tile<D>::BT, LD = Tile<D>::LD, RI = Tile<D>::RI,
                 CJ = Tile<D>::CJ;
   constexpr int DJ = D / 8;
@@ -283,15 +291,17 @@ __global__ void __launch_bounds__(kThreads)
 
   const int nt = (Tn + BT - 1) / BT;
   const int q0 = (nt - 1 - blockIdx.x) * BT;  // longest causal rows first
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.y / nslab;
+  const int os = blockIdx.y - bh * nslab;   // output slab
   const int b = bh / H;
   const int h = bh - b * H;
-  const int HD = H * D;
-  const size_t base = (size_t)b * Tn * HD + (size_t)h * D;
+  const int HD = H * D * nslab;             // row stride
+  const size_t base = (size_t)b * Tn * HD + (size_t)h * D * nslab;
+  const size_t obase = base + (size_t)os * D;
   const int rg = threadIdx.x >> 3;
   const int cg = threadIdx.x & 7;
 
-  stage_t<T, D>(qt, q + base, q0, Tn, HD, scale);
+  if (nslab == 1) stage_t<T, D>(qt, q + base, q0, Tn, HD, scale);
   float m[RI], l[RI], acc[RI][DJ];
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
@@ -306,16 +316,26 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < n_kv; ++t) {
     const int k0 = t * BT;
     __syncthreads();  // the previous tile's kt / vs / ps are consumed
-    stage_t<T, D>(kt, k + base, k0, Tn, HD, 1.f);
-    stage_rows<T, D>(vs, v + base, k0, Tn, HD);
-    __syncthreads();
-
     float s[RI][CJ];
 #pragma unroll
     for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
-    tile_abt<D>(s, qt, kt, rg, cg);
+    if (nslab == 1) {
+      stage_t<T, D>(kt, k + base, k0, Tn, HD, 1.f);
+      stage_rows<T, D>(vs, v + base, k0, Tn, HD);
+      __syncthreads();
+      tile_abt<D>(s, qt, kt, rg, cg);
+    } else {
+      for (int sl = 0; sl < nslab; ++sl) {
+        if (sl > 0) __syncthreads();   // the previous slab's qt / kt are read
+        stage_t<T, D>(qt, q + base + sl * D, q0, Tn, HD, scale);
+        stage_t<T, D>(kt, k + base + sl * D, k0, Tn, HD, 1.f);
+        if (sl == 0) stage_rows<T, D>(vs, v + obase, k0, Tn, HD);
+        __syncthreads();
+        tile_abt<D>(s, qt, kt, rg, cg);
+      }
+    }
 
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
@@ -363,12 +383,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < RI; ++i) {
     const int row = q0 + rg + 16 * i;
     if (row < Tn) {
-      T* o = out + base + (size_t)row * HD;
+      T* o = out + obase + (size_t)row * HD;
       const float inv = 1.f / l[i];
 #pragma unroll
       for (int jd = 0; jd < DJ; ++jd)
         o[cg + 8 * jd] = from_f32<T>(acc[i][jd] * inv);
-      if (lse != nullptr && cg == 0)
+      if (lse != nullptr && cg == 0 && os == 0)
         lse[(size_t)bh * Tn + row] = m[i] + logf(l[i]);
     }
   }
@@ -380,7 +400,7 @@ __global__ void __launch_bounds__(kThreads)
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int Tn, int H, float scale) {
+                    int Tn, int H, float scale, int nslab) {
   constexpr int BT = Tile<D>::BT, LD = Tile<D>::LD, RI = Tile<D>::RI,
                 CJ = Tile<D>::CJ;
   constexpr int DJ = D / 8;
@@ -393,16 +413,20 @@ __global__ void __launch_bounds__(kThreads)
 
   const int nt = (Tn + BT - 1) / BT;
   const int q0 = (nt - 1 - blockIdx.x) * BT;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.y / nslab;
+  const int os = blockIdx.y - bh * nslab;   // output slab
   const int b = bh / H;
   const int h = bh - b * H;
-  const int HD = H * D;
-  const size_t base = (size_t)b * Tn * HD + (size_t)h * D;
+  const int HD = H * D * nslab;             // row stride
+  const size_t base = (size_t)b * Tn * HD + (size_t)h * D * nslab;
+  const size_t obase = base + (size_t)os * D;
   const int rg = threadIdx.x >> 3;
   const int cg = threadIdx.x & 7;
 
-  stage_t<T, D>(qt, q + base, q0, Tn, HD, scale);
-  stage_t<T, D>(dot, dout + base, q0, Tn, HD, 1.f);
+  if (nslab == 1) {
+    stage_t<T, D>(qt, q + base, q0, Tn, HD, scale);
+    stage_t<T, D>(dot, dout + base, q0, Tn, HD, 1.f);
+  }
   float row_lse[RI], row_delta[RI], acc[RI][DJ];
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
@@ -418,17 +442,31 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < n_kv; ++t) {
     const int k0 = t * BT;
     __syncthreads();
-    stage_t<T, D>(kt, k + base, k0, Tn, HD, 1.f);
-    stage_t<T, D>(vt, v + base, k0, Tn, HD, 1.f);
-    __syncthreads();
-
     float s[RI][CJ], dp[RI][CJ];
 #pragma unroll
     for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < CJ; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_abt<D>(s, qt, kt, rg, cg);
-    tile_abt<D>(dp, dot, vt, rg, cg);
+    if (nslab == 1) {
+      stage_t<T, D>(kt, k + base, k0, Tn, HD, 1.f);
+      stage_t<T, D>(vt, v + base, k0, Tn, HD, 1.f);
+      __syncthreads();
+      tile_abt<D>(s, qt, kt, rg, cg);
+      tile_abt<D>(dp, dot, vt, rg, cg);
+    } else {
+      for (int sl = 0; sl < nslab; ++sl) {
+        if (sl > 0) __syncthreads();
+        stage_t<T, D>(qt, q + base + sl * D, q0, Tn, HD, scale);
+        stage_t<T, D>(dot, dout + base + sl * D, q0, Tn, HD, 1.f);
+        stage_t<T, D>(kt, k + base + sl * D, k0, Tn, HD, 1.f);
+        stage_t<T, D>(vt, v + base + sl * D, k0, Tn, HD, 1.f);
+        __syncthreads();
+        tile_abt<D>(s, qt, kt, rg, cg);
+        tile_abt<D>(dp, dot, vt, rg, cg);
+      }
+      __syncthreads();
+      stage_t<T, D>(kt, k + obase, k0, Tn, HD, 1.f);   // dS K's slab
+    }
 
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
@@ -463,7 +501,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < RI; ++i) {
     const int row = q0 + rg + 16 * i;
     if (row < Tn) {
-      T* o = dq + base + (size_t)row * HD;
+      T* o = dq + obase + (size_t)row * HD;
 #pragma unroll
       for (int jd = 0; jd < DJ; ++jd)
         o[cg + 8 * jd] = from_f32<T>(acc[i][jd] * scale);
@@ -477,7 +515,8 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int Tn, int H, float scale) {
+                     T* __restrict__ dv, int Tn, int H, float scale,
+                     int nslab) {
   constexpr int BT = Tile<D>::BT, LD = Tile<D>::LD, RI = Tile<D>::RI,
                 CJ = Tile<D>::CJ;
   constexpr int DJ = D / 8;
@@ -493,16 +532,20 @@ __global__ void __launch_bounds__(kThreads)
 
   const int nt = (Tn + BT - 1) / BT;
   const int k0 = blockIdx.x * BT;  // low kv tiles see the most q rows
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.y / nslab;
+  const int os = blockIdx.y - bh * nslab;   // output slab
   const int b = bh / H;
   const int h = bh - b * H;
-  const int HD = H * D;
-  const size_t base = (size_t)b * Tn * HD + (size_t)h * D;
+  const int HD = H * D * nslab;             // row stride
+  const size_t base = (size_t)b * Tn * HD + (size_t)h * D * nslab;
+  const size_t obase = base + (size_t)os * D;
   const int rg = threadIdx.x >> 3;
   const int cg = threadIdx.x & 7;
 
-  stage_t<T, D>(kt, k + base, k0, Tn, HD, 1.f);
-  stage_t<T, D>(vt, v + base, k0, Tn, HD, 1.f);
+  if (nslab == 1) {
+    stage_t<T, D>(kt, k + base, k0, Tn, HD, 1.f);
+    stage_t<T, D>(vt, v + base, k0, Tn, HD, 1.f);
+  }
   float acc_k[RI][DJ], acc_v[RI][DJ];
 #pragma unroll
   for (int i = 0; i < RI; ++i)
@@ -513,23 +556,39 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = CAUSAL ? blockIdx.x : 0; t < nt; ++t) {
     const int q0 = t * BT;
     __syncthreads();
-    stage_t<T, D>(qt, q + base, q0, Tn, HD, scale);
-    stage_t<T, D>(dot, dout + base, q0, Tn, HD, 1.f);
     for (int e = threadIdx.x; e < BT; e += kThreads) {
       const int row = q0 + e;
       lse_s[e] = row < Tn ? lse[(size_t)bh * Tn + row] : 0.f;
       delta_s[e] = row < Tn ? delta[(size_t)bh * Tn + row] : 0.f;
     }
-    __syncthreads();
-
     // Transposed scores: s[i][j] for kv row rg + 16 i, q column cg + 8 j.
     float s[RI][CJ], dp[RI][CJ];
 #pragma unroll
     for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < CJ; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_abt<D>(s, kt, qt, rg, cg);
-    tile_abt<D>(dp, vt, dot, rg, cg);
+    if (nslab == 1) {
+      stage_t<T, D>(qt, q + base, q0, Tn, HD, scale);
+      stage_t<T, D>(dot, dout + base, q0, Tn, HD, 1.f);
+      __syncthreads();
+      tile_abt<D>(s, kt, qt, rg, cg);
+      tile_abt<D>(dp, vt, dot, rg, cg);
+    } else {
+      for (int sl = 0; sl < nslab; ++sl) {
+        if (sl > 0) __syncthreads();
+        stage_t<T, D>(kt, k + base + sl * D, k0, Tn, HD, 1.f);
+        stage_t<T, D>(vt, v + base + sl * D, k0, Tn, HD, 1.f);
+        stage_t<T, D>(qt, q + base + sl * D, q0, Tn, HD, scale);
+        stage_t<T, D>(dot, dout + base + sl * D, q0, Tn, HD, 1.f);
+        __syncthreads();
+        tile_abt<D>(s, kt, qt, rg, cg);
+        tile_abt<D>(dp, vt, dot, rg, cg);
+      }
+      __syncthreads();
+      // the output slab's q and dO for dK += dS^T Q, dV += P^T dO
+      stage_t<T, D>(qt, q + obase, q0, Tn, HD, scale);
+      stage_t<T, D>(dot, dout + obase, q0, Tn, HD, 1.f);
+    }
 
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
@@ -575,8 +634,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < RI; ++i) {
     const int row = k0 + rg + 16 * i;
     if (row < Tn) {
-      T* ok = dk + base + (size_t)row * HD;
-      T* ov = dv + base + (size_t)row * HD;
+      T* ok = dk + obase + (size_t)row * HD;
+      T* ov = dv + obase + (size_t)row * HD;
 #pragma unroll
       for (int jd = 0; jd < DJ; ++jd) {
         ok[cg + 8 * jd] = from_f32<T>(acc_k[i][jd]);
@@ -1452,22 +1511,23 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 template <typename T, int D, bool C>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
-                       float* lse, int B, int Tn, int H, float scale,
-                       cudaStream_t s) {
+cudaError_t launch_fwd(int nslab, const void* q, const void* k,
+                       const void* v, void* out, float* lse, int B, int Tn,
+                       int H, float scale, cudaStream_t s) {
   const size_t smem = fwd_smem<D>();
   constexpr int BT = Tile<D>::BT;
   cudaError_t err = allow_smem(flash_fwd_kernel<T, D, C>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tn + BT - 1) / BT, B * H);
+  const dim3 grid((Tn + BT - 1) / BT, B * H * nslab);
   flash_fwd_kernel<T, D, C><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, Tn, H, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Tn, H, scale,
+      nslab);
   return cudaGetLastError();
 }
 
 template <typename T, int D, bool C>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
+cudaError_t launch_dq(int nslab, const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int B, int Tn, int H, float scale,
                       cudaStream_t s) {
@@ -1475,48 +1535,53 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   constexpr int BT = Tile<D>::BT;
   cudaError_t err = allow_smem(flash_dq_kernel<T, D, C>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tn + BT - 1) / BT, B * H);
+  const dim3 grid((Tn + BT - 1) / BT, B * H * nslab);
   flash_dq_kernel<T, D, C><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), Tn, H, scale);
+      static_cast<T*>(dq), Tn, H, scale, nslab);
   return cudaGetLastError();
 }
 
 template <typename T, int D, bool C>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse, const float* delta,
-                       void* dk, void* dv, int B, int Tn, int H, float scale,
-                       cudaStream_t s) {
+cudaError_t launch_dkv(int nslab, const void* q, const void* k,
+                       const void* v, const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv, int B, int Tn,
+                       int H, float scale, cudaStream_t s) {
   const size_t smem = dkv_smem<D>();
   constexpr int BT = Tile<D>::BT;
   cudaError_t err = allow_smem(flash_dkv_kernel<T, D, C>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tn + BT - 1) / BT, B * H);
+  const dim3 grid((Tn + BT - 1) / BT, B * H * nslab);
   flash_dkv_kernel<T, D, C><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), Tn, H, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), Tn, H, scale, nslab);
   return cudaGetLastError();
 }
 
-// Calls F<T, D, causal>::run(args...) for the runtime (dtype, D, causal);
-// cudaErrorInvalidValue when there is no such instantiation. bf16 takes
-// D 32 and 256 only: bf16 heads of 64 and 128 run on the tensor cores.
+// Calls F<T, D, causal>::run(nslab, args...) for the runtime (dtype, D,
+// causal); cudaErrorInvalidValue when there is no such instantiation. bf16
+// takes D 32, 256 and 512 only: bf16 heads of 64 and 128 run on the tensor
+// cores. A multiple of 512 above 512 runs at 512 in D / 512 slabs.
 template <template <typename, int, bool> class F, typename... A>
 cudaError_t dispatch(int dtype, int D, int causal, A... args) {
+  const int nslab = D > 512 && D % 512 == 0 ? D / 512 : 1;
+  const int dd = D / nslab;
 #define RTT_CASE(T, DD)                                              \
-  if (D == DD)                                                       \
-    return causal ? F<T, DD, true>::run(args...)                     \
-                  : F<T, DD, false>::run(args...);
+  if (dd == DD)                                                      \
+    return causal ? F<T, DD, true>::run(nslab, args...)              \
+                  : F<T, DD, false>::run(nslab, args...);
   if (dtype == 0) {
     RTT_CASE(float, 32)
     RTT_CASE(float, 64)
     RTT_CASE(float, 128)
     RTT_CASE(float, 256)
+    RTT_CASE(float, 512)
   } else if (dtype == 1) {
     RTT_CASE(__nv_bfloat16, 32)
     RTT_CASE(__nv_bfloat16, 256)
+    RTT_CASE(__nv_bfloat16, 512)
   }
 #undef RTT_CASE
   return cudaErrorInvalidValue;
@@ -1524,39 +1589,40 @@ cudaError_t dispatch(int dtype, int D, int causal, A... args) {
 
 template <typename T, int D, bool C>
 struct Fwd {
-  static cudaError_t run(const void* q, const void* k, const void* v,
-                         void* out, float* lse, int B, int Tn, int H,
-                         float scale, cudaStream_t s) {
-    return launch_fwd<T, D, C>(q, k, v, out, lse, B, Tn, H, scale, s);
+  static cudaError_t run(int nslab, const void* q, const void* k,
+                         const void* v, void* out, float* lse, int B, int Tn,
+                         int H, float scale, cudaStream_t s) {
+    return launch_fwd<T, D, C>(nslab, q, k, v, out, lse, B, Tn, H, scale, s);
   }
 };
 
 template <typename T, int D, bool C>
 struct Dq {
-  static cudaError_t run(const void* q, const void* k, const void* v,
-                         const void* dout, const float* lse,
+  static cudaError_t run(int nslab, const void* q, const void* k,
+                         const void* v, const void* dout, const float* lse,
                          const float* delta, void* dq, int B, int Tn, int H,
                          float scale, cudaStream_t s) {
-    return launch_dq<T, D, C>(q, k, v, dout, lse, delta, dq, B, Tn, H, scale,
-                              s);
+    return launch_dq<T, D, C>(nslab, q, k, v, dout, lse, delta, dq, B, Tn, H,
+                              scale, s);
   }
 };
 
 template <typename T, int D, bool C>
 struct Dkv {
-  static cudaError_t run(const void* q, const void* k, const void* v,
-                         const void* dout, const float* lse,
+  static cudaError_t run(int nslab, const void* q, const void* k,
+                         const void* v, const void* dout, const float* lse,
                          const float* delta, void* dk, void* dv, int B,
                          int Tn, int H, float scale, cudaStream_t s) {
-    return launch_dkv<T, D, C>(q, k, v, dout, lse, delta, dk, dv, B, Tn, H,
-                               scale, s);
+    return launch_dkv<T, D, C>(nslab, q, k, v, dout, lse, delta, dk, dv, B,
+                               Tn, H, scale, s);
   }
 };
 
 }  // namespace
 
-// The forward on CUDA cores: float32 (dtype 0) at D 32, 64, 128, 256 and
-// bfloat16 (dtype 1) at D 32 and 256. q, k, v, out: [B, T, H, D] contiguous; lse:
+// The forward on CUDA cores: float32 (dtype 0) at D 32, 64, 128, 256, 512
+// and bfloat16 (dtype 1) at D 32, 256 and 512, both at any multiple of 512
+// above (in slabs). q, k, v, out: [B, T, H, D] contiguous; lse:
 // [B*H, T] f32 or null (the inference variant skips its write).
 extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int T, int H, int D,
@@ -1588,8 +1654,8 @@ extern "C" int rtt_flash_fwd_tc(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// The backward on CUDA cores (float32 at D 32, 64, 128, 256; bfloat16 at
-// D 32 and 256).
+// The backward on CUDA cores (float32 at D 32, 64, 128, 256, 512;
+// bfloat16 at D 32, 256 and 512; both at multiples of 512 above).
 // dout, dq: [B, T, H, D]; lse, delta: [B*H, T] f32.
 extern "C" int rtt_flash_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,

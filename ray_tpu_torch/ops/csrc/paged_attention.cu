@@ -66,7 +66,8 @@
 //   a CTA (faster than 256 at the serving shapes: more CTAs fit an SM,
 //   and the dead ones cost less). Groups of GP lanes own one key row each
 //   (16-byte vector loads, NV vectors a lane: GP is D / VEC rounded up to
-//   a power of two, NV 2 only for f32 above 128), and keep U rows in
+//   a power of two, NV 2 for f32 above 128 and for bf16 and int8 above
+//   256, 4 for f32 above 256), and keep U rows in
 //   flight (128 rows a CTA step, at most 8 / NV a group), so at the
 //   serving shape (bf16, D 64) a 128-position split is loaded at once.
 //   Each group keeps its own online-softmax state; the groups merge once
@@ -91,14 +92,21 @@
 //   tiles that cross a row's horizon. Head dims are multiples of 8 up to
 //   256 on tiles 32, 64, 128 or 256 wide (zero columns), block sizes any
 //   multiple of 8, read directly.
-// - paged_mq_kernel (f32, CUDA cores): one CTA per (b*h, tile of QT = 256 /
-//   BS query rows). Each logical block's K and V tile is staged in shared
-//   memory (f32, columns past D zero up to the kernel's width DP, 32, 64,
-//   128 or 256) and shared by the QT rows; one thread per (row, column)
+// - paged_mq_kernel (f32, and bf16 above head dim 256; CUDA cores): one
+//   CTA per (b*h, tile of QT = 256 / BS query rows). Each logical block's
+//   K and V tile is staged in shared memory (f32, columns past D zero up
+//   to the kernel's width DP, 32, 64, 128, 256 or 512) and shared by the
+//   QT rows; one thread per (row, column)
 //   score, row reductions by warp shuffles, P and the per-row rescale go
 //   through shared memory to the P V product. It takes block sizes 8, 16
 //   and 32; the Python wrapper presents any other multiple of 8 as one of
 //   them (a [n, 64, H, D] pool is a [2n, 32, H, D] pool).
+// - Head dims above 512 (the wrappers pad them to a multiple of 512): the
+//   decode body and paged_mq_kernel work in slabs of 512 columns. Each
+//   output slab is a CTA of its own (grid x = B * H * nslab); each score
+//   sums the CTA's own slab and every other slab's q . k, read slab by
+//   slab, so every slab's CTAs recompute the scores (nslab times the K
+//   reads): the simple first version, for head dims no served model has.
 // - Int8 pools (the Pallas kernels' quantized branches: int8 K/V with one
 //   f32 scale per (position, head) row, ops/quant.py's quantize_rows):
 //   each paged kernel has an int8 instance that reads the payload and its
@@ -256,12 +264,17 @@ __host__ __device__ __forceinline__ int split_length(int seen, int n_split,
   return kSplitUnit * ((seen + unit - 1) / unit);
 }
 
-// q [B, H, D]; k, v read through `rows`; pos [B] i32; out [B, H, D]. Row
-// b attends to positions 0..min(pos[b], span - 1); this CTA (bh =
-// blockIdx.x, split = blockIdx.y) to [split * ks, split * ks + ks) of
-// them, ks = split_length(seen, gridDim.y, one_cta). ws: B * H * n_split
-// * D floats of acc, then B * H * n_split (m, l) pairs; tickets [B * H]
-// i32, zero between calls. Groups of GP lanes read a key row, NV vectors
+// q [B, H, nslab * D]; k, v read through `rows` (rows nslab * D wide);
+// pos [B] i32; out [B, H, nslab * D]. Row b attends to positions
+// 0..min(pos[b], span - 1); this CTA (x = blockIdx.x = bh * nslab + os,
+// split = blockIdx.y) to [split * ks, split * ks + ks) of them, ks =
+// split_length(seen, gridDim.y, one_cta), and writes output slab os
+// (columns os * D .. os * D + D - 1). With nslab > 1 (head dims above
+// 512, padded to a multiple of 512: D is 512) each score sums over every
+// slab: the CTA's own slab from its registers, the others read from
+// memory per key row; every slab's CTA recomputes the scores. ws:
+// gridDim.x * n_split * D floats of acc, then gridDim.x * n_split (m, l)
+// pairs; tickets [gridDim.x] i32, zero between calls. Groups of GP lanes read a key row, NV vectors
 // a lane (Vec<P>: lane gl's vector j holds columns (j * GP + gl) * VEC
 // ..); vectors at or past D idle. P is the pool's element type: T, or
 // int8_t with per-row f32 scales k_scale, v_scale (one a key row, at the
@@ -275,7 +288,8 @@ __device__ __forceinline__ void decode_split(
     const P* __restrict__ v, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, Rows rows,
     const int* __restrict__ pos, T* __restrict__ out, float* __restrict__ ws,
-    int* __restrict__ tickets, int H, int D, int one_cta, float scale) {
+    int* __restrict__ tickets, int H, int D, int nslab, int one_cta,
+    float scale) {
   using PV = Vec<P>;
   using QV = Vec<T>;
   constexpr bool Q8 = std::is_same_v<P, int8_t>;
@@ -292,7 +306,9 @@ __device__ __forceinline__ void decode_split(
   __shared__ float sm_l[NG];
   __shared__ float sm_acc[NG][GP * CV];
 
-  const int bh = blockIdx.x;
+  const int x = blockIdx.x;               // (row, head, output slab)
+  const int bh = x / nslab;
+  const int os = x - bh * nslab;
   const int b = bh / H;
   const int h = bh - b * H;
   const int split = blockIdx.y;
@@ -306,7 +322,7 @@ __device__ __forceinline__ void decode_split(
 #pragma unroll
     for (int i = 0; i < QN; ++i)
       qr[j][i] = col < D ? __ldg(reinterpret_cast<const uint4*>(
-                               q + (size_t)bh * D + col + i * QV::N))
+                               q + (size_t)x * D + col + i * QV::N))
                          : make_uint4(0, 0, 0, 0);
   }
   // positions this row sees (pos < 0 sees none: split 0 writes zeros)
@@ -316,7 +332,7 @@ __device__ __forceinline__ void decode_split(
   if (t0 >= seen) {                       // uniform: nothing to see here
     if (seen == 0 && split == 0)
       for (int d = threadIdx.x; d < D; d += kDecodeThreads)
-        out[(size_t)bh * D + d] = from_f32<T>(0.f);
+        out[(size_t)x * D + d] = from_f32<T>(0.f);
     return;
   }
   const int t1 = min(t0 + ks, seen);      // this split's end, exclusive
@@ -342,11 +358,13 @@ __device__ __forceinline__ void decode_split(
     typename PV::Raw kr[U][NV], vr[U][NV];   // raw vectors, all in flight
     float ksr[U], vsr[U];                    // an int8 row's scales
     bool live[U];
+    size_t rowi[U];                          // the key rows' [*, H] index
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int t = tb + u * NG + g;
       live[u] = t < t1;
       const size_t row = live[u] ? rows.row(b, t, h, H) : 0;
+      rowi[u] = row;
       if constexpr (Q8) {
         ksr[u] = live[u] ? __ldg(k_scale + row) : 0.f;
         vsr[u] = live[u] ? __ldg(v_scale + row) : 0.f;
@@ -355,8 +373,9 @@ __device__ __forceinline__ void decode_split(
       for (int j = 0; j < NV; ++j) {
         const int col = (j * GP + gl) * VEC;
         if (live[u] && col < D) {
-          kr[u][j] = __ldg(reinterpret_cast<const typename PV::Raw*>(k + row * D + col));
-          vr[u][j] = __ldg(reinterpret_cast<const typename PV::Raw*>(v + row * D + col));
+          const size_t off = (row * nslab + os) * D + col;
+          kr[u][j] = __ldg(reinterpret_cast<const typename PV::Raw*>(k + off));
+          vr[u][j] = __ldg(reinterpret_cast<const typename PV::Raw*>(v + off));
         } else {
           kr[u][j] = vr[u][j] = typename PV::Raw{};
         }
@@ -373,6 +392,28 @@ __device__ __forceinline__ void decode_split(
         PV::unpack(kr[u][j], kf);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) d += qf[j * VEC + i] * kf[i];
+      }
+      if (nslab > 1 && live[u]) {   // the other slabs' share of the score
+        for (int sl = 0; sl < nslab; ++sl) {
+          if (sl == os) continue;
+#pragma unroll
+          for (int j = 0; j < NV; ++j) {
+            const int col = (j * GP + gl) * VEC;
+            if (col >= D) continue;
+            float kf[VEC], qx[VEC];
+            PV::unpack(__ldg(reinterpret_cast<const typename PV::Raw*>(
+                           k + (rowi[u] * nslab + sl) * D + col)),
+                       kf);
+#pragma unroll
+            for (int i = 0; i < QN; ++i)
+              QV::unpack(__ldg(reinterpret_cast<const uint4*>(
+                             q + ((size_t)bh * nslab + sl) * D + col +
+                             i * QV::N)),
+                         qx + i * QV::N);
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) d += qx[i] * scale * kf[i];
+          }
+        }
       }
 #pragma unroll
       for (int off = GP / 2; off > 0; off >>= 1)
@@ -422,7 +463,7 @@ __device__ __forceinline__ void decode_split(
   float lsum = 0.f;
   for (int gg = 0; gg < NG; ++gg) lsum += sm_l[gg] * expf(sm_m[gg] - mx);
 
-  T* o_row = out + (size_t)bh * D;
+  T* o_row = out + (size_t)x * D;
   if (n_live == 1) {
     for (int d = threadIdx.x; d < D; d += kDecodeThreads) {
       float o = 0.f;
@@ -432,7 +473,7 @@ __device__ __forceinline__ void decode_split(
     return;
   }
   const int n_split = gridDim.y;
-  const size_t st0 = (size_t)bh * n_split;   // this (b, h)'s first state
+  const size_t st0 = (size_t)x * n_split;   // this (b, h, os)'s first state
   float* ws_acc = ws;
   float2* ws_ml = reinterpret_cast<float2*>(ws + (size_t)gridDim.x * n_split * D);
   for (int d = threadIdx.x; d < D; d += kDecodeThreads) {
@@ -441,7 +482,7 @@ __device__ __forceinline__ void decode_split(
     ws_acc[(st0 + split) * D + d] = o;
   }
   if (threadIdx.x == 0) ws_ml[st0 + split] = make_float2(mx, lsum);
-  if (!last_to_finish(tickets + bh, n_live)) return;
+  if (!last_to_finish(tickets + x, n_live)) return;
 
   // The merge, in split order (L2 reads: other SMs wrote these), every
   // split's load issued before any is used; splits past n_live add 0.
@@ -481,10 +522,10 @@ __global__ void __launch_bounds__(kDecodeThreads)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ pos,
                   T* __restrict__ out, float* __restrict__ ws,
-                  int* __restrict__ tickets, int H, int D, int S,
-                  int one_cta, float scale) {
+                  int* __restrict__ tickets, int H, int D, int nslab,
+                  int S, int one_cta, float scale) {
   decode_split<T, T, GP, NV>(q, k, v, nullptr, nullptr, CacheRows{S}, pos,
-                             out, ws, tickets, H, D, one_cta, scale);
+                             out, ws, tickets, H, D, nslab, one_cta, scale);
 }
 
 // Paged pool: pools [n_blocks, bs, H, D] of P (T, or int8_t with k_scale,
@@ -499,12 +540,12 @@ __global__ void __launch_bounds__(kDecodeThreads)
                         const int* __restrict__ tables,
                         const int* __restrict__ pos, T* __restrict__ out,
                         float* __restrict__ ws, int* __restrict__ tickets,
-                        int H, int D, int bs, int mb, int one_cta,
-                        float scale) {
+                        int H, int D, int nslab, int bs, int mb,
+                        int one_cta, float scale) {
   extern __shared__ int dec_tbl[];
   decode_split<T, P, GP, NV>(q, k_pool, v_pool, k_scale, v_scale,
                              PoolRows{tables, bs, mb, dec_tbl, 0}, pos, out,
-                             ws, tickets, H, D, one_cta, scale);
+                             ws, tickets, H, D, nslab, one_cta, scale);
 }
 
 
@@ -519,11 +560,15 @@ constexpr size_t mq_smem() {
          sizeof(float);
 }
 
-// q [B, W, H, D]; pools [n_blocks, BS, H, D] of P (T, or int8_t with
-// k_scale, v_scale [n_blocks, BS, H] f32, dequantized as they are staged:
-// the reference's k * k_scale, in f32); tables [B, mb] i32; pos [B] i32;
-// out [B, W, H, D]. Query i of row b sees logical positions <= pos[b] + i
-// (and < mb * BS). D <= DP: shared tiles are DP wide, zero past D.
+// q [B, W, H, nslab * D]; pools [n_blocks, BS, H, nslab * D] of P (T, or
+// int8_t with k_scale, v_scale [n_blocks, BS, H] f32, dequantized as they
+// are staged: the reference's k * k_scale, in f32); tables [B, mb] i32;
+// pos [B] i32; out [B, W, H, nslab * D]. Query i of row b sees logical
+// positions <= pos[b] + i (and < mb * BS). D <= DP: shared tiles are DP
+// wide, zero past D. With nslab > 1 (head dims above 512, padded to a
+// multiple of 512: D = DP = 512), this CTA (blockIdx.x = bh * nslab + os)
+// writes output slab os, and each block's scores sum over every slab,
+// staged one after another.
 template <typename T, typename P, int DP, int BS>
 __global__ void __launch_bounds__(kThreads)
     paged_mq_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
@@ -532,12 +577,14 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ v_scale,
                     const int* __restrict__ tables,
                     const int* __restrict__ pos, T* __restrict__ out, int W,
-                    int H, int D, int mb, float scale) {
+                    int H, int D, int nslab, int mb, float scale) {
   constexpr int QT = kThreads / BS;         // query rows per CTA
-  constexpr int OSTEP = kThreads / DP;      // output rows per thread pass
-  constexpr int NR = QT * DP / kThreads;    // outputs per thread
+  constexpr int DPT = DP < kThreads ? DP : kThreads;  // output column stride
+  constexpr int OC = DP / DPT;              // output columns per thread
+  constexpr int OSTEP = kThreads / DPT;     // output rows per thread pass
+  constexpr int NR = QT / OSTEP;            // output rows per thread
   static_assert(BS <= 32 && 32 % BS == 0, "bad block size");
-  static_assert(kThreads % DP == 0 && NR >= 1, "bad head dim");
+  static_assert(DP % DPT == 0 && QT % OSTEP == 0 && NR >= 1, "bad head dim");
 
   // +1: conflict-free column walks
   extern __shared__ float mq_smem_f[];
@@ -547,21 +594,39 @@ __global__ void __launch_bounds__(kThreads)
   auto ps = reinterpret_cast<float (*)[BS + 1]>(vs + BS);     // [QT]
   float* cs = reinterpret_cast<float*>(ps + QT);              // [QT]
 
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x / nslab;
+  const int os = blockIdx.x - bh * nslab;   // this CTA's output slab
   const int b = bh / H;
   const int h = bh - b * H;
   const int i0 = blockIdx.y * QT;
   const int tid = threadIdx.x;
   const int p0 = pos[b];
   const int* tbl = tables + (size_t)b * mb;
+  const int RW = nslab * D;                 // elements of a q / K / V row
 
-  for (int e = tid; e < QT * DP; e += kThreads) {
-    const int i = e / DP, d = e - (e / DP) * DP;
-    const int qi = min(i0 + i, W - 1);  // padded rows copy the last real row
-    qs[i][d] =
-        d < D ? to_f32(q[((size_t)(b * W + qi) * H + h) * D + d]) * scale
-              : 0.f;
-  }
+  // Slab sl of the tile's q rows into qs.
+  auto stage_q = [&](int sl) {
+    for (int e = tid; e < QT * DP; e += kThreads) {
+      const int i = e / DP, d = e - (e / DP) * DP;
+      const int qi = min(i0 + i, W - 1);  // padded rows copy the last real row
+      qs[i][d] = d < D ? to_f32(q[((size_t)(b * W + qi) * H + h) * RW +
+                                  sl * D + d]) * scale
+                       : 0.f;
+    }
+  };
+  // Slab sl of block j's K (or V) rows into dst.
+  auto stage_kv = [&](float (*dst)[DP + 1], const P* pool, const float* sc,
+                      int j, int sl) {
+    const size_t base = (size_t)tbl[j] * BS;
+    for (int e = tid; e < BS * DP; e += kThreads) {
+      const int t = e / DP, d = e - (e / DP) * DP;
+      const size_t row = (base + t) * H + h;
+      float x = d < D ? to_f32(pool[row * RW + sl * D + d]) : 0.f;
+      if constexpr (std::is_same_v<P, int8_t>) x *= sc[row];
+      dst[t][d] = x;
+    }
+  };
+  if (nslab == 1) stage_q(0);
 
   // Score role: thread (si, st) owns score column st of query row si.
   const int si = tid / BS;
@@ -569,35 +634,39 @@ __global__ void __launch_bounds__(kThreads)
   const int limit = p0 + min(i0 + si, W - 1);
   float m = kNegInf, l = 0.f;
 
-  // Output role: thread owns (oi0 + r * OSTEP, od) for r < NR.
-  const int od = tid % DP;
-  const int oi0 = tid / DP;
-  float acc[NR];
+  // Output role: thread owns (oi0 + r * OSTEP, od + c * DPT) for r < NR,
+  // c < OC.
+  const int od = tid % DPT;
+  const int oi0 = tid / DPT;
+  float acc[NR][OC];
 #pragma unroll
-  for (int r = 0; r < NR; ++r) acc[r] = 0.f;
+  for (int r = 0; r < NR; ++r)
+#pragma unroll
+    for (int c = 0; c < OC; ++c) acc[r][c] = 0.f;
 
   // Runtime block skip: nothing past the tile's last real row's horizon.
   const int last_row = min(i0 + QT, W) - 1;
   const int n_blk = min((p0 + last_row) / BS + 1, mb);
   for (int j = 0; j < n_blk; ++j) {
-    __syncthreads();  // the previous block's ks/vs/ps are consumed
-    const size_t base = (size_t)tbl[j] * BS;
-    for (int e = tid; e < BS * DP; e += kThreads) {
-      const int t = e / DP, d = e - (e / DP) * DP;
-      const size_t row = (base + t) * H + h;
-      if constexpr (std::is_same_v<P, int8_t>) {
-        ks[t][d] = d < D ? to_f32(k_pool[row * D + d]) * k_scale[row] : 0.f;
-        vs[t][d] = d < D ? to_f32(v_pool[row * D + d]) * v_scale[row] : 0.f;
-      } else {
-        ks[t][d] = d < D ? to_f32(k_pool[row * D + d]) : 0.f;
-        vs[t][d] = d < D ? to_f32(v_pool[row * D + d]) : 0.f;
+    __syncthreads();  // the previous block's qs/ks/vs/ps are consumed
+    float s = 0.f;
+    if (nslab == 1) {
+      stage_kv(ks, k_pool, k_scale, j, 0);
+      stage_kv(vs, v_pool, v_scale, j, 0);
+      __syncthreads();
+#pragma unroll 16
+      for (int d = 0; d < DP; ++d) s += qs[si][d] * ks[st][d];
+    } else {
+      for (int sl = 0; sl < nslab; ++sl) {
+        if (sl > 0) __syncthreads();   // the previous slab's qs/ks are read
+        stage_q(sl);
+        stage_kv(ks, k_pool, k_scale, j, sl);
+        if (sl == 0) stage_kv(vs, v_pool, v_scale, j, os);
+        __syncthreads();
+#pragma unroll 16
+        for (int d = 0; d < DP; ++d) s += qs[si][d] * ks[st][d];
       }
     }
-    __syncthreads();
-
-    float s = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < DP; ++d) s += qs[si][d] * ks[st][d];
     s = (j * BS + st <= limit) ? s : kNegInf;
     float bmax = s;
 #pragma unroll
@@ -619,10 +688,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int r = 0; r < NR; ++r) {
       const int oi = oi0 + r * OSTEP;
-      float a = acc[r] * cs[oi];
 #pragma unroll
-      for (int t = 0; t < BS; ++t) a += ps[oi][t] * vs[t][od];
-      acc[r] = a;
+      for (int c = 0; c < OC; ++c) {
+        float a = acc[r][c] * cs[oi];
+#pragma unroll
+        for (int t = 0; t < BS; ++t) a += ps[oi][t] * vs[t][od + c * DPT];
+        acc[r][c] = a;
+      }
     }
   }
   __syncthreads();
@@ -632,9 +704,13 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < NR; ++r) {
     const int oi = oi0 + r * OSTEP;
     const int qi = i0 + oi;
-    if (qi < W && od < D)
-      out[((size_t)(b * W + qi) * H + h) * D + od] =
-          from_f32<T>(acc[r] / cs[oi]);
+#pragma unroll
+    for (int c = 0; c < OC; ++c) {
+      const int d = od + c * DPT;
+      if (qi < W && d < D)
+        out[((size_t)(b * W + qi) * H + h) * RW + os * D + d] =
+            from_f32<T>(acc[r][c] / cs[oi]);
+    }
   }
 }
 
@@ -1141,14 +1217,29 @@ cudaError_t dispatch_q8(const void* q, const void* k, const void* v,
 
 }  // namespace tc
 
-// Threads per key row and vectors per lane for a runtime head dim: (D /
-// VEC rounded up to a power of two, 1), or (32, 2) for an f32 pool above
-// 128; false when D is not a multiple of VEC in 1 .. 256.
+// A head dim above 512 runs in slabs of 512 (it must be a multiple of
+// 512: the wrappers pad it): the slab width and the number of slabs, or
+// false for a head dim that is neither.
+bool head_slabs(int D, int* width, int* nslab) {
+  if (D <= 512) {
+    *width = D;
+    *nslab = 1;
+    return true;
+  }
+  *width = 512;
+  *nslab = D / 512;
+  return D % 512 == 0;
+}
+
+// Threads per key row and vectors per lane for a runtime head dim (of a
+// slab): (D / VEC rounded up to a power of two, 1); above 32 vectors, 32
+// lanes of 2 (bf16 and int8 above 256, f32 above 128) or 4 (f32 above
+// 256) vectors; false when D is not a multiple of VEC in 1 .. 512.
 template <typename P>
 bool lane_layout(int D, int* gp, int* nv) {
   constexpr int VEC = Vec<P>::N;
-  if (D <= 0 || D % VEC != 0 || D > 256) return false;
-  *nv = D > 32 * VEC ? 2 : 1;
+  if (D <= 0 || D % VEC != 0 || D > 512) return false;
+  *nv = D > 64 * VEC ? 4 : D > 32 * VEC ? 2 : 1;
   *gp = 1;
   while (*gp * *nv * VEC < D) *gp *= 2;
   return true;
@@ -1161,11 +1252,16 @@ template <template <typename, typename, int, int> class F, typename T,
 bool dispatch_group(int D, A... args) {
   int gp = 0, nv = 0;
   if (!lane_layout<P>(D, &gp, &nv)) return false;
-  if constexpr (Vec<P>::N == 4) {
-    if (nv == 2) {
-      F<T, P, 32, 2>::run(args...);
+  if (nv == 4) {
+    if constexpr (Vec<P>::N == 4) {
+      F<T, P, 32, 4>::run(args...);
       return true;
     }
+    return false;
+  }
+  if (nv == 2) {
+    F<T, P, 32, 2>::run(args...);
+    return true;
   }
   switch (gp) {
     case 1: F<T, P, 1, 1>::run(args...); return true;
@@ -1178,25 +1274,26 @@ bool dispatch_group(int D, A... args) {
   }
 }
 
-// One decode launch: grid (B * H, n_split) of kDecodeThreads. A
-// contiguous cache comes as tables == nullptr with bs = S and mb = 1 (its
-// row b is one block of S positions); a paged pool takes dynamic shared
-// memory for the longest split's table entries.
+// One decode launch: grid (B * H * nslab, n_split) of kDecodeThreads (D
+// the width of a slab). A contiguous cache comes as tables == nullptr
+// with bs = S and mb = 1 (its row b is one block of S positions); a
+// paged pool takes dynamic shared memory for the longest split's table
+// entries.
 template <typename T, typename P, int GP, int NV>
 struct SplitDecode {
   static void run(const void* q, const void* k, const void* v,
                   const float* k_scale, const float* v_scale,
                   const int* tables, const int* pos, void* out, float* ws,
-                  int* tickets, int B, int H, int D, int bs, int mb,
-                  int n_split, int one_cta, float scale,
+                  int* tickets, int B, int H, int D, int nslab, int bs,
+                  int mb, int n_split, int one_cta, float scale,
                   cudaStream_t stream) {
-    const dim3 grid(B * H, n_split);
+    const dim3 grid(B * H * nslab, n_split);
     if constexpr (std::is_same_v<T, P>) {
       if (tables == nullptr) {
         decode_kernel<T, GP, NV><<<grid, kDecodeThreads, 0, stream>>>(
             static_cast<const T*>(q), static_cast<const T*>(k),
             static_cast<const T*>(v), pos, static_cast<T*>(out), ws,
-            tickets, H, D, bs, one_cta, scale);
+            tickets, H, D, nslab, bs, one_cta, scale);
         return;
       }
     }
@@ -1208,7 +1305,8 @@ struct SplitDecode {
         <<<grid, kDecodeThreads, smem, stream>>>(
             static_cast<const T*>(q), static_cast<const P*>(k),
             static_cast<const P*>(v), k_scale, v_scale, tables, pos,
-            static_cast<T*>(out), ws, tickets, H, D, bs, mb, one_cta, scale);
+            static_cast<T*>(out), ws, tickets, H, D, nslab, bs, mb, one_cta,
+            scale);
   }
 };
 
@@ -1216,7 +1314,7 @@ template <typename T, typename P, int DP, int BS>
 cudaError_t launch_mq(const void* q, const void* k, const void* v,
                       const float* k_scale, const float* v_scale,
                       const int* tables, const int* pos, void* out, int B,
-                      int W, int H, int D, int mb, float scale,
+                      int W, int H, int D, int nslab, int mb, float scale,
                       cudaStream_t stream) {
   constexpr int QT = kThreads / BS;
   constexpr size_t smem = mq_smem<DP, BS>();
@@ -1226,11 +1324,11 @@ cudaError_t launch_mq(const void* q, const void* k, const void* v,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(B * H, (W + QT - 1) / QT);
+  const dim3 grid(B * H * nslab, (W + QT - 1) / QT);
   paged_mq_kernel<T, P, DP, BS><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(k),
       static_cast<const P*>(v), k_scale, v_scale, tables, pos,
-      static_cast<T*>(out), W, H, D, mb, scale);
+      static_cast<T*>(out), W, H, D, nslab, mb, scale);
   return cudaGetLastError();
 }
 
@@ -1238,42 +1336,53 @@ template <typename T, typename P, int DP>
 cudaError_t dispatch_mq_bs(int bs, const void* q, const void* k,
                            const void* v, const float* ks, const float* vs,
                            const int* tables, const int* pos, void* out,
-                           int B, int W, int H, int D, int mb, float scale,
-                           cudaStream_t s) {
+                           int B, int W, int H, int D, int nslab, int mb,
+                           float scale, cudaStream_t s) {
   switch (bs) {
-    case 8: return launch_mq<T, P, DP, 8>(q, k, v, ks, vs, tables, pos, out, B, W, H, D, mb, scale, s);
-    case 16: return launch_mq<T, P, DP, 16>(q, k, v, ks, vs, tables, pos, out, B, W, H, D, mb, scale, s);
-    case 32: return launch_mq<T, P, DP, 32>(q, k, v, ks, vs, tables, pos, out, B, W, H, D, mb, scale, s);
+    case 8: return launch_mq<T, P, DP, 8>(q, k, v, ks, vs, tables, pos, out, B, W, H, D, nslab, mb, scale, s);
+    case 16: return launch_mq<T, P, DP, 16>(q, k, v, ks, vs, tables, pos, out, B, W, H, D, nslab, mb, scale, s);
+    case 32: return launch_mq<T, P, DP, 32>(q, k, v, ks, vs, tables, pos, out, B, W, H, D, nslab, mb, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The narrowest of the 32-, 64-, 128- and 256-wide tiles that holds D (0
-// when D is not a multiple of 8 in 8 .. 256).
+// The narrowest of the 32-, 64-, 128-, 256- and 512-wide tiles that holds
+// D (0 when D is not a multiple of 8 in 8 .. 512).
 int tile_width(int D) {
-  if (D <= 0 || D % 8 != 0 || D > 256) return 0;
+  if (D <= 0 || D % 8 != 0 || D > 512) return 0;
   int dp = 32;
   while (dp < D) dp *= 2;
   return dp;
 }
 
-template <typename P>
+// The CUDA-core multi-query kernel for q of T over a pool of P at head dim
+// D (slabs of 512 above 512, head_slabs). bf16 q runs here only above 256
+// (the tensor-core kernel takes the rest), so it is built at 512 alone.
+template <typename T, typename P>
 cudaError_t dispatch_mq(int D, int bs, const void* q, const void* k,
                         const void* v, const float* ks, const float* vs,
                         const int* t, const int* p, void* out, int B, int W,
                         int H, int mb, float scale, cudaStream_t s) {
-  switch (tile_width(D)) {
-    case 32: return dispatch_mq_bs<float, P, 32>(bs, q, k, v, ks, vs, t, p, out, B, W, H, D, mb, scale, s);
-    case 64: return dispatch_mq_bs<float, P, 64>(bs, q, k, v, ks, vs, t, p, out, B, W, H, D, mb, scale, s);
-    case 128: return dispatch_mq_bs<float, P, 128>(bs, q, k, v, ks, vs, t, p, out, B, W, H, D, mb, scale, s);
-    case 256: return dispatch_mq_bs<float, P, 256>(bs, q, k, v, ks, vs, t, p, out, B, W, H, D, mb, scale, s);
-    default: return cudaErrorInvalidValue;
+  int ds = 0, ns = 0;
+  if (!head_slabs(D, &ds, &ns)) return cudaErrorInvalidValue;
+  const int dp = tile_width(ds);
+  if (dp == 512)
+    return dispatch_mq_bs<T, P, 512>(bs, q, k, v, ks, vs, t, p, out, B, W, H, ds, ns, mb, scale, s);
+  if constexpr (std::is_same_v<T, float>) {
+    switch (dp) {
+      case 32: return dispatch_mq_bs<T, P, 32>(bs, q, k, v, ks, vs, t, p, out, B, W, H, ds, ns, mb, scale, s);
+      case 64: return dispatch_mq_bs<T, P, 64>(bs, q, k, v, ks, vs, t, p, out, B, W, H, ds, ns, mb, scale, s);
+      case 128: return dispatch_mq_bs<T, P, 128>(bs, q, k, v, ks, vs, t, p, out, B, W, H, ds, ns, mb, scale, s);
+      case 256: return dispatch_mq_bs<T, P, 256>(bs, q, k, v, ks, vs, t, p, out, B, W, H, ds, ns, mb, scale, s);
+      default: break;
+    }
   }
+  return cudaErrorInvalidValue;
 }
 
 // The decode kernels of both caches (SplitDecode's arguments). k_scale
 // and v_scale: both null (the pool is of q's dtype), or both set (an int8
-// pool, paged only).
+// pool, paged only). D is the whole head dim (slabs of 512 above 512).
 int launch_decode(const void* q, const void* k, const void* v,
                   const float* k_scale, const float* v_scale,
                   const int* tables, const void* pos, void* out, void* ws,
@@ -1285,19 +1394,20 @@ int launch_decode(const void* q, const void* k, const void* v,
   float* w = static_cast<float*>(ws);
   int* tk = static_cast<int*>(tickets);
   const bool q8 = k_scale != nullptr;
+  int ds = 0, ns = 0;
   if (B <= 0 || H <= 0 || bs <= 0 || mb <= 0 || n_split < 1 ||
       n_split > kMaxSplits || one_cta < 0 || q8 != (v_scale != nullptr) ||
-      (q8 && tables == nullptr))
+      (q8 && tables == nullptr) || !head_slabs(D, &ds, &ns))
     return static_cast<int>(cudaErrorInvalidValue);
   bool ok = false;
   if (dtype == 0 && !q8)
-    ok = dispatch_group<SplitDecode, float, float>(D, q, k, v, k_scale, v_scale, tables, p, out, w, tk, B, H, D, bs, mb, n_split, one_cta, scale, s);
+    ok = dispatch_group<SplitDecode, float, float>(ds, q, k, v, k_scale, v_scale, tables, p, out, w, tk, B, H, ds, ns, bs, mb, n_split, one_cta, scale, s);
   else if (dtype == 1 && !q8)
-    ok = dispatch_group<SplitDecode, __nv_bfloat16, __nv_bfloat16>(D, q, k, v, k_scale, v_scale, tables, p, out, w, tk, B, H, D, bs, mb, n_split, one_cta, scale, s);
+    ok = dispatch_group<SplitDecode, __nv_bfloat16, __nv_bfloat16>(ds, q, k, v, k_scale, v_scale, tables, p, out, w, tk, B, H, ds, ns, bs, mb, n_split, one_cta, scale, s);
   else if (dtype == 0)
-    ok = dispatch_group<SplitDecode, float, int8_t>(D, q, k, v, k_scale, v_scale, tables, p, out, w, tk, B, H, D, bs, mb, n_split, one_cta, scale, s);
+    ok = dispatch_group<SplitDecode, float, int8_t>(ds, q, k, v, k_scale, v_scale, tables, p, out, w, tk, B, H, ds, ns, bs, mb, n_split, one_cta, scale, s);
   else if (dtype == 1)
-    ok = dispatch_group<SplitDecode, __nv_bfloat16, int8_t>(D, q, k, v, k_scale, v_scale, tables, p, out, w, tk, B, H, D, bs, mb, n_split, one_cta, scale, s);
+    ok = dispatch_group<SplitDecode, __nv_bfloat16, int8_t>(ds, q, k, v, k_scale, v_scale, tables, p, out, w, tk, B, H, ds, ns, bs, mb, n_split, one_cta, scale, s);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1305,10 +1415,11 @@ int launch_decode(const void* q, const void* k, const void* v,
 }  // namespace
 
 // The decode kernels. dtype (q's): 0 = float32, 1 = bfloat16; D a multiple
-// of 8 up to 256 (of 4 for f32). n_split (1 .. 16) fixes the grid; a row
-// that sees at most one_cta positions runs in one CTA, a longer one in
-// splits of split_length(); ws is the f32 workspace of B * H * n_split *
-// (D + 2) floats, tickets B * H zeroed int32 (see decode_split).
+// of 8 up to 512 (of 4 for f32), or a multiple of 512 (in slabs of 512:
+// nslab = D / 512, else 1). n_split (1 .. 16) fixes the grid; a row that
+// sees at most one_cta positions runs in one CTA, a longer one in splits
+// of split_length(); ws is the f32 workspace of B * H * n_split * (D + 2
+// nslab) floats, tickets B * H * nslab zeroed int32 (see decode_split).
 // Paged: q [B, H, D]; pools [n_blocks, bs, H, D] of q's dtype, with
 // k_scale = v_scale = null, or int8 with k_scale, v_scale [n_blocks, bs,
 // H] f32; tables [B, mb] i32; pos [B] i32; out [B, H, D].
@@ -1339,13 +1450,15 @@ extern "C" int rtt_decode(const void* q, const void* k, const void* v,
                        dtype, stream);
 }
 
-// The f32 multi-query kernel on CUDA cores: block size bs one of 8, 16,
-// 32; pools of f32 (k_scale = v_scale = null) or int8 (both scales set).
+// The multi-query kernel on CUDA cores: dtype (q's) 0 = float32 at any
+// head dim, 1 = bfloat16 above 256 (D as rtt_paged_decode takes it);
+// block size bs one of 8, 16, 32; pools of q's dtype (k_scale = v_scale
+// = null) or int8 (both scales set).
 extern "C" int rtt_paged_mq(const void* q, const void* k_pool,
                             const void* v_pool, const void* k_scale,
                             const void* v_scale, const void* tables,
                             const void* pos, void* out, int B, int W, int H,
-                            int D, int bs, int mb, float scale,
+                            int D, int bs, int mb, float scale, int dtype,
                             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(tables);
@@ -1354,10 +1467,17 @@ extern "C" int rtt_paged_mq(const void* q, const void* k_pool,
   const float* vs = static_cast<const float*>(v_scale);
   if ((ks == nullptr) != (vs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      ks == nullptr
-          ? dispatch_mq<float>(D, bs, q, k_pool, v_pool, ks, vs, t, p, out, B, W, H, mb, scale, s)
-          : dispatch_mq<int8_t>(D, bs, q, k_pool, v_pool, ks, vs, t, p, out, B, W, H, mb, scale, s));
+  using bf16 = __nv_bfloat16;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0)
+    err = ks == nullptr
+              ? dispatch_mq<float, float>(D, bs, q, k_pool, v_pool, ks, vs, t, p, out, B, W, H, mb, scale, s)
+              : dispatch_mq<float, int8_t>(D, bs, q, k_pool, v_pool, ks, vs, t, p, out, B, W, H, mb, scale, s);
+  else if (dtype == 1 && D > 256)
+    err = ks == nullptr
+              ? dispatch_mq<bf16, bf16>(D, bs, q, k_pool, v_pool, ks, vs, t, p, out, B, W, H, mb, scale, s)
+              : dispatch_mq<bf16, int8_t>(D, bs, q, k_pool, v_pool, ks, vs, t, p, out, B, W, H, mb, scale, s);
+  return static_cast<int>(err);
 }
 
 // The bf16 multi-query kernel on the tensor cores: pools of bf16 (k_scale
@@ -1388,7 +1508,7 @@ extern "C" int rtt_paged_mq_tc(const void* q, const void* k_pool,
     case 64: return static_cast<int>(tc::dispatch_q8<64>(q, k_pool, v_pool, ksc, vsc, t, p, out, w, tk, B, W, H, D, bs, mb, ks, n_split, scale, s));
     case 128: return static_cast<int>(tc::dispatch_q8<128>(q, k_pool, v_pool, ksc, vsc, t, p, out, w, tk, B, W, H, D, bs, mb, ks, n_split, scale, s));
     case 256: return static_cast<int>(tc::dispatch_q8<256>(q, k_pool, v_pool, ksc, vsc, t, p, out, w, tk, B, W, H, D, bs, mb, ks, n_split, scale, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: return static_cast<int>(cudaErrorInvalidValue);   // above 256: rtt_paged_mq
   }
 }
 

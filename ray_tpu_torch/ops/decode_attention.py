@@ -26,14 +26,17 @@ multi-query wrappers share two kernels, counted per launch in
 `LAUNCHES`: ``paged_mq_tc`` (bf16, tensor cores) and ``paged_mq_simt``
 (f32, CUDA cores).
 
-The kernels take every head dim that is a multiple of 8 up to 256
+The kernels take every head dim that is a multiple of 8 up to 512
 unpadded (the lanes or tile columns past D idle), so pools and caches
-keep their head dim. Any other head dim up to 256 runs as the reference
-runs it: the wrapper zero-pads q and the pools (or caches) to the next
-multiple of 8 for that call and trims the output, with the softmax scale
-of the true head dim (`kernel_head_dim`). That copies the pools on every
-call, so it is for such head dims only; no model the port serves has
-one. Every kernel splits each row's key range across CTAs (split-K,
+keep their head dim; bf16 multi-query calls above 256 run on the
+CUDA-core kernel. Every other head dim runs as the reference runs it:
+the wrapper zero-pads q and the pools (or caches) for that call, to the
+next multiple of 8 up to 512 and to the next multiple of 512 above, and
+trims the output, with the softmax scale of the true head dim
+(`kernel_head_dim`). Above 512 the kernels work in slabs of 512: each
+output slab is a CTA of its own, and every score sums over all slabs.
+Padding copies the pools on every call, so it is for such head dims
+only; no model the port serves has one. Every kernel splits each row's key range across CTAs (split-K,
 grids from `split_geometry`) and merges the partial softmax states in
 split order inside the same launch (`paged_mq_partials_reference`,
 `decode_partials_reference`, `paged_merge_reference`); the two decode
@@ -66,7 +69,10 @@ from ray_tpu_torch.ops import pad_last_dim, trim_last_dim
 NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 256                 # head dims: multiples of 8 up to this
+# head dims: multiples of 8 up to this, multiples of it above (slabs)
+_SLAB = 512
+# the bf16 tensor-core multi-query kernel's widest head (above: CUDA cores)
+_MQ_TC_MAX_HEAD_DIM = 256
 _KERNEL_BLOCK_SIZES = (32, 16, 8)   # f32 multi-query kernel
 # Split-K: a split is a multiple of _SPLIT_UNIT key positions, at most
 # _MAX_SPLITS splits a row (csrc/paged_attention.cu).
@@ -351,12 +357,14 @@ def _resolve_impl(impl: str, op: str, x) -> str:
 
 def kernel_head_dim(d: int) -> int:
     """The head dim the kernels run ``d`` at: ``d`` rounded up to a
-    multiple of 8 (as the reference pads it), for ``d`` from 1 to 256;
-    others raise."""
-    if not 1 <= d <= _MAX_HEAD_DIM:
-        raise ValueError(f"paged attention kernels take a head dim from 1 "
-                         f"to {_MAX_HEAD_DIM}, got {d}")
-    return -(-d // 8) * 8
+    multiple of 8 (as the reference pads it) up to 512, and above 512 to
+    a multiple of 512 (slabs). Every ``d`` from 1 up runs, as in the
+    reference; 0 raises."""
+    if d < 1:
+        raise ValueError(f"paged attention kernels take a head dim of 1 or "
+                         f"more, got {d}")
+    unit = 8 if d <= _SLAB else _SLAB
+    return -(-d // unit) * unit
 
 
 def _check_kernel_inputs(op, q, k_pool, v_pool, scales=(), **indices):
@@ -389,9 +397,9 @@ def _check_kernel_inputs(op, q, k_pool, v_pool, scales=(), **indices):
         if t.data_ptr() % 16:
             raise ValueError(f"{op}: {name} must be 16-byte aligned")
     d = q.shape[-1]
-    if d % 8 or not 8 <= d <= _MAX_HEAD_DIM:
+    if d < 8 or d % (8 if d <= _SLAB else _SLAB):
         raise ValueError(f"{op}: kernel head dim must be a multiple of 8 "
-                         f"from 8 to {_MAX_HEAD_DIM}, got {d}")
+                         f"from 8 to {_SLAB}, or of {_SLAB} above, got {d}")
     if k_pool.shape != v_pool.shape or k_pool.shape[2:] != q.shape[-2:]:
         raise ValueError(f"{op}: pool shapes {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)} do not match q "
@@ -459,11 +467,13 @@ def _launch_split_decode(op, q, k, v, pos, tables=None, scales=()):
     bs = k.shape[1]
     span = bs if tables is None else bs * tables.shape[1]
     n_split = split_geometry(span)[1]
+    nslab = dk // _SLAB if dk > _SLAB else 1
     out = torch.empty_like(q)
-    ws = torch.empty(b * h * n_split * (2 + dk), dtype=torch.float32,
+    ws = torch.empty(b * h * n_split * (2 * nslab + dk), dtype=torch.float32,
                      device=q.device)
     lib = _build.load()
-    common = (out.data_ptr(), ws.data_ptr(), _tickets(q, b * h).data_ptr())
+    common = (out.data_ptr(), ws.data_ptr(),
+              _tickets(q, b * h * nslab).data_ptr())
     tail = (n_split, _ONE_CTA, d ** -0.5, _KERNEL_DTYPES[q.dtype],
             _stream(q))
     if tables is None:
@@ -516,10 +526,10 @@ def _check_block_size(bs: int) -> None:
 
 def _launch_mq(op, q, k_pool, v_pool, tables, pos, scales=()):
     """q [B, W, H, D] through a multi-query kernel: ``paged_mq_tc`` for
-    bf16 (the pool as it is), ``paged_mq_simt`` for f32 (the pool
-    re-viewed at block 8, 16 or 32 by `split_blocks`); their int8
-    instances, counted as ``paged_mq_tc_int8`` and ``paged_mq_simt_int8``,
-    for an int8 pool with its ``scales``."""
+    bf16 up to head dim 256 (the pool as it is), ``paged_mq_simt`` for f32
+    and for bf16 above 256 (the pool re-viewed at block 8, 16 or 32 by
+    `split_blocks`); their int8 instances, counted as ``paged_mq_tc_int8``
+    and ``paged_mq_simt_int8``, for an int8 pool with its ``scales``."""
     from ray_tpu_torch.ops import _build
     (q, k_pool, v_pool), d = _padded_heads(q, k_pool, v_pool)
     _check_kernel_inputs(op, q, k_pool, v_pool, scales, tables=tables,
@@ -530,7 +540,7 @@ def _launch_mq(op, q, k_pool, v_pool, tables, pos, scales=()):
                          f"{tuple(pos.shape)} do not match batch {b}")
     out = torch.empty_like(q)
     lib = _build.load()
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and dk <= _MQ_TC_MAX_HEAD_DIM:
         bs, mb = k_pool.shape[1], tables.shape[1]
         _check_block_size(bs)
         ks, n_split = split_geometry(mb * bs)
@@ -550,7 +560,7 @@ def _launch_mq(op, q, k_pool, v_pool, tables, pos, scales=()):
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             *_scale_ptrs(scales), tables.data_ptr(), pos.data_ptr(),
             out.data_ptr(), b, w, h, dk, k_pool.shape[1], tables.shape[1],
-            d ** -0.5, _stream(q))
+            d ** -0.5, _KERNEL_DTYPES[q.dtype], _stream(q))
     _build.check(err, op)
     LAUNCHES[name + ("_int8" if scales else "")] += 1
     return trim_last_dim(out, d)
@@ -602,11 +612,11 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
     table: one launch per call, a long row's key range split across CTAs
     and merged in split order inside the launch; the grid is fixed by
     shapes and pos and tables are read on the device, so the call can be
-    captured in a CUDA graph. A head dim that is not a multiple of 8 runs
-    zero-padded, q and both pools copied for that call (the reference's
-    padding); others up to 256 run as they are. ``k_scale``/``v_scale``
-    ``[n_blocks, block_size, H]`` f32 mark int8 pools, dequantized in
-    the kernel's registers (its int8 instance).
+    captured in a CUDA graph. A head dim that is not a multiple of 8 (or,
+    above 512, of 512) runs zero-padded, q and both pools copied for that
+    call (the reference's padding); others run as they are.
+    ``k_scale``/``v_scale`` ``[n_blocks, block_size, H]`` f32 mark int8
+    pools, dequantized in the kernel's registers (its int8 instance).
     """
     if q.ndim != 3 or k_pool.ndim != 4 or tables.ndim != 2:
         raise ValueError(
@@ -632,9 +642,9 @@ def paged_verify_attention(q, k_pool, v_pool, tables, pos, *,
     attending to positions ``<= pos[b] + i``. Returns ``[B, W, H, D]``.
 
     The kernel replaces `ray_tpu/ops/decode_attention.py::_paged_mq_kernel`
-    (shared with `paged_prefill_attention`): bf16 runs ``paged_mq_tc``
-    (tensor cores, split-K, one launch, capturable), f32
-    ``paged_mq_simt``. A head dim that is not a multiple of 8 runs
+    (shared with `paged_prefill_attention`): bf16 up to head dim 256 runs
+    ``paged_mq_tc`` (tensor cores, split-K, one launch, capturable), f32
+    and bf16 above 256 ``paged_mq_simt``. A head dim that is not a multiple of 8 runs
     zero-padded, q and both pools copied for that call. ``k_scale``/
     ``v_scale`` ``[n_blocks, block_size, H]`` f32 mark int8 pools, read
     by the kernels' int8 instances."""

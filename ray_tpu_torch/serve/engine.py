@@ -40,20 +40,44 @@ Dh]``) and ragged traffic streamed through it via int32 block tables.
   distribution-exact for any proposal; greedy output is token-identical
   to plain decoding.
 
+Compile-once steps, the counterpart of the reference's jitted steps:
+the decode tick (`models.gpt.decode_step_paged` + sampling), the
+speculative tick (`models.gpt.verify_step_paged` + `accept_drafts`), the
+draft proposer's W draft decode steps, and the prefill chunk of the
+target and of the draft pool (one per chunk bucket) are each a static
+step (`_StaticStep`) over persistent input buffers. On the card each is
+captured as a CUDA graph at its first use (after one warm-up run on a
+side stream; all graphs share one memory pool) and replayed on every
+later tick; on the CPU the same step runs eagerly on the same buffers.
+Sampling always draws, and selects by ``temps > 0`` on the device, so
+greedy and sampled rows share one step; the draws come from the
+engine's generator, which every replay advances. A build (a capture on
+the card) counts under the reference's trace counters
+(``decode_traces``, ``prefill_traces``, ``verify_traces``,
+``draft_traces``, ``draft_prefill_traces``), and the reference's
+`RetraceSentinel` (`ray_tpu_torch.util.telemetry`) holds them to their
+caps: decode, verify and draft once, ever; the prefill paths once
+`arm_retrace_sentinel` declares warm-up over. A capture that fails
+raises. The private ``_capture = False``, set before the first `step`,
+runs the steps eagerly on the card (the counterpart of
+``jax.disable_jit()``).
+
 Each prefill chunk, each decode tick and each speculative tick makes ONE
-host sync: the sampled tokens and their logprobs (and a spec tick's
-accepted counts) come back to the host together in one copy. Every
-emitted token is a `TokenEvent` carrying its natural (temperature-1)
-logprob. Sampling draws from a per-engine `torch.Generator` seeded with
-``seed``: greedy decoding matches the JAX engine token for token,
-sampled decoding only in distribution (JAX's threefry bits are not
-reproducible here).
+host-to-device copy of its inputs and ONE host sync: the sampled tokens
+and their logprobs (and a spec tick's accepted counts) come back to the
+host together in one copy. Every emitted token is a `TokenEvent`
+carrying its natural (temperature-1) logprob. Sampling draws from a
+per-engine `torch.Generator` seeded with ``seed``: greedy decoding
+matches the JAX engine token for token, sampled decoding only in
+distribution (JAX's threefry bits are not reproducible here).
 
 Not ported yet, and refused with `NotImplementedError` when asked for
-(ROADMAP queue A): disaggregated prefill/decode handoff, priority
-classes and preemption, overload shedding and the tick watchdog,
-fault-injection sites, the flight recorder and retrace sentinel, and
-device meshes.
+(ROADMAP queue A): disaggregated prefill/decode handoff (so no
+``kv_gather``/``kv_scatter`` watches), priority classes and preemption,
+overload shedding and the tick watchdog, fault-injection sites, the
+flight recorder (``telemetry_sample``), and device meshes. The weight
+swap has no watch either: `InferenceEngine.update_params` copies in
+place, with nothing to build.
 """
 
 from __future__ import annotations
@@ -66,8 +90,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ray_tpu_torch import ops
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.ops import decode_attention as da
+from ray_tpu_torch.util import telemetry
 
 
 class TokenEvent(int):
@@ -381,7 +407,7 @@ def _gumbel_argmax(scores, gen):
     return torch.argmax(scores - torch.log(-torch.log(u)), dim=-1)
 
 
-def accept_drafts(logits, window, temps, gen=None):
+def accept_drafts(logits, window, temps, gen):
     """The accept/correct rule of speculative decoding, on one verify
     forward's ``logits [B, W, V]`` f32 for ``window [B, W]`` (column 0
     each row's current token, columns 1..W-1 its drafts) and per-row
@@ -397,7 +423,8 @@ def accept_drafts(logits, window, temps, gen=None):
     against a point-mass proposal: the emitted token follows the target
     distribution whatever the draft was), unmasked in column W - 1 (the
     bonus token after W - 1 accepts). ``gen`` draws the uniforms and the
-    categorical samples; None when no row samples.
+    categorical samples; every row draws (greedy rows ignore the draws),
+    so one static step serves greedy and sampled rows alike.
 
     Returns ``(out [B, W], out_lp [B, W] f32, accepted [B])``:
     ``out[:, :accepted + 1]`` are the tokens to emit, ``out_lp`` each
@@ -405,17 +432,14 @@ def accept_drafts(logits, window, temps, gen=None):
     w = logits.shape[1]
     drafts = window[:, 1:].long()
     greedy = torch.argmax(logits, dim=-1)
-    match = drafts == greedy[:, :-1]
-    nxt = greedy
-    if gen is not None:
-        hot = (temps > 0)[:, None]
-        safe = torch.where(temps > 0, temps, 1.0)
-        logp = torch.log_softmax(logits.float() / safe[:, None, None], dim=-1)
-        p_draft = logp[:, :-1].gather(-1, drafts[..., None])[..., 0].exp()
-        u = torch.rand(drafts.shape, generator=gen, device=logits.device)
-        match = torch.where(hot, u < p_draft, match)
-        logp[:, :-1].scatter_(-1, drafts[..., None], -1e30)
-        nxt = torch.where(hot, _gumbel_argmax(logp, gen), greedy)
+    hot = (temps > 0)[:, None]
+    safe = torch.where(temps > 0, temps, 1.0)
+    logp = torch.log_softmax(logits.float() / safe[:, None, None], dim=-1)
+    p_draft = logp[:, :-1].gather(-1, drafts[..., None])[..., 0].exp()
+    u = torch.rand(drafts.shape, generator=gen, device=logits.device)
+    match = torch.where(hot, u < p_draft, drafts == greedy[:, :-1])
+    logp[:, :-1].scatter_(-1, drafts[..., None], -1e30)
+    nxt = torch.where(hot, _gumbel_argmax(logp, gen), greedy)
     accepted = torch.cumprod(match.long(), dim=1).sum(dim=1)
     cols = torch.arange(w, device=logits.device)
     out = torch.where(cols < accepted[:, None],
@@ -423,6 +447,96 @@ def accept_drafts(logits, window, temps, gen=None):
     out_lp = torch.log_softmax(logits.float(), dim=-1).gather(
         -1, out[..., None])[..., 0]
     return out, out_lp, accepted
+
+
+class _Staging:
+    """The persistent inputs of static steps: named int32 and float32
+    arrays packed in one host array (``host[name]``, numpy views to fill)
+    and one int32 device buffer (``dev[name]``, the views a step reads),
+    so a tick's inputs go to the device in ONE copy, into the addresses a
+    captured graph reads. ``spec`` maps each name to ``(shape, numpy
+    dtype)``."""
+
+    def __init__(self, device, **spec):
+        sizes = {n: int(np.prod(shape)) for n, (shape, _) in spec.items()}
+        self._host = np.zeros(sum(sizes.values()), np.int32)
+        self._host_t = torch.from_numpy(self._host)
+        self._dev = torch.zeros(self._host.size, dtype=torch.int32,
+                                device=device)
+        self.host, self.dev, i = {}, {}, 0
+        for name, (shape, dt) in spec.items():
+            n = sizes[name]
+            self.host[name] = self._host[i:i + n].view(dt).reshape(shape)
+            self.dev[name] = self._dev[i:i + n].view(
+                torch.float32 if dt == np.float32 else torch.int32
+            ).view(shape)
+            i += n
+
+    def upload(self):
+        """The host arrays to the device in one copy, not waited for:
+        the source is pageable memory, staged before the call returns,
+        so the host arrays may be refilled at once."""
+        self._dev.copy_(self._host_t, non_blocking=True)
+
+
+class _StaticStep:
+    """One static-shaped step of the engine: ``fn(inputs.dev)`` reads the
+    device views of its `_Staging` (and the engine's weights, pools and
+    generator) and returns device tensors. Building it adds one to the
+    engine's trace counter ``counter``. On the card (`InferenceEngine`'s
+    ``_capture``) the first call runs ``fn`` once on the engine's side
+    stream (building the kernels at first use, cuBLAS's workspace and
+    the split-K tickets, so nothing compiles or allocates synchronously
+    during capture), then captures it as a CUDA graph in the engine's
+    graph pool, with the engine's generator registered so every replay
+    advances it; every call replays the graph and returns its static
+    outputs. A capture that fails raises. Kernel wrappers count their
+    launches in Python, which a replay does not run: the launches
+    captured are taken back from the counters after the capture and
+    added again at every replay (`ops.add_kernel_launches`). Elsewhere
+    ``fn`` runs eagerly on the same buffers."""
+
+    def __init__(self, eng, counter: str, inputs: _Staging, fn):
+        self.eng, self.inputs, self.fn = eng, inputs, fn
+        self.graph, self.out, self.launches = None, None, {}
+        setattr(eng, counter, getattr(eng, counter) + 1)
+
+    def __call__(self):
+        if self.graph is None and not self.eng._captures():
+            return self.fn(self.inputs.dev)
+        if self.graph is None:
+            self._build_graph()
+        self.graph.replay()
+        ops.add_kernel_launches(self.launches)
+        return self.out
+
+    def _build_graph(self):
+        eng = self.eng
+        main = torch.cuda.current_stream(eng.device)
+        if eng._graph_pool is None:
+            eng._graph_pool = torch.cuda.graph_pool_handle()
+            eng._side = torch.cuda.Stream(eng.device)
+        eng._side.wait_stream(main)
+        with torch.cuda.stream(eng._side):
+            self.fn(self.inputs.dev)           # warm-up
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(eng._gen)
+        before = ops.kernel_launches()
+        with torch.cuda.graph(graph, pool=eng._graph_pool, stream=eng._side):
+            out = self.fn(self.inputs.dev)
+        after = ops.kernel_launches()
+        self.launches = {k: n - before[k] for k, n in after.items()
+                         if n != before[k]}
+        ops.add_kernel_launches(self.launches, -1)   # capture ran nothing
+        main.wait_stream(eng._side)
+        self.graph, self.out = graph, out
+        eng._graph_pool_bytes = _pool_bytes(eng._graph_pool)
+
+
+def _pool_bytes(pool) -> int:
+    """Device bytes the caching allocator holds for the graph pool."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
 
 
 # Engine kwargs of ray_tpu's InferenceEngine that this port does not
@@ -575,6 +689,41 @@ class InferenceEngine:
                       if prefix_cache else None)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
+        # Compile-once steps (`_StaticStep`, built at first use), keyed
+        # (kind, chunk bucket); their builds, the reference's trace
+        # counters; the spec tick's inputs, which verify and draft share.
+        self._steps: dict = {}
+        self.prefill_traces = self.decode_traces = 0
+        self.verify_traces = self.draft_traces = 0
+        self.draft_prefill_traces = 0
+        self._spec_in = None
+        # Private: False runs every step eagerly on the card (set before
+        # the first step; tests and chip_smoke.py A/B with it).
+        self._capture = True
+        self._graph_pool = self._side = None
+        self._graph_pool_bytes = 0
+        self.name = telemetry.next_name("engine")
+        self._sentinel = telemetry.RetraceSentinel(self.name)
+        self._sentinel.watch("decode", lambda: self.decode_traces, cap=1,
+                             registered=True)
+        if quantized:
+            self._sentinel.watch(
+                "quantize", lambda: self.quantize_traces,
+                cap=int(cfg.weight_dtype == "int8") + int(
+                    draft is not None and draft_cfg.weight_dtype == "int8"),
+                registered=True)
+        if spec is not None:
+            self._sentinel.watch("verify", lambda: self.verify_traces,
+                                 cap=1, registered=True)
+        if spec == "draft":
+            self._sentinel.watch("draft", lambda: self.draft_traces, cap=1,
+                                 registered=True)
+            self._sentinel.watch("draft_prefill",
+                                 lambda: self.draft_prefill_traces,
+                                 registered=True)
+        self._sentinel.watch("prefill", lambda: self.prefill_traces,
+                             registered=True)
+
         self._slots = [_Slot() for _ in range(slots)]
         self._pending: collections.deque[_Pending] = collections.deque()
         self._rid = 0
@@ -586,10 +735,19 @@ class InferenceEngine:
         self._lock = threading.RLock()
         self._params_version = 0
         self._swap_pending_ts = None
-        # launches of the verify kernel made by this engine's verify
-        # forwards (read around each call; never reset)
-        self._verify_launches = 0
         self.reset_stats()
+
+    def arm_retrace_sentinel(self):
+        """Declare shape warm-up over: every watched build path,
+        including the bucket-dependent prefill ones, is baselined at its
+        current count, and ANY further build increments
+        ``retraces_unexpected`` and warns. The capped paths (decode,
+        verify, draft, quantize) are watched from construction
+        regardless."""
+        self._sentinel.arm()
+
+    def _captures(self) -> bool:
+        return self.device.type == "cuda" and self._capture
 
     # ------------------------------------------------------------------
     # request side
@@ -872,35 +1030,97 @@ class InferenceEngine:
         self._pending = collections.deque(keep)
         return admitted
 
-    def _to_device(self, *arrays: np.ndarray) -> list[torch.Tensor]:
-        """Several small host int32 arrays -> device in ONE copy; returns
-        views of the packed device buffer, one per array. Non-blocking:
-        the host buffer is staged at once and the host does not wait for
-        the device."""
-        packed = torch.from_numpy(np.concatenate(
-            [a.reshape(-1) for a in arrays])).to(self.device,
-                                                  non_blocking=True)
-        out, i = [], 0
-        for a in arrays:
-            out.append(packed[i:i + a.size].view(a.shape))
-            i += a.size
-        return out
+    # ------------------------------------------------------------------
+    # static steps
+    # ------------------------------------------------------------------
 
-    def _draw(self, logits, temps, any_temp: bool):
-        """One token per row of ``logits [B, V]``: the argmax, or a draw
-        from softmax(logits / T) for rows with temperature T > 0."""
+    def _step(self, kind: str, bucket: int | None = None) -> _StaticStep:
+        """The static step of ``kind`` ("decode", "verify", "draft",
+        "prefill" or "draft_prefill", the last two per chunk
+        ``bucket``), built at its first use."""
+        step = self._steps.get((kind, bucket))
+        if step is None:
+            step = self._steps[(kind, bucket)] = self._build_step(kind,
+                                                                  bucket)
+        return step
+
+    def _build_step(self, kind: str, bucket: int | None) -> _StaticStep:
+        b, mb = self.num_slots, self.max_blocks
+        i32, f32 = np.int32, np.float32
+        if kind in ("prefill", "draft_prefill"):
+            spec = dict(tokens=((1, bucket), i32), table=((mb,), i32),
+                        start=((1,), i32), length=((1,), i32))
+            if kind == "prefill":
+                spec["temp"] = ((1,), f32)
+            fn = (self._prefill_fn if kind == "prefill"
+                  else self._draft_prefill_fn)
+            return _StaticStep(self, kind + "_traces",
+                               _Staging(self.device, **spec), fn)
+        if kind == "decode":
+            return _StaticStep(self, "decode_traces", _Staging(
+                self.device, tokens=((b,), i32), pos=((b,), i32),
+                tables=((b, mb), i32), temps=((b,), f32)), self._decode_fn)
+        # verify and draft share the spec tick's inputs: the draft step
+        # writes its proposal into the window that verify reads
+        if self._spec_in is None:
+            spec = dict(window=((b, self.spec_window), i32),
+                        pos=((b,), i32), tables=((b, mb), i32),
+                        temps=((b,), f32))
+            if self.spec == "draft":
+                spec["dtables"] = ((b, mb), i32)
+            self._spec_in = _Staging(self.device, **spec)
+        fn = self._verify_fn if kind == "verify" else self._draft_fn
+        return _StaticStep(self, kind + "_traces", self._spec_in, fn)
+
+    def _decode_fn(self, i):
+        logits, _ = gpt.decode_step_paged(self.model, i["tokens"], self.cache,
+                                          i["pos"], i["tables"], self.cfg)
+        return self._sample(logits, i["temps"])
+
+    def _prefill_fn(self, i):
+        logits, _ = gpt.prefill_paged(
+            self.model, i["tokens"], self.cache, self.cfg,
+            block_table=i["table"], start=i["start"], length=i["length"])
+        return self._sample(logits, i["temp"])
+
+    def _draft_prefill_fn(self, i):
+        gpt.prefill_paged(self.draft_model, i["tokens"], self.draft_cache,
+                          self.draft_cfg, block_table=i["table"],
+                          start=i["start"], length=i["length"])
+
+    def _draft_fn(self, i):
+        """The draft model's proposal written into the verify window's
+        draft columns, on the device."""
+        window = self._draft_propose(i["window"][:, 0], i["pos"],
+                                     i["dtables"], i["temps"])
+        i["window"][:, 1:].copy_(window[:, 1:])
+
+    def _verify_fn(self, i):
+        """The verify forward and the accept rule: tokens, logprobs (f32
+        bits) and accepted counts as one [B, 2W + 1] int32 tensor, so
+        the host fetches them in one copy."""
+        logits, _ = gpt.verify_step_paged(self.model, i["window"], self.cache,
+                                          i["pos"], i["tables"], self.cfg)
+        out, out_lp, acc = accept_drafts(logits, i["window"], i["temps"],
+                                         self._gen)
+        return torch.cat([out.int(), out_lp.contiguous().view(torch.int32),
+                          acc[:, None].int()], dim=1)
+
+    def _draw(self, logits, temps):
+        """One token per row of ``logits [B, V]``: the argmax for rows
+        with temperature 0, a draw from softmax(logits / T) for rows with
+        T > 0. Every row draws, so one static step serves greedy and
+        sampled rows alike; the argmax rows do not depend on the draw."""
         tok = torch.argmax(logits, dim=-1)
-        if any_temp:
-            safe = torch.where(temps > 0, temps, 1.0)
-            tok = torch.where(temps > 0, _gumbel_argmax(
-                logits / safe[:, None], self._gen), tok)
-        return tok
+        safe = torch.where(temps > 0, temps, 1.0)
+        return torch.where(temps > 0, _gumbel_argmax(
+            logits / safe[:, None], self._gen), tok)
 
-    def _sample(self, logits, temps, any_temp: bool):
+    def _sample(self, logits, temps):
         """One token per row (`_draw`) and its natural f32 logprob,
         returned as one [2, B] int32 tensor (logprob bits in row 1) so the
         host fetches both in one copy."""
-        tok = self._draw(logits, temps, any_temp)
+        tok = self._draw(logits, temps)
         logp = torch.log_softmax(logits.float(), dim=-1).gather(
             1, tok[:, None])[:, 0]
         return torch.stack([tok.to(torch.int32),
@@ -912,27 +1132,31 @@ class InferenceEngine:
         host = packed.cpu().numpy()
         return host[0], host[1].view(np.float32)
 
-    def _chunk(self, s: _Slot, done: int, table):
-        """The next prefill chunk of ``s``'s prompt after ``done`` tokens:
-        its length and its tokens and ``table`` on the device (one copy),
-        the tokens right-padded to their chunk bucket."""
+    def _chunk(self, kind: str, s: _Slot, done: int, table):
+        """The next prefill chunk of ``s``'s prompt after ``done`` tokens
+        staged on the device (one copy) for the static step ``kind`` of
+        its chunk bucket: the tokens right-padded to the bucket, ``table``,
+        start and length (and the slot's temperature for the target).
+        Returns its length and the step."""
         clen = min(self.prefill_chunk, s.prompt.size - done)
-        toks = np.zeros((1, self._chunk_bucket_for(clen)), np.int32)
-        toks[0, :clen] = s.prompt[done:done + clen]
-        return clen, *self._to_device(toks, table)
+        step = self._step(kind, self._chunk_bucket_for(clen))
+        h = step.inputs.host
+        h["tokens"][0] = 0
+        h["tokens"][0, :clen] = s.prompt[done:done + clen]
+        h["table"][:] = table
+        h["start"][0], h["length"][0] = done, clen
+        if "temp" in h:
+            h["temp"][0] = s.temperature
+        step.inputs.upload()
+        return clen, step
 
     @torch.inference_mode()
     def _run_prefill_chunk(self, slot_idx: int):
         s = self._slots[slot_idx]
         if s.filled < s.prompt.size:
             t0 = time.perf_counter()
-            clen, toks_d, table_d = self._chunk(s, s.filled, s.table)
-            logits, _ = gpt.prefill_paged(
-                self.model, toks_d, self.cache, self.cfg,
-                block_table=table_d, start=s.filled, length=clen)
-            temps = torch.full((1,), s.temperature, device=self.device)
-            tok, lp = self._fetch(self._sample(logits, temps,
-                                               s.temperature > 0))
+            clen, step = self._chunk("prefill", s, s.filled, s.table)
+            tok, lp = self._fetch(step())
             self._prefill_time += time.perf_counter() - t0
             self._prefill_tokens += clen
             self._prefill_chunks += 1
@@ -947,11 +1171,9 @@ class InferenceEngine:
             # sync: stream order puts these writes before the first
             # proposal.
             t0 = time.perf_counter()
-            clen, toks_d, table_d = self._chunk(s, s.draft_filled,
-                                                s.draft_table)
-            gpt.prefill_paged(self.draft_model, toks_d, self.draft_cache,
-                              self.draft_cfg, block_table=table_d,
-                              start=s.draft_filled, length=clen)
+            clen, step = self._chunk("draft_prefill", s, s.draft_filled,
+                                     s.draft_table)
+            step()
             self._prefill_time += time.perf_counter() - t0
             s.draft_filled += clen
         if s.filled < s.prompt.size or (
@@ -1013,11 +1235,13 @@ class InferenceEngine:
             decoding = [i for i, s in enumerate(self._slots)
                         if s.phase == "decode"]
             if not decoding:
+                self._sentinel.check()
                 return admitted or chunked
             if self.spec is not None:
                 self._spec_tick(decoding)
             else:
                 self._decode_tick(decoding)
+            self._sentinel.check()
             return True
 
     def _batch_arrays(self, field: str = "table"):
@@ -1041,12 +1265,12 @@ class InferenceEngine:
     def _decode_tick(self, decoding: list):
         tokens, pos, tables, temps = self._batch_arrays()
         t0 = time.perf_counter()
-        tok_d, pos_d, tables_d, temps_bits = self._to_device(
-            tokens, pos, tables, temps.view(np.int32))
-        logits, _ = gpt.decode_step_paged(self.model, tok_d, self.cache,
-                                          pos_d, tables_d, self.cfg)
-        nxt, lps = self._fetch(self._sample(
-            logits, temps_bits.view(torch.float32), bool((temps > 0).any())))
+        step = self._step("decode")
+        h = step.inputs.host
+        h["tokens"][:], h["pos"][:] = tokens, pos
+        h["tables"][:], h["temps"][:] = tables, temps
+        step.inputs.upload()
+        nxt, lps = self._fetch(step())
         dt = time.perf_counter() - t0
         self._step_times.append(dt)
         self._decode_time += dt
@@ -1074,7 +1298,7 @@ class InferenceEngine:
                     return h[i + n:i + n + self.spec_k]
         return None
 
-    def _draft_propose(self, tok, pos, tables, temps, any_temp: bool):
+    def _draft_propose(self, tok, pos, tables, temps):
         """The draft model's proposal, on the device: W = k + 1 draft
         `models.gpt.decode_step_paged` calls consume c_0 (``tok``), c_1,
         ..., c_k at ``pos .. pos + k``, writing their K/V into the draft
@@ -1087,7 +1311,7 @@ class InferenceEngine:
                 self.draft_model, window[-1], self.draft_cache, pos + i,
                 tables, self.draft_cfg)
             if i < self.spec_k:
-                window.append(self._draw(logits, temps, any_temp))
+                window.append(self._draw(logits, temps))
         return torch.stack(window, dim=1)
 
     @torch.inference_mode()
@@ -1103,19 +1327,16 @@ class InferenceEngine:
         w = self.spec_window
         worth = [i for i in decoding if self._slots[i].remaining >= 2]
         tokens, pos, tables, temps = self._batch_arrays()
-        any_temp = bool((temps > 0).any())
         t0 = time.perf_counter()
         if self.spec == "draft":
             if not worth:
                 self._decode_tick(decoding)
                 return
             proposed = set(worth)
-            tok_d, pos_d, tables_d, dtables_d, temps_bits = self._to_device(
-                tokens, pos, tables, self._batch_arrays("draft_table")[2],
-                temps.view(np.int32))
-            temps_d = temps_bits.view(torch.float32)
-            window_d = self._draft_propose(tok_d, pos_d, dtables_d, temps_d,
-                                           any_temp)
+            draft = self._step("draft")
+            h = draft.inputs.host
+            h["window"][:, 0] = tokens     # drafts: written on the device
+            h["dtables"][:] = self._batch_arrays("draft_table")[2]
         else:
             proposals = {}
             for i in worth:
@@ -1126,21 +1347,16 @@ class InferenceEngine:
                 self._decode_tick(decoding)
                 return
             proposed = set(proposals)
-            window = np.repeat(tokens[:, None], w, axis=1)
+            h = self._step("verify").inputs.host
+            h["window"][:] = tokens[:, None]
             for i, prop in proposals.items():
-                window[i, 1:] = (prop + [prop[-1]] * (w - 1))[:w - 1]
-            window_d, pos_d, tables_d, temps_bits = self._to_device(
-                window, pos, tables, temps.view(np.int32))
-            temps_d = temps_bits.view(torch.float32)
-        n = da.paged_verify_attention.launches
-        logits, _ = gpt.verify_step_paged(self.model, window_d, self.cache,
-                                          pos_d, tables_d, self.cfg)
-        self._verify_launches += da.paged_verify_attention.launches - n
-        out, out_lp, acc = accept_drafts(logits, window_d, temps_d,
-                                         self._gen if any_temp else None)
+                h["window"][i, 1:] = (prop + [prop[-1]] * (w - 1))[:w - 1]
+        h["pos"][:], h["tables"][:], h["temps"][:] = pos, tables, temps
+        self._spec_in.upload()
+        if self.spec == "draft":
+            draft()
         # the tick's one device->host copy (and sync)
-        host = torch.cat([out.int(), out_lp.contiguous().view(torch.int32),
-                          acc[:, None].int()], dim=1).cpu().numpy()
+        host = self._step("verify")().cpu().numpy()
         out, lps, acc = host[:, :w], host[:, w:2 * w].view(np.float32), \
             host[:, 2 * w]
         dt = time.perf_counter() - t0
@@ -1239,10 +1455,10 @@ class InferenceEngine:
     def reset_stats(self):
         """Zero the throughput/latency accounting (benches call this after
         warmup), the speculative counters, the ``swaps`` counter and
-        ``weight_swap_ms``. Not reset: ``params_version``,
-        ``quantize_traces`` and ``verify_launches`` (identities and
-        counts of the engine's life, not rates) and the kernels' launch
-        counters."""
+        ``weight_swap_ms``. Not reset: ``params_version``, the trace
+        counters, ``retraces_unexpected`` and ``graph_pool_bytes``
+        (identities and counts of the engine's life, not rates) and the
+        kernels' launch counters."""
         with self._lock:
             self._swaps = 0
             self._last_swap_ms = 0.0
@@ -1287,13 +1503,20 @@ class InferenceEngine:
         off) and drafts a tick (0 when off); ``spec_steps`` — verify
         ticks; ``acceptance_rate`` — accepted / proposed drafts;
         ``tokens_per_step`` — emitted decode tokens per decoding-slot step
-        (1.0 when spec is off); ``verify_launches`` — verify-kernel
-        launches of this engine's verify forwards since construction (0
-        on the CPU's plain path; never reset).
-        ``kernel_launches`` — each paged-attention
-        kernel wrapper's launch counter (process-wide, never reset
-        here)."""
+        (1.0 when spec is off).
+        Compile-once: ``decode_traces``, ``prefill_traces`` (one per
+        chunk bucket used), ``verify_traces``, ``draft_traces`` and
+        ``draft_prefill_traces`` — builds of each static step (a CUDA
+        graph capture on the card; never reset); ``retraces_unexpected``
+        — builds beyond the sentinel's allowances
+        (`arm_retrace_sentinel`); ``graph_pool_bytes`` — device bytes of
+        the graphs' shared memory pool, read after the latest capture (0
+        with no graph).
+        ``kernel_launches`` — each paged-attention kernel wrapper's
+        launch counter (process-wide, never reset here): launches made,
+        eager ones and each graph's captured launches once a replay."""
         with self._lock:
+            self._sentinel.check()
             times = sorted(self._step_times)
             waits = sorted(self._queue_waits)
             occ = list(self._occupancy)
@@ -1342,7 +1565,13 @@ class InferenceEngine:
                 "tokens_per_step": (
                     self._decode_tokens / self._decode_slot_steps
                     if self._decode_slot_steps else 0.0),
-                "verify_launches": self._verify_launches,
+                "prefill_traces": self.prefill_traces,
+                "decode_traces": self.decode_traces,
+                "verify_traces": self.verify_traces,
+                "draft_traces": self.draft_traces,
+                "draft_prefill_traces": self.draft_prefill_traces,
+                "retraces_unexpected": self._sentinel.retraces_unexpected,
+                "graph_pool_bytes": self._graph_pool_bytes,
                 "kernel_launches": da.kernel_launches(),
             }
 

@@ -237,16 +237,18 @@ def test_block64_head_dim96_matches_jax(kind):
 
 # head dim -> the kernel head dim the wrappers run it at (None: raises)
 _KERNEL_DIMS = {8: 8, 48: 48, 96: 96, 120: 120, 128: 128, 100: 104,
-                136: 136, 4: 8, 256: 256, 0: None, 264: None}
+                136: 136, 4: 8, 256: 256, 0: None, 264: 264, 300: 304,
+                512: 512, 520: 1024, 1024: 1024}
 
 
 @pytest.mark.parametrize("d", list(_KERNEL_DIMS))
 def test_kernel_input_check_takes_every_multiple_of_8_up_to_128(d):
     """The kernels' head dims (device-independent): every multiple of 8
-    from 8 to 256 runs as it is and passes the kernels' input check; any
-    other head dim up to 256 maps to the next multiple of 8
-    (`kernel_head_dim`, the wrappers zero-pad to it), which passes, while
-    the unpadded width does not; 0 and widths above 256 raise."""
+    from 8 to 512 runs as it is and passes the kernels' input check; any
+    other head dim up to 512 maps to the next multiple of 8, and one above
+    512 to the next multiple of 512 (`kernel_head_dim`, the wrappers
+    zero-pad to it; the kernels run it in slabs of 512), which passes,
+    while the unpadded width does not; 0 raises."""
     want = _KERNEL_DIMS[d]
     tables = torch.zeros((2, 2), dtype=torch.int32)
     pos = torch.zeros(2, dtype=torch.int32)
@@ -398,17 +400,18 @@ def test_tensor_core_walk_stays_inside_the_card_limit(kind, bs, d):
 
 
 @pytest.mark.parametrize("kind", ["decode", "prefill64"])
-@pytest.mark.parametrize("d", [4, 12, 36, 100, 132])
+@pytest.mark.parametrize("d", [4, 12, 36, 100, 132, 300, 520])
 def test_padded_ragged_head_dims_match_jax(kind, d):
     """What the wrappers hand the kernels for a head dim that is not a
-    multiple of 8: q and the pools zero-padded to `kernel_head_dim` and
-    the softmax scale of the true head dim. The split-K plain versions on
+    multiple of 8 (or, above 512, not a multiple of 512): q and the pools
+    zero-padded to `kernel_head_dim` and the softmax scale of the true
+    head dim. The split-K plain versions on
     those inputs, trimmed, against JAX's Pallas kernels on the unpadded
     inputs (which pad the same way themselves), f32, atol 1e-5."""
     q, kp, vp, tables, pos = _split_inputs(kind, 16, d, seed=d)
     want = _jax_pallas(kind, q, kp, vp, tables, pos)
     dk = tda.kernel_head_dim(d)
-    assert dk % 8 == 0 and 0 < dk - d < 8
+    assert dk % 8 == 0 and 0 < dk - d < (8 if d <= 512 else 512)
     tq, tk, tv = (pad_last_dim(torch.from_numpy(a), dk) for a in (q, kp, vp))
     assert torch.all(tk[..., d:] == 0)
     ks, n_split = tda.split_geometry(tables.shape[1] * 16)

@@ -296,14 +296,16 @@ def test_padded_heads_with_the_true_scale_match_unpadded(causal, d):
 
 # head dim -> the kernel head dim it runs at (None: raises)
 _KERNEL_DIMS = {0: None, 4: 32, 12: 32, 100: 128, 132: 256, 136: 256,
-                256: 256, 264: None}
+                256: 256, 264: 512, 512: 512, 520: 1024, 1024: 1024,
+                1100: 1536}
 
 
 @pytest.mark.parametrize("d", list(_KERNEL_DIMS))
 def test_head_dims_without_a_kernel_raise(d):
-    """Every head dim from 1 to 256 runs on a kernel, zero-padded to the
-    next of 32, 64, 128 and 256 (ragged ones included, as the reference
-    pads them); 0 and head dims above 256 have no kernel and raise."""
+    """Every head dim from 1 up runs on a kernel, zero-padded to the next
+    of 32, 64, 128, 256 and 512, and above 512 to the next multiple of 512
+    (run in slabs of 512), as the reference runs every head dim; only 0
+    has no kernel and raises."""
     want = _KERNEL_DIMS[d]
     if want is None:
         with pytest.raises(ValueError, match="head dim"):

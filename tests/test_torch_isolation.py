@@ -28,7 +28,8 @@ def test_every_module_imports_without_jax_or_ray_tpu():
     mods = _modules()
     assert {"ray_tpu_torch.serve.engine", "ray_tpu_torch.ops.flash_attention",
             "ray_tpu_torch.ops.fused_xent", "ray_tpu_torch.train.spmd",
-            "ray_tpu_torch.train.loop"} <= set(mods)
+            "ray_tpu_torch.train.loop",
+            "ray_tpu_torch.util.telemetry"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

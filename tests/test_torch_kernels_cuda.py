@@ -54,7 +54,7 @@ def _inputs(dev, dtype, b, h, d, bs, mb, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 96, 128, 8, 100, 136, 256])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 8, 100, 136, 256, 264, 512, 520, 1024])
 @pytest.mark.parametrize("bs", [8, 16, 32, 64, 24])
 def test_decode_kernel_matches_plain(dev, dtype, d, bs):
     """Split-K decode: tables of `_ONE_CTA` + 300 positions or more (6
@@ -62,7 +62,9 @@ def test_decode_kernel_matches_plain(dev, dtype, d, bs):
     block's end, the next block's start and `_ONE_CTA` positions; rows
     that split see P - 1, P and P + 1 positions for a split boundary P
     above `_ONE_CTA` (mid-block at block 24) and the table's last row,
-    or run past it. D 100 runs zero-padded to 104."""
+    or run past it. D 100 runs zero-padded to 104; D 264 and 512 on 32
+    lanes of 2 (f32: 4) vectors; D 520 zero-padded to 1024, which runs in
+    two slabs of 512."""
     h = 3
     mb = -(-(da._ONE_CTA + 300) // bs)
     ks, n_split = da.split_geometry(mb * bs)
@@ -85,12 +87,13 @@ def test_decode_kernel_matches_plain(dev, dtype, d, bs):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 96, 128, 8, 100, 256])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 8, 100, 256, 264, 512, 520, 1024])
 @pytest.mark.parametrize("bs", [8, 16, 24, 32, 64])
 def test_prefill_and_verify_kernel_match_plain(dev, dtype, d, bs):
-    """bf16 runs the tensor-core kernel on the pool as it is, f32 the
-    CUDA-core kernel (blocks 24 and 64 re-viewed as blocks of 8 and 32,
-    `split_blocks`). Tables of 300 or more positions (3 splits of 128):
+    """bf16 up to D 256 runs the tensor-core kernel on the pool as it is,
+    f32 and bf16 above 256 the CUDA-core kernel (blocks 24 and 64
+    re-viewed as blocks of 8 and 32, `split_blocks`; D 520 zero-padded to
+    1024, in two slabs of 512). Tables of 300 or more positions (3 splits of 128):
     chunks at the start, at a block start, ragged, and of 64 rows
     across the first split boundary; verify W 1, 4 and 64 with windows
     that see KS - 1, KS and KS + 1 positions or run past the table's
@@ -99,7 +102,8 @@ def test_prefill_and_verify_kernel_match_plain(dev, dtype, d, bs):
     mb = -(-300 // bs)
     ks, _ = da.split_geometry(mb * bs)
     g, kp, vp, tables = _inputs(dev, dtype, b, h, d, bs, mb, seed=1)
-    kind = "paged_mq_tc" if dtype == torch.bfloat16 else "paged_mq_simt"
+    kind = ("paged_mq_tc" if dtype == torch.bfloat16 and d <= 256
+            else "paged_mq_simt")
     one = tables.new_zeros(1)
     for c, start in ((5, 0), (bs, bs), (40, 3), (64, ks - 33)):
         q = torch.randn((c, h, d), generator=g, device=dev).to(dtype)
@@ -200,12 +204,20 @@ def test_split_kernels_are_deterministic_and_capturable(dev, kind):
 
 
 def test_unsupported_inputs_raise_instead_of_falling_back(dev):
-    """Head dims above 256 (and 0), multi-query block sizes not a
-    multiple of 8, and index tensors that are not int32 raise."""
+    """Head dim 0, multi-query block sizes not a multiple of 8, and index
+    tensors that are not int32 raise; a head dim above 256 (264, once
+    refused) runs on the kernel and matches the plain version."""
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
     for d in (264, 0):
-        _, kp, vp, tables = _inputs(dev, torch.float32, 1, 2, d, 16, 2)
-        q = torch.zeros((1, 2, d), device=dev)
+        g, kp, vp, tables = _inputs(dev, torch.float32, 1, 2, d, 16, 2)
+        q = torch.randn((1, 2, d), generator=g, device=dev)
+        if d:
+            torch.testing.assert_close(
+                da.paged_decode_attention(q, kp, vp, tables, pos + 20),
+                da.reference_paged_decode_attention(q, kp, vp, tables,
+                                                    pos + 20),
+                **TOL[torch.float32])
+            continue
         with pytest.raises(ValueError, match="head dim"):
             da.paged_decode_attention(q, kp, vp, tables, pos)
     for dtype in (torch.float32, torch.bfloat16):
@@ -264,15 +276,16 @@ def _forward_ok(out, ref, q, k, v, causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 48, 64, 96, 128, 100, 160, 256])
+@pytest.mark.parametrize("d", [32, 48, 64, 96, 128, 100, 160, 256, 264, 512, 520, 1024])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("t", [1, 64, 129, 1000, 1024])
 def test_flash_kernels_match_plain(dev, dtype, d, causal, t):
     """T 1 and 129 (one row past a 128-row tile) put whole tensor-core
     tiles past T; bf16 at kernel head dim 64 and 128 runs on the tensor
     cores, everything else on the CUDA-core kernels (D 256 on 32-row
-    tiles). D 48, 96, 100 and 160 run zero-padded to 64, 128, 128 and
-    256."""
+    tiles, D 512 on 16-row tiles). D 48, 96, 100, 160, 264 and 520 run
+    zero-padded to 64, 128, 128, 256, 512 and 1024; D 1024 in two slabs
+    of 512."""
     from ray_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(t + d)
     b, h = 2, 2
@@ -304,10 +317,15 @@ def test_flash_kernels_match_plain(dev, dtype, d, causal, t):
 
 
 def test_flash_unsupported_inputs_raise(dev):
-    """Head dims above 256 (and 0), and float16, raise."""
+    """Head dim 0 and float16 raise; head dim 264 (once refused) runs."""
     from ray_tpu_torch.ops import flash_attention as fa
     for d in (264, 0):
-        q = torch.zeros((1, 8, 2, d), device=dev)
+        q = torch.randn((1, 8, 2, d), device=dev)
+        if d:
+            _forward_ok(fa.flash_forward(q, q, q, causal=True)[0],
+                        fa.flash_forward_reference(q, q, q, causal=True)[0],
+                        q, q, q, True)
+            continue
         with pytest.raises(ValueError, match="head dim"):
             fa.flash_forward(q, q, q, causal=True)
     q = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float16)
@@ -320,7 +338,8 @@ def test_flash_unsupported_inputs_raise(dev):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [8, 32, 48, 64, 96, 120, 128, 100, 136, 256])
+@pytest.mark.parametrize("d", [8, 32, 48, 64, 96, 120, 128, 100, 136, 256,
+                               264, 512, 520, 1024])
 def test_dense_decode_kernel_matches_plain(dev, dtype, d):
     """A ragged cache length, pos 0, mid-cache, S - 1 and past S; a row
     that takes one CTA (seeing `_ONE_CTA` positions) beside rows that
@@ -471,7 +490,7 @@ def _int8_mq_close(got, ref, q, kq, vq, sc, tables, pos):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 96, 100, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 100, 128, 256, 264, 512, 520, 1024])
 @pytest.mark.parametrize("bs", [8, 16, 24, 64])
 def test_int8_decode_kernel_matches_plain(dev, dtype, d, bs):
     """The int8 paged decode kernel: rows at pos 0, a block's end and the
@@ -497,7 +516,7 @@ def test_int8_decode_kernel_matches_plain(dev, dtype, d, bs):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 96, 100, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 100, 128, 256, 264, 512, 520, 1024])
 @pytest.mark.parametrize("bs", [8, 16, 24, 64])
 def test_int8_prefill_and_verify_kernel_match_plain(dev, dtype, d, bs):
     """bf16 runs the tensor-core kernel's int8 instance, f32 the CUDA-core
@@ -509,7 +528,7 @@ def test_int8_prefill_and_verify_kernel_match_plain(dev, dtype, d, bs):
     mb = -(-300 // bs)
     ks, _ = da.split_geometry(mb * bs)
     g, kq, vq, sc, tables = _int8_inputs(dev, b, h, d, bs, mb, seed=1)
-    kind = ("paged_mq_tc_int8" if dtype == torch.bfloat16
+    kind = ("paged_mq_tc_int8" if dtype == torch.bfloat16 and d <= 256
             else "paged_mq_simt_int8")
     one = tables.new_zeros(1)
     for c, start in ((8, 0), (8, bs), (64, 0), (64, ks - 33)):
@@ -621,11 +640,13 @@ def test_int8_engine_at_block_24(dev, dtype):
     got, st = run(gpt.GPTConfig(**kw, dtype=dtype), dev)
     launches = ops.kernel_launches()
     mq = "paged_mq_tc_int8" if dtype == "bfloat16" else "paged_mq_simt_int8"
+    # captured steps: each graph's launches once a replay, plus the one
+    # eager warm-up run before each capture
     assert launches["paged_decode_int8"] == \
         launches["paged_decode_attention"] == \
-        kw["n_layers"] * st["decode_steps"] > 0
+        kw["n_layers"] * (st["decode_steps"] + st["decode_traces"]) > 0
     assert launches[mq] == launches["paged_prefill_attention"] \
-        == kw["n_layers"] * st["prefill_chunks"] > 0
+        == kw["n_layers"] * (st["prefill_chunks"] + st["prefill_traces"]) > 0
     for key in ("paged_mq_tc", "paged_mq_simt"):
         assert launches[key] == 0
     tol = 1e-3 if dtype == "float32" else 0.1
@@ -699,8 +720,9 @@ def test_spec_engine_at_full_width(dev, spec):
     d_model 1024, 16 heads, d_ff 4096; 2 layers, bf16, peaked weights,
     draft = target) on motif prompts, greedy: the same tokens as the
     same engine with spec off; each verify tick launches `paged_mq_tc`
-    once a layer and no plain version runs (`verify_launches` counts
-    them); the self-draft accepts nearly everything."""
+    once a layer and no plain version runs (the captured verify step,
+    built once, counts them at every replay, plus its warm-up run); the
+    self-draft accepts nearly everything."""
     import numpy as np
     from ray_tpu_torch import ops
     from ray_tpu_torch.models import gpt
@@ -731,8 +753,190 @@ def test_spec_engine_at_full_width(dev, spec):
     got, st, launches = run(spec=spec, spec_k=4, **extra)
     assert got == want
     assert st["spec_steps"] > 0
-    assert launches["paged_verify_attention"] == st["verify_launches"] \
-        == cfg.n_layers * st["spec_steps"]
+    assert st["verify_traces"] == 1
+    assert launches["paged_verify_attention"] == \
+        cfg.n_layers * (st["spec_steps"] + st["verify_traces"])
     assert launches["paged_mq_simt"] == 0
     if spec == "draft":
         assert st["acceptance_rate"] >= 0.9
+
+
+# ---------------------------------------------------------------------------
+# compile-once serving: the engine's steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _capture_model(dev, **kw):
+    """A bf16 model at head dim 64 on peaked weights (decisive argmaxes),
+    its config and its f32 master tree."""
+    from ray_tpu_torch.models import gpt
+    cfg = gpt.small(vocab_size=4096, d_model=256, n_layers=2, n_heads=4,
+                    d_ff=512, max_seq_len=256, dtype="bfloat16", **kw)
+    tree = gpt.init_params(0, cfg, dev)
+    tree["embed"] = tree["embed"] * 8
+    return gpt.GPT(cfg, tree, device=dev), cfg, tree
+
+
+def _capture_traffic(vocab, seed=0):
+    """Six requests for four slots: a shared prefix (radix hit and a
+    copy-on-write block), a 70-token prompt over two chunk buckets, one
+    request sampled at 0.8, motif tails for the n-gram proposer."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    motif = np.tile(rng.integers(0, vocab, 4), 6)
+    prefix = rng.integers(0, vocab, 20)
+    prompts = [np.concatenate([prefix, motif]),
+               np.concatenate([prefix, rng.integers(0, vocab, 5), motif]),
+               rng.integers(0, vocab, 70), motif[:13],
+               np.concatenate([rng.integers(0, vocab, 9), motif]),
+               rng.integers(0, vocab, 30)]
+    return [(p.astype(np.int32), 0.8 if i == 3 else 0.0)
+            for i, p in enumerate(prompts)]
+
+
+def _serve(eng, reqs, new=16):
+    rids = [eng.submit(p, max_new_tokens=new, temperature=t)
+            for p, t in reqs]
+    eng.run_until_idle()
+    outs = [list(eng.tokens_for(r)) for r in rids]
+    eng.check_invariants()
+    return outs
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "ngram", "draft"])
+def test_captured_engine_matches_eager(dev, kind):
+    """The same traffic through an engine whose steps are CUDA graphs and
+    one that runs them eagerly (``_capture = False``): greedy tokens
+    identical, logprobs within 1e-5 (the same kernels on the same inputs);
+    decode, verify and draft built once, prefill once per chunk bucket,
+    no unexpected retrace; the launch accounting of the captured engine
+    is the eager one's plus one warm-up run a build."""
+    import numpy as np
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.serve import InferenceEngine
+    cfg_kw = (dict(kv_dtype="int8", weight_dtype="int8")
+              if kind == "int8" else {})
+    model, cfg, _ = _capture_model(dev, **cfg_kw)
+    eng_kw = dict(slots=4, max_len=160, block_size=16, prefill_chunk=32,
+                  device=dev)
+    if kind in ("ngram", "draft"):
+        eng_kw.update(spec=kind, spec_k=3)
+    if kind == "draft":
+        eng_kw.update(draft_params=model, draft_cfg=cfg)
+    reqs = _capture_traffic(cfg.vocab_size)
+    if kind in ("ngram", "draft"):
+        # greedy only: a sampled row's tokens (which differ between the
+        # runs) would change what the proposers find, and so the ticks
+        reqs = [(p, 0.0) for p, _ in reqs]
+    runs = {}
+    for capture in (False, True):
+        eng = InferenceEngine(model, cfg, **eng_kw)
+        eng._capture = capture
+        ops.reset_kernel_launches()
+        outs = _serve(eng, reqs)
+        torch.cuda.synchronize()
+        runs[capture] = (outs, eng.stats(), ops.kernel_launches())
+    (eager, est, el), (graph, gst, gl) = runs[False], runs[True]
+    for (p, t), e, g in zip(reqs, eager, graph):
+        assert len(e) == len(g) == 16
+        if t == 0.0:
+            assert [int(x) for x in g] == [int(x) for x in e]
+            np.testing.assert_allclose([x.logprob for x in g],
+                                       [x.logprob for x in e], atol=1e-5,
+                                       rtol=0)
+    for st in (est, gst):
+        assert st["decode_traces"] <= 1 and st["verify_traces"] <= 1
+        assert st["draft_traces"] <= 1 and st["retraces_unexpected"] == 0
+        assert st["prefill_traces"] == 3    # chunk buckets 8, 16 and 32
+    assert gst["graph_pool_bytes"] > 0 and est["graph_pool_bytes"] == 0
+    if kind in ("ngram", "draft"):
+        assert gst["verify_traces"] == 1 and gst["spec_steps"] > 0
+        assert gst["draft_traces"] == int(kind == "draft")
+    # a build's warm-up: one eager run of the step (the draft step's is
+    # W draft decode steps; draft = target, so L layers each)
+    warm = {"paged_decode_attention": gst["decode_traces"]
+            + gst["draft_traces"] * (eng_kw.get("spec_k", 0) + 1),
+            "paged_prefill_attention": gst["prefill_traces"]
+            + gst["draft_prefill_traces"],
+            "paged_verify_attention": gst["verify_traces"]}
+    for name, n in warm.items():
+        assert gl[name] == el[name] + cfg.n_layers * n, name
+    if kind == "int8":
+        assert gl["paged_decode_int8"] == gl["paged_decode_attention"] > 0
+
+
+def test_captured_sampling_advances_and_reseeds(dev):
+    """Replays draw from the engine's generator, which each replay
+    advances: the same sampled request twice gives different tokens, and
+    an engine built with the same seed repeats both runs."""
+    from ray_tpu_torch.serve import InferenceEngine
+    model, cfg, _ = _capture_model(dev)
+    prompt = _capture_traffic(cfg.vocab_size)[5][0]
+
+    def two_runs():
+        eng = InferenceEngine(model, cfg, slots=2, max_len=96, seed=5,
+                              block_size=16, prefill_chunk=32, device=dev)
+        outs = [[int(t) for t in eng.generate(prompt, max_new_tokens=24,
+                                                temperature=1.0)]
+                for _ in range(2)]
+        assert eng.decode_traces == 1 and eng._graph_pool_bytes > 0
+        return outs
+
+    first = two_runs()
+    assert first[0] != first[1]
+    assert two_runs() == first
+
+
+def test_captured_steps_see_a_weight_swap(dev):
+    """`update_params` copies in place, so the graphs captured before it
+    read the new weights: the next greedy tokens are those of a fresh
+    engine built on them, and nothing is captured again."""
+    import numpy as np
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve import InferenceEngine
+    model, cfg, tree = _capture_model(dev)
+    reqs = [(p, 0.0) for p, _ in _capture_traffic(cfg.vocab_size)[:3]]
+    kw = dict(slots=4, max_len=160, block_size=16, prefill_chunk=32,
+              device=dev)
+    eng = InferenceEngine(model, cfg, **kw)
+    before = _serve(eng, reqs)
+    new = {k: (v if k == "embed" else
+               ({n: x * 0.7 for n, x in v.items()} if k == "layers"
+                else v))
+           for k, v in tree.items()}
+    traces = eng.decode_traces, eng.prefill_traces
+    assert eng.update_params(new) == 1
+    after = _serve(eng, reqs)
+    fresh = _serve(InferenceEngine(gpt.GPT(cfg, new, device=dev), cfg, **kw),
+                   reqs)
+    assert [[int(t) for t in o] for o in after] == \
+        [[int(t) for t in o] for o in fresh]
+    assert max(abs(a.logprob - b.logprob) for o, p in zip(after, before)
+               for a, b in zip(o, p)) > 1e-3     # the swap took effect
+    for a, f in zip(after, fresh):
+        np.testing.assert_allclose([t.logprob for t in a],
+                                   [t.logprob for t in f], atol=1e-5, rtol=0)
+    assert (eng.decode_traces, eng.prefill_traces) == traces
+
+
+def test_failed_capture_raises(dev, monkeypatch):
+    """A step that cannot be captured (here: a host sync inside the
+    decode step) raises from `step`; the engine does not fall back to
+    running it eagerly."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve import InferenceEngine
+    model, cfg, _ = _capture_model(dev)
+    real = gpt.decode_step_paged
+
+    def syncing(*a, **k):
+        out = real(*a, **k)
+        out[0].sum().item()
+        return out
+
+    monkeypatch.setattr(gpt, "decode_step_paged", syncing)
+    eng = InferenceEngine(model, cfg, slots=2, max_len=96, block_size=16,
+                          prefill_chunk=32, device=dev)
+    eng.submit(_capture_traffic(cfg.vocab_size)[5][0], max_new_tokens=4)
+    with pytest.raises(RuntimeError):
+        eng.run_until_idle()
+    assert eng._capture and eng._steps[("decode", None)].graph is None
+    torch.cuda.synchronize()

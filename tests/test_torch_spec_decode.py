@@ -258,7 +258,7 @@ def test_accept_drafts_greedy():
     window[1, 2] = (am[1, 1] + 1) % 16     # rejects at draft 2
     window[2, 1] = (am[2, 0] + 1) % 16     # rejects at draft 1
     window[3, 3] = (am[3, 2] + 1) % 16     # rejects at draft 3
-    out, out_lp, acc = accept_drafts(logits, window, torch.zeros(4))
+    out, out_lp, acc = accept_drafts(logits, window, torch.zeros(4), g)
     assert acc.tolist() == [3, 1, 0, 2]
     torch.testing.assert_close(out[0], am[0])
     for row in (1, 2, 3):
@@ -312,7 +312,10 @@ def test_stats_and_reset(params):
     assert st["spec"] == "ngram" and st["spec_k"] == 3
     assert st["spec_steps"] > 0 and 0 < st["acceptance_rate"] <= 1
     assert st["tokens_per_step"] > 1.0
-    assert st["verify_launches"] == 0          # the CPU's plain path
+    # one verify step, built once; the CPU runs its plain path, so no
+    # verify-kernel launch is counted
+    assert st["verify_traces"] == 1
+    assert st["kernel_launches"]["paged_verify_attention"] == 0
     eng.reset_stats()
     st = eng.stats()
     assert st["spec_steps"] == 0 and st["acceptance_rate"] == 0.0

@@ -335,7 +335,7 @@ def test_unported_and_unknown_knobs_raise(cfgs, tree):
     with pytest.raises(NotImplementedError, match="A9"):
         tfx.fused_softmax_xent(tgpt.forward_features(model, batch["inputs"]),
                                model.embed, batch["targets"], mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A6"):
         tspmd.gpt_loss_fn(_model(tree, tcfg), batch,
                           dataclasses.replace(tcfg, attn_impl="ring"))
     with pytest.raises(ValueError, match="remat_policy"):
