@@ -135,7 +135,22 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    False``) and one whose steps are CUDA graphs: tick p50/p99, decode
    tok/s, device busy share over 8 profiled ticks with every slot
    decoding, the trace counters, ``retraces_unexpected`` (0),
-   ``graph_pool_bytes``, and the greedy tokens, which must be identical.
+   ``graph_pool_bytes``, and the greedy tokens, which must be identical;
+14. scheduling under pressure, at phase 2's model and engine geometry
+   with captured steps after the warm-up: (a) a pool of 64 blocks for 8
+   slots, 12 class-0 requests (128-token prompts, 64 new tokens, a
+   12-block footprint) and after 16 ticks 6 class-1 ones, on peaked
+   weights against an unpressured engine (tokens identical) and at random
+   weights (phase 3's check of every preempted stream): preemptions,
+   invariants after every tick, per-class counters, nothing built again,
+   the paged launches (re-prefill chunks among them), per-class TTFT,
+   tick and decode-step p50/p99 and decode tok/s beside the unpressured
+   engine's; (b) ``spec="ngram"`` and ``"draft"`` under the
+   ``engine.preempt`` site at p 0.1: tokens identical to the run without
+   the plan, the same fault log on a second run; (c) shedding on
+   ``max_queue`` and ``shed_high_water``, the counts the CPU test pins;
+   (d) ``watchdog_s`` against a delayed tick; (e) ``engine.alloc``
+   exhaustion preempting exactly twice.
 
 Before the phases it prints the registers and spilled bytes of every
 tensor-core kernel and of the two split-K decode kernels from nvcc's
@@ -503,21 +518,21 @@ def make_traffic(vocab: int, seed: int = 0):
     return reqs
 
 
-def warm_up(replica, spec: bool = False):
-    """Requests that take every chunk bucket (`WARM_PROMPTS`) and, on a
-    speculative engine, motif prompts that speculate; then the retrace
-    sentinel is armed: any later build of a step is unexpected."""
+def warm_up(eng, spec: bool = False):
+    """Requests through the engine ``eng`` that take every chunk bucket
+    (`WARM_PROMPTS`) and, on a speculative engine, motif prompts that
+    speculate; then the retrace sentinel is armed: any later build of a
+    step is unexpected."""
     import numpy as np
-    vocab = replica.engine.cfg.vocab_size
+    vocab = eng.cfg.vocab_size
     rng = np.random.default_rng(1)
-    for gen in [replica(rng.integers(0, vocab, n), max_new_tokens=8)
-                for n in WARM_PROMPTS]:
-        list(gen)
+    prompts = [rng.integers(0, vocab, n) for n in WARM_PROMPTS]
     if spec:
-        for gen in [replica(p, max_new_tokens=8)
-                    for p, _ in spec_traffic(vocab, 2, seed=9)]:
-            list(gen)
-    replica.engine.arm_retrace_sentinel()
+        prompts += [p for p, _ in spec_traffic(vocab, 2, seed=9)]
+    for batch in (prompts[:len(WARM_PROMPTS)], prompts[len(WARM_PROMPTS):]):
+        for rid in [eng.submit(p, max_new_tokens=8) for p in batch]:
+            list(eng.tokens_for(rid))
+    eng.arm_retrace_sentinel()
 
 
 def builds(before: dict, after: dict) -> dict:
@@ -567,7 +582,7 @@ def phase_engine(dev, cfg_kwargs, seed: int, new_tokens: int = 64):
     # Warm-up outside the measured run: every step captured (the kernels
     # built, cuBLAS handles, the allocator), then the sentinel armed.
     t0 = time.perf_counter()
-    warm_up(replica)
+    warm_up(replica.engine)
     print(f"  warm-up (captures) {time.perf_counter() - t0:.1f} s")
     eng.reset_stats()
     st0 = eng.stats()
@@ -635,11 +650,13 @@ def phase_engine(dev, cfg_kwargs, seed: int, new_tokens: int = 64):
     return replica, reqs, outs, summary
 
 
-def phase_teacher_forced(dev, cfg_kwargs, seed, reqs, outs) -> dict:
+def phase_teacher_forced(dev, cfg_kwargs, seed, reqs, outs,
+                         which=None) -> dict:
     """Engine logprobs (bf16, paged, kernels) vs a dense f32 forward with
-    plain attention over prompt + emitted tokens, for two greedy
-    requests. Where the f32 reference's top-2 margin exceeds twice the
-    tolerance, the engine's greedy token must be its argmax."""
+    plain attention over prompt + emitted tokens, for the greedy requests
+    at the indices ``which`` (default: the first and the last). Where the
+    f32 reference's top-2 margin exceeds twice the tolerance, the
+    engine's greedy token must be its argmax."""
     import numpy as np
     import torch
     from ray_tpu_torch.models import gpt
@@ -647,7 +664,7 @@ def phase_teacher_forced(dev, cfg_kwargs, seed, reqs, outs) -> dict:
     cfg = gpt.small(**{**cfg_kwargs, "dtype": "float32", "attn_impl": "xla"})
     ref = gpt.GPT(cfg, gpt.init_params(seed, cfg, dev))
     worst, checked, decisive = 0.0, 0, 0
-    for i in (0, len(reqs) - 1):
+    for i in ((0, len(reqs) - 1) if which is None else which):
         prompt, temp = reqs[i]
         if temp:
             fail("teacher-forced check wants greedy requests")
@@ -2211,7 +2228,7 @@ def phase_int8_engine(dev, which: str, reqs, bf16_outs, bf16_eng,
                                engine_kwargs=dict(block_size=16), device=dev)
     eng = replica.engine
     rng = np.random.default_rng(1)
-    warm_up(replica)
+    warm_up(replica.engine)
     eng.reset_stats()
     before = eng.stats()
     ops.reset_kernel_launches()
@@ -2540,7 +2557,7 @@ def phase_spec_engine(dev, which: str, reqs, seed: int = 0) -> dict:
     replica = InferenceReplica(cfg_kwargs, slots=8, max_len=1024, seed=seed,
                                engine_kwargs=ek, device=dev)
     eng = replica.engine
-    warm_up(replica, spec=which != "off")
+    warm_up(replica.engine, spec=which != "off")
     eng.reset_stats()
     before = eng.stats()
     ops.reset_kernel_launches()
@@ -2726,7 +2743,7 @@ def capture_run(dev, name: str, capture: bool) -> dict:
                                device=dev)
     eng = replica.engine
     eng._capture = capture
-    warm_up(replica, spec=bool(ek))
+    warm_up(replica.engine, spec=bool(ek))
     eng.reset_stats()
     reqs = (make_traffic(vocab, 0) if traffic == "serve" else
             [(p, 0.0) for p, _ in spec_traffic(vocab)])
@@ -2789,6 +2806,416 @@ def phase_capture(dev) -> dict:
         for r in runs.values():
             del r["greedy_tokens"]
         out[name] = {**runs, "greedy_identical": same}
+    return out
+
+
+# Phase 14: scheduling under pressure at SERVE_CFG (8 slots, block 16,
+# chunk 64, captured steps). (a) block pressure: a pool of 64 blocks,
+# 128-token prompts and 64 new tokens (a 12-block footprint, so 5
+# resident streams fill it), 12 class-0 requests and, after 16 ticks, 6
+# class-1 ones; (b) the engine.preempt site on spec engines; (c)
+# shedding; (d) the watchdog; (e) allocator exhaustion.
+PRESSURE_BLOCKS, PRESSURE_PROMPT, PRESSURE_NEW = 64, 128, 64
+PRESSURE_LOW, PRESSURE_HIGH, PRESSURE_AFTER = 12, 6, 16
+# (b): the plan's seed; its p 0.1 coin fires at engine.preempt visits 9,
+# 11, 12, 31, ... (random.Random("3:engine.preempt"))
+PRESSURE_PLAN_SEED = 3
+# (c): requests shed (at submit, through tokens_for) by 8 class-0 then 4
+# class-1 submits on max_queue 4, and by 3 class-0 then 2 class-1 ones on
+# a high-water mark of 0.5 over PRESSURE_BLOCKS; tests/test_torch_priority.py
+# (SHED_COUNTS) pins the same counts against the JAX engine.
+SHED_COUNTS = {"max_queue": (4, 4), "high_water": (1, 2)}
+
+
+def pressure_models(dev, seed: int = 0) -> dict:
+    """SERVE_CFG's model at random weights from ``seed`` (phase 3's
+    reference is built from the same seed), on peaked ones (embed x 8:
+    decisive argmaxes), and a peaked 1-layer draft from ``seed + 1``."""
+    from ray_tpu_torch.models import gpt
+    cfg = gpt.small(**SERVE_CFG)
+    tree = gpt.init_params(seed, cfg, dev)
+    out = {"cfg": cfg, "random": gpt.GPT(cfg, tree, device=dev)}
+    tree["embed"] = tree["embed"] * 8
+    out["peaked"] = gpt.GPT(cfg, tree, device=dev)
+    dcfg = gpt.small(**{**SERVE_CFG, "n_layers": SPEC_DRAFT_LAYERS})
+    dtree = gpt.init_params(seed + 1, dcfg, dev)
+    dtree["embed"] = dtree["embed"] * 8
+    out["draft_cfg"], out["draft"] = dcfg, gpt.GPT(dcfg, dtree, device=dev)
+    return out
+
+
+def pressure_engine(dev, models, weights: str, warm: bool = True, **kw):
+    """An engine at SERVE_CFG on ``models[weights]`` (8 slots unless
+    ``kw`` says otherwise, block 16, chunk 64), warmed up (`warm_up`: every
+    chunk bucket captured, the sentinel armed) and its stats zeroed."""
+    from ray_tpu_torch.serve import InferenceEngine
+    kw = {"slots": 8, **kw}
+    if kw.get("spec") == "draft":
+        kw.update(draft_params=models["draft"], draft_cfg=models["draft_cfg"])
+    eng = InferenceEngine(models[weights], models["cfg"], max_len=1024,
+                          block_size=16, prefill_chunk=64, device=dev, **kw)
+    if warm:
+        warm_up(eng, spec="spec" in kw)
+    eng.reset_stats()
+    return eng
+
+
+def pressure_run(eng, reqs, new: int, late=(), late_class: int = 0,
+                 after: int = 0) -> dict:
+    """``reqs`` at class 0, then ``late`` at ``late_class`` after ``after``
+    ticks, driven tick by tick with `check_invariants` after each: the
+    streams, the wall time of each tick (each ends in its host sync), the
+    requests seen as resumed (queued or admitted again) and the stats."""
+    import torch
+    from ray_tpu_torch import ops
+    ops.reset_kernel_launches()
+    st0 = eng.stats()
+    rids = [eng.submit(p, max_new_tokens=new) for p in reqs]
+    ticks, resumed = [], set()
+    t0 = time.perf_counter()
+    while True:
+        if len(ticks) == after and late:
+            rids += [eng.submit(p, max_new_tokens=new, priority=late_class)
+                     for p in late]
+        t = time.perf_counter()
+        alive = eng.step()
+        ticks.append(time.perf_counter() - t)
+        eng.check_invariants()
+        resumed |= {q.rid for q in eng._pending if q.resumed}
+        resumed |= {s.rid for s in eng._slots if s.active and s.resumed}
+        if not alive and len(ticks) > after:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    outs = [list(eng.tokens_for(r)) for r in rids]
+    eng.check_invariants()
+    if any(len(o) != new for o in outs):
+        fail(f"phase 14: a stream delivered {[len(o) for o in outs]} "
+             f"tokens, wanted {new} each")
+    ticks_ms = sorted(x * 1e3 for x in ticks)
+    return {"outs": outs, "stats": st, "built": builds(st0, st),
+            "launches": ops.kernel_launches(), "wall_s": wall,
+            "resumed": [i for i, r in enumerate(rids) if r in resumed],
+            "tick_ms_p50": ticks_ms[len(ticks_ms) // 2],
+            "tick_ms_p99": ticks_ms[min(len(ticks_ms) - 1,
+                                        int(0.99 * len(ticks_ms)))],
+            "ticks": len(ticks)}
+
+
+def free_engine(eng):
+    """Drop an engine's device memory (pools, graphs) before the next."""
+    import gc
+    import torch
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _greedy(outs) -> list:
+    return [[int(t) for t in o] for o in outs]
+
+
+def pressure_block(dev, models, smi: str) -> dict:
+    """(a) The same 18 requests through an unpressured engine (one class,
+    default pool) and a pressured one (2 classes, PRESSURE_BLOCKS) on
+    peaked weights, then the pressured one at random weights: preemptions,
+    64 tokens a stream, invariants every tick, per-class counters as the
+    traffic says, nothing built after the warm-up (decode once), peaked
+    tokens identical to the unpressured run's, phase 3's check of every
+    preempted stream at random weights, the paged kernels' launches (the
+    re-prefill's extra prefill chunks among them)."""
+    import numpy as np
+    vocab, layers = SERVE_CFG["vocab_size"], SERVE_CFG["n_layers"]
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, vocab, PRESSURE_PROMPT).astype(np.int32)
+               for _ in range(PRESSURE_LOW + PRESSURE_HIGH)]
+    low, high = prompts[:PRESSURE_LOW], prompts[PRESSURE_LOW:]
+    runs = {}
+    for name, weights, kw in (
+            ("calm", "peaked", dict(priority_classes=1)),
+            ("pressure", "peaked", dict(priority_classes=2,
+                                        cache_blocks=PRESSURE_BLOCKS)),
+            ("random", "random", dict(priority_classes=2,
+                                      cache_blocks=PRESSURE_BLOCKS))):
+        eng = pressure_engine(dev, models, weights, **kw)
+        r = runs[name] = pressure_run(eng, low, PRESSURE_NEW, high,
+                                      kw["priority_classes"] - 1,
+                                      PRESSURE_AFTER)
+        st = r["stats"]
+        if st["retraces_unexpected"] or st["decode_traces"] != 1 \
+                or any(r["built"].values()):
+            fail(f"(a) {name}: steps built under pressure {r['built']}, "
+                 f"retraces_unexpected {st['retraces_unexpected']}")
+        check_paged_launches(r["launches"], layers, st, r["built"])
+        pressured = name != "calm"
+        if pressured != (st["preemptions"] >= 1):
+            fail(f"(a) {name}: {st['preemptions']} preemptions")
+        want = {"0": (PRESSURE_LOW + (0 if pressured else PRESSURE_HIGH),
+                      st["preemptions"])}
+        if pressured:
+            want["1"] = (PRESSURE_HIGH, 0)
+        got = {c: (row["completed"], row["preemptions"])
+               for c, row in st["per_class"].items()}
+        if got != want or any(
+                row["submitted"] != row["completed"]
+                or row["decode_tokens"] != row["completed"] * PRESSURE_NEW
+                or row["sheds"] or row["pending"] or row["active"]
+                for row in st["per_class"].values()):
+            fail(f"(a) {name}: per_class {st['per_class']} against the "
+                 f"traffic {want}")
+        free_engine(eng)
+    if _greedy(runs["pressure"]["outs"]) != _greedy(runs["calm"]["outs"]):
+        fail("(a) peaked weights: pressured greedy tokens differ from the "
+             "unpressured engine's")
+    rnd = runs["random"]
+    if not rnd["resumed"]:
+        fail("(a) random weights: no preempted stream seen")
+    tf = phase_teacher_forced(dev, SERVE_CFG, 0, [(p, 0.0) for p in prompts],
+                              rnd["outs"], which=rnd["resumed"])
+    reprefill_chunks = (rnd["stats"]["prefill_chunks"]
+                        - runs["calm"]["stats"]["prefill_chunks"])
+    out = {"card": smi, "teacher_forced": tf,
+           "reprefill_chunks": reprefill_chunks,
+           "reprefill_launches": layers * reprefill_chunks,
+           "launches": rnd["launches"]}
+    keys = ("preemptions", "reprefill_blocks", "evicted_blocks",
+            "max_admission_stall_ms", "p50_token_latency_ms",
+            "p99_token_latency_ms", "decode_tok_s", "prefill_chunks",
+            "prefill_time_s", "decode_steps", "cache_block_utilization",
+            "ttft_ms_p50", "ttft_ms_p99")
+    for name, r in runs.items():
+        st = r["stats"]
+        out[name] = {**{k: st[k] for k in keys},
+                     "per_class": st["per_class"], "wall_s": r["wall_s"],
+                     "ticks": r["ticks"], "tick_ms_p50": r["tick_ms_p50"],
+                     "tick_ms_p99": r["tick_ms_p99"],
+                     "preempted_streams": len(r["resumed"])}
+        pcs = "; ".join(
+            f"class {c} TTFT p50 {row['queue_wait_ms_p50']:.1f} p99 "
+            f"{row['queue_wait_ms_p99']:.1f} ms"
+            for c, row in st["per_class"].items())
+        print(f"  (a) {name:8s} [{smi}]: {r['ticks']} ticks in "
+              f"{r['wall_s']:.2f} s, tick p50 {r['tick_ms_p50']:.3f} p99 "
+              f"{r['tick_ms_p99']:.3f} ms, decode step p50 "
+              f"{st['p50_token_latency_ms']:.3f} p99 "
+              f"{st['p99_token_latency_ms']:.3f} ms, decode "
+              f"{st['decode_tok_s']:.1f} tok/s; preemptions "
+              f"{st['preemptions']} ({len(r['resumed'])} streams), "
+              f"reprefill_blocks {st['reprefill_blocks']}, evicted_blocks "
+              f"{st['evicted_blocks']}, max_admission_stall_ms "
+              f"{st['max_admission_stall_ms']:.3f}, prefill chunks "
+              f"{st['prefill_chunks']} ("
+              f"{st['prefill_time_s'] * 1e3 / st['prefill_chunks']:.3f} ms "
+              f"a chunk); {pcs}")
+    print(f"  (a) peaked tokens pressured = unpressured; re-prefill "
+          f"{reprefill_chunks} chunks ({layers * reprefill_chunks} "
+          f"paged_mq_tc launches) at random weights")
+    return out
+
+
+def pressure_spec(dev, models, smi: str) -> dict:
+    """(b) ``spec="ngram"`` and ``"draft"`` (a 1-layer draft) on peaked
+    weights, 8 motif prompts, with and without the engine.preempt plan (p
+    0.1, PRESSURE_PLAN_SEED), the plan twice: tokens identical without
+    and with it, the same fault log on both runs with it, preemptions,
+    nothing built after the warm-up."""
+    from ray_tpu_torch.util import faults
+    vocab, layers = SERVE_CFG["vocab_size"], SERVE_CFG["n_layers"]
+    prompts = [p for p, _ in spec_traffic(vocab, 8, seed=14)]
+    out = {}
+    for which in ("ngram", "draft"):
+        runs = []
+        for plan in (False, True, True):
+            eng = pressure_engine(dev, models, "peaked",
+                                  **{k: v for k, v in
+                                     SPEC_ENGINES[which].items()
+                                     if k != "draft_layers"})
+            if plan:
+                faults.install(faults.FaultPlan(PRESSURE_PLAN_SEED).fail(
+                    "engine.preempt", p=0.1, times=None))
+            try:
+                r = pressure_run(eng, prompts, SPEC_NEW)
+            finally:
+                fired = faults.fired()
+                faults.clear()
+            r["fired"] = fired
+            st = r["stats"]
+            if st["retraces_unexpected"] or any(r["built"].values()) \
+                    or st["spec_steps"] <= 0:
+                fail(f"(b) {which}: built {r['built']}, retraces_unexpected "
+                     f"{st['retraces_unexpected']}, spec_steps "
+                     f"{st['spec_steps']}")
+            runs.append(r)
+            free_engine(eng)
+        calm, first, second = runs
+        if first["stats"]["preemptions"] < 1:
+            fail(f"(b) {which}: the plan preempted nothing")
+        if _greedy(first["outs"]) != _greedy(calm["outs"]) \
+                or _greedy(second["outs"]) != _greedy(calm["outs"]):
+            fail(f"(b) {which}: tokens under forced preemption differ")
+        if first["fired"] != second["fired"] or not first["fired"]:
+            fail(f"(b) {which}: fault logs {first['fired']} and "
+                 f"{second['fired']}")
+        st, cst = first["stats"], calm["stats"]
+        verify = first["launches"]["paged_verify_attention"]
+        if verify != layers * st["spec_steps"]:
+            fail(f"(b) {which}: {verify} verify launches for "
+                 f"{st['spec_steps']} spec ticks")
+        out[which] = {"preemptions": st["preemptions"],
+                      "fired": len(first["fired"]),
+                      "reprefill_blocks": st["reprefill_blocks"],
+                      "verify_launches": verify,
+                      "tick_ms_p50": first["tick_ms_p50"],
+                      "calm_tick_ms_p50": calm["tick_ms_p50"],
+                      "decode_tok_s": st["decode_tok_s"],
+                      "calm_decode_tok_s": cst["decode_tok_s"],
+                      "tokens_per_step": st["tokens_per_step"]}
+        print(f"  (b) {which:5s} [{smi}]: {st['preemptions']} forced "
+              f"preemptions ({len(first['fired'])} fires, the same log on "
+              f"a second run), reprefill_blocks {st['reprefill_blocks']}; "
+              f"tokens identical to the run without the plan; tick p50 "
+              f"{first['tick_ms_p50']:.3f} ms (without: "
+              f"{calm['tick_ms_p50']:.3f}), decode {st['decode_tok_s']:.1f} "
+              f"tok/s (without: {cst['decode_tok_s']:.1f}), "
+              f"tokens_per_step {st['tokens_per_step']:.3f}; "
+              f"{verify} verify launches")
+    return out
+
+
+def pressure_shed(dev, models, smi: str) -> dict:
+    """(c) Class-ordered shedding: the OverloadedErrors raised at submit
+    and through tokens_for must be SHED_COUNTS; the rest complete."""
+    import numpy as np
+    from ray_tpu_torch.exceptions import OverloadedError
+    vocab = SERVE_CFG["vocab_size"]
+    rng = np.random.default_rng(15)
+    out = {}
+    for name, kw, classes, new in (
+            ("max_queue", dict(max_queue=4), [0] * 8 + [1] * 4, 16),
+            ("high_water", dict(shed_high_water=0.5,
+                                cache_blocks=PRESSURE_BLOCKS),
+             [0] * 3 + [1] * 2, PRESSURE_NEW)):
+        eng = pressure_engine(dev, models, "random", warm=False,
+                              priority_classes=2, **kw)
+        rids, at_submit, via_tokens, done = [], 0, 0, 0
+        for c in classes:
+            try:
+                rids.append(eng.submit(
+                    rng.integers(0, vocab, PRESSURE_PROMPT),
+                    max_new_tokens=new, priority=c))
+            except OverloadedError:
+                at_submit += 1
+        for r in rids:
+            try:
+                done += len(list(eng.tokens_for(r))) == new
+            except OverloadedError:
+                via_tokens += 1
+        eng.check_invariants()
+        st = eng.stats()
+        got = (at_submit, via_tokens)
+        if got != SHED_COUNTS[name] or st["sheds"] != sum(got) \
+                or done != len(classes) - sum(got):
+            fail(f"(c) {name}: shed {got} (want {SHED_COUNTS[name]}), "
+                 f"sheds {st['sheds']}, {done} completed")
+        out[name] = {"at_submit": at_submit, "via_tokens_for": via_tokens,
+                     "completed": done, "per_class": st["per_class"]}
+        print(f"  (c) {name} [{smi}]: {at_submit} shed at submit, "
+              f"{via_tokens} through tokens_for (the CPU test's counts), "
+              f"{done} completed")
+        free_engine(eng)
+    return out
+
+
+def pressure_watchdog(dev, models, smi: str) -> dict:
+    """(d) watchdog_s 0.05 against a 0.25 s engine.tick delay at visit 5:
+    a stall counted, the tokens of the same engine without the plan."""
+    import numpy as np
+    from ray_tpu_torch.util import faults
+    vocab = SERVE_CFG["vocab_size"]
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, vocab, PRESSURE_PROMPT).astype(np.int32)
+               for _ in range(4)]
+    runs = []
+    for plan in (False, True):
+        eng = pressure_engine(dev, models, "peaked", watchdog_s=0.05)
+        if plan:
+            faults.install(faults.FaultPlan(1).delay(
+                "engine.tick", delay_s=0.25, at=5, times=1))
+        try:
+            r = pressure_run(eng, prompts, 32)
+        finally:
+            fired = faults.fired()
+            faults.clear()
+        r["fired"] = fired
+        runs.append(r)
+        free_engine(eng)
+    calm, stalled = runs
+    stalls = stalled["stats"]["watchdog_stalls"]
+    if stalls < 1 or ("engine.tick", 5, "delay") not in stalled["fired"]:
+        fail(f"(d) watchdog_stalls {stalls}, fired {stalled['fired']}")
+    if _greedy(stalled["outs"]) != _greedy(calm["outs"]):
+        fail("(d) tokens differ under the tick delay")
+    print(f"  (d) [{smi}]: watchdog_stalls {stalls} (without the plan "
+          f"{calm['stats']['watchdog_stalls']}), tick p99 "
+          f"{stalled['tick_ms_p99']:.1f} ms, tokens identical")
+    return {"watchdog_stalls": stalls,
+            "calm_watchdog_stalls": calm["stats"]["watchdog_stalls"],
+            "tick_ms_p99": stalled["tick_ms_p99"]}
+
+
+def pressure_alloc(dev, models, smi: str) -> dict:
+    """(e) engine.alloc fails at visits 2 and 3 (the class-2 admission's
+    first two attempts) with 3 slots and two class-0 streams decoding:
+    exactly 2 preemptions, then every stream completes."""
+    import numpy as np
+    from ray_tpu_torch.util import faults
+    vocab = SERVE_CFG["vocab_size"]
+    rng = np.random.default_rng(17)
+    eng = pressure_engine(dev, models, "random", warm=False, slots=3,
+                          priority_classes=3)
+    faults.install(faults.FaultPlan(1).fail("engine.alloc", at=2, times=2))
+    try:
+        low = [eng.submit(rng.integers(0, vocab, PRESSURE_PROMPT),
+                          max_new_tokens=16) for _ in range(2)]
+        for _ in range(3):
+            eng.step()
+        high = eng.submit(rng.integers(0, vocab, PRESSURE_PROMPT),
+                          max_new_tokens=4, priority=2)
+        while eng.step():
+            eng.check_invariants()
+        fired = faults.fired()
+    finally:
+        faults.clear()
+    lens = [len(list(eng.tokens_for(r))) for r in low + [high]]
+    eng.check_invariants()
+    st = eng.stats()
+    visits = [v for site, v, _ in fired if site == "engine.alloc"]
+    if st["preemptions"] != 2 or visits != [2, 3] or lens != [16, 16, 4] \
+            or st["per_class"]["0"]["preemptions"] != 2:
+        fail(f"(e) preemptions {st['preemptions']}, alloc fires {visits}, "
+             f"streams {lens}")
+    print(f"  (e) [{smi}]: engine.alloc failed at visits {visits}: "
+          f"{st['preemptions']} preemptions, streams {lens}")
+    free_engine(eng)
+    return {"preemptions": st["preemptions"], "alloc_fires": visits}
+
+
+def phase_pressure(dev, smi: str) -> dict:
+    """Phase 14: scheduling under pressure, (a) to (e), each part's time
+    recorded."""
+    import torch
+    models = pressure_models(dev)
+    out, part_s = {}, {}
+    for part, fn in (("block", pressure_block), ("spec", pressure_spec),
+                     ("shed", pressure_shed), ("watchdog", pressure_watchdog),
+                     ("alloc", pressure_alloc)):
+        t0 = time.perf_counter()
+        out[part] = fn(dev, models, smi)
+        part_s[part] = time.perf_counter() - t0
+    out["part_s"] = part_s
+    del models
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2989,10 +3416,12 @@ def main() -> int:
                  "engines)", phase_spec, dev)
     capture = phase(13, "compile-once serving: eager against captured "
                     "engines", phase_capture, dev)
+    pressure = phase(14, "scheduling under pressure (preemption, shedding, "
+                     "watchdog, fault sites)", phase_pressure, dev, smi)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
                   flash=flash, train=train, xent=xent, fused_train=fused,
                   unpaged=unpaged, c1=c1, int8=int8, spec=spec,
-                  capture=capture)
+                  capture=capture, pressure=pressure)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3007,6 +3436,18 @@ def main() -> int:
     verify = {"paged_verify_attention": sum(
         spec["engines"][w]["launches"]["paged_verify_attention"]
         for w in ("ngram", "draft"))}
+    # phase 14's own paths, each counted from zero around its run: (a)'s
+    # pressured engine at random weights (decode and prefill, the
+    # re-prefill chunks among the latter) and (b)'s spec engines under
+    # the engine.preempt plan (verify)
+    pressure_launches = pressure["block"]["launches"]
+    pressure_verify = sum(pressure["spec"][w]["verify_launches"]
+                          for w in ("ngram", "draft"))
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        if pressure_launches[name] <= 0:
+            fail(f"{name} was not launched on phase 14's path")
+    if pressure_verify <= 0:
+        fail("paged_verify_attention was not launched on phase 14's path")
     for key, wrapper, replaces, rec, launches, src in (
             ("paged_decode", "paged_decode_attention",
              "ray_tpu/ops/decode_attention.py:282", kern["paged_decode"],
@@ -3069,6 +3510,10 @@ def main() -> int:
             # two share one body)
             rows[-1].update(kernels=[f"{key}_kernel"], split=rec["split"],
                             ptxas=rec["ptxas"])
+            if key == "paged_decode":
+                rows[-1]["launches_by_path"] = {
+                    "phase 2": launches[wrapper],
+                    "phase 14 (a)": pressure_launches[wrapper]}
             if key == "decode":
                 rows[-1]["contexts"] = {
                     k: rec["contexts"][k] for k in (
@@ -3092,14 +3537,22 @@ def main() -> int:
                             launches_by_engine={
                                 w: spec["engines"][w]["launches"][
                                     "paged_verify_attention"]
-                                for w in ("ngram", "draft")})
+                                for w in ("ngram", "draft")},
+                            launches_by_path={
+                                "phase 12 (b)": launches[wrapper],
+                                "phase 14 (b)": pressure_verify})
         elif key == "paged_prefill":
             # bf16: the tensor-core split-K kernel, one launch per call
             rows[-1].update(kernels=["paged_mq_tc_kernel"],
                             kernel_launches={
                                 k: launches[k]
                                 for k in ("paged_mq_tc", "paged_mq_simt")},
-                            split=rec["split"], ptxas=rec["ptxas"])
+                            split=rec["split"], ptxas=rec["ptxas"],
+                            launches_by_path={
+                                "phase 2": launches[wrapper],
+                                "phase 14 (a)": pressure_launches[wrapper]},
+                            reprefill_launches=pressure["block"][
+                                "reprefill_launches"])
         elif key == "fused_xent_fwd":
             # bf16: the tile kernel and the merge, one launch each per call
             rows[-1].update(kernels=["xent_fwd_tc_kernel",

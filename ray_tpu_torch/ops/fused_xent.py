@@ -422,7 +422,7 @@ def fused_softmax_xent(x, embed, targets, *, vocab_chunk: int = 512,
     if mesh is not None:
         raise NotImplementedError(
             "fused_softmax_xent: the vocab-sharded composition (mesh=) is "
-            "not ported yet (ROADMAP A9: multi-rank parallelism)")
+            "not ported yet (ROADMAP A6: multi-rank parallelism)")
     del rules
     b, t, d = x.shape
     lse, tgt = _LseAndTarget.apply(x.reshape(b * t, d), embed,

@@ -39,6 +39,18 @@ Dh]``) and ragged traffic streamed through it via int32 block tables.
   against the draft as a point-mass proposal keeps sampled output
   distribution-exact for any proposal; greedy output is token-identical
   to plain decoding.
+- **scheduling under pressure**: requests carry a priority class
+  (``priority_classes``; `submit`'s ``priority``). Admission takes
+  classes in stride shares of ``priority_weight_base ** class``, and a
+  request older than its aging bound jumps that order. A request the
+  block pool cannot serve preempts strictly lower-class streams: each
+  victim publishes its written blocks to the radix tree and is requeued
+  as prompt + emitted under the same request id, so its consumer sees
+  one stream (greedy: the same tokens). ``max_queue`` and
+  ``shed_high_water`` shed overload as `OverloadedError`, lowest queued
+  class first. ``watchdog_s`` counts ticks that overrun it. The fault
+  sites ``engine.tick``, ``engine.preempt``, ``engine.alloc`` and
+  ``engine.emit`` consult `ray_tpu_torch.util.faults`.
 
 Compile-once steps, the counterpart of the reference's jitted steps:
 the decode tick (`models.gpt.decode_step_paged` + sampling), the
@@ -72,28 +84,39 @@ matches the JAX engine token for token, sampled decoding only in
 distribution (JAX's threefry bits are not reproducible here).
 
 Not ported yet, and refused with `NotImplementedError` when asked for
-(ROADMAP queue A): disaggregated prefill/decode handoff (so no
-``kv_gather``/``kv_scatter`` watches), priority classes and preemption,
-overload shedding and the tick watchdog, fault-injection sites, the
-flight recorder (``telemetry_sample``), and device meshes. The weight
-swap has no watch either: `InferenceEngine.update_params` copies in
-place, with nothing to build.
+(ROADMAP queue A): disaggregated prefill/decode handoff (``role=``, so
+no ``kv_gather``/``kv_scatter`` watches and none of `stats`'s
+``handoffs``/``imports``/``kv_*`` keys), the flight recorder
+(``telemetry_sample``), and device meshes. The weight swap has no watch
+(nor ``swap_traces``): `InferenceEngine.update_params` copies in place,
+with nothing to build.
 """
 
 from __future__ import annotations
 
 import collections
+import gc
+import logging
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ray_tpu_torch import ops
+from ray_tpu_torch._private.constants import (ENGINE_PRIORITY_AGING_S,
+                                              ENGINE_PRIORITY_CLASSES,
+                                              ENGINE_PRIORITY_WEIGHT_BASE)
+from ray_tpu_torch.exceptions import OverloadedError
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.ops import decode_attention as da
+from ray_tpu_torch.serve import priority as _prio
+from ray_tpu_torch.util import faults as _faults
 from ray_tpu_torch.util import telemetry
+
+logger = logging.getLogger("ray_tpu_torch.serve")
 
 
 class TokenEvent(int):
@@ -367,6 +390,13 @@ class _Pending:
     temperature: float
     eos_id: int | None
     ts: float = 0.0               # submit time (queue-wait accounting)
+    priority: int = 0             # class (0 = lowest): admission, shed
+    # and preemption order
+    resumed: bool = False         # a preempted stream's re-prefill: the
+    # prompt is the original prompt + every token already delivered, so
+    # its admission counts no TTFT or queue wait again
+    aged: bool = False            # promoted past the stride order by the
+    # aging bound (counted once a request)
 
 
 @dataclass
@@ -380,11 +410,19 @@ class _Slot:
     order: int = 0                # admission sequence (chunk FIFO)
     token: int = 0                # token the next decode consumes
     token_logp: float = 0.0       # its logprob (parked through prefill)
+    token_ver: int = 0            # params_version it was computed under
     pos: int = 0                  # its position in the logical sequence
+    version: int = 0              # params_version at admission: a slot
+    # admitted under older weights publishes no blocks (mixed K/V)
     remaining: int = 0
     temperature: float = 0.0
     eos_id: int | None = None
     submit_ts: float = 0.0
+    priority: int = 0
+    resumed: bool = False
+    # every token this stream emitted, in order: a preemption requeues
+    # prompt + emitted as a re-prefill
+    emitted: list = field(default_factory=list)
     # speculative decoding: the request's tokens so far (prompt + emitted,
     # the n-gram proposer's corpus) and, with a draft model, this slot's
     # blocks, table and prefill progress in the DRAFT pool
@@ -522,8 +560,18 @@ class _StaticStep:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(eng._gen)
         before = ops.kernel_launches()
-        with torch.cuda.graph(graph, pool=eng._graph_pool, stream=eng._side):
-            out = self.fn(self.inputs.dev)
+        # No automatic garbage collection inside the capture: engines are
+        # reference cycles, and a dropped engine collected here would
+        # destroy its graphs mid-capture, which invalidates the capture.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=eng._graph_pool,
+                                  stream=eng._side):
+                out = self.fn(self.inputs.dev)
+        finally:
+            if collecting:
+                gc.enable()
         after = ops.kernel_launches()
         self.launches = {k: n - before[k] for k, n in after.items()
                          if n != before[k]}
@@ -541,12 +589,30 @@ def _pool_bytes(pool) -> int:
 
 # Engine kwargs of ray_tpu's InferenceEngine that this port does not
 # implement yet, with the value that means "off". Anything else raises.
-_NOT_PORTED = {
-    "mesh": None, "telemetry_sample": None, "max_queue": None,
-    "shed_high_water": None, "watchdog_s": None, "priority_classes": None,
-    "priority_aging_s": None, "priority_weight_base": None,
-    "role": "colocated",
-}
+_NOT_PORTED = {"mesh": None, "telemetry_sample": None, "role": "colocated"}
+
+
+def _watchdog_loop(ref, budget: float):
+    """Detect a stuck scheduler tick of the engine behind the weakref
+    ``ref``: sample the running tick's start time (lock-free reads: the
+    watchdog must work precisely when the lock holder is wedged) and
+    count and warn once a tick that overruns ``budget`` seconds. Holds
+    the engine only between two samples, so the engine (its pools and
+    graphs) is freed as if there were no watchdog; the loop ends then."""
+    flagged = -1
+    while True:
+        time.sleep(budget / 4)
+        eng = ref()
+        if eng is None:
+            return
+        started, seq = eng._tick_started, eng._tick_seq
+        if (started is not None and seq != flagged
+                and time.perf_counter() - started > budget):
+            flagged = seq
+            eng._watchdog_stalls += 1
+            logger.warning("engine %s: scheduler tick %d stuck for > %.2fs",
+                           eng.name, seq, budget)
+        del eng
 
 
 class InferenceEngine:
@@ -573,7 +639,15 @@ class InferenceEngine:
     the target when its ``weight_dtype`` is "int8") over its own paged pool of
     ``draft_cache_blocks`` usable blocks (default ``cache_blocks``),
     which holds every resident request's full footprint and shares no
-    prefixes."""
+    prefixes.
+
+    ``priority_classes`` (default ``RAY_TPU_ENGINE_PRIORITY_CLASSES``, 3)
+    is the number of request classes; ``priority_weight_base`` (4.0) and
+    ``priority_aging_s`` (2.0) set their admission shares and aging
+    bound. ``max_queue`` and ``shed_high_water`` (a fraction of the pool,
+    projected over the queue) shed overload; ``watchdog_s`` starts a
+    thread that counts ticks overrunning it. All three are off by
+    default."""
 
     def __init__(self, model: gpt.GPT, cfg: gpt.GPTConfig, *,
                  slots: int = 4, max_len: int | None = None,
@@ -584,6 +658,12 @@ class InferenceEngine:
                  spec_k: int = 4, ngram_max: int = 3, ngram_min: int = 1,
                  draft_params=None, draft_cfg: gpt.GPTConfig | None = None,
                  draft_cache_blocks: int | None = None, seed: int = 0,
+                 max_queue: int | None = None,
+                 shed_high_water: float | None = None,
+                 watchdog_s: float | None = None,
+                 priority_classes: int | None = None,
+                 priority_aging_s: float | None = None,
+                 priority_weight_base: float | None = None,
                  device=None, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
@@ -732,10 +812,51 @@ class InferenceEngine:
         # (tokens_for pops, then deletes) or cancelled.
         self._out: dict[int, collections.deque] = {}
         self._done: set[int] = set()
+        # rid -> the exception of a request shed while queued, raised by
+        # its tokens_for
+        self._errors: dict[int, Exception] = {}
         self._lock = threading.RLock()
         self._params_version = 0
         self._swap_pending_ts = None
+
+        # Priority classes: stride pass values per backlogged class, and
+        # per-class counters and queue waits (made at a class's first use;
+        # reset_stats zeroes them in place).
+        self.priority_classes = (ENGINE_PRIORITY_CLASSES
+                                 if priority_classes is None
+                                 else int(priority_classes))
+        if self.priority_classes < 1:
+            raise ValueError("priority_classes must be >= 1")
+        self.priority_aging_s = (ENGINE_PRIORITY_AGING_S
+                                 if priority_aging_s is None
+                                 else float(priority_aging_s))
+        if self.priority_aging_s <= 0:
+            raise ValueError("priority_aging_s must be > 0")
+        self.priority_weight_base = (ENGINE_PRIORITY_WEIGHT_BASE
+                                     if priority_weight_base is None
+                                     else float(priority_weight_base))
+        if self.priority_weight_base < 1.0:
+            raise ValueError("priority_weight_base must be >= 1")
+        self._class_pass: dict[int, float] = {}
+        self._per_class: dict[int, dict] = {}
+        self._class_waits: dict[int, collections.deque] = {}
+
+        # Overload shedding and the tick watchdog, both off by default.
+        if max_queue is not None and max_queue < 1:
+            raise ValueError("max_queue must be >= 1")
+        if shed_high_water is not None and not 0.0 < shed_high_water <= 1.0:
+            raise ValueError("shed_high_water must be in (0, 1]")
+        self.max_queue = max_queue
+        self.shed_high_water = shed_high_water
+        self._tick_seq = 0
+        self._tick_started: float | None = None
         self.reset_stats()
+        if watchdog_s is not None:
+            if watchdog_s <= 0:
+                raise ValueError("watchdog_s must be > 0")
+            threading.Thread(target=_watchdog_loop,
+                             args=(weakref.ref(self), float(watchdog_s)),
+                             daemon=True, name="engine-watchdog").start()
 
     def arm_retrace_sentinel(self):
         """Declare shape warm-up over: every watched build path,
@@ -760,43 +881,123 @@ class InferenceEngine:
         highest = p - 1 + max(max_new - 1, 0)
         return highest // self.block_size + 1
 
+    def _shed_verdict(self, n_blocks: int) -> str | None:
+        """Overload decision for one admission of ``n_blocks`` footprint,
+        under the lock: None admits, else the reason. The high-water mark
+        reads the projected utilization (live blocks, the footprints
+        already queued and this one), so a burst of submits between two
+        ticks cannot overshoot it."""
+        if self.max_queue is not None and \
+                len(self._pending) >= self.max_queue:
+            return (f"queue full ({len(self._pending)} >= "
+                    f"max_queue {self.max_queue})")
+        if self.shed_high_water is not None:
+            queued = sum(self._blocks_for(q.prompt.size, q.max_new_tokens)
+                         for q in self._pending)
+            projected = (self._alloc.used + queued + n_blocks) \
+                / max(self.cache_blocks, 1)
+            if projected > self.shed_high_water:
+                return (f"projected block utilization {projected:.2f} > "
+                        f"high water {self.shed_high_water:.2f}")
+        return None
+
     def submit(self, prompt, max_new_tokens: int = 16,
                temperature: float = 0.0, eos_id: int | None = None,
                priority: int = 0) -> int:
         """Queue a prompt (sequence of token ids); returns a request id
-        for `tokens_for`. Admission happens inside `step()`."""
+        for `tokens_for`. Admission happens inside `step()`.
+
+        ``priority`` is the request's class, 0 (lowest) to
+        ``priority_classes - 1``: a higher class gets a larger admission
+        share, is shed last, and may preempt strictly lower-class active
+        streams under block pressure. Under overload (``max_queue``,
+        ``shed_high_water``) the lowest-class queued request below this
+        one is shed first; when none is, this submit raises
+        `OverloadedError`."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
-        if priority != 0:
-            raise NotImplementedError(
-                "priority classes are not ported yet (ROADMAP queue A)")
+        priority = int(priority)
+        if not 0 <= priority < self.priority_classes:
+            raise ValueError(f"priority {priority} outside "
+                             f"[0, {self.priority_classes})")
         if prompt.size + max_new_tokens > self.max_len:
             raise ValueError(
                 f"prompt {prompt.size} + max_new_tokens {max_new_tokens} "
                 f"exceeds cache max_len {self.max_len}")
-        if self._blocks_for(prompt.size, max_new_tokens) > self.cache_blocks:
-            raise ValueError(
-                f"request footprint "
-                f"{self._blocks_for(prompt.size, max_new_tokens)} blocks "
-                f"exceeds cache blocks {self.cache_blocks}")
-        if self._draft_alloc is not None and self._blocks_for(
-                prompt.size, max_new_tokens) > self.draft_cache_blocks:
+        need = self._blocks_for(prompt.size, max_new_tokens)
+        if need > self.cache_blocks:
+            raise ValueError(f"request footprint {need} blocks exceeds "
+                             f"cache blocks {self.cache_blocks}")
+        if self._draft_alloc is not None and need > self.draft_cache_blocks:
             raise ValueError(f"request footprint exceeds draft cache "
                              f"blocks {self.draft_cache_blocks}")
         with self._lock:
+            if self.max_queue is not None or \
+                    self.shed_high_water is not None:
+                reason = self._shed_verdict(need)
+                while reason is not None and \
+                        self._shed_lowest_below(priority):
+                    reason = self._shed_verdict(need)
+                if reason is not None:
+                    self._sheds += 1
+                    self._class_counter(priority)["sheds"] += 1
+                    raise OverloadedError(
+                        f"engine overloaded, request shed: {reason}")
             rid = self._rid
             self._rid += 1
             self._out[rid] = collections.deque()
             self._pending.append(_Pending(rid, prompt, max_new_tokens,
                                           temperature, eos_id,
-                                          time.perf_counter()))
+                                          time.perf_counter(),
+                                          priority=priority))
+            self._class_counter(priority)["submitted"] += 1
         return rid
 
+    def _shed_lowest_below(self, priority: int) -> bool:
+        """Shed the lowest-class queued request strictly below
+        ``priority`` (the newest of that class: least sunk wait), its
+        `OverloadedError` delivered through its `tokens_for`. False when
+        no queued request ranks below. A resumed (preempted) stream is
+        never shed: it has delivered tokens to a live consumer."""
+        victim_i = None
+        for i, q in enumerate(self._pending):
+            if q.priority >= priority or q.resumed:
+                continue
+            if victim_i is None:
+                victim_i = i
+                continue
+            v = self._pending[victim_i]
+            if (q.priority, -q.ts) < (v.priority, -v.ts):
+                victim_i = i
+        if victim_i is None:
+            return False
+        victim = self._pending[victim_i]
+        del self._pending[victim_i]
+        self._errors[victim.rid] = OverloadedError(
+            f"engine overloaded: request (class {victim.priority}) "
+            f"shed from the queue for a class-{priority} admission")
+        self._sheds += 1
+        self._class_counter(victim.priority)["sheds"] += 1
+        return True
+
+    def _class_counter(self, c: int) -> dict:
+        """Class ``c``'s counter row, made at its first use (under the
+        lock)."""
+        d = self._per_class.get(c)
+        if d is None:
+            d = self._per_class[c] = {
+                "submitted": 0, "completed": 0, "sheds": 0,
+                "preemptions": 0, "decode_tokens": 0}
+            self._class_waits[c] = collections.deque(maxlen=256)
+        return d
+
     def cancel(self, rid: int) -> bool:
-        """Abort a request wherever it is — pending, mid-prefill,
-        decoding, or finished-but-undrained — releasing its blocks and
-        output queue. Idempotent; returns True if anything was released."""
+        """Abort a request wherever it is — pending (a preempted stream's
+        queued resume included), mid-prefill, decoding, finished but
+        undrained, or shed with its error undelivered — releasing its
+        blocks and output queue. Idempotent; returns True if anything
+        was released."""
         with self._lock:
             hit = False
             for i, req in enumerate(self._pending):
@@ -810,6 +1011,7 @@ class InferenceEngine:
                     hit = True
                     break
             hit |= self._out.pop(rid, None) is not None
+            hit |= self._errors.pop(rid, None) is not None
             self._done.discard(rid)
             if hit:
                 self._cancelled += 1
@@ -819,7 +1021,9 @@ class InferenceEngine:
         """Generator of one request's `TokenEvent`s. Each next() ticks
         `step()` (under the lock) until this request has output, so
         concurrent consumers collectively drive one continuously batched
-        device loop. Abandoning the generator cancels the request."""
+        device loop. A request shed while queued raises its
+        `OverloadedError` here, once. Abandoning the generator cancels
+        the request."""
         try:
             while True:
                 tok = None
@@ -828,6 +1032,11 @@ class InferenceEngine:
                     q = self._out.get(rid)
                     if q is None:
                         return
+                    err = self._errors.pop(rid, None)
+                    if err is not None:
+                        del self._out[rid]
+                        self._done.discard(rid)
+                        raise err
                     if not q and rid not in self._done:
                         self.step()
                     if q:
@@ -944,6 +1153,13 @@ class InferenceEngine:
         bs = self.block_size
         p = req.prompt.size
         total = self._blocks_for(p, req.max_new_tokens)
+        # fault site: 'fail' reads as allocator exhaustion, the admission
+        # refused as if the pool had no free blocks (it drives the
+        # preemption path and never reaches the consumer)
+        try:
+            _faults.check("engine.alloc")
+        except _faults.FaultInjected:
+            return False
         # The draft pool shares no prefixes and evicts nothing: its whole
         # footprint must be free, checked before any main-pool work so a
         # refusal needs no rollback.
@@ -964,7 +1180,8 @@ class InferenceEngine:
             self._alloc.ref(b)
         fresh_needed = total - n_full
         if self._alloc.free < fresh_needed and self._tree is not None:
-            self._tree.evict(fresh_needed - self._alloc.free)
+            self._evicted_blocks += self._tree.evict(
+                fresh_needed - self._alloc.free)
         if self._alloc.free < fresh_needed:
             for b in blocks:
                 self._alloc.decref(b)
@@ -973,7 +1190,9 @@ class InferenceEngine:
         slot_blocks = blocks[:n_full] + fresh
         if partial:
             # Copy-on-write: the matched prefix ends inside a shared
-            # block this request will write into.
+            # block this request will write into. The copy is queued on
+            # the stream the steps replay on, after every earlier write
+            # and before this slot's first chunk.
             src, dst = blocks[n_full], fresh[0]
             gpt.copy_block(self.cache, src, dst)
             self._cow_copies += 1
@@ -989,6 +1208,14 @@ class InferenceEngine:
         s.temperature, s.eos_id = req.temperature, req.eos_id
         s.remaining = req.max_new_tokens
         s.submit_ts = req.ts
+        s.version = self._params_version
+        s.priority = req.priority
+        s.resumed = req.resumed
+        s.emitted = []
+        if req.resumed:
+            # the blocks' worth of K/V this resume recomputes (the radix
+            # match covered the rest)
+            self._reprefill_blocks += -(-(p - matched) // bs)
         s.history = req.prompt.tolist() if self.spec == "ngram" else []
         if self._draft_alloc is not None:
             s.draft_blocks = [self._draft_alloc.alloc() for _ in range(total)]
@@ -996,14 +1223,122 @@ class InferenceEngine:
             s.draft_table[:total] = s.draft_blocks
             s.draft_filled = 0
         self._prefix_hit_tokens += matched
+        self._prompt_tokens += p
+        return True
+
+    def _admission_order(self) -> list[_Pending]:
+        """The pending queue in class-aware admission order: a stride
+        scheduler over the backlogged classes with weight
+        ``priority_weight_base ** class`` (class c + 1 gets base times
+        class c's share; every backlogged class keeps a share), after
+        the requests older than their aging bound,
+        ``(priority_classes - class) * priority_aging_s``, oldest first.
+        Within a class the order is FIFO."""
+        now = time.perf_counter()
+        aged: list[_Pending] = []
+        backlog: dict[int, collections.deque] = {}
+        for req in self._pending:
+            bound = (self.priority_classes - req.priority) \
+                * self.priority_aging_s
+            if now - req.ts > bound:
+                if not req.aged:
+                    req.aged = True
+                    self._aging_promotions += 1
+                aged.append(req)
+            else:
+                backlog.setdefault(req.priority,
+                                   collections.deque()).append(req)
+        aged.sort(key=lambda r: (r.ts, r.rid))
+        order = aged
+        # A class entering the backlog starts at the current pass floor,
+        # so it cannot claim credit for the time it was idle.
+        floor = max(self._class_pass.values(), default=0.0)
+        for c in backlog:
+            self._class_pass.setdefault(c, floor)
+        sim = dict(self._class_pass)
+        while backlog:
+            c = min(backlog, key=lambda k: (sim[k], -k))
+            order.append(backlog[c].popleft())
+            sim[c] += 1.0 / (self.priority_weight_base ** c)
+            if not backlog[c]:
+                del backlog[c]
+        return order
+
+    def _pick_victim(self, below: int) -> int | None:
+        """The preemption victim: the active slot of the lowest class
+        strictly below ``below``, the latest admitted on a tie (least
+        progress: the cheapest re-prefill)."""
+        best = None
+        for i, s in enumerate(self._slots):
+            if not s.active or s.priority >= below:
+                continue
+            if best is None or (s.priority, -s.order) < (
+                    self._slots[best].priority, -self._slots[best].order):
+                best = i
+        return best
+
+    def _preempt(self, slot_idx: int, why: str):
+        """Evict one active stream: publish its written blocks to the
+        radix tree (the resume admits them by reference), release the
+        slot, and requeue prompt + emitted at the front as a re-prefill
+        under the same rid and output queue, so the consumer sees one
+        stream. The resume recomputes only the K/V past the published
+        full blocks, with the prefill path: in f32 it matches the K/V
+        decode wrote to summation order, so a greedy stream resumes with
+        the same tokens."""
+        s = self._slots[slot_idx]
+        seq = s.prompt.tolist() + s.emitted
+        # K/V written so far: seq[:pos] in decode (the parked last token
+        # is sampled but not written yet), prompt[:filled] mid-prefill
+        written = s.pos if s.phase == "decode" else s.filled
+        if self._tree is not None and written >= self.block_size \
+                and s.version == self._params_version:
+            self._tree.insert(seq[:written], s.blocks)
+        resume = _Pending(s.rid, np.asarray(seq, np.int32), s.remaining,
+                          s.temperature, s.eos_id, s.submit_ts,
+                          priority=s.priority, resumed=True)
+        self._preemptions += 1
+        self._class_counter(s.priority)["preemptions"] += 1
+        logger.info("engine %s: preempted rid=%d class=%d (%s) after %d "
+                    "tokens", self.name, s.rid, s.priority, why,
+                    len(s.emitted))
+        self._release(slot_idx)
+        self._pending.appendleft(resume)
+
+    def _force_preempt(self) -> bool:
+        """Fault-injected preemption (site ``engine.preempt``): evict the
+        lowest-class active stream whatever the pressure."""
+        victim = self._pick_victim(self.priority_classes)
+        if victim is None:
+            return False
+        self._preempt(victim, "forced")
+        return True
+
+    def _admit_or_preempt(self, req: _Pending) -> bool:
+        """Admit one request, preempting strictly lower-class active
+        streams while the block pool cannot serve it. No free slot
+        defers instead of preempting: the stride order already decided
+        who gets the slots. Bounded: each retry removes one victim."""
+        free = next((i for i, s in enumerate(self._slots)
+                     if s.phase == "idle"), None)
+        if free is None:
+            return False
+        while not self._try_admit(free, req):
+            victim = self._pick_victim(req.priority)
+            if victim is None:
+                return False
+            self._preempt(victim, "block-pressure")
         return True
 
     def _admit_pending(self) -> bool:
-        """Move pending requests into free slots, FIFO. A request whose
-        first block of tokens matches an in-flight prefill's is deferred
-        one tick: once that prefill completes and its full blocks enter
-        the radix tree, the latecomer admits by reference instead of
-        prefilling the shared prefix again."""
+        """Move pending requests into free slots in `_admission_order`.
+        A request whose first block of tokens matches an in-flight
+        prefill's is deferred one tick: once that prefill completes and
+        its full blocks enter the radix tree, the latecomer admits by
+        reference instead of prefilling the shared prefix again. When a
+        request fails admission even after preemption, strictly lower
+        classes are locked out for the rest of the tick, so freed blocks
+        accrue to the blocked class."""
         if not self._pending:
             return False
         bs = self.block_size
@@ -1011,23 +1346,38 @@ class InferenceEngine:
         if self._tree is not None:
             heads = {tuple(s.prompt[:bs].tolist()) for s in self._slots
                      if s.phase == "prefill" and s.prompt.size >= bs}
+        order = self._admission_order()
+        # Preemptions in the loop put their resumes at the front of the
+        # emptied queue (admitted next tick); deferred requests follow.
+        self._pending = collections.deque()
         admitted, keep = False, []
-        for req in self._pending:
+        blocked_pri: int | None = None
+        for req in order:
             head = (tuple(req.prompt[:bs].tolist())
                     if req.prompt.size >= bs else None)
             if head is not None and head in heads \
                     and self._tree is not None:
                 keep.append(req)
                 continue
-            free = next((i for i, s in enumerate(self._slots)
-                         if s.phase == "idle"), None)
-            if free is not None and self._try_admit(free, req):
+            if blocked_pri is not None and req.priority < blocked_pri:
+                keep.append(req)
+                continue
+            if self._admit_or_preempt(req):
                 admitted = True
+                self._class_pass[req.priority] = \
+                    self._class_pass.get(req.priority, 0.0) \
+                    + 1.0 / (self.priority_weight_base ** req.priority)
                 if head is not None:
                     heads.add(head)
             else:
                 keep.append(req)
-        self._pending = collections.deque(keep)
+                if blocked_pri is None or req.priority > blocked_pri:
+                    blocked_pri = req.priority
+        self._pending.extend(keep)
+        # a class with no backlog left banks no credit
+        live = {q.priority for q in self._pending}
+        for c in [c for c in self._class_pass if c not in live]:
+            del self._class_pass[c]
         return admitted
 
     # ------------------------------------------------------------------
@@ -1162,8 +1512,10 @@ class InferenceEngine:
             self._prefill_chunks += 1
             s.filled += clen
             if s.filled == s.prompt.size:
-                # parked until the draft pool (if any) has the prompt too
+                # parked, with the version it was computed under, until
+                # the draft pool (if any) has the prompt too
                 s.token, s.token_logp = int(tok[0]), float(lp[0])
+                s.token_ver = self._params_version
         drafting = self.draft_model is not None
         if drafting and s.draft_filled < s.prompt.size:
             # The draft pool shares no prefixes, so it takes the whole
@@ -1180,14 +1532,22 @@ class InferenceEngine:
                 drafting and s.draft_filled < s.prompt.size):
             return
         # Prefill complete: publish the prompt's full blocks (decode
-        # writes only past them, so they are immutable), join decode.
-        if self._tree is not None and s.prompt.size >= self.block_size:
+        # writes only past them, so they are immutable), join decode. A
+        # slot admitted under older weights spanned a swap: its K/V mixes
+        # two versions and stays out of the prefix cache.
+        if self._tree is not None and s.prompt.size >= self.block_size \
+                and s.version == self._params_version:
             self._tree.insert(s.prompt, s.blocks)
         s.phase = "decode"
         s.pos = s.prompt.size
         s.remaining -= 1
-        self._queue_waits.append(time.perf_counter() - s.submit_ts)
-        self._emit(s, slot_idx, s.token, s.token_logp)
+        if not s.resumed:
+            # a resumed stream delivered its first token before it was
+            # preempted
+            wait = time.perf_counter() - s.submit_ts
+            self._queue_waits.append(wait)
+            self._class_waits[s.priority].append(wait)
+        self._emit(s, slot_idx, s.token, s.token_logp, s.token_ver)
 
     def _prefill_tick(self, had_decoders: bool) -> bool:
         """Run prefill chunks: at most ONE while anything is decoding;
@@ -1204,45 +1564,79 @@ class InferenceEngine:
             if had_decoders:
                 return did
 
-    def _emit(self, s: _Slot, slot_idx: int, tok: int, logp: float):
-        """Route one generated token (stamped with ``params_version``);
-        retire the slot when finished."""
+    def _emit(self, s: _Slot, slot_idx: int, tok: int, logp: float,
+              ver: int | None = None):
+        """Route one generated token, stamped with ``ver`` (the version
+        it was computed under; default ``params_version``); retire the
+        slot when finished."""
+        # fault site: 'kill' here dies between two tokens of a stream
+        _faults.check("engine.emit")
         if self._swap_pending_ts is not None:
             # the first token after a swap closes weight_swap_ms's window
             self._last_swap_ms = (time.perf_counter()
                                   - self._swap_pending_ts) * 1e3
             self._swap_pending_ts = None
-        self._out[s.rid].append(TokenEvent(tok, logp, self._params_version))
+        self._out[s.rid].append(TokenEvent(
+            tok, logp, self._params_version if ver is None else ver))
+        s.emitted.append(int(tok))
+        cc = self._class_counter(s.priority)
+        cc["decode_tokens"] += 1
         if self.spec == "ngram":
             s.history.append(tok)
         hit_eos = s.eos_id is not None and tok == s.eos_id
         # pos of the *next* token must still fit in the cache row
         if s.remaining <= 0 or hit_eos or s.pos + 1 >= self.max_len:
             self._done.add(s.rid)
+            cc["completed"] += 1
             self._release(slot_idx)
 
     def step(self) -> bool:
-        """One scheduler tick: admit pending requests into free slots,
-        run at most one prefill chunk if anything is decoding (all
-        pending prefill work otherwise), then one decode step for every
-        resident sequence. Returns True if any device work happened."""
+        """One scheduler tick: admit pending requests into free slots
+        (preempting lower classes under block pressure), run at most one
+        prefill chunk if anything is decoding (all pending prefill work
+        otherwise), then one decode step for every resident sequence.
+        Returns True if any device work happened."""
         with self._lock:
-            had_decoders = any(s.phase == "decode" for s in self._slots)
-            admitted = self._admit_pending()
-            chunked = self._prefill_tick(had_decoders)
-            self._occupancy.append(
-                sum(s.active for s in self._slots) / self.num_slots)
-            decoding = [i for i, s in enumerate(self._slots)
-                        if s.phase == "decode"]
-            if not decoding:
+            t_tick = time.perf_counter()
+            # the watchdog's window: seq first, then the start, cleared
+            # in the finally (a failed tick must not read as stuck)
+            self._tick_seq += 1
+            self._tick_started = t_tick
+            try:
+                # fault site: 'fail' reaches the pumping consumer as
+                # FaultInjected; 'delay' wedges the tick (the watchdog's
+                # case)
+                _faults.check("engine.tick")
+                # fault site: 'fail' preempts the lowest-class active
+                # stream this tick (absorbed: the consumer sees the resume)
+                try:
+                    _faults.check("engine.preempt")
+                except _faults.FaultInjected:
+                    self._force_preempt()
+                had_decoders = any(s.phase == "decode" for s in self._slots)
+                admitted = self._admit_pending()
+                chunked = self._prefill_tick(had_decoders)
+                if had_decoders and (admitted or chunked):
+                    self._max_admission_stall = max(
+                        self._max_admission_stall,
+                        time.perf_counter() - t_tick)
+                self._occupancy.append(
+                    sum(s.active for s in self._slots) / self.num_slots)
+                self._block_util.append(
+                    self._alloc.used / max(self.cache_blocks, 1))
+                decoding = [i for i, s in enumerate(self._slots)
+                            if s.phase == "decode"]
+                if not decoding:
+                    self._sentinel.check()
+                    return admitted or chunked
+                if self.spec is not None:
+                    self._spec_tick(decoding)
+                else:
+                    self._decode_tick(decoding)
                 self._sentinel.check()
-                return admitted or chunked
-            if self.spec is not None:
-                self._spec_tick(decoding)
-            else:
-                self._decode_tick(decoding)
-            self._sentinel.check()
-            return True
+                return True
+            finally:
+                self._tick_started = None
 
     def _batch_arrays(self, field: str = "table"):
         """Per-slot host inputs of a decode or verify step: tokens, pos,
@@ -1448,17 +1842,30 @@ class InferenceEngine:
         for rid in pend_rids + slot_rids:
             assert rid in self._out, f"rid {rid} has no output queue"
             assert rid not in self._done, f"rid {rid} done but scheduled"
-        owners = set(pend_rids) | set(slot_rids) | self._done
+        # After any preempt -> resume -> cancel interleaving a request
+        # lives in one place, and a shed request only in the error queue.
+        for rid in self._errors:
+            assert rid in self._out, f"errored rid {rid} has no queue"
+            assert rid not in set(pend_rids) | set(slot_rids), \
+                f"errored rid {rid} still scheduled"
+        owners = set(pend_rids) | set(slot_rids) | self._done \
+            | set(self._errors)
         for rid in self._out:
             assert rid in owners, f"orphaned output queue for rid {rid}"
+        for q in self._pending:
+            assert 0 <= q.priority < self.priority_classes
+            assert q.max_new_tokens >= 1, \
+                f"rid {q.rid} requeued with no token budget"
 
     def reset_stats(self):
         """Zero the throughput/latency accounting (benches call this after
         warmup), the speculative counters, the ``swaps`` counter and
-        ``weight_swap_ms``. Not reset: ``params_version``, the trace
-        counters, ``retraces_unexpected`` and ``graph_pool_bytes``
-        (identities and counts of the engine's life, not rates) and the
-        kernels' launch counters."""
+        ``weight_swap_ms``, and the pressure counters (sheds, watchdog
+        stalls, preemptions, re-prefilled blocks, aging promotions, the
+        per-class rows, zeroed in place). Not reset: ``params_version``,
+        the trace counters, ``retraces_unexpected`` and
+        ``graph_pool_bytes`` (identities and counts of the engine's life,
+        not rates) and the kernels' launch counters."""
         with self._lock:
             self._swaps = 0
             self._last_swap_ms = 0.0
@@ -1469,17 +1876,33 @@ class InferenceEngine:
             self._prefill_tokens = self._decode_tokens = 0
             self._prefill_time = self._decode_time = 0.0
             self._prefill_chunks = 0
-            self._prefix_hit_tokens = self._cow_copies = 0
+            self._prefix_hit_tokens = self._prompt_tokens = 0
+            self._cow_copies = self._evicted_blocks = 0
             self._cancelled = 0
+            self._max_admission_stall = 0.0
+            self._sheds = self._watchdog_stalls = 0
+            self._preemptions = self._reprefill_blocks = 0
+            self._aging_promotions = 0
             self._step_times = collections.deque(maxlen=512)
             self._occupancy = collections.deque(maxlen=512)
+            self._block_util = collections.deque(maxlen=512)
             self._tok_window = collections.deque(maxlen=512)
             self._queue_waits = collections.deque(maxlen=512)
+            # admitted slots append to _class_waits by class, so the rows
+            # are zeroed, not dropped
+            for cc in self._per_class.values():
+                for k in cc:
+                    cc[k] = 0
+            for w in self._class_waits.values():
+                w.clear()
 
     def stats(self) -> dict:
         """Engine accounting since `reset_stats`:
 
-        ``active`` — occupied slots. ``decode_steps`` (plain and
+        ``slots`` / ``active`` / ``pending`` — slot capacity, occupied
+        slots, queued requests (resumes included); ``queue_depth`` —
+        the queued requests again, the autoscaler's demand signal.
+        ``decode_steps`` (plain and
         speculative ticks), ``prefill_tokens`` / ``decode_tokens`` and
         ``prefill_time_s`` / ``decode_time_s`` (host wall time of each
         device call, ending in its sync; a draft prefill chunk's enqueue
@@ -1488,8 +1911,17 @@ class InferenceEngine:
         512-tick window); ``prefill_chunks``; ``slot_occupancy``;
         ``p50_token_latency_ms`` / ``p99_token_latency_ms`` decode step
         percentiles; ``ttft_ms_p50`` / ``ttft_ms_p99`` submit to first
-        token. Paged cache: ``blocks_in_use``, ``cached_prefix_blocks``,
-        ``prefix_hit_tokens``, ``cow_copies``, ``cancelled``;
+        token, and ``queue_wait_ms_p50`` / ``queue_wait_ms_p99`` the same
+        window under the autoscaler's names (a resumed stream counts
+        once, at its first admission). Paged cache: ``block_size``,
+        ``cache_blocks``, ``blocks_in_use``, ``blocks_free``,
+        ``cached_prefix_blocks``, ``cache_block_utilization`` (the
+        pool's mean utilization a tick), ``prefix_hit_tokens`` and
+        ``prefix_hit_rate`` (over admitted prompt tokens),
+        ``cow_copies``, ``evicted_blocks`` (cached prefixes evicted for
+        an admission), ``cancelled``, ``max_admission_stall_ms`` (the
+        longest admission and prefill work of a tick while anything
+        decoded);
         ``pool_bytes`` (the pool's device bytes, scales and sink rows
         included, fixed at construction) and ``kv_bytes_per_token`` (the
         pool bytes one cached position costs, all layers, K and V, scales
@@ -1514,12 +1946,26 @@ class InferenceEngine:
         with no graph).
         ``kernel_launches`` — each paged-attention kernel wrapper's
         launch counter (process-wide, never reset here): launches made,
-        eager ones and each graph's captured launches once a replay."""
+        eager ones and each graph's captured launches once a replay.
+        Scheduling under pressure: ``sheds`` (requests refused or shed
+        from the queue with `OverloadedError`), ``watchdog_stalls``
+        (ticks the watchdog saw overrun ``watchdog_s``),
+        ``priority_classes``, ``preemptions`` (active streams evicted
+        for a higher class or by the ``engine.preempt`` site),
+        ``reprefill_blocks`` (blocks a resume prefilled again that the
+        radix tree did not cover), ``aging_promotions`` (requests
+        admitted ahead of the stride order by the aging bound) and
+        ``per_class``: by class id (a string), ``submitted``,
+        ``completed``, ``sheds``, ``preemptions`` and ``decode_tokens``
+        since reset, ``pending`` and ``active`` now, and
+        ``queue_wait_ms_p50`` / ``queue_wait_ms_p99`` over the class's
+        last 256 first tokens."""
         with self._lock:
             self._sentinel.check()
             times = sorted(self._step_times)
             waits = sorted(self._queue_waits)
             occ = list(self._occupancy)
+            util = list(self._block_util)
             win_t = sum(dt for dt, _ in self._tok_window)
             win_toks = sum(n for _, n in self._tok_window)
 
@@ -1528,8 +1974,24 @@ class InferenceEngine:
                     return 0.0
                 return xs[min(len(xs) - 1, int(p / 100 * len(xs)))] * 1e3
 
+            pend_by = collections.Counter(q.priority for q in self._pending)
+            act_by = collections.Counter(s.priority for s in self._slots
+                                         if s.active)
+            per_class = {}
+            for c in sorted(set(self._per_class) | set(pend_by)
+                            | set(act_by)):
+                cw = sorted(self._class_waits.get(c, ()))
+                per_class[str(c)] = {
+                    **self._per_class.get(c, {}),
+                    "pending": pend_by.get(c, 0),
+                    "active": act_by.get(c, 0),
+                    "queue_wait_ms_p50": pct(cw, 50),
+                    "queue_wait_ms_p99": pct(cw, 99)}
             return {
+                "slots": self.num_slots,
                 "active": sum(s.active for s in self._slots),
+                "pending": len(self._pending),
+                "queue_depth": len(self._pending),
                 "decode_steps": self._decode_steps,
                 "prefill_tokens": self._prefill_tokens,
                 "decode_tokens": self._decode_tokens,
@@ -1544,12 +2006,24 @@ class InferenceEngine:
                 "p99_token_latency_ms": pct(times, 99),
                 "ttft_ms_p50": pct(waits, 50),
                 "ttft_ms_p99": pct(waits, 99),
+                "queue_wait_ms_p50": pct(waits, 50),
+                "queue_wait_ms_p99": pct(waits, 99),
+                "block_size": self.block_size,
+                "cache_blocks": self.cache_blocks,
                 "blocks_in_use": self._alloc.used,
+                "blocks_free": self._alloc.free,
                 "cached_prefix_blocks": (self._tree.n_blocks()
                                          if self._tree else 0),
+                "cache_block_utilization": (sum(util) / len(util)
+                                            if util else 0.0),
+                "prefix_hit_rate": (
+                    self._prefix_hit_tokens / self._prompt_tokens
+                    if self._prompt_tokens else 0.0),
                 "prefix_hit_tokens": self._prefix_hit_tokens,
                 "cow_copies": self._cow_copies,
+                "evicted_blocks": self._evicted_blocks,
                 "cancelled": self._cancelled,
+                "max_admission_stall_ms": self._max_admission_stall * 1e3,
                 "pool_bytes": self._pool_bytes,
                 "kv_bytes_per_token": self._kv_bytes_per_token,
                 "quantize_traces": self.quantize_traces,
@@ -1573,6 +2047,13 @@ class InferenceEngine:
                 "retraces_unexpected": self._sentinel.retraces_unexpected,
                 "graph_pool_bytes": self._graph_pool_bytes,
                 "kernel_launches": da.kernel_launches(),
+                "sheds": self._sheds,
+                "watchdog_stalls": self._watchdog_stalls,
+                "priority_classes": self.priority_classes,
+                "preemptions": self._preemptions,
+                "reprefill_blocks": self._reprefill_blocks,
+                "aging_promotions": self._aging_promotions,
+                "per_class": per_class,
             }
 
 
@@ -1609,9 +2090,13 @@ class InferenceReplica:
 
     def __call__(self, prompt, max_new_tokens: int = 8,
                  temperature: float = 0.0, priority: int | None = None):
+        # An explicit priority wins; otherwise the class stamped on this
+        # request's context (`serve.priority`).
+        if priority is None:
+            priority = _prio.get_request_priority()
         rid = self.engine.submit(prompt, max_new_tokens=max_new_tokens,
                                  temperature=temperature,
-                                 priority=priority or 0)
+                                 priority=priority)
         return self.engine.tokens_for(rid)
 
     def cancel(self, rid: int) -> bool:

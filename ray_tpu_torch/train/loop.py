@@ -253,7 +253,7 @@ class TrainLoop:
     end of each run. ``checkpointer`` (``maybe_snapshot(state, step)`` +
     ``flush()``) and ``publisher(state, step)`` are optional hooks
     called after each dispatch (fault-tolerant checkpoints and the RL
-    flywheel are ROADMAP A7 and A6)."""
+    flywheel are ROADMAP A4 and A3)."""
 
     def __init__(self, step_fn: Callable, *, unroll: int = 1,
                  metrics_interval: int = 10, metrics_lag: int = 2,

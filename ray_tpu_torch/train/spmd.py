@@ -10,7 +10,7 @@ accumulation as a running f32 mean over microbatches, the GPT loss
 the one-call `make_gpt_trainer` and `train_flops_per_token` (copied as
 it is, so MFU reads the same work in both packages). Meshes, sharding
 rules and the pipeline and MoE trainers wait for multi-rank parallelism
-(ROADMAP A9, A10).
+(ROADMAP A6, A7).
 
 The step updates parameters and optimizer state in place and never
 synchronises with the host: its metrics come back as device tensors.

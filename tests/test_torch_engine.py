@@ -168,8 +168,13 @@ def test_unported_features_refuse(tree):
     with pytest.raises(TypeError, match="bogus"):
         _port(tree, bogus=1)
     eng = _port(tree)
-    with pytest.raises(NotImplementedError, match="priority"):
-        eng.submit([1, 2, 3], priority=1)
+    # priority classes are ported: a class in range is queued, one
+    # outside [0, priority_classes) raises
+    rid = eng.submit([1, 2, 3], priority=1)
+    assert eng.stats()["per_class"]["1"]["pending"] == 1
+    assert eng.cancel(rid)
+    with pytest.raises(ValueError, match=r"priority 3 outside \[0, 3\)"):
+        eng.submit([1, 2, 3], priority=3)
     with pytest.raises(ValueError, match="max_len"):
         eng.submit(np.arange(30), max_new_tokens=8)
     assert torch.equal(eng.cache["k"], torch.zeros_like(eng.cache["k"]))

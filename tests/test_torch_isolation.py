@@ -29,7 +29,9 @@ def test_every_module_imports_without_jax_or_ray_tpu():
     assert {"ray_tpu_torch.serve.engine", "ray_tpu_torch.ops.flash_attention",
             "ray_tpu_torch.ops.fused_xent", "ray_tpu_torch.train.spmd",
             "ray_tpu_torch.train.loop",
-            "ray_tpu_torch.util.telemetry"} <= set(mods)
+            "ray_tpu_torch.util.telemetry", "ray_tpu_torch.util.faults",
+            "ray_tpu_torch.serve.priority",
+            "ray_tpu_torch._private.constants"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -940,3 +940,97 @@ def test_failed_capture_raises(dev, monkeypatch):
         eng.run_until_idle()
     assert eng._capture and eng._steps[("decode", None)].graph is None
     torch.cuda.synchronize()
+
+
+def test_capture_runs_with_the_collector_off(dev, monkeypatch):
+    """Automatic garbage collection is off while a step is captured and
+    on again after: an engine is a reference cycle, and one dropped
+    earlier and collected inside another engine's capture would destroy
+    its graphs there, which invalidates the capture."""
+    import gc
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve import InferenceEngine
+    model, cfg, _ = _capture_model(dev)
+    real, seen = gpt.decode_step_paged, []
+
+    def recording(*a, **k):
+        seen.append((torch.cuda.is_current_stream_capturing(),
+                     gc.isenabled()))
+        return real(*a, **k)
+
+    monkeypatch.setattr(gpt, "decode_step_paged", recording)
+    eng = InferenceEngine(model, cfg, slots=2, max_len=96, block_size=16,
+                          prefill_chunk=32, device=dev)
+    eng.generate(_capture_traffic(cfg.vocab_size)[5][0], max_new_tokens=4)
+    assert seen == [(False, True), (True, False)]   # warm-up, capture
+    assert gc.isenabled() and eng._steps[("decode", None)].graph is not None
+
+
+@pytest.mark.parametrize("spec", ["off", "ngram", "draft"])
+def test_captured_engine_under_preemption_matches_eager(dev, spec):
+    """Scheduling under pressure on CUDA graphs: a pool of 12 blocks for
+    4 slots (class-1 arrivals preempt class-0 streams) and the
+    ``engine.preempt`` site at p 0.2, through an engine whose steps are
+    CUDA graphs and one that runs them eagerly. Greedy tokens identical
+    between the two (logprobs within 1e-5: the same kernels on the same
+    inputs) and to an unpressured eager run on peaked weights; invariants
+    after every tick; after the warm-up and `arm_retrace_sentinel` no
+    step is captured again: every resume's re-prefill lands in a chunk
+    bucket captured before."""
+    import numpy as np
+    from ray_tpu_torch.serve import InferenceEngine
+    from ray_tpu_torch.util import faults
+    model, cfg, _ = _capture_model(dev)
+    reqs = [p for p, _ in _capture_traffic(cfg.vocab_size)]
+    kw = dict(slots=4, max_len=160, block_size=16, prefill_chunk=32,
+              priority_classes=2, device=dev)
+    if spec != "off":
+        kw.update(spec=spec, spec_k=3)
+    if spec == "draft":
+        kw.update(draft_params=model, draft_cfg=cfg)
+    rng = np.random.default_rng(3)
+    warm = [rng.integers(0, cfg.vocab_size, n) for n in (5, 12, 30)]
+
+    def run(capture, pressure):
+        eng = InferenceEngine(model, cfg, **kw,
+                              cache_blocks=12 if pressure else None)
+        eng._capture = capture
+        for p in warm + [reqs[3]]:     # every chunk bucket; a motif
+            eng.generate(p, max_new_tokens=8)
+        eng.arm_retrace_sentinel()
+        eng.reset_stats()
+        if pressure:
+            faults.install(faults.FaultPlan(seed=7).fail(
+                "engine.preempt", p=0.2, times=None))
+        try:
+            rids = [eng.submit(p, max_new_tokens=16, priority=0)
+                    for p in reqs[:3]]
+            for _ in range(3):
+                eng.step()
+                eng.check_invariants()
+            rids += [eng.submit(p, max_new_tokens=16,
+                                priority=int(pressure)) for p in reqs[3:]]
+            while eng.step():
+                eng.check_invariants()
+        finally:
+            faults.clear()
+        outs = [list(eng.tokens_for(r)) for r in rids]
+        eng.check_invariants()
+        torch.cuda.synchronize()
+        return outs, eng.stats()
+
+    (eager, est), (graph, gst) = run(False, True), run(True, True)
+    calm, _ = run(False, False)
+    assert est["preemptions"] == gst["preemptions"] >= 1
+    assert gst["per_class"]["0"]["preemptions"] >= 1
+    for e, g, c in zip(eager, graph, calm):
+        assert len(e) == len(g) == len(c) == 16
+        assert [int(x) for x in g] == [int(x) for x in e] == \
+            [int(x) for x in c]
+        np.testing.assert_allclose([x.logprob for x in g],
+                                   [x.logprob for x in e], atol=1e-5,
+                                   rtol=0)
+    assert gst["retraces_unexpected"] == est["retraces_unexpected"] == 0
+    assert gst["graph_pool_bytes"] > 0 and est["graph_pool_bytes"] == 0
+    if spec != "off":
+        assert gst["spec_steps"] > 0

@@ -332,7 +332,7 @@ def test_unported_and_unknown_knobs_raise(cfgs, tree):
     _, tcfg = cfgs
     batch = _tb(_batch(tcfg.vocab_size))
     model = _model(tree, tcfg)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A6"):
         tfx.fused_softmax_xent(tgpt.forward_features(model, batch["inputs"]),
                                model.embed, batch["targets"], mesh=object())
     with pytest.raises(NotImplementedError, match="A6"):
