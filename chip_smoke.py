@@ -150,7 +150,24 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    the plan, the same fault log on a second run; (c) shedding on
    ``max_queue`` and ``shed_high_water``, the counts the CPU test pins;
    (d) ``watchdog_s`` against a delayed tick; (e) ``engine.alloc``
-   exhaustion preempting exactly twice.
+   exhaustion preempting exactly twice;
+15. disaggregated prefill/decode at phase 2's model and engine geometry:
+   (a) ``bench_infer.py``'s A/B (8 decode streams of 128 + 128 tokens,
+   then 32 prompts of 512 tokens with one new token each, drained by
+   threads that stamp each token) through 2 colocated engines and
+   through a prefill-role + a decode-role engine, all warmed and
+   captured, on peaked weights: client-side TPOT and TTFT p99 per mode,
+   the handoff's blocks, bytes, ``kv_transfer_gbps`` (``bench_infer.py``'s
+   definition) and export/import p50/p99; held to identical tokens,
+   nothing built after the warm-up, invariants, a prefill engine that
+   never decodes, the paged launches of each engine, and one host sync
+   an export (beside one a prefill chunk); the streams at random weights
+   against phase 3's dense f32 check; (b) int8 kv + w, n-gram and a
+   1-layer draft through a prefill/decode pair against a colocated
+   engine of the same backend (identical tokens, verify launches); (c)
+   `PrefillReplica` -> `DecodeReplica` over localhost netaddr (identical
+   tokens, pull p50/p99 and rate, a dead address prefilled locally),
+   both closed.
 
 Before the phases it prints the registers and spilled bytes of every
 tensor-core kernel and of the two split-K decode kernels from nvcc's
@@ -2904,7 +2921,8 @@ def pressure_run(eng, reqs, new: int, late=(), late_class: int = 0,
 
 
 def free_engine(eng):
-    """Drop an engine's device memory (pools, graphs) before the next."""
+    """Drop an engine's device memory (pools, graphs) before the next:
+    ``eng`` (None once the caller dropped its own references)."""
     import gc
     import torch
     del eng
@@ -3219,6 +3237,486 @@ def phase_pressure(dev, smi: str) -> dict:
     return out
 
 
+# Phase 15: disaggregated prefill/decode. (a) bench_infer.py's A/B
+# (bench_infer.py:383-560) at its TPU defaults (bench_infer.py:213-214):
+# slots 8, max_len 1024, block 16, DISAGG_STREAMS decode streams of
+# DISAGG_PROMPT + DISAGG_NEW tokens, then DISAGG_LONG prompts of
+# DISAGG_LONG_PROMPT tokens with max_new_tokens 1; 1 prefill + 1 decode
+# engine against 2 colocated. (b) the backend matrix, (c) the replicas.
+DISAGG_STREAMS, DISAGG_PROMPT, DISAGG_NEW = 8, 128, 128
+DISAGG_LONG, DISAGG_LONG_PROMPT = 32, 512
+# (b) and (c): DISAGG_REQUESTS prompts of DISAGG_PROMPT tokens,
+# DISAGG_SHORT_NEW new tokens each
+DISAGG_REQUESTS, DISAGG_SHORT_NEW = 8, 32
+DISAGG_JOIN_S = 120.0       # the bound on the A/B's threads, all together
+DISAGG_REPEATS = 3          # (a)'s rounds of fresh traffic, both modes each
+
+
+def disagg_engine(dev, models, weights: str, role: str | None = None,
+                  cfg=None, **kw):
+    """An engine at SERVE_CFG (or ``cfg``) on ``models[weights]``, 8
+    slots, max_len 1024, block 16, chunk 64, in ``role``."""
+    from ray_tpu_torch.serve import InferenceEngine
+    if kw.get("spec") == "draft":
+        kw.update(draft_params=models["draft"], draft_cfg=models["draft_cfg"])
+    if role is not None:
+        kw["role"] = role
+    return InferenceEngine(models[weights], cfg or models["cfg"], slots=8,
+                           max_len=1024, block_size=16, prefill_chunk=64,
+                           device=dev, **kw)
+
+
+def warm_pair(pre, dec):
+    """Every chunk bucket captured on a prefill-role engine (through
+    `handoff_for`) and on a decode-role one (imports of those blobs, then
+    `warm_up`'s local requests, which capture its decode step), and a
+    handoff of each of the A/B's prompt lengths, as `bench_infer.py`'s
+    warm-up makes one (their pinned buffers then come from PyTorch's
+    host cache); both sentinels armed."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    for n in WARM_PROMPTS + (DISAGG_PROMPT, DISAGG_LONG_PROMPT):
+        blob = pre.handoff_for(pre.submit(
+            rng.integers(0, pre.cfg.vocab_size, n), max_new_tokens=8))
+        list(dec.tokens_for(dec.import_handoff(blob)))
+    warm_up(dec, spec=dec.spec is not None)
+    pre.arm_retrace_sentinel()
+
+
+def ab_traffic(mode: str, engines, streams, longs, new: int) -> dict:
+    """bench_infer.py's A/B traffic through ``engines``: ``mode``
+    "colocated" spreads the streams and then the long prompts over the
+    engines round-robin; "disagg" (``engines`` = prefill, decode) prefills
+    each stream on the prefill engine (`handoff_for`), imports it and
+    drains it on the decode engine, then hands the long prompts over from
+    threads of their own. Each stream is drained by a thread that stamps
+    every token on arrival: TTFT from its submit, TPOT the gaps between
+    tokens (client side, as bench_infer.py measures). Every thread is
+    joined within DISAGG_JOIN_S."""
+    import threading
+    import numpy as np
+    recs, sink, threads = [None] * len(streams), [], []
+    kv = {"bytes": 0, "blocks": 0, "import_s": 0.0}
+    mu = threading.Lock()
+
+    def drain(e, rid, i, t_submit):
+        toks, gaps, ttft, last = [], [], None, t_submit
+        for tok in e.tokens_for(rid):
+            now = time.perf_counter()
+            if ttft is None:
+                ttft = (now - t_submit) * 1e3
+            else:
+                gaps.append((now - last) * 1e3)
+            last = now
+            toks.append(tok)
+        with mu:
+            if i is None:
+                sink.append(ttft)
+            else:
+                recs[i] = (ttft, gaps, toks)
+
+    def handoff(pre, dec, prompt, n):
+        blob = pre.handoff_for(pre.submit(prompt, max_new_tokens=n))
+        ti = time.perf_counter()
+        drid = dec.import_handoff(blob)
+        with mu:
+            kv["import_s"] += time.perf_counter() - ti
+            kv["bytes"] += blob["kv_bytes"]
+            kv["blocks"] += blob["n_blocks"]
+        return drid
+
+    def long_disagg(pre, dec, prompt, t_submit):
+        drain(dec, handoff(pre, dec, prompt, 1), None, t_submit)
+
+    def start(fn, *args):
+        th = threading.Thread(target=fn, args=args, daemon=True)
+        th.start()
+        threads.append(th)
+
+    t_all = time.perf_counter()
+    for i, p in enumerate(streams):
+        t0 = time.perf_counter()
+        if mode == "colocated":
+            e = engines[i % len(engines)]
+            start(drain, e, e.submit(p, max_new_tokens=new), i, t0)
+        else:
+            start(drain, engines[1], handoff(*engines, p, new), i, t0)
+    time.sleep(0.05)         # let the streams reach steady decode
+    for j, p in enumerate(longs):
+        t0 = time.perf_counter()
+        if mode == "colocated":
+            e = engines[j % len(engines)]
+            start(drain, e, e.submit(p, max_new_tokens=1), None, t0)
+        else:
+            start(long_disagg, *engines, p, t0)
+    deadline = time.perf_counter() + DISAGG_JOIN_S
+    for th in threads:
+        th.join(timeout=max(0.0, deadline - time.perf_counter()))
+    if any(th.is_alive() for th in threads):
+        fail(f"phase 15 {mode}: threads still running after "
+             f"{DISAGG_JOIN_S} s")
+    wall = time.perf_counter() - t_all
+    if any(r is None for r in recs) or len(sink) != len(longs):
+        fail(f"phase 15 {mode}: a drain thread failed")
+    gaps = [g for _, gs, _ in recs for g in gs]
+    out = {"wall_s": wall, "outs": [toks for _, _, toks in recs],
+           "tpot_ms_p99": float(np.percentile(gaps, 99)),
+           "tpot_ms_p50": float(np.percentile(gaps, 50)),
+           "ttft_ms_p99": float(np.percentile([t for t, _, _ in recs], 99)),
+           "long_ttft_ms_p99": (float(np.percentile(sink, 99))
+                                if sink else 0.0)}
+    if mode == "disagg":
+        out.update(kv_blocks_streamed=kv["blocks"], kv_bytes=kv["bytes"],
+                   kv_transfer_gbps=kv["bytes"] / max(kv["import_s"], 1e-9)
+                   / 1e9)
+    return out
+
+
+def handoff_probe(pre, dec) -> dict:
+    """The handoff alone on a warmed pair, DISAGG_REQUESTS requests of
+    each A/B prompt length in turn: each blob is imported and drained
+    before the next export, so every export's pinned buffer comes from
+    PyTorch's host cache (warm). Per length the export's p50/p99 (gather,
+    device-to-host copy, sync) with its rate, and the import's host time.
+    Host syncs are counted around the prefill engine's work: one a
+    prefill chunk plus ONE an export, or it fails."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(151)
+    vocab = pre.cfg.vocab_size
+    out, syncs, chunks, exports = {}, 0, 0, 0
+    for n in (DISAGG_PROMPT, DISAGG_LONG_PROMPT):
+        pre.reset_stats()
+        dec.reset_stats()
+        st0 = pre.stats()
+        for _ in range(DISAGG_REQUESTS):
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    blob = pre.handoff_for(pre.submit(
+                        rng.integers(0, vocab, n), max_new_tokens=2))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            syncs += sum("synchroniz" in str(w.message) for w in caught)
+            list(dec.tokens_for(dec.import_handoff(blob)))
+            del blob
+        ps, ds = pre.stats(), dec.stats()
+        if any(builds(st0, ps).values()):
+            fail(f"(a) probe: built {builds(st0, ps)}")
+        chunks += ps["prefill_chunks"]
+        exports += ps["handoffs"]
+        per = ps["kv_export_bytes"] / ps["handoffs"]
+        out[n] = {"blocks": ps["kv_blocks_exported"] // ps["handoffs"],
+                  "bytes": per,
+                  **{k: ps[k] for k in ("kv_export_ms_p50",
+                                        "kv_export_ms_p99")},
+                  **{k: ds[k] for k in ("kv_import_ms_p50",
+                                        "kv_import_ms_p99")},
+                  "export_gbps_p50": per / ps["kv_export_ms_p50"] / 1e6,
+                  "import_gbps_p50": per / ds["kv_import_ms_p50"] / 1e6}
+    if syncs != chunks + exports:
+        fail(f"phase 15: {syncs} host syncs for {chunks} prefill chunks "
+             f"and {exports} exports (want one each)")
+    out["host_syncs"] = {"syncs": syncs, "prefill_chunks": chunks,
+                         "exports": exports}
+    return out
+
+
+def check_ab_engine(what: str, eng, st0: dict) -> dict:
+    """After an A/B run: invariants, nothing built since ``st0`` and no
+    unexpected retrace; returns the engine's stats."""
+    st = eng.stats()
+    eng.check_invariants()
+    if any(builds(st0, st).values()) or st["retraces_unexpected"]:
+        fail(f"(a) {what}: built {builds(st0, st)}, retraces_unexpected "
+             f"{st['retraces_unexpected']}")
+    return st
+
+
+def disagg_ab(dev, models, smi: str) -> dict:
+    """(a) The A/B on peaked weights: 2 colocated engines and a prefill +
+    a decode engine, all warmed (every step captured, sentinels armed),
+    then DISAGG_REPEATS rounds of fresh traffic, each through both
+    topologies (alternating which goes first), stats and launch counters
+    zeroed around every run: nothing built and no unexpected retrace,
+    invariants after, the prefill engine never decodes, the paged
+    launches of the pair, each stream's greedy tokens identical between
+    the modes; client-side TPOT and TTFT p99 per run, the handoff's
+    bytes, blocks and rates; before the rounds, `handoff_probe` on the
+    pair. Then the first round's streams through a disaggregated pair at
+    random weights, and phase 3's check of two of them against the dense
+    f32 reference."""
+    import numpy as np
+    from ray_tpu_torch import ops
+    vocab, layers = SERVE_CFG["vocab_size"], SERVE_CFG["n_layers"]
+    rng = np.random.default_rng(15)
+    rounds = [([rng.integers(0, vocab, DISAGG_PROMPT).astype(np.int32)
+                for _ in range(DISAGG_STREAMS)],
+               [rng.integers(0, vocab, DISAGG_LONG_PROMPT).astype(np.int32)
+                for _ in range(DISAGG_LONG)])
+              for _ in range(DISAGG_REPEATS)]
+    engines = [disagg_engine(dev, models, "peaked") for _ in range(2)]
+    for e in engines:
+        warm_up(e)
+    pre = disagg_engine(dev, models, "peaked", role="prefill")
+    dec = disagg_engine(dev, models, "peaked", role="decode")
+    warm_pair(pre, dec)
+    probe = handoff_probe(pre, dec)
+    runs = {"colocated": [], "disagg": []}
+    for r, (streams, longs) in enumerate(rounds):
+        for mode in (("colocated", "disagg") if r % 2 == 0
+                     else ("disagg", "colocated")):
+            eng = engines if mode == "colocated" else [pre, dec]
+            for e in eng:
+                e.reset_stats()
+            st0 = [e.stats() for e in eng]
+            ops.reset_kernel_launches()
+            run = ab_traffic(mode, eng, streams, longs, DISAGG_NEW)
+            run["launches"] = ops.kernel_launches()
+            names = (["colocated 0", "colocated 1"] if mode == "colocated"
+                     else ["prefill", "decode"])
+            run["engines"] = {n: check_ab_engine(n, e, s0)
+                              for n, e, s0 in zip(names, eng, st0)}
+            runs[mode].append(run)
+        col, dis = runs["colocated"][-1], runs["disagg"][-1]
+        ps, ds = dis["engines"]["prefill"], dis["engines"]["decode"]
+        if ps["decode_steps"] or ps["decode_traces"] or \
+                ("decode", None) in pre._steps:
+            fail("(a) the prefill-role engine decoded")
+        if not ps["handoffs"] == ds["imports"] == len(streams) + len(longs):
+            fail(f"(a) {ps['handoffs']} exports, {ds['imports']} imports")
+        launches = dis["launches"]
+        want = {"paged_decode_attention": layers * ds["decode_steps"],
+                "paged_prefill_attention": layers * (ps["prefill_chunks"]
+                                                     + ds["prefill_chunks"]),
+                "paged_mq_simt": 0}
+        if {k: launches[k] for k in want} != want \
+                or not launches["paged_decode_attention"]:
+            fail(f"(a) paged launches {launches}, want {want}")
+        if _greedy(dis["outs"]) != _greedy(col["outs"]):
+            fail(f"(a) round {r}, peaked weights: disaggregated tokens "
+                 f"differ from the colocated run's")
+    del e, eng, engines, pre, dec
+    free_engine(None)
+
+    streams = rounds[0][0]
+    pre = disagg_engine(dev, models, "random", role="prefill")
+    dec = disagg_engine(dev, models, "random", role="decode")
+    rnd = ab_traffic("disagg", (pre, dec), streams, [], DISAGG_NEW)
+    pre.check_invariants()
+    dec.check_invariants()
+    tf = phase_teacher_forced(dev, SERVE_CFG, 0,
+                              [(p, 0.0) for p in streams], rnd["outs"])
+    del pre, dec
+    free_engine(None)
+
+    ekeys = ("decode_steps", "prefill_chunks", "p50_token_latency_ms",
+             "p99_token_latency_ms", "max_admission_stall_ms",
+             "kv_export_ms_p50", "kv_export_ms_p99", "kv_import_ms_p50",
+             "kv_import_ms_p99", "kv_blocks_exported", "kv_blocks_imported",
+             "handoffs", "imports")
+    out = {"card": smi, "probe": probe, "teacher_forced": tf,
+           "launches": runs["disagg"][0]["launches"]}
+    for mode, rs in runs.items():
+        out[mode] = [{**{k: v for k, v in r.items()
+                         if k not in ("outs", "engines", "launches")},
+                      "engines": {n: {k: st[k] for k in ekeys}
+                                  for n, st in r["engines"].items()}}
+                     for r in rs]
+    for n, p in probe.items():
+        if n == "host_syncs":
+            continue
+        print(f"  (a) probe [{smi}]: {n}-token prompt, {p['blocks']} blocks "
+              f"({p['bytes'] / 1e6:.1f} MB): export p50 "
+              f"{p['kv_export_ms_p50']:.3f} p99 {p['kv_export_ms_p99']:.3f}"
+              f" ms ({p['export_gbps_p50']:.1f} GB/s), import (host) p50 "
+              f"{p['kv_import_ms_p50']:.3f} p99 {p['kv_import_ms_p99']:.3f}"
+              f" ms ({p['import_gbps_p50']:.1f} GB/s)")
+    print(f"  (a) probe: {probe['host_syncs']} (one a chunk, one an "
+          f"export)")
+    for r in range(DISAGG_REPEATS):
+        for mode in ("colocated", "disagg"):
+            x = runs[mode][r]
+            steps = "; ".join(
+                f"{n} step p50/p99 {st['p50_token_latency_ms']:.3f}/"
+                f"{st['p99_token_latency_ms']:.3f} ms"
+                for n, st in x["engines"].items() if st["decode_steps"])
+            extra = ""
+            if mode == "disagg":
+                ps, ds = x["engines"]["prefill"], x["engines"]["decode"]
+                extra = (f"; {x['kv_blocks_streamed']} blocks, "
+                         f"{x['kv_bytes'] / 1e6:.1f} MB, kv_transfer_gbps "
+                         f"{x['kv_transfer_gbps']:.2f} (bytes over "
+                         f"import_handoff's wall); export p50 "
+                         f"{ps['kv_export_ms_p50']:.3f} p99 "
+                         f"{ps['kv_export_ms_p99']:.3f} ms, import p50 "
+                         f"{ds['kv_import_ms_p50']:.3f} p99 "
+                         f"{ds['kv_import_ms_p99']:.3f} ms")
+            print(f"  (a) round {r} {mode:9s} [{smi}]: {x['wall_s']:.2f} s,"
+                  f" client TPOT p50 {x['tpot_ms_p50']:.3f} p99 "
+                  f"{x['tpot_ms_p99']:.3f} ms, TTFT p99 "
+                  f"{x['ttft_ms_p99']:.3f} ms, long-prompt TTFT p99 "
+                  f"{x['long_ttft_ms_p99']:.3f} ms; {steps}{extra}")
+    print(f"  (a) launches of round 0's pair "
+          f"{ {k: n for k, n in out['launches'].items() if n} }; peaked "
+          f"tokens identical to colocated in every round; random weights: "
+          f"phase 3's check passed")
+    return out
+
+
+def disagg_backends(dev, models, smi: str) -> dict:
+    """(b) int8 kv + w, ``spec="ngram"`` and ``spec="draft"`` (a 1-layer
+    draft), each through a prefill/decode pair on peaked weights against
+    a colocated engine of the same backend: identical tokens, the prefill
+    engine never decodes, invariants, the decode engine's paged launches
+    counted from zero around the pair's run (the verify caller on the
+    spec engines)."""
+    import dataclasses
+    from ray_tpu_torch import ops
+    vocab, layers = SERVE_CFG["vocab_size"], SERVE_CFG["n_layers"]
+    prompts = [p for p, _ in spec_traffic(vocab, DISAGG_REQUESTS, seed=15)]
+    int8 = dataclasses.replace(models["cfg"], kv_dtype="int8",
+                               weight_dtype="int8")
+    out = {}
+    for which, cfg, kw in (("int8", int8, {}),
+                           ("ngram", None, dict(spec="ngram", spec_k=SPEC_K)),
+                           ("draft", None, dict(spec="draft", spec_k=SPEC_K))):
+        col = disagg_engine(dev, models, "peaked", cfg=cfg, **kw)
+        rids = [col.submit(p, max_new_tokens=DISAGG_SHORT_NEW)
+                for p in prompts]
+        col.run_until_idle()
+        want = _greedy([list(col.tokens_for(r)) for r in rids])
+        del col
+        free_engine(None)
+        pre = disagg_engine(dev, models, "peaked", "prefill", cfg, **kw)
+        dec = disagg_engine(dev, models, "peaked", "decode", cfg, **kw)
+        ops.reset_kernel_launches()
+        rids = [dec.import_handoff(pre.handoff_for(
+            pre.submit(p, max_new_tokens=DISAGG_SHORT_NEW)))
+            for p in prompts]
+        dec.run_until_idle()
+        got = _greedy([list(dec.tokens_for(r)) for r in rids])
+        launches = ops.kernel_launches()
+        ps, ds = pre.stats(), dec.stats()
+        pre.check_invariants()
+        dec.check_invariants()
+        if got != want:
+            fail(f"(b) {which}: disaggregated tokens differ from colocated")
+        if ps["decode_steps"] or ds["imports"] != len(prompts):
+            fail(f"(b) {which}: prefill decode_steps {ps['decode_steps']}, "
+                 f"imports {ds['imports']}")
+        verify = launches["paged_verify_attention"]
+        if "spec" in kw and (ds["spec_steps"] <= 0 or verify != layers * (
+                ds["spec_steps"] + ds["verify_traces"])):
+            fail(f"(b) {which}: {verify} verify launches for "
+                 f"{ds['spec_steps']} spec ticks")
+        if which == "int8" and (launches["paged_decode_int8"] !=
+                                launches["paged_decode_attention"] or
+                                not launches["paged_mq_tc_int8"]):
+            fail(f"(b) int8: launches {launches}")
+        out[which] = {"launches": launches, "verify_launches": verify,
+                      "spec_steps": ds["spec_steps"],
+                      "kv_blocks_exported": ps["kv_blocks_exported"],
+                      "kv_export_bytes": ps["kv_export_bytes"],
+                      "kv_export_ms_p50": ps["kv_export_ms_p50"],
+                      "kv_import_ms_p50": ds["kv_import_ms_p50"]}
+        print(f"  (b) {which:5s} [{smi}]: {len(prompts)} streams identical "
+              f"to colocated; {ps['kv_blocks_exported']} blocks exported "
+              f"({ps['kv_export_bytes'] / 1e6:.1f} MB); spec ticks "
+              f"{ds['spec_steps']}, verify launches {verify}")
+        del pre, dec
+        free_engine(None)
+    return out
+
+
+def disagg_transport(dev, models, smi: str) -> dict:
+    """(c) `PrefillReplica` -> `DecodeReplica` over localhost netaddr on
+    the card, both on peaked weights (`update_params`): the descriptors'
+    streams identical to a colocated replica's; the pulls' p50/p99 and
+    rate; a descriptor to a dead address prefilled locally, identical and
+    counted; both replicas closed."""
+    import numpy as np
+    from ray_tpu_torch.serve import (DecodeReplica, InferenceReplica,
+                                     PrefillReplica)
+    vocab = SERVE_CFG["vocab_size"]
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, vocab, DISAGG_PROMPT).astype(np.int32)
+               for _ in range(DISAGG_REQUESTS)]
+    kw = dict(slots=8, max_len=1024, seed=0, device=dev,
+              engine_kwargs=dict(block_size=16, prefill_chunk=64))
+    # listeners bind 0.0.0.0 and advertise this host's loopback address
+    node_ip = os.environ.get("RAY_TPU_NODE_IP")
+    os.environ["RAY_TPU_NODE_IP"] = "127.0.0.1"
+    pre = dec = None
+    try:
+        pre = PrefillReplica(SERVE_CFG, **kw)
+        dec = DecodeReplica(SERVE_CFG, **kw)
+        local = InferenceReplica(SERVE_CFG, **kw)
+        for eng in (pre.engine, dec.engine, local.engine):
+            eng.update_params(models["peaked"])
+        want = [_greedy([list(local(p, max_new_tokens=DISAGG_SHORT_NEW))])[0]
+                for p in prompts]
+        descs = [pre(p, max_new_tokens=DISAGG_SHORT_NEW) for p in prompts]
+        got = [_greedy([list(dec(d))])[0] for d in descs]
+        st = dec.stats()
+        if got != want or st["imports"] != len(prompts) \
+                or st["handoff_fallbacks"]:
+            fail(f"(c) pulled streams differ from colocated (imports "
+                 f"{st['imports']}, fallbacks {st['handoff_fallbacks']})")
+        # a pull's frames land in one pinned buffer that the import
+        # copies from directly (the blob's kv_host)
+        blob = dec._pull_blob(pre(prompts[1], max_new_tokens=DISAGG_SHORT_NEW))
+        if not blob["kv_host"].is_pinned() or _greedy([list(
+                dec.engine.tokens_for(dec.engine.import_handoff(blob)))])[0] \
+                != want[1]:
+            fail("(c) a pulled blob's pinned kv_host import")
+        dead = dict(descs[0], handoff_addr="127.0.0.1:9")
+        if _greedy([list(dec(dead))])[0] != want[0] or \
+                dec.stats()["handoff_fallbacks"] != 1:
+            fail("(c) the dead-address fallback")
+        pre.engine.check_invariants()
+        dec.engine.check_invariants()
+        out = {k: st[k] for k in ("handoff_pull_ms_p50",
+                                  "handoff_pull_ms_p99", "kv_transfer_gbps",
+                                  "kv_pulled_bytes", "kv_import_ms_p50")}
+        out["kv_export_ms_p50"] = pre.stats()["kv_export_ms_p50"]
+        print(f"  (c) [{smi}]: {len(prompts)} descriptors pulled over "
+              f"localhost, streams identical to colocated; pull p50 "
+              f"{st['handoff_pull_ms_p50']:.3f} p99 "
+              f"{st['handoff_pull_ms_p99']:.3f} ms, kv_transfer_gbps "
+              f"{st['kv_transfer_gbps']:.2f} ({st['kv_pulled_bytes'] / 1e6:.1f}"
+              f" MB); dead address: local prefill, identical, 1 fallback")
+    finally:
+        for r in (pre, dec):
+            if r is not None:
+                r.close()
+        if node_ip is None:
+            os.environ.pop("RAY_TPU_NODE_IP", None)
+        else:
+            os.environ["RAY_TPU_NODE_IP"] = node_ip
+    if pre._accept_thread.is_alive():
+        fail("(c) the block server's accept thread outlived close()")
+    return out
+
+
+def phase_disagg(dev, smi: str) -> dict:
+    """Phase 15: disaggregated prefill/decode, (a) to (c), each part's
+    time recorded."""
+    import torch
+    models = pressure_models(dev)
+    out, part_s = {}, {}
+    for part, fn in (("ab", disagg_ab), ("backends", disagg_backends),
+                     ("transport", disagg_transport)):
+        t0 = time.perf_counter()
+        out[part] = fn(dev, models, smi)
+        part_s[part] = time.perf_counter() - t0
+    out["part_s"] = part_s
+    del models
+    torch.cuda.empty_cache()
+    return out
+
+
 def _readable_kernel(mangled: str):
     """A readable name for an instantiation of a tensor-core kernel or of
     a split-K decode kernel (``flash_dq_tc_kernel<64, true>``,
@@ -3418,10 +3916,13 @@ def main() -> int:
                     "engines", phase_capture, dev)
     pressure = phase(14, "scheduling under pressure (preemption, shedding, "
                      "watchdog, fault sites)", phase_pressure, dev, smi)
+    disagg = phase(15, "disaggregated prefill/decode (bench_infer.py's A/B, "
+                   "backends, the replicas over netaddr)", phase_disagg, dev,
+                   smi)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
                   flash=flash, train=train, xent=xent, fused_train=fused,
                   unpaged=unpaged, c1=c1, int8=int8, spec=spec,
-                  capture=capture, pressure=pressure)
+                  capture=capture, pressure=pressure, disagg=disagg)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3448,6 +3949,18 @@ def main() -> int:
             fail(f"{name} was not launched on phase 14's path")
     if pressure_verify <= 0:
         fail("paged_verify_attention was not launched on phase 14's path")
+    # phase 15's own paths, each counted from zero around its run: (a)'s
+    # disaggregated pair (prefill on the prefill-role engine, decode on
+    # the decode-role one) and (b)'s n-gram and draft decode-role engines
+    # (verify)
+    disagg_launches = disagg["ab"]["launches"]
+    disagg_verify = sum(disagg["backends"][w]["verify_launches"]
+                        for w in ("ngram", "draft"))
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        if disagg_launches[name] <= 0:
+            fail(f"{name} was not launched on phase 15's path")
+    if disagg_verify <= 0:
+        fail("paged_verify_attention was not launched on phase 15's path")
     for key, wrapper, replaces, rec, launches, src in (
             ("paged_decode", "paged_decode_attention",
              "ray_tpu/ops/decode_attention.py:282", kern["paged_decode"],
@@ -3513,7 +4026,8 @@ def main() -> int:
             if key == "paged_decode":
                 rows[-1]["launches_by_path"] = {
                     "phase 2": launches[wrapper],
-                    "phase 14 (a)": pressure_launches[wrapper]}
+                    "phase 14 (a)": pressure_launches[wrapper],
+                    "phase 15 (a)": disagg_launches[wrapper]}
             if key == "decode":
                 rows[-1]["contexts"] = {
                     k: rec["contexts"][k] for k in (
@@ -3540,7 +4054,8 @@ def main() -> int:
                                 for w in ("ngram", "draft")},
                             launches_by_path={
                                 "phase 12 (b)": launches[wrapper],
-                                "phase 14 (b)": pressure_verify})
+                                "phase 14 (b)": pressure_verify,
+                                "phase 15 (b)": disagg_verify})
         elif key == "paged_prefill":
             # bf16: the tensor-core split-K kernel, one launch per call
             rows[-1].update(kernels=["paged_mq_tc_kernel"],
@@ -3550,7 +4065,8 @@ def main() -> int:
                             split=rec["split"], ptxas=rec["ptxas"],
                             launches_by_path={
                                 "phase 2": launches[wrapper],
-                                "phase 14 (a)": pressure_launches[wrapper]},
+                                "phase 14 (a)": pressure_launches[wrapper],
+                                "phase 15 (a)": disagg_launches[wrapper]},
                             reprefill_launches=pressure["block"][
                                 "reprefill_launches"])
         elif key == "fused_xent_fwd":

@@ -1,23 +1,10 @@
 """The port's tunables, copied from `ray_tpu/_private/constants.py` (the
-port imports nothing of `ray_tpu`). Each is read once at import and
-overridable by the same environment variable the reference's `define`
-reads, ``RAY_TPU_<NAME>``."""
+port imports nothing of `ray_tpu`). Each is defined through
+`ray_tpu_torch._private.config.define`: read once at import and
+overridable by the same environment variable the reference reads,
+``RAY_TPU_<NAME>``."""
 
-import os
-
-
-def define(name: str, type_: type, default, doc: str):
-    """The option's value: ``RAY_TPU_<name>`` parsed as ``type_`` when
-    set, else ``default``. ``doc`` documents it where it is defined."""
-    raw = os.environ.get("RAY_TPU_" + name)
-    if raw is None:
-        return default
-    try:
-        return type_(raw)
-    except ValueError:
-        raise ValueError(f"invalid value {raw!r} for RAY_TPU_{name} "
-                         f"(expected {type_.__name__})") from None
-
+from ray_tpu_torch._private.config import define
 
 # --- multi-tenant inference: priority classes + preemption ---
 
@@ -42,3 +29,11 @@ ENGINE_PRIORITY_WEIGHT_BASE = define(
     "admission share of the class below while every backlogged class "
     "keeps a nonzero guaranteed share (no starvation even before "
     "aging kicks in).")
+
+# --- channels (netaddr): addressing ---
+
+NODE_IP = define(
+    "NODE_IP", str, "",
+    "Advertised IP of this machine for cross-host dials; empty = "
+    "autodetect via the outbound interface (reference: "
+    "node_ip_address detection, services.py:1353).")

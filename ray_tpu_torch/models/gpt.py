@@ -653,13 +653,82 @@ def init_kv_pool(cfg: GPTConfig, n_blocks: int, block_size: int,
     return pool
 
 
+# A pool's block-indexed entries: payloads, then an int8 pool's scales.
+# Its "<name>_rows" entries view the same storage and never travel.
+POOL_ENTRIES = ("k", "v", "k_scale", "v_scale")
+
+
+def pool_entries(cache: dict) -> list[str]:
+    """The block-indexed entries of ``cache`` (`POOL_ENTRIES` present)."""
+    return [name for name in POOL_ENTRIES if name in cache]
+
+
 def copy_block(cache: dict, src: int, dst: int) -> dict:
     """Copy physical block ``src`` onto ``dst`` in every entry of the
     pool (an int8 pool's scales with their payload), in place — the
     device half of copy-on-write prefix sharing."""
-    for name, blocks in cache.items():
-        if not name.endswith("_rows"):
-            blocks[:, dst].copy_(blocks[:, src])
+    for name in pool_entries(cache):
+        cache[name][:, dst].copy_(cache[name][:, src])
+    return cache
+
+
+def gather_block(cache: dict, idx: int) -> dict:
+    """Read physical block ``idx`` out of every entry of the pool, the
+    device half of KV-block export for disaggregated prefill/decode
+    serving: ``{name: [L, block_size, H, Dh]}`` payload rows (and
+    ``[L, block_size, H]`` scale rows for an int8 pool: scales travel
+    with their payload, as in `copy_block`), copies that outlive later
+    writes to the pool."""
+    return {name: cache[name][:, int(idx)].clone()
+            for name in pool_entries(cache)}
+
+
+def scatter_block(cache: dict, block: dict, idx: int) -> dict:
+    """Write one exported block's rows (the dict `gather_block` returned)
+    onto physical block ``idx`` of this pool, in place: payload and scale
+    entries land through the same index, so an int8 pool's rows
+    re-install byte-identical. Returns ``cache``."""
+    for name in pool_entries(cache):
+        cache[name][:, int(idx)].copy_(block[name])
+    return cache
+
+
+def _block_index(idx, device) -> torch.Tensor:
+    """Block ids (a sequence of ints or an integer tensor) as an int64
+    tensor on ``device``: a host list goes up without a host sync."""
+    if isinstance(idx, torch.Tensor):
+        return idx.to(device=device, dtype=torch.long)
+    return torch.tensor(list(idx), dtype=torch.long).to(device,
+                                                        non_blocking=True)
+
+
+def gather_blocks(cache: dict, idx, out: dict | None = None) -> dict:
+    """The batched `gather_block`: blocks ``idx`` of every entry in ONE
+    indexed copy per entry, block-major ``{name: [n, L, block_size, H,
+    Dh]}`` (scales ``[n, L, block_size, H]``), so ``result[name][j]`` is
+    `gather_block`'s ``[name]`` for ``idx[j]``. ``out`` (optional) holds
+    the destination tensors, of those shapes and the pool's dtypes."""
+    device = cache["k"].device
+    ix = _block_index(idx, device)
+    got = {}
+    for name in pool_entries(cache):
+        src = cache[name].transpose(0, 1)
+        if out is None:
+            got[name] = src.index_select(0, ix)
+        else:
+            got[name] = torch.index_select(src, 0, ix, out=out[name])
+    return got
+
+
+def scatter_blocks(cache: dict, blocks: dict, idx) -> dict:
+    """The batched `scatter_block`: ``blocks`` (block-major, as
+    `gather_blocks` returns them) onto physical blocks ``idx`` of every
+    entry, in ONE indexed copy per entry, in place: the pool keeps its
+    storage, so a CUDA graph that reads it by address sees the rows.
+    Returns ``cache``."""
+    ix = _block_index(idx, cache["k"].device)
+    for name in pool_entries(cache):
+        cache[name].transpose(0, 1).index_copy_(0, ix, blocks[name])
     return cache
 
 

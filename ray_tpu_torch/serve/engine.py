@@ -51,6 +51,23 @@ Dh]``) and ragged traffic streamed through it via int32 block tables.
   class first. ``watchdog_s`` counts ticks that overrun it. The fault
   sites ``engine.tick``, ``engine.preempt``, ``engine.alloc`` and
   ``engine.emit`` consult `ray_tpu_torch.util.faults`.
+- **disaggregated prefill/decode** (``role="prefill"|"decode"``): a
+  prefill-role engine runs chunked prefill only and holds the prompt's
+  blocks alone; when a prompt completes, its first token is sampled and
+  its written blocks (payload and any int8 scale rows) are gathered to
+  host in one indexed copy per pool entry into a pinned buffer, with one
+  host sync (`models.gpt.gather_blocks`), and parked as a handoff blob
+  (`handoff_for`, `take_handoff`). A decode-role engine (a colocated
+  engine that also imports) takes the blob with `import_handoff`:
+  prompt blocks the radix tree already holds under the same
+  ``params_version`` are shared, the rest go to the device from pinned
+  memory (the blob's own ``kv_host`` buffer, which an export and a
+  `disagg.DecodeReplica` pull both fill, else one staging buffer) and
+  are scattered into the pool IN PLACE
+  (`models.gpt.scatter_blocks`: the captured steps read the pool by
+  address), and the stream continues at the parked first token, greedy
+  token-identical to a colocated engine. `ray_tpu_torch.serve.disagg`
+  moves blobs between the two over netaddr.
 
 Compile-once steps, the counterpart of the reference's jitted steps:
 the decode tick (`models.gpt.decode_step_paged` + sampling), the
@@ -84,12 +101,13 @@ matches the JAX engine token for token, sampled decoding only in
 distribution (JAX's threefry bits are not reproducible here).
 
 Not ported yet, and refused with `NotImplementedError` when asked for
-(ROADMAP queue A): disaggregated prefill/decode handoff (``role=``, so
-no ``kv_gather``/``kv_scatter`` watches and none of `stats`'s
-``handoffs``/``imports``/``kv_*`` keys), the flight recorder
-(``telemetry_sample``), and device meshes. The weight swap has no watch
-(nor ``swap_traces``): `InferenceEngine.update_params` copies in place,
-with nothing to build.
+(ROADMAP queue A): the flight recorder (``telemetry_sample``, and with
+it the recorder's handoff hooks) and device meshes. The weight swap has
+no watch (nor ``swap_traces``): `InferenceEngine.update_params` copies
+in place, with nothing to build. The block gather and scatter build
+nothing either; ``kv_gather_traces``/``kv_scatter_traces`` count their
+first use per pool geometry, as the reference's jits trace once per
+geometry.
 """
 
 from __future__ import annotations
@@ -97,6 +115,7 @@ from __future__ import annotations
 import collections
 import gc
 import logging
+import math
 import threading
 import time
 import weakref
@@ -589,7 +608,62 @@ def _pool_bytes(pool) -> int:
 
 # Engine kwargs of ray_tpu's InferenceEngine that this port does not
 # implement yet, with the value that means "off". Anything else raises.
-_NOT_PORTED = {"mesh": None, "telemetry_sample": None, "role": "colocated"}
+_NOT_PORTED = {"mesh": None, "telemetry_sample": None}
+
+# Host carriers of pool dtypes in a handoff blob: numpy has no bfloat16,
+# so bf16 rows travel as their uint16 bit patterns and the blob names the
+# logical dtype (the reference's ml_dtypes arrays print as "bfloat16").
+_CARRIERS = {torch.float32: (np.float32, "float32"),
+             torch.float16: (np.float16, "float16"),
+             torch.bfloat16: (np.uint16, "bfloat16"),
+             torch.int8: (np.int8, "int8")}
+
+
+def _block_layout(pools) -> tuple[list, int]:
+    """The byte layout of ``pools`` (``[(pool, n_blocks)]``) in one flat
+    buffer, block-major per entry: ``[(pool index, name, dtype, shape,
+    offset, nbytes)]`` and the total, each entry 16-byte aligned."""
+    layout, total = [], 0
+    for i, (cache, n) in enumerate(pools):
+        for name in gpt.pool_entries(cache):
+            t = cache[name]
+            shape = (n, t.shape[0]) + tuple(t.shape[2:])
+            nbytes = math.prod(shape) * t.element_size()
+            layout.append((i, name, t.dtype, shape, total, nbytes))
+            total += -(-nbytes // 16) * 16
+    return layout, total
+
+
+def _fill_blocks(buf, layout, rows):
+    """Copy each entry's per-block ``rows`` (carrier arrays, as
+    `_block_layout`'s ``layout`` orders them) into the flat host buffer
+    ``buf`` at the entry's offset."""
+    for (_, _, dt, shape, off, nb), entry in zip(layout, rows):
+        dst = buf[off:off + nb].view(_CARRIERS[dt][0]).reshape(shape)
+        for j, a in enumerate(entry):
+            dst[j] = a
+
+
+def _host_views(host, layout, n_pools) -> list[dict]:
+    """Per pool, ``{name: [n, L, bs, ...]}`` numpy views of the flat host
+    buffer ``host`` laid out by `_block_layout`, in the entries' host
+    carriers (`_CARRIERS`: bf16 as uint16)."""
+    buf = host.numpy()
+    out = [{} for _ in range(n_pools)]
+    for i, name, dt, shape, off, nb in layout:
+        out[i][name] = buf[off:off + nb].view(
+            _CARRIERS[dt][0]).reshape(shape)
+    return out
+
+
+def _as_carrier(arr, carrier):
+    """A blob array as its entry's host carrier dtype: bf16 rows arrive
+    as uint16 (the port's blobs) or as ml_dtypes bfloat16 (the
+    reference's), both read as their 2-byte bit patterns."""
+    arr = np.asarray(arr)
+    if arr.dtype == carrier:
+        return arr
+    return arr.view(carrier)
 
 
 def _watchdog_loop(ref, budget: float):
@@ -647,7 +721,14 @@ class InferenceEngine:
     bound. ``max_queue`` and ``shed_high_water`` (a fraction of the pool,
     projected over the queue) shed overload; ``watchdog_s`` starts a
     thread that counts ticks overrunning it. All three are off by
-    default."""
+    default.
+
+    ``role`` splits serving across engines: ``"prefill"`` runs chunked
+    prefill only (a slot holds the prompt's blocks; each completed
+    prompt's KV becomes a handoff blob, `handoff_for`), ``"decode"`` is
+    a colocated engine that also imports blobs (`import_handoff`), and
+    ``"colocated"`` (the default) serves whole requests. Any engine but a
+    prefill-role one imports."""
 
     def __init__(self, model: gpt.GPT, cfg: gpt.GPTConfig, *,
                  slots: int = 4, max_len: int | None = None,
@@ -664,7 +745,7 @@ class InferenceEngine:
                  priority_classes: int | None = None,
                  priority_aging_s: float | None = None,
                  priority_weight_base: float | None = None,
-                 device=None, **not_ported):
+                 role: str = "colocated", device=None, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"InferenceEngine got an unexpected "
@@ -673,6 +754,9 @@ class InferenceEngine:
                 raise NotImplementedError(
                     f"InferenceEngine({name}=...) is not ported yet "
                     "(ROADMAP queue A)")
+        if role not in ("colocated", "prefill", "decode"):
+            raise ValueError(f"unknown engine role {role!r}")
+        self.role = role
         if spec not in (None, "ngram", "draft"):
             raise ValueError(f"unknown spec backend {spec!r}")
         if spec is not None and spec_k < 1:
@@ -803,6 +887,16 @@ class InferenceEngine:
                                  registered=True)
         self._sentinel.watch("prefill", lambda: self.prefill_traces,
                              registered=True)
+        # The handoff's block gather and scatter: first use per pool
+        # geometry (target and a draft pool of other shapes), the
+        # reference's jit traces.
+        self.kv_gather_traces = self.kv_scatter_traces = 0
+        self._kv_geometries = {"gather": set(), "scatter": set()}
+        for kind in ("gather", "scatter"):
+            self._sentinel.watch(
+                "kv_" + kind,
+                lambda kind=kind: getattr(self, f"kv_{kind}_traces"),
+                cap=2 if spec == "draft" else 1, registered=True)
 
         self._slots = [_Slot() for _ in range(slots)]
         self._pending: collections.deque[_Pending] = collections.deque()
@@ -818,6 +912,18 @@ class InferenceEngine:
         self._lock = threading.RLock()
         self._params_version = 0
         self._swap_pending_ts = None
+
+        # Disaggregated handoff. Export side (role "prefill"): rid -> the
+        # host blob parked when the prompt's prefill completes, until
+        # `handoff_for`/`take_handoff` collects it. Import side (any other
+        # role): FIFO of (rid, blob) waiting for a slot, mirrored by
+        # `_import_rids`; and (event, host memory) per import whose
+        # host-to-device copies the stream may not have run yet: the
+        # memory stays referenced until its event has passed.
+        self._handoffs: dict[int, dict] = {}
+        self._imports: collections.deque = collections.deque()
+        self._import_rids: set[int] = set()
+        self._h2d_inflight: collections.deque = collections.deque()
 
         # Priority classes: stride pass values per backlogged class, and
         # per-class counters and queue waits (made at a class's first use;
@@ -881,6 +987,15 @@ class InferenceEngine:
         highest = p - 1 + max(max_new - 1, 0)
         return highest // self.block_size + 1
 
+    def _slot_blocks_for(self, p: int, max_new: int) -> int:
+        """Blocks THIS engine holds for a request: a prefill-role engine
+        never decodes, so its slot writes the prompt's positions only
+        before the handoff; every other role holds the whole footprint
+        (`_blocks_for`)."""
+        if self.role == "prefill":
+            return (p - 1) // self.block_size + 1
+        return self._blocks_for(p, max_new)
+
     def _shed_verdict(self, n_blocks: int) -> str | None:
         """Overload decision for one admission of ``n_blocks`` footprint,
         under the lock: None admits, else the reason. The high-water mark
@@ -892,7 +1007,8 @@ class InferenceEngine:
             return (f"queue full ({len(self._pending)} >= "
                     f"max_queue {self.max_queue})")
         if self.shed_high_water is not None:
-            queued = sum(self._blocks_for(q.prompt.size, q.max_new_tokens)
+            queued = sum(self._slot_blocks_for(q.prompt.size,
+                                               q.max_new_tokens)
                          for q in self._pending)
             projected = (self._alloc.used + queued + n_blocks) \
                 / max(self.cache_blocks, 1)
@@ -925,7 +1041,7 @@ class InferenceEngine:
             raise ValueError(
                 f"prompt {prompt.size} + max_new_tokens {max_new_tokens} "
                 f"exceeds cache max_len {self.max_len}")
-        need = self._blocks_for(prompt.size, max_new_tokens)
+        need = self._slot_blocks_for(prompt.size, max_new_tokens)
         if need > self.cache_blocks:
             raise ValueError(f"request footprint {need} blocks exceeds "
                              f"cache blocks {self.cache_blocks}")
@@ -995,9 +1111,10 @@ class InferenceEngine:
     def cancel(self, rid: int) -> bool:
         """Abort a request wherever it is — pending (a preempted stream's
         queued resume included), mid-prefill, decoding, finished but
-        undrained, or shed with its error undelivered — releasing its
-        blocks and output queue. Idempotent; returns True if anything
-        was released."""
+        undrained, shed with its error undelivered, exported and parked
+        but not collected (``handoffs_abandoned``), or an import queued
+        for a slot — releasing its blocks and output queue. Idempotent;
+        returns True if anything was released."""
         with self._lock:
             hit = False
             for i, req in enumerate(self._pending):
@@ -1010,6 +1127,18 @@ class InferenceEngine:
                     self._release(i)
                     hit = True
                     break
+            if self._handoffs.pop(rid, None) is not None:
+                # exported but never collected: the device blocks were
+                # freed at export, so only the host blob goes
+                self._handoffs_abandoned += 1
+                hit = True
+            if rid in self._import_rids:
+                self._import_rids.discard(rid)
+                for i, (irid, _) in enumerate(self._imports):
+                    if irid == rid:
+                        del self._imports[i]
+                        break
+                hit = True
             hit |= self._out.pop(rid, None) is not None
             hit |= self._errors.pop(rid, None) is not None
             self._done.discard(rid)
@@ -1055,6 +1184,424 @@ class InferenceEngine:
     def generate(self, prompt, **kw) -> list[int]:
         """Blocking convenience: submit + drain one request."""
         return list(self.tokens_for(self.submit(prompt, **kw)))
+
+    # ------------------------------------------------------------------
+    # disaggregated prefill/decode handoff
+    # ------------------------------------------------------------------
+
+    def _kv_first_use(self, kind: str, cache: dict):
+        """Count the first ``kind`` ("gather" or "scatter") on this pool
+        geometry under ``kv_<kind>_traces``."""
+        geom = tuple((n, tuple(cache[n].shape), cache[n].dtype)
+                     for n in gpt.pool_entries(cache))
+        if geom not in self._kv_geometries[kind]:
+            self._kv_geometries[kind].add(geom)
+            name = f"kv_{kind}_traces"
+            setattr(self, name, getattr(self, name) + 1)
+
+    def _handoff_pools(self, n_blocks: int, draft: bool) -> list:
+        """``[(pool, n_blocks)]`` of a handoff: the target pool's, then
+        the draft pool's when ``draft`` and this engine has one."""
+        pools = [(self.cache, n_blocks)]
+        if draft and self._draft_alloc is not None:
+            pools.append((self.draft_cache, n_blocks))
+        return pools
+
+    def handoff_buffer(self, n_blocks: int, draft: bool = False):
+        """Host memory for ``n_blocks`` blocks of a handoff, laid out as
+        an export lays out its blocks (`_block_layout`, the target pool's
+        entries, then the draft pool's when ``draft`` and this engine has
+        one): ``(host, views, dtypes)``, the flat uint8 tensor (pinned on
+        the card) a blob carries as ``kv_host``, per payload (``"payload"``,
+        ``"draft_payload"``) ``{name: [n_blocks, L, bs, ...]}`` numpy views
+        of it in the entries' host carriers, and ``{name: logical dtype}``
+        per payload as a blob's ``dtypes`` names them. An export fills
+        one; `disagg.DecodeReplica` receives a pulled blob's frames into
+        one, so either imports with one copy an entry."""
+        pools = self._handoff_pools(n_blocks, draft)
+        layout, total = _block_layout(pools)
+        host = torch.empty(total, dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        which = ("payload", "draft_payload")
+        views = dict(zip(which, _host_views(host, layout, len(pools))))
+        dtypes = {w: {name: _CARRIERS[cache[name].dtype][1]
+                      for name in gpt.pool_entries(cache)}
+                  for w, (cache, _) in zip(which, pools)}
+        return host, views, dtypes
+
+    def _blocks_to_host(self, slot) -> tuple:
+        """The written blocks of ``slot`` (and its draft blocks) on the
+        host: ONE indexed copy per entry into one device buffer
+        (`models.gpt.gather_blocks`), then on the card ONE copy of it into
+        a pinned `handoff_buffer`, the export's one host sync. Returns
+        that buffer's ``(host, views, dtypes)``. The copy is synchronous,
+        so a blob that only goes over the wire carries no stream use, and
+        whichever thread drops its last view (a block server's) frees it
+        without a CUDA call."""
+        n = (slot.prompt.size - 1) // self.block_size + 1
+        ids = [slot.blocks, slot.draft_blocks]
+        pools = self._handoff_pools(n, True)
+        layout, total = _block_layout(pools)
+        host, views, dtypes = self.handoff_buffer(n, True)
+        flat = host
+        if self.device.type == "cuda":
+            flat = torch.empty(total, dtype=torch.uint8, device=self.device)
+        for i, (cache, _) in enumerate(pools):
+            self._kv_first_use("gather", cache)
+            gpt.gather_blocks(cache, ids[i][:n], out={
+                name: flat[off:off + nb].view(dt).view(shape)
+                for j, name, dt, shape, off, nb in layout if j == i})
+        if flat is not host:
+            host.copy_(flat)
+        return host, views, dtypes
+
+    def _blocks_to_device(self, pools, host=None):
+        """Host blocks into the pools, in place: for each ``(pool, blocks,
+        first, ids)`` of ``pools``, ``blocks[first + j]`` (a blob's
+        ``{name: rows}``) onto physical block ``ids[j]``, through one
+        device buffer that lands with ONE indexed copy per entry
+        (`models.gpt.scatter_blocks`), all on the stream the steps run on.
+        ``host``, a blob's ``kv_host``, holds every block of ``pools``
+        laid out as `handoff_buffer` lays them out: each entry's rows then
+        reach the device buffer in ONE asynchronous copy straight from
+        it. Without one (the reference's blobs, or arrays rebuilt by
+        hand) the rows are staged: gathered on the host into one pinned
+        buffer per import and sent in ONE copy. The source memory stays
+        referenced, beside an event recorded after its copies, until the
+        stream has run them (`_h2d_inflight`): no copy in flight reads
+        freed or refilled memory, and nothing here waits for the
+        device."""
+        layout, total = _block_layout([(c, len(ids))
+                                       for c, _, _, ids in pools])
+        if total == 0:
+            return
+        cuda = self.device.type == "cuda"
+        flat = torch.empty(total, dtype=torch.uint8, device=self.device)
+        if host is not None:
+            src, _ = _block_layout([(c, len(b)) for c, b, _, _ in pools])
+            for (i, _, _, _, off, nb), (_, _, _, _, soff, snb) in zip(
+                    layout, src):
+                start = soff + pools[i][2] * (snb // len(pools[i][1]))
+                flat[off:off + nb].copy_(host[start:start + nb],
+                                         non_blocking=cuda)
+            keep = host
+        else:
+            keep = torch.empty(total, dtype=torch.uint8, pin_memory=cuda)
+            _fill_blocks(keep.numpy(), layout, [
+                [_as_carrier(blk[name], _CARRIERS[dt][0])
+                 for blk in pools[i][1][pools[i][2]:]]
+                for i, name, dt, _, _, _ in layout])
+            flat.copy_(keep, non_blocking=cuda)
+        if cuda:
+            while self._h2d_inflight and self._h2d_inflight[0][0].query():
+                self._h2d_inflight.popleft()
+            done = torch.cuda.Event()
+            done.record()
+            self._h2d_inflight.append((done, keep))
+        for i, (cache, _, _, ids) in enumerate(pools):
+            if ids:
+                self._kv_first_use("scatter", cache)
+                gpt.scatter_blocks(cache, {
+                    name: flat[off:off + nb].view(dt).view(shape)
+                    for j, name, dt, shape, off, nb in layout if j == i},
+                    ids)
+
+    def _export_handoff(self, slot_idx: int):
+        """Prefill-role endgame of one slot (under the lock, from
+        `_run_prefill_chunk` the tick its prompt completes): every written
+        block, payload and any int8 scale rows (and the draft pool's),
+        goes to host (`_blocks_to_host`, one host sync), the blob is
+        parked for collection and the slot is freed. The blob carries
+        what a decode-role `import_handoff` needs to continue the stream
+        token-identically: the parked first token with its logprob and
+        version (sampled from the final prefill chunk here, so the decode
+        engine never prefills again), the sampling state and the weight
+        version the K/V was computed under. Its per-block arrays are views
+        of the one host buffer, which it carries as ``kv_host``;
+        ``dtypes`` names each entry's logical dtype."""
+        s = self._slots[slot_idx]
+        n_written = (s.prompt.size - 1) // self.block_size + 1
+        t0 = time.perf_counter()
+        host, views, dtypes = self._blocks_to_host(s)
+        kv_bytes = sum(int(a.nbytes) for v in views.values()
+                       for a in v.values())
+        dt = time.perf_counter() - t0
+        payloads = {w: [{name: a[j] for name, a in v.items()}
+                        for j in range(n_written)]
+                    for w, v in views.items()}
+        self._handoffs[s.rid] = {
+            "rid": s.rid,
+            "prompt": s.prompt,
+            "token": int(s.token),
+            "token_logp": float(s.token_logp),
+            "token_ver": int(s.token_ver),
+            "max_new_tokens": int(s.remaining),
+            "temperature": float(s.temperature),
+            "eos_id": s.eos_id,
+            "priority": int(s.priority),
+            "params_version": int(self._params_version),
+            "block_size": self.block_size,
+            "n_blocks": n_written,
+            "payload": payloads["payload"],
+            "draft_payload": payloads.get("draft_payload"),
+            "kv_bytes": kv_bytes,
+            "dtypes": {"payload": dtypes["payload"],
+                       "draft_payload": dtypes.get("draft_payload")},
+            "kv_host": host,
+        }
+        self._handoffs_exported += 1
+        self._kv_blocks_exported += n_written * len(views)
+        self._kv_export_bytes += kv_bytes
+        self._kv_export_s.append(dt)
+        # No token consumer on a prefill engine: its output queue goes
+        # now and the slot's blocks are released (the prompt's full
+        # blocks live on in the radix tree for shared-prefix admissions).
+        self._out.pop(s.rid, None)
+        self._done.discard(s.rid)
+        self._release(slot_idx)
+
+    def handoff_for(self, rid: int) -> dict:
+        """Pump the scheduler until ``rid``'s prefill completes, then pop
+        and return its handoff blob: the prefill-role counterpart of
+        draining `tokens_for`. Raises the parked error of a request shed
+        from the queue, KeyError for an unknown or cancelled rid."""
+        if self.role != "prefill":
+            raise RuntimeError(
+                "handoff_for is only available on a prefill-role "
+                f"engine (this engine is {self.role!r})")
+        while True:
+            with self._lock:
+                blob = self._handoffs.pop(rid, None)
+                if blob is not None:
+                    return blob
+                err = self._errors.pop(rid, None)
+                if err is not None:
+                    self._out.pop(rid, None)
+                    self._done.discard(rid)
+                    raise err
+                if rid not in self._out:
+                    raise KeyError(f"unknown or cancelled handoff rid {rid}")
+                # one tick per lock hold, as in tokens_for
+                self.step()
+
+    def take_handoff(self, rid: int) -> dict | None:
+        """Non-blocking collect: pop ``rid``'s parked blob if its prefill
+        already completed, else None."""
+        with self._lock:
+            return self._handoffs.pop(rid, None)
+
+    def _check_payload(self, blocks, cache: dict, what: str):
+        """Each block of a blob's ``what`` payload holds the pool's
+        entries with one block's rows, in a dtype its carrier reads."""
+        names = gpt.pool_entries(cache)
+        for j, blk in enumerate(blocks):
+            if sorted(blk) != sorted(names):
+                raise ValueError(f"handoff {what} block {j} has entries "
+                                 f"{sorted(blk)}, the pool {sorted(names)}")
+            for name in names:
+                t, arr = cache[name], np.asarray(blk[name])
+                rows = (t.shape[0],) + tuple(t.shape[2:])
+                carrier = _CARRIERS[t.dtype][0]
+                if arr.shape != rows or not (
+                        arr.dtype == carrier
+                        or (t.dtype == torch.bfloat16
+                            and arr.dtype.name == "bfloat16")):
+                    raise ValueError(
+                        f"handoff {what} block {j} {name} is "
+                        f"{arr.shape}/{arr.dtype}, the pool's rows are "
+                        f"{rows}/{t.dtype}")
+
+    def import_handoff(self, blob: dict) -> int:
+        """Adopt a prefill-role engine's handoff blob: queue its KV blocks
+        for scatter into this pool and its stream for a decode slot.
+        Returns a fresh LOCAL rid for `tokens_for`: the stream picks up
+        at the first generated token (sampled by the prefill engine and
+        delivered from here), greedy token-identical to a colocated run
+        of the same prompt. The blob's arrays may be the port's (bf16 as
+        uint16) or the reference's (ml_dtypes bfloat16), numpy either
+        way. A blob's ``kv_host`` (see `handoff_buffer`), when present,
+        holds the bytes of its payloads and is what gets imported."""
+        if self.role == "prefill":
+            raise RuntimeError(
+                "a prefill-role engine cannot import handoffs")
+        prompt = np.asarray(blob["prompt"], np.int32).reshape(-1)
+        p = prompt.size
+        max_new = int(blob["max_new_tokens"])
+        if int(blob["block_size"]) != self.block_size:
+            raise ValueError(
+                f"handoff block_size {blob['block_size']} != engine "
+                f"block_size {self.block_size} — prefill and decode "
+                f"pools must share the paging granule")
+        n_written = (p - 1) // self.block_size + 1
+        if len(blob["payload"]) != n_written:
+            raise ValueError(
+                f"handoff payload has {len(blob['payload'])} blocks, "
+                f"expected {n_written} for a {p}-token prompt")
+        if p + max_new > self.max_len:
+            raise ValueError(
+                f"handoff prompt {p} + max_new_tokens {max_new} "
+                f"exceeds cache max_len {self.max_len}")
+        if self._blocks_for(p, max_new) > self.cache_blocks:
+            raise ValueError(
+                f"handoff footprint {self._blocks_for(p, max_new)} "
+                f"blocks exceeds cache blocks {self.cache_blocks}")
+        self._check_payload(blob["payload"], self.cache, "payload")
+        if self._draft_alloc is not None:
+            if blob.get("draft_payload") is None:
+                raise ValueError(
+                    "draft-spec engine needs the handoff's draft-pool "
+                    "blocks (prefill engine must run the same spec)")
+            if self._blocks_for(p, max_new) > self.draft_cache_blocks:
+                raise ValueError(
+                    "handoff footprint exceeds draft cache blocks "
+                    f"{self.draft_cache_blocks}")
+            if len(blob["draft_payload"]) != n_written:
+                raise ValueError(
+                    f"handoff draft payload has "
+                    f"{len(blob['draft_payload'])} blocks, expected "
+                    f"{n_written} for a {p}-token prompt")
+            self._check_payload(blob["draft_payload"], self.draft_cache,
+                                "draft payload")
+        host = blob.get("kv_host")
+        if host is not None:
+            need = _block_layout(self._handoff_pools(n_written, True))[1]
+            if not (isinstance(host, torch.Tensor)
+                    and host.dtype == torch.uint8 and host.dim() == 1
+                    and host.device.type == "cpu" and host.numel() >= need):
+                raise ValueError(
+                    f"handoff kv_host must be a flat uint8 host tensor of "
+                    f">= {need} bytes laid out by handoff_buffer")
+        priority = int(blob.get("priority", 0))
+        if not 0 <= priority < self.priority_classes:
+            raise ValueError(
+                f"handoff priority {priority} outside "
+                f"[0, {self.priority_classes})")
+        with self._lock:
+            rid = self._rid
+            self._rid += 1
+            self._out[rid] = collections.deque()
+            self._imports.append((rid, blob))
+            self._import_rids.add(rid)
+            self._class_counter(priority)["submitted"] += 1
+        return rid
+
+    def _admit_imports(self) -> bool:
+        """Move queued imports into free slots (FIFO), ahead of pending
+        admissions: an import's prefill is already paid for on another
+        engine. Under block pressure an import preempts strictly
+        lower-class active streams, as `_admit_or_preempt` does."""
+        did = False
+        while self._imports:
+            rid, blob = self._imports[0]
+            free = next((i for i, s in enumerate(self._slots)
+                         if s.phase == "idle"), None)
+            if free is None:
+                break
+            if not self._try_import(free, rid, blob):
+                victim = self._pick_victim(int(blob.get("priority", 0)))
+                if victim is None:
+                    break
+                self._preempt(victim, "import-pressure")
+                continue
+            self._imports.popleft()
+            self._import_rids.discard(rid)
+            did = True
+        return did
+
+    def _try_import(self, slot_idx: int, rid: int, blob: dict) -> bool:
+        """Install one handoff into a slot: share the radix tree's full
+        prompt blocks by reference (same ``params_version`` only: blocks
+        of other weights would splice stale context in), scatter the rest
+        of the transferred blocks into fresh ones (`_blocks_to_device`)
+        and a fresh draft-pool footprint, and enter the decode phase at
+        the parked first token. No copy-on-write: a match that ends
+        mid-block re-scatters that block from the payload. Returns False,
+        leaving the import queued, when the pool cannot supply the
+        footprint even after eviction."""
+        bs = self.block_size
+        prompt = np.asarray(blob["prompt"], np.int32).reshape(-1)
+        p = prompt.size
+        max_new = int(blob["max_new_tokens"])
+        total = self._blocks_for(p, max_new)
+        payload = blob["payload"]
+        n_written = len(payload)
+        try:
+            _faults.check("engine.alloc")
+        except _faults.FaultInjected:
+            return False
+        if self._draft_alloc is not None and self._draft_alloc.free < total:
+            return False
+        same_version = int(blob["params_version"]) == self._params_version
+        blocks, matched = ([], 0)
+        if self._tree is not None and same_version:
+            blocks, matched = self._tree.match(prompt)
+        n_full = min(matched // bs, n_written)
+        for b in blocks[:n_full]:
+            self._alloc.ref(b)
+        fresh_needed = total - n_full
+        if self._alloc.free < fresh_needed and self._tree is not None:
+            self._evicted_blocks += self._tree.evict(
+                fresh_needed - self._alloc.free)
+        if self._alloc.free < fresh_needed:
+            for b in blocks[:n_full]:
+                self._alloc.decref(b)
+            return False
+        fresh = [self._alloc.alloc() for _ in range(fresh_needed)]
+        slot_blocks = blocks[:n_full] + fresh
+        t0 = time.perf_counter()
+        pools = [(self.cache, payload, n_full,
+                  slot_blocks[n_full:n_written])]
+        dblocks = []
+        if self._draft_alloc is not None:
+            dblocks = [self._draft_alloc.alloc() for _ in range(total)]
+            pools.append((self.draft_cache, blob["draft_payload"], 0,
+                          dblocks[:n_written]))
+        self._blocks_to_device(pools, blob.get("kv_host"))
+        scattered = sum(len(ids) for _, _, _, ids in pools)
+        table = np.zeros((self.max_blocks,), np.int32)
+        table[:len(slot_blocks)] = slot_blocks
+        s = self._slots[slot_idx]
+        s.rid, s.phase = rid, "decode"
+        s.prompt, s.filled = prompt, p
+        s.blocks, s.table = slot_blocks, table
+        s.order = self._admit_seq
+        self._admit_seq += 1
+        s.temperature, s.eos_id = float(blob["temperature"]), blob["eos_id"]
+        s.remaining = max_new - 1
+        s.pos = p
+        s.token, s.token_logp = int(blob["token"]), float(blob["token_logp"])
+        s.token_ver = int(blob["token_ver"])
+        s.submit_ts = time.perf_counter()
+        s.priority = int(blob.get("priority", 0))
+        # resumed: the prefill engine counted this stream's TTFT
+        s.resumed = True
+        s.emitted = []
+        s.history = prompt.tolist() if self.spec == "ngram" else []
+        if dblocks:
+            s.draft_blocks = dblocks
+            s.draft_table = np.zeros((self.max_blocks,), np.int32)
+            s.draft_table[:total] = dblocks
+            s.draft_filled = p
+        # Version trust: a same-version import's prompt blocks are as
+        # publishable as a local prefill's; a cross-version one's never
+        # are (its K/V predates the current weights), nor on preemption.
+        if same_version:
+            s.version = self._params_version
+            if self._tree is not None and p >= bs:
+                self._tree.insert(prompt, slot_blocks)
+        else:
+            s.version = self._params_version - 1
+        self._imports_completed += 1
+        self._kv_blocks_imported += scattered
+        self._kv_import_bytes += int(blob.get("kv_bytes", 0))
+        self._kv_import_s.append(time.perf_counter() - t0)
+        self._prefix_hit_tokens += n_full * bs
+        self._prompt_tokens += p
+        # The parked first token goes out through the normal emit path
+        # with the logprob and version the prefill engine computed; a
+        # max_new_tokens=1 request retires right here.
+        self._emit(s, slot_idx, s.token, s.token_logp, s.token_ver)
+        return True
 
     # ------------------------------------------------------------------
     # weights: the hot swap
@@ -1152,7 +1699,7 @@ class InferenceEngine:
         evicting zero-ref cached prefixes."""
         bs = self.block_size
         p = req.prompt.size
-        total = self._blocks_for(p, req.max_new_tokens)
+        total = self._slot_blocks_for(p, req.max_new_tokens)
         # fault site: 'fail' reads as allocator exhaustion, the admission
         # refused as if the pool had no free blocks (it drives the
         # preemption path and never reaches the consumer)
@@ -1538,15 +2085,21 @@ class InferenceEngine:
         if self._tree is not None and s.prompt.size >= self.block_size \
                 and s.version == self._params_version:
             self._tree.insert(s.prompt, s.blocks)
-        s.phase = "decode"
-        s.pos = s.prompt.size
-        s.remaining -= 1
         if not s.resumed:
-            # a resumed stream delivered its first token before it was
-            # preempted
+            # TTFT closes at the first token (a resumed stream delivered
+            # its own before it was preempted; on a prefill-role engine
+            # the decode side never counts it again)
             wait = time.perf_counter() - s.submit_ts
             self._queue_waits.append(wait)
             self._class_waits[s.priority].append(wait)
+        if self.role == "prefill":
+            # the handoff: the written blocks go to host and the slot
+            # frees; nothing decodes on this engine
+            self._export_handoff(slot_idx)
+            return
+        s.phase = "decode"
+        s.pos = s.prompt.size
+        s.remaining -= 1
         self._emit(s, slot_idx, s.token, s.token_logp, s.token_ver)
 
     def _prefill_tick(self, had_decoders: bool) -> bool:
@@ -1591,8 +2144,9 @@ class InferenceEngine:
             self._release(slot_idx)
 
     def step(self) -> bool:
-        """One scheduler tick: admit pending requests into free slots
-        (preempting lower classes under block pressure), run at most one
+        """One scheduler tick: admit queued imports, then pending requests,
+        into free slots (preempting lower classes under block pressure),
+        run at most one
         prefill chunk if anything is decoding (all pending prefill work
         otherwise), then one decode step for every resident sequence.
         Returns True if any device work happened."""
@@ -1614,7 +2168,8 @@ class InferenceEngine:
                 except _faults.FaultInjected:
                     self._force_preempt()
                 had_decoders = any(s.phase == "decode" for s in self._slots)
-                admitted = self._admit_pending()
+                imported = self._admit_imports()
+                admitted = self._admit_pending() or imported
                 chunked = self._prefill_tick(had_decoders)
                 if had_decoders and (admitted or chunked):
                     self._max_admission_stall = max(
@@ -1776,10 +2331,12 @@ class InferenceEngine:
         self._tok_window.append((dt, emitted))
 
     def run_until_idle(self):
-        """Drive the scheduler until every submitted request finished."""
+        """Drive the scheduler until every submitted request (and every
+        queued import) finished."""
         while True:
             with self._lock:
-                if not (self._pending or any(s.active for s in self._slots)):
+                if not (self._pending or self._imports
+                        or any(s.active for s in self._slots)):
                     return
                 self.step()
 
@@ -1790,7 +2347,8 @@ class InferenceEngine:
     def check_invariants(self):
         """Allocator/tree/slot cross-checks: every allocated block is
         accounted for by exactly its holders, and every request lives in
-        exactly one place with an output queue. An int8 pool's scale
+        exactly one place with an output queue (a queued import in the
+        import queue, a parked handoff nowhere but there). An int8 pool's scale
         arrays must match their payload's rows (one f32 scale per
         (position, head) row, the sink row included); they share the
         payload's block axis, so block refcounts cover them too. A draft
@@ -1848,8 +2406,25 @@ class InferenceEngine:
             assert rid in self._out, f"errored rid {rid} has no queue"
             assert rid not in set(pend_rids) | set(slot_rids), \
                 f"errored rid {rid} still scheduled"
+        # Disaggregation registries: a queued import owns an output queue
+        # and is scheduled nowhere else yet; a parked handoff's slot and
+        # queue went at export, so its rid appears nowhere else.
+        import_rids = {irid for irid, _ in self._imports}
+        assert import_rids == self._import_rids, \
+            f"import registry drift: {import_rids} != {self._import_rids}"
+        assert not import_rids & (set(pend_rids) | set(slot_rids)), \
+            "import rid also pending/active"
+        for irid in import_rids:
+            assert irid in self._out, f"import rid {irid} has no queue"
+        handoff_rids = set(self._handoffs)
+        assert not handoff_rids & (set(pend_rids) | set(slot_rids)
+                                   | import_rids), \
+            "handoff rid still scheduled"
+        for hrid in handoff_rids:
+            assert hrid not in self._out, \
+                f"handoff rid {hrid} still owns an output queue"
         owners = set(pend_rids) | set(slot_rids) | self._done \
-            | set(self._errors)
+            | set(self._errors) | import_rids
         for rid in self._out:
             assert rid in owners, f"orphaned output queue for rid {rid}"
         for q in self._pending:
@@ -1862,8 +2437,9 @@ class InferenceEngine:
         warmup), the speculative counters, the ``swaps`` counter and
         ``weight_swap_ms``, and the pressure counters (sheds, watchdog
         stalls, preemptions, re-prefilled blocks, aging promotions, the
-        per-class rows, zeroed in place). Not reset: ``params_version``,
-        the trace counters, ``retraces_unexpected`` and
+        per-class rows, zeroed in place) and the handoff counters and
+        windows. Not reset: ``params_version``, the trace counters (the
+        block gather's and scatter's among them), ``retraces_unexpected`` and
         ``graph_pool_bytes`` (identities and counts of the engine's life,
         not rates) and the kernels' launch counters."""
         with self._lock:
@@ -1883,6 +2459,12 @@ class InferenceEngine:
             self._sheds = self._watchdog_stalls = 0
             self._preemptions = self._reprefill_blocks = 0
             self._aging_promotions = 0
+            self._handoffs_exported = self._imports_completed = 0
+            self._handoffs_abandoned = 0
+            self._kv_blocks_exported = self._kv_blocks_imported = 0
+            self._kv_export_bytes = self._kv_import_bytes = 0
+            self._kv_export_s = collections.deque(maxlen=256)
+            self._kv_import_s = collections.deque(maxlen=256)
             self._step_times = collections.deque(maxlen=512)
             self._occupancy = collections.deque(maxlen=512)
             self._block_util = collections.deque(maxlen=512)
@@ -1901,7 +2483,8 @@ class InferenceEngine:
 
         ``slots`` / ``active`` / ``pending`` — slot capacity, occupied
         slots, queued requests (resumes included); ``queue_depth`` —
-        the queued requests again, the autoscaler's demand signal.
+        the queued requests and queued imports, the autoscaler's demand
+        signal.
         ``decode_steps`` (plain and
         speculative ticks), ``prefill_tokens`` / ``decode_tokens`` and
         ``prefill_time_s`` / ``decode_time_s`` (host wall time of each
@@ -1959,7 +2542,23 @@ class InferenceEngine:
         ``completed``, ``sheds``, ``preemptions`` and ``decode_tokens``
         since reset, ``pending`` and ``active`` now, and
         ``queue_wait_ms_p50`` / ``queue_wait_ms_p99`` over the class's
-        last 256 first tokens."""
+        last 256 first tokens.
+        Disaggregation: ``role``; ``handoffs`` (blobs exported),
+        ``imports`` (blobs installed in a slot), ``handoffs_abandoned``
+        (parked blobs cancelled before collection), ``handoffs_pending``
+        (blobs parked now), ``imports_queued`` (imports waiting for a
+        slot now); ``kv_blocks_exported`` / ``kv_blocks_imported`` —
+        blocks gathered to host / scattered into this engine's pools
+        (shared prefix blocks are not scattered), ``kv_export_bytes`` /
+        ``kv_import_bytes`` the host bytes (payload and int8 scales);
+        ``kv_export_ms_p50`` / ``_p99`` the gather and its device-to-host
+        copy to the sync, ``kv_import_ms_p50`` / ``_p99`` the staging and
+        the queued copy and scatter (host time, not waited for), over
+        the last 256 handoffs; ``kv_gather_traces`` /
+        ``kv_scatter_traces`` — the first gather and scatter on each pool
+        geometry (target, and a draft pool of other shapes): the port
+        builds nothing for them, so these are the reference's traces
+        counted by use, held to their caps by the sentinel."""
         with self._lock:
             self._sentinel.check()
             times = sorted(self._step_times)
@@ -1968,6 +2567,8 @@ class InferenceEngine:
             util = list(self._block_util)
             win_t = sum(dt for dt, _ in self._tok_window)
             win_toks = sum(n for _, n in self._tok_window)
+            xms = sorted(self._kv_export_s)
+            ims = sorted(self._kv_import_s)
 
             def pct(xs, p):
                 if not xs:
@@ -1991,7 +2592,7 @@ class InferenceEngine:
                 "slots": self.num_slots,
                 "active": sum(s.active for s in self._slots),
                 "pending": len(self._pending),
-                "queue_depth": len(self._pending),
+                "queue_depth": len(self._pending) + len(self._imports),
                 "decode_steps": self._decode_steps,
                 "prefill_tokens": self._prefill_tokens,
                 "decode_tokens": self._decode_tokens,
@@ -2054,6 +2655,22 @@ class InferenceEngine:
                 "reprefill_blocks": self._reprefill_blocks,
                 "aging_promotions": self._aging_promotions,
                 "per_class": per_class,
+                "role": self.role,
+                "handoffs": self._handoffs_exported,
+                "imports": self._imports_completed,
+                "handoffs_abandoned": self._handoffs_abandoned,
+                "handoffs_pending": len(self._handoffs),
+                "imports_queued": len(self._imports),
+                "kv_blocks_exported": self._kv_blocks_exported,
+                "kv_blocks_imported": self._kv_blocks_imported,
+                "kv_export_bytes": self._kv_export_bytes,
+                "kv_import_bytes": self._kv_import_bytes,
+                "kv_export_ms_p50": pct(xms, 50),
+                "kv_export_ms_p99": pct(xms, 99),
+                "kv_import_ms_p50": pct(ims, 50),
+                "kv_import_ms_p99": pct(ims, 99),
+                "kv_gather_traces": self.kv_gather_traces,
+                "kv_scatter_traces": self.kv_scatter_traces,
             }
 
 

@@ -18,12 +18,14 @@ strings that production code consults at its fault points via
     higher-class requests exactly where real block pressure would)
   * ``engine.preempt`` — per scheduler tick (fail = force-preempt the
     lowest-class active stream this tick, real pressure or not)
+  * ``netaddr.send`` / ``netaddr.recv`` — channel messages (wrapped onto
+    every `ray_tpu_torch._private.netaddr.client()` connection while a
+    plan with those sites is active; the disaggregated serving path's
+    KV-block pulls ride them)
 
-The reference's other sites (``replica.health_ping``,
-``controller.health_ping``, and ``netaddr.send`` / ``netaddr.recv``
-with the connection wrapper that consults them, and the ``drop`` action
-only they take) belong to its serve control plane, which the port does
-not have yet (ROADMAP A5).
+The reference's ``replica.health_ping`` and ``controller.health_ping``
+sites belong to its serve control plane, which the port does not have
+yet (ROADMAP A5).
 
 Determinism: each site carries a visit counter and, for probabilistic
 specs, its own `random.Random` seeded from `(plan.seed, site)` — so a
@@ -45,7 +47,7 @@ from ray_tpu_torch.exceptions import RayTpuError
 
 __all__ = [
     "FaultInjected", "FaultPlan", "install", "clear", "active",
-    "check", "fired",
+    "check", "fired", "maybe_wrap_connection",
 ]
 
 
@@ -64,7 +66,7 @@ class _Spec:
     def __init__(self, site: str, action: str, at: int = 0,
                  times: int | None = 1, p: float | None = None,
                  delay_s: float = 0.0):
-        if action not in ("fail", "delay", "kill"):
+        if action not in ("fail", "delay", "drop", "kill"):
             raise ValueError(f"unknown fault action {action!r}")
         self.site = site
         self.action = action
@@ -94,7 +96,7 @@ class FaultPlan:
 
         plan = (FaultPlan(seed=7)
                 .kill("engine.emit", at=20)
-                .delay("engine.tick", delay_s=0.3, p=0.5))
+                .delay("netaddr.send", delay_s=0.3, p=0.5))
     """
 
     def __init__(self, seed: int = 0):
@@ -116,6 +118,12 @@ class FaultPlan:
         """Sleep delay_s at the site before proceeding."""
         return self._add(site, "delay", at=at, times=times, p=p,
                          delay_s=delay_s)
+
+    def drop(self, site: str, at: int = 0, times: int | None = 1,
+             p: float | None = None) -> "FaultPlan":
+        """Silently discard the message at the site (netaddr sites;
+        elsewhere it reads as a no-op skip)."""
+        return self._add(site, "drop", at=at, times=times, p=p)
 
     def kill(self, site: str, at: int = 0, times: int | None = 1,
              p: float | None = None) -> "FaultPlan":
@@ -188,8 +196,8 @@ def fired() -> list[tuple[str, int, str]]:
 def check(site: str) -> str | None:
     """Consult the active plan at a fault point. Counts one visit of
     `site`; if a spec fires: 'fail' raises FaultInjected, 'delay' sleeps
-    then returns, 'kill' exits the process. Returns None when nothing
-    fired."""
+    then returns, 'kill' exits the process, 'drop' returns "drop" (the
+    caller discards its message). Returns None when nothing fired."""
     st = _active
     if st is None:
         return None
@@ -221,3 +229,59 @@ def check(site: str) -> str | None:
     if verdict == "kill":
         os._exit(1)
     return verdict
+
+
+class _FaultyConnection:
+    """Proxy over a `multiprocessing.connection.Connection` consulting
+    `<label>.send` / `<label>.recv` per message. Drop on send discards
+    the payload; drop on recv reads and discards, then keeps waiting —
+    both present to the peer exactly as a lost message does."""
+
+    def __init__(self, conn, label: str):
+        self._conn = conn
+        self._site_send = label + ".send"
+        self._site_recv = label + ".recv"
+
+    def send(self, obj):
+        if check(self._site_send) != "drop":
+            self._conn.send(obj)
+
+    def send_bytes(self, buf, *a, **kw):
+        if check(self._site_send) != "drop":
+            self._conn.send_bytes(buf, *a, **kw)
+
+    def recv(self):
+        while True:
+            obj = self._conn.recv()
+            if check(self._site_recv) != "drop":
+                return obj
+
+    def recv_bytes(self, *a, **kw):
+        while True:
+            buf = self._conn.recv_bytes(*a, **kw)
+            if check(self._site_recv) != "drop":
+                return buf
+
+    def recv_bytes_into(self, buf, *a, **kw):
+        while True:
+            n = self._conn.recv_bytes_into(buf, *a, **kw)
+            if check(self._site_recv) != "drop":
+                return n
+
+    def __getattr__(self, name):
+        # fileno/poll/close/closed/... delegate untouched
+        return getattr(self._conn, name)
+
+
+def maybe_wrap_connection(conn, label: str):
+    """Wrap `conn` when the active plan declares `<label>.*` sites;
+    otherwise hand it back untouched (the common, zero-overhead case).
+    Wrapping is decided at connection time — install the plan before
+    dialing."""
+    st = _active
+    if st is None:
+        return conn
+    prefix = label + "."
+    if any(site.startswith(prefix) for site in st.plan.sites()):
+        return _FaultyConnection(conn, label)
+    return conn

@@ -25,7 +25,7 @@ logger = logging.getLogger(__name__)
 # The compile-once paths of the port's serving engine (its trace
 # counters, without the ``_traces`` suffix).
 RETRACE_WATCHES = ("decode", "prefill", "verify", "draft", "draft_prefill",
-                   "quantize")
+                   "quantize", "kv_gather", "kv_scatter")
 
 _lock = threading.Lock()
 _ids: dict = {}

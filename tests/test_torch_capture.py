@@ -254,6 +254,7 @@ def test_sentinel_matches_the_reference():
                              for e in s.events]))
     assert seen[0] == seen[1]
     with pytest.raises(ValueError, match="registered"):
-        ttel.RetraceSentinel().watch("kv_gather", lambda: 0,
-                                     registered=True)
+        ttel.RetraceSentinel().watch("swap", lambda: 0, registered=True)
+    for path in ("kv_gather", "kv_scatter"):
+        ttel.RetraceSentinel().watch(path, lambda: 0, registered=True)
     assert ttel.next_name("probe") != ttel.next_name("probe")

@@ -163,8 +163,13 @@ def test_sampling_is_seeded_and_scored(tree):
 
 
 def test_unported_features_refuse(tree):
-    with pytest.raises(NotImplementedError, match="role"):
-        _port(tree, role="prefill")
+    # disaggregated serving is ported: the roles construct, an unknown
+    # one raises as the reference does
+    assert _port(tree, role="prefill").role == "prefill"
+    with pytest.raises(ValueError, match="unknown engine role 'bogus'"):
+        _port(tree, role="bogus")
+    with pytest.raises(NotImplementedError, match="telemetry_sample"):
+        _port(tree, telemetry_sample=1.0)
     with pytest.raises(TypeError, match="bogus"):
         _port(tree, bogus=1)
     eng = _port(tree)

@@ -31,7 +31,9 @@ def test_every_module_imports_without_jax_or_ray_tpu():
             "ray_tpu_torch.train.loop",
             "ray_tpu_torch.util.telemetry", "ray_tpu_torch.util.faults",
             "ray_tpu_torch.serve.priority",
-            "ray_tpu_torch._private.constants"} <= set(mods)
+            "ray_tpu_torch._private.constants",
+            "ray_tpu_torch._private.config", "ray_tpu_torch._private.netaddr",
+            "ray_tpu_torch.serve.disagg"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -1034,3 +1034,134 @@ def test_captured_engine_under_preemption_matches_eager(dev, spec):
     assert gst["graph_pool_bytes"] > 0 and est["graph_pool_bytes"] == 0
     if spec != "off":
         assert gst["spec_steps"] > 0
+
+
+# ---------------------------------------------------------------------------
+# disaggregated prefill/decode: the KV-block handoff on the card
+# ---------------------------------------------------------------------------
+
+def _disagg_setup(dev):
+    """`_capture_model`'s model, its traffic all greedy, engine kwargs,
+    and a captured prefill-role engine's blobs of that traffic (16 new
+    tokens each)."""
+    from ray_tpu_torch.serve import InferenceEngine
+    model, cfg, _ = _capture_model(dev)
+    reqs = [p for p, _ in _capture_traffic(cfg.vocab_size)]
+    kw = dict(slots=4, max_len=160, block_size=16, prefill_chunk=32,
+              device=dev)
+    pre = InferenceEngine(model, cfg, role="prefill", **kw)
+    blobs = [pre.handoff_for(pre.submit(p, max_new_tokens=16))
+             for p in reqs]
+    pre.check_invariants()
+    col = InferenceEngine(model, cfg, **kw)
+    want = [[int(t) for t in col.generate(p, max_new_tokens=16)]
+            for p in reqs]
+    return model, cfg, kw, blobs, want
+
+
+def test_import_scatters_in_place_under_captured_steps(dev):
+    """A decode-role engine imports six blobs after its steps were
+    captured (a warm-up request first): every pool entry keeps its
+    ``data_ptr()`` (the graphs read the pool by address), and its greedy
+    tokens equal an eager decode-role engine's on the same blobs
+    (logprobs within 1e-5: the same kernels on the same inputs) and a
+    colocated engine's."""
+    import numpy as np
+    from ray_tpu_torch.serve import InferenceEngine
+    model, cfg, kw, blobs, want = _disagg_setup(dev)
+    runs = {}
+    for capture in (False, True):
+        dec = InferenceEngine(model, cfg, role="decode", **kw)
+        dec._capture = capture
+        dec.generate(np.arange(1, 40), max_new_tokens=4)
+        ptrs = {n: t.data_ptr() for n, t in dec.cache.items()}
+        rids = [dec.import_handoff(b) for b in blobs]
+        outs = [list(dec.tokens_for(r)) for r in rids]
+        torch.cuda.synchronize()
+        assert ptrs == {n: t.data_ptr() for n, t in dec.cache.items()}
+        dec.check_invariants()
+        st = dec.stats()
+        assert st["imports"] == len(blobs) and st["kv_scatter_traces"] == 1
+        assert (st["graph_pool_bytes"] > 0) == capture
+        runs[capture] = outs
+    for e, g, w in zip(runs[False], runs[True], want):
+        assert [int(x) for x in g] == [int(x) for x in e] == w
+        np.testing.assert_allclose([x.logprob for x in g],
+                                   [x.logprob for x in e], atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("source", ["pinned", "pageable"])
+def test_back_to_back_imports_stream_correctly(dev, source):
+    """Two imports admitted in one tick while the stream is held up (a
+    spin of ~50 ms queued before the tick), so both imports' host memory
+    is still waiting to be read when the tick returns to the host: the
+    blobs' own pinned ``kv_host`` buffers ("pinned", as the prefill
+    engine exported them) or a pageable copy of their arrays without one,
+    staged through one pinned buffer per import ("pageable", as a foreign
+    blob arrives). Both streams carry the colocated tokens, the engine
+    keeps each import's memory until its copies have run, and the pool
+    keeps its storage."""
+    import numpy as np
+    from ray_tpu_torch.serve import InferenceEngine
+    model, cfg, kw, blobs, want = _disagg_setup(dev)
+    pair = [blobs[2], blobs[5]]
+    if source == "pageable":
+        pair = [dict(b, kv_host=None,
+                     payload=[{n: np.array(a) for n, a in blk.items()}
+                              for blk in b["payload"]]) for b in pair]
+    assert all(torch.from_numpy(b["payload"][0]["k"]).is_pinned()
+               == (source == "pinned") for b in pair)
+    dec = InferenceEngine(model, cfg, role="decode", **{**kw, "slots": 2})
+    dec.generate([5, 6, 7], max_new_tokens=2)
+    ptrs = {n: t.data_ptr() for n, t in dec.cache.items()}
+    rids = [dec.import_handoff(b) for b in pair]
+    torch.cuda._sleep(100_000_000)
+    dec._admit_imports()
+    held = [k for _, k in dec._h2d_inflight]
+    assert len(held) == 2 and not any(e.query()
+                                      for e, _ in dec._h2d_inflight)
+    assert all(k.is_pinned() for k in held)
+    if source == "pinned":
+        assert all(k is b["kv_host"] for k, b in zip(held, pair))
+    outs = [[int(t) for t in dec.tokens_for(r)] for r in rids]
+    assert outs == [want[2], want[5]]
+    assert ptrs == {n: t.data_ptr() for n, t in dec.cache.items()}
+    dec.check_invariants()
+
+
+def test_prefill_role_builds_no_decode_step_and_syncs_once(dev):
+    """A captured prefill-role engine: prefill graphs only (no decode,
+    verify or draft step), no decode launch, and one host sync for each
+    prefill chunk plus ONE for the export's pinned copy."""
+    import warnings
+    import numpy as np
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.serve import InferenceEngine
+    model, cfg, _ = _capture_model(dev)
+    pre = InferenceEngine(model, cfg, role="prefill", slots=4, max_len=160,
+                          block_size=16, prefill_chunk=32, device=dev)
+    rng = np.random.default_rng(5)
+    for n in (5, 12, 30, 70):       # every chunk bucket captured
+        pre.handoff_for(pre.submit(rng.integers(0, 4096, n),
+                                   max_new_tokens=8))
+    pre.reset_stats()
+    ops.reset_kernel_launches()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            blob = pre.handoff_for(pre.submit(rng.integers(0, 4096, 70),
+                                              max_new_tokens=8))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    st = pre.stats()
+    assert st["prefill_chunks"] == 3 and st["handoffs"] == 1
+    assert syncs == st["prefill_chunks"] + st["handoffs"]
+    assert {kind for kind, _ in pre._steps} == {"prefill"}
+    assert st["decode_traces"] == st["decode_steps"] == 0
+    assert ops.kernel_launches()["paged_decode_attention"] == 0
+    assert blob["n_blocks"] == 5 and blob["payload"][0]["k"].dtype == \
+        np.uint16
+    pre.check_invariants()

@@ -784,15 +784,9 @@ def test_parked_first_token_keeps_its_version(params):
 # stats, validation, the replica
 # ---------------------------------------------------------------------------
 
-# Reference stats keys the port leaves out, and why: the disaggregated
-# prefill/decode handoff is not ported (ROADMAP A2's next item), and the
-# port's weight swap is an in-place copy_ with nothing to trace.
-NOT_IN_PORT = {"role", "handoffs", "imports", "handoffs_abandoned",
-               "handoffs_pending", "imports_queued", "kv_blocks_exported",
-               "kv_blocks_imported", "kv_export_bytes", "kv_import_bytes",
-               "kv_export_ms_p50", "kv_export_ms_p99", "kv_import_ms_p50",
-               "kv_import_ms_p99", "kv_gather_traces", "kv_scatter_traces",
-               "swap_traces"}
+# Reference stats keys the port leaves out, and why: the port's weight
+# swap is an in-place copy_ with nothing to trace.
+NOT_IN_PORT = {"swap_traces"}
 # The port's own keys: its prefill rate, its CUDA graphs' pool and its
 # kernels' launches.
 PORT_ONLY = {"prefill_tok_s", "graph_pool_bytes", "kernel_launches"}
