@@ -167,7 +167,30 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    engine of the same backend (identical tokens, verify launches); (c)
    `PrefillReplica` -> `DecodeReplica` over localhost netaddr (identical
    tokens, pull p50/p99 and rate, a dead address prefilled locally),
-   both closed.
+   both closed;
+16. the RL flywheel and the telemetry plane: (a) `rl.FlywheelLoop` on
+   phase 2's model (f32 masters, bf16 compute) with `spmd.Adam`,
+   ``bench_infer.py``'s rollout probe (8 prompts of 128 tokens, 128 new
+   tokens at temperature 1, padded to 256) through a captured engine of
+   8 slots, block 16, chunk 64, 6 iterations with a publish each:
+   rollout_tok_s, the learner step's device time (CUDA events) and MFU,
+   the loop's breakdown, weight_swap_ms, staleness, the paged and flash
+   launches of the engine and the learner apart; held to no build after
+   the warm-up, the first learner step with flash against plain
+   attention on the raw rewards (phase 6's limits; the per-token
+   logprobs within phase 3's 0.1), the behaviour logprobs against
+   `completion_logprobs` (max and mean |diff|, phase 3's 0.1), and peaked
+   final weights' greedy tokens identical to a fresh engine's; (b)
+   ``tests/test_flywheel.py``'s tiny flywheel (12 iterations): the reward
+   rises by more than 0.15, 12 swaps, nothing rebuilt, the ``publish_to``
+   fan-out; (c) phase 2's traffic through captured engines at
+   ``telemetry_sample`` 1.0 and 0.0, 8 rounds of 3 runs alternating:
+   ``trace_overhead_pct`` as ``bench_infer.py`` computes it and its
+   standard error over the rounds, the hooks' own host time, spans
+   recorded and dropped, one host sync a tick and a chunk,
+   `util.telemetry.check_invariants`, a Prometheus text with the engine's,
+   the train loop's and the flywheel's series that parses, and a replica
+   pair's export, import and handoff spans.
 
 Before the phases it prints the registers and spilled bytes of every
 tensor-core kernel and of the two split-K decode kernels from nvcc's
@@ -745,28 +768,20 @@ def phase_profile(replica, vocab: int, layers: int, seed: int = 2) -> dict:
     so kernels do not overlap). The paged kernels' launches by name must
     be one per layer call: no merge kernel beside them."""
     import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     eng = replica.engine
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, vocab, PROFILE_PROMPT) for _ in range(8)]
     eng.reset_stats()
     before = eng.stats()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def serve():
         for p in prompts:
             eng.submit(p, max_new_tokens=PROFILE_NEW)
         eng.run_until_idle()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = sorted(((e.key, e.self_device_time_total, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda k: -k[1])
-    busy_us = sum(t for _, t, _ in kernels)
+
+    _, prof = profile_window(serve)
+    kernels, wall = prof["kernels"], prof["wall_s"]
     st = eng.stats()
     built = builds(before, st)
     by_name = {k: sum(n for name, _, n in kernels if f"::{k}<" in name)
@@ -780,16 +795,15 @@ def phase_profile(replica, vocab: int, layers: int, seed: int = 2) -> dict:
     if by_name != want:
         fail(f"profiled paged kernel launches {by_name}, want {want}")
     paged_ms = {k: sum(t for name, t, _ in kernels if f"::{k}<" in name)
-                * 1e-3 for k in by_name}
-    out = {"wall_s": wall, "device_busy_s": busy_us * 1e-6,
-           "device_busy_share": busy_us * 1e-6 / wall,
+                for k in by_name}
+    out = {"wall_s": wall, "device_busy_s": prof["device_ms"] * 1e-3,
+           "device_busy_share": prof["device_busy_share"],
            "decode_steps": st["decode_steps"],
            "prefill_chunks": st["prefill_chunks"],
            "paged_launches": by_name, "paged_device_ms": paged_ms,
-           "top_kernels": [{"name": k[:80], "device_ms": t * 1e-3,
-                            "calls": n} for k, t, n in kernels[:12]]}
+           "top_kernels": top_kernels(kernels, 12)}
     print(f"  wall {wall * 1e3:.1f} ms, device busy "
-          f"{busy_us * 1e-3:.1f} ms ({out['device_busy_share']:.1%}; "
+          f"{prof['device_ms']:.1f} ms ({out['device_busy_share']:.1%}; "
           f"before split-K {SERVING_BEFORE['device_busy_share']:.1%}); "
           f"{st['decode_steps']} decode ticks, {st['prefill_chunks']} "
           f"prefill chunks; paged kernels {by_name}, device ms "
@@ -797,6 +811,51 @@ def phase_profile(replica, vocab: int, layers: int, seed: int = 2) -> dict:
     for k in out["top_kernels"]:
         print(f"    {k['device_ms']:9.3f} ms  {k['calls']:6d}  {k['name']}")
     return out
+
+
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def profile_window(fn, groups=()) -> tuple:
+    """``fn()`` once under `torch.profiler`, after a synchronize and
+    ended by one: ``(fn's result, record)``. The record holds the wall
+    (s), each device kernel as (name, device ms, launches) by device
+    time, the device's busy ms (summed kernel time; one stream, so
+    kernels do not overlap) and busy share of the wall, the launches,
+    and device ms by group: ``groups`` is a sequence of (label,
+    substrings), and a kernel goes to the first label with a substring
+    in its name, else to "other"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = sorted(((e.key, e.self_device_time_total * 1e-3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda k: -k[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    by_group = {}
+    for name, ms, _ in kernels:
+        g = next((label for label, keys in groups
+                  if any(k in name for k in keys)), "other")
+        by_group[g] = by_group.get(g, 0.0) + ms
+    return result, {"wall_s": wall, "kernels": kernels, "device_ms": busy,
+                    "device_busy_share": busy * 1e-3 / wall,
+                    "launches": sum(n for _, _, n in kernels),
+                    "device_ms_by_group": by_group}
+
+
+def top_kernels(kernels, n: int) -> list:
+    """The first ``n`` of `profile_window`'s kernels, as records."""
+    return [{"name": k[:80], "device_ms": t, "calls": c}
+            for k, t, c in kernels[:n]]
 
 
 def flash_bound(t: int, causal: bool, which: str, dtype) -> tuple[float, str]:
@@ -981,8 +1040,6 @@ def phase_train(dev) -> dict:
     import math
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch import ops
     from ray_tpu_torch.train import loop, spmd
@@ -1072,31 +1129,22 @@ def phase_train(dev) -> dict:
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
     # Device busy share and time by kernel over one dispatch (2 steps).
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, _ = train.run(state, batches, num_steps=unroll)
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-    kernels = sorted(((e.key, e.self_device_time_total, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda k: -k[1])
-    busy_us = sum(t for _, t, _ in kernels)
-    flash_us = sum(t for n, t, _ in kernels if "flash_" in n)
-    print(f"      profiled {unroll} steps: wall {pwall * 1e3:.1f} ms, device"
-          f" busy {busy_us * 1e-3:.1f} ms ({busy_us * 1e-6 / pwall:.1%}); "
-          f"flash kernels {flash_us * 1e-3:.1f} ms "
-          f"({flash_us / max(busy_us, 1e-9):.1%} of device time)")
-    for n, t, c in kernels[:12]:
-        print(f"    {t * 1e-3:9.3f} ms  {c:6d}  {n[:80]}")
+    (state, _), prof = profile_window(
+        lambda: train.run(state, batches, num_steps=unroll),
+        (("flash", ("flash_",)),))
+    busy = prof["device_ms"]
+    flash = prof["device_ms_by_group"].get("flash", 0.0)
+    print(f"      profiled {unroll} steps: wall {prof['wall_s'] * 1e3:.1f} "
+          f"ms, device busy {busy:.1f} ms ({prof['device_busy_share']:.1%}); "
+          f"flash kernels {flash:.1f} ms "
+          f"({flash / max(busy, 1e-9):.1%} of device time)")
+    for n, t, c in prof["kernels"][:12]:
+        print(f"    {t:9.3f} ms  {c:6d}  {n[:80]}")
     out["profile"] = {
-        "wall_s": pwall, "device_busy_s": busy_us * 1e-6,
-        "device_busy_share": busy_us * 1e-6 / pwall,
-        "flash_share_of_device": flash_us / max(busy_us, 1e-9),
-        "top_kernels": [{"name": n[:80], "device_ms": t * 1e-3, "calls": c}
-                        for n, t, c in kernels[:16]]}
+        "wall_s": prof["wall_s"], "device_busy_s": busy * 1e-3,
+        "device_busy_share": prof["device_busy_share"],
+        "flash_share_of_device": flash / max(busy, 1e-9),
+        "top_kernels": top_kernels(prof["kernels"], 16)}
     del state, step_fn, model, batches, train, prof, b0
     torch.cuda.empty_cache()
 
@@ -1328,8 +1376,6 @@ def phase_fused_train(dev) -> dict:
     import math
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch import ops
     from ray_tpu_torch.train import loop, spmd
@@ -1439,46 +1485,37 @@ def phase_fused_train(dev) -> dict:
                losses=losses, peak_mem_gib=peak_gib)
 
     # (e) device busy share and time by kernel over one dispatch.
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, _ = train.run(state, batches, num_steps=unroll)
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-    kernels = sorted(((e.key, e.self_device_time_total, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda k: -k[1])
-    busy_us = sum(t for _, t, _ in kernels)
-    xent_us = sum(t for n, t, _ in kernels if "xent_" in n)
-    flash_us = sum(t for n, t, _ in kernels if "flash_" in n)
-    print(f"  (e) profiled {unroll} steps: wall {pwall * 1e3:.1f} ms, device"
-          f" busy {busy_us * 1e-3:.1f} ms ({busy_us * 1e-6 / pwall:.1%}); "
-          f"fused-xent kernels {xent_us * 1e-3:.1f} ms "
-          f"({xent_us / max(busy_us, 1e-9):.1%} of device time), flash "
-          f"{flash_us * 1e-3:.1f} ms ({flash_us / max(busy_us, 1e-9):.1%})")
+    (state, _), prof = profile_window(
+        lambda: train.run(state, batches, num_steps=unroll),
+        (("xent", ("xent_",)), ("flash", ("flash_",))))
+    kernels, busy = prof["kernels"], prof["device_ms"]
+    xent = prof["device_ms_by_group"].get("xent", 0.0)
+    flash = prof["device_ms_by_group"].get("flash", 0.0)
+    print(f"  (e) profiled {unroll} steps: wall {prof['wall_s'] * 1e3:.1f} "
+          f"ms, device busy {busy:.1f} ms ({prof['device_busy_share']:.1%}); "
+          f"fused-xent kernels {xent:.1f} ms "
+          f"({xent / max(busy, 1e-9):.1%} of device time), flash "
+          f"{flash:.1f} ms ({flash / max(busy, 1e-9):.1%})")
     for n, t, c in kernels[:12]:
-        print(f"    {t * 1e-3:9.3f} ms  {c:6d}  {n[:80]}")
+        print(f"    {t:9.3f} ms  {c:6d}  {n[:80]}")
     # device time of each of the port's kernels over the window
     ours = {}
     for n, t, c in kernels:
         m = re.search(r"(\w+_kernel)\b", n)
         if m and ("flash_" in n or "xent_" in n):
             k = ours.setdefault(m.group(1), {"device_ms": 0.0, "calls": 0})
-            k["device_ms"] += t * 1e-3
+            k["device_ms"] += t
             k["calls"] += c
     print("      the port's kernels over the window: " + ", ".join(
         f"{k} {v['device_ms']:.1f} ms ({v['calls']})"
         for k, v in sorted(ours.items(), key=lambda kv: -kv[1]["device_ms"])))
     out["profile"] = {
-        "wall_s": pwall, "device_busy_s": busy_us * 1e-6,
-        "device_busy_share": busy_us * 1e-6 / pwall,
+        "wall_s": prof["wall_s"], "device_busy_s": busy * 1e-3,
+        "device_busy_share": prof["device_busy_share"],
         "kernel_device_ms": ours,
-        "xent_share_of_device": xent_us / max(busy_us, 1e-9),
-        "flash_share_of_device": flash_us / max(busy_us, 1e-9),
-        "top_kernels": [{"name": n[:80], "device_ms": t * 1e-3, "calls": c}
-                        for n, t, c in kernels[:16]]}
+        "xent_share_of_device": xent / max(busy, 1e-9),
+        "flash_share_of_device": flash / max(busy, 1e-9),
+        "top_kernels": top_kernels(kernels, 16)}
     del state, step_fn, model, batches, train, prof, b0
     torch.cuda.empty_cache()
     return out
@@ -2504,53 +2541,27 @@ def tick_profile(eng, vocab: int, ticks: int = 8) -> dict:
     ticks and draft proposals; cuBLAS GEMMs; the rest: elementwise,
     reduction, copy and index kernels). The requests are cancelled
     after."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     prompts = spec_traffic(vocab, eng.num_slots, seed=7)
     rids = [eng.submit(p, max_new_tokens=200) for p, _ in prompts]
     chunks = eng.stats()["prefill_chunks"] + sum(
         -(-p.size // eng.prefill_chunk) for p, _ in prompts)
     while eng.stats()["prefill_chunks"] < chunks:
         eng.step()
-    torch.cuda.synchronize()
     spec0 = eng.stats()["spec_steps"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(ticks):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    _, prof = profile_window(
+        lambda: [eng.step() for _ in range(ticks)],
+        (("paged_mq_tc (verify)", ("paged_mq_tc_kernel",)),
+         ("paged_decode", ("paged_decode_kernel",)), ("gemm", GEMM_NAMES)))
     spec_ticks = eng.stats()["spec_steps"] - spec0
     for r in rids:
         eng.cancel(r)
-    kernels = [(e.key, e.self_device_time_total * 1e-3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-
-    def group(name):
-        if "paged_mq_tc_kernel" in name:
-            return "paged_mq_tc (verify)"
-        if "paged_decode_kernel" in name:
-            return "paged_decode"
-        if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass")):
-            return "gemm"
-        return "other"
-
-    by_group = {}
-    for name, ms, _ in kernels:
-        by_group[group(name)] = by_group.get(group(name), 0.0) + ms / ticks
-    busy = sum(ms for _, ms, _ in kernels)
-    top = sorted(kernels, key=lambda k: -k[1])[:8]
     return {"ticks": ticks, "spec_ticks": spec_ticks,
-            "wall_ms_per_tick": wall * 1e3 / ticks,
-            "device_ms_per_tick": busy / ticks,
-            "device_busy_share": busy * 1e-3 / wall,
-            "device_ms_per_tick_by_group": by_group,
-            "top_kernels": [{"name": k[:80], "device_ms": t, "calls": n}
-                            for k, t, n in top]}
+            "wall_ms_per_tick": prof["wall_s"] * 1e3 / ticks,
+            "device_ms_per_tick": prof["device_ms"] / ticks,
+            "device_busy_share": prof["device_busy_share"],
+            "device_ms_per_tick_by_group": {
+                g: ms / ticks for g, ms in prof["device_ms_by_group"].items()},
+            "top_kernels": top_kernels(prof["kernels"], 8)}
 
 
 def phase_spec_engine(dev, which: str, reqs, seed: int = 0) -> dict:
@@ -3717,6 +3728,532 @@ def phase_disagg(dev, smi: str) -> dict:
     return out
 
 
+# Phase 16: the RL flywheel and the telemetry plane. (a) bench_infer.py's
+# model learning from its own rollouts: bench_infer.py's rollout probe
+# (bench_infer.py:325-348: 8 prompts of 128 tokens an iteration, 128 new
+# tokens at temperature 1), padded to 256, through a captured engine of
+# 8 slots, block 16, chunk 64; FLY_ITERS iterations of spmd.Adam(FLY_LR),
+# a publish every iteration. (b) tests/test_flywheel.py::_flywheel's
+# tiny configuration on the card. (c) the flight recorder's cost on phase
+# 2's traffic.
+FLY_PROMPTS, FLY_PROMPT, FLY_NEW, FLY_PAD = 8, 128, 128, 256
+FLY_ITERS, FLY_LR = 6, 1e-5
+# (b): the reward rise tests/test_flywheel.py::test_flywheel_e2e_smoke
+# asserts, mean of the last 4 iterations over the first 4
+FLY_TINY_ITERS, FLY_TINY_RISE = 12, 0.15
+# (c): rounds, each phase 2's traffic TELEMETRY_REPEAT times through
+# each engine, the order alternating
+TELEMETRY_ROUNDS, TELEMETRY_REPEAT = 8, 3
+
+
+def half_vocab_reward(vocab: int):
+    """Reward = the share of completion tokens in the lower half of the
+    vocabulary: at random weights about 0.5 with a spread over a batch,
+    so the advantages (and the first gradients) are not zero."""
+    import numpy as np
+
+    def reward(prompt, completion):
+        comp = np.asarray(completion)
+        return float((comp < vocab // 2).mean()) if comp.size else 0.0
+    return reward
+
+
+def flywheel_full_width(dev, smi: str) -> dict:
+    """(a): see FLY_*. Held to: nothing built after the warm-up and no
+    unexpected retrace on the engine or the loop; the first learner
+    step's loss and gradients with flash against plain attention from the
+    same masters (phase 6's limits), on an extra rollout from the initial
+    weights; that rollout's behaviour logprobs against
+    `completion_logprobs` on the same weights (phase 3's 0.1); after the
+    run, peaked final weights published and greedy tokens identical to a
+    fresh engine built on them."""
+    import collections
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.rl.flywheel import FlywheelLoop, surrogate_loss
+    from ray_tpu_torch.serve import InferenceEngine
+    from ray_tpu_torch.train import spmd
+
+    cfg = gpt.small(**SERVE_CFG)
+    vocab = cfg.vocab_size
+    ekw = dict(slots=FLY_PROMPTS, max_len=FLY_PAD, block_size=16,
+               prefill_chunk=64)
+    t0 = time.perf_counter()
+    fly = FlywheelLoop(
+        cfg, lambda rng: rng.integers(0, vocab, FLY_PROMPT).astype(np.int32),
+        half_vocab_reward(vocab), optimizer=spmd.Adam(FLY_LR),
+        prompts_per_iter=FLY_PROMPTS, max_new_tokens=FLY_NEW,
+        temperature=1.0, pad_to=FLY_PAD, seed=0, engine_kwargs=ekw,
+        device=dev)
+    eng, model = fly.engine, fly.state.params
+    warm_up(eng)
+    st0 = eng.stats()
+    out = {"build_and_warm_s": time.perf_counter() - t0}
+
+    # The first learner step, checked on an extra rollout from the
+    # initial weights: flash against plain attention; the behaviour
+    # logprobs against the recompute. The first rollout's baseline is its
+    # own mean reward, so its advantages sum to zero and so does the
+    # surrogate, near enough: the check runs on the raw rewards instead
+    # (the advantages plus that mean), an O(1) loss, and also holds the
+    # per-token logprobs of the two paths to phase 3's limit.
+    pre = fly._collect()
+    live = pre["mask"] > 0
+    raw = {**pre, "advantage": pre["advantage"]
+           + fly.history[-1]["reward_mean"]}
+    res, lps = {}, {}
+    for impl in ("flash", "xla"):
+        loss, (lps[impl], *_) = surrogate_loss(
+            model, raw, dataclasses.replace(cfg, attn_impl=impl), FLY_NEW,
+            0.2)
+        res[impl] = (loss.item(),
+                     torch.autograd.grad(loss, list(model.parameters())))
+    cmp = _compare_runs("(a) first learner step on the raw rewards, flash "
+                        "vs plain attention", model, res["flash"],
+                        res["xla"])
+    if not abs(res["flash"][0]) >= 0.1:
+        fail(f"(a) the raw-reward loss {res['flash'][0]} is not O(1)")
+    path_gap = (lps["flash"] - lps["xla"]).detach().abs()[live]
+    cmp.update(logprob_gap_max=path_gap.max().item(),
+               logprob_gap_mean=path_gap.mean().item())
+    print(f"      completion_logprobs, flash vs plain attention: max|diff| "
+          f"{cmp['logprob_gap_max']:.4f} (limit {LOGPROB_TOL}), mean "
+          f"{cmp['logprob_gap_mean']:.5f}")
+    if not cmp["logprob_gap_max"] <= LOGPROB_TOL:
+        fail(f"(a) flash logprobs off plain attention's by "
+             f"{cmp['logprob_gap_max']}")
+    lp = lps["flash"].detach()
+    del res, lps, raw
+    gap = (lp - pre["behavior_logp"]).abs()[live]
+    gap_max, gap_mean = gap.max().item(), gap.mean().item()
+    ratio0 = torch.exp(lp - pre["behavior_logp"])[live]
+    print(f"  (a) behaviour logprobs (bf16 paged engine) vs "
+          f"completion_logprobs (bf16 flash forward), {int(live.sum())} "
+          f"tokens: max|diff| {gap_max:.4f} (limit {LOGPROB_TOL}), mean "
+          f"{gap_mean:.5f}; ratio mean {ratio0.mean().item():.5f}, range "
+          f"{ratio0.min().item():.4f}-{ratio0.max().item():.4f}")
+    if not gap_max <= LOGPROB_TOL:
+        fail(f"(a) behaviour logprobs off the recompute by {gap_max}")
+    del pre, lp
+
+    # The run: each dispatch (the learner's step) timed with events and
+    # its launches counted apart from the rollouts'.
+    learner = collections.Counter()
+    events, swap_ms = [], []
+    dispatch, collect = fly.loop._dispatch, fly._collect
+
+    def timed(state, batch):
+        before = ops.kernel_launches()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        got = dispatch(state, batch)
+        e1.record()
+        events.append((e0, e1))
+        learner.update({k: n - before[k]
+                        for k, n in ops.kernel_launches().items()})
+        return got
+
+    def collected():
+        got = collect()
+        swap_ms.append(eng.stats()["weight_swap_ms"])
+        return got
+
+    fly.loop._dispatch, fly._collect = timed, collected
+    ops.reset_kernel_launches()
+    st_run = eng.stats()
+    # Every host sync of the run is recorded: the rollouts' one a tick
+    # and a chunk, the metrics ring's drain, and nothing for the learner
+    # step or the publish (stream order alone puts the publish's copy
+    # after the optimizer's update and before the next rollout).
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        state, metrics = fly.run(FLY_ITERS)
+        wall = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    fly.loop._dispatch, fly._collect = dispatch, collect
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    total = ops.kernel_launches()
+    learner = {k: learner.get(k, 0) for k in total}
+    engine_l = {k: total[k] - learner[k] for k in total}
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    flops = spmd.train_flops_per_token(cfg, FLY_PAD) * FLY_PROMPTS * FLY_PAD
+    step_p50 = statistics.median(step_ms)
+    st = eng.stats()
+    built = builds(st0, st)
+    hist = fly.history[1:]          # [0] is the extra rollout
+    tok_s = [h["rollout_tok_s"] for h in hist]
+    swaps = swap_ms[1:]             # the window after each publish
+    ls = fly.loop.stats()
+    if any(built.values()) or st["retraces_unexpected"] or \
+            ls["retraces_unexpected"]:
+        fail(f"(a) built after the warm-up {built}, retraces_unexpected "
+             f"engine {st['retraces_unexpected']} loop "
+             f"{ls['retraces_unexpected']}")
+    rollout_syncs = (st["decode_steps"] - st_run["decode_steps"]
+                     + st["prefill_chunks"] - st_run["prefill_chunks"])
+    fetches = fly.loop.last_ring.fetches
+    if syncs != rollout_syncs + fetches:
+        fail(f"(a) {syncs} host syncs in the run: the rollouts' ticks and "
+             f"chunks make {rollout_syncs}, the metrics ring {fetches} "
+             "(want nothing else)")
+    if st["swaps"] != FLY_ITERS or fly.published_version != FLY_ITERS:
+        fail(f"(a) {st['swaps']} swaps, published version "
+             f"{fly.published_version}, want {FLY_ITERS}")
+    for name in ("flash_forward", "flash_dq", "flash_dkv"):
+        if learner[name] <= 0 or engine_l[name]:
+            fail(f"(a) {name}: learner {learner[name]}, engine "
+                 f"{engine_l[name]}")
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        if engine_l[name] <= 0 or learner[name]:
+            fail(f"(a) {name}: engine {engine_l[name]}, learner "
+                 f"{learner[name]}")
+    check_flash_backward_launches(learner, FLY_ITERS, cfg.n_layers)
+    if len(metrics) != FLY_ITERS or not all(
+            np.isfinite(float(m["loss"])) for m in metrics):
+        fail(f"(a) learner metrics {metrics}")
+    stale = [h["staleness"] for h in hist]
+    print(f"  (a) [{smi}] {FLY_ITERS} iterations in {wall:.2f} s: "
+          f"rollout_tok_s {[round(x) for x in tok_s]} (p50 "
+          f"{statistics.median(tok_s):.0f}); learner step (events) "
+          f"{[round(x, 2) for x in step_ms]} ms, p50 {step_p50:.2f} ms, MFU "
+          f"{flops / (step_p50 * 1e-3) / BF16_OPS_PER_S:.4f}; loop MFU "
+          f"{ls['mfu']:.4f}, shares rollout {ls['prefetch_share']:.3f} "
+          f"learner {ls['dispatch_share']:.3f} publish "
+          f"{ls['publish_share']:.4f}; weight_swap_ms "
+          f"{[round(x, 2) for x in swaps]} (p50 "
+          f"{statistics.median(swaps):.2f}); staleness {stale}; first "
+          f"mean_ratio {float(metrics[0]['mean_ratio']):.5f}; host syncs "
+          f"{syncs} = {rollout_syncs} rollout ticks and chunks + {fetches} "
+          "metric fetch")
+    print(f"      launches: learner "
+          f"{ {k: v for k, v in learner.items() if v} }, engine "
+          f"{ {k: v for k, v in engine_l.items() if v} }")
+
+    # Where a learner step's time goes: one more step (on a fresh
+    # rollout) under torch.profiler, device time by kernel group (flash
+    # kernels, cuBLAS GEMMs, the rest: elementwise, reduction, copy and
+    # index kernels) and the device's busy share of the step's wall.
+    batch = fly._collect()
+    (fly.state, _), prof = profile_window(
+        lambda: fly.loop._dispatch(fly.state, batch),
+        (("flash", ("flash_",)), ("gemm", GEMM_NAMES)))
+    prof = {**{k: v for k, v in prof.items() if k != "kernels"},
+            "wall_ms": prof["wall_s"] * 1e3,
+            "top_kernels": top_kernels(prof["kernels"], 8)}
+    print(f"      one learner step profiled: wall {prof['wall_ms']:.2f} ms, "
+          f"device busy {prof['device_ms']:.2f} ms "
+          f"({prof['device_busy_share']:.1%}), by group "
+          f"{ {k: round(v, 2) for k, v in prof['device_ms_by_group'].items()} }"
+          f", {prof['launches']} kernel launches")
+
+    # Peaked final weights, published; a fresh engine built on them.
+    final = gpt.param_tree(model)
+    peaked = {**{k: v.detach().clone() for k, v in final.items()
+                 if k != "layers"},
+              "embed": final["embed"].detach() * 8,
+              "layers": {k: v.detach().clone()
+                         for k, v in final["layers"].items()}}
+    eng.update_params(peaked)
+    fresh = InferenceEngine(gpt.GPT(cfg, peaked, device=dev), cfg,
+                            device=dev, **ekw)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, vocab, n).astype(np.int32)
+               for n in (64, 128, 100, 128)]
+    got = [_greedy([eng.generate(p, max_new_tokens=32)])[0] for p in prompts]
+    want = [_greedy([fresh.generate(p, max_new_tokens=32)])[0]
+            for p in prompts]
+    st2 = eng.stats()
+    if got != want or any(builds(st0, st2).values()) or \
+            st2["retraces_unexpected"]:
+        fail(f"(a) post-publish greedy tokens differ from a fresh engine's "
+             f"on the peaked final weights, or the publish built "
+             f"{builds(st0, st2)}")
+    compile_once = check_compile_once(eng, "phase 16 (a) engine")
+    print(f"      peaked final weights published (version "
+          f"{eng.params_version}): {len(prompts)} greedy streams identical "
+          f"to a fresh engine's; compile-once {compile_once}")
+    out.update(
+        wall_s=wall, iterations=FLY_ITERS, rollout_tok_s=tok_s,
+        rollout_tok_s_p50=statistics.median(tok_s), learner_step_ms=step_ms,
+        learner_step_ms_p50=step_p50,
+        learner_mfu=flops / (step_p50 * 1e-3) / BF16_OPS_PER_S,
+        learner_flops_per_step=flops, loop_stats=ls,
+        weight_swap_ms=swaps, weight_swap_ms_p50=statistics.median(swaps),
+        staleness=stale, first_step=cmp, logprob_gap_max=gap_max,
+        logprob_gap_mean=gap_mean, first_mean_ratio=float(
+            metrics[0]["mean_ratio"]),
+        launches_learner=learner, launches_engine=engine_l,
+        host_syncs=syncs, rollout_syncs=rollout_syncs,
+        compile_once=compile_once, learner_profile=prof,
+        rewards=[h["reward_mean"] for h in hist],
+        losses=[float(m["loss"]) for m in metrics])
+    del fly, eng, model, state, fresh, final, peaked, batch
+    free_engine(None)
+    return out
+
+
+def flywheel_tiny(dev, smi: str):
+    """(b): tests/test_flywheel.py::_flywheel's configuration on the card
+    (vocab 32, d_model 32, 2 layers, f32, spmd.Adam(5e-2), 8 prompts of 3
+    tokens, 5 new), a second engine fed by ``publish_to``. Held to the
+    e2e smoke's checks. Returns the record and the loop (kept alive for
+    (c)'s scrape)."""
+    import numpy as np
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.rl.flywheel import FlywheelLoop, motif_reward
+    from ray_tpu_torch.serve import InferenceEngine
+
+    cfg = gpt.GPTConfig(vocab_size=32, d_model=32, n_layers=2, n_heads=2,
+                        d_ff=64, max_seq_len=64, dtype="float32")
+    ekw = dict(slots=4, max_len=32, prefill_buckets=(8,), block_size=8)
+    replica_like = InferenceEngine(
+        gpt.GPT(cfg, gpt.init_params(0, cfg, dev), device=dev), cfg,
+        device=dev, **ekw)
+    t0 = time.perf_counter()
+    fly = FlywheelLoop(cfg, lambda rng: [1, 2, int(rng.integers(3, 9))],
+                       motif_reward(7), lr=5e-2, prompts_per_iter=8,
+                       max_new_tokens=5, temperature=1.0, pad_to=16, seed=0,
+                       engine_kwargs=ekw, publish_to=[replica_like],
+                       device=dev)
+    state, metrics = fly.run(FLY_TINY_ITERS)
+    wall = time.perf_counter() - t0
+    st = fly.engine.stats()
+    rw = [h["reward_mean"] for h in fly.history]
+    rise = float(np.mean(rw[-4:]) - np.mean(rw[:4]))
+    fresh = InferenceEngine(gpt.GPT(cfg, gpt.param_tree(state.params),
+                                    device=dev), cfg, device=dev, **ekw)
+    same = all(_greedy([fly.engine.generate(p, max_new_tokens=5)])
+               == _greedy([fresh.generate(p, max_new_tokens=5)])
+               for p in ([1, 2, 3], [1, 2, 8]))
+    print(f"  (b) [{smi}] tiny flywheel, {FLY_TINY_ITERS} iterations in "
+          f"{wall:.2f} s: rewards {[round(x, 3) for x in rw]}, last 4 - "
+          f"first 4 = {rise:.3f} (want > {FLY_TINY_RISE}); swaps "
+          f"{st['swaps']}, decode_traces {st['decode_traces']}, "
+          f"retraces_unexpected {st['retraces_unexpected']}, publish_to "
+          f"version {replica_like.params_version}; post-swap greedy "
+          f"identical to a fresh engine: {same}")
+    if not (rise > FLY_TINY_RISE and st["swaps"] == FLY_TINY_ITERS
+            and st["decode_traces"] == 1 and st["retraces_unexpected"] == 0
+            and replica_like.params_version == FLY_TINY_ITERS and same
+            and fly.engine.decode_traces == 1):
+        fail("(b) the tiny flywheel did not learn or rebuilt a step")
+    return {"rewards": rw, "rise": rise, "wall_s": wall,
+            "swaps": st["swaps"], "decode_traces": st["decode_traces"],
+            "fanout_version": replica_like.params_version,
+            "greedy_identical": same}, fly
+
+
+def recorder_cost(dev, smi: str, keep) -> dict:
+    """(c): phase 2's traffic through two captured engines of phase 2's
+    model, ``telemetry_sample`` 1.0 and 0.0: TELEMETRY_ROUNDS rounds, in
+    each TELEMETRY_REPEAT runs of fresh traffic through each engine, the
+    order alternating; trace_overhead_pct as bench_infer.py:295-300
+    computes it (the wall of `run_until_idle`; here over all rounds, and
+    per round with its mean and standard error). Then one more run
+    through each engine with every `on_*` hook of its recorder timed:
+    the hooks' host time with the recorder on less with it off, over the
+    unsampled run's wall, is the recorder's cost read without the
+    host clock's run-to-run noise. Each engine's host syncs a tick
+    (phase 2's rule), its spans recorded and dropped,
+    `check_invariants`, the Prometheus text (engine, train-loop and
+    flywheel series, every line parsing), and a `PrefillReplica` ->
+    `DecodeReplica` pull's export, import and handoff spans."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve import (DecodeReplica, InferenceEngine,
+                                     PrefillReplica)
+    from ray_tpu_torch.util import metrics, telemetry, tracing
+
+    cfg = gpt.small(**SERVE_CFG)
+    model = gpt.GPT(cfg, gpt.init_params(0, cfg, dev), device=dev)
+    engines = {}
+    for sample in (1.0, 0.0):
+        e = InferenceEngine(model, cfg, slots=8, max_len=1024, block_size=16,
+                            prefill_chunk=64, telemetry_sample=sample,
+                            device=dev)
+        warm_up(e)
+        e._recorder.clear()
+        engines[sample] = e
+    syncs_ok = {}
+
+    def serve(sample, seed):
+        """Phase 2's traffic (``seed``) through one engine: the wall of
+        its `run_until_idle`, its host syncs checked."""
+        e = engines[sample]
+        st0 = e.stats()
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for p, t in make_traffic(cfg.vocab_size, seed=seed):
+                e.submit(p, max_new_tokens=64, temperature=t)
+            t0 = time.perf_counter()
+            e.run_until_idle()
+            wall = time.perf_counter() - t0
+        torch.cuda.set_sync_debug_mode("default")
+        st = e.stats()
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        ticks = (st["decode_steps"] - st0["decode_steps"]
+                 + st["prefill_chunks"] - st0["prefill_chunks"])
+        if syncs != ticks or any(builds(st0, st).values()):
+            fail(f"(c) sample {sample}: {syncs} host syncs for {ticks} "
+                 f"ticks and chunks, builds {builds(st0, st)}")
+        syncs_ok[sample] = syncs_ok.get(sample, 0) + syncs
+        e.check_invariants()
+        return wall
+
+    walls = {1.0: [], 0.0: []}
+    for r in range(TELEMETRY_ROUNDS):
+        for sample in ((1.0, 0.0) if r % 2 == 0 else (0.0, 1.0)):
+            walls[sample].append(sum(
+                serve(sample, 100 + TELEMETRY_REPEAT * r + k)
+                for k in range(TELEMETRY_REPEAT)))
+    per_round = [(a - b) / max(b, 1e-9) * 100.0
+                 for a, b in zip(walls[1.0], walls[0.0])]
+    pct = (sum(walls[1.0]) - sum(walls[0.0])) / sum(walls[0.0]) * 100.0
+    pct_se = statistics.stdev(per_round) / len(per_round) ** 0.5
+
+    # The hooks' own host time: one run through each engine with every
+    # hook wrapped (the wrapper's cost, the same on both, cancels in the
+    # difference).
+    by_hook, hooks, hook_walls = {}, {}, {}
+    for sample in (1.0, 0.0):
+        rec = engines[sample]._recorder
+        names = [n for n in dir(type(rec)) if n.startswith("on_")]
+        spent = by_hook[sample] = {n: [0, 0] for n in names}
+
+        def timed(f, acc):
+            def hook(*a, **k):
+                t = time.perf_counter_ns()
+                try:
+                    return f(*a, **k)
+                finally:
+                    acc[0] += time.perf_counter_ns() - t
+                    acc[1] += 1
+            return hook
+
+        for n in names:
+            setattr(rec, n, timed(getattr(rec, n), spent[n]))
+        try:
+            hook_walls[sample] = serve(sample, 999)
+        finally:
+            for n in names:
+                delattr(rec, n)
+        hooks[sample] = {"ns": sum(v[0] for v in spent.values()),
+                         "calls": sum(v[1] for v in spent.values())}
+    hook_pct = ((hooks[1.0]["ns"] - hooks[0.0]["ns"]) * 1e-9
+                / hook_walls[0.0] * 100.0)
+    # each hook's calls and mean host us, with the recorder on and off
+    per_hook = {n: {str(k): (v[n][1], v[n][0] / max(v[n][1], 1) * 1e-3)
+                    for k, v in by_hook.items()}
+                for n in by_hook[1.0] if by_hook[1.0][n][1]}
+    on, off = engines[1.0]._recorder, engines[0.0]._recorder
+    if off.get_spans() or off.requests_traced or not on.get_spans():
+        fail("(c) the recorders recorded the wrong requests")
+    # the handoff's spans: a replica pair over localhost at the tiny
+    # config
+    node_ip = os.environ.get("RAY_TPU_NODE_IP")
+    os.environ["RAY_TPU_NODE_IP"] = "127.0.0.1"
+    tiny = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=2, d_ff=64,
+                max_seq_len=64, dtype="float32")
+    pre = dec = None
+    try:
+        pre = PrefillReplica(tiny, slots=2, max_len=64, seed=0, device=dev)
+        dec = DecodeReplica(tiny, slots=2, max_len=64, seed=0, device=dev)
+        toks = list(dec.resume_from(pre(list(range(3, 20)),
+                                        max_new_tokens=4)))
+        handoff_spans = sorted(
+            {s["name"] for s in pre.engine._recorder.get_spans()}
+            | {s["name"] for s in dec.engine._recorder.get_spans()})
+    finally:
+        for rep in (pre, dec):
+            if rep is not None:
+                rep.close()
+        if node_ip is None:
+            os.environ.pop("RAY_TPU_NODE_IP", None)
+        else:
+            os.environ["RAY_TPU_NODE_IP"] = node_ip
+    if len(toks) != 4 or not {"kv_export", "kv_import",
+                              "handoff"} <= set(handoff_spans):
+        fail(f"(c) the handoff's spans: {handoff_spans}")
+    telemetry.check_invariants()
+    text = metrics.render_prometheus(metrics.snapshot())
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            m = telemetry._PROM_SAMPLE.match(line)
+            if not m:
+                fail(f"(c) unparseable exposition line {line!r}")
+            float(m.group(1))
+    want = [f'ray_tpu_engine_decode_tokens{{source="{engines[1.0].name}"}}',
+            f'ray_tpu_flywheel_iterations{{source="{keep.name}"}}',
+            f'ray_tpu_train_dispatch_s{{source="{keep.loop.name}"}}',
+            f'ray_tpu_engine_ttft_ms_bucket{{source="{engines[1.0].name}"']
+    missing = [w for w in want if w not in text]
+    if missing:
+        fail(f"(c) the Prometheus text lacks {missing}")
+    out = {"wall_on_s": walls[1.0], "wall_off_s": walls[0.0],
+           "trace_overhead_pct": pct,
+           "trace_overhead_pct_by_round": per_round,
+           "trace_overhead_pct_round_mean": statistics.mean(per_round),
+           "trace_overhead_pct_round_se": pct_se,
+           "hook_ns": {str(k): v["ns"] for k, v in hooks.items()},
+           "hook_calls": {str(k): v["calls"] for k, v in hooks.items()},
+           "hook_run_wall_s": {str(k): v for k, v in hook_walls.items()},
+           "hook_overhead_pct": hook_pct, "hook_calls_and_us": per_hook,
+           "spans_recorded": len(on.get_spans()),
+           "spans_dropped": on.dropped_spans,
+           "requests_traced": on.requests_traced,
+           "host_syncs": syncs_ok, "handoff_spans": handoff_spans,
+           "prometheus_lines": len(text.splitlines()),
+           "disabled_span_ns": tracing.probe_disabled_overhead_ns()}
+    print(f"  (c) [{smi}] phase 2's traffic x {TELEMETRY_REPEAT} a round, "
+          f"{TELEMETRY_ROUNDS} rounds: wall sampled "
+          f"{[round(x, 3) for x in walls[1.0]]} s, unsampled "
+          f"{[round(x, 3) for x in walls[0.0]]} s: trace_overhead_pct "
+          f"{pct:.2f} (by round {[round(x, 2) for x in per_round]}, mean "
+          f"{statistics.mean(per_round):.2f} +- {pct_se:.2f} s.e.); the "
+          f"hooks' host time {hooks[1.0]['ns'] * 1e-6:.2f} ms on "
+          f"({hooks[1.0]['calls']} calls) and {hooks[0.0]['ns'] * 1e-6:.2f} "
+          f"ms off ({hooks[0.0]['calls']}) in runs of "
+          f"{hook_walls[1.0]:.3f} and {hook_walls[0.0]:.3f} s: "
+          f"{hook_pct:.3f} % of the wall (calls, mean us on; off: "
+          f"{ {n: (v['1.0'][0], round(v['1.0'][1], 2), round(v['0.0'][1], 2)) for n, v in per_hook.items()} }); "
+          f"{out['spans_recorded']} spans, {out['spans_dropped']} dropped, "
+          f"{on.requests_traced} requests traced; host syncs = ticks + "
+          f"chunks on both; handoff spans {handoff_spans}; "
+          f"{out['prometheus_lines']} exposition lines parse; a disabled "
+          f"span {out['disabled_span_ns']:.0f} ns")
+    del engines, model, on, off
+    free_engine(None)
+    return out
+
+
+def phase_flywheel(dev, smi: str) -> dict:
+    """Phase 16: the RL flywheel and the telemetry plane, (a) to (c), each
+    part's time recorded."""
+    out, part_s = {}, {}
+    t0 = time.perf_counter()
+    out["full_width"] = flywheel_full_width(dev, smi)
+    part_s["full_width"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["tiny"], keep = flywheel_tiny(dev, smi)
+    part_s["tiny"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["recorder"] = recorder_cost(dev, smi, keep)
+    part_s["recorder"] = time.perf_counter() - t0
+    out["part_s"] = part_s
+    del keep
+    free_engine(None)
+    return out
+
+
 def _readable_kernel(mangled: str):
     """A readable name for an instantiation of a tensor-core kernel or of
     a split-K decode kernel (``flash_dq_tc_kernel<64, true>``,
@@ -3919,10 +4456,14 @@ def main() -> int:
     disagg = phase(15, "disaggregated prefill/decode (bench_infer.py's A/B, "
                    "backends, the replicas over netaddr)", phase_disagg, dev,
                    smi)
+    flywheel = phase(16, "the RL flywheel and the telemetry plane (full "
+                     "width, tiny, the flight recorder's cost)",
+                     phase_flywheel, dev, smi)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
                   flash=flash, train=train, xent=xent, fused_train=fused,
                   unpaged=unpaged, c1=c1, int8=int8, spec=spec,
-                  capture=capture, pressure=pressure, disagg=disagg)
+                  capture=capture, pressure=pressure, disagg=disagg,
+                  flywheel=flywheel)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3961,6 +4502,11 @@ def main() -> int:
             fail(f"{name} was not launched on phase 15's path")
     if disagg_verify <= 0:
         fail("paged_verify_attention was not launched on phase 15's path")
+    # phase 16 (a)'s flywheel, counted from zero around its run: the
+    # engine's rollouts (paged decode and prefill) and the learner's
+    # steps (flash forward, dQ, dK/dV) apart
+    fly_engine = flywheel["full_width"]["launches_engine"]
+    fly_learner = flywheel["full_width"]["launches_learner"]
     for key, wrapper, replaces, rec, launches, src in (
             ("paged_decode", "paged_decode_attention",
              "ray_tpu/ops/decode_attention.py:282", kern["paged_decode"],
@@ -4017,7 +4563,10 @@ def main() -> int:
             kname = {"flash_forward": "flash_fwd_tc", "flash_dq":
                      "flash_dq_tc", "flash_dkv": "flash_dkv_tc"}[key]
             rows[-1].update(kernels=[f"{kname}_kernel"],
-                            kernel_launches={kname: launches[kname]})
+                            kernel_launches={kname: launches[kname]},
+                            launches_by_path={
+                                "phase 6 (c)": launches[wrapper],
+                                "phase 16 (a)": fly_learner[wrapper]})
         elif key in ("paged_decode", "decode"):
             # bf16 and f32: the split-K kernel, one launch per call (the
             # two share one body)
@@ -4027,7 +4576,8 @@ def main() -> int:
                 rows[-1]["launches_by_path"] = {
                     "phase 2": launches[wrapper],
                     "phase 14 (a)": pressure_launches[wrapper],
-                    "phase 15 (a)": disagg_launches[wrapper]}
+                    "phase 15 (a)": disagg_launches[wrapper],
+                    "phase 16 (a)": fly_engine[wrapper]}
             if key == "decode":
                 rows[-1]["contexts"] = {
                     k: rec["contexts"][k] for k in (
@@ -4066,7 +4616,8 @@ def main() -> int:
                             launches_by_path={
                                 "phase 2": launches[wrapper],
                                 "phase 14 (a)": pressure_launches[wrapper],
-                                "phase 15 (a)": disagg_launches[wrapper]},
+                                "phase 15 (a)": disagg_launches[wrapper],
+                                "phase 16 (a)": fly_engine[wrapper]},
                             reprefill_launches=pressure["block"][
                                 "reprefill_launches"])
         elif key == "fused_xent_fwd":

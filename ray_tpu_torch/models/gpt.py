@@ -334,7 +334,10 @@ def _mm_f32(x, w):
         return torch.matmul(x, w)
     if x.is_cuda and not (torch.is_grad_enabled()
                           and (x.requires_grad or w.requires_grad)):
-        return torch.mm(x, w, out_dtype=torch.float32)
+        # torch.mm takes matrices: leading axes fold into the rows
+        return torch.mm(x.reshape(-1, x.shape[-1]), w,
+                        out_dtype=torch.float32).view(*x.shape[:-1],
+                                                      w.shape[-1])
     # exact operands (bf16 fits in f32), and differentiable
     return torch.matmul(x.float(), w.float())
 
@@ -522,6 +525,41 @@ def loss_fn(model: GPT, batch: dict, cfg: GPTConfig | None = None):
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(-1, tokens[:, 1:].long()[..., None])[..., 0]
     return -ll.mean()
+
+
+def completion_logprobs(model: GPT, tokens, start, width: int,
+                        cfg: GPTConfig | None = None, mesh=None):
+    """Per-token natural log-likelihoods of a completion region: the
+    differentiable counterpart of the engine's emitted
+    ``TokenEvent.logprob`` (one full forward instead of the paged path;
+    the same f32 log-softmax, so the two agree to f32 tolerance).
+
+    tokens [B, T] int: full padded sequences (prompt + completion).
+    start [B] int: index of each row's first completion token (>= 1).
+    width: the completion window; returns [B, width] f32 where
+    ``out[b, j] = log p(tokens[b, start[b]+j] | tokens[b, :start[b]+j])``.
+    Positions past a row's real sequence are clipped into ``[1, T-1]``
+    and scored against padding; the caller masks them. Gradients flow to
+    the model's parameters (through the flash kernels' autograd on the
+    card). Only the ``[B, width]`` rows the window reads go through the
+    log-softmax: each row's values are what the reference's full
+    ``[B, T, V]`` log-softmax gives it."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "completion_logprobs(mesh=...) is not ported yet (ROADMAP A6: "
+            "multi-rank parallelism)")
+    cfg = model.cfg if cfg is None else cfg
+    logits = forward(model, tokens, cfg)
+    b, t, v = logits.shape
+    start = torch.as_tensor(start, device=logits.device).long()
+    # absolute position of completion token j, clipped into range so
+    # padded tails index safely
+    idx = torch.clamp(start[:, None] + torch.arange(
+        width, device=logits.device)[None, :], 1, t - 1)       # [B, W]
+    rows = logits.gather(1, (idx - 1)[..., None].expand(b, width, v))
+    logp = torch.log_softmax(rows.float(), dim=-1)             # [B, W, V]
+    toks = tokens.long().gather(1, idx)
+    return logp.gather(-1, toks[..., None])[..., 0]
 
 
 # ---------------------------------------------------------------------------

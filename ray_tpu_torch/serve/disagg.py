@@ -34,6 +34,8 @@ and each read and write give up after the channel's timeout); the block
 server's threads poll with a timeout and end on `close` or once the
 replica is gone, holding it only through a weak reference between
 polls. They touch host arrays and sockets only, never a CUDA API.
+`DecodeReplica`'s pull records the end-to-end handoff on its engine's
+flight recorder (``on_handoff``), as the reference's does.
 
 Not ported yet (ROADMAP A5, with the serve control plane): the
 deployment-handle pairing `DisaggHandle` and ``serve.run_disagg``.
@@ -400,6 +402,8 @@ class DecodeReplica:
             self._pull_s.append(dt)
             self._kv_pulled_bytes += int(blob.get("kv_bytes", 0))
             self._kv_pull_s += dt
+        # the end-to-end handoff (pull + import) on the flight recorder
+        self.engine._recorder.on_handoff(rid, dt)
         return self.engine.tokens_for(rid)
 
     def cancel(self, rid: int) -> bool:

@@ -100,9 +100,16 @@ per-engine `torch.Generator` seeded with ``seed``: greedy decoding
 matches the JAX engine token for token, sampled decoding only in
 distribution (JAX's threefry bits are not reproducible here).
 
+Telemetry, as the reference: each engine is a `util.telemetry` stats
+source (``engine<N>``) and owns a `FlightRecorder` (``telemetry_sample``
+overrides ``RAY_TPU_TELEMETRY_SAMPLE``) whose hooks run at the
+reference's sites: submit, admission, each prefill chunk, the first
+token, every token, a swap crossing, shed, cancel, preemption, finish,
+and the handoff's export and import. Every hook is host-side, between
+device steps, and reads no tensor, so a tick's one host sync stays one.
+
 Not ported yet, and refused with `NotImplementedError` when asked for
-(ROADMAP queue A): the flight recorder (``telemetry_sample``, and with
-it the recorder's handoff hooks) and device meshes. The weight swap has
+(ROADMAP A6): device meshes. The weight swap has
 no watch (nor ``swap_traces``): `InferenceEngine.update_params` copies
 in place, with nothing to build. The block gather and scatter build
 nothing either; ``kv_gather_traces``/``kv_scatter_traces`` count their
@@ -608,7 +615,7 @@ def _pool_bytes(pool) -> int:
 
 # Engine kwargs of ray_tpu's InferenceEngine that this port does not
 # implement yet, with the value that means "off". Anything else raises.
-_NOT_PORTED = {"mesh": None, "telemetry_sample": None}
+_NOT_PORTED = {"mesh": None}
 
 # Host carriers of pool dtypes in a handoff blob: numpy has no bfloat16,
 # so bf16 rows travel as their uint16 bit patterns and the blob names the
@@ -728,7 +735,11 @@ class InferenceEngine:
     prompt's KV becomes a handoff blob, `handoff_for`), ``"decode"`` is
     a colocated engine that also imports blobs (`import_handoff`), and
     ``"colocated"`` (the default) serves whole requests. Any engine but a
-    prefill-role one imports."""
+    prefill-role one imports.
+
+    ``telemetry_sample`` (default ``RAY_TPU_TELEMETRY_SAMPLE``, 1.0) is
+    the share of requests the engine's `util.telemetry.FlightRecorder`
+    traces."""
 
     def __init__(self, model: gpt.GPT, cfg: gpt.GPTConfig, *,
                  slots: int = 4, max_len: int | None = None,
@@ -745,7 +756,9 @@ class InferenceEngine:
                  priority_classes: int | None = None,
                  priority_aging_s: float | None = None,
                  priority_weight_base: float | None = None,
-                 role: str = "colocated", device=None, **not_ported):
+                 role: str = "colocated",
+                 telemetry_sample: float | None = None, device=None,
+                 **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"InferenceEngine got an unexpected "
@@ -753,7 +766,7 @@ class InferenceEngine:
             if value != _NOT_PORTED[name]:
                 raise NotImplementedError(
                     f"InferenceEngine({name}=...) is not ported yet "
-                    "(ROADMAP queue A)")
+                    "(ROADMAP A6)")
         if role not in ("colocated", "prefill", "decode"):
             raise ValueError(f"unknown engine role {role!r}")
         self.role = role
@@ -866,7 +879,10 @@ class InferenceEngine:
         self._capture = True
         self._graph_pool = self._side = None
         self._graph_pool_bytes = 0
+        # The flight recorder and the retrace sentinel (util.telemetry).
         self.name = telemetry.next_name("engine")
+        self._recorder = telemetry.FlightRecorder(self.name,
+                                                  sample=telemetry_sample)
         self._sentinel = telemetry.RetraceSentinel(self.name)
         self._sentinel.watch("decode", lambda: self.decode_traces, cap=1,
                              registered=True)
@@ -963,6 +979,7 @@ class InferenceEngine:
             threading.Thread(target=_watchdog_loop,
                              args=(weakref.ref(self), float(watchdog_s)),
                              daemon=True, name="engine-watchdog").start()
+        telemetry.register_stats_source(self.name, self, kind="engine")
 
     def arm_retrace_sentinel(self):
         """Declare shape warm-up over: every watched build path,
@@ -1068,6 +1085,7 @@ class InferenceEngine:
                                           time.perf_counter(),
                                           priority=priority))
             self._class_counter(priority)["submitted"] += 1
+            self._recorder.on_submit(rid, prompt.size)
         return rid
 
     def _shed_lowest_below(self, priority: int) -> bool:
@@ -1095,6 +1113,7 @@ class InferenceEngine:
             f"shed from the queue for a class-{priority} admission")
         self._sheds += 1
         self._class_counter(victim.priority)["sheds"] += 1
+        self._recorder.on_finish(victim.rid, "shed")
         return True
 
     def _class_counter(self, c: int) -> dict:
@@ -1144,6 +1163,7 @@ class InferenceEngine:
             self._done.discard(rid)
             if hit:
                 self._cancelled += 1
+                self._recorder.on_finish(rid, "cancelled")
             return hit
 
     def tokens_for(self, rid: int):
@@ -1353,6 +1373,8 @@ class InferenceEngine:
         self._kv_blocks_exported += n_written * len(views)
         self._kv_export_bytes += kv_bytes
         self._kv_export_s.append(dt)
+        self._recorder.on_kv_export(s.rid, n_written, kv_bytes, dt)
+        self._recorder.on_finish(s.rid, "handoff")
         # No token consumer on a prefill engine: its output queue goes
         # now and the slot's blocks are released (the prompt's full
         # blocks live on in the radix tree for shared-prefix admissions).
@@ -1483,6 +1505,7 @@ class InferenceEngine:
             self._imports.append((rid, blob))
             self._import_rids.add(rid)
             self._class_counter(priority)["submitted"] += 1
+            self._recorder.on_submit(rid, p)
         return rid
 
     def _admit_imports(self) -> bool:
@@ -1591,12 +1614,16 @@ class InferenceEngine:
                 self._tree.insert(prompt, slot_blocks)
         else:
             s.version = self._params_version - 1
+        dt = time.perf_counter() - t0
+        kv_bytes = int(blob.get("kv_bytes", 0))
         self._imports_completed += 1
         self._kv_blocks_imported += scattered
-        self._kv_import_bytes += int(blob.get("kv_bytes", 0))
-        self._kv_import_s.append(time.perf_counter() - t0)
+        self._kv_import_bytes += kv_bytes
+        self._kv_import_s.append(dt)
         self._prefix_hit_tokens += n_full * bs
         self._prompt_tokens += p
+        self._recorder.on_kv_import(rid, scattered, kv_bytes, dt)
+        self._recorder.on_admit(rid, n_full * bs, False)
         # The parked first token goes out through the normal emit path
         # with the logprob and version the prefill engine computed; a
         # max_new_tokens=1 request retires right here.
@@ -1645,6 +1672,7 @@ class InferenceEngine:
             self._swap_pending_ts = t0
             return self._params_version
 
+    @torch.no_grad()
     def _placed(self, model: gpt.GPT, cfg: gpt.GPTConfig, new_params,
                 what: str) -> list:
         """``(engine leaf, new leaf)`` pairs for a swap into ``model``:
@@ -1771,6 +1799,7 @@ class InferenceEngine:
             s.draft_filled = 0
         self._prefix_hit_tokens += matched
         self._prompt_tokens += p
+        self._recorder.on_admit(req.rid, matched, partial)
         return True
 
     def _admission_order(self) -> list[_Pending]:
@@ -1849,6 +1878,7 @@ class InferenceEngine:
         logger.info("engine %s: preempted rid=%d class=%d (%s) after %d "
                     "tokens", self.name, s.rid, s.priority, why,
                     len(s.emitted))
+        self._recorder.on_finish(s.rid, f"preempted:{why}")
         self._release(slot_idx)
         self._pending.appendleft(resume)
 
@@ -2054,7 +2084,10 @@ class InferenceEngine:
             t0 = time.perf_counter()
             clen, step = self._chunk("prefill", s, s.filled, s.table)
             tok, lp = self._fetch(step())
-            self._prefill_time += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self._prefill_time += dt
+            self._recorder.on_prefill_chunk(
+                s.rid, clen, self._chunk_bucket_for(clen), dt)
             self._prefill_tokens += clen
             self._prefill_chunks += 1
             s.filled += clen
@@ -2092,6 +2125,7 @@ class InferenceEngine:
             wait = time.perf_counter() - s.submit_ts
             self._queue_waits.append(wait)
             self._class_waits[s.priority].append(wait)
+            self._recorder.on_first_token(s.rid, wait)
         if self.role == "prefill":
             # the handoff: the written blocks go to host and the slot
             # frees; nothing decodes on this engine
@@ -2129,11 +2163,13 @@ class InferenceEngine:
             self._last_swap_ms = (time.perf_counter()
                                   - self._swap_pending_ts) * 1e3
             self._swap_pending_ts = None
+            self._recorder.on_swap_crossing(s.rid)
         self._out[s.rid].append(TokenEvent(
             tok, logp, self._params_version if ver is None else ver))
         s.emitted.append(int(tok))
         cc = self._class_counter(s.priority)
         cc["decode_tokens"] += 1
+        self._recorder.on_token(s.rid)
         if self.spec == "ngram":
             s.history.append(tok)
         hit_eos = s.eos_id is not None and tok == s.eos_id
@@ -2142,6 +2178,7 @@ class InferenceEngine:
             self._done.add(s.rid)
             cc["completed"] += 1
             self._release(slot_idx)
+            self._recorder.on_finish(s.rid, "finished")
 
     def step(self) -> bool:
         """One scheduler tick: admit queued imports, then pending requests,

@@ -16,8 +16,13 @@ dispatch, lagged metric fetches. The counterpart of
   old, through the module's one host-fetch seam `_to_host` (tests patch
   it): one device-to-host copy per fetch, so no step waits on the host.
 
-The reference's retrace sentinel watches jit retraces; eager PyTorch has
-no compile cache to watch, so it has no counterpart here.
+Each loop is a telemetry source (``train<N>``, `util.telemetry`): its
+`stats` (the last run's breakdown, MFU through `telemetry.mfu`, goodput)
+reach the metrics registry at every snapshot. With ``unroll > 1`` the
+fused dispatch counts a build per new input signature (the shapes and
+dtypes of the stacked batch: what makes a jit trace again in the
+reference) under ``dispatch_traces``, and a `RetraceSentinel` holds it to
+one.
 """
 
 from __future__ import annotations
@@ -30,20 +35,7 @@ from typing import Any, Callable, Iterable, Iterator
 import numpy as np
 import torch
 
-# bf16 dense tensor-core peak per device, by name (NVIDIA's data sheets,
-# SXM parts), for MFU. A device not listed reports no MFU.
-PEAK_FLOPS = (("H100", 989e12), ("H200", 989e12))
-
-
-def peak_flops(device) -> float | None:
-    device = torch.device(device)
-    if device.type != "cuda":
-        return None
-    name = torch.cuda.get_device_name(device)
-    for key, val in PEAK_FLOPS:
-        if key in name:
-            return val
-    return None
+from ray_tpu_torch.util import telemetry as _telemetry
 
 
 def _map(fn, tree):
@@ -226,16 +218,27 @@ class MetricsRing:
         return self.history
 
 
-def fuse_steps(step_fn: Callable, unroll: int) -> Callable:
+def fuse_steps(step_fn: Callable, unroll: int,
+               on_trace: Callable | None = None) -> Callable:
     """One dispatch running ``unroll`` chained steps: takes batch leaves
     stacked ``[unroll, ...]`` and returns the metrics stacked the same
     way. Eager PyTorch has no executable to fuse the steps into, so they
-    run in a Python loop."""
+    run in a Python loop. ``on_trace`` (if given) is called at the first
+    dispatch of each new input signature (leaf names, shapes and
+    dtypes): the compile-once counter seam the retrace sentinel watches,
+    where the reference's jit traces."""
     unroll = int(unroll)
     if unroll < 1:
         raise ValueError(f"unroll must be >= 1, got {unroll}")
+    seen: set = set()
 
     def multi(state, stacked):
+        if on_trace is not None:
+            sig = tuple((k, tuple(v.shape), v.dtype)
+                        for k, v in sorted(stacked.items()))
+            if sig not in seen:
+                seen.add(sig)
+                on_trace()
         ms = []
         for i in range(unroll):
             state, m = step_fn(state, {k: v[i] for k, v in stacked.items()})
@@ -252,8 +255,11 @@ class TrainLoop:
     drained per-step host metrics, so the only blocking sync is at the
     end of each run. ``checkpointer`` (``maybe_snapshot(state, step)`` +
     ``flush()``) and ``publisher(state, step)`` are optional hooks
-    called after each dispatch (fault-tolerant checkpoints and the RL
-    flywheel are ROADMAP A4 and A3)."""
+    called after each dispatch, before the next one updates the state in
+    place (`rl.FlywheelLoop` publishes its weights into its engine
+    through ``publisher``; fault-tolerant checkpoints are ROADMAP A4).
+    ``device`` names the device whose peak `stats`' MFU is read
+    against (default: the current CUDA device)."""
 
     def __init__(self, step_fn: Callable, *, unroll: int = 1,
                  metrics_interval: int = 10, metrics_lag: int = 2,
@@ -262,14 +268,29 @@ class TrainLoop:
         self.unroll = max(1, int(unroll))
         self.metrics_interval = metrics_interval
         self.metrics_lag = metrics_lag
+        # Compile-once accounting for the fused dispatch; for unroll=1 the
+        # dispatch is the caller's step_fn, which is not ours to
+        # instrument, so the watch is unroll > 1 only (as the reference).
+        self.dispatch_traces = 0
+
+        def _count_trace():
+            self.dispatch_traces += 1
+
         self._dispatch = (step_fn if self.unroll == 1
-                          else fuse_steps(step_fn, self.unroll))
+                          else fuse_steps(step_fn, self.unroll,
+                                          on_trace=_count_trace))
         self.last_ring: MetricsRing | None = None
         self.last_breakdown: dict = {}
         self.flops_per_step = flops_per_step
-        self.peak_flops = None if device is None else peak_flops(device)
-        self.last_mfu: float | None = None
+        self.device = device
+        self.last_mfu = 0.0
         self.last_goodput = 0.0
+        self.name = _telemetry.next_name("train")
+        self.sentinel = _telemetry.RetraceSentinel(self.name)
+        if self.unroll > 1:
+            self.sentinel.watch("dispatch", lambda: self.dispatch_traces,
+                                cap=1, registered=True)
+        _telemetry.register_stats_source(self.name, self, kind="train")
         self.checkpointer = checkpointer
         self.publisher = publisher
 
@@ -313,6 +334,8 @@ class TrainLoop:
             metrics_s += t3 - t2
             checkpoint_s += t4 - t3
             publish_s += t5 - t4
+            if self.unroll > 1:
+                self.sentinel.check()
             if num_steps is not None and done >= num_steps:
                 break
         if ckpt is not None:
@@ -340,16 +363,25 @@ class TrainLoop:
             "publish_share": publish_s / denom,
         }
         self.last_goodput = dispatch_s / denom
-        if self.flops_per_step and self.peak_flops and steps_run:
-            self.last_mfu = (self.flops_per_step * steps_run / denom
-                             / self.peak_flops)
+        if self.flops_per_step and steps_run:
+            self.last_mfu = _telemetry.mfu(
+                self.flops_per_step * steps_run / denom, n_devices=1,
+                device=self.device)
         return state, out
 
     def stats(self) -> dict:
-        """The last run's step-time breakdown plus MFU (None where the
-        device's peak is unknown, e.g. on the CPU) and goodput."""
-        return {"unroll": self.unroll, "mfu": self.last_mfu,
-                "goodput": self.last_goodput, **self.last_breakdown}
+        """Telemetry-bridge stats dict (`util.telemetry` republishes these
+        as train_* series at every snapshot): the last run's step-time
+        breakdown plus MFU/goodput and the fused-dispatch compile-once
+        accounting."""
+        return {
+            "dispatch_traces": self.dispatch_traces,
+            "retraces_unexpected": self.sentinel.retraces_unexpected,
+            "unroll": self.unroll,
+            "mfu": self.last_mfu,
+            "goodput": self.last_goodput,
+            **self.last_breakdown,
+        }
 
 
 def run_steps(step_fn: Callable, state, device_batches: Iterable,

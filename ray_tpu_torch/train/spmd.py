@@ -3,9 +3,10 @@
 
 The JAX module builds sharded state and a jitted step from logical axes;
 on one card there is nothing to shard, so this module keeps the same
-pieces in eager PyTorch: `TrainState`, an optimizer with optax's exact
-semantics (`default_optimizer`), `make_train_step` with gradient
-accumulation as a running f32 mean over microbatches, the GPT loss
+pieces in eager PyTorch: `TrainState`, optimizers with optax's exact
+semantics (`default_optimizer`'s `AdamW`, and `Adam`, ``optax.adam``),
+`make_train_step` with gradient accumulation as a running f32 mean over
+microbatches, the GPT loss
 (`softmax_xent`, `gpt_loss_fn` with its padding mask, dense or fused),
 the one-call `make_gpt_trainer` and `train_flops_per_token` (copied as
 it is, so MFU reads the same work in both packages). Meshes, sharding
@@ -111,6 +112,37 @@ class AdamW:
             p.add_(-lr * upd)
         count.add_(1)
         return norm
+
+
+class Adam:
+    """``optax.adam(learning_rate, b1, b2, eps)``: a constant learning
+    rate, no clipping and no weight decay (the RL flywheel's default
+    optimizer, `rl.FlywheelLoop`), with `AdamW`'s interface: moments and
+    bias corrections as `optax.scale_by_adam`, parameters and moments
+    updated in place, every scalar on the device."""
+
+    def __init__(self, learning_rate: float = 1e-3, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.learning_rate = float(learning_rate)
+        self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
+
+    init = AdamW.init
+
+    @torch.no_grad()
+    def update(self, grads, state: dict, params) -> None:
+        """Apply one update to ``params`` in place. Unlike `AdamW.update`
+        it computes no gradient norm: nothing clips by it, as in
+        ``optax.adam``."""
+        n = (state["count"] + 1).float()
+        bc1 = 1 - torch.pow(self.b1, n)
+        bc2 = 1 - torch.pow(self.b2, n)
+        for p, g, mu, nu in zip(_leaves(params), grads, state["mu"],
+                                state["nu"]):
+            mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
+            nu.mul_(self.b2).add_(g * g, alpha=1 - self.b2)
+            p.add_(-self.learning_rate
+                   * ((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)))
+        state["count"].add_(1)
 
 
 def global_norm(tensors) -> torch.Tensor:

@@ -168,8 +168,11 @@ def test_unported_features_refuse(tree):
     assert _port(tree, role="prefill").role == "prefill"
     with pytest.raises(ValueError, match="unknown engine role 'bogus'"):
         _port(tree, role="bogus")
-    with pytest.raises(NotImplementedError, match="telemetry_sample"):
-        _port(tree, telemetry_sample=1.0)
+    # the flight recorder is ported: telemetry_sample constructs; device
+    # meshes still refuse, naming the roadmap item
+    assert _port(tree, telemetry_sample=0.5)._recorder.sample == 0.5
+    with pytest.raises(NotImplementedError, match="mesh.*A6"):
+        _port(tree, mesh=object())
     with pytest.raises(TypeError, match="bogus"):
         _port(tree, bogus=1)
     eng = _port(tree)

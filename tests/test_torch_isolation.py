@@ -33,7 +33,11 @@ def test_every_module_imports_without_jax_or_ray_tpu():
             "ray_tpu_torch.serve.priority",
             "ray_tpu_torch._private.constants",
             "ray_tpu_torch._private.config", "ray_tpu_torch._private.netaddr",
-            "ray_tpu_torch.serve.disagg"} <= set(mods)
+            "ray_tpu_torch.serve.disagg", "ray_tpu_torch.util.metrics",
+            "ray_tpu_torch.util.tracing", "ray_tpu_torch.rllib",
+            "ray_tpu_torch.rllib.sample_batch", "ray_tpu_torch.rllib.rollout",
+            "ray_tpu_torch.rl", "ray_tpu_torch.rl.sampler",
+            "ray_tpu_torch.rl.flywheel"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -89,7 +93,8 @@ def test_default_device_is_cuda_and_raises_without_one():
 
 
 def test_training_entry_points_and_numpy_model_need_a_card():
-    """Training entry points and `GPT(cfg, numpy_tree)` run on the card
+    """Training entry points (the RL flywheel's among them) and `GPT(cfg,
+    numpy_tree)` run on the card
     unless given device="cpu"; without one they raise (a numpy tree once
     stayed on the CPU silently)."""
     if torch.cuda.is_available():
@@ -97,6 +102,7 @@ def test_training_entry_points_and_numpy_model_need_a_card():
     import numpy as np
 
     from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.rl import FlywheelLoop
     from ray_tpu_torch.train import loop, spmd
     cfg = gpt.GPTConfig(vocab_size=64, d_model=16, n_layers=1, n_heads=2,
                         d_ff=32, max_seq_len=16, dtype="float32")
@@ -108,7 +114,8 @@ def test_training_entry_points_and_numpy_model_need_a_card():
                  lambda: gpt.params_from_numpy(tree, cfg),
                  lambda: gpt.init_params(0, cfg),
                  lambda: spmd.make_gpt_trainer(cfg),
-                 lambda: loop.make_placer()):
+                 lambda: loop.make_placer(),
+                 lambda: FlywheelLoop(cfg, None, None)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert gpt.GPT(cfg, tree, device="cpu").device == torch.device("cpu")

@@ -1165,3 +1165,129 @@ def test_prefill_role_builds_no_decode_step_and_syncs_once(dev):
     assert blob["n_blocks"] == 5 and blob["payload"][0]["k"].dtype == \
         np.uint16
     pre.check_invariants()
+
+
+# ---------------------------------------------------------------------------
+# the RL flywheel and the flight recorder on the card
+# ---------------------------------------------------------------------------
+
+def _flywheel(dev, cfg, **kw):
+    """A `FlywheelLoop` on ``cfg`` with 4 prompts of 24 tokens, 16 new
+    tokens, padded to 48, an engine of 4 slots, block 16, chunk 32, and
+    a reward with a spread over the batch (the share of the completion in
+    the lower half of the vocabulary)."""
+    import numpy as np
+    from ray_tpu_torch.rl.flywheel import FlywheelLoop
+    vocab = cfg.vocab_size
+    return FlywheelLoop(
+        cfg, lambda rng: rng.integers(0, vocab, 24).astype(np.int32),
+        lambda p, c: float((np.asarray(c) < vocab // 2).mean()),
+        prompts_per_iter=4, max_new_tokens=16, pad_to=48, lr=1e-4,
+        engine_kwargs=dict(slots=4, max_len=64, block_size=16,
+                           prefill_chunk=32), device=dev, **kw)
+
+
+def test_flywheel_learner_step_flash_matches_plain_attention(dev):
+    """The learner's surrogate loss and gradients on an engine rollout,
+    through the flash kernels (bf16, D 64) and through plain attention
+    from the same f32 masters: loss within 1e-2, each leaf's gradient
+    within 5e-2 relative (chip_smoke.py phase 6's limits), each
+    completion logprob within 0.1; the behaviour logprobs within 0.1 of
+    `completion_logprobs`. The first rollout's advantages sum to zero
+    (its baseline is its mean reward), and so would the loss: it is
+    taken with every advantage 1 instead, where it is about -1."""
+    import dataclasses
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.rl.flywheel import surrogate_loss
+    _, cfg, _ = _capture_model(dev)
+    fly = _flywheel(dev, cfg)
+    batch = fly._collect()
+    raw = {**batch, "advantage": torch.ones_like(batch["advantage"])}
+    model = fly.state.params
+    live = batch["mask"] > 0
+    res = {}
+    for impl in ("flash", "xla"):
+        ops.reset_kernel_launches()
+        loss, (lp, *_) = surrogate_loss(
+            model, raw, dataclasses.replace(cfg, attn_impl=impl), 16, 0.2)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        res[impl] = (loss.item(), grads, ops.kernel_launches(), lp.detach())
+    assert res["flash"][2]["flash_dq_tc"] == cfg.n_layers
+    assert res["xla"][2]["flash_forward"] == 0
+    assert abs(res["flash"][0] + 1) <= 0.2
+    assert abs(res["flash"][0] - res["xla"][0]) <= 1e-2
+    assert (res["flash"][3] - res["xla"][3]).abs()[live].max().item() <= 0.1
+    for a, b in zip(res["flash"][1], res["xla"][1]):
+        rel = ((a.float() - b.float()).norm()
+               / b.float().norm().clamp_min(1e-30)).item()
+        assert rel <= 5e-2
+    with torch.no_grad():
+        lp = gpt.completion_logprobs(model, batch["tokens"], batch["start"],
+                                     16)
+    assert (lp - batch["behavior_logp"]).abs()[live].max().item() <= 0.1
+
+
+def test_flywheel_publish_into_captured_engine_builds_nothing(dev):
+    """Iterations of the flywheel on a captured engine: every publish
+    copies into the tensors the graphs read, so after the first
+    iteration's builds nothing is built again, the engine serves the
+    learner's weights (greedy tokens of a fresh engine on them), and
+    the rollouts carry the published version."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve import InferenceEngine
+    _, cfg, _ = _capture_model(dev)
+    fly = _flywheel(dev, cfg)
+    fly.run(1)
+    eng = fly.engine
+    traces = {k: getattr(eng, k) for k in ("decode_traces",
+                                           "prefill_traces")}
+    eng.arm_retrace_sentinel()
+    fly.run(3)
+    st = eng.stats()
+    assert {k: st[k] for k in traces} == traces
+    assert st["retraces_unexpected"] == 0 and st["swaps"] == 4
+    assert [h["engine_version"] for h in fly.history] == [0, 1, 2, 3]
+    assert all(h["staleness"] == 0 for h in fly.history)
+    for (k, v), (_, w) in zip(eng.model.named_parameters(),
+                              fly.state.params.named_parameters()):
+        assert torch.equal(v, w.detach().to(v.dtype)), k
+    fresh = InferenceEngine(gpt.GPT(cfg, gpt.param_tree(fly.state.params),
+                                    device=dev), cfg, slots=4, max_len=64,
+                            block_size=16, prefill_chunk=32, device=dev)
+    prompt = list(range(5, 29))
+    assert [int(t) for t in eng.generate(prompt, max_new_tokens=12)] == \
+        [int(t) for t in fresh.generate(prompt, max_new_tokens=12)]
+
+
+def test_flight_recorder_adds_no_host_sync(dev):
+    """A captured engine with every request traced makes the same host
+    syncs as one with none (one a prefill chunk and a decode tick), and
+    its recorder holds each request's spans."""
+    import warnings
+    from ray_tpu_torch.serve import InferenceEngine
+    model, cfg, _ = _capture_model(dev)
+    reqs = _capture_traffic(cfg.vocab_size)
+    got = {}
+    for sample in (1.0, 0.0):
+        # no prefix cache: the second run's chunks are the first's, so
+        # every step it runs was built by the first
+        eng = InferenceEngine(model, cfg, slots=4, max_len=160,
+                              block_size=16, prefill_chunk=32, device=dev,
+                              prefix_cache=False, telemetry_sample=sample)
+        _serve(eng, reqs)
+        eng.reset_stats()
+        eng._recorder.clear()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                _serve(eng, reqs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        st = eng.stats()
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        assert syncs == st["decode_steps"] + st["prefill_chunks"]
+        got[sample] = (syncs, len({s["attributes"]["rid"]
+                                   for s in eng._recorder.get_spans()}))
+    assert got[1.0][1] == len(reqs) and got[0.0][1] == 0
