@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py              # one card, no arguments
     python3 chip_smoke.py --decode-times [CHECKOUT]
+    python3 chip_smoke.py --ft-child    # phase 17 (b)'s trainer (env)
 
 Builds the port's CUDA kernels from ``ray_tpu_torch/ops/csrc/`` with nvcc
 (sm_90a, one nvcc per source, all at once) and drives its paths, paged
-serving, training (dense and fused loss) and unpaged decode, end to end:
+serving, training (dense and fused loss, checkpointed and resumed, and
+the MoE, ViT and ResNet families) and unpaged decode, end to end:
 
 1. kernels vs plain: each paged-attention kernel against its plain
    PyTorch version on the same inputs at the serving shapes (H=16, D=64,
@@ -191,6 +193,34 @@ serving, training (dense and fused loss) and unpaged decode, end to end:
    `util.telemetry.check_invariants`, a Prometheus text with the engine's,
    the train loop's and the flywheel's series that parses, and a replica
    pair's export, import and handoff spans.
+17. fault-tolerant training and the other model families: (a)
+   ``bench.py``'s checkpoint region on phase 8's configuration: a clean
+   20-step region, then the same `TrainLoop` with an `AsyncCheckpointer`
+   (every max(unroll, steps // 2), 2 in flight, keep 1) in a temporary
+   directory (its filesystem printed): ``checkpoint_overhead_pct`` as
+   ``bench.py`` computes it (end-of-run flush included, and without it),
+   commits (> 0), stalls, the breakdown, each ``ft.checkpoint_commit``
+   span, each commit split into the clones' and the host copy's device
+   time, sha256 and write + fsync; the training thread's host syncs equal
+   to the clean region's; a forced snapshot of the live state restored
+   into a trainer built with ``init_state=False``, every leaf bit for bit,
+   and 4 more steps from each with bit-identical losses; (b)
+   ``tests/test_chaos.py``'s kill/resume with ``--ft-child`` children
+   (``bench.py``'s GPT at full width, 2 layers, fused loss, flash, batch
+   8; ``CUBLAS_WORKSPACE_CONFIG`` set): a control run, a victim that
+   checkpoints every 3 steps and SIGKILLs itself at batch 8, a resume
+   whose losses equal the control's bit for bit; (c) ``MoEConfig()``
+   through `make_moe_trainer` at batch 8: the flash kernels against plain
+   at its shape (H 12), the step-0 loss, flash against plain attention
+   (phase 6's limits), 6 timed steps (tok/s, peak memory, flash launches
+   a step: 24 forward with remat, 12 dQ, 12 dK/dV), a profiled window by
+   kernel group, and a checkpoint restored with a bit-identical next
+   step; (d) ``ViTConfig()`` and ``resnet50(1000)`` at 224^2, bf16, batch
+   32: 3 steps of Adam on one repeated batch (images/s, falling losses),
+   a `Checkpoint` of the trained weights through a directory into
+   `TorchPredictor` with predictions equal to the model's own bit for
+   bit, and ResNet's batch statistics changed by training and used in
+   eval.
 
 Before the phases it prints the registers and spilled bytes of every
 tensor-core kernel and of the two split-K decode kernels from nvcc's
@@ -213,6 +243,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -875,6 +906,56 @@ def flash_bound(t: int, causal: bool, which: str, dtype) -> tuple[float, str]:
     return bound(nbytes, per_pair * FD * pairs, dtype)
 
 
+def flash_case(g, dev, b: int, t: int, h: int, d: int, causal: bool,
+               name: str) -> dict:
+    """The three flash kernels against their plain versions on random
+    [b, t, h, d] inputs of dtype ``name`` (bf16 at D 64 and 128 on the
+    tensor cores, within FLASH_TOL plus their extra roundings): each
+    kernel's case record with its max |kernel - plain|."""
+    import torch
+    from ray_tpu_torch.ops import flash_attention as fa
+    dt = getattr(torch, name)
+    tc = dt == torch.bfloat16 and d in (64, 128)
+    q, k, v, do = (torch.randn((b, t, h, d), generator=g,
+                               device=dev).to(dt) for _ in range(4))
+    what = f"{name:8s} B={b} T={t} H={h} D={d} causal={causal!s:5s}"
+    case = {"dtype": name, "B": b, "T": t, "H": h, "D": d, "causal": causal,
+            "kernel": "tc" if tc else "simt"}
+    out, lse = fa.flash_forward(q, k, v, causal=causal)
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, causal=causal)
+    extra = None
+    if dt == torch.bfloat16:
+        extra = 2 ** -8 * fa.flash_forward_reference(
+            q.float(), k.float(), v.float().abs(), causal=causal)[0]
+    errs = [check("flash forward", out, ref_out, name,
+                  f"flash fwd out {what}", FLASH_TOL, extra),
+            check("flash forward", lse, ref_lse, "float32",
+                  f"flash fwd lse {what}", FLASH_TOL)]
+    rec = {"fwd": {**case, "max_abs_err": max(errs)}}
+    del extra
+    delta = fa.attention_delta(ref_out, do)
+    dq = fa.flash_dq(q, k, v, do, ref_lse, delta, causal=causal)
+    dk, dv = fa.flash_dkv(q, k, v, do, ref_lse, delta, causal=causal)
+    rdq, rdk, rdv = fa.flash_backward_reference(q, k, v, do, ref_lse,
+                                                delta, causal=causal)
+    bq = bk = bv = None
+    if tc:
+        bq, bk, bv = (2 ** -8 * x for x in fa.flash_backward_abs_bound(
+            q, k, v, do, ref_lse, delta, causal=causal))
+    e = check("flash dq", dq, rdq, name, f"flash dq      {what}",
+              FLASH_TOL, bq, "2^-8*sm|dS||K|")
+    rec["dq"] = {**case, "max_abs_err": e}
+    e = max(check("flash dkv", dk, rdk, name, f"flash dk      {what}",
+                  FLASH_TOL, bk, "2^-8*sm|dS|^T|Q|"),
+            check("flash dkv", dv, rdv, name, f"flash dv      {what}",
+                  FLASH_TOL, bv, "2^-8*|P|^T|dO|"))
+    rec["dkv"] = {**case, "max_abs_err": e}
+    del q, k, v, do, out, lse, ref_out, ref_lse, delta, dq, dk, dv
+    del rdq, rdk, rdv, bq, bk, bv
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_flash(dev) -> dict:
     """Phase 5: the three flash kernels against their plain versions at
     the training shape, then their times beside bound, plain and SDPA."""
@@ -885,46 +966,9 @@ def phase_flash(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(5)
     rec = {k: {"cases": []} for k in ("fwd", "dq", "dkv")}
     for t, causal, name, d in FLASH_CASES:
-        dt = getattr(torch, name)
-        tc = dt == torch.bfloat16 and d in (64, 128)
-        q, k, v, do = (torch.randn((FB, t, FH, d), generator=g,
-                                   device=dev).to(dt) for _ in range(4))
-        what = f"{name:8s} T={t} D={d} causal={causal!s:5s}"
-        case = {"dtype": name, "T": t, "D": d, "causal": causal,
-                "kernel": "tc" if tc else "simt"}
-        out, lse = fa.flash_forward(q, k, v, causal=causal)
-        ref_out, ref_lse = fa.flash_forward_reference(q, k, v,
-                                                      causal=causal)
-        extra = None
-        if dt == torch.bfloat16:
-            extra = 2 ** -8 * fa.flash_forward_reference(
-                q.float(), k.float(), v.float().abs(), causal=causal)[0]
-        errs = [check("flash forward", out, ref_out, name,
-                      f"flash fwd out {what}", FLASH_TOL, extra),
-                check("flash forward", lse, ref_lse, "float32",
-                      f"flash fwd lse {what}", FLASH_TOL)]
-        rec["fwd"]["cases"].append({**case, "max_abs_err": max(errs)})
-        del extra
-        delta = fa.attention_delta(ref_out, do)
-        dq = fa.flash_dq(q, k, v, do, ref_lse, delta, causal=causal)
-        dk, dv = fa.flash_dkv(q, k, v, do, ref_lse, delta, causal=causal)
-        rdq, rdk, rdv = fa.flash_backward_reference(q, k, v, do, ref_lse,
-                                                    delta, causal=causal)
-        bq = bk = bv = None
-        if tc:
-            bq, bk, bv = (2 ** -8 * x for x in fa.flash_backward_abs_bound(
-                q, k, v, do, ref_lse, delta, causal=causal))
-        e = check("flash dq", dq, rdq, name, f"flash dq      {what}",
-                  FLASH_TOL, bq, "2^-8*sm|dS||K|")
-        rec["dq"]["cases"].append({**case, "max_abs_err": e})
-        e = max(check("flash dkv", dk, rdk, name, f"flash dk      {what}",
-                      FLASH_TOL, bk, "2^-8*sm|dS|^T|Q|"),
-                check("flash dkv", dv, rdv, name, f"flash dv      {what}",
-                      FLASH_TOL, bv, "2^-8*|P|^T|dO|"))
-        rec["dkv"]["cases"].append({**case, "max_abs_err": e})
-        del q, k, v, do, out, lse, ref_out, ref_lse, delta, dq, dk, dv
-        del rdq, rdk, rdv, bq, bk, bv
-        torch.cuda.empty_cache()
+        for key, case in flash_case(g, dev, FB, t, FH, d, causal,
+                                    name).items():
+            rec[key]["cases"].append(case)
 
     # Times at the main path's case: bf16, causal, T 1024. Three input
     # sets of 67 MB each, so a set is cold in the 50 MB L2 when reused.
@@ -1003,13 +1047,18 @@ def _loss_and_grads(model, batch, cfg) -> tuple[float, list]:
     return loss.item(), torch.autograd.grad(loss, list(model.parameters()))
 
 
+def _grad_rel(model, ga, gb) -> dict:
+    """Each leaf's relative Frobenius gap between two gradient lists."""
+    return {n: ((x.float() - y.float()).norm()
+                / y.float().norm().clamp_min(1e-30)).item()
+            for (n, _), x, y in zip(model.named_parameters(), ga, gb)}
+
+
 def _compare_runs(what, model, a, b) -> dict:
     """Loss and every gradient leaf of two runs of one model, each a
     (loss, grads) pair, held to TRAIN_LOSS_TOL and TRAIN_GRAD_REL_TOL."""
     dloss = abs(a[0] - b[0])
-    rel = {n: ((ga.float() - gb.float()).norm()
-               / gb.float().norm().clamp_min(1e-30)).item()
-           for (n, _), ga, gb in zip(model.named_parameters(), a[1], b[1])}
+    rel = _grad_rel(model, a[1], b[1])
     worst = max(rel, key=rel.get)
     print(f"  {what}: loss {a[0]:.6f} vs {b[0]:.6f}, |diff| {dloss:.2e} "
           f"(limit {TRAIN_LOSS_TOL}); worst leaf gradient rel. error "
@@ -4254,6 +4303,716 @@ def phase_flywheel(dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: fault-tolerant training and the other model families
+# ---------------------------------------------------------------------------
+
+# (b)'s trainer child: bench.py's GPT at full width and FT_LAYERS layers,
+# FT_BATCH x 1024 tokens a step, FT_UNROLL steps a dispatch; a victim
+# checkpointing every FT_EVERY steps SIGKILLs itself once its feed
+# reaches batch FT_CRASH_AT and a commit exists (tests/test_chaos.py's
+# numbers).
+FT_STEPS, FT_EVERY, FT_CRASH_AT = 12, 3, 8
+FT_LAYERS, FT_BATCH, FT_UNROLL = 2, 8, 2
+FT_CHILD_TIMEOUT_S = 300
+# (c) MoEConfig() at batch 8, (d) ViTConfig() and resnet50(1000) at 32
+MOE_BATCH, MOE_STEPS = 8, 6
+VISION_BATCH, VISION_STEPS = 32, 3
+
+
+class thread_syncs:
+    """Counts host-sync warnings (`torch.cuda.set_sync_debug_mode`) by the
+    thread that raised them; ``main`` is the calling thread's count."""
+
+    def __enter__(self):
+        import threading
+
+        import torch
+        self.main_ident = threading.get_ident()
+        self.seen = []
+        self._cm = warnings.catch_warnings()
+        self._cm.__enter__()
+        warnings.simplefilter("always")
+
+        def show(message, *args, **kwargs):
+            # a host sync's warning, not the mode's own "prototype" notice
+            if "synchroniz" in str(message) and \
+                    "debug mode" not in str(message):
+                self.seen.append(threading.get_ident())
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode("default")
+        self._cm.__exit__(*exc)
+
+    @property
+    def main(self) -> int:
+        return sum(t == self.main_ident for t in self.seen)
+
+    @property
+    def other(self) -> int:
+        return len(self.seen) - self.main
+
+
+def _leaf_mismatches(a, b) -> list:
+    """Names of the train-state leaves (parameters, both moments, the
+    count and the step) where two `spmd.TrainState`s differ in any bit."""
+    import torch
+    bad = [n for (n, x), y in zip(a.params.named_parameters(),
+                                  b.params.parameters())
+           if not torch.equal(x, y)]
+    for k in ("mu", "nu"):
+        bad += [f"{k}[{i}]" for i, (x, y) in enumerate(
+            zip(a.opt_state[k], b.opt_state[k])) if not torch.equal(x, y)]
+    for name, x, y in (("count", a.opt_state["count"], b.opt_state["count"]),
+                       ("step", a.step, b.step)):
+        if not torch.equal(x, y):
+            bad.append(name)
+    return bad
+
+
+def _commit_record(ckpt) -> list:
+    """Prints and returns each commit's split (`ft.AsyncCheckpointer.
+    timings`; the device times are None for a state on the CPU)."""
+    def ms(x):
+        return "n/a" if x is None else f"{x:.2f}"
+    for r in ckpt.timings:
+        print(f"      commit of step {r['step']}: clone "
+              f"{ms(r['clone_ms'])} ms (device), to host {ms(r['d2h_ms'])} "
+              f"ms (device; the writer waited {r['fetch_s'] * 1e3:.1f} ms), "
+              f"sha256 {r['hash_s'] * 1e3:.1f} ms, write + fsync "
+              f"{r['write_s'] * 1e3:.1f} ms, {r['bytes'] / 1e9:.3f} GB, "
+              f"commit {r['commit_s'] * 1e3:.1f} ms")
+    return list(ckpt.timings)
+
+
+def _restore_and_step(dev, cfg, state, step_fn, trainer, batches, root,
+                      steps: int) -> tuple:
+    """Force a snapshot of the live ``state``, flush, restore it into a
+    trainer built with ``init_state=False`` (``trainer``), check every leaf
+    bit for bit, then ``steps`` more steps from each state on the same
+    batches: the losses must be bit-identical. Returns (record, the live
+    state after those steps)."""
+    import torch
+    from ray_tpu_torch.train import ft
+    pc = time.perf_counter
+    ckpt = ft.AsyncCheckpointer(root, every=1, keep=1)
+    step = int(state.step)
+    t0 = pc()
+    ckpt.maybe_snapshot(state, step, force=True)
+    ckpt.flush()
+    ckpt.close()
+    commit = _commit_record(ckpt)
+    t1 = pc()
+    tree, got_step = ft.restore_resharded(root, dev)
+    torch.cuda.synchronize()
+    t2 = pc()
+    _, step2, _ = trainer(cfg, device=dev, init_state=False)
+    back = ft.state_from_tree(tree, cfg, dev)
+    del tree
+    bad = _leaf_mismatches(state, back)
+    if got_step != step or bad:
+        fail(f"restored step {got_step} (want {step}), leaves differing: "
+             f"{bad[:8]}")
+    la, lb = [], []
+    for _ in range(steps):
+        b = next(batches)
+        state, ma = step_fn(state, b)
+        back, mb = step2(back, b)
+        la.append(ma["loss"])
+        lb.append(mb["loss"])
+    la, lb = [x.item() for x in la], [x.item() for x in lb]
+    print(f"      forced snapshot of step {step}: commit {t1 - t0:.2f} s, "
+          f"restore {t2 - t1:.2f} s; every leaf bit for bit; {steps} more "
+          f"steps: live {la}, restored {lb}")
+    if la != lb:
+        fail(f"losses after the restore differ: {la} vs {lb}")
+    del back, step2
+    return {"step": step, "snapshot_commit_s": t1 - t0,
+            "restore_s": t2 - t1, "commit": commit, "losses_live": la,
+            "losses_restored": lb}, state
+
+
+def ckpt_region(dev, smi: str) -> dict:
+    """(a) bench.py's checkpoint region on phase 8's configuration: a clean
+    FUSED_STEPS-step region, the same loop again with an AsyncCheckpointer
+    (every max(unroll, steps // 2), 2 in flight, keep 1), then a forced
+    snapshot restored into a fresh trainer."""
+    import shutil
+    import tempfile
+
+    import torch
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.train import ft, loop, spmd
+    from ray_tpu_torch.util import tracing
+
+    cfg = _train_cfg(loss_impl="fused")
+    batch, unroll, prefetch, interval = 24, 4, 2, 10
+    steps = FUSED_STEPS
+    every = max(unroll, steps // 2)
+    pc = time.perf_counter
+    state, step_fn, place = spmd.make_gpt_trainer(cfg, seed=0, device=dev)
+    flops_step = spmd.train_flops_per_token(cfg, cfg.max_seq_len) \
+        * batch * cfg.max_seq_len
+    batches = loop.DevicePrefetcher(_host_batches(cfg, batch, seed=31),
+                                    place, depth=prefetch, group=unroll)
+    train = loop.TrainLoop(step_fn, unroll=unroll, metrics_interval=interval,
+                           flops_per_step=flops_step, device=dev)
+    state, _ = train.run(state, batches, num_steps=FUSED_WARMUP)
+    snap_bytes = sum(t.numel() * t.element_size() for t in
+                     ft.tree_leaves(ft.state_to_tree(state)))
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    fs = subprocess.run(["df", "-T", root], capture_output=True,
+                        text=True).stdout.strip().splitlines()[-1]
+    print(f"  (a) snapshot {snap_bytes / 1e9:.3f} GB (f32 masters + mu + nu "
+          f"+ counts); checkpoint dir on: {fs}")
+    out = {"card": smi, "batch": batch, "unroll": unroll, "steps": steps,
+           "every": every, "snapshot_bytes": snap_bytes, "filesystem": fs}
+    try:
+        with thread_syncs() as clean_syncs:
+            t0 = pc()
+            state, hist = train.run(state, batches, num_steps=steps)
+            dt = pc() - t0
+        clean = dict(train.last_breakdown)
+        tracing.enable_tracing()
+        tracing.clear_spans()
+        ckpt = ft.AsyncCheckpointer(root, every=every, max_in_flight=2,
+                                    keep=1)
+        flush_s = []
+        real_flush = ckpt.flush
+
+        def timed_flush():
+            t = pc()
+            real_flush()
+            flush_s.append(pc() - t)
+        ckpt.flush = timed_flush
+        train.checkpointer = ckpt
+        ops.reset_kernel_launches()
+        with thread_syncs() as ckpt_syncs:
+            t0 = pc()
+            state, hist2 = train.run(state, batches, num_steps=steps)
+            dt_ckpt = pc() - t0
+        launches = ops.kernel_launches()
+        train.checkpointer = None
+        ckpt.check_invariants()
+        ckpt.close()
+        spans = [(s["end_ns"] - s["start_ns"]) * 1e-6
+                 for s in tracing.get_spans()
+                 if s["name"] == "ft.checkpoint_commit"]
+        losses = [float(m["loss"]) for m in hist + hist2]
+        if ckpt.commits <= 0 or not all(map(math.isfinite, losses)):
+            fail(f"checkpoint region: {ckpt.commits} commits, losses "
+                 f"{losses}")
+        overhead = (dt_ckpt - dt) / dt * 100.0
+        print(f"      clean {steps} steps {dt:.3f} s, with the "
+              f"checkpointer {dt_ckpt:.3f} s: checkpoint_overhead_pct "
+              f"{overhead:.2f} (end-of-run flush {sum(flush_s):.3f} s; "
+              f"without it {(dt_ckpt - sum(flush_s) - dt) / dt * 100:.2f} "
+              f"%); snapshots {ckpt.snapshots}, commits {ckpt.commits}, "
+              f"stalls {ckpt.stalls}; ft.checkpoint_commit spans "
+              f"{[round(x, 1) for x in spans]} ms")
+        commits = _commit_record(ckpt)
+        print(f"      host syncs on the training thread: clean "
+              f"{clean_syncs.main}, checkpoint region {ckpt_syncs.main} "
+              f"(writer thread {ckpt_syncs.other}); metric fetches "
+              f"{train.last_ring.fetches}")
+        print(f"      breakdown (checkpoint region) "
+              f"{json.dumps(train.last_breakdown)}")
+        if ckpt_syncs.main != clean_syncs.main:
+            fail(f"the checkpoint region synced the training thread "
+                 f"{ckpt_syncs.main} times, the clean region "
+                 f"{clean_syncs.main}")
+        check_flash_backward_launches(launches, steps, cfg.n_layers)
+        out.update(clean_s=dt, ckpt_s=dt_ckpt,
+                   checkpoint_overhead_pct=overhead, flush_s=sum(flush_s),
+                   snapshots=ckpt.snapshots, commits=ckpt.commits,
+                   stalls=ckpt.stalls, commit_span_ms=spans,
+                   commit_split=commits,
+                   host_syncs_clean=clean_syncs.main,
+                   host_syncs_ckpt=ckpt_syncs.main,
+                   host_syncs_writer=ckpt_syncs.other,
+                   breakdown_clean=clean,
+                   step_breakdown=dict(train.last_breakdown),
+                   launches=launches, losses=losses)
+        del ckpt
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        more = (place(b) for b in _host_batches(cfg, batch, seed=32))
+        out["restore"], state = _restore_and_step(
+            dev, cfg, state, step_fn, spmd.make_gpt_trainer, more, root, 4)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del state, step_fn, batches, train
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ft_child_batches(cfg, start: int = 0):
+    """(b)'s data stream: the batch of global step i is a function of i
+    alone (tests/ft_train_child.py), so a resumed run replays the killed
+    run's batches."""
+    import numpy as np
+    idx = start
+    while True:
+        rng = np.random.default_rng(1234 + idx)
+        toks = rng.integers(0, cfg.vocab_size, (FT_BATCH, cfg.max_seq_len + 1)
+                            ).astype(np.int32)
+        yield {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+        idx += 1
+
+
+def ft_child() -> int:
+    """``--ft-child``: (b)'s trainer, configured by FT_ROOT, FT_OUT,
+    FT_MODE (train | resume), FT_EVERY (0: no checkpointer) and
+    FT_CRASH_AT (SIGKILL itself once its feed reaches this batch and a
+    checkpoint is committed), as tests/ft_train_child.py."""
+    import signal
+
+    import torch
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.train import ft, loop, spmd
+    from ray_tpu_torch.models import gpt
+    _build.load()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = gpt.resolve_device()
+    root, out = os.environ["FT_ROOT"], os.environ.get("FT_OUT")
+    every = int(os.environ.get("FT_EVERY", "0"))
+    crash_at = int(os.environ.get("FT_CRASH_AT", "-1"))
+    t0 = time.perf_counter()
+    cfg = _train_cfg(loss_impl="fused", n_layers=FT_LAYERS)
+    opt = spmd.default_optimizer(learning_rate=3e-4, warmup_steps=2,
+                                 total_steps=FT_STEPS)
+    if os.environ.get("FT_MODE", "train") == "resume":
+        _, step_fn, place = spmd.make_gpt_trainer(
+            cfg, optimizer=opt, device=dev, init_state=False)
+        tree, start = ft.restore_resharded(root, dev)
+        state = ft.state_from_tree(tree, cfg, dev)
+        del tree
+        host = ft.fast_forward(_ft_child_batches(cfg), start)
+    else:
+        state, step_fn, place = spmd.make_gpt_trainer(
+            cfg, optimizer=opt, device=dev)
+        start, host = 0, _ft_child_batches(cfg)
+    ckpt = None
+    if every > 0:
+        ckpt = ft.AsyncCheckpointer(root, every=every, max_in_flight=2,
+                                    keep=2)
+    if crash_at >= 0:
+        def killing(inner):
+            for idx, b in enumerate(inner):
+                if idx >= crash_at:
+                    deadline = time.time() + 120
+                    while ckpt.commits < 1 and time.time() < deadline:
+                        time.sleep(0.01)
+                    os.kill(os.getpid(), signal.SIGKILL)
+                yield b
+        host = killing(host)
+    batches = loop.DevicePrefetcher(host, place, depth=2, group=FT_UNROLL)
+    train = loop.TrainLoop(step_fn, unroll=FT_UNROLL, metrics_interval=4,
+                           checkpointer=ckpt)
+    setup_s = time.perf_counter() - t0
+    state, metrics = train.run(state, batches, num_steps=FT_STEPS,
+                               start_step=start)
+    if ckpt is not None:
+        ckpt.check_invariants()
+        ckpt.close()
+    if out:
+        with open(out, "w") as f:
+            json.dump({"start": int(start),
+                       "steps": [int(m["step"]) for m in metrics],
+                       "losses": [float(m["loss"]) for m in metrics],
+                       "setup_s": setup_s, "train_s": train.last_breakdown[
+                           "total_s"],
+                       "commits": None if ckpt is None else ckpt.timings},
+                      f)
+    return 0
+
+
+def ft_kill_resume(dev, smi: str) -> dict:
+    """(b) tests/test_chaos.py's kill/resume on the card: a control child
+    with no checkpointer, a victim that SIGKILLs itself, a resume from its
+    last committed step; the resumed losses equal the control's from that
+    step on, bit for bit."""
+    import shutil
+    import signal
+    import tempfile
+
+    from ray_tpu_torch.train import ft
+    base = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+    pc = time.perf_counter
+    procs = []
+
+    def start(**env_over):
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        env.update({k: str(v) for k, v in env_over.items()})
+        p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--ft-child"], env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+        procs.append(p)
+        return p, pc()
+
+    def finish(child, what: str):
+        p, t0 = child
+        try:
+            _, err = p.communicate(timeout=FT_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            fail(f"(b) the {what} child ran past {FT_CHILD_TIMEOUT_S} s")
+        return p.returncode, err, pc() - t0
+
+    try:
+        root = os.path.join(base, "ckpts")
+        # the control and the victim are independent: they run at once
+        ctl = start(FT_ROOT=os.path.join(base, "unused"),
+                    FT_OUT=os.path.join(base, "control.json"))
+        victim = start(FT_ROOT=root, FT_EVERY=FT_EVERY,
+                       FT_CRASH_AT=FT_CRASH_AT)
+        rc, err, t_ctl = finish(ctl, "control")
+        if rc != 0:
+            fail(f"(b) control child failed:\n{err[-3000:]}")
+        with open(os.path.join(base, "control.json")) as f:
+            control = json.load(f)
+        rc, err, t_victim = finish(victim, "victim")
+        if rc != -signal.SIGKILL:
+            fail(f"(b) victim exited {rc}, not by SIGKILL:\n{err[-3000:]}")
+        latest = ft.latest_checkpoint(root)
+        if latest is None:
+            fail("(b) the kill left no committed checkpoint")
+        step = ft.validate_checkpoint(latest)["step"]
+        rc, err, t_resume = finish(
+            start(FT_ROOT=root, FT_EVERY=FT_EVERY, FT_MODE="resume",
+                  FT_OUT=os.path.join(base, "resume.json")), "resume")
+        if rc != 0:
+            fail(f"(b) resume child failed:\n{err[-3000:]}")
+        with open(os.path.join(base, "resume.json")) as f:
+            res = json.load(f)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(base, ignore_errors=True)
+    same = res["losses"] == control["losses"][step:]
+    print(f"  (b) kill/resume ({FT_LAYERS} layers at full width, batch "
+          f"{FT_BATCH}): control {len(control['losses'])} steps "
+          f"({t_ctl:.1f} s, {control['setup_s']:.1f} s of it in the child "
+          f"before its first step), victim killed with step {step} "
+          f"committed ({t_victim:.1f} s, at once with the control), resume "
+          f"from {res['start']} ({t_resume:.1f} s); resumed losses {res['losses']} vs control "
+          f"{control['losses'][step:]}: {'bit for bit' if same else 'DIFFER'}")
+    if res["start"] != step or \
+            res["steps"] != list(range(step + 1, FT_STEPS + 1)) or not same:
+        fail("(b) the resumed run does not continue the control's "
+             "trajectory bit for bit")
+    return {"card": smi, "layers": FT_LAYERS, "batch": FT_BATCH,
+            "restored_step": step, "control_losses": control["losses"],
+            "resumed_losses": res["losses"], "resume_commits":
+            res["commits"], "child_s": {"control": t_ctl,
+                                        "victim": t_victim,
+                                        "resume": t_resume}}
+
+
+def _moe_picks(model, inputs, cfg) -> list:
+    """Each layer's [tokens, experts] pick mask (the dispatch summed over
+    the capacity slots) of one no-grad forward."""
+    import torch
+    from ray_tpu_torch.models import moe
+    got = []
+    real = moe._route
+
+    def spy(h, router_w, c):
+        out = real(h, router_w, c)
+        got.append(out[0].sum(2) > 0)
+        return out
+    moe._route = spy
+    try:
+        with torch.no_grad():
+            moe.forward(model, inputs, cfg)
+    finally:
+        moe._route = real
+    return got
+
+
+def moe_full_width(dev, smi: str) -> dict:
+    """(c) MoEConfig() trained through make_moe_trainer on the card: the
+    flash kernels against plain at its shape, the step-0 loss, flash
+    against plain attention on one batch, MOE_STEPS timed steps with
+    their launches, a profiled window, the peak memory, then a checkpoint
+    restored with a bit-identical next step."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.train import loop, spmd
+
+    cfg = moe.MoEConfig()
+    g = torch.Generator(device=dev).manual_seed(17)
+    flash = flash_case(g, dev, MOE_BATCH, cfg.max_seq_len, cfg.n_heads,
+                       cfg.head_dim, True, cfg.dtype)
+    state, step_fn, place = spmd.make_moe_trainer(cfg, seed=0, device=dev)
+    model = state.params
+    n_params = moe.num_params(model)
+    hb = (place(b) for b in _host_batches(cfg, MOE_BATCH, seed=41))
+    b0 = next(hb)
+    with torch.no_grad():
+        logits, aux = moe.forward(model, b0["inputs"])
+        ce = spmd.softmax_xent(logits, b0["targets"]).mean().item()
+    del logits
+    want0 = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+    print(f"  (c) MoEConfig(): {n_params / 1e6:.1f} M params; step-0 cross "
+          f"entropy {ce:.4f}, expected {want0:.4f} (limit {STEP0_LOSS_TOL}); "
+          f"aux {aux.item():.4f}")
+    if not abs(ce - want0) <= STEP0_LOSS_TOL:
+        fail(f"MoE step-0 loss {ce} is not near {want0}")
+    # Flash against plain attention on one batch from the same masters. In
+    # f32 both paths route every token alike: phase 6's limits. In bf16
+    # (the main path) one rounding of the attention output flips the top-k
+    # picks of near-tied tokens, more of them deeper in the stack, and
+    # each flip moves every gradient upstream of its layer: the loss is
+    # held to phase 6's limit, the flips and the gradients' gap are
+    # reported.
+    cmp = {}
+    for dtype in ("float32", "bfloat16"):
+        res, picks = {}, {}
+        for impl in ("flash", "xla"):
+            c = dataclasses.replace(cfg, attn_impl=impl, dtype=dtype)
+            picks[impl] = _moe_picks(model, b0["inputs"], c)
+            loss = spmd.moe_loss_fn(model, b0, c)
+            res[impl] = (loss.item(), torch.autograd.grad(
+                loss, list(model.parameters())))
+        flips = [int((a != b).any(1).sum()) for a, b in
+                 zip(picks["flash"], picks["xla"])]
+        what = f"(c) MoE flash vs plain attention, {dtype}"
+        if dtype == "float32":
+            cmp[dtype] = _compare_runs(what, model, res["flash"],
+                                       res["xla"])
+        else:
+            dloss = abs(res["flash"][0] - res["xla"][0])
+            rel = _grad_rel(model, res["flash"][1], res["xla"][1])
+            worst = max(rel, key=rel.get)
+            print(f"  {what}: loss {res['flash'][0]:.6f} vs "
+                  f"{res['xla'][0]:.6f}, |diff| {dloss:.2e} (limit "
+                  f"{TRAIN_LOSS_TOL}); worst leaf gradient rel. gap "
+                  f"{rel[worst]:.2e} ({worst}; reported)")
+            if not dloss <= TRAIN_LOSS_TOL:
+                fail(f"{what}: losses differ by {dloss}")
+            cmp[dtype] = {"loss": res["flash"][0],
+                          "loss_plain": res["xla"][0],
+                          "loss_abs_diff": dloss, "grad_rel_gap": rel,
+                          "grad_rel_gap_max": rel[worst]}
+        cmp[dtype]["tokens_flipped_by_layer"] = flips
+        print(f"      tokens whose top-{cfg.top_k} picks differ, by layer: "
+              f"{flips} of {b0['inputs'].numel()}")
+        del res, picks
+        torch.cuda.empty_cache()
+
+    tokens_per_step = MOE_BATCH * cfg.max_seq_len
+    train = loop.TrainLoop(step_fn, metrics_interval=10)
+    batches = loop.DevicePrefetcher(
+        _host_batches(cfg, MOE_BATCH, seed=42), place, depth=2)
+    state, _ = train.run(state, batches, num_steps=1)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    state, hist = train.run(state, batches, num_steps=MOE_STEPS)
+    wall = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in hist]
+    per_step = {k: launches[k] / MOE_STEPS for k in
+                ("flash_forward", "flash_fwd_tc", "flash_dq", "flash_dkv")}
+    print(f"      {MOE_STEPS} steps in {wall:.3f} s: "
+          f"{wall / MOE_STEPS * 1e3:.1f} ms/step, "
+          f"{tokens_per_step * MOE_STEPS / wall:.0f} tok/s; losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak memory {peak:.1f} "
+          f"GiB; flash launches a step {per_step}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"MoE losses {losses}")
+    want = {"flash_forward": 2 * cfg.n_layers, "flash_fwd_tc":
+            2 * cfg.n_layers, "flash_dq": cfg.n_layers,
+            "flash_dkv": cfg.n_layers}
+    if per_step != {k: float(v) for k, v in want.items()}:
+        fail(f"MoE flash launches a step {per_step}, want {want}")
+    check_flash_backward_launches(launches, MOE_STEPS, cfg.n_layers)
+    (state, _), prof = profile_window(
+        lambda: train.run(state, batches, num_steps=2),
+        (("flash", ("flash_",)), ("gemm", GEMM_NAMES)))
+    groups = prof["device_ms_by_group"]
+    print(f"      profiled 2 steps: wall {prof['wall_s'] * 1e3:.1f} ms, "
+          f"device busy {prof['device_ms']:.1f} ms "
+          f"({prof['device_busy_share']:.1%}); by group "
+          f"{ {k: round(v, 1) for k, v in groups.items()} }")
+    for n, t, c in prof["kernels"][:10]:
+        print(f"    {t:9.3f} ms  {c:6d}  {n[:80]}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    try:
+        restore, state = _restore_and_step(dev, cfg, state, step_fn,
+                                           spmd.make_moe_trainer, hb, root,
+                                           1)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"card": smi, "config": dataclasses.asdict(cfg),
+           "params": n_params, "batch": MOE_BATCH, "flash_cases": flash,
+           "step0_ce": ce, "step0_expected": want0,
+           "flash_vs_plain": cmp, "steps": MOE_STEPS, "wall_s": wall,
+           "step_ms": wall / MOE_STEPS * 1e3,
+           "tok_s": tokens_per_step * MOE_STEPS / wall, "losses": losses,
+           "peak_mem_gib": peak, "launches": launches,
+           "launches_per_step": per_step,
+           "profile": {"wall_s": prof["wall_s"],
+                       "device_busy_s": prof["device_ms"] * 1e-3,
+                       "device_busy_share": prof["device_busy_share"],
+                       "device_ms_by_group": groups,
+                       "top_kernels": top_kernels(prof["kernels"], 16)},
+           "restore": restore}
+    del state, step_fn, model, train, batches, b0
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vision_train(name, model, loss_fn, batch, smi) -> dict:
+    """VISION_STEPS steps of ``spmd.Adam(1e-4)`` on one repeated batch:
+    per-step times (synchronised), images/s after the first, the losses,
+    which must be finite and fall."""
+    import torch
+    from ray_tpu_torch.train import spmd
+    opt = spmd.Adam(1e-4)
+    state = spmd.TrainState(model, opt.init(model),
+                            torch.zeros((), dtype=torch.int32,
+                                        device=model.device))
+    step_fn = spmd.make_train_step(loss_fn, opt)
+    losses, times = [], []
+    for _ in range(VISION_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(m["loss"].item())
+        times.append(time.perf_counter() - t0)
+    n = next(iter(batch.values())).shape[0]
+    ips = n * (VISION_STEPS - 1) / sum(times[1:])
+    print(f"  (d) {name}: {VISION_STEPS} steps at batch {n}, "
+          f"{[round(t * 1e3, 1) for t in times]} ms; {ips:.0f} images/s "
+          f"after the first; losses {[round(x, 4) for x in losses]}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        fail(f"{name}: losses {losses} are not finite and falling")
+    return {"card": smi, "batch": n, "step_s": times, "images_per_s": ips,
+            "losses": losses}
+
+
+def _predict_round_trip(name, data, apply_fn, images, own, dev) -> None:
+    """Checkpoint.from_dict(data) -> to_directory -> from_directory ->
+    TorchPredictor: its predictions equal ``own`` bit for bit."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+    from ray_tpu_torch.train.predictor import TorchPredictor
+    d = tempfile.mkdtemp(prefix="chip_smoke_pred_")
+    try:
+        ck = Checkpoint.from_directory(
+            Checkpoint.from_dict(data).to_directory(os.path.join(d, "ck")))
+        pred = TorchPredictor.from_checkpoint(ck, apply_fn=apply_fn,
+                                              device=dev)
+        got = pred.predict(images.cpu().numpy())["predictions"]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    own = own.float().cpu().numpy()
+    print(f"      {name} predictor after a directory round trip: "
+          f"{got.shape}, max |diff| {np.abs(got - own).max():.3e}")
+    if not np.array_equal(got, own):
+        fail(f"{name}: the predictor's outputs differ from the model's")
+
+
+def vision(dev, smi: str) -> dict:
+    """(d) ViTConfig() and resnet50(1000) at 224^2, bf16, batch
+    VISION_BATCH: training, the predictor round trip, and ResNet's batch
+    statistics."""
+    import torch
+    from ray_tpu_torch.models import _stacked, resnet, vit
+    from ray_tpu_torch.train import spmd
+    g = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    vcfg = vit.ViTConfig()
+    images = torch.randn((VISION_BATCH, vcfg.image_size, vcfg.image_size,
+                          vcfg.channels), generator=g, device=dev)
+    labels = torch.randint(0, vcfg.num_classes, (VISION_BATCH,),
+                           generator=g, device=dev)
+    batch = {"images": images, "labels": labels}
+    model = vit.ViT(vcfg, vit.init_params(0, vcfg, dev), device=dev,
+                    dtype=torch.float32, trainable=True)
+    out["vit"] = _vision_train("ViTConfig()", model,
+                               lambda m, b: vit.loss_fn(m, b, vcfg), batch,
+                               smi)
+    out["vit"]["params"] = vit.num_params(model)
+    with torch.no_grad():
+        own = vit.forward(model, images)
+    _predict_round_trip(
+        "ViT", {"params": _stacked.param_tree(model)},
+        lambda p, x: vit.forward(vit.ViT(vcfg, p, device=dev,
+                                         dtype=torch.float32), x),
+        images, own, dev)
+    del model, own
+    torch.cuda.empty_cache()
+
+    model = resnet.resnet50(1000, device=dev)
+    before = {n: b.clone() for n, b in model.named_buffers()}
+    out["resnet50"] = _vision_train(
+        "resnet50(1000)", model,
+        lambda m, b: spmd.softmax_xent(m(b["images"], train=True),
+                                       b["labels"]).mean(), batch, smi)
+    out["resnet50"]["params"] = sum(p.numel() for p in model.parameters())
+    moved = sum(not torch.equal(before[n], b)
+                for n, b in model.named_buffers())
+    with torch.no_grad():
+        own = model(images, train=False)
+        saved = {n: b.clone() for n, b in model.named_buffers()}
+        for n, b in model.named_buffers():
+            b.copy_(before[n])
+        stale = model(images, train=False)
+        for n, b in model.named_buffers():
+            b.copy_(saved[n])
+    print(f"      resnet50 batch statistics changed in training: {moved} of "
+          f"{len(before)} buffers; eval with them vs with the initial "
+          f"ones: max |diff| {(own - stale).abs().max().item():.3e}")
+    if moved != len(before) or torch.equal(own, stale):
+        fail("resnet50's batch statistics did not change in training or "
+             "are not used in eval")
+    eval_model = resnet.resnet50(1000, device=dev)
+    _predict_round_trip(
+        "resnet50", {"params": resnet.params_to_numpy(model)},
+        lambda v, x: resnet.params_from_numpy(v, eval_model)(x, train=False),
+        images, own, dev)
+    out["resnet50"]["buffers_changed"] = moved
+    del model, eval_model, own, stale, images, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ft_models(dev, smi: str) -> dict:
+    """Phase 17: fault-tolerant training and the other model families,
+    (a) to (d), each part's time recorded."""
+    out, part_s = {}, {}
+    for key, fn in (("ckpt_region", ckpt_region),
+                    ("kill_resume", ft_kill_resume),
+                    ("moe", moe_full_width), ("vision", vision)):
+        t0 = time.perf_counter()
+        out[key] = fn(dev, smi)
+        part_s[key] = time.perf_counter() - t0
+        print(f"  phase 17 {key} took {part_s[key]:.1f} s")
+    out["part_s"] = part_s
+    return out
+
+
 def _readable_kernel(mangled: str):
     """A readable name for an instantiation of a tensor-core kernel or of
     a split-K decode kernel (``flash_dq_tc_kernel<64, true>``,
@@ -4379,6 +5138,8 @@ def main() -> int:
                                os.path.dirname(__file__))
         print(json.dumps(decode_times(root)))
         return 0
+    if sys.argv[1:] == ["--ft-child"]:
+        return ft_child()
     if len(sys.argv) > 1:
         fail(f"unknown arguments {sys.argv[1:]} (see the docstring)")
     from ray_tpu_torch.ops import _build
@@ -4459,11 +5220,14 @@ def main() -> int:
     flywheel = phase(16, "the RL flywheel and the telemetry plane (full "
                      "width, tiny, the flight recorder's cost)",
                      phase_flywheel, dev, smi)
+    ft_models = phase(17, "fault-tolerant training (bench.py's checkpoint "
+                      "region, kill/resume) and the other model families "
+                      "(MoE, ViT, ResNet)", phase_ft_models, dev, smi)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
                   flash=flash, train=train, xent=xent, fused_train=fused,
                   unpaged=unpaged, c1=c1, int8=int8, spec=spec,
                   capture=capture, pressure=pressure, disagg=disagg,
-                  flywheel=flywheel)
+                  flywheel=flywheel, ft_models=ft_models)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -4507,6 +5271,18 @@ def main() -> int:
     # steps (flash forward, dQ, dK/dV) apart
     fly_engine = flywheel["full_width"]["launches_engine"]
     fly_learner = flywheel["full_width"]["launches_learner"]
+    # phase 17's paths, each counted from zero around its run: (a)'s
+    # checkpoint region (bench.py's fused-loss GPT: flash and fused xent)
+    # and (c)'s MoE training (flash)
+    ckpt_launches = ft_models["ckpt_region"]["launches"]
+    moe_launches = ft_models["moe"]["launches"]
+    for name in ("flash_forward", "flash_dq", "flash_dkv", "fused_xent_fwd",
+                 "xent_dx", "xent_de"):
+        if ckpt_launches[name] <= 0:
+            fail(f"{name} was not launched on phase 17 (a)'s path")
+    for name in ("flash_forward", "flash_dq", "flash_dkv"):
+        if moe_launches[name] <= 0:
+            fail(f"{name} was not launched on phase 17 (c)'s path")
     for key, wrapper, replaces, rec, launches, src in (
             ("paged_decode", "paged_decode_attention",
              "ray_tpu/ops/decode_attention.py:282", kern["paged_decode"],
@@ -4557,7 +5333,10 @@ def main() -> int:
             # the bf16 backward: this row's product kernel and half of the
             # dlog kernel that both rows share (phase 7)
             rows[-1].update(kernels=[f"{wrapper}_kernel", "xent_dlog_kernel"],
-                            dlog_launches=launches["xent_dlog"])
+                            dlog_launches=launches["xent_dlog"],
+                            launches_by_path={
+                                "phase 8 (c)": launches[wrapper],
+                                "phase 17 (a)": ckpt_launches[wrapper]})
         elif key in ("flash_forward", "flash_dq", "flash_dkv"):
             # bf16 at D 64: the tensor-core kernel (phase 5)
             kname = {"flash_forward": "flash_fwd_tc", "flash_dq":
@@ -4566,7 +5345,9 @@ def main() -> int:
                             kernel_launches={kname: launches[kname]},
                             launches_by_path={
                                 "phase 6 (c)": launches[wrapper],
-                                "phase 16 (a)": fly_learner[wrapper]})
+                                "phase 16 (a)": fly_learner[wrapper],
+                                "phase 17 (a)": ckpt_launches[wrapper],
+                                "phase 17 (c)": moe_launches[wrapper]})
         elif key in ("paged_decode", "decode"):
             # bf16 and f32: the split-K kernel, one launch per call (the
             # two share one body)
@@ -4628,7 +5409,10 @@ def main() -> int:
                                 k: launches[k]
                                 for k in ("xent_fwd_tc", "xent_fwd_merge")},
                             kernel_ms={k: v["ms"]
-                                       for k, v in rec["kernels"].items()})
+                                       for k, v in rec["kernels"].items()},
+                            launches_by_path={
+                                "phase 8 (c)": launches[wrapper],
+                                "phase 17 (a)": ckpt_launches[wrapper]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -257,7 +257,8 @@ class TrainLoop:
     ``flush()``) and ``publisher(state, step)`` are optional hooks
     called after each dispatch, before the next one updates the state in
     place (`rl.FlywheelLoop` publishes its weights into its engine
-    through ``publisher``; fault-tolerant checkpoints are ROADMAP A4).
+    through ``publisher``; `train.ft.AsyncCheckpointer` is the
+    checkpointer).
     ``device`` names the device whose peak `stats`' MFU is read
     against (default: the current CUDA device)."""
 

@@ -8,10 +8,12 @@ semantics (`default_optimizer`'s `AdamW`, and `Adam`, ``optax.adam``),
 `make_train_step` with gradient accumulation as a running f32 mean over
 microbatches, the GPT loss
 (`softmax_xent`, `gpt_loss_fn` with its padding mask, dense or fused),
-the one-call `make_gpt_trainer` and `train_flops_per_token` (copied as
-it is, so MFU reads the same work in both packages). Meshes, sharding
-rules and the pipeline and MoE trainers wait for multi-rank parallelism
-(ROADMAP A6, A7).
+the one-call `make_gpt_trainer` (``init_state=False`` for the resume
+path, whose state `train.ft` restores), the MoE loss and trainer
+(`moe_loss_fn`, `make_moe_trainer`) and `train_flops_per_token` (copied
+as it is, so MFU reads the same work in both packages). Meshes, sharding
+rules and the pipeline trainer wait for multi-rank parallelism (ROADMAP
+A6).
 
 The step updates parameters and optimizer state in place and never
 synchronises with the host: its metrics come back as device tensors.
@@ -239,19 +241,65 @@ def gpt_loss_fn(model, batch: dict, cfg=None):
 
 
 def make_gpt_trainer(cfg, seed: int = 0, optimizer: AdamW | None = None,
-                     accum: int = 1, device=None):
+                     accum: int = 1, device=None, init_state: bool = True):
     """One-call assembly: f32 trainable params from ``seed`` on ``device``
     (the card unless told otherwise), optimizer state, the step, and the
-    host-batch placer. Returns ``(state, step_fn, place)``."""
-    device = gpt.resolve_device(device)
+    host-batch placer. Returns ``(state, step_fn, place)``.
+
+    ``init_state=False`` builds no parameters or optimizer state and
+    returns ``state=None``: the resume path (`train.ft.restore_resharded`
+    and `ft.state_from_tree`) already holds the state."""
     gpt.check_loss_impl(cfg)
-    model = gpt.GPT(cfg, gpt.init_params(seed, cfg, device), device=device,
-                    dtype=torch.float32, trainable=True)
+    return _make_lm_trainer(
+        lambda dev: gpt.GPT(cfg, gpt.init_params(seed, cfg, dev), device=dev,
+                            dtype=torch.float32, trainable=True),
+        lambda m, b: gpt_loss_fn(m, b, cfg), optimizer, accum, device,
+        init_state)
+
+
+def moe_loss_fn(model, batch: dict, cfg=None):
+    """MoE counterpart of `gpt_loss_fn` (pre-shifted ``inputs``/``targets``,
+    the same optional padding ``mask``) adding the router load-balance
+    auxiliary loss (`ray_tpu.train.spmd.moe_loss_fn`): the dense f32
+    log-softmax over the logits."""
+    from ray_tpu_torch.models import moe
+    cfg = model.cfg if cfg is None else cfg
+    logits, aux = moe.forward(model, batch["inputs"], cfg)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, batch["targets"].long()[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask.float()
+        ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    else:
+        ce = -ll.mean()
+    return ce + cfg.aux_loss_coeff * aux
+
+
+def make_moe_trainer(cfg, seed: int = 0, optimizer: AdamW | None = None,
+                     accum: int = 1, device=None, init_state: bool = True):
+    """`make_gpt_trainer` for the MoE family on one card
+    (`ray_tpu.train.spmd.make_moe_trainer` without the expert mesh axis:
+    every expert lives on the card). Returns ``(state, step_fn,
+    place)``."""
+    from ray_tpu_torch.models import moe
+    return _make_lm_trainer(
+        lambda dev: moe.MoE(cfg, moe.init_params(seed, cfg, dev), device=dev,
+                            dtype=torch.float32, trainable=True),
+        lambda m, b: moe_loss_fn(m, b, cfg), optimizer, accum, device,
+        init_state)
+
+
+def _make_lm_trainer(build, loss_fn, optimizer, accum, device, init_state):
+    """Shared assembly behind `make_gpt_trainer` / `make_moe_trainer`."""
+    device = gpt.resolve_device(device)
     optimizer = optimizer or default_optimizer()
-    state = TrainState(model, optimizer.init(model),
-                       torch.zeros((), dtype=torch.int32, device=device))
-    step_fn = make_train_step(lambda m, b: gpt_loss_fn(m, b, cfg),
-                              optimizer, accum=accum)
+    state = None
+    if init_state:
+        model = build(device)
+        state = TrainState(model, optimizer.init(model),
+                           torch.zeros((), dtype=torch.int32, device=device))
+    step_fn = make_train_step(loss_fn, optimizer, accum=accum)
     return state, step_fn, loop.make_placer(device)
 
 

@@ -1,8 +1,9 @@
 """The port (`ray_tpu_torch`) stands alone: importing any of its modules
 loads neither JAX nor anything of the JAX package `ray_tpu` (whose name
-is a prefix of the port's, hence the exact-name checks), no source file
-under it imports them, and its entry points refuse to run silently on
-the CPU when no CUDA device is there."""
+is a prefix of the port's, hence the exact-name checks), nor optax or
+ml_dtypes (whose classes and bf16 the port's checkpoints read without
+them); no source file under it imports them, and its entry points
+refuse to run silently on the CPU when no CUDA device is there."""
 
 import pkgutil
 import re
@@ -37,14 +38,17 @@ def test_every_module_imports_without_jax_or_ray_tpu():
             "ray_tpu_torch.util.tracing", "ray_tpu_torch.rllib",
             "ray_tpu_torch.rllib.sample_batch", "ray_tpu_torch.rllib.rollout",
             "ray_tpu_torch.rl", "ray_tpu_torch.rl.sampler",
-            "ray_tpu_torch.rl.flywheel"} <= set(mods)
+            "ray_tpu_torch.rl.flywheel", "ray_tpu_torch.util.storage",
+            "ray_tpu_torch.train.checkpoint", "ray_tpu_torch.train.ft",
+            "ray_tpu_torch.train.predictor", "ray_tpu_torch.models.moe",
+            "ray_tpu_torch.models.vit",
+            "ray_tpu_torch.models.resnet"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(n for n in sys.modules if n == 'jax'\n"
-        "             or n.startswith('jax.') or n == 'ray_tpu'\n"
-        "             or n.startswith('ray_tpu.'))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'ray_tpu', 'optax', 'ml_dtypes'))\n"
         "print(repr(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -52,9 +56,11 @@ def test_every_module_imports_without_jax_or_ray_tpu():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+_REFUSED = r"(jax|ray_tpu|optax|ml_dtypes)\b(?!_)"
+
+
 def test_no_source_imports_jax_or_ray_tpu():
-    pat = re.compile(r"^\s*(import\s+(jax|ray_tpu)\b(?!_)"
-                     r"|from\s+(jax|ray_tpu)\b(?!_))", re.M)
+    pat = re.compile(rf"^\s*(import\s+{_REFUSED}|from\s+{_REFUSED})", re.M)
     hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
             for p in PKG.rglob("*.py")
             for m in pat.finditer(p.read_text())]
@@ -62,14 +68,15 @@ def test_no_source_imports_jax_or_ray_tpu():
     # the scan itself must tell the two packages apart
     assert pat.search("from ray_tpu.models import gpt")
     assert pat.search("import jax.numpy as jnp")
+    assert pat.search("import optax")
+    assert pat.search("from ml_dtypes import bfloat16")
     assert not pat.search("from ray_tpu_torch.models import gpt")
 
 
 def test_chip_smoke_imports_no_jax_or_ray_tpu():
     """chip_smoke.py drives the port on the card, where JAX is not
     installed: it imports neither it nor the JAX package."""
-    pat = re.compile(r"^\s*(import\s+(jax|ray_tpu)\b(?!_)"
-                     r"|from\s+(jax|ray_tpu)\b(?!_))", re.M)
+    pat = re.compile(rf"^\s*(import\s+{_REFUSED}|from\s+{_REFUSED})", re.M)
     assert not pat.search((ROOT / "chip_smoke.py").read_text())
 
 
@@ -93,8 +100,9 @@ def test_default_device_is_cuda_and_raises_without_one():
 
 
 def test_training_entry_points_and_numpy_model_need_a_card():
-    """Training entry points (the RL flywheel's among them) and `GPT(cfg,
-    numpy_tree)` run on the card
+    """Training entry points (the RL flywheel's, the MoE trainer, the other
+    model families, the predictor and the checkpoint reader among them)
+    and `GPT(cfg, numpy_tree)` run on the card
     unless given device="cpu"; without one they raise (a numpy tree once
     stayed on the CPU silently)."""
     if torch.cuda.is_available():
@@ -110,10 +118,19 @@ def test_training_entry_points_and_numpy_model_need_a_card():
                 {n: x.numpy() for n, x in v.items()})
             for k, v in gpt.init_params(0, cfg, device="cpu").items()}
     assert isinstance(tree["embed"], np.ndarray)
+    from ray_tpu_torch.models import moe, resnet, vit
+    from ray_tpu_torch.train import ft, predictor
     for call in (lambda: gpt.GPT(cfg, tree),
                  lambda: gpt.params_from_numpy(tree, cfg),
                  lambda: gpt.init_params(0, cfg),
                  lambda: spmd.make_gpt_trainer(cfg),
+                 lambda: spmd.make_gpt_trainer(cfg, init_state=False),
+                 lambda: spmd.make_moe_trainer(moe.small()),
+                 lambda: moe.init_params(0, moe.small()),
+                 lambda: vit.init_params(0, vit.small()),
+                 lambda: resnet.resnet18(),
+                 lambda: predictor.TorchPredictor(lambda p, x: x, {}),
+                 lambda: ft.read_tree("unused"),
                  lambda: loop.make_placer(),
                  lambda: FlywheelLoop(cfg, None, None)):
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -1291,3 +1291,118 @@ def test_flight_recorder_adds_no_host_sync(dev):
         got[sample] = (syncs, len({s["attributes"]["rid"]
                                    for s in eng._recorder.get_spans()}))
     assert got[1.0][1] == len(reqs) and got[0.0][1] == 0
+
+
+def _thread_syncs():
+    """A `warnings.showwarning` recorder that keeps each sync warning's
+    thread, and the list it fills."""
+    import threading
+    seen = []
+
+    def show(message, *args, **kwargs):
+        # a host sync's warning, not the mode's own "prototype" notice
+        if "synchroniz" in str(message) and "debug mode" not in str(message):
+            seen.append(threading.get_ident())
+    return show, seen
+
+
+def test_async_checkpoint_round_trip_adds_no_training_thread_sync(
+        dev, tmp_path):
+    """`TrainLoop` with an `AsyncCheckpointer` on a CUDA train state: the
+    training thread makes no host sync beyond the metrics ring's fetches
+    (the clones and their event are queued on its stream; the writer
+    waits on its own copy's event), every snapshot commits, and the last
+    one restores bit for bit into a trainer built without state, whose
+    next step gives the live state's loss bit for bit."""
+    import threading
+    import warnings
+
+    import numpy as np
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.train import ft, loop, spmd
+    cfg = gpt.small(dtype="bfloat16", loss_impl="fused")
+    state, step_fn, place = spmd.make_gpt_trainer(cfg, device=dev)
+
+    def host(seed):
+        rng = np.random.default_rng(seed)
+        while True:
+            toks = rng.integers(0, cfg.vocab_size, (4, cfg.max_seq_len + 1),
+                                np.int32)
+            yield {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+
+    ckpt = ft.AsyncCheckpointer(str(tmp_path), every=4, keep=2)
+    train = loop.TrainLoop(step_fn, unroll=2, metrics_interval=4,
+                           checkpointer=ckpt)
+    batches = loop.DevicePrefetcher(host(0), place, group=2)
+    state, _ = train.run(state, batches, num_steps=4)     # warm-up
+    show, seen = _thread_syncs()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            state, hist = train.run(state, batches, num_steps=16,
+                                    start_step=4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    main = threading.get_ident()
+    assert sum(t == main for t in seen) <= train.last_ring.fetches
+    assert len(hist) == 12 and ckpt.commits == ckpt.snapshots == 4
+    assert all(r["d2h_ms"] is not None and r["clone_ms"] is not None
+               for r in ckpt.timings)
+    ckpt.check_invariants()
+    ckpt.close()
+    tree, step = ft.restore_resharded(str(tmp_path), dev)
+    assert step == 16
+    back = ft.state_from_tree(tree, cfg, dev)
+    for (n, a), b in zip(state.params.named_parameters(),
+                         back.params.parameters()):
+        assert torch.equal(a, b), n
+    for k in ("mu", "nu"):
+        for a, b in zip(state.opt_state[k], back.opt_state[k]):
+            assert torch.equal(a, b)
+    _, step2, _ = spmd.make_gpt_trainer(cfg, device=dev, init_state=False)
+    batch = place(next(host(7)))
+    _, m_live = step_fn(state, batch)
+    _, m_back = step2(back, batch)
+    assert m_live["loss"].item() == m_back["loss"].item()
+
+
+def test_moe_flash_matches_plain_attention(dev):
+    """MoE (`moe.small`, D 32, and at d_model 256, D 64) with the flash
+    kernels against plain attention from the same f32 masters: in f32,
+    where both route every token alike, the loss within 1e-2 and each
+    leaf's gradient within 5e-2 relative (chip_smoke.py phase 6's
+    limits); in bf16 the loss within 1e-2 (a bf16 rounding flips the
+    picks of near-tied tokens, which moves the gradients more), with
+    remat two flash forwards and one dQ and dK/dV launch a layer."""
+    import dataclasses
+
+    import numpy as np
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.train import spmd
+    for cfg in (moe.small(), moe.small(d_model=256)):
+        model = moe.MoE(cfg, moe.init_params(0, cfg, dev), device=dev,
+                        dtype=torch.float32, trainable=True)
+        toks = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (4, 129)).astype(np.int64)
+        batch = {"inputs": torch.from_numpy(toks[:, :-1]).to(dev),
+                 "targets": torch.from_numpy(toks[:, 1:]).to(dev)}
+        for dtype in ("float32", "bfloat16"):
+            res = {}
+            for impl in ("flash", "xla"):
+                ops.reset_kernel_launches()
+                c = dataclasses.replace(cfg, attn_impl=impl, dtype=dtype)
+                loss = spmd.moe_loss_fn(model, batch, c)
+                grads = torch.autograd.grad(loss, list(model.parameters()))
+                res[impl] = (loss.item(), grads, ops.kernel_launches())
+            assert res["flash"][2]["flash_forward"] == 2 * cfg.n_layers
+            assert res["flash"][2]["flash_dq"] == cfg.n_layers
+            assert res["flash"][2]["flash_dkv"] == cfg.n_layers
+            assert res["xla"][2]["flash_forward"] == 0
+            assert abs(res["flash"][0] - res["xla"][0]) <= 1e-2
+            if dtype == "float32":
+                for a, b in zip(res["flash"][1], res["xla"][1]):
+                    rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+                    assert rel <= 5e-2
