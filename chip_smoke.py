@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # one card, no arguments
     python3 chip_smoke.py --decode-times [CHECKOUT]
     python3 chip_smoke.py --ft-child    # phase 17 (b)'s trainer (env)
+    python3 chip_smoke.py --mesh-child  # one rank of phase 18 (b) (env)
 
 Builds the port's CUDA kernels from ``ray_tpu_torch/ops/csrc/`` with nvcc
 (sm_90a, one nvcc per source, all at once) and drives its paths, paged
@@ -220,7 +221,28 @@ the MoE, ViT and ResNet families) and unpaged decode, end to end:
    a `Checkpoint` of the trained weights through a directory into
    `TorchPredictor` with predictions equal to the model's own bit for
    bit, and ResNet's batch statistics changed by training and used in
-   eval.
+   eval;
+18. SPMD training on a mesh (``ray_tpu_torch.parallel``): (a) phase
+   17's model at 12 layers, fused loss, attn "auto", batch 8, 3 steps of
+   ``make_gpt_trainer(cfg, mesh=single_device_mesh())`` against
+   ``make_gpt_trainer(cfg)`` from one seed: losses and launches by name
+   identical; the same at 4 layers without a mesh as the reference of
+   (b); (b) two ``--mesh-child`` ranks on the one card (gloo, its
+   collectives staged through host memory: NCCL refuses two ranks on one
+   device; the backend printed), from the same seed and global batches:
+   ``tensor=2`` at 12 layers (each rank flash on 8 heads, the fused-xent
+   kernels on a 25,152-row vocabulary shard), ``data=2``, ``seq=2`` (the
+   ring) and ``pipe=2`` (``make_gpt_pipeline_trainer``, 2 microbatches)
+   at 4 layers: 3 steps each, loss within 2e-3 and grad norm within 2e-2
+   relative of (a)'s trainer at the same depth at every step, both ranks'
+   losses equal, and after the last step every leaf gathered whole from
+   the ranks' blocks within a quarter of the norm of (a)'s update of it
+   (the largest element gap printed); per rank the step times, the
+   collectives' seconds and host copies, peak device memory and the
+   launches by kernel name; in the tensor=2 run each rank holds its
+   shard's fused-xent forward and backward kernels against the plain
+   versions on the batch's shifted ids (some below the shard, some above
+   it) and times them.
 
 Before the phases it prints the registers and spilled bytes of every
 tensor-core kernel and of the two split-K decode kernels from nvcc's
@@ -5013,6 +5035,375 @@ def phase_ft_models(dev, smi: str) -> dict:
     return out
 
 
+# phase 18: SPMD training on a mesh. (a) a mesh of one against no mesh at
+# bench.py's width; (b) two ranks on the one card (gloo: NCCL refuses two
+# ranks on one device), `--mesh-child` children, each mesh from the same
+# seed and the same global batches, against (a)'s trainer at its depth
+MESH_SEED, MESH_STEPS, MESH_BATCH = 18, 3, 8
+# bf16 limits from (b)'s readings, with room: each step's loss and
+# grad_norm, and after the last step every leaf gathered whole from the
+# ranks' blocks against (a)'s leaf, the gap's norm over the norm of (a)'s
+# update of that leaf (a lost update reads 1). The largest element gap is
+# printed and not held: Adam moves an element by about the learning rate
+# whatever its gradient's size, so an element whose bf16 gradient is
+# summation noise may move the other way, by up to 2 lr a step
+MESH_LOSS_TOL, MESH_GN_REL_TOL, MESH_UPDATE_REL_TOL = 2e-3, 2e-2, 0.25
+MESH_CHILD_TIMEOUT_S = 420
+MESH_RUNS = (("tensor=2", dict(data=1, tensor=2), 12, "trainer"),
+             ("data=2", dict(data=2), 4, "trainer"),
+             ("seq=2", dict(data=1, seq=2), 4, "trainer"),
+             ("pipe=2", dict(data=1, pipe=2), 4, "pipeline"))
+
+
+def _mesh_cfg(layers: int):
+    """bench.py's GPT with the fused loss and attn "auto" (flash on one
+    card and per tensor rank, the ring over seq)."""
+    return _train_cfg(loss_impl="fused", attn_impl="auto", n_layers=layers)
+
+
+def _mesh_batches(cfg) -> list:
+    import itertools
+    return list(itertools.islice(_host_batches(cfg, MESH_BATCH, MESH_SEED),
+                                 MESH_STEPS))
+
+
+def _mesh_optimizer(spmd):
+    return spmd.default_optimizer(warmup_steps=0)
+
+
+def _mesh_steps(state, step, place, batches) -> tuple:
+    """MESH_STEPS steps, the kernel counters and collective stats zeroed
+    just before and read just after: losses, grad norms, each step's
+    wall time (synchronised), collective seconds and host copies, the
+    launches by kernel name and this process's peak device memory.
+    Returns them and the state after the last step."""
+    import torch
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.parallel import collectives as col
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    col.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_s = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, place(b))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return {"losses": losses, "grad_norms": norms, "step_s": step_s,
+            "collectives": col.stats(),
+            "launches": {k: v for k, v in ops.kernel_launches().items()
+                         if v},
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}, state
+
+
+def _mesh_ref_path(ref_dir: str, layers: int) -> str:
+    return os.path.join(ref_dir, f"params_{layers}.pt")
+
+
+def _mesh_param_gaps(model, mesh, cfg, ref_dir: str, dev) -> dict:
+    """Every leaf of a mesh trainer's state gathered whole (all ranks
+    call it) against (a)'s single-card leaf after as many steps: the
+    largest element gap, and the gap's norm over the norm of (a)'s
+    update (its leaf less the seed's initial one); the worst leaf of
+    each."""
+    import torch
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import sharding
+    ref = torch.load(_mesh_ref_path(ref_dir, cfg.n_layers), mmap=True,
+                     weights_only=True)
+    init = gpt.init_params(MESH_SEED, cfg, dev)
+    init = {**{k: v for k, v in init.items() if k != "layers"},
+            **{f"layers.{k}": v for k, v in init["layers"].items()}}
+    out = {"max_abs": -1.0, "update_rel": -1.0, "leaves": len(ref)}
+    for name, p in model.named_parameters():
+        full = sharding.gather_full(p.detach(), model.specs[name], mesh)
+        want = ref[name].to(dev)
+        update = float(torch.linalg.vector_norm(want - init[name]))
+        if not update > 0:
+            fail(f"(a)'s {name} did not move in {MESH_STEPS} steps")
+        gap = (full.float() - want).abs()
+        for key, v in (("max_abs", float(gap.max())),
+                       ("update_rel",
+                        float(torch.linalg.vector_norm(gap)) / update)):
+            if v > out[key]:
+                out[key], out[f"{key}_leaf"] = v, name
+        del full, want, gap
+    return out
+
+
+def _free():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_one(dev, smi: str, ref_dir: str) -> dict:
+    """(a) `make_gpt_trainer(cfg, mesh=single_device_mesh())` against
+    `make_gpt_trainer(cfg)` at 12 layers from one seed: losses bit for
+    bit and the same launches by name; then the 4-layer single-card
+    reference of (b)'s data, seq and pipe runs. The single-card
+    trainers' leaves after the last step go to ``ref_dir`` for (b)."""
+    import torch
+    from ray_tpu_torch.parallel import single_device_mesh
+    from ray_tpu_torch.train import spmd
+    out = {}
+    for layers, meshes in ((12, (("none", None),
+                                 ("one", single_device_mesh()))),
+                           (4, (("none", None),))):
+        cfg = _mesh_cfg(layers)
+        batches = _mesh_batches(cfg)
+        for label, mesh in meshes:
+            state, step, place = spmd.make_gpt_trainer(
+                cfg, seed=MESH_SEED, optimizer=_mesh_optimizer(spmd),
+                device=dev, mesh=mesh)
+            out[f"{layers}_{label}"], state = _mesh_steps(
+                state, step, place, batches)
+            if mesh is None:
+                torch.save({n: p.detach().cpu() for n, p
+                            in state.params.named_parameters()},
+                           _mesh_ref_path(ref_dir, layers))
+            del state, step
+            _free()
+    a, b = out["12_none"], out["12_one"]
+    print(f"  (a) 12 layers, batch {MESH_BATCH}: mesh=None losses "
+          f"{a['losses']}, mesh of one {b['losses']}; launches "
+          f"{a['launches']} ({smi})")
+    if a["losses"] != b["losses"] or a["launches"] != b["launches"]:
+        fail("(a) a mesh of one is not the single-card trainer bit for bit")
+    print(f"  (a) 4-layer reference: losses {out['4_none']['losses']}, grad "
+          f"norms {out['4_none']['grad_norms']}")
+    return out
+
+
+def mesh_child() -> int:
+    """``--mesh-child``: one rank of (b)'s gloo world on the card
+    (MESH_RANK, MESH_WORLD, MESH_PORT, MESH_OUT)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.parallel import collectives as col
+    from ray_tpu_torch.train import spmd
+    _build.load()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rank, world = int(os.environ["MESH_RANK"]), int(os.environ["MESH_WORLD"])
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{os.environ['MESH_PORT']}",
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
+    res = {"rank": rank, "backend": dist.get_backend(),
+           "host_staged": col.stages_through_host(dist.group.WORLD, dev)}
+    for label, kw, layers, kind in MESH_RUNS:
+        mesh = MeshSpec(**kw).build()
+        cfg = _mesh_cfg(layers)
+        if kind == "pipeline":
+            state, step, place = spmd.make_gpt_pipeline_trainer(
+                cfg, mesh, num_microbatches=2, seed=MESH_SEED,
+                optimizer=_mesh_optimizer(spmd), device=dev)
+        else:
+            state, step, place = spmd.make_gpt_trainer(
+                cfg, seed=MESH_SEED, optimizer=_mesh_optimizer(spmd),
+                device=dev, mesh=mesh)
+        batches = _mesh_batches(cfg)
+        res[label], state = _mesh_steps(state, step, place, batches)
+        res[label]["params"] = _mesh_param_gaps(
+            state.params, mesh, cfg, os.environ["MESH_REF_DIR"], dev)
+        if label == "tensor=2":
+            res["xent_shard"] = _shard_xent_check(state.params, batches[0],
+                                                  mesh, dev)
+        del state, step
+        _free()
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.environ["MESH_OUT"], "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _shard_xent_check(model, batch, mesh, dev) -> dict:
+    """In the tensor=2 run: this rank's fused-xent kernels on its
+    vocabulary shard (V / 2 = 25,152 rows, D 1024, bf16) with the batch's
+    own target ids shifted by the shard's base (at or above V / 2 on rank
+    0's shard, below 0 on rank 1's), against the plain versions under
+    phase 7's XENT_TOL; then each rank in turn times the forward and the
+    backward (the other waits at a barrier)."""
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.ops import fused_xent as fx
+    v_loc = model.embed.shape[0]
+    base = mesh.axis_index("tensor") * v_loc
+    t = torch.as_tensor(batch["targets"]).reshape(-1).to(dev) - base
+    t = t.to(torch.int32).contiguous()
+    below, above = int((t < 0).sum()), int((t >= v_loc).sum())
+    g = torch.Generator(device=dev).manual_seed(MESH_SEED + 1)
+    n = t.numel()
+    x = torch.randn((n, XD), generator=g, device=dev).to(torch.bfloat16)
+    e = model.embed.detach().to(torch.bfloat16).contiguous()
+    lse, tgt = fx.fused_xent_fwd(x, e, t)
+    ref_lse, ref_tgt = fx.lse_target_reference(x, e, t)
+    err = {"lse": _xent_check("(b) shard lse", lse, ref_lse),
+           "tgt": _xent_check("(b) shard target logit", tgt, ref_tgt)}
+    if not (torch.all(tgt[t < 0] == 0) and torch.all(tgt[t >= v_loc] == 0)):
+        fail("(b) an id outside the shard gave a nonzero target logit")
+    cl = torch.rand((n,), generator=g, device=dev) / n
+    args = (x, e, t, ref_lse, cl, -cl)
+    dx, de = fx.fused_xent_bwd(*args)
+    ref_dx, ref_de = fx.xent_backward_reference(*args)
+    bx, be = fx.xent_backward_abs_bound(*args)
+    err["dx"] = _xent_check("(b) shard dx", dx, ref_dx, bx)
+    err["de"] = _xent_check("(b) shard dE", de, ref_de, be)
+    times = {}
+    for r in range(mesh.size):
+        dist.barrier()
+        if r == mesh.axis_index("tensor"):
+            times = {"fwd_ms": time_long_ms(fx.fused_xent_fwd, (x, e, t)),
+                     "bwd_ms": time_long_ms(fx.fused_xent_bwd, args),
+                     "plain_fwd_ms": time_long_ms(fx.lse_target_reference,
+                                                  (x, e, t))}
+    dist.barrier()
+    return {"n": n, "v_loc": v_loc, "below": below, "above": above,
+            "max_abs_err": err, **times}
+
+
+def mesh_ranks(dev, smi: str, ref: dict, ref_dir: str) -> dict:
+    """(b) two `--mesh-child` ranks on the card, every mesh of MESH_RUNS,
+    each against (a)'s single-card run at its depth (its leaves in
+    ``ref_dir``)."""
+    import shutil
+    import socket
+    import tempfile
+    base = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs, res = [], []
+    try:
+        for r in range(2):
+            env = dict(os.environ, MESH_RANK=str(r), MESH_WORLD="2",
+                       MESH_PORT=str(port), MESH_REF_DIR=ref_dir,
+                       MESH_OUT=os.path.join(base, f"rank{r}.json"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-child"],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        t0 = time.perf_counter()
+        for r, p in enumerate(procs):
+            try:
+                out, err = p.communicate(
+                    timeout=max(1.0, MESH_CHILD_TIMEOUT_S
+                                - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                fail(f"(b) rank {r} ran past {MESH_CHILD_TIMEOUT_S} s")
+            if p.returncode != 0:
+                fail(f"(b) rank {r} failed ({p.returncode}):\n"
+                     f"{out[-2000:]}\n{err[-4000:]}")
+            for line in out.splitlines():
+                print(f"  [rank {r}] {line.strip()}")
+            with open(os.path.join(base, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        child_s = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(base, ignore_errors=True)
+    print(f"  (b) backend {res[0]['backend']}, collectives staged through "
+          f"the host: {res[0]['host_staged']} (two ranks share one card); "
+          f"{child_s:.1f} s for both children ({smi})")
+    out = {"backend": res[0]["backend"], "host_staged": res[0]["host_staged"],
+           "child_s": child_s, "runs": {}}
+    for label, _, layers, _ in MESH_RUNS:
+        want = ref[f"{layers}_none"]
+        runs = [r[label] for r in res]
+        dl = max(abs(a - b) for run in runs
+                 for a, b in zip(run["losses"], want["losses"]))
+        dg = max(abs(a - b) / abs(b) for run in runs
+                 for a, b in zip(run["grad_norms"], want["grad_norms"]))
+        for r, run in enumerate(runs):
+            c = run["collectives"]
+            print(f"  (b) {label} ({layers} layers) rank {r}: losses "
+                  f"{[round(x, 5) for x in run['losses']]}, grad norms "
+                  f"{[round(x, 4) for x in run['grad_norms']]}, step s "
+                  f"{[round(x, 3) for x in run['step_s']]}, collectives "
+                  f"{c['seconds']:.3f} s in {c['calls']} calls "
+                  f"({c['host_copies']} host copies, "
+                  f"{c['host_bytes'] / 2 ** 20:.1f} MiB), peak "
+                  f"{run['peak_gb']:.2f} GiB, launches {run['launches']}")
+        gaps = max((run["params"] for run in runs),
+                   key=lambda g: g["update_rel"])
+        pa_run = max((run["params"] for run in runs),
+                     key=lambda g: g["max_abs"])
+        pa = pa_run["max_abs"]
+        print(f"  (b) {label}: worst |dloss| {dl:.3e} (limit "
+              f"{MESH_LOSS_TOL}), worst relative dgrad_norm {dg:.3e} (limit "
+              f"{MESH_GN_REL_TOL}) against (a)'s {layers}-layer trainer; "
+              f"after step {MESH_STEPS}, {gaps['leaves']} leaves: largest "
+              f"element gap {pa:.3e} ({pa_run['max_abs_leaf']}), gap over "
+              f"(a)'s update {gaps['update_rel']:.3e} "
+              f"({gaps['update_rel_leaf']}; limit {MESH_UPDATE_REL_TOL})")
+        if runs[0]["losses"] != runs[1]["losses"]:
+            fail(f"(b) {label}: the ranks report different losses")
+        if not (dl <= MESH_LOSS_TOL and dg <= MESH_GN_REL_TOL):
+            fail(f"(b) {label} disagrees with the single-card trainer")
+        if not gaps["update_rel"] <= MESH_UPDATE_REL_TOL:
+            fail(f"(b) {label}: the leaves after step {MESH_STEPS} are not "
+                 "the single-card trainer's")
+        out["runs"][label] = {"layers": layers, "ranks": runs,
+                              "worst_dloss": dl, "worst_rel_dgrad_norm": dg,
+                              "worst_param_abs": pa,
+                              "worst_update_rel": gaps["update_rel"]}
+    for name in ("flash_forward", "flash_dq", "flash_dkv"):
+        for label in ("tensor=2", "data=2", "pipe=2"):
+            if out["runs"][label]["ranks"][0]["launches"].get(name, 0) <= 0:
+                fail(f"{name} was not launched on phase 18 (b)'s {label}")
+    for name in ("fused_xent_fwd", "xent_dx", "xent_de"):
+        if out["runs"]["tensor=2"]["ranks"][0]["launches"].get(name, 0) <= 0:
+            fail(f"{name} was not launched on phase 18 (b)'s vocab shard")
+    out["xent_shard"] = [r["xent_shard"] for r in res]
+    # rank 0's shard holds the low half of the vocabulary and rank 1's the
+    # high half: between them, ids fall below a shard and above one
+    below = sum(xs["below"] for xs in out["xent_shard"])
+    above = sum(xs["above"] for xs in out["xent_shard"])
+    if below <= 0 or above <= 0:
+        fail(f"(b) the shards saw {below} ids below them and {above} above: "
+             "both must be > 0")
+    for r, xs in enumerate(out["xent_shard"]):
+        print(f"  (b) rank {r} vocab shard {xs['v_loc']} rows x D {XD}, "
+              f"N {xs['n']}: ids below {xs['below']}, above {xs['above']}; "
+              f"max|kernel-plain| {xs['max_abs_err']}; fwd "
+              f"{xs['fwd_ms']:.3f} ms, bwd {xs['bwd_ms']:.3f} ms, plain fwd "
+              f"{xs['plain_fwd_ms']:.3f} ms ({smi})")
+    return out
+
+
+def phase_mesh(dev, smi: str) -> dict:
+    """Phase 18: SPMD training on a mesh, (a) and (b)."""
+    import shutil
+    import tempfile
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_ref_")
+    try:
+        t0 = time.perf_counter()
+        one = mesh_one(dev, smi, ref_dir)
+        t1 = time.perf_counter()
+        ranks = mesh_ranks(dev, smi, one, ref_dir)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    print(f"  phase 18 (a) took {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s")
+    return {"card": smi, "one": one, "ranks": ranks,
+            "part_s": {"one": t1 - t0, "ranks": t2 - t1}}
+
+
 def _readable_kernel(mangled: str):
     """A readable name for an instantiation of a tensor-core kernel or of
     a split-K decode kernel (``flash_dq_tc_kernel<64, true>``,
@@ -5140,6 +5531,8 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--ft-child"]:
         return ft_child()
+    if sys.argv[1:] == ["--mesh-child"]:
+        return mesh_child()
     if len(sys.argv) > 1:
         fail(f"unknown arguments {sys.argv[1:]} (see the docstring)")
     from ray_tpu_torch.ops import _build
@@ -5223,11 +5616,13 @@ def main() -> int:
     ft_models = phase(17, "fault-tolerant training (bench.py's checkpoint "
                       "region, kill/resume) and the other model families "
                       "(MoE, ViT, ResNet)", phase_ft_models, dev, smi)
+    mesh = phase(18, "SPMD training on a mesh (a mesh of one; two ranks on "
+                 "the card: tensor, data, seq, pipe)", phase_mesh, dev, smi)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
                   flash=flash, train=train, xent=xent, fused_train=fused,
                   unpaged=unpaged, c1=c1, int8=int8, spec=spec,
                   capture=capture, pressure=pressure, disagg=disagg,
-                  flywheel=flywheel, ft_models=ft_models)
+                  flywheel=flywheel, ft_models=ft_models, mesh=mesh)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -5283,6 +5678,17 @@ def main() -> int:
     for name in ("flash_forward", "flash_dq", "flash_dkv"):
         if moe_launches[name] <= 0:
             fail(f"{name} was not launched on phase 17 (c)'s path")
+    # phase 18's paths, each counted from zero around its run: (a)'s mesh
+    # of one and (b)'s meshes on rank 0 (flash on its heads or its rows,
+    # the fused-xent kernels on its vocabulary shard)
+    mesh_runs = {label: run["ranks"][0]["launches"]
+                 for label, run in mesh["ranks"]["runs"].items()}
+    mesh_one_launches = mesh["one"]["12_one"]["launches"]
+
+    def mesh_paths(wrapper, labels):
+        return {"phase 18 (a)": mesh_one_launches.get(wrapper, 0),
+                **{f"phase 18 (b) {lb} rank 0": mesh_runs[lb].get(wrapper, 0)
+                   for lb in labels}}
     for key, wrapper, replaces, rec, launches, src in (
             ("paged_decode", "paged_decode_attention",
              "ray_tpu/ops/decode_attention.py:282", kern["paged_decode"],
@@ -5336,7 +5742,8 @@ def main() -> int:
                             dlog_launches=launches["xent_dlog"],
                             launches_by_path={
                                 "phase 8 (c)": launches[wrapper],
-                                "phase 17 (a)": ckpt_launches[wrapper]})
+                                "phase 17 (a)": ckpt_launches[wrapper],
+                                **mesh_paths(wrapper, ("tensor=2",))})
         elif key in ("flash_forward", "flash_dq", "flash_dkv"):
             # bf16 at D 64: the tensor-core kernel (phase 5)
             kname = {"flash_forward": "flash_fwd_tc", "flash_dq":
@@ -5347,7 +5754,9 @@ def main() -> int:
                                 "phase 6 (c)": launches[wrapper],
                                 "phase 16 (a)": fly_learner[wrapper],
                                 "phase 17 (a)": ckpt_launches[wrapper],
-                                "phase 17 (c)": moe_launches[wrapper]})
+                                "phase 17 (c)": moe_launches[wrapper],
+                                **mesh_paths(wrapper, ("tensor=2", "data=2",
+                                                       "pipe=2"))})
         elif key in ("paged_decode", "decode"):
             # bf16 and f32: the split-K kernel, one launch per call (the
             # two share one body)
@@ -5412,7 +5821,8 @@ def main() -> int:
                                        for k, v in rec["kernels"].items()},
                             launches_by_path={
                                 "phase 8 (c)": launches[wrapper],
-                                "phase 17 (a)": ckpt_launches[wrapper]})
+                                "phase 17 (a)": ckpt_launches[wrapper],
+                                **mesh_paths(wrapper, ("tensor=2",))})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,8 +46,23 @@ as the reference's ``_w`` leaves it to XLA). Training and the unpaged
 ``prefill``/``decode_step`` run full-precision weights only and refuse a
 quantized model.
 
-Not ported yet (ROADMAP): ring attention (``attn_impl="ring"``) and
-meshes (A6); their config values raise `NotImplementedError`.
+Training on a device mesh (`ray_tpu_torch.parallel`, one process per
+rank): a `GPT` built with ``mesh=`` keeps this rank's block of every leaf
+(`param_logical_axes` under the rule table), and the training forwards
+run on it with the collectives written where XLA puts them in the
+reference. ``fsdp`` (and any other data-like axis a rule puts on a leaf)
+splits storage: each leaf is gathered before use, inside the remat
+region, and its gradient reduce-scattered. ``tensor`` splits the Q/K/V
+and MLP-up columns and the ``wo``/``w_down`` rows (Megatron: the block's
+input enters through `collectives.copy_to`, the row products leave
+through `collectives.reduce_from`), and the vocabulary of the tied
+embedding (a masked lookup summed over the axis; the vocab-sharded
+loss). ``seq`` splits the tokens: positions are offset by the rank's
+block and ``attn_impl="auto"`` becomes the ring (`parallel.
+ring_attention`). Every per-token quantity stays on the rank of its
+tokens; `token_mean` divides a rank's sum by the global count. A mesh of
+one rank is the single-card model. The serving forwards and
+`completion_logprobs` take a single-card model only (ROADMAP A6 (b)).
 """
 
 from __future__ import annotations
@@ -64,6 +79,10 @@ from ray_tpu_torch.ops import decode_attention as da
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import fused_xent as fx
 from ray_tpu_torch.ops import quant
+from ray_tpu_torch.parallel import collectives as col
+from ray_tpu_torch.parallel import sharding
+from ray_tpu_torch.parallel.mesh import active_mesh
+from ray_tpu_torch.parallel.ring_attention import ring_attention
 
 @dataclass(frozen=True)
 class GPTConfig:
@@ -144,6 +163,55 @@ def check_quant_cfg(cfg: GPTConfig) -> bool:
 # parameters
 # ---------------------------------------------------------------------------
 
+def param_logical_axes(cfg: GPTConfig):
+    """Pytree of logical-axis tuples, mirroring init_params' structure.
+    Leading layer-stack axis is unsharded (None)."""
+    layer = {
+        "ln1_scale": (None, "embed"),
+        "ln2_scale": (None, "embed"),
+        "wq": (None, "embed", "heads"),
+        "wk": (None, "embed", "heads"),
+        "wv": (None, "embed", "heads"),
+        "wo": (None, "heads", "embed"),
+        "w_up": (None, "embed", "mlp"),
+        "w_gate": (None, "embed", "mlp"),
+        "w_down": (None, "mlp", "embed"),
+    }
+    return {
+        "embed": ("vocab", "embed"),
+        "pos_embed": (None, "embed"),
+        "final_ln_scale": ("embed",),
+        "layers": layer,
+    }
+
+
+# The mesh axes the model computes on split, by the logical axes they may
+# split; a leaf split over `parallel.sharding.ZERO_AXES` is gathered
+# before use.
+_MODEL_AXES = {"tensor": ("heads", "mlp", "vocab"), "pipe": ("stage",)}
+
+
+def _leaf_specs(cfg: GPTConfig, mesh, rules, logical_axes) -> dict:
+    """``{leaf name: PartitionSpec}`` ("layers.wq", ...) on ``mesh``;
+    a split the model cannot compute on raises."""
+    tree = param_logical_axes(cfg) if logical_axes is None else logical_axes
+    flat = {k: v for k, v in tree.items() if k != "layers"}
+    flat.update({f"layers.{k}": v for k, v in tree["layers"].items()})
+    out = {}
+    for name, axes in flat.items():
+        spec = sharding.logical_to_spec(axes, rules, mesh)
+        for logical, entry in zip(axes, spec):
+            for a in mesh.live_axes(sharding.spec_axes((entry,))):
+                if a not in sharding.ZERO_AXES and \
+                        logical not in _MODEL_AXES.get(a, ()):
+                    raise ValueError(
+                        f"param {name}: mesh axis {a!r} on its logical "
+                        f"axis {logical!r}; the model computes on "
+                        f"{a!r} splits of {_MODEL_AXES.get(a, ())} only")
+        out[name] = spec
+    return out
+
+
 def init_params(seed: int, cfg: GPTConfig, device=None) -> dict:
     """float32 master params with `ray_tpu.models.gpt.init_params`'s tree,
     shapes and scales, drawn from a `torch.Generator` seeded with
@@ -196,9 +264,19 @@ class GPT(nn.Module):
     model is ``quantized`` (frozen, for the paged forwards)."""
 
     def __init__(self, cfg: GPTConfig, params: dict, *, device=None,
-                 dtype: torch.dtype | None = None, trainable: bool = False):
+                 dtype: torch.dtype | None = None, trainable: bool = False,
+                 mesh=None, rules: dict | None = None, logical_axes=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = active_mesh(mesh)
+        self.rules = rules
+        self.specs = ({} if self.mesh is None else
+                      _leaf_specs(cfg, self.mesh, rules, logical_axes))
+        # each layer leaf's spec without the layer axis (what `_block`
+        # gathers by)
+        self.layer_specs = {
+            k[len("layers."):]: sharding.PartitionSpec(*spec[1:])
+            for k, spec in self.specs.items() if k.startswith("layers.")}
         dtype = cfg.activation_dtype() if dtype is None else dtype
         device = resolve_device(device)
 
@@ -219,22 +297,46 @@ class GPT(nn.Module):
         layers = params["layers"]
         scales = {w + "_scale": (n, want_layers[w][-1])
                   for w in QUANTIZED_WEIGHTS if w + "_scale" in layers}
+        # each leaf's whole shape (on a mesh the model holds a block)
+        self.whole_shapes = {**want, **{f"layers.{k}": v for k, v in
+                                        {**want_layers, **scales}.items()}}
         self.quantized = bool(scales)
         if self.quantized and trainable:
             raise ValueError("a quantized model (int8 weights) cannot be "
                              "trained; train the f32 masters")
-        for name, shape in want.items():
-            if tuple(params[name].shape) != shape:
+        if self.quantized and self.mesh is not None:
+            raise ValueError("a quantized model serves on one card; meshes "
+                             "train f32 masters")
+
+        def block(name, x, shape):
+            # the whole leaf (this rank keeps its block) or the block
+            if self.mesh is None:
+                return x
+            spec = self.specs[name]
+            if tuple(x.shape) == shape:
+                return sharding.local_shard(x, spec, self.mesh)
+            local = sharding.local_shape(shape, spec, self.mesh)
+            if tuple(x.shape) != local:
                 raise ValueError(f"param {name} has shape "
-                                 f"{tuple(params[name].shape)}, config wants "
+                                 f"{tuple(x.shape)}; on {self.mesh} the "
+                                 f"config wants {shape} whole or {local} "
+                                 "for this rank")
+            return x
+
+        for name, shape in want.items():
+            x = params[name]
+            if self.mesh is None and tuple(x.shape) != shape:
+                raise ValueError(f"param {name} has shape "
+                                 f"{tuple(x.shape)}, config wants "
                                  f"{shape}")
-            setattr(self, name, leaf(params[name]))
+            setattr(self, name, leaf(block(name, x, shape)))
         self.layers = nn.ParameterDict()
         for name, shape in {**want_layers, **scales}.items():
             x = layers[name]
-            if tuple(x.shape) != shape:
+            if self.mesh is None and tuple(x.shape) != shape:
                 raise ValueError(f"param layers.{name} has shape "
                                  f"{tuple(x.shape)}, config wants {shape}")
+            x = block(f"layers.{name}", x, shape)
             dt = dtype
             if name in scales:
                 dt = torch.float32
@@ -293,24 +395,31 @@ def quantize_params(model: GPT) -> GPT:
 
 def params_from_numpy(tree: dict, cfg: GPTConfig, device=None,
                       dtype: torch.dtype | None = None,
-                      trainable: bool = False) -> GPT:
+                      trainable: bool = False, mesh=None,
+                      rules: dict | None = None) -> GPT:
     """Carry a JAX param pytree across: ``tree`` is
     ``jax.tree.map(np.asarray, params)`` (nested dict of numpy arrays,
     stacked ``[L, ...]`` layer leaves, ``[in, out]`` weights; a tree from
     the reference's ``quantize_params`` keeps its int8 leaves and f32
-    scales). For training pass ``dtype=torch.float32, trainable=True``."""
-    return GPT(cfg, tree, device=device, dtype=dtype, trainable=trainable)
+    scales). For training pass ``dtype=torch.float32, trainable=True``.
+    With ``mesh`` each rank keeps its block of every leaf
+    (`param_logical_axes` under ``rules``, default `DEFAULT_RULES`)."""
+    return GPT(cfg, tree, device=device, dtype=dtype, trainable=trainable,
+               mesh=mesh, rules=rules)
 
 
 def params_to_numpy(model: GPT) -> dict:
     """The reverse carry: the model's parameters as the JAX package's
-    nested dict of numpy arrays, float32 (int8 leaves stay int8)."""
-    def host(p):
+    nested dict of numpy arrays, float32 (int8 leaves stay int8). On a
+    mesh every leaf is gathered whole (all ranks call it)."""
+    def host(name, p):
         p = p.detach()
+        if model.mesh is not None:
+            p = sharding.gather_full(p, model.specs[name], model.mesh)
         return (p if p.dtype == torch.int8 else p.float()).cpu().numpy()
     tree = param_tree(model)
-    return {k: ({n: host(p) for n, p in v.items()} if k == "layers"
-                else host(v)) for k, v in tree.items()}
+    return {k: ({n: host(f"layers.{n}", p) for n, p in v.items()}
+                if k == "layers" else host(k, v)) for k, v in tree.items()}
 
 
 def _full_precision(model: GPT, what: str) -> None:
@@ -350,14 +459,16 @@ def _mm(x, w, cfg: GPTConfig):
     return torch.matmul(x, w)
 
 
-def _layer(lp: dict, x, cfg: GPTConfig, attend):
+def _layer(lp: dict, x, cfg: GPTConfig, attend, enter=None, leave=None):
     """One block on rows ``x [N, D]`` with this layer's weights ``lp``
     (one entry of `GPT.layer_params`), each cast to x's dtype at use;
     ``attend(q, k, v)`` takes ``[N, H, Dh]`` projections and returns
-    ``[N, H*Dh]``."""
+    ``[N, H*Dh]``. H is the heads ``wq`` holds (a tensor rank's share on a
+    mesh, where ``enter`` takes each normed input into the column-split
+    products and ``leave`` combines each row-split product)."""
     adt = x.dtype
     n = x.shape[0]
-    nh, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
 
     def w(name):
         # an int8 weight: dequantized through its per-channel scale in
@@ -367,15 +478,17 @@ def _layer(lp: dict, x, cfg: GPTConfig, attend):
             return lp[name].to(adt)
         return (lp[name].float() * scale[..., None, :]).to(adt)
 
-    h = _rms_norm(x, w("ln1_scale"))
-    q = _mm(h, w("wq"), cfg).view(n, nh, hd)
-    k = _mm(h, w("wk"), cfg).view(n, nh, hd)
-    v = _mm(h, w("wv"), cfg).view(n, nh, hd)
-    x = x + _mm(attend(q, k, v), w("wo"), cfg)
-    h = _rms_norm(x, w("ln2_scale"))
+    enter = enter or (lambda y: y)
+    leave = leave or (lambda y: y)
+    h = enter(_rms_norm(x, w("ln1_scale")))
+    q = _mm(h, w("wq"), cfg).view(n, -1, hd)
+    k = _mm(h, w("wk"), cfg).view(n, -1, hd)
+    v = _mm(h, w("wv"), cfg).view(n, -1, hd)
+    x = x + leave(_mm(attend(q, k, v), w("wo"), cfg))
+    h = enter(_rms_norm(x, w("ln2_scale")))
     up = _mm(h, w("w_up"), cfg)
     gate = _mm(h, w("w_gate"), cfg)
-    return x + _mm(nn.functional.silu(gate) * up, w("w_down"), cfg)
+    return x + leave(_mm(nn.functional.silu(gate) * up, w("w_down"), cfg))
 
 
 def _unembed(model: GPT, x):
@@ -387,37 +500,66 @@ def _unembed(model: GPT, x):
 # training forward: flash attention, remat, dense loss
 # ---------------------------------------------------------------------------
 
-def _attention(q, k, v, cfg: GPTConfig):
+def _attention(q, k, v, cfg: GPTConfig, mesh=None):
     """Causal attention on ``[B, T, H, Dh]``: ``"auto"``/``"flash"`` take
     the flash kernels, ``"xla"`` the plain version (the only way to
-    plain attention on the card, as in the reference)."""
+    plain attention on the card, as in the reference), ``"ring"`` the
+    ring over the mesh's ``seq`` axis (``"auto"``'s choice when that
+    axis has more than one rank; T is then the rank's block)."""
     impl = cfg.attn_impl
-    if impl in ("auto", "flash"):
+    if impl == "auto":
+        impl = ("ring" if mesh is not None and mesh.shape["seq"] > 1
+                else "flash")
+    if impl == "flash":
         return fa.flash_attention(q, k, v, causal=True)
     if impl == "xla":
         return fa.reference_attention(q, k, v, causal=True)
     if impl == "ring":
-        raise NotImplementedError(
-            "attn_impl='ring' (sequence-parallel ring attention) is not "
-            "ported yet (ROADMAP A6: multi-rank parallelism)")
+        if mesh is None:
+            raise ValueError("attn_impl='ring' needs a mesh: the ring runs "
+                             "over its 'seq' axis (build the model and "
+                             "trainer with mesh=)")
+        return ring_attention(q, k, v, mesh, causal=True)
     raise ValueError(f"unknown attn_impl {impl!r} (expected 'auto' | "
                      "'ring' | 'flash' | 'xla')")
 
 
-def _block(lp: dict, x, cfg: GPTConfig, kv: list | None = None):
+def _whole(x, spec, mesh):
+    """A leaf gathered over the `ZERO_AXES` that split it (differentiable:
+    its gradient is reduce-scattered back); model-axis splits stay."""
+    for i, entry in enumerate(spec):
+        axes = tuple(a for a in mesh.live_axes(sharding.spec_axes((entry,)))
+                     if a in sharding.ZERO_AXES)
+        if axes:
+            x = col.all_gather(x, axes, mesh, dim=i)
+    return x
+
+
+def _block(lp: dict, x, cfg: GPTConfig, kv: list | None = None, mesh=None,
+           specs: dict | None = None):
     """One transformer block on ``x [B, T, D]`` in the activation dtype,
     attention through `_attention`; with ``kv`` the block's (k, v)
-    ``[B, T, H, Dh]`` are appended to it (what a KV cache stores)."""
+    ``[B, T, H, Dh]`` are appended to it (what a KV cache stores). On a
+    mesh ``lp`` holds this rank's blocks (``specs``: each layer leaf's
+    spec without the layer axis), gathered here, inside the remat
+    region, so the backward gathers again instead of saving them."""
     b, t, d = x.shape
+    enter = leave = None
+    if mesh is not None:
+        lp = {k: _whole(w, specs[k], mesh) for k, w in lp.items()}
+        enter = functools.partial(col.copy_to, axis_name="tensor", mesh=mesh)
+        leave = functools.partial(col.reduce_from, axis_name="tensor",
+                                  mesh=mesh)
 
     def attend(q, k, v):
         nh, hd = q.shape[1], q.shape[2]
         q, k, v = (z.view(b, t, nh, hd) for z in (q, k, v))
         if kv is not None:
             kv.append((k, v))
-        return _attention(q, k, v, cfg).reshape(b * t, nh * hd)
+        return _attention(q, k, v, cfg, mesh).reshape(b * t, nh * hd)
 
-    return _layer(lp, x.reshape(b * t, d), cfg, attend).view(b, t, d)
+    return _layer(lp, x.reshape(b * t, d), cfg, attend, enter,
+                  leave).view(b, t, d)
 
 
 # What each selective remat policy saves for the backward: the block's
@@ -447,11 +589,66 @@ def _remat_context(cfg: GPTConfig):
                              policy)
 
 
-def _features(model: GPT, tokens, cfg: GPTConfig, emb, with_kv=False):
+def _mesh_of(model: GPT, mesh):
+    """The model's mesh; a caller's ``mesh`` must be that one (or one
+    rank)."""
+    mesh = active_mesh(mesh)
+    if mesh is not None and mesh is not model.mesh:
+        raise ValueError(f"the model holds its blocks for {model.mesh}, "
+                         f"not {mesh}: build it with mesh=")
+    return model.mesh
+
+
+def _embed_table(model: GPT, cfg: GPTConfig, mesh):
+    """The tied embedding in the activation dtype: whole on one card; on
+    a mesh this rank's vocabulary block (gathered over `ZERO_AXES`)."""
+    if mesh is None:
+        return model.embed.to(cfg.activation_dtype())
+    return _whole(model.embed, model.specs["embed"], mesh).to(
+        cfg.activation_dtype())
+
+
+def vocab_axes(model: GPT) -> tuple:
+    """The mesh axes that split the model's vocabulary ((): whole)."""
+    if model.mesh is None:
+        return ()
+    return tuple(a for a in model.mesh.live_axes(
+        sharding.spec_axes(model.specs["embed"][:1]))
+        if a not in sharding.ZERO_AXES)
+
+
+def _lookup(model: GPT, emb, tokens):
+    """emb[tokens]; on a vocab-split mesh each rank looks up the ids its
+    rows hold (zeros elsewhere) and the ranks' rows are summed."""
+    axes = vocab_axes(model)
+    if not axes:
+        return emb[tokens]
+    mesh, v_loc = model.mesh, emb.shape[0]
+    local = tokens.long() - mesh.axis_index(axes) * v_loc
+    hit = (local >= 0) & (local < v_loc)
+    rows = emb[local.clamp(0, v_loc - 1)] * hit[..., None].to(emb.dtype)
+    return col.reduce_from(rows, axes, mesh)
+
+
+def _features(model: GPT, tokens, cfg: GPTConfig, emb, with_kv=False,
+              mesh=None):
     _full_precision(model, "the full-sequence forward")
     t = tokens.shape[1]
     adt = cfg.activation_dtype()
-    x = emb[tokens] + model.pos_embed[:t].to(adt)[None]
+    specs, final_ln = None, model.final_ln_scale
+    if mesh is None:
+        x = emb[tokens] + model.pos_embed[:t].to(adt)[None]
+    else:
+        if with_kv:
+            raise NotImplementedError(
+                "the prefill forward (with_kv) runs on one card; sharded "
+                "caches are ROADMAP A6 (b)")
+        # a seq rank's tokens start at its block's first position
+        off = mesh.axis_index("seq") * t
+        pos = _whole(model.pos_embed, model.specs["pos_embed"], mesh)
+        x = _lookup(model, emb, tokens) + pos[off:off + t].to(adt)[None]
+        specs = model.layer_specs
+        final_ln = _whole(final_ln, model.specs["final_ln_scale"], mesh)
     if with_kv:
         kv = []
         for lp in model.layer_params():
@@ -463,34 +660,42 @@ def _features(model: GPT, tokens, cfg: GPTConfig, emb, with_kv=False):
     for lp in model.layer_params():
         if remat:
             kw = {} if context is None else {"context_fn": context}
-            x = ckpt.checkpoint(_block, lp, x, cfg, use_reentrant=False,
-                                **kw)
+            args = () if mesh is None else (None, mesh, specs)
+            x = ckpt.checkpoint(_block, lp, x, cfg, *args,
+                                use_reentrant=False, **kw)
         else:
-            x = _block(lp, x, cfg)
-    return _rms_norm(x, model.final_ln_scale.to(adt))
+            x = _block(lp, x, cfg, None, mesh, specs)
+    return _rms_norm(x, final_ln.to(adt))
 
 
-def forward_features(model: GPT, tokens, cfg: GPTConfig | None = None, *,
-                     with_kv: bool = False):
+def forward_features(model: GPT, tokens, cfg: GPTConfig | None = None,
+                     mesh=None, *, with_kv: bool = False):
     """tokens [B, T] int -> final-norm activations [B, T, d_model] in
     the activation dtype: everything except the unembed matmul (the fused
-    loss consumes these, so the logits never exist).
+    loss consumes these, so the logits never exist). On a mesh (the
+    model's) tokens and activations are this rank's block.
 
     With ``with_kv`` (the prefill path) it also returns every layer's
     attention keys and values stacked as ``(k, v)``, each ``[L, B, T, H,
     Dh]``, the KV cache's layout; no remat in that mode."""
     cfg = model.cfg if cfg is None else cfg
-    return _features(model, tokens, cfg,
-                     model.embed.to(cfg.activation_dtype()), with_kv)
+    mesh = _mesh_of(model, mesh)
+    return _features(model, tokens, cfg, _embed_table(model, cfg, mesh),
+                     with_kv, mesh)
 
 
-def forward(model: GPT, tokens, cfg: GPTConfig | None = None):
+def forward(model: GPT, tokens, cfg: GPTConfig | None = None, mesh=None):
     """tokens [B, T] int -> logits [B, T, vocab] in ``cfg.logits_dtype``
     (f32 accumulation, rounded once, as JAX's preferred_element_type),
-    attention per ``cfg.attn_impl``."""
+    attention per ``cfg.attn_impl``. On a mesh: this rank's tokens, and
+    on a vocab-split one its block of the vocabulary."""
     cfg = model.cfg if cfg is None else cfg
-    emb = model.embed.to(cfg.activation_dtype())
-    x = _features(model, tokens, cfg, emb)
+    mesh = _mesh_of(model, mesh)
+    emb = _embed_table(model, cfg, mesh)
+    x = _features(model, tokens, cfg, emb, False, mesh)
+    if vocab_axes(model):
+        # a column-split product: x's cotangent sums over the vocab axes
+        x = col.copy_to(x, vocab_axes(model), mesh)
     if cfg.logits_dtype == "float32":
         return _mm_f32(x, emb.t())
     return torch.matmul(x, emb.t()).to(getattr(torch, cfg.logits_dtype))
@@ -504,20 +709,106 @@ def check_loss_impl(cfg: GPTConfig) -> str:
     return cfg.loss_impl
 
 
-def fused_nll(model: GPT, inputs, targets, cfg: GPTConfig):
+def fused_nll(model: GPT, inputs, targets, cfg: GPTConfig, mesh=None):
     """Per-token nll [B, T] f32 through the fused cross-entropy kernels:
     the final-norm activations against the tied embedding, with no
-    ``[B, T, V]`` logits in the forward or the backward."""
-    x = forward_features(model, inputs, cfg)
-    return fx.fused_softmax_xent(x, model.embed.to(cfg.activation_dtype()),
-                                 targets, vocab_chunk=cfg.loss_chunk)
+    ``[B, T, V]`` logits in the forward or the backward. On a vocab-split
+    mesh the kernels run on this rank's vocabulary block
+    (`ops.fused_xent.vocab_sharded_xent`)."""
+    mesh = _mesh_of(model, mesh)
+    if mesh is None:
+        x = forward_features(model, inputs, cfg)
+        return fx.fused_softmax_xent(x, model.embed.to(cfg.activation_dtype()),
+                                     targets, vocab_chunk=cfg.loss_chunk)
+    emb = _embed_table(model, cfg, mesh)
+    x = _features(model, inputs, cfg, emb, False, mesh)
+    return fx.vocab_sharded_xent(x, emb, targets, mesh,
+                                 vocab_axis=vocab_axes(model) or None,
+                                 vocab_chunk=cfg.loss_chunk)
 
 
-def loss_fn(model: GPT, batch: dict, cfg: GPTConfig | None = None):
+class _VocabParallelXent(torch.autograd.Function):
+    """Dense cross entropy over this rank's logits block ``[..., V / n]``
+    of a vocabulary split over ``axes`` (Megatron's vocab-parallel
+    loss): a pmax and psums of the sum of exps and the target logit; the
+    backward is the block's softmax minus the one-hot, with no
+    collective (the nll's cotangent is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, mesh, axes):
+        lf = logits.float()
+        m = col.pmax(lf.amax(dim=-1), axes, mesh)
+        e = torch.exp(lf - m[..., None])
+        sumexp = col.psum(e.sum(dim=-1), axes, mesh)
+        v_loc = lf.shape[-1]
+        local = targets.long() - mesh.axis_index(axes) * v_loc
+        hit = (local >= 0) & (local < v_loc)
+        idx = local.clamp(0, v_loc - 1)[..., None]
+        tgt = col.psum(torch.where(hit, lf.gather(-1, idx)[..., 0], 0.0),
+                       axes, mesh)
+        ctx.save_for_backward(e / sumexp[..., None], idx, hit)
+        ctx.dtype = logits.dtype
+        return m + torch.log(sumexp) - tgt
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, hit = ctx.saved_tensors
+        d = p * g[..., None]
+        d = d.scatter_add(-1, idx, -(g * hit)[..., None])
+        return d.to(ctx.dtype), None, None, None
+
+
+def dense_nll(model: GPT, inputs, targets, cfg: GPTConfig, mesh=None):
+    """Per-token nll [B, T] f32 from the dense logits (on a vocab-split
+    mesh, each rank's block through `_VocabParallelXent`)."""
+    mesh = _mesh_of(model, mesh)
+    logits = forward(model, inputs, cfg, mesh)
+    axes = vocab_axes(model)
+    if axes:
+        return _VocabParallelXent.apply(logits, targets, mesh, axes)
+    logits = logits.float()
+    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - tgt
+
+
+def token_mean(nll, mesh=None, mask=None, rules: dict | None = None):
+    """The mean of a per-token loss over the GLOBAL batch (masked: over
+    its unmasked tokens). On a mesh a rank returns its tokens' sum over
+    the global count (the mask's all-reduced), so the sum over the axes
+    that split tokens is the mean: each rank's gradients are its tokens'
+    share."""
+    mesh = active_mesh(mesh)
+    if mesh is None:
+        if mask is None:
+            return nll.mean()
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    axes = sharding.token_axes(mesh, rules)
+    if mask is None:
+        return nll.sum() / (nll.numel() * mesh.axis_size(axes))
+    mask = mask.float()
+    with torch.no_grad():
+        count = col.psum(mask.sum(), axes, mesh)
+    return (nll * mask).sum() / torch.clamp(count, min=1.0)
+
+
+def loss_fn(model: GPT, batch: dict, cfg: GPTConfig | None = None,
+            mesh=None):
     """Next-token cross entropy. batch: {"tokens": [B, T]}; token t
-    predicts token t+1."""
+    predicts token t+1. On a mesh: this rank's rows and its share of the
+    global mean (`token_mean`); a split ``seq`` axis needs pre-shifted
+    inputs (`train.spmd.gpt_loss_fn`)."""
     cfg = model.cfg if cfg is None else cfg
     tokens = batch["tokens"]
+    mesh = _mesh_of(model, mesh)
+    if mesh is not None:
+        if mesh.shape["seq"] > 1:
+            raise ValueError("loss_fn slices tokens[:, :-1], which breaks "
+                             "the seq split; use train.spmd.gpt_loss_fn "
+                             "on pre-shifted inputs/targets")
+        nll = (fused_nll if check_loss_impl(cfg) == "fused" else dense_nll)(
+            model, tokens[:, :-1], tokens[:, 1:], cfg, mesh)
+        return token_mean(nll, mesh, rules=model.rules)
     if check_loss_impl(cfg) == "fused":
         return fused_nll(model, tokens[:, :-1], tokens[:, 1:], cfg).mean()
     logits = forward(model, tokens[:, :-1], cfg)
@@ -544,10 +835,10 @@ def completion_logprobs(model: GPT, tokens, start, width: int,
     card). Only the ``[B, width]`` rows the window reads go through the
     log-softmax: each row's values are what the reference's full
     ``[B, T, V]`` log-softmax gives it."""
-    if mesh is not None:
+    if mesh is not None or model.mesh is not None:
         raise NotImplementedError(
-            "completion_logprobs(mesh=...) is not ported yet (ROADMAP A6: "
-            "multi-rank parallelism)")
+            "completion_logprobs on a mesh is not ported yet (ROADMAP "
+            "A6 (b): the serving and RL half of multi-rank parallelism)")
     cfg = model.cfg if cfg is None else cfg
     logits = forward(model, tokens, cfg)
     b, t, v = logits.shape
@@ -574,7 +865,7 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int, device=None,
     if mesh is not None:
         raise NotImplementedError(
             "init_kv_cache: sharded caches (mesh=) are not ported yet "
-            "(ROADMAP A6: multi-rank parallelism)")
+            "(ROADMAP A6 (b): the serving half of multi-rank parallelism)")
     if max_len > cfg.max_seq_len:
         raise ValueError(f"max_len {max_len} exceeds cfg.max_seq_len "
                          f"{cfg.max_seq_len} (pos_embed table size)")

@@ -15,7 +15,7 @@ Attention is `models.gpt._attention`, so ``attn_impl`` "auto"/"flash"
 launches the port's flash kernels on the card; per-block remat is
 `torch.utils.checkpoint`, as in `models.gpt`. On one card every expert
 lives on the device: the reference's expert mesh axis waits for
-multi-rank parallelism (ROADMAP A6).
+multi-rank parallelism (ROADMAP A6 (b)).
 """
 
 from __future__ import annotations

@@ -31,8 +31,10 @@ of 128; above 1024 the bf16 kernels take any multiple of 64 and the f32
 backward splits the width into equal column chunks of those built
 widths. Any other width runs zero-padded to one the kernels take
 (`kernel_width`, `ops.pad_last_dim`): zero columns of x and E add
-nothing to a logit, and dx and dE are sliced back. The vocab-sharded
-composition (``mesh=``) waits for multi-rank parallelism.
+nothing to a logit, and dx and dE are sliced back. With a mesh
+(``mesh=``, `vocab_sharded_xent`) the same kernels run on each rank's
+vocabulary shard, the ids shifted by the shard's base, and collectives
+over the vocab axis combine the shards.
 
 `LAUNCHES` holds one plain-integer counter per kernel that grows by one
 per launch, and ``fused_xent_fwd`` one that grows by one per forward
@@ -44,6 +46,7 @@ from __future__ import annotations
 import torch
 
 from ray_tpu_torch.ops import pad_last_dim, trim_last_dim
+from ray_tpu_torch.parallel import collectives
 
 NEG = -1e30   # finite -inf stand-in, as the reference's _NEG
 
@@ -408,21 +411,109 @@ class _LseAndTarget(torch.autograd.Function):
         return dx.to(x.dtype), de.to(embed.dtype), None, None, None
 
 
+class _VocabShardedXent(torch.autograd.Function):
+    """nll over this rank's vocabulary shard ``embed [V / n, D]`` (rows
+    ``[base, base + V / n)``, ``base`` the rank's position along
+    ``vocab_axis`` times ``V / n``) with the rank's tokens ``x [N, D]``.
+
+    Forward: the per-shard (lse, target logit) of the shifted ids
+    ``targets - base`` (below 0 on the shards above the target's, at or
+    above ``V / n`` on those below it: a target logit of 0 there), then
+    a pmax and a psum of ``exp(lse_p - max)`` over ``vocab_axis`` and a
+    psum of the partial target logit. Backward, with the nll's cotangent
+    g (the same on every rank of ``vocab_axis``): the per-shard backward
+    with ``c_lse = g`` and ``c_tgt = -g``, dx summed over ``vocab_axis``
+    and dE over ``token_axes``."""
+
+    @staticmethod
+    def forward(ctx, x, embed, targets, mesh, vocab_axis, token_axes, chunk,
+                kind):
+        base = mesh.axis_index(vocab_axis) * embed.shape[0] if vocab_axis \
+            else 0
+        shifted = targets.to(torch.int32) - base
+        if kind == "scan":
+            lse_p, tgt_p = lse_target_reference(x, embed, shifted, chunk)
+        else:
+            lse_p, tgt_p = fused_xent_fwd(x, embed, shifted, chunk=chunk)
+        lse, tgt = lse_p, tgt_p
+        if vocab_axis:
+            mg = collectives.pmax(lse_p, vocab_axis, mesh)
+            lse = mg + torch.log(collectives.psum(torch.exp(lse_p - mg),
+                                                  vocab_axis, mesh))
+            tgt = collectives.psum(tgt_p, vocab_axis, mesh)
+        ctx.save_for_backward(x, embed, shifted, lse)
+        ctx.mesh, ctx.vocab_axis, ctx.token_axes = mesh, vocab_axis, token_axes
+        ctx.chunk, ctx.kind = chunk, kind
+        return lse - tgt
+
+    @staticmethod
+    def backward(ctx, g):
+        x, embed, shifted, lse = ctx.saved_tensors
+        g = g.float().contiguous()
+        args = (x, embed, shifted, lse, g, -g)
+        if ctx.kind == "scan":
+            dx, de = xent_backward_reference(*args, ctx.chunk)
+        else:
+            dx, de = fused_xent_bwd(*args, chunk=ctx.chunk)
+        if ctx.vocab_axis:
+            dx = collectives.psum(dx, ctx.vocab_axis, ctx.mesh)
+        if ctx.token_axes:
+            de = collectives.psum(de, ctx.token_axes, ctx.mesh)
+        return (dx.to(x.dtype), de.to(embed.dtype), None, None, None, None,
+                None, None)
+
+
+def vocab_sharded_xent(x, embed, targets, mesh, *, vocab_axis,
+                       token_axes=(), vocab_chunk: int = 512,
+                       impl: str = "auto"):
+    """Per-token nll ``[B, T]`` f32 of this rank's tokens ``x [B, T, D]``
+    against its vocabulary shard ``embed [V / n, D]`` of ``vocab_axis``
+    (None: the whole vocabulary), every rank of the axis calling it with
+    the same tokens; dE comes back summed over ``token_axes`` (the
+    trainer passes none: it sums every gradient over the axes that split
+    tokens itself). The kernels run on each shard with the ids shifted
+    by the shard's base."""
+    kind = _resolve_impl(impl)
+    b, t, d = x.shape
+    nll = _VocabShardedXent.apply(
+        x.reshape(b * t, d), embed, targets.reshape(b * t), mesh,
+        vocab_axis, tuple(token_axes), int(vocab_chunk), kind)
+    return nll.view(b, t)
+
+
 def fused_softmax_xent(x, embed, targets, *, vocab_chunk: int = 512,
                        impl: str = "auto", mesh=None, rules=None):
     """Per-token nll ``[B, T]`` f32 from the final-norm activations ``x
     [B, T, D]`` and the tied embedding ``embed [V, D]``, never
     materialising the ``[B, T, V]`` logits, forward or backward. The same
-    contract as `train.spmd.softmax_xent(x @ embed.T, targets)`."""
+    contract as `train.spmd.softmax_xent(x @ embed.T, targets)`.
+
+    With a `mesh` (one process per rank, `parallel.sharding.
+    fused_xent_specs`): ``x`` and ``targets`` are this rank's block of
+    tokens, and, when the vocab rule's axis (default ``tensor``) has n >
+    1 ranks, ``embed`` is the rank's vocabulary shard ``[V / n, D]``:
+    each shard reduces its own rows and one psum of the partial
+    log-sum-exp and target-logit terms over that axis combines them
+    (`vocab_sharded_xent`). Gradients as the reference's global ones: dx
+    for the rank's tokens, dE for its shard summed over the axes that
+    split tokens."""
     if x.ndim != 3 or embed.ndim != 2:
         raise ValueError(
             f"fused_softmax_xent wants x [B, T, D] and embed [V, D]; got "
             f"{tuple(x.shape)} and {tuple(embed.shape)}")
     kind = _resolve_impl(impl)
-    if mesh is not None:
-        raise NotImplementedError(
-            "fused_softmax_xent: the vocab-sharded composition (mesh=) is "
-            "not ported yet (ROADMAP A6: multi-rank parallelism)")
+    if mesh is not None and mesh.size > 1:
+        from ray_tpu_torch.parallel.sharding import (fused_xent_specs,
+                                                     spec_axes)
+        _, e_spec, t_spec = fused_xent_specs(mesh, rules)
+        vocab_axis = e_spec[0]
+        if not (isinstance(vocab_axis, str)
+                and mesh.shape.get(vocab_axis, 1) > 1):
+            vocab_axis = None
+        return vocab_sharded_xent(
+            x, embed, targets, mesh, vocab_axis=vocab_axis,
+            token_axes=mesh.live_axes(spec_axes(t_spec)),
+            vocab_chunk=vocab_chunk, impl=impl)
     del rules
     b, t, d = x.shape
     lse, tgt = _LseAndTarget.apply(x.reshape(b * t, d), embed,

@@ -32,7 +32,7 @@ the stream the learner's backward and optimizer update were queued on,
 and the engine's graphs replay on it too, so stream order alone puts the
 copy after the update and before the next rollout: no host sync.
 
-Not ported yet (ROADMAP A6): ``mesh=`` raises.
+Not ported yet (ROADMAP A6 (b)): ``mesh=`` raises.
 """
 
 from __future__ import annotations
@@ -147,7 +147,7 @@ class FlywheelLoop:
                  publish_every: int = 1, publish_to=(), device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "FlywheelLoop(mesh=...) is not ported yet (ROADMAP A6: "
+                "FlywheelLoop(mesh=...) is not ported yet (ROADMAP A6 (b): "
                 "multi-rank parallelism)")
         self.device = gpt.resolve_device(device)
         self.cfg = cfg

@@ -109,7 +109,7 @@ and the handoff's export and import. Every hook is host-side, between
 device steps, and reads no tensor, so a tick's one host sync stays one.
 
 Not ported yet, and refused with `NotImplementedError` when asked for
-(ROADMAP A6): device meshes. The weight swap has
+(ROADMAP A6 (b)): device meshes. The weight swap has
 no watch (nor ``swap_traces``): `InferenceEngine.update_params` copies
 in place, with nothing to build. The block gather and scatter build
 nothing either; ``kv_gather_traces``/``kv_scatter_traces`` count their
@@ -766,7 +766,7 @@ class InferenceEngine:
             if value != _NOT_PORTED[name]:
                 raise NotImplementedError(
                     f"InferenceEngine({name}=...) is not ported yet "
-                    "(ROADMAP A6)")
+                    "(ROADMAP A6 (b))")
         if role not in ("colocated", "prefill", "decode"):
             raise ValueError(f"unknown engine role {role!r}")
         self.role = role

@@ -24,10 +24,14 @@ wrote.
   last (`train.checkpoint.atomic_dir`). A killed writer leaves a
   committed checkpoint or an ignorable temp dir, never a readable
   partial one.
-- `restore_resharded`: reads a committed checkpoint onto one device. On
-  one card every leaf is whole: the port records ``[None] * ndim`` as
-  each leaf's spec and reads any recorded spec (a data-sharded leaf of
-  the reference comes back whole).
+- `restore_resharded`: reads a committed checkpoint onto one device, or,
+  with ``mesh=``, each rank's block of every leaf under its recorded
+  spec re-validated for that mesh (`parallel.sharding.valid_spec_for`,
+  the reference's elastic resume). On one card every leaf is whole: the
+  port records ``[None] * ndim`` as each leaf's spec and reads any
+  recorded spec (a data-sharded leaf of the reference comes back
+  whole). A mesh trainer's state is saved by `write_sharded_state`:
+  every leaf gathered whole, rank 0 writes it with the leaf's spec.
 
 The skeleton names the reference's classes (``ray_tpu.train.spmd.
 TrainState``, ``ray_tpu.train.ft._ShardRef`` and optax's
@@ -219,15 +223,72 @@ def state_to_tree(state) -> StoredTrainState:
     EmptyState(), ScaleByScheduleState(count)))`` with ``mu``/``nu``
     shaped like ``params``, and ``step``."""
     model, opt = state.params, state.opt_state
+    mesh = getattr(model, "mesh", None)
+
+    def whole(n, t):
+        # on a mesh: the leaf gathered from every rank's block
+        t = t.detach()
+        if mesh is None:
+            return t
+        from ray_tpu_torch.parallel.sharding import gather_full
+        return gather_full(t, model.specs[n], mesh)
+
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-    params = nest((n, p.detach()) for n, p in model.named_parameters())
-    mu = nest((n, m) for (n, _), m in zip(named, opt["mu"]))
-    nu = nest((n, v) for (n, _), v in zip(named, opt["nu"]))
+    params = nest((n, whole(n, p)) for n, p in model.named_parameters())
+    mu = nest((n, whole(n, m)) for (n, _), m in zip(named, opt["mu"]))
+    nu = nest((n, whole(n, v)) for (n, _), v in zip(named, opt["nu"]))
     count = opt["count"]
     adam = ScaleByAdamState(count, mu, nu)
     return StoredTrainState(
         params, (EmptyState(), (adam, EmptyState(),
                                 ScaleByScheduleState(count))), state.step)
+
+
+class _Spec:
+    """A JSON spec as a leaf of a tree shaped like a train state's."""
+
+    def __init__(self, entries: list):
+        self.entries = entries
+
+
+def state_specs(state) -> list[list]:
+    """One JSON PartitionSpec per leaf of `state_to_tree`'s tree, in
+    flatten order: each parameter's and moment's spec on the model's
+    mesh (``[None] * ndim`` on one card), ``[]`` for the scalars."""
+    from ray_tpu_torch.parallel.sharding import spec_to_json
+    model = state.params
+    specs = getattr(model, "specs", {})
+
+    def leaf(n, p):
+        return _Spec(spec_to_json(specs[n]) if n in specs
+                     else [None] * p.ndim)
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    moments = nest((n, leaf(n, p)) for n, p in named)
+    count = _Spec([])
+    tree = StoredTrainState(
+        nest((n, leaf(n, p)) for n, p in model.named_parameters()),
+        (EmptyState(), (ScaleByAdamState(count, moments, moments),
+                        EmptyState(), ScaleByScheduleState(count))),
+        _Spec([]))
+    return [s.entries for s in tree_leaves(tree)]
+
+
+def write_sharded_state(root: str, step: int, state) -> str | None:
+    """Commit a train state under ``root/step_{step:08d}`` with each
+    leaf's spec recorded. On a mesh every rank calls it: each leaf is
+    gathered whole (`state_to_tree`), rank 0 writes, and every rank
+    waits for the commit. Returns the directory (rank 0; None on the
+    others)."""
+    import torch.distributed as dist
+    tree = state_to_tree(state)
+    specs = state_specs(state)
+    path = None
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        host = tree_map(lambda t: torch.as_tensor(t).detach().cpu(), tree)
+        path = write_checkpoint(root, step, host, specs)
+    if dist.is_initialized() and getattr(state.params, "mesh", None):
+        dist.barrier()
+    return path
 
 
 def _find(tree, cls):
@@ -250,7 +311,8 @@ def _family(cfg):
     raise TypeError(f"no model family for config {type(cfg).__name__}")
 
 
-def state_from_tree(tree: StoredTrainState, cfg, device=None):
+def state_from_tree(tree: StoredTrainState, cfg, device=None, mesh=None,
+                    rules: dict | None = None):
     """A restored reference-format tree as the port's `spmd.TrainState`
     on ``device`` (the card unless told otherwise): ``params`` through
     the model family's ``params_from_numpy`` (f32 trainable masters; the
@@ -258,7 +320,14 @@ def state_from_tree(tree: StoredTrainState, cfg, device=None):
     ``mu``/``nu`` as the optimizer's lists in the order of the model's
     trainable parameters, ``count`` from ``ScaleByAdamState.count``
     (checked against ``ScaleByScheduleState.count`` where the optimizer
-    has one) and ``step`` as it is."""
+    has one) and ``step`` as it is.
+
+    ``mesh`` (GPT): the model keeps each rank's block under
+    `models.gpt.param_logical_axes` and ``rules``; a leaf may come whole
+    (`restore_resharded` without a mesh: any recorded spec) or as that
+    very block (`restore_resharded` onto the same mesh of a checkpoint
+    that recorded the model's specs, as `write_sharded_state` does);
+    anything else raises."""
     from ray_tpu_torch.models import gpt
     from ray_tpu_torch.train import spmd
     device = gpt.resolve_device(device)
@@ -273,13 +342,31 @@ def state_from_tree(tree: StoredTrainState, cfg, device=None):
         raise CheckpointError(
             f"ScaleByAdamState.count {int(count)} != ScaleByScheduleState."
             f"count {int(torch.as_tensor(sched.count))}")
+    kw = {}
+    if mesh is not None and mesh.size > 1:
+        if _family(cfg) is not gpt:
+            raise NotImplementedError(
+                f"{type(cfg).__name__} trains on one card; meshes are "
+                "GPT's (ROADMAP A6 (b))")
+        kw = dict(mesh=mesh, rules=rules)
     model = _family(cfg).params_from_numpy(
-        tree.params, cfg, device=device, dtype=torch.float32, trainable=True)
-    names = [n for n, p in model.named_parameters() if p.requires_grad]
+        tree.params, cfg, device=device, dtype=torch.float32, trainable=True,
+        **kw)
+    params = dict(model.named_parameters())
+    names = [n for n, p in params.items() if p.requires_grad]
 
     def moment(t, name):
-        return torch.as_tensor(_lookup(t, name)).to(
-            device=device, dtype=torch.float32).contiguous()
+        t = torch.as_tensor(_lookup(t, name))
+        want = tuple(params[name].shape)
+        if kw and tuple(t.shape) != want:
+            from ray_tpu_torch.parallel.sharding import local_shard
+            if tuple(t.shape) == tuple(model.whole_shapes[name]):
+                t = local_shard(t, model.specs[name], model.mesh)
+        if tuple(t.shape) != want:
+            raise CheckpointError(f"moment {name} has shape "
+                                  f"{tuple(t.shape)}; the model's leaf is "
+                                  f"{want}")
+        return t.to(device=device, dtype=torch.float32).contiguous()
 
     opt = {"count": count.to(device=device, dtype=torch.int32),
            "mu": [moment(adam.mu, n) for n in names],
@@ -458,14 +545,20 @@ def latest_checkpoint(root: str) -> str | None:
     return steps[-1][1] if steps else None
 
 
-def read_tree(path: str, device=None, *, validate: bool = True
+def read_tree(path: str, device=None, *, validate: bool = True, mesh=None
               ) -> tuple[Any, int]:
     """Read the tree a committed directory holds, every leaf whole on
     ``device`` (the card unless told otherwise), whatever spec it was
-    recorded under. Each shard (and the skeleton) is checked against its
-    sha256 as it is read when ``validate``. Returns (tree, step)."""
+    recorded under; with a ``mesh`` (of more than one rank) this rank's
+    block of each leaf under its recorded spec re-validated for the mesh
+    (`parallel.sharding.valid_spec_for`). Each shard (and the skeleton)
+    is checked against its sha256 as it is read when ``validate``.
+    Returns (tree, step)."""
     from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.parallel.mesh import active_mesh
     device = gpt.resolve_device(device)
+    mesh = active_mesh(mesh)
     manifest = load_manifest(path)
     skeleton = _load_skeleton(
         bytes(_read_checked(path, manifest["skeleton"], validate)))
@@ -488,16 +581,22 @@ def read_tree(path: str, device=None, *, validate: bool = True
             t = torch.empty(entry["shape"], dtype=dtype)
         else:
             t = torch.frombuffer(data, dtype=dtype).reshape(entry["shape"])
+        if mesh is not None:
+            t = sharding.local_shard(t, sharding.valid_spec_for(
+                mesh, sharding.spec_from_json(entry["spec"]), t.shape), mesh)
         return t.to(device)
 
     return tree_map(materialize, skeleton), int(manifest["step"])
 
 
-def restore_resharded(source: str, device=None, *, validate: bool = True
-                      ) -> tuple[Any, int]:
+def restore_resharded(source: str, device=None, *, mesh=None,
+                      validate: bool = True) -> tuple[Any, int]:
     """Restore a committed checkpoint onto ``device`` (the card unless
-    told otherwise): `ray_tpu.train.ft.restore_resharded` with a mesh of
-    one, so every leaf is placed whole whatever spec it was saved under.
+    told otherwise): `ray_tpu.train.ft.restore_resharded`. With no mesh
+    (or one of one rank) every leaf is placed whole whatever spec it was
+    saved under; with a ``mesh`` each rank materialises its block of
+    every leaf by its recorded spec re-validated for that mesh, which may
+    have another rank count than the one that wrote it (elastic resume).
     Returns (tree, step); `state_from_tree` turns a train state's tree
     into the port's `spmd.TrainState`.
 
@@ -524,7 +623,7 @@ def restore_resharded(source: str, device=None, *, validate: bool = True
             raise CheckpointError(
                 f"no committed checkpoint under {source!r}")
         source = latest
-    return read_tree(source, device, validate=validate)
+    return read_tree(source, device, validate=validate, mesh=mesh)
 
 
 def fast_forward(host_iter: Iterable, n: int) -> Iterator:

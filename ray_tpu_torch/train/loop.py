@@ -75,13 +75,22 @@ def _to_host(tree):
                 tree)
 
 
-def make_placer(device=None) -> Callable[[Any], Any]:
+def make_placer(device=None, *, mesh=None, rules: dict | None = None,
+                accum: int = 1) -> Callable[[Any], Any]:
     """Host-batch placement fn: every numpy leaf becomes a tensor on
     ``device`` (the card unless told otherwise), copied from pinned host
     memory without blocking the host. Leaves keep their leading axes,
-    so a stacked ``[u, B, ...]`` group places the same way."""
+    so a stacked ``[u, B, ...]`` group places the same way.
+
+    With a ``mesh`` (of more than one rank) each rank places its block
+    of every leaf, the one its trainer computes on: the
+    ``("batch", "length")`` rules' block of each of the ``accum``
+    microbatches (`parallel.sharding.shard_batch`)."""
     from ray_tpu_torch.models.gpt import resolve_device
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.parallel.mesh import active_mesh
     device = resolve_device(device)
+    mesh = active_mesh(mesh)
 
     def put(a):
         t = torch.as_tensor(np.ascontiguousarray(a))
@@ -90,6 +99,8 @@ def make_placer(device=None) -> Callable[[Any], Any]:
         return t.to(device)
 
     def place(tree):
+        if mesh is not None:
+            tree = sharding.shard_batch(tree, mesh, rules, accum)
         return _map(put, tree)
     place.device = device
     return place

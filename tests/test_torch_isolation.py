@@ -42,7 +42,12 @@ def test_every_module_imports_without_jax_or_ray_tpu():
             "ray_tpu_torch.train.checkpoint", "ray_tpu_torch.train.ft",
             "ray_tpu_torch.train.predictor", "ray_tpu_torch.models.moe",
             "ray_tpu_torch.models.vit",
-            "ray_tpu_torch.models.resnet"} <= set(mods)
+            "ray_tpu_torch.models.resnet", "ray_tpu_torch.parallel",
+            "ray_tpu_torch.parallel.mesh",
+            "ray_tpu_torch.parallel.collectives",
+            "ray_tpu_torch.parallel.sharding",
+            "ray_tpu_torch.parallel.ring_attention",
+            "ray_tpu_torch.parallel.pipeline"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -71,6 +76,10 @@ def test_no_source_imports_jax_or_ray_tpu():
     assert pat.search("import optax")
     assert pat.search("from ml_dtypes import bfloat16")
     assert not pat.search("from ray_tpu_torch.models import gpt")
+    # the JAX package's parallelism layer shares the port's prefix
+    assert pat.search("from ray_tpu.parallel import MeshSpec")
+    assert pat.search("import ray_tpu.parallel.sharding")
+    assert not pat.search("from ray_tpu_torch.parallel import MeshSpec")
 
 
 def test_chip_smoke_imports_no_jax_or_ray_tpu():
@@ -78,6 +87,36 @@ def test_chip_smoke_imports_no_jax_or_ray_tpu():
     installed: it imports neither it nor the JAX package."""
     pat = re.compile(rf"^\s*(import\s+{_REFUSED}|from\s+{_REFUSED})", re.M)
     assert not pat.search((ROOT / "chip_smoke.py").read_text())
+
+
+def test_chip_smoke_mesh_child_imports_no_jax_or_ray_tpu():
+    """``chip_smoke.py --mesh-child`` (one rank of phase 18 (b)) imports
+    its modules (the port's parallel layer and trainer) and neither JAX
+    nor the JAX package; here it stops where it loads the kernels, which
+    are built on the card."""
+    code = (
+        "import atexit, runpy, sys\n"
+        "def report():\n"
+        "    bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "                 ('jax', 'ray_tpu', 'optax', 'ml_dtypes'))\n"
+        "    print(repr(bad), 'ray_tpu_torch.parallel.collectives' in "
+        "sys.modules, 'ray_tpu_torch.train.spmd' in sys.modules)\n"
+        "atexit.register(report)\n"
+        "import torch\n"
+        "from ray_tpu_torch.ops import _build\n"
+        "def no_build():\n"
+        "    raise RuntimeError('the kernels are built on the card')\n"
+        "_build.load = no_build\n"
+        "torch.cuda.is_available = lambda: True\n"
+        "sys.argv = ['chip_smoke.py', '--mesh-child']\n"
+        "try:\n"
+        "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+        "except BaseException:\n"
+        "    pass\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip().splitlines()[-1] == "[] True True", \
+        out.stdout + out.stderr
 
 
 def test_default_device_is_cuda_and_raises_without_one():

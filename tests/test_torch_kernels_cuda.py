@@ -453,6 +453,42 @@ def test_fused_xent_kernels_match_plain(dev, dtype, d, n, v):
         {k: grew.get(k, 0) for k in after}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,v_loc,d", [(2048, 25152, 1024),
+                                       (333, 25152, 200), (300, 1000, 200)])
+def test_fused_xent_kernels_on_a_vocab_shard(dev, dtype, n, v_loc, d):
+    """The vocab-sharded loss's call: the middle shard (rows [V_loc, 2
+    V_loc)) of a 3 V_loc vocabulary, with targets drawn from the whole
+    vocabulary and shifted by the shard's base, so one call holds ids
+    below 0 and at or above V_loc (a target logit of 0, no one-hot in
+    dlog) beside ids in the shard. V_loc 25,152 is the tensor=2 shard of
+    bench.py's vocabulary (not a multiple of the 256-column tile); width
+    200 is not a multiple of the kernels' 64-column width step."""
+    from ray_tpu_torch.ops import fused_xent as fx
+    g = torch.Generator(device=dev).manual_seed(n + v_loc + d)
+    x = torch.randn((n, d), generator=g, device=dev).to(dtype)
+    e = (torch.randn((v_loc, d), generator=g, device=dev) * d ** -0.5
+         ).to(dtype)
+    t = (torch.randint(0, 3 * v_loc, (n,), generator=g, device=dev)
+         - v_loc).to(torch.int32)
+    outside = (t < 0) | (t >= v_loc)
+    assert int((t < 0).sum()) > 0 and int((t >= v_loc).sum()) > 0
+    assert int((~outside).sum()) > 0
+    lse, tgt = fx.fused_xent_fwd(x, e, t)
+    ref_lse, ref_tgt = fx.lse_target_reference(x, e, t)
+    _xent_close(lse, ref_lse)
+    _xent_close(tgt, ref_tgt)
+    assert torch.all(tgt[outside] == 0)
+    cl = torch.rand((n,), generator=g, device=dev)
+    args = (x, e, t, ref_lse, cl, -cl)
+    dx, de = fx.fused_xent_bwd(*args)
+    ref_dx, ref_de = fx.xent_backward_reference(*args)
+    bound = (fx.xent_backward_abs_bound(*args) if dtype == torch.bfloat16
+             else (None, None))
+    _xent_close(dx, ref_dx, bound[0])
+    _xent_close(de, ref_de, bound[1])
+
+
 def test_fused_xent_unsupported_inputs_raise(dev):
     """A width of 0 and mixed dtypes raise."""
     from ray_tpu_torch.ops import fused_xent as fx

@@ -369,8 +369,12 @@ def _bridge_trace(metrics, tel, name):
 
 
 def test_stats_bridge_matches_jax():
-    got = _bridge_trace(tmetrics, ttel, "bridgeunit")
-    assert got == _bridge_trace(jmetrics, jtel, "bridgeunit")
+    # a source name no other test registers: the reference's counters
+    # live for the process, and `tests/test_telemetry.py` registers
+    # "bridgeunit" in the JAX package's plane, which would carry its
+    # totals into this trace when both files share a test process
+    got = _bridge_trace(tmetrics, ttel, "bridgeparity")
+    assert got == _bridge_trace(jmetrics, jtel, "bridgeparity")
     assert got["counter"] == [5.0, 8.0, 10.0] and got["gauge"] == 0.5
     assert got["skipped"] == (False, False) and got["pruned"]
 

@@ -52,6 +52,13 @@ def _batch(vocab, b=4, seed=0, mask=False):
     return out
 
 
+def _jax_loss_and_grads(params, batch, cfg):
+    """`jax.value_and_grad(jspmd.gpt_loss_fn)`, jitted: eagerly the
+    Pallas kernels' interpret mode runs op by op."""
+    return jax.jit(jax.value_and_grad(jspmd.gpt_loss_fn),
+                   static_argnums=2)(params, batch, cfg)
+
+
 def _model(tree, cfg):
     return tgpt.params_from_numpy(tree, cfg, device="cpu",
                                   dtype=torch.float32, trainable=True)
@@ -83,7 +90,7 @@ def _assert_tree_close(got, want, rel):
 def test_loss_and_grads_match_jax(cfgs, tree, mask):
     jcfg, tcfg = cfgs
     batch = _batch(jcfg.vocab_size, mask=mask)
-    jloss, jgrads = jax.value_and_grad(jspmd.gpt_loss_fn)(
+    jloss, jgrads = _jax_loss_and_grads(
         jax.tree.map(jnp.asarray, tree),
         jax.tree.map(jnp.asarray, batch), jcfg)
     model = _model(tree, tcfg)
@@ -109,7 +116,7 @@ def test_once_refused_shapes_loss_and_grads_match_jax(d_model, n_heads,
     tree = jax.tree.map(np.asarray,
                         jgpt.init_params(jax.random.PRNGKey(1), jcfg))
     batch = _batch(jcfg.vocab_size, b=2, seed=9)
-    jloss, jgrads = jax.value_and_grad(jspmd.gpt_loss_fn)(
+    jloss, jgrads = _jax_loss_and_grads(
         jax.tree.map(jnp.asarray, tree),
         jax.tree.map(jnp.asarray, batch), jcfg)
     model = _model(tree, tcfg)
@@ -126,7 +133,7 @@ def test_fused_loss_and_grads_match_jax(cfgs, tree, mask):
     through `gpt_loss_fn` with and without a padding mask."""
     jcfg, tcfg = (dataclasses.replace(c, loss_impl="fused") for c in cfgs)
     batch = _batch(jcfg.vocab_size, seed=6, mask=mask)
-    jloss, jgrads = jax.value_and_grad(jspmd.gpt_loss_fn)(
+    jloss, jgrads = _jax_loss_and_grads(
         jax.tree.map(jnp.asarray, tree),
         jax.tree.map(jnp.asarray, batch), jcfg)
     model = _model(tree, tcfg)
@@ -332,10 +339,17 @@ def test_unported_and_unknown_knobs_raise(cfgs, tree):
     _, tcfg = cfgs
     batch = _tb(_batch(tcfg.vocab_size))
     model = _model(tree, tcfg)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tfx.fused_softmax_xent(tgpt.forward_features(model, batch["inputs"]),
-                               model.embed, batch["targets"], mesh=object())
-    with pytest.raises(NotImplementedError, match="A6"):
+    # a mesh of one rank is the single-card loss, bit for bit
+    from ray_tpu_torch.parallel import single_device_mesh
+    with torch.no_grad():
+        x = tgpt.forward_features(model, batch["inputs"])
+        torch.testing.assert_close(
+            tfx.fused_softmax_xent(x, model.embed, batch["targets"],
+                                   mesh=single_device_mesh()),
+            tfx.fused_softmax_xent(x, model.embed, batch["targets"]),
+            rtol=0, atol=0)
+    # the ring runs over a mesh's seq axis: without one it names the mesh
+    with pytest.raises(ValueError, match="needs a mesh"):
         tspmd.gpt_loss_fn(_model(tree, tcfg), batch,
                           dataclasses.replace(tcfg, attn_impl="ring"))
     with pytest.raises(ValueError, match="remat_policy"):
