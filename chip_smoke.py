@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # one card, no arguments
     python3 chip_smoke.py --decode-times [CHECKOUT]
     python3 chip_smoke.py --ft-child    # phase 17 (b)'s trainer (env)
-    python3 chip_smoke.py --mesh-child  # one rank of phase 18 (b) (env)
+    python3 chip_smoke.py --mesh-child  # one rank of phase 18 (b) or 19
 
 Builds the port's CUDA kernels from ``ray_tpu_torch/ops/csrc/`` with nvcc
 (sm_90a, one nvcc per source, all at once) and drives its paths, paged
@@ -243,6 +243,33 @@ the MoE, ViT and ResNet families) and unpaged decode, end to end:
    shard's fused-xent forward and backward kernels against the plain
    versions on the batch's shifted ids (some below the shard, some above
    it) and times them.
+19. serving, RL and MoE on a mesh: two ``--mesh-child`` ranks
+   (``MESH_PHASE=19``) on the one card over gloo, as 18 (b). (a)
+   ``bench_infer.py``'s model (12 layers, 16 heads, bf16) built with
+   ``mesh=`` tensor=2, 8 heads a rank: 6 of phase 2's requests (its first
+   two, the one that repeats the first, two unrelated, one sampled, and
+   the 300-token prompt) with 32 new tokens each (cut) through engines
+   with a bf16 pool and an int8 pool, then 4 motif prompts through an
+   n-gram engine; steps uncaptured (``captured`` false), the launches
+   exactly one a layer per decode tick, prefill chunk and verify tick
+   by kernel name; rank 0 holds each engine's greedy requests to phase
+   3's rule; then every paged kernel (decode, multi-query, verify, the
+   int8 pool's decode and multi-query) at the rank's 8 heads on the
+   rank's own pools against its plain version, timed in turn with the
+   other rank beside the plain version, SDPA and the bound; (b)
+   ``init_kv_cache(mesh=)``, phase 9 (b)'s 8 prompts and 32 greedy
+   ``decode_step``s (12 ``decode_attention`` launches a step), two rows
+   held to phase 3's rule, the contiguous decode kernel at 8 heads on
+   the rank's cache against plain and timed; (c) ``FlywheelLoop(mesh=)``
+   on (a)'s model, 3 iterations of 4 prompts (cut), every leaf of the
+   rank's engine equal to its learner block after each publish; (d)
+   ``MoEConfig()``'s width cut to 4 layers, batch 2, 2 steps of
+   ``make_moe_trainer`` on expert=2 (4 experts a rank), losses and grad
+   norms within 18 (b)'s limits of a single-card run from the same seed
+   in the parent, flash launched on each rank. Per rank: tick and step
+   p50/p99, the collectives' seconds and bytes through the host, peak
+   memory and launches by kernel name. Both ranks' tokens, decoded rows
+   and flywheel histories must be equal.
 
 Before the phases it prints the registers and spilled bytes of every
 tensor-core kernel and of the two split-K decode kernels from nvcc's
@@ -4748,8 +4775,8 @@ def _moe_picks(model, inputs, cfg) -> list:
     got = []
     real = moe._route
 
-    def spy(h, router_w, c):
-        out = real(h, router_w, c)
+    def spy(h, router_w, c, *split):
+        out = real(h, router_w, c, *split)
         got.append(out[0].sum(2) > 0)
         return out
     moe._route = spy
@@ -5103,27 +5130,35 @@ def _mesh_ref_path(ref_dir: str, layers: int) -> str:
     return os.path.join(ref_dir, f"params_{layers}.pt")
 
 
-def _mesh_param_gaps(model, mesh, cfg, ref_dir: str, dev) -> dict:
-    """Every leaf of a mesh trainer's state gathered whole (all ranks
-    call it) against (a)'s single-card leaf after as many steps: the
-    largest element gap, and the gap's norm over the norm of (a)'s
-    update (its leaf less the seed's initial one); the worst leaf of
-    each."""
+def _flat_params(tree: dict) -> dict:
+    """An `init_params` tree by the model's parameter names."""
+    return {**{k: v for k, v in tree.items() if k != "layers"},
+            **{f"layers.{k}": v for k, v in tree["layers"].items()}}
+
+
+def _save_params(model, path: str) -> None:
     import torch
-    from ray_tpu_torch.models import gpt
+    torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+               path)
+
+
+def _mesh_param_gaps(model, mesh, ref_path: str, init: dict, dev) -> dict:
+    """Every leaf of a mesh trainer's state gathered whole (all ranks
+    call it) against the single-card trainer's leaf (``ref_path``, by
+    `_save_params`) after as many steps: the largest element gap, and
+    the gap's norm over the norm of the single card's update (its leaf
+    less ``init``'s, the seed's initial leaves by name); the worst leaf
+    of each."""
+    import torch
     from ray_tpu_torch.parallel import sharding
-    ref = torch.load(_mesh_ref_path(ref_dir, cfg.n_layers), mmap=True,
-                     weights_only=True)
-    init = gpt.init_params(MESH_SEED, cfg, dev)
-    init = {**{k: v for k, v in init.items() if k != "layers"},
-            **{f"layers.{k}": v for k, v in init["layers"].items()}}
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
     out = {"max_abs": -1.0, "update_rel": -1.0, "leaves": len(ref)}
     for name, p in model.named_parameters():
         full = sharding.gather_full(p.detach(), model.specs[name], mesh)
         want = ref[name].to(dev)
         update = float(torch.linalg.vector_norm(want - init[name]))
         if not update > 0:
-            fail(f"(a)'s {name} did not move in {MESH_STEPS} steps")
+            fail(f"the single-card trainer's {name} did not move")
         gap = (full.float() - want).abs()
         for key, v in (("max_abs", float(gap.max())),
                        ("update_rel",
@@ -5164,9 +5199,7 @@ def mesh_one(dev, smi: str, ref_dir: str) -> dict:
             out[f"{layers}_{label}"], state = _mesh_steps(
                 state, step, place, batches)
             if mesh is None:
-                torch.save({n: p.detach().cpu() for n, p
-                            in state.params.named_parameters()},
-                           _mesh_ref_path(ref_dir, layers))
+                _save_params(state.params, _mesh_ref_path(ref_dir, layers))
             del state, step
             _free()
     a, b = out["12_none"], out["12_one"]
@@ -5181,12 +5214,14 @@ def mesh_one(dev, smi: str, ref_dir: str) -> dict:
 
 
 def mesh_child() -> int:
-    """``--mesh-child``: one rank of (b)'s gloo world on the card
-    (MESH_RANK, MESH_WORLD, MESH_PORT, MESH_OUT)."""
+    """``--mesh-child``: one rank of a two-rank gloo world on the card
+    (MESH_RANK, MESH_WORLD, MESH_PORT, MESH_OUT): phase 18 (b)'s runs,
+    or with MESH_PHASE=19 phase 19's (`serve_mesh_child`)."""
     import datetime
 
     import torch
     import torch.distributed as dist
+    from ray_tpu_torch.models import gpt
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.parallel import MeshSpec
     from ray_tpu_torch.parallel import collectives as col
@@ -5202,7 +5237,10 @@ def mesh_child() -> int:
         rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
     res = {"rank": rank, "backend": dist.get_backend(),
            "host_staged": col.stages_through_host(dist.group.WORLD, dev)}
-    for label, kw, layers, kind in MESH_RUNS:
+    runs = MESH_RUNS if os.environ.get("MESH_PHASE", "18") == "18" else ()
+    if not runs:
+        res.update(serve_mesh_child(dev))
+    for label, kw, layers, kind in runs:
         mesh = MeshSpec(**kw).build()
         cfg = _mesh_cfg(layers)
         if kind == "pipeline":
@@ -5216,7 +5254,9 @@ def mesh_child() -> int:
         batches = _mesh_batches(cfg)
         res[label], state = _mesh_steps(state, step, place, batches)
         res[label]["params"] = _mesh_param_gaps(
-            state.params, mesh, cfg, os.environ["MESH_REF_DIR"], dev)
+            state.params, mesh,
+            _mesh_ref_path(os.environ["MESH_REF_DIR"], layers),
+            _flat_params(gpt.init_params(MESH_SEED, cfg, dev)), dev)
         if label == "tensor=2":
             res["xent_shard"] = _shard_xent_check(state.params, batches[0],
                                                   mesh, dev)
@@ -5274,10 +5314,12 @@ def _shard_xent_check(model, batch, mesh, dev) -> dict:
             "max_abs_err": err, **times}
 
 
-def mesh_ranks(dev, smi: str, ref: dict, ref_dir: str) -> dict:
-    """(b) two `--mesh-child` ranks on the card, every mesh of MESH_RUNS,
-    each against (a)'s single-card run at its depth (its leaves in
-    ``ref_dir``)."""
+def _mesh_children(phase: str, env: dict, timeout_s: float) -> tuple:
+    """Two `--mesh-child` ranks of phase ``phase`` on the card (gloo over
+    a free localhost port, ``env`` added to each one's environment), each
+    printing its lines; returns (their results in rank order, the
+    seconds until both ended). A rank that fails or outlives
+    ``timeout_s`` fails the phase; every child is stopped."""
     import shutil
     import socket
     import tempfile
@@ -5288,23 +5330,23 @@ def mesh_ranks(dev, smi: str, ref: dict, ref_dir: str) -> dict:
     procs, res = [], []
     try:
         for r in range(2):
-            env = dict(os.environ, MESH_RANK=str(r), MESH_WORLD="2",
-                       MESH_PORT=str(port), MESH_REF_DIR=ref_dir,
-                       MESH_OUT=os.path.join(base, f"rank{r}.json"))
+            child_env = dict(os.environ, MESH_RANK=str(r), MESH_WORLD="2",
+                             MESH_PORT=str(port), MESH_PHASE=phase,
+                             MESH_OUT=os.path.join(base, f"rank{r}.json"),
+                             **env)
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--mesh-child"],
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True))
+                env=child_env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
         t0 = time.perf_counter()
         for r, p in enumerate(procs):
             try:
                 out, err = p.communicate(
-                    timeout=max(1.0, MESH_CHILD_TIMEOUT_S
-                                - (time.perf_counter() - t0)))
+                    timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
             except subprocess.TimeoutExpired:
-                fail(f"(b) rank {r} ran past {MESH_CHILD_TIMEOUT_S} s")
+                fail(f"phase {phase}: rank {r} ran past {timeout_s} s")
             if p.returncode != 0:
-                fail(f"(b) rank {r} failed ({p.returncode}):\n"
+                fail(f"phase {phase}: rank {r} failed ({p.returncode}):\n"
                      f"{out[-2000:]}\n{err[-4000:]}")
             for line in out.splitlines():
                 print(f"  [rank {r}] {line.strip()}")
@@ -5317,6 +5359,15 @@ def mesh_ranks(dev, smi: str, ref: dict, ref_dir: str) -> dict:
                 p.kill()
                 p.communicate()
         shutil.rmtree(base, ignore_errors=True)
+    return res, child_s
+
+
+def mesh_ranks(dev, smi: str, ref: dict, ref_dir: str) -> dict:
+    """(b) two `--mesh-child` ranks on the card, every mesh of MESH_RUNS,
+    each against (a)'s single-card run at its depth (its leaves in
+    ``ref_dir``)."""
+    res, child_s = _mesh_children("18", {"MESH_REF_DIR": ref_dir},
+                                  MESH_CHILD_TIMEOUT_S)
     print(f"  (b) backend {res[0]['backend']}, collectives staged through "
           f"the host: {res[0]['host_staged']} (two ranks share one card); "
           f"{child_s:.1f} s for both children ({smi})")
@@ -5402,6 +5453,574 @@ def phase_mesh(dev, smi: str) -> dict:
     print(f"  phase 18 (a) took {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s")
     return {"card": smi, "one": one, "ranks": ranks,
             "part_s": {"one": t1 - t0, "ranks": t2 - t1}}
+
+
+# phase 19: serving, RL and MoE on a mesh. Two `--mesh-child` ranks
+# (MESH_PHASE=19) on the one card over gloo, as phase 18 (b): (a) the
+# paged engine at bench_infer.py's width on tensor=2 (8 of the 16 heads a
+# rank), (b) the unpaged cache on it, (c) the flywheel on it, (d)
+# MoEConfig()'s width on expert=2 against a single-rank run in the parent
+SERVE_MESH_REQS = (0, 1, 7, 8, 11, 16)   # of make_traffic's 17 (cut)
+SERVE_MESH_NEW = 32                      # new tokens a request (cut)
+SERVE_MESH_SPEC = 4                      # spec_traffic's requests (cut)
+# the greedy requests of the cut traffic held to phase 3's rule: a shared
+# prefix's first and the 300-token prompt (5 chunks)
+SERVE_MESH_CHECKED = (0, 5)
+UNPAGED_MESH_STEPS = 32
+FLY_MESH_ITERS, FLY_MESH_PROMPTS, FLY_MESH_NEW, FLY_MESH_PAD = 3, 4, 16, 64
+MOE_MESH_LAYERS, MOE_MESH_BATCH, MOE_MESH_STEPS = 4, 2, 2
+SERVE_MESH_TIMEOUT_S = 600
+
+
+def _window(dev):
+    """Zero the launch counters, the collectives' stats and the peak
+    memory: what a phase-19 path reports is its own."""
+    import torch
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.parallel import collectives as col
+    torch.cuda.synchronize(dev)
+    ops.reset_kernel_launches()
+    col.reset_stats()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _window_read(dev) -> dict:
+    import torch
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.parallel import collectives as col
+    torch.cuda.synchronize(dev)
+    return {"launches": {k: v for k, v in ops.kernel_launches().items()
+                         if v},
+            "collectives": col.stats(),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+
+
+def _serve_mesh_engine(dev, mesh, model, cfg, reqs, new, which, **kw):
+    """One engine on the mesh through ``reqs``: the launches of each
+    decode tick, prefill chunk and verify tick (one a layer, the kernel
+    named by the pool's dtype), the ticks' wall p50/p99, the
+    collectives and peak memory of the run. Returns (engine, outputs,
+    summary)."""
+    from ray_tpu_torch.serve import InferenceEngine
+    eng = InferenceEngine(model, cfg, slots=8, max_len=1024, block_size=16,
+                          prefill_chunk=64, seed=0, device=dev, mesh=mesh,
+                          **kw)
+    _window(dev)
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=new, temperature=t)
+            for p, t in reqs]
+    eng.run_until_idle()
+    outs = [list(eng.tokens_for(r)) for r in rids]
+    wall = time.perf_counter() - t0
+    got = _window_read(dev)
+    st = eng.stats()
+    eng.check_invariants()
+    for i, o in enumerate(outs):
+        if len(o) != new:
+            fail(f"(a) {which}: request {i} ended with {len(o)} tokens")
+    if st["captured"] is not False or st["mesh"]["tensor"] != 2:
+        fail(f"(a) {which}: stats say captured {st['captured']}, mesh "
+             f"{st['mesh']}")
+    layers = cfg.n_layers
+    ticks = st["decode_steps"] - st["spec_steps"]
+    chunks, verifies = st["prefill_chunks"], st["spec_steps"]
+    int8 = cfg.kv_dtype == "int8"
+    want = {"paged_decode_attention": layers * ticks,
+            "paged_prefill_attention": layers * chunks,
+            "paged_verify_attention": layers * verifies,
+            "paged_decode_int8": layers * ticks * int8,
+            "paged_mq_tc": layers * (chunks + verifies) * (not int8),
+            "paged_mq_tc_int8": layers * chunks * int8,
+            "paged_mq_simt": 0, "paged_mq_simt_int8": 0}
+    launches = got["launches"]
+    if {k: launches.get(k, 0) for k in want} != want:
+        fail(f"(a) {which}: paged launches {launches}, want {want}")
+    if kw.get("spec") and verifies <= 0:
+        fail(f"(a) {which}: no verify tick ran")
+    summary = {k: st[k] for k in (
+        "decode_steps", "spec_steps", "prefill_chunks", "decode_tokens",
+        "p50_token_latency_ms", "p99_token_latency_ms", "decode_tok_s",
+        "prefix_hit_tokens", "cow_copies", "captured", "mesh",
+        "acceptance_rate", "decode_traces", "prefill_traces",
+        "verify_traces")}
+    summary.update(wall_s=wall, **got,
+                   tokens=[[int(t) for t in o] for o in outs],
+                   logprobs=[[float(t.logprob) for t in o] for o in outs])
+    return eng, outs, summary
+
+
+def _in_turn(mesh, fn):
+    """``fn()`` on each rank in turn, the other waiting at a barrier, so
+    the ranks' timings do not share the card."""
+    import torch.distributed as dist
+    out = None
+    for r in range(mesh.size):
+        dist.barrier()
+        if r == mesh.axis_index("tensor"):
+            out = fn()
+    dist.barrier()
+    return out
+
+
+def _h8_kernels(dev, eng, eng8, mesh) -> dict:
+    """Each paged kernel at the rank's 8 heads on the rank's own pools
+    (the 12 layers of the bf16 and int8 engines' pools, through two
+    scrambled tables, as 24 timing sets: a bf16 decode call reads 6.9
+    MB, so 159 MB pass between two uses of a set), held against its plain
+    version, then timed, in turn with the other rank, beside the plain
+    version, SDPA over K/V gathered beforehand and the bound, as phases
+    1, 11 (a) and 12 (a) time them at 16 heads."""
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import decode_attention as da
+    from ray_tpu_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(19)
+    layers, nb, bs, h, d = eng.cache["k"].shape
+    mb = 1024 // bs
+    tabs = [(torch.randperm(nb - 1, generator=g, device=dev) + 1)
+            [:8 * mb].view(8, mb).to(torch.int32).contiguous()
+            for _ in range(2)]
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
+    c16 = [(eng.cache["k"][i], eng.cache["v"][i], t)
+           for i in range(layers) for t in tabs]
+    c8 = [(eng8.cache["k"][i], eng8.cache["v"][i], t,
+           eng8.cache["k_scale"][i], eng8.cache["v_scale"][i])
+          for i in range(layers) for t in tabs]
+
+    def sdpa(q_, k_, v_, m_):
+        return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=m_)
+
+    def one(name, fn, plain, args, nbytes, ops, lib=None, extra=None):
+        err = check(name, fn(*args[0]), plain(*args[0]), "bfloat16",
+                    f"(a) {name} at H {h} on the rank's pool", extra=extra)
+        rec = _in_turn(mesh, lambda: {
+            "ms": time_ms(fn, args), "plain_ms": time_ms(plain, args),
+            "library_ms": None if lib is None else time_ms(sdpa, lib)})
+        rec["max_abs_err"] = err
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, torch.bfloat16)
+        rec["heads"] = h
+        return rec
+
+    def gathered(k, v, t, s=None):
+        k, v = (da.gather_kv_pages(x, t) for x in (k, v))
+        if s is not None:
+            k, v = k[:, :s], v[:, :s]
+        return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+
+    out = {}
+    # decode: 8 rows at DECODE_POS
+    q = torch.randn((8, h, d), generator=g, device=dev).bfloat16()
+    seen = sum(p + 1 for p in DECODE_POS)
+    blocks = sum(p // bs + 1 for p in DECODE_POS) * 4 + 8 * 4
+    mask = (torch.arange(mb * bs, device=dev)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    out["paged_decode"] = one(
+        "paged_decode", da.paged_decode_attention,
+        da.reference_paged_decode_attention,
+        [(q, k, v, t, pos) for k, v, t in c16],
+        2 * q.numel() * 2 + seen * h * d * 2 * 2 + blocks, seen * h * d * 4,
+        [(q[:, :, None], *gathered(k, v, t), mask) for k, v, t in c16])
+    out["paged_decode_int8"] = one(
+        "paged_decode_int8",
+        lambda q_, k, v, t, ks, vs: da.paged_decode_attention(
+            q_, k, v, t, pos, k_scale=ks, v_scale=vs),
+        lambda q_, k, v, t, ks, vs: da.reference_paged_decode_attention(
+            q_, k, v, t, pos, k_scale=ks, v_scale=vs),
+        [(q, *s) for s in c8],
+        2 * q.numel() * 2 + seen * h * (d + 4) * 2 + blocks,
+        seen * h * d * 4)
+    # prefill: a 64-token chunk at 960 through a table's rows
+    c, start = 64, 960
+    s_len = start + c
+    qc = torch.randn((c, h, d), generator=g, device=dev).bfloat16()
+    start_t = torch.full((1,), start, dtype=torch.int32, device=dev)
+    seen = sum(start + i + 1 for i in range(c))
+    blocks = (-(-s_len // bs)) * 4 + 4
+    rows = [(k, v, t[r].contiguous()) for k, v, t in c16 for r in (0, 5)]
+    cmask = (torch.arange(s_len, device=dev)[None, :]
+             <= start + torch.arange(c, device=dev)[:, None])
+    k0, v0, t0 = rows[0]
+    out["paged_prefill"] = one(
+        "paged_prefill", da.paged_prefill_attention,
+        da.reference_paged_prefill_attention,
+        [(qc, k, v, t, start_t) for k, v, t in rows],
+        2 * qc.numel() * 2 + s_len * h * d * 2 * 2 + blocks,
+        seen * h * d * 4,
+        [(qc.transpose(0, 1)[None].contiguous(),
+          *gathered(k, v, t[None], s_len), cmask) for k, v, t in rows],
+        2 ** -8 * da.reference_paged_prefill_attention(
+            qc.float(), k0.float(), v0.float().abs(), t0, start))
+    k8, v8, t8, ks8, vs8 = c8[0]
+    rows8 = [(k, v, t[r].contiguous(), ks, vs) for k, v, t, ks, vs in c8
+             for r in (0, 5)]
+    out["paged_prefill_int8"] = one(
+        "paged_prefill_int8",
+        lambda q_, k, v, t, ks, vs: da.paged_prefill_attention(
+            q_, k, v, t, start_t, k_scale=ks, v_scale=vs),
+        lambda q_, k, v, t, ks, vs: da.reference_paged_prefill_attention(
+            q_, k, v, t, start_t, k_scale=ks, v_scale=vs),
+        [(qc, *s) for s in rows8],
+        2 * qc.numel() * 2 + s_len * h * (d + 4) * 2 + blocks,
+        seen * h * d * 4,
+        extra=2 ** -8 * da.reference_paged_prefill_attention(
+            qc.float(), quant.dequantize_rows(k8, ks8),
+            quant.dequantize_rows(v8, vs8).abs(), t8[0].contiguous(), start))
+    # verify: the n-gram engine's W 5 window at DECODE_POS
+    w = SPEC_K + 1
+    vpos = pos.clamp(max=mb * bs - w)
+    qv = torch.randn((8, w, h, d), generator=g, device=dev).bfloat16()
+    rows_read = sum(p + w for p in vpos.tolist())
+    seen = sum(p + j + 1 for p in vpos.tolist() for j in range(w))
+    vmask = (torch.arange(mb * bs, device=dev)[None, None, :]
+             <= (vpos.long()[:, None] + torch.arange(w, device=dev))
+             [:, :, None])[:, None]
+    out["paged_verify"] = one(
+        "paged_verify", da.paged_verify_attention,
+        da.reference_paged_verify_attention,
+        [(qv, k, v, t, vpos) for k, v, t in c16],
+        2 * qv.numel() * 2 + rows_read * h * d * 2 * 2
+        + sum(-(-(p + w) // bs) for p in vpos.tolist()) * 4 + 8 * 4,
+        seen * h * d * 4,
+        [(qv.transpose(1, 2).contiguous(), *gathered(k, v, t), vmask)
+         for k, v, t in c16],
+        2 ** -8 * da.reference_paged_verify_attention(
+            qv.float(), c16[0][0].float(), c16[0][1].float().abs(),
+            c16[0][2], vpos))
+    return out
+
+
+def _serve_mesh_unpaged(dev, mesh, model, cfg) -> dict:
+    """(b) `init_kv_cache(mesh=)` ([L, 8, 1024, 8, 64] a rank), phase 9
+    (b)'s 8 prompts prefilled, then UNPAGED_MESH_STEPS greedy
+    `decode_step`s: 12 `decode_attention` launches a step; rows 0 and 1
+    held to phase 3's rule on rank 0; then the contiguous decode kernel
+    at the rank's 8 heads on its cache (the 12 layers as timing sets)
+    against its plain version, timed in turn, with SDPA and the bound."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import decode_attention as da
+    from ray_tpu_torch.serve import TokenEvent
+    lens, prompts, _, _ = unpaged_traffic(cfg.vocab_size)
+    cache = gpt.init_kv_cache(cfg, 8, 1024, dev, mesh=mesh)
+    t = int(max(lens))
+    toks = torch.zeros((8, t), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.as_tensor(p)
+    lengths = torch.as_tensor(lens)
+    _window(dev)
+    t0 = time.perf_counter()
+    step_s = []
+    outs = [[] for _ in range(8)]
+    with torch.inference_mode():
+        logits, cache = gpt.prefill(model, toks.to(dev), cache,
+                                    lengths=lengths.to(dev))
+        pos = lengths.to(dev).int()
+        for i in range(UNPAGED_MESH_STEPS + 1):
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            nxt = torch.argmax(logits, dim=-1)
+            lpn = lp.gather(1, nxt[:, None])[:, 0]
+            for r, (a, b) in enumerate(zip(nxt.tolist(), lpn.tolist())):
+                outs[r].append(TokenEvent(a, b))
+            if i == UNPAGED_MESH_STEPS:
+                break
+            s0 = time.perf_counter()
+            logits, cache = gpt.decode_step(model, nxt, cache, pos)
+            torch.cuda.synchronize(dev)
+            step_s.append(time.perf_counter() - s0)
+            pos = pos + 1
+    wall = time.perf_counter() - t0
+    got = _window_read(dev)
+    want = cfg.n_layers * UNPAGED_MESH_STEPS
+    if got["launches"].get("decode_attention", 0) != want:
+        fail(f"(b) decode_attention launches {got['launches']}, want {want}")
+    heads = cfg.n_heads // mesh.axis_size("tensor")
+    if tuple(cache["k"].shape) != (cfg.n_layers, 8, 1024, heads,
+                                   cfg.head_dim):
+        fail(f"(b) the rank's cache block is {tuple(cache['k'].shape)}")
+    tf = None
+    if mesh.axis_index("tensor") == 0:
+        reqs = [(np.asarray(p, np.int32), 0.0) for p in prompts]
+        tf = phase_teacher_forced(dev, SERVE_CFG, 0, reqs, outs, (0, 1))
+    # the contiguous decode kernel at 8 heads on the rank's cache
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((8, heads, cfg.head_dim), generator=g, device=dev
+                    ).bfloat16()
+    p = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
+    sets = [(q, cache["k"][i], cache["v"][i], p)
+            for i in range(cfg.n_layers)]
+    err = check("decode", da.decode_attention(*sets[0]),
+                da.reference_decode_attention(*sets[0]), "bfloat16",
+                f"(b) decode at H {heads} on the rank's cache")
+    rec = _in_turn(mesh, lambda: decode_record(
+        dev, da.decode_attention, da.reference_decode_attention, sets,
+        sum(x + 1 for x in DECODE_POS)))
+    rec.update(max_abs_err=err, heads=heads)
+    st = sorted(step_s)
+    return {**got, "wall_s": wall, "teacher_forced": tf, "kernel": rec,
+            "step_ms_p50": st[len(st) // 2] * 1e3,
+            "step_ms_p99": st[min(len(st) - 1, int(0.99 * len(st)))] * 1e3,
+            "tokens": [[int(x) for x in o] for o in outs]}
+
+
+def _serve_mesh_flywheel(dev, mesh) -> dict:
+    """(c) `FlywheelLoop(mesh=tensor=2)` on (a)'s model from seed 0,
+    FLY_MESH_ITERS iterations of FLY_MESH_PROMPTS prompts: after each
+    publish every leaf of the rank's engine equals the rank's learner
+    block in the engine's dtype; the engine's and the learner's launches
+    together, the iterations' wall."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.rl import FlywheelLoop
+    cfg = gpt.GPTConfig(**SERVE_CFG)
+    vocab = cfg.vocab_size
+
+    def prompt_fn(rng):
+        return rng.integers(0, vocab, 16).astype(np.int32)
+
+    fly = FlywheelLoop(cfg, prompt_fn, half_vocab_reward(vocab),
+                       params=gpt.init_params(0, cfg, dev), mesh=mesh,
+                       prompts_per_iter=FLY_MESH_PROMPTS,
+                       max_new_tokens=FLY_MESH_NEW, pad_to=FLY_MESH_PAD,
+                       lr=1e-4, device=dev,
+                       engine_kwargs=dict(slots=FLY_MESH_PROMPTS,
+                                          max_len=FLY_MESH_PAD,
+                                          block_size=16, prefill_chunk=64))
+    _window(dev)
+    iter_s, losses = [], []
+    for _ in range(FLY_MESH_ITERS):
+        t0 = time.perf_counter()
+        _, metrics = fly.run(1)
+        torch.cuda.synchronize(dev)
+        iter_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics[-1]["loss"]) if metrics else None)
+        learner = dict(fly.state.params.named_parameters())
+        for name, e in fly.engine.model.named_parameters():
+            if not torch.equal(e, learner[name].detach().to(e.dtype)):
+                fail(f"(c) the engine's {name} is not the learner's block "
+                     "after the publish")
+    got = _window_read(dev)
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "flash_forward", "flash_dq", "flash_dkv"):
+        if got["launches"].get(name, 0) <= 0:
+            fail(f"(c) {name} was not launched on the flywheel's path")
+    if fly.engine.params_version != FLY_MESH_ITERS:
+        fail(f"(c) {fly.engine.params_version} publishes, want "
+             f"{FLY_MESH_ITERS}")
+    return {**got, "iter_s": iter_s, "losses": losses,
+            "history": [{k: h[k] for k in ("reward_mean", "staleness",
+                                            "engine_version")}
+                        for h in fly.history],
+            "wq_block": list(fly.state.params.layers["wq"].shape)}
+
+
+def _moe_mesh_cfg():
+    import dataclasses
+    from ray_tpu_torch.models import moe
+    return dataclasses.replace(moe.MoEConfig(), n_layers=MOE_MESH_LAYERS)
+
+
+def _moe_mesh_batches(cfg) -> list:
+    import numpy as np
+    rng = np.random.default_rng(MESH_SEED + 19)
+    out = []
+    for _ in range(MOE_MESH_STEPS):
+        toks = rng.integers(0, cfg.vocab_size,
+                            (MOE_MESH_BATCH, cfg.max_seq_len + 1))
+        out.append({"inputs": toks[:, :-1].astype(np.int32),
+                    "targets": toks[:, 1:].astype(np.int32)})
+    return out
+
+
+def _moe_mesh_run(dev, mesh, ref_dir: str) -> dict:
+    """(d) `make_moe_trainer` at MoEConfig()'s width cut to
+    MOE_MESH_LAYERS layers, batch MOE_MESH_BATCH, from MESH_SEED:
+    `_mesh_steps`' record (losses, grad norms, step times, collectives,
+    launches, peak memory) on ``mesh``. With ``mesh`` None (the single
+    card) its leaves after the last step go to ``ref_dir``; on a mesh
+    each leaf is held against them (`_mesh_param_gaps`)."""
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.train import spmd
+    cfg = _moe_mesh_cfg()
+    state, step, place = spmd.make_moe_trainer(
+        cfg, seed=MESH_SEED, optimizer=_mesh_optimizer(spmd), device=dev,
+        mesh=mesh)
+    rec, state = _mesh_steps(state, step, place, _moe_mesh_batches(cfg))
+    rec["w_up_block"] = list(state.params.layers["w_up"].shape)
+    path = os.path.join(ref_dir, "moe_params.pt")
+    if mesh is None:
+        _save_params(state.params, path)
+    else:
+        rec["params"] = _mesh_param_gaps(
+            state.params, mesh, path,
+            _flat_params(moe.init_params(MESH_SEED, cfg, dev)), dev)
+    del state, step
+    _free()
+    return rec
+
+
+def serve_mesh_child(dev) -> dict:
+    """Phase 19 on this rank: (a)-(d) on tensor=2 (and expert=2 for (d));
+    every path's counters zeroed just before it and read just after."""
+    import numpy as np
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import MeshSpec
+    mesh = MeshSpec(data=1, tensor=2).build()
+    rank = mesh.axis_index("tensor")
+    res = {}
+    cfg = gpt.GPTConfig(**SERVE_CFG)
+    # (a) the paged engine: bf16 and int8 pools, then n-gram
+    full = make_traffic(cfg.vocab_size, 0)
+    reqs = [full[i] for i in SERVE_MESH_REQS]
+    model = gpt.GPT(cfg, gpt.init_params(0, cfg, dev), device=dev,
+                    mesh=mesh)
+    _free()
+    engines = {}
+    for which, c, kw, traffic in (
+            ("bf16", cfg, {}, reqs),
+            ("int8_pool", gpt.GPTConfig(**{**SERVE_CFG, "kv_dtype": "int8"}),
+             {}, reqs),
+            ("ngram", cfg, dict(spec="ngram", spec_k=SPEC_K),
+             [(p, 0.0) for p, _ in spec_traffic(cfg.vocab_size,
+                                                SERVE_MESH_SPEC)])):
+        eng, outs, res[which] = _serve_mesh_engine(
+            dev, mesh, model, c, traffic, SERVE_MESH_NEW, which, **kw)
+        if rank == 0:
+            checked = (SERVE_MESH_CHECKED if which != "ngram"
+                       else tuple(range(SERVE_MESH_SPEC)))
+            res[which]["teacher_forced"] = phase_teacher_forced(
+                dev, SERVE_CFG, 0, traffic, outs, checked)
+        engines[which] = eng
+    res["h8"] = _h8_kernels(dev, engines["bf16"], engines["int8_pool"], mesh)
+    del engines, eng
+    _free()
+    # (b) the unpaged cache
+    res["unpaged"] = _serve_mesh_unpaged(dev, mesh, model, cfg)
+    del model
+    _free()
+    # (c) the flywheel
+    res["flywheel"] = _serve_mesh_flywheel(dev, mesh)
+    _free()
+    # (d) MoE on expert=2
+    res["moe"] = _moe_mesh_run(dev, MeshSpec(data=1, expert=2).build(),
+                               os.environ["MESH_REF_DIR"])
+    res["tokens_digest"] = int(np.asarray(
+        [t for w in ("bf16", "int8_pool", "ngram")
+         for o in res[w]["tokens"] for t in o]).sum())
+    return res
+
+
+def phase_serve_mesh(dev, smi: str) -> dict:
+    """Phase 19: serving, RL and MoE on a mesh. (d)'s single-rank MoE
+    reference first, then two `--mesh-child` ranks on the card
+    (MESH_PHASE=19), each running `serve_mesh_child`; both ranks'
+    outputs must be equal, and (d)'s losses, grad norms and leaves after
+    the last step within phase 18 (b)'s limits of the reference."""
+    import shutil
+    import tempfile
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_moe_ref_")
+    try:
+        t0 = time.perf_counter()
+        ref = _moe_mesh_run(dev, None, ref_dir)
+        print(f"  (d) single-card MoE reference ({MOE_MESH_LAYERS} layers, "
+              f"batch {MOE_MESH_BATCH}): losses {ref['losses']}, grad norms "
+              f"{ref['grad_norms']}, step s "
+              f"{[round(x, 3) for x in ref['step_s']]}, peak "
+              f"{ref['peak_gb']:.2f} GiB")
+        t1 = time.perf_counter()
+        res, child_s = _mesh_children("19", {"MESH_REF_DIR": ref_dir},
+                                      SERVE_MESH_TIMEOUT_S)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    a, b = res
+    for key in ("bf16", "int8_pool", "ngram"):
+        if a[key]["tokens"] != b[key]["tokens"]:
+            fail(f"(a) {key}: the ranks served different tokens")
+    if a["unpaged"]["tokens"] != b["unpaged"]["tokens"]:
+        fail("(b) the ranks decoded different tokens")
+    if a["flywheel"]["history"] != b["flywheel"]["history"]:
+        fail("(c) the ranks' flywheel histories differ")
+    for r, x in enumerate(res):
+        for key in ("bf16", "int8_pool", "ngram"):
+            s = x[key]
+            c = s["collectives"]
+            print(f"  (a) rank {r} {key}: {s['decode_steps']} ticks "
+                  f"({s['spec_steps']} verify), {s['prefill_chunks']} "
+                  f"chunks, tick p50 {s['p50_token_latency_ms']:.2f} ms p99 "
+                  f"{s['p99_token_latency_ms']:.2f} ms, decode "
+                  f"{s['decode_tok_s']:.1f} tok/s, wall {s['wall_s']:.2f} s; "
+                  f"collectives {c['seconds']:.3f} s in {c['calls']} calls, "
+                  f"{c['host_bytes'] / 2 ** 20:.1f} MiB through the host; "
+                  f"peak {s['peak_gb']:.2f} GiB; captured {s['captured']}; "
+                  f"launches {s['launches']}")
+        for name, k in x["h8"].items():
+            print(f"  (a) rank {r} {name} at H {k['heads']}: kernel "
+                  f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, sdpa "
+                  f"{k['library_ms']} ms, bound {k['bound_ms']:.4f} ms "
+                  f"({k['bound_by']}), max|kernel-plain| "
+                  f"{k['max_abs_err']:.3e} ({smi})")
+        u = x["unpaged"]
+        print(f"  (b) rank {r}: {UNPAGED_MESH_STEPS} decode steps, step p50 "
+              f"{u['step_ms_p50']:.2f} ms p99 {u['step_ms_p99']:.2f} ms; "
+              f"collectives {u['collectives']['seconds']:.3f} s, "
+              f"{u['collectives']['host_bytes'] / 2 ** 20:.1f} MiB; peak "
+              f"{u['peak_gb']:.2f} GiB; decode kernel at H "
+              f"{u['kernel']['heads']} "
+              f"{u['kernel']['ms']:.4f} ms, plain {u['kernel']['plain_ms']:.4f}"
+              f" ms, bound {u['kernel']['bound_ms']:.4f} ms; launches "
+              f"{u['launches']}")
+        f = x["flywheel"]
+        print(f"  (c) rank {r}: iterations {[round(s, 2) for s in f['iter_s']]}"
+              f" s, losses {f['losses']}, history {f['history']}; "
+              f"collectives {f['collectives']['seconds']:.3f} s, "
+              f"{f['collectives']['host_bytes'] / 2 ** 20:.1f} MiB; peak "
+              f"{f['peak_gb']:.2f} GiB; launches {f['launches']}")
+        m = x["moe"]
+        print(f"  (d) rank {r} expert=2 (w_up block {m['w_up_block']}): "
+              f"losses {m['losses']}, grad norms {m['grad_norms']}, step s "
+              f"{[round(s, 3) for s in m['step_s']]}; collectives "
+              f"{m['collectives']['seconds']:.3f} s in "
+              f"{m['collectives']['calls']} calls, "
+              f"{m['collectives']['host_bytes'] / 2 ** 20:.1f} MiB; peak "
+              f"{m['peak_gb']:.2f} GiB; launches {m['launches']}")
+    for r in range(2):
+        tf = [res[r][w].get("teacher_forced") for w in ("bf16", "int8_pool",
+                                                         "ngram")]
+        tf.append(res[r]["unpaged"]["teacher_forced"])
+        if r == 0 and not all(tf):
+            fail("rank 0 held no path to phase 3's rule")
+    runs = [x["moe"] for x in res]
+    dl = max(abs(p - q) for run in runs
+             for p, q in zip(run["losses"], ref["losses"]))
+    dg = max(abs(p - q) / abs(q) for run in runs
+             for p, q in zip(run["grad_norms"], ref["grad_norms"]))
+    gaps = max((run["params"] for run in runs),
+               key=lambda g: g["update_rel"])
+    pa_run = max((run["params"] for run in runs), key=lambda g: g["max_abs"])
+    print(f"  (d) worst |dloss| {dl:.3e} (limit {MESH_LOSS_TOL}), worst "
+          f"relative dgrad_norm {dg:.3e} (limit {MESH_GN_REL_TOL}) against "
+          f"the single card; after step {MOE_MESH_STEPS}, {gaps['leaves']} "
+          f"leaves: largest element gap {pa_run['max_abs']:.3e} "
+          f"({pa_run['max_abs_leaf']}), gap over the single card's update "
+          f"{gaps['update_rel']:.3e} ({gaps['update_rel_leaf']}; limit "
+          f"{MESH_UPDATE_REL_TOL})")
+    if not (dl <= MESH_LOSS_TOL and dg <= MESH_GN_REL_TOL):
+        fail("(d) MoE on expert=2 disagrees with the single card")
+    if not gaps["update_rel"] <= MESH_UPDATE_REL_TOL:
+        fail(f"(d) the leaves after step {MOE_MESH_STEPS} are not the "
+             "single card's")
+    for name in ("flash_forward", "flash_dq", "flash_dkv"):
+        if any(x["moe"]["launches"].get(name, 0) <= 0 for x in res):
+            fail(f"(d) {name} was not launched on a rank")
+    print(f"  phase 19: reference {t1 - t0:.1f} s, children {child_s:.1f} s "
+          f"({t2 - t1:.1f} s with the spawn)")
+    return {"card": smi, "moe_ref": ref, "ranks": res,
+            "moe_worst_dloss": dl, "moe_worst_rel_dgrad_norm": dg,
+            "moe_worst_param_abs": pa_run["max_abs"],
+            "moe_worst_update_rel": gaps["update_rel"],
+            "part_s": {"ref": t1 - t0, "ranks": t2 - t1}}
 
 
 def _readable_kernel(mangled: str):
@@ -5618,11 +6237,16 @@ def main() -> int:
                       "(MoE, ViT, ResNet)", phase_ft_models, dev, smi)
     mesh = phase(18, "SPMD training on a mesh (a mesh of one; two ranks on "
                  "the card: tensor, data, seq, pipe)", phase_mesh, dev, smi)
+    serve_mesh = phase(19, "serving, RL and MoE on a mesh (two ranks on the "
+                       "card: the paged engine and the unpaged cache at 8 "
+                       "heads a rank, the flywheel, MoE on expert=2)",
+                       phase_serve_mesh, dev, smi)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
                   flash=flash, train=train, xent=xent, fused_train=fused,
                   unpaged=unpaged, c1=c1, int8=int8, spec=spec,
                   capture=capture, pressure=pressure, disagg=disagg,
-                  flywheel=flywheel, ft_models=ft_models, mesh=mesh)
+                  flywheel=flywheel, ft_models=ft_models, mesh=mesh,
+                  serve_mesh=serve_mesh)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -5823,6 +6447,38 @@ def main() -> int:
                                 "phase 8 (c)": launches[wrapper],
                                 "phase 17 (a)": ckpt_launches[wrapper],
                                 **mesh_paths(wrapper, ("tensor=2",))})
+    # phase 19's paths on rank 0, each counted from zero around its run:
+    # (a)'s engines (bf16 and int8 pools, n-gram), (b)'s unpaged decode,
+    # (c)'s flywheel (engine and learner), (d)'s MoE on expert=2; and the
+    # attention kernels at the rank's 8 heads on its own pools
+    r0 = serve_mesh["ranks"][0]
+    mesh19 = {"paged_decode": ("paged_decode_attention",
+                               ("bf16", "ngram", "flywheel")),
+              "paged_prefill": ("paged_prefill_attention",
+                                ("bf16", "ngram", "flywheel")),
+              "paged_verify": ("paged_verify_attention", ("ngram",)),
+              "paged_decode_int8": ("paged_decode_int8", ("int8_pool",)),
+              "paged_prefill_int8": ("paged_mq_tc_int8", ("int8_pool",)),
+              "decode": ("decode_attention", ("unpaged",)),
+              "flash_forward": ("flash_forward", ("flywheel", "moe")),
+              "flash_dq": ("flash_dq", ("flywheel", "moe")),
+              "flash_dkv": ("flash_dkv", ("flywheel", "moe"))}
+    part = {"bf16": "(a) bf16", "int8_pool": "(a) int8 pool",
+            "ngram": "(a) n-gram", "unpaged": "(b)", "flywheel": "(c)",
+            "moe": "(d)"}
+    for row in rows:
+        if row["name"] not in mesh19:
+            continue
+        wrapper, paths = mesh19[row["name"]]
+        row.setdefault("launches_by_path", {}).update({
+            f"phase 19 {part[p]} rank 0": r0[p]["launches"].get(wrapper, 0)
+            for p in paths})
+        h8 = (r0["unpaged"]["kernel"] if row["name"] == "decode"
+              else r0["h8"].get(row["name"]))
+        if h8 is not None:
+            row["mesh_h8"] = {k: h8[k] for k in (
+                "heads", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err")}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

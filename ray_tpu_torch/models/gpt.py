@@ -61,8 +61,21 @@ loss). ``seq`` splits the tokens: positions are offset by the rank's
 block and ``attn_impl="auto"`` becomes the ring (`parallel.
 ring_attention`). Every per-token quantity stays on the rank of its
 tokens; `token_mean` divides a rank's sum by the global count. A mesh of
-one rank is the single-card model. The serving forwards and
-`completion_logprobs` take a single-card model only (ROADMAP A6 (b)).
+one rank is the single-card model.
+
+Serving on a mesh: the same model serves the unpaged (`init_kv_cache`,
+`prefill`, `decode_step`) and paged (`init_kv_pool`, `prefill_paged`,
+`decode_step_paged`, `verify_step_paged`) forwards over ``data``,
+``fsdp`` and ``tensor``. Each rank allocates its heads' slice of a cache
+or pool (`kv_cache_logical_axes`, `kv_pool_logical_axes`: heads over
+``tensor``; an unpaged cache's slots over the data axes, a pool's blocks
+whole), the attention kernels run on the rank's ``H / tensor`` heads,
+and the vocabulary-split logits are gathered over ``tensor``, so every
+rank holds the same f32 ``[B, V]``. `completion_logprobs` on a mesh
+takes a distributed log-sum-exp over the vocabulary split, with no
+``[B, T, V]`` gather. Int8 weights, the ``seq``, ``expert`` and
+``pipe`` axes on the serving forwards, and `completion_logprobs` over a
+``seq`` split raise (ROADMAP A6 (c)).
 """
 
 from __future__ import annotations
@@ -75,6 +88,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from ray_tpu_torch.models._stacked import check_axes, leaf_specs
 from ray_tpu_torch.ops import decode_attention as da
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import fused_xent as fx
@@ -195,21 +209,7 @@ def _leaf_specs(cfg: GPTConfig, mesh, rules, logical_axes) -> dict:
     """``{leaf name: PartitionSpec}`` ("layers.wq", ...) on ``mesh``;
     a split the model cannot compute on raises."""
     tree = param_logical_axes(cfg) if logical_axes is None else logical_axes
-    flat = {k: v for k, v in tree.items() if k != "layers"}
-    flat.update({f"layers.{k}": v for k, v in tree["layers"].items()})
-    out = {}
-    for name, axes in flat.items():
-        spec = sharding.logical_to_spec(axes, rules, mesh)
-        for logical, entry in zip(axes, spec):
-            for a in mesh.live_axes(sharding.spec_axes((entry,))):
-                if a not in sharding.ZERO_AXES and \
-                        logical not in _MODEL_AXES.get(a, ()):
-                    raise ValueError(
-                        f"param {name}: mesh axis {a!r} on its logical "
-                        f"axis {logical!r}; the model computes on "
-                        f"{a!r} splits of {_MODEL_AXES.get(a, ())} only")
-        out[name] = spec
-    return out
+    return leaf_specs(tree, mesh, rules, _MODEL_AXES)
 
 
 def init_params(seed: int, cfg: GPTConfig, device=None) -> dict:
@@ -305,8 +305,9 @@ class GPT(nn.Module):
             raise ValueError("a quantized model (int8 weights) cannot be "
                              "trained; train the f32 masters")
         if self.quantized and self.mesh is not None:
-            raise ValueError("a quantized model serves on one card; meshes "
-                             "train f32 masters")
+            raise NotImplementedError(
+                "a quantized model (int8 weights) serves on one card; int8 "
+                "weights on a mesh are ROADMAP A6 (c)")
 
         def block(name, x, shape):
             # the whole leaf (this rank keeps its block) or the block
@@ -410,13 +411,14 @@ def params_from_numpy(tree: dict, cfg: GPTConfig, device=None,
 
 def params_to_numpy(model: GPT) -> dict:
     """The reverse carry: the model's parameters as the JAX package's
-    nested dict of numpy arrays, float32 (int8 leaves stay int8). On a
-    mesh every leaf is gathered whole (all ranks call it)."""
+    nested dict of numpy arrays, float32 (int8 leaves stay int8), copies
+    that later updates of the model leave as they are. On a mesh every
+    leaf is gathered whole (all ranks call it)."""
     def host(name, p):
         p = p.detach()
         if model.mesh is not None:
             p = sharding.gather_full(p, model.specs[name], model.mesh)
-        return (p if p.dtype == torch.int8 else p.float()).cpu().numpy()
+        return np.array((p if p.dtype == torch.int8 else p.float()).cpu())
     tree = param_tree(model)
     return {k: ({n: host(f"layers.{n}", p) for n, p in v.items()}
                 if k == "layers" else host(k, v)) for k, v in tree.items()}
@@ -535,6 +537,16 @@ def _whole(x, spec, mesh):
     return x
 
 
+def tensor_conjugates(mesh):
+    """Megatron's pair over ``tensor`` on ``mesh``: ``(enter, leave)``,
+    `collectives.copy_to` for a replicated input of a column-split
+    product and `collectives.reduce_from` for a row-split product's
+    partial sums."""
+    return (functools.partial(col.copy_to, axis_name="tensor", mesh=mesh),
+            functools.partial(col.reduce_from, axis_name="tensor",
+                              mesh=mesh))
+
+
 def _block(lp: dict, x, cfg: GPTConfig, kv: list | None = None, mesh=None,
            specs: dict | None = None):
     """One transformer block on ``x [B, T, D]`` in the activation dtype,
@@ -547,9 +559,7 @@ def _block(lp: dict, x, cfg: GPTConfig, kv: list | None = None, mesh=None,
     enter = leave = None
     if mesh is not None:
         lp = {k: _whole(w, specs[k], mesh) for k, w in lp.items()}
-        enter = functools.partial(col.copy_to, axis_name="tensor", mesh=mesh)
-        leave = functools.partial(col.reduce_from, axis_name="tensor",
-                                  mesh=mesh)
+        enter, leave = tensor_conjugates(mesh)
 
     def attend(q, k, v):
         nh, hd = q.shape[1], q.shape[2]
@@ -639,10 +649,6 @@ def _features(model: GPT, tokens, cfg: GPTConfig, emb, with_kv=False,
     if mesh is None:
         x = emb[tokens] + model.pos_embed[:t].to(adt)[None]
     else:
-        if with_kv:
-            raise NotImplementedError(
-                "the prefill forward (with_kv) runs on one card; sharded "
-                "caches are ROADMAP A6 (b)")
         # a seq rank's tokens start at its block's first position
         off = mesh.axis_index("seq") * t
         pos = _whole(model.pos_embed, model.specs["pos_embed"], mesh)
@@ -652,9 +658,9 @@ def _features(model: GPT, tokens, cfg: GPTConfig, emb, with_kv=False,
     if with_kv:
         kv = []
         for lp in model.layer_params():
-            x = _block(lp, x, cfg, kv)
+            x = _block(lp, x, cfg, kv, mesh, specs)
         ks, vs = (torch.stack(z) for z in zip(*kv))
-        return _rms_norm(x, model.final_ln_scale.to(adt)), (ks, vs)
+        return _rms_norm(x, final_ln.to(adt)), (ks, vs)
     remat = cfg.remat and torch.is_grad_enabled()
     context = _remat_context(cfg) if cfg.remat else None
     for lp in model.layer_params():
@@ -759,13 +765,17 @@ class _VocabParallelXent(torch.autograd.Function):
 
 
 def dense_nll(model: GPT, inputs, targets, cfg: GPTConfig, mesh=None):
-    """Per-token nll [B, T] f32 from the dense logits (on a vocab-split
-    mesh, each rank's block through `_VocabParallelXent`)."""
+    """Per-token nll [B, T] f32 from the dense logits (`logits_nll`)."""
     mesh = _mesh_of(model, mesh)
-    logits = forward(model, inputs, cfg, mesh)
+    return logits_nll(model, forward(model, inputs, cfg, mesh), targets)
+
+
+def logits_nll(model, logits, targets):
+    """Per-token nll [B, T] f32 of the model's logits [B, T, V] (on a
+    vocab-split mesh each rank's block, through `_VocabParallelXent`)."""
     axes = vocab_axes(model)
     if axes:
-        return _VocabParallelXent.apply(logits, targets, mesh, axes)
+        return _VocabParallelXent.apply(logits, targets, model.mesh, axes)
     logits = logits.float()
     tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
     return torch.logsumexp(logits, dim=-1) - tgt
@@ -834,13 +844,20 @@ def completion_logprobs(model: GPT, tokens, start, width: int,
     the model's parameters (through the flash kernels' autograd on the
     card). Only the ``[B, width]`` rows the window reads go through the
     log-softmax: each row's values are what the reference's full
-    ``[B, T, V]`` log-softmax gives it."""
-    if mesh is not None or model.mesh is not None:
-        raise NotImplementedError(
-            "completion_logprobs on a mesh is not ported yet (ROADMAP "
-            "A6 (b): the serving and RL half of multi-rank parallelism)")
+    ``[B, T, V]`` log-softmax gives it.
+
+    On a mesh (the model's) ``tokens``/``start`` are this rank's rows
+    (`parallel.sharding.shard_batch`) and the result its rows' values;
+    over a vocabulary split the log-softmax is a distributed
+    log-sum-exp whose backward needs no collective (the window's
+    cotangent is the same on every rank of the split)."""
     cfg = model.cfg if cfg is None else cfg
-    logits = forward(model, tokens, cfg)
+    mesh = _mesh_of(model, mesh)
+    if mesh is not None and mesh.shape["seq"] > 1:
+        raise NotImplementedError(
+            "completion_logprobs reads whole rows; over a seq split it is "
+            "ROADMAP A6 (c)")
+    logits = forward(model, tokens, cfg, mesh)
     b, t, v = logits.shape
     start = torch.as_tensor(start, device=logits.device).long()
     # absolute position of completion token j, clipped into range so
@@ -848,9 +865,120 @@ def completion_logprobs(model: GPT, tokens, start, width: int,
     idx = torch.clamp(start[:, None] + torch.arange(
         width, device=logits.device)[None, :], 1, t - 1)       # [B, W]
     rows = logits.gather(1, (idx - 1)[..., None].expand(b, width, v))
-    logp = torch.log_softmax(rows.float(), dim=-1)             # [B, W, V]
     toks = tokens.long().gather(1, idx)
+    axes = vocab_axes(model)
+    if axes:
+        # the rank's vocabulary block: a distributed log-sum-exp (pmax,
+        # psum of the exponentials) and the target logit from its owner
+        return -_VocabParallelXent.apply(rows, toks, mesh, axes)
+    logp = torch.log_softmax(rows.float(), dim=-1)             # [B, W, V]
     return logp.gather(-1, toks[..., None])[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh: the caches' specs and the forwards' pieces
+# ---------------------------------------------------------------------------
+
+# The mesh axes the serving forwards run on; the others raise.
+SERVING_AXES = ("data", "fsdp", "tensor")
+
+
+def kv_cache_logical_axes() -> dict:
+    """Logical axes of the unpaged cache {"k", "v"} ``[L, slots, max_len,
+    H, Dh]``: slots over the batch rules, heads over the head rule (the
+    wq/wk/wv column split), the rest whole."""
+    axes = (None, "batch", None, "heads", None)
+    return {"k": axes, "v": axes}
+
+
+def kv_pool_logical_axes(quantized: bool = False) -> dict:
+    """Logical axes of the paged pool {"k", "v"} ``[L, n_blocks,
+    block_size, H, Dh]`` (and an int8 pool's {"k_scale", "v_scale"}
+    ``[L, n_blocks, block_size, H]``): heads split with their payload
+    rows, blocks whole (any block may go to any sequence)."""
+    axes = (None, None, None, "heads", None)
+    pool = {"k": axes, "v": axes}
+    if quantized:
+        pool["k_scale"] = pool["v_scale"] = (None, None, None, "heads")
+    return pool
+
+
+def check_serving_mesh(mesh, what: str) -> None:
+    """Raise unless the serving forwards run on ``mesh`` (an active one:
+    only `SERVING_AXES` of size > 1)."""
+    check_axes(mesh, SERVING_AXES, what)
+
+
+def _serving_mesh(model: GPT, what: str):
+    """The model's mesh (None on one card), checked for serving."""
+    if model.mesh is not None:
+        check_serving_mesh(model.mesh, what)
+    return model.mesh
+
+
+def _local_heads(model: GPT) -> int:
+    """The heads this rank's wq columns hold (all of them on one card)."""
+    return model.layers["wq"].shape[-1] // model.cfg.head_dim
+
+
+def _serve_layers(model: GPT, mesh) -> list[dict]:
+    """Per-layer weights of a serving forward: this rank's blocks,
+    gathered over the `ZERO_AXES` that split them."""
+    layers = model.layer_params()
+    if mesh is None:
+        return layers
+    return [{k: _whole(w, model.layer_specs[k], mesh) for k, w in lp.items()}
+            for lp in layers]
+
+
+def _serve_leave(mesh):
+    """The row products' combine over ``tensor`` (None on one card)."""
+    return None if mesh is None else tensor_conjugates(mesh)[1]
+
+
+def _serve_embed(model: GPT, tokens, positions, adt, mesh):
+    """Token + position embeddings of the serving forwards' rows: the
+    vocabulary-split lookup and the whole position table on a mesh."""
+    if mesh is None:
+        return model.embed[tokens].to(adt) + model.pos_embed[positions].to(adt)
+    pos = _whole(model.pos_embed, model.specs["pos_embed"], mesh)
+    return (_lookup(model, _embed_table(model, model.cfg, mesh), tokens)
+            + pos[positions].to(adt))
+
+
+def _serve_unembed(model: GPT, x, mesh):
+    """Final norm and the f32 logits ``[N, V]``: on a vocabulary-split
+    mesh each rank's block, gathered over the split."""
+    if mesh is None:
+        return _unembed(model, x)
+    final_ln = _whole(model.final_ln_scale, model.specs["final_ln_scale"],
+                      mesh)
+    return _serve_logits(model, _rms_norm(x, final_ln.to(x.dtype)), mesh)
+
+
+def _serve_logits(model: GPT, x, mesh):
+    """The f32 logits ``[N, V]`` of final-norm rows ``x`` on a mesh: the
+    rank's vocabulary block, gathered over the split, so every rank
+    holds the same bits."""
+    logits = _mm_f32(x, _embed_table(model, model.cfg, mesh).t())
+    axes = vocab_axes(model)
+    return col.all_gather(logits, axes, mesh, dim=-1) if axes else logits
+
+
+def _check_cache_heads(model: GPT, cache: dict) -> None:
+    """A cache or pool of another head split than the model's raises."""
+    want = _local_heads(model)
+    if cache["k"].shape[3] != want:
+        raise ValueError(f"the cache holds {cache['k'].shape[3]} heads, the "
+                         f"model's rank {want}: allocate it with the "
+                         "model's mesh (mesh=)")
+
+
+def _batch_axes(mesh) -> tuple:
+    """The live mesh axes that split an unpaged cache's slots."""
+    from ray_tpu_torch.parallel.sharding import kv_cache_specs
+    entry = kv_cache_specs(mesh)["k"][1]
+    return mesh.live_axes(sharding.spec_axes((entry,)))
 
 
 # ---------------------------------------------------------------------------
@@ -861,16 +989,19 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int, device=None,
                   mesh=None) -> dict:
     """Preallocated cache {"k", "v"} of ``[L, batch, max_len, H, Dh]`` in
     the activation dtype, zero-filled. ``batch`` is the number of resident
-    decode slots."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "init_kv_cache: sharded caches (mesh=) are not ported yet "
-            "(ROADMAP A6 (b): the serving half of multi-rank parallelism)")
+    decode slots. On a mesh each rank allocates its block
+    (`parallel.sharding.kv_cache_specs`): its data block of the slots and
+    its tensor block of the heads."""
     if max_len > cfg.max_seq_len:
         raise ValueError(f"max_len {max_len} exceeds cfg.max_seq_len "
                          f"{cfg.max_seq_len} (pos_embed table size)")
     device = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_heads, cfg.head_dim)
+    mesh = active_mesh(mesh)
+    if mesh is not None:
+        from ray_tpu_torch.parallel.sharding import kv_cache_specs
+        check_serving_mesh(mesh, "init_kv_cache")
+        shape = sharding.local_shape(shape, kv_cache_specs(mesh)["k"], mesh)
     return {name: torch.zeros(shape, dtype=cfg.activation_dtype(),
                               device=device) for name in ("k", "v")}
 
@@ -886,28 +1017,51 @@ def prefill(model: GPT, tokens, cache: dict, cfg: GPTConfig | None = None,
     unembedded. Padding past a row's length is written too and masked by
     decode's position mask."""
     cfg = model.cfg if cfg is None else cfg
+    mesh = _serving_mesh(model, "prefill")
     b, t = tokens.shape
     cache_b, max_len = cache["k"].shape[1], cache["k"].shape[2]
+    axes = () if mesh is None else _batch_axes(mesh)
+    cache_b *= 1 if mesh is None else mesh.axis_size(axes)
+    if mesh is not None:
+        _check_cache_heads(model, cache)
     if slot is None and b != cache_b:
         raise ValueError(f"prefill batch {b} != cache slots {cache_b}; pass "
                          "slot= to target one slot")
     if slot is not None and b != 1:
         raise ValueError(f"slot-targeted prefill wants tokens [1, T], got "
                          f"batch {b}")
+    if slot is not None and not 0 <= int(slot) < cache_b:
+        raise ValueError(f"slot {slot} out of range for {cache_b} cache "
+                         "slots")
     if t > max_len:
         raise ValueError(f"prompt length {t} exceeds cache max_len "
                          f"{max_len}")
-    adt = cfg.activation_dtype()
-    x, (ks, vs) = forward_features(model, tokens, cfg, with_kv=True)
-    if lengths is None:
-        last = x[:, -1]
-    else:
-        idx = torch.as_tensor(lengths, device=x.device).long() - 1
-        last = x[torch.arange(b, device=x.device), idx]
-    logits = _mm_f32(last, model.embed.to(adt).t())
-    rows = slice(None) if slot is None else slice(int(slot), int(slot) + 1)
-    cache["k"][:, rows, :t] = ks
-    cache["v"][:, rows, :t] = vs
+    # A batch prefill runs each data rank's rows (its cache block; all of
+    # them on one card); a slot prefill runs on every rank and lands on
+    # the rank whose block holds the slot.
+    n_loc = cache["k"].shape[1]
+    lengths = (torch.full((b,), t, dtype=torch.long, device=tokens.device)
+               if lengths is None else
+               torch.as_tensor(lengths, device=tokens.device).long())
+    if slot is None and axes:
+        spec = sharding.PartitionSpec(axes)
+        tokens = sharding.local_shard(tokens, spec, mesh)
+        lengths = sharding.local_shard(lengths, spec, mesh)
+    x, (ks, vs) = _features(model, tokens, cfg,
+                            _embed_table(model, cfg, mesh), True, mesh)
+    last = x[torch.arange(x.shape[0], device=x.device), lengths - 1]
+    logits = _serve_logits(model, last, mesh)
+    if slot is None:
+        cache["k"][:, :, :t] = ks
+        cache["v"][:, :, :t] = vs
+        if axes:
+            logits = col.all_gather(logits, axes, mesh, dim=0)
+        return logits, cache
+    base = (mesh.axis_index(axes) * n_loc) if axes else 0
+    local = int(slot) - base
+    if 0 <= local < n_loc:
+        cache["k"][:, local:local + 1, :t] = ks
+        cache["v"][:, local:local + 1, :t] = vs
     return logits, cache
 
 
@@ -924,6 +1078,15 @@ def decode_step(model: GPT, tokens, cache: dict, pos,
     cfg = model.cfg if cfg is None else cfg
     check_quant_cfg(cfg)
     _full_precision(model, "decode_step")
+    mesh = _serving_mesh(model, "decode_step")
+    axes = ()
+    if mesh is not None:
+        # each data rank steps its block of the slots
+        _check_cache_heads(model, cache)
+        axes = _batch_axes(mesh)
+        spec = sharding.PartitionSpec(axes if axes else None)
+        tokens = sharding.local_shard(tokens, spec, mesh)
+        pos = sharding.local_shard(pos, spec, mesh)
     adt = cfg.activation_dtype()
     b = tokens.shape[0]
     max_len = cache["k"].shape[2]
@@ -932,9 +1095,10 @@ def decode_step(model: GPT, tokens, cache: dict, pos,
     pos_l = pos.long()
     live = (pos_l < max_len)[:, None, None]
     widx = torch.clamp(pos_l, max=max_len - 1)
-    x = model.embed[tokens].to(adt) + model.pos_embed[
-        torch.clamp(pos_l, max=cfg.max_seq_len - 1)].to(adt)
-    layers = model.layer_params()
+    x = _serve_embed(model, tokens,
+                     torch.clamp(pos_l, max=cfg.max_seq_len - 1), adt, mesh)
+    layers = _serve_layers(model, mesh)
+    leave = _serve_leave(mesh)
 
     for i in range(cfg.n_layers):
         def attend(q, k, v, i=i):
@@ -945,8 +1109,11 @@ def decode_step(model: GPT, tokens, cache: dict, pos,
                                        impl=cfg.decode_attn_impl
                                        ).reshape(b, -1)
 
-        x = _layer(layers[i], x, cfg, attend)
-    return _unembed(model, x), cache
+        x = _layer(layers[i], x, cfg, attend, leave=leave)
+    logits = _serve_unembed(model, x, mesh)
+    if axes:
+        logits = col.all_gather(logits, axes, mesh, dim=0)
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------
@@ -954,7 +1121,7 @@ def decode_step(model: GPT, tokens, cache: dict, pos,
 # ---------------------------------------------------------------------------
 
 def init_kv_pool(cfg: GPTConfig, n_blocks: int, block_size: int,
-                 device=None) -> dict:
+                 device=None, mesh=None) -> dict:
     """Paged cache {"k", "v"} of ``[L, n_blocks, block_size, H, Dh]``,
     zero-filled: the activation dtype, or for ``kv_dtype="int8"`` int8
     payloads beside {"k_scale", "v_scale"} f32 ``[L, n_blocks,
@@ -963,16 +1130,26 @@ def init_kv_pool(cfg: GPTConfig, n_blocks: int, block_size: int,
     storage seen as flat rows, ``[L, n_blocks * block_size + 1, ...]``:
     the last row of each layer is the sink that dropped writes land in,
     payload and scale alike. Block 0 is the engine's trash block by
-    convention."""
+    convention. On a mesh each rank allocates its heads' slice
+    (`parallel.sharding.kv_pool_specs`: ``H / tensor`` heads, scales with
+    their heads, every block)."""
     quantized = check_quant_cfg(cfg)
     device = resolve_device(device)
     rows = n_blocks * block_size
     payload = torch.int8 if quantized else cfg.activation_dtype()
-    entries = {"k": ((cfg.n_heads, cfg.head_dim), payload),
-               "v": ((cfg.n_heads, cfg.head_dim), payload)}
+    heads = cfg.n_heads
+    mesh = active_mesh(mesh)
+    if mesh is not None:
+        from ray_tpu_torch.parallel.sharding import kv_pool_specs
+        check_serving_mesh(mesh, "init_kv_pool")
+        heads = sharding.local_shape(
+            (cfg.n_layers, n_blocks, block_size, cfg.n_heads, cfg.head_dim),
+            kv_pool_specs(mesh, quantized=quantized)["k"], mesh)[3]
+    entries = {"k": ((heads, cfg.head_dim), payload),
+               "v": ((heads, cfg.head_dim), payload)}
     if quantized:
-        entries.update(k_scale=((cfg.n_heads,), torch.float32),
-                       v_scale=((cfg.n_heads,), torch.float32))
+        entries.update(k_scale=((heads,), torch.float32),
+                       v_scale=((heads,), torch.float32))
     pool = {}
     for name, (tail, dt) in entries.items():
         flat = torch.zeros((cfg.n_layers, rows + 1) + tail, dtype=dt,
@@ -1100,6 +1277,7 @@ def prefill_paged(model: GPT, tokens, cache: dict, cfg: GPTConfig, *,
     chunk's K/V at the write; a model from `quantize_params` dequantizes
     each weight at use."""
     check_quant_cfg(cfg)
+    mesh = _serving_mesh(model, "prefill_paged")
     b, c = tokens.shape
     if b != 1:
         raise ValueError(f"paged prefill wants tokens [1, C], got batch {b}")
@@ -1121,10 +1299,12 @@ def prefill_paged(model: GPT, tokens, cache: dict, cfg: GPTConfig, *,
         last = offs[length - 1:length]
     blk = table[torch.clamp(positions // bs, max=mb - 1)].long()
     widx = torch.where(offs < length, blk * bs + positions % bs, nb * bs)
-    x = model.embed[tokens[0]].to(adt) + model.pos_embed[
-        torch.clamp(positions, max=cfg.max_seq_len - 1)].to(adt)
+    x = _serve_embed(model, tokens[0],
+                     torch.clamp(positions, max=cfg.max_seq_len - 1), adt,
+                     mesh)
     start_t = positions[:1].to(torch.int32)   # device-resident start
-    layers = model.layer_params()
+    layers = _serve_layers(model, mesh)
+    leave = _serve_leave(mesh)
 
     for i in range(cfg.n_layers):
         def attend(q, k, v, i=i):
@@ -1134,8 +1314,8 @@ def prefill_paged(model: GPT, tokens, cache: dict, cfg: GPTConfig, *,
                 **_pool_scales(cache, i),
                 impl=cfg.prefill_attn_impl).reshape(c, -1)
 
-        x = _layer(layers[i], x, cfg, attend)
-    logits = _unembed(model, x.index_select(0, last))
+        x = _layer(layers[i], x, cfg, attend, leave=leave)
+    logits = _serve_unembed(model, x.index_select(0, last), mesh)
     return logits, cache
 
 
@@ -1150,6 +1330,7 @@ def decode_step_paged(model: GPT, tokens, cache: dict, pos, tables,
     the pool is updated in place. Int8 pools and weights as in
     `prefill_paged`."""
     check_quant_cfg(cfg)
+    mesh = _serving_mesh(model, "decode_step_paged")
     nb, bs = cache["k"].shape[1], cache["k"].shape[2]
     mb = tables.shape[1]
     pos_l = pos.long()
@@ -1157,10 +1338,11 @@ def decode_step_paged(model: GPT, tokens, cache: dict, pos, tables,
                        [:, None])[:, 0].long()
     widx = torch.where(pos_l < mb * bs, blk * bs + pos_l % bs, nb * bs)
     adt = cfg.activation_dtype()
-    x = model.embed[tokens].to(adt) + model.pos_embed[
-        torch.clamp(pos_l, max=cfg.max_seq_len - 1)].to(adt)
+    x = _serve_embed(model, tokens, torch.clamp(pos_l, max=cfg.max_seq_len - 1),
+                     adt, mesh)
     b = tokens.shape[0]
-    layers = model.layer_params()
+    layers = _serve_layers(model, mesh)
+    leave = _serve_leave(mesh)
 
     for i in range(cfg.n_layers):
         def attend(q, k, v, i=i):
@@ -1170,8 +1352,8 @@ def decode_step_paged(model: GPT, tokens, cache: dict, pos, tables,
                 **_pool_scales(cache, i),
                 impl=cfg.decode_attn_impl).reshape(b, -1)
 
-        x = _layer(layers[i], x, cfg, attend)
-    return _unembed(model, x), cache
+        x = _layer(layers[i], x, cfg, attend, leave=leave)
+    return _serve_unembed(model, x, mesh), cache
 
 
 def verify_step_paged(model: GPT, tokens, cache: dict, pos, tables,
@@ -1190,18 +1372,20 @@ def verify_step_paged(model: GPT, tokens, cache: dict, pos, tables,
     cleanup: their K/V sit past the slot's next pos, masked until
     overwritten. Int8 pools and weights as in `prefill_paged`."""
     check_quant_cfg(cfg)
+    mesh = _serving_mesh(model, "verify_step_paged")
     b, w = tokens.shape
     nb, bs = cache["k"].shape[1], cache["k"].shape[2]
     mb = tables.shape[1]
-    nh, hd = cfg.n_heads, cfg.head_dim
+    nh, hd = _local_heads(model), cfg.head_dim
     positions = pos.long()[:, None] + torch.arange(w, device=tokens.device)
     blk = torch.gather(tables, 1, torch.clamp(positions // bs, max=mb - 1))
     widx = torch.where(positions < mb * bs, blk.long() * bs + positions % bs,
                        nb * bs).reshape(-1)
     adt = cfg.activation_dtype()
-    x = model.embed[tokens.reshape(-1)].to(adt) + model.pos_embed[
-        torch.clamp(positions, max=cfg.max_seq_len - 1).reshape(-1)].to(adt)
-    layers = model.layer_params()
+    x = _serve_embed(model, tokens.reshape(-1), torch.clamp(
+        positions, max=cfg.max_seq_len - 1).reshape(-1), adt, mesh)
+    layers = _serve_layers(model, mesh)
+    leave = _serve_leave(mesh)
 
     for i in range(cfg.n_layers):
         def attend(q, k, v, i=i):
@@ -1211,5 +1395,5 @@ def verify_step_paged(model: GPT, tokens, cache: dict, pos, tables,
                 pos, **_pool_scales(cache, i),
                 impl=cfg.decode_attn_impl).reshape(b * w, -1)
 
-        x = _layer(layers[i], x, cfg, attend)
-    return _unembed(model, x).view(b, w, -1), cache
+        x = _layer(layers[i], x, cfg, attend, leave=leave)
+    return _serve_unembed(model, x, mesh).view(b, w, -1), cache

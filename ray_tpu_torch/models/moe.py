@@ -1,4 +1,4 @@
-"""Mixture-of-Experts transformer on one device: the counterpart of
+"""Mixture-of-Experts transformer: the counterpart of
 `ray_tpu/models/moe.py`, with its configuration, parameter tree
 (stacked ``[L, ...]`` layer leaves, JAX's ``[in, out]`` orientation, a
 leading expert axis on the expert weights) and math.
@@ -13,9 +13,22 @@ router: the contractions are the reference's, as matrix products.
 
 Attention is `models.gpt._attention`, so ``attn_impl`` "auto"/"flash"
 launches the port's flash kernels on the card; per-block remat is
-`torch.utils.checkpoint`, as in `models.gpt`. On one card every expert
-lives on the device: the reference's expert mesh axis waits for
-multi-rank parallelism (ROADMAP A6 (b)).
+`torch.utils.checkpoint`, as in `models.gpt`.
+
+On a mesh (``mesh=``, one process per rank; `param_logical_axes` under
+the rule table) each rank holds its block of every leaf: its experts'
+FFN weights over ``expert`` (and their ``mlp`` columns over
+``tensor``), the router's expert columns over ``expert``, attention's
+heads and the vocabulary over ``tensor`` (Megatron, as `models.gpt`),
+``embed`` over ``fsdp`` (gathered at use). The reference's route sees
+the global batch: a rank's picks take their place in each expert's
+buffer after the earlier batch ranks' (an exclusive scan of the counts
+over the batch axes), under the global capacity, and the auxiliary
+loss's fractions are global means. Each rank routes with the whole
+``[N, E]`` router logits (gathered over ``expert``), runs its experts on
+its slices of the dispatch and combine, and the combine's partial sums
+leave through `parallel.collectives.reduce_from` over ``expert`` (and
+``tensor``). A ``seq`` or ``pipe`` split is ROADMAP A6 (c).
 """
 
 from __future__ import annotations
@@ -28,7 +41,9 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ray_tpu_torch.models import gpt
-from ray_tpu_torch.models._stacked import StackedModel
+from ray_tpu_torch.models._stacked import StackedModel, check_axes
+from ray_tpu_torch.parallel import collectives as col
+from ray_tpu_torch.parallel import sharding
 
 
 @dataclass(frozen=True)
@@ -59,6 +74,37 @@ def small(**kw) -> MoEConfig:
     return MoEConfig(**{**dict(vocab_size=512, d_model=128, n_layers=2,
                                n_heads=4, d_ff=256, n_experts=4, top_k=2,
                                max_seq_len=128), **kw})
+
+
+def param_logical_axes(cfg: MoEConfig) -> dict:
+    """Pytree of logical-axis tuples, mirroring `init_params`' structure
+    (`ray_tpu.models.moe.param_logical_axes`): the expert weights carry
+    a leading ``expert`` axis, the router its expert columns."""
+    layer = {
+        "ln1_scale": (None, "embed"),
+        "ln2_scale": (None, "embed"),
+        "wq": (None, "embed", "heads"),
+        "wk": (None, "embed", "heads"),
+        "wv": (None, "embed", "heads"),
+        "wo": (None, "heads", "embed"),
+        "router": (None, "embed", "expert"),
+        "w_up": (None, "expert", "embed", "mlp"),
+        "w_gate": (None, "expert", "embed", "mlp"),
+        "w_down": (None, "expert", "mlp", "embed"),
+    }
+    return {
+        "embed": ("vocab", "embed"),
+        "pos_embed": (None, "embed"),
+        "final_ln_scale": ("embed",),
+        "layers": layer,
+    }
+
+
+# The mesh axes the model computes on split, by the logical axes they may
+# split (the others a leaf may sit on are gathered before use).
+_MODEL_AXES = {"tensor": ("heads", "mlp", "vocab"), "expert": ("expert",)}
+# The mesh axes the MoE forward runs on.
+MESH_AXES = ("data", "fsdp", "tensor", "expert")
 
 
 def _shapes(cfg: MoEConfig) -> tuple[dict, dict]:
@@ -111,38 +157,86 @@ class MoE(StackedModel):
     """The MoE model's weights in one dtype on one device (the card unless
     ``device`` says otherwise), as `models.gpt.GPT`: activation dtype
     for inference, ``dtype=torch.float32, trainable=True`` for the f32
-    training masters."""
+    training masters. With ``mesh`` each rank keeps its block of every
+    leaf (`param_logical_axes` under ``rules``)."""
 
     def __init__(self, cfg: MoEConfig, params: dict, *, device=None,
-                 dtype: torch.dtype | None = None, trainable: bool = False):
+                 dtype: torch.dtype | None = None, trainable: bool = False,
+                 mesh=None, rules: dict | None = None):
         super().__init__(cfg, params, *_shapes(cfg), device=device,
-                         dtype=dtype, trainable=trainable)
+                         dtype=dtype, trainable=trainable, mesh=mesh,
+                         rules=rules, logical_axes=param_logical_axes(cfg),
+                         model_axes=_MODEL_AXES)
+        if self.mesh is not None:
+            check_axes(self.mesh, MESH_AXES, "MoE")
 
 
 def params_from_numpy(tree: dict, cfg: MoEConfig, device=None,
                       dtype: torch.dtype | None = None,
-                      trainable: bool = False) -> MoE:
+                      trainable: bool = False, mesh=None,
+                      rules: dict | None = None) -> MoE:
     """Carry a JAX param pytree across (``jax.tree.map(np.asarray,
     params)``, or the same tree of tensors): the leaves are copied, never
     transposed. For training pass ``dtype=torch.float32,
-    trainable=True``."""
-    return MoE(cfg, tree, device=device, dtype=dtype, trainable=trainable)
+    trainable=True``; with ``mesh`` each rank keeps its blocks."""
+    return MoE(cfg, tree, device=device, dtype=dtype, trainable=trainable,
+               mesh=mesh, rules=rules)
 
 
 # ---------------------------------------------------------------------------
 # routing + expert FFN
 # ---------------------------------------------------------------------------
 
-def _route(h, router_w, cfg: MoEConfig):
+class _Split:
+    """How a rank's route sits in the global one: the mesh, the live
+    batch axes its tokens are split over (and its position along them),
+    the expert axes its experts are split over, and the global token
+    count."""
+
+    def __init__(self, mesh, n_local: int, rules=None):
+        self.mesh = mesh
+        self.batch = sharding.token_axes(mesh, rules)
+        self.expert = mesh.live_axes("expert")
+        self.n = n_local * mesh.axis_size(self.batch)
+
+    def offset(self, counts):
+        """The picks of the earlier batch ranks, per expert (no grad)."""
+        if not self.batch:
+            return torch.zeros_like(counts)
+        every = col.all_gather(counts[None], self.batch, self.mesh, dim=0)
+        return every[:self.mesh.axis_index(self.batch)].sum(dim=0)
+
+    def total(self, x, grad: bool = False):
+        """``x`` summed over the batch ranks (differentiable with
+        ``grad``: its backward sums the cotangents back)."""
+        if grad:
+            return col.psum(x, self.batch, self.mesh)
+        with torch.no_grad():
+            return col.psum(x, self.batch, self.mesh)
+
+    def mine(self, n_experts: int) -> slice:
+        """This rank's experts."""
+        per = n_experts // self.mesh.axis_size(self.expert)
+        lo = self.mesh.axis_index(self.expert) * per if self.expert else 0
+        return slice(lo, lo + per)
+
+
+def _route(h, router_w, cfg: MoEConfig, split: _Split | None = None):
     """-> (dispatch [N, E, C] one-hot-ish mask, combine [N, E, C] weights,
     aux load-balance loss), all f32; N = B*T flattened tokens
-    (`ray_tpu.models.moe._route`, step for step)."""
+    (`ray_tpu.models.moe._route`, step for step). With ``split`` (a
+    mesh) ``h`` is this rank's tokens and ``router_w`` its experts'
+    columns: the capacity, the buffer positions and the aux fractions
+    are the global batch's, and the aux is this rank's experts' terms."""
     n = h.shape[0]
     E, K = cfg.n_experts, cfg.top_k
-    capacity = max(1, int(cfg.capacity_factor * K * n / E))
+    n_all = n if split is None else split.n
+    capacity = max(1, int(cfg.capacity_factor * K * n_all / E))
     dev = h.device
 
     logits = h.float() @ router_w.float()
+    if split is not None and split.expert:
+        logits = col.all_gather(logits, split.expert, split.mesh, dim=-1)
     probs = torch.softmax(logits, dim=-1)                    # [N, E]
     slots = torch.arange(capacity, device=dev, dtype=torch.float32)
 
@@ -160,6 +254,8 @@ def _route(h, router_w, cfg: MoEConfig):
         gate = torch.sum(probs * onehot, dim=-1)             # [N]
         # position of each token within its chosen expert's buffer
         pos = torch.cumsum(onehot, dim=0) - onehot + fill[None]
+        if split is not None:
+            pos = pos + split.offset(onehot.sum(dim=0))[None]
         pos_tok = torch.sum(pos * onehot, dim=-1)            # [N]
         keep = (pos_tok < capacity).float()
         # one_hot(pos_tok, capacity): all zero past the capacity, as JAX's
@@ -168,30 +264,56 @@ def _route(h, router_w, cfg: MoEConfig):
                    * keep[:, None, None])
         dispatch = dispatch + contrib
         combine = combine + contrib * gate[:, None, None]
-        fill = fill + torch.sum(onehot * keep[:, None], dim=0)
+        kept = torch.sum(onehot * keep[:, None], dim=0)
+        fill = fill + (kept if split is None else split.total(kept))
         masked = masked * (1.0 - onehot)                     # next choice
 
     # Shazeer load-balance aux: E * mean_e(frac_tokens_e * frac_prob_e),
     # on the top-1 assignment
-    frac_tokens = torch.mean(top1_assign, dim=0)
-    frac_probs = torch.mean(probs, dim=0)
-    aux = cfg.n_experts * torch.sum(frac_tokens * frac_probs)
+    if split is None:
+        frac_tokens = torch.mean(top1_assign, dim=0)
+        frac_probs = torch.mean(probs, dim=0)
+        aux = cfg.n_experts * torch.sum(frac_tokens * frac_probs)
+    else:
+        # global means; this rank's experts' terms, summed over the
+        # expert ranks by the caller (each rank's cotangent reaches the
+        # gathered logits through its own terms only)
+        frac_tokens = split.total(top1_assign.sum(dim=0)) / n_all
+        frac_probs = split.total(probs.sum(dim=0), grad=True) / n_all
+        mine = split.mine(E)
+        aux = cfg.n_experts * torch.sum(frac_tokens[mine] * frac_probs[mine])
     # renormalize combine weights over the K picks (Mixtral-style)
     denom = torch.sum(combine, dim=(1, 2), keepdim=True)
     combine = combine / torch.clamp(denom, min=1e-9)
     return dispatch, combine, aux
 
 
-def _moe_ffn(x, lp: dict, cfg: MoEConfig):
+def _moe_ffn(x, lp: dict, cfg: MoEConfig, split: _Split | None = None):
     """x: [B, T, D] -> (out [B, T, D], aux loss). The dense dispatch and
     combine contractions as matrix products over the flattened ``[E *
     C]`` expert buffers, each accumulated in f32 and rounded once to the
-    activation dtype (the reference's ``preferred_element_type``)."""
+    activation dtype (the reference's ``preferred_element_type``). With
+    ``split`` (a mesh) the rank runs its experts on its slices of the
+    dispatch and combine: its experts' outputs (their ``mlp`` columns
+    summed over ``tensor`` first) combined, then summed over the expert
+    ranks, as are the aux terms. Every value whose cotangent a rank sees
+    only in part enters through `parallel.collectives.copy_to` over the
+    axes that split it: the router's input over ``expert``, the experts'
+    over ``expert`` and ``tensor``."""
     adt = x.dtype
     b, t, d = x.shape
     E = cfg.n_experts
     h = x.reshape(b * t, d)
-    dispatch, combine, aux = _route(h, lp["router"], cfg)
+    h_route = h
+    if split is not None:
+        mesh = split.mesh
+        h_route = col.copy_to(h, split.expert, mesh)
+        h = col.copy_to(h, mesh.live_axes(("expert", "tensor")), mesh)
+    dispatch, combine, aux = _route(h_route, lp["router"], cfg, split)
+    if split is not None:
+        mine = split.mine(E)
+        dispatch, combine = dispatch[:, mine], combine[:, mine]
+        E = dispatch.shape[1]
     c = dispatch.shape[-1]
     # tokens -> expert buffers [E, C, D]
     xs = (dispatch.to(adt).reshape(b * t, E * c).t() @ h).view(E, c, d)
@@ -199,47 +321,75 @@ def _moe_ffn(x, lp: dict, cfg: MoEConfig):
     gate = torch.bmm(xs, lp["w_gate"].to(adt))
     act = nn.functional.silu(gate) * up
     down = torch.bmm(act, lp["w_down"].to(adt))
-    out = combine.to(adt).reshape(b * t, E * c) @ down.reshape(E * c, d)
+    comb = combine.to(adt).reshape(b * t, E * c)
+    if split is None:
+        out = comb @ down.reshape(E * c, d)
+    else:
+        # each rank's experts' share accumulated in f32 and summed over
+        # the expert ranks in f32, then rounded once, as the one product
+        # over every expert is on one card
+        down = col.reduce_from(down, "tensor", mesh)
+        out = col.reduce_from(gpt._mm_f32(comb, down.reshape(E * c, d)),
+                              split.expert, mesh).to(adt)
+        aux = col.reduce_from(aux, split.expert, mesh)
     return out.view(b, t, d), aux
 
 
-def _block(lp: dict, x, cfg: MoEConfig, gpt_cfg: gpt.GPTConfig):
+def _block(lp: dict, x, cfg: MoEConfig, gpt_cfg: gpt.GPTConfig,
+           model: MoE | None = None):
+    """One block; with ``model`` (on a mesh) ``lp`` holds this rank's
+    blocks, gathered here (inside the remat region) over the axes that
+    only store them split, and attention runs on the rank's heads."""
     adt = x.dtype
     b, t, d = x.shape
-    nh, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
+    split = None
+    enter = leave = (lambda y: y)
+    if model is not None:
+        mesh = model.mesh
+        lp = {k: model.whole(k, w) for k, w in lp.items()}
+        split = _Split(mesh, b * t, model.rules)
+        enter, leave = gpt.tensor_conjugates(mesh)
 
-    h = gpt._rms_norm(x, lp["ln1_scale"].to(adt))
-    q = (h @ lp["wq"].to(adt)).view(b, t, nh, hd)
-    k = (h @ lp["wk"].to(adt)).view(b, t, nh, hd)
-    v = (h @ lp["wv"].to(adt)).view(b, t, nh, hd)
-    att = gpt._attention(q, k, v, gpt_cfg).reshape(b, t, nh * hd)
-    x = x + att @ lp["wo"].to(adt)
+    h = enter(gpt._rms_norm(x, lp["ln1_scale"].to(adt)))
+    q = (h @ lp["wq"].to(adt)).view(b, t, -1, hd)
+    k = (h @ lp["wk"].to(adt)).view(b, t, -1, hd)
+    v = (h @ lp["wv"].to(adt)).view(b, t, -1, hd)
+    att = gpt._attention(q, k, v, gpt_cfg).reshape(b, t, -1)
+    x = x + leave(att @ lp["wo"].to(adt))
 
     h = gpt._rms_norm(x, lp["ln2_scale"].to(adt))
-    ff, aux = _moe_ffn(h, lp, cfg)
+    ff, aux = _moe_ffn(h, lp, cfg, split)
     return x + ff, aux
 
 
 def forward(model: MoE, tokens, cfg: MoEConfig | None = None):
     """tokens [B, T] -> (logits [B, T, vocab] f32, aux loss scalar: the
-    layers' mean)."""
+    layers' mean). On a mesh (the model's): this rank's rows, the logits
+    its block of the vocabulary, and the aux its experts' share (summed
+    over the expert ranks)."""
     cfg = model.cfg if cfg is None else cfg
     adt = cfg.activation_dtype()
     t = tokens.shape[1]
-    emb = model.embed.to(adt)
-    x = emb[tokens] + model.pos_embed[:t].to(adt)[None]
+    mesh = model.mesh
+    emb = gpt._embed_table(model, cfg, mesh)
+    x = gpt._lookup(model, emb, tokens) + model.whole(
+        "pos_embed")[:t].to(adt)[None]
     gpt_cfg = gpt.GPTConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
                             dtype=cfg.dtype, attn_impl=cfg.attn_impl)
+    args = () if mesh is None else (model,)
     remat = cfg.remat and torch.is_grad_enabled()
     aux_sum = torch.zeros((), device=x.device)
     for lp in model.layer_params():
         if remat:
-            x, aux = ckpt.checkpoint(_block, lp, x, cfg, gpt_cfg,
+            x, aux = ckpt.checkpoint(_block, lp, x, cfg, gpt_cfg, *args,
                                      use_reentrant=False)
         else:
-            x, aux = _block(lp, x, cfg, gpt_cfg)
+            x, aux = _block(lp, x, cfg, gpt_cfg, *args)
         aux_sum = aux_sum + aux
-    x = gpt._rms_norm(x, model.final_ln_scale.to(adt))
+    x = gpt._rms_norm(x, model.whole("final_ln_scale").to(adt))
+    if mesh is not None and gpt.vocab_axes(model):
+        x = col.copy_to(x, gpt.vocab_axes(model), mesh)
     return gpt._mm_f32(x, emb.t()), aux_sum / cfg.n_layers
 
 

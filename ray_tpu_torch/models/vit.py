@@ -1,4 +1,4 @@
-"""Vision Transformer classifier on one device: the counterpart of
+"""Vision Transformer classifier: the counterpart of
 `ray_tpu/models/vit.py`, with its configuration, parameter tree and
 math: patchify -> linear embed + learned positions -> pre-norm encoder
 blocks (bidirectional attention, tanh-approximated GELU MLP) -> final
@@ -9,6 +9,13 @@ comment: "no flash kernel needed" at ViT's sequence lengths): the
 scores and the probability-weighted values are accumulated in f32 from
 the activation-dtype operands. ``jax.nn.gelu`` defaults to the tanh
 approximation, so the MLP uses ``gelu(approximate="tanh")``.
+
+On a mesh (``mesh=``, one process per rank; `param_logical_axes` under
+the rule table) each rank holds its block of every leaf and its rows of
+a batch: heads and the MLP's columns over ``tensor`` (Megatron, as
+`models.gpt`), ``embed`` over ``fsdp`` (gathered at use); the loss is a
+rank's rows' share of the global mean. A ``seq``, ``expert`` or
+``pipe`` split is ROADMAP A6 (c).
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ray_tpu_torch.models import gpt
-from ray_tpu_torch.models._stacked import StackedModel
+from ray_tpu_torch.models._stacked import StackedModel, check_axes
 
 
 @dataclass(frozen=True)
@@ -57,6 +64,35 @@ def small(**kw) -> ViTConfig:
     return ViTConfig(**{**dict(image_size=32, patch_size=4, num_classes=10,
                                d_model=128, n_layers=2, n_heads=4,
                                d_ff=256), **kw})
+
+
+def param_logical_axes(cfg: ViTConfig) -> dict:
+    """Pytree of logical-axis tuples, mirroring `init_params`' structure
+    (`ray_tpu.models.vit.param_logical_axes`)."""
+    layer = {
+        "ln1_scale": (None, "embed"),
+        "ln2_scale": (None, "embed"),
+        "wq": (None, "embed", "heads"),
+        "wk": (None, "embed", "heads"),
+        "wv": (None, "embed", "heads"),
+        "wo": (None, "heads", "embed"),
+        "w_up": (None, "embed", "mlp"),
+        "w_down": (None, "mlp", "embed"),
+    }
+    return {
+        "patch_embed": (None, "embed"),
+        "pos_embed": (None, "embed"),
+        "final_ln_scale": ("embed",),
+        "head": ("embed", None),
+        "head_bias": (None,),
+        "layers": layer,
+    }
+
+
+# The mesh axis the model computes on split, by the logical axes it may
+# split, and the mesh axes the forward runs on.
+_MODEL_AXES = {"tensor": ("heads", "mlp")}
+MESH_AXES = ("data", "fsdp", "tensor")
 
 
 def _shapes(cfg: ViTConfig) -> tuple[dict, dict]:
@@ -106,21 +142,30 @@ def init_params(seed: int, cfg: ViTConfig, device=None) -> dict:
 
 class ViT(StackedModel):
     """The ViT's weights in one dtype on one device (the card unless
-    ``device`` says otherwise), as `models.gpt.GPT`."""
+    ``device`` says otherwise), as `models.gpt.GPT`; with ``mesh`` each
+    rank keeps its block of every leaf (`param_logical_axes` under
+    ``rules``)."""
 
     def __init__(self, cfg: ViTConfig, params: dict, *, device=None,
-                 dtype: torch.dtype | None = None, trainable: bool = False):
+                 dtype: torch.dtype | None = None, trainable: bool = False,
+                 mesh=None, rules: dict | None = None):
         super().__init__(cfg, params, *_shapes(cfg), device=device,
-                         dtype=dtype, trainable=trainable)
+                         dtype=dtype, trainable=trainable, mesh=mesh,
+                         rules=rules, logical_axes=param_logical_axes(cfg),
+                         model_axes=_MODEL_AXES)
+        if self.mesh is not None:
+            check_axes(self.mesh, MESH_AXES, "ViT")
 
 
 def params_from_numpy(tree: dict, cfg: ViTConfig, device=None,
                       dtype: torch.dtype | None = None,
-                      trainable: bool = False) -> ViT:
+                      trainable: bool = False, mesh=None,
+                      rules: dict | None = None) -> ViT:
     """Carry a JAX param pytree across (numpy arrays or tensors; copied,
     never transposed). For training pass ``dtype=torch.float32,
-    trainable=True``."""
-    return ViT(cfg, tree, device=device, dtype=dtype, trainable=trainable)
+    trainable=True``; with ``mesh`` each rank keeps its blocks."""
+    return ViT(cfg, tree, device=device, dtype=dtype, trainable=trainable,
+               mesh=mesh, rules=rules)
 
 
 def _patchify(images, cfg: ViTConfig):
@@ -132,52 +177,65 @@ def _patchify(images, cfg: ViTConfig):
     return x.reshape(b, (hgt // p) * (wid // p), p * p * c)
 
 
-def _block(lp: dict, x, cfg: ViTConfig):
+def _block(lp: dict, x, cfg: ViTConfig, model: ViT | None = None):
+    """One encoder block; with ``model`` (on a mesh) ``lp`` holds this
+    rank's blocks, gathered here over the axes that only store them
+    split, the heads and MLP columns the rank's."""
     adt = x.dtype
     b, t, d = x.shape
-    nh, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
+    enter = leave = (lambda y: y)
+    if model is not None:
+        mesh = model.mesh
+        lp = {k: model.whole(k, w) for k, w in lp.items()}
+        enter, leave = gpt.tensor_conjugates(mesh)
 
-    h = gpt._rms_norm(x, lp["ln1_scale"].to(adt))
-    q = (h @ lp["wq"].to(adt)).view(b, t, nh, hd)
-    k = (h @ lp["wk"].to(adt)).view(b, t, nh, hd)
-    v = (h @ lp["wv"].to(adt)).view(b, t, nh, hd)
+    h = enter(gpt._rms_norm(x, lp["ln1_scale"].to(adt)))
+    q = (h @ lp["wq"].to(adt)).view(b, t, -1, hd)
+    k = (h @ lp["wk"].to(adt)).view(b, t, -1, hd)
+    v = (h @ lp["wv"].to(adt)).view(b, t, -1, hd)
     # bidirectional attention, f32 accumulation from the activation-dtype
     # operands (exact in f32), probabilities rounded to the activation
     # dtype as in the reference
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     probs = torch.softmax(scores / np.sqrt(hd), dim=-1).to(adt)
     att = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(adt)
-    x = x + att.reshape(b, t, nh * hd) @ lp["wo"].to(adt)
+    x = x + leave(att.reshape(b, t, -1) @ lp["wo"].to(adt))
 
-    h = gpt._rms_norm(x, lp["ln2_scale"].to(adt))
+    h = enter(gpt._rms_norm(x, lp["ln2_scale"].to(adt)))
     ff = nn.functional.gelu(h @ lp["w_up"].to(adt), approximate="tanh")
-    return x + ff @ lp["w_down"].to(adt)
+    return x + leave(ff @ lp["w_down"].to(adt))
 
 
 def forward(model: ViT, images, cfg: ViTConfig | None = None):
-    """images [B, H, W, C] float -> logits [B, num_classes] f32."""
+    """images [B, H, W, C] float -> logits [B, num_classes] f32 (on a
+    mesh: this rank's rows)."""
     cfg = model.cfg if cfg is None else cfg
     adt = cfg.activation_dtype()
     patches = _patchify(images.to(adt), cfg)
-    x = patches @ model.patch_embed.to(adt)
-    x = x + model.pos_embed.to(adt)[None]
+    x = patches @ model.whole("patch_embed").to(adt)
+    x = x + model.whole("pos_embed").to(adt)[None]
+    args = () if model.mesh is None else (model,)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in model.layer_params():
         if remat:
-            x = ckpt.checkpoint(_block, lp, x, cfg, use_reentrant=False)
+            x = ckpt.checkpoint(_block, lp, x, cfg, *args,
+                                use_reentrant=False)
         else:
-            x = _block(lp, x, cfg)
-    x = gpt._rms_norm(x, model.final_ln_scale.to(adt))
+            x = _block(lp, x, cfg, *args)
+    x = gpt._rms_norm(x, model.whole("final_ln_scale").to(adt))
     pooled = torch.mean(x.float(), dim=1)
-    return pooled @ model.head.float() + model.head_bias.float()
+    return pooled @ model.whole("head").float() + model.head_bias.float()
 
 
 def loss_fn(model: ViT, batch: dict, cfg: ViTConfig | None = None):
     """Softmax cross entropy. batch: {"images": [B, H, W, C],
-    "labels": [B]}."""
+    "labels": [B]}. On a mesh: this rank's rows, and its share of the
+    global mean (`models.gpt.token_mean`)."""
     logits = forward(model, batch["images"], cfg)
     logp = torch.log_softmax(logits, dim=-1)
-    return -logp.gather(-1, batch["labels"].long()[:, None])[:, 0].mean()
+    nll = -logp.gather(-1, batch["labels"].long()[:, None])[:, 0]
+    return gpt.token_mean(nll, model.mesh, rules=model.rules)
 
 
 def num_params(model: ViT) -> int:

@@ -15,9 +15,13 @@ from ray_tpu_torch.parallel.mesh import (
 from ray_tpu_torch.parallel.sharding import (
     DEFAULT_RULES,
     PartitionSpec,
+    engine_io_shardings,
     gather_full,
+    kv_cache_specs,
+    kv_pool_specs,
     local_shard,
     logical_to_spec,
+    replicated,
     shard_batch,
     tree_shardings,
 )
@@ -28,8 +32,9 @@ from ray_tpu_torch.parallel.pipeline import pipeline_apply, stack_stage_params
 __all__ = [
     "AXIS_ORDER", "BATCH_AXES", "Mesh", "MeshSpec", "active_mesh",
     "dp_mesh", "single_device_mesh",
-    "DEFAULT_RULES", "PartitionSpec", "gather_full", "local_shard",
-    "logical_to_spec", "shard_batch", "tree_shardings",
+    "DEFAULT_RULES", "PartitionSpec", "engine_io_shardings", "gather_full",
+    "kv_cache_specs", "kv_pool_specs", "local_shard", "logical_to_spec",
+    "replicated", "shard_batch", "tree_shardings",
     "reference_attention", "ring_attention",
     "pipeline_apply", "stack_stage_params",
 ]

@@ -18,8 +18,8 @@ Axis names (any subset, in logical-outer to logical-inner order):
               reduce-scattered)
 - ``tensor``  tensor parallelism (Megatron column/row-split matmuls)
 - ``seq``     sequence/context parallelism (ring attention)
-- ``expert``  expert parallelism for MoE layers (not used by the port
-              yet: ROADMAP A6 (b))
+- ``expert``  expert parallelism for MoE layers (each rank holds its
+              experts' weights)
 - ``pipe``    pipeline stages
 
 A mesh of one rank needs no process group and makes no collective: the

@@ -11,8 +11,10 @@ back together, and `shard_batch` keeps a rank's block of a host batch.
 
 `spec_to_json`, `spec_from_json` and `valid_spec_for` are the
 reference's, so checkpoints record and re-apply the same specs in both
-packages. The serving specs (``kv_cache_specs``, ``kv_pool_specs``,
-``engine_io_shardings``) wait for the engine's mesh (ROADMAP A6 (b)).
+packages. The serving specs (`kv_cache_specs`, `kv_pool_specs`,
+`replicated`, `engine_io_shardings`) say which block of a KV cache or
+pool a rank allocates and which per-step host inputs every rank of an
+engine's mesh must agree on.
 """
 
 from __future__ import annotations
@@ -122,6 +124,48 @@ def fused_xent_specs(mesh: Mesh, rules: dict | None = None
     t_spec = logical_to_spec(("batch", "length"), rules, mesh)
     e_spec = logical_to_spec(("vocab", None), rules, mesh)
     return x_spec, e_spec, t_spec
+
+
+def kv_cache_specs(mesh: Mesh, rules: dict | None = None) -> dict:
+    """PartitionSpecs of a decode KV cache {"k", "v"} of ``[L, slots,
+    max_len, H, Dh]``: slots over the data axes (each data rank serves
+    its own rows), heads over ``tensor`` (the wq/wk/wv column split, so
+    the rows a tensor rank writes are the heads it attends over); layers,
+    length and head dim whole."""
+    from ray_tpu_torch.models.gpt import kv_cache_logical_axes
+    return {name: logical_to_spec(axes, rules, mesh)
+            for name, axes in kv_cache_logical_axes().items()}
+
+
+def kv_pool_specs(mesh: Mesh, rules: dict | None = None, *,
+                  quantized: bool = False) -> dict:
+    """PartitionSpecs of a paged block pool {"k", "v"} of ``[L, n_blocks,
+    block_size, H, Dh]``: heads over ``tensor`` as the unpaged cache, the
+    block axis whole (the allocator hands any block to any sequence, so
+    blocks cannot sit on data ranks). With ``quantized`` (an int8 pool)
+    {"k_scale", "v_scale"} of ``[L, n_blocks, block_size, H]`` follow
+    their heads."""
+    from ray_tpu_torch.models.gpt import kv_pool_logical_axes
+    return {name: logical_to_spec(axes, rules, mesh)
+            for name, axes in kv_pool_logical_axes(quantized).items()}
+
+
+def replicated(mesh: Mesh) -> PartitionSpec:
+    """The spec of a value every rank holds whole."""
+    return PartitionSpec()
+
+
+# The inference engine's per-step host inputs: current tokens, speculation
+# windows, positions, block tables, temperatures.
+ENGINE_IO = ("tokens", "window", "pos", "tables", "temps")
+
+
+def engine_io_shardings(mesh: Mesh) -> dict:
+    """``{name: spec}`` of the engine's per-step host inputs, all
+    replicated: tiny int32/f32 arrays the scheduler rebuilds every tick,
+    which every rank of the mesh must hold equal (the engine checks them
+    against the mesh's first rank before each step)."""
+    return {name: replicated(mesh) for name in ENGINE_IO}
 
 
 def spec_axes(spec) -> tuple:

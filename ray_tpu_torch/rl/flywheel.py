@@ -32,7 +32,16 @@ the stream the learner's backward and optimizer update were queued on,
 and the engine's graphs replay on it too, so stream order alone puts the
 copy after the update and before the next rollout: no host sync.
 
-Not ported yet (ROADMAP A6 (b)): ``mesh=`` raises.
+On a mesh (``mesh=``, one process per rank, every rank building the
+loop with the same arguments): the engine serves on the mesh
+(`serve.engine.InferenceEngine`, each rank its heads), the learner holds
+each rank's block of the f32 masters, and every rank draws the same
+prompts and gets the same rollouts. The learner keeps its rank's rows
+of the batch (the ``("batch", "length")`` rules); its loss is its rows'
+share of the global masked mean, so the gradients are summed over the
+data axes (`train.spmd.sync_grads`) and over ``tensor`` not at all.
+The publish copies each rank's blocks into its engine's, with no
+gather. A ``seq`` split of the learner's rows is ROADMAP A6 (c).
 """
 
 from __future__ import annotations
@@ -41,6 +50,9 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.models import gpt
+from ray_tpu_torch.parallel import collectives as col
+from ray_tpu_torch.parallel import sharding
+from ray_tpu_torch.parallel.mesh import active_mesh
 from ray_tpu_torch.rl.sampler import (MASK, PARAMS_VERSION, START, TOKENS,
                                       EngineSampler)
 from ray_tpu_torch.rllib import sample_batch as sb
@@ -68,7 +80,9 @@ def surrogate_loss(model, batch, cfg, width: int, clip: float | None):
     clipped surrogate (REINFORCE-with-baseline when ``clip`` is None)
     over `models.gpt.completion_logprobs` of the ``width``-token
     completion window, negated. Returns ``(loss, (logprobs, ratio, mask,
-    denom))``."""
+    denom))``. On the model's mesh the batch is this rank's rows and the
+    loss their share of the global mean: ``denom`` is the mask's sum over
+    the axes that split the rows."""
     lp = gpt.completion_logprobs(model, batch["tokens"], batch["start"],
                                  width, cfg)
     ratio = torch.exp(lp - batch["behavior_logp"])
@@ -79,7 +93,12 @@ def surrogate_loss(model, batch, cfg, width: int, clip: float | None):
         surr = torch.minimum(
             ratio * adv, torch.clamp(ratio, 1.0 - clip, 1.0 + clip) * adv)
     m = batch["mask"]
-    denom = torch.clamp(m.sum(), min=1.0)
+    total = m.sum()
+    if model.mesh is not None:
+        with torch.no_grad():
+            total = col.psum(total, sharding.token_axes(
+                model.mesh, model.rules), model.mesh)
+    denom = torch.clamp(total, min=1.0)
     return -(surr * m).sum() / denom, (lp, ratio, m, denom)
 
 
@@ -88,19 +107,26 @@ def make_learner_step(cfg, optimizer, width: int, clip: float | None):
     -> (state, metrics)``: `surrogate_loss`, its gradients, then
     ``optimizer``'s in-place update. Metrics ``loss``, ``mean_logprob``
     and ``mean_ratio`` are device tensors (masked means, before the
-    update)."""
+    update). On the model's mesh the gradients are summed over the axes
+    that split the rows (`train.spmd.apply_update`) and the metrics over
+    them."""
 
     def step_fn(state, batch):
-        loss, (lp, ratio, m, denom) = surrogate_loss(state.params, batch,
-                                                     cfg, width, clip)
-        leaves = [p for p in state.params.parameters() if p.requires_grad]
+        model = state.params
+        loss, (lp, ratio, m, denom) = surrogate_loss(model, batch, cfg,
+                                                     width, clip)
+        leaves = [p for p in model.parameters() if p.requires_grad]
         grads = torch.autograd.grad(loss, leaves)
-        optimizer.update(grads, state.opt_state, state.params)
+        spmd.apply_update(optimizer, grads, state.opt_state, model)
         state.step.add_(1)
         with torch.no_grad():
             metrics = {"loss": loss.detach(),
                        "mean_logprob": (lp * m).sum() / denom,
                        "mean_ratio": (ratio * m).sum() / denom}
+            if model.mesh is not None:
+                axes = sharding.token_axes(model.mesh, model.rules)
+                metrics = {k: col.psum(v, axes, model.mesh)
+                           for k, v in metrics.items()}
         return state, metrics
 
     return step_fn
@@ -130,7 +156,12 @@ class FlywheelLoop:
     objects with ``.update_params(params)`` (engines, replicas) are
     called with the learner's model; an ``update_params`` with the
     ``.remote`` method sugar (a serve deployment handle) gets host numpy
-    params.
+    params (gathered whole on a mesh).
+
+    ``mesh`` (a `parallel.Mesh` of ``data``, ``fsdp`` and ``tensor``;
+    every rank builds the loop with the same arguments): the engine and
+    the learner hold each rank's blocks (module docstring); ``params``
+    may be whole or a model built on the mesh.
 
     `run(iterations)` returns ``(state, per-step host metrics)``;
     ``self.history`` holds one host-side record per iteration
@@ -145,10 +176,10 @@ class FlywheelLoop:
                  prompts_per_iter: int = 4, max_new_tokens: int = 6,
                  temperature: float = 1.0, pad_to: int | None = None,
                  publish_every: int = 1, publish_to=(), device=None):
+        mesh = active_mesh(mesh)
         if mesh is not None:
-            raise NotImplementedError(
-                "FlywheelLoop(mesh=...) is not ported yet (ROADMAP A6 (b): "
-                "multi-rank parallelism)")
+            gpt.check_serving_mesh(mesh, "FlywheelLoop")
+        self.mesh = mesh
         self.device = gpt.resolve_device(device)
         self.cfg = cfg
         self.prompt_fn, self.reward_fn = prompt_fn, reward_fn
@@ -166,12 +197,13 @@ class FlywheelLoop:
         tree = (gpt.param_tree(params) if isinstance(params, gpt.GPT)
                 else params)
         learner = gpt.GPT(cfg, _copy_tree(tree), device=self.device,
-                          dtype=torch.float32, trainable=True)
+                          dtype=torch.float32, trainable=True, mesh=mesh)
         if engine is None:
             engine = InferenceEngine(
                 gpt.GPT(cfg, _copy_tree(gpt.param_tree(learner)),
-                        device=self.device),
-                cfg, device=self.device, **(engine_kwargs or {}))
+                        device=self.device, mesh=mesh),
+                cfg, device=self.device, mesh=mesh,
+                **(engine_kwargs or {}))
         self.engine = engine
         self.sampler = EngineSampler(
             engine, max_new_tokens=max_new_tokens,
@@ -179,7 +211,7 @@ class FlywheelLoop:
         optimizer = optimizer if optimizer is not None else spmd.Adam(lr)
         self._step = make_learner_step(cfg, optimizer, int(max_new_tokens),
                                        clip)
-        self._place = _loop.make_placer(self.device)
+        self._place = _loop.make_placer(self.device, mesh=mesh)
         self.state = spmd.TrainState(
             learner, optimizer.init(learner),
             torch.zeros((), dtype=torch.int32, device=self.device))

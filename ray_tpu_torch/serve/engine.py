@@ -108,10 +108,36 @@ token, every token, a swap crossing, shed, cancel, preemption, finish,
 and the handoff's export and import. Every hook is host-side, between
 device steps, and reads no tensor, so a tick's one host sync stays one.
 
-Not ported yet, and refused with `NotImplementedError` when asked for
-(ROADMAP A6 (b)): device meshes. The weight swap has
-no watch (nor ``swap_traces``): `InferenceEngine.update_params` copies
-in place, with nothing to build. The block gather and scatter build
+**Serving on a mesh** (``mesh=``, `ray_tpu_torch.parallel`: one process
+per rank, every rank building the engine with the same arguments and
+driving it with the same calls): the model holds each rank's block
+(`models.gpt` on a mesh: heads and vocabulary over ``tensor``), the pool
+each rank's heads (`parallel.sharding.kv_pool_specs`), and ranks on the
+data axes repeat the step, as the reference's replicated block axis
+does. Every rank runs the same host scheduler. At the start of each
+tick the ranks all-gather a header of the scheduler's state (tick,
+``params_version``, a digest of the queue and the slots) and adopt the
+mesh's first rank's clock reading, which stamps queued requests for
+aging; before each step they all-gather a digest of its host inputs
+(the `parallel.sharding.engine_io_shardings` names, the step's kind,
+a chunk's start and length, the copy-on-write copies since the last
+step). `run_until_idle` meets the other ranks at an idle header before
+it returns. A rank whose header differs (a rank idle while another has
+work among them) makes every rank raise
+`ray_tpu_torch.exceptions.MeshDivergenceError` naming the fields, at
+the same collective, so nothing hangs. Sampling runs on every rank from
+the gathered logits with the engine's seeded generator, so the tokens
+agree by construction. Collectives through the host (gloo) cannot be
+captured: on a mesh of more than one rank the steps run eagerly, the
+trace counters still count one build per geometry, and `stats` reports
+``captured`` and ``mesh``. The flight recorder records on the mesh's
+first rank only. Refused on a mesh (`NotImplementedError`, ROADMAP
+A6 (c)): int8 weights, the draft proposer, the prefill and decode roles
+and handoff imports, and the ``seq``, ``expert`` and ``pipe`` axes.
+
+The weight swap has no watch (nor ``swap_traces``):
+`InferenceEngine.update_params` copies in place, with nothing to
+build. The block gather and scatter build
 nothing either; ``kv_gather_traces``/``kv_scatter_traces`` count their
 first use per pool geometry, as the reference's jits trace once per
 geometry.
@@ -126,6 +152,7 @@ import math
 import threading
 import time
 import weakref
+import zlib
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -135,9 +162,11 @@ from ray_tpu_torch import ops
 from ray_tpu_torch._private.constants import (ENGINE_PRIORITY_AGING_S,
                                               ENGINE_PRIORITY_CLASSES,
                                               ENGINE_PRIORITY_WEIGHT_BASE)
-from ray_tpu_torch.exceptions import OverloadedError
+from ray_tpu_torch.exceptions import MeshDivergenceError, OverloadedError
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.ops import decode_attention as da
+from ray_tpu_torch.parallel import collectives as col
+from ray_tpu_torch.parallel.mesh import Mesh, active_mesh
 from ray_tpu_torch.serve import priority as _prio
 from ray_tpu_torch.util import faults as _faults
 from ray_tpu_torch.util import telemetry
@@ -415,7 +444,9 @@ class _Pending:
     max_new_tokens: int
     temperature: float
     eos_id: int | None
-    ts: float = 0.0               # submit time (queue-wait accounting)
+    ts: float = 0.0               # submit time (queue-wait accounting,
+    # aging); on a mesh the mesh clock at the first tick that saw the
+    # request (inf until then), the same on every rank
     priority: int = 0             # class (0 = lowest): admission, shed
     # and preemption order
     resumed: bool = False         # a preempted stream's re-prefill: the
@@ -562,10 +593,13 @@ class _StaticStep:
 
     def __init__(self, eng, counter: str, inputs: _Staging, fn):
         self.eng, self.inputs, self.fn = eng, inputs, fn
+        self.kind = counter[:-len("_traces")]
         self.graph, self.out, self.launches = None, None, {}
         setattr(eng, counter, getattr(eng, counter) + 1)
 
     def __call__(self):
+        if self.eng.mesh is not None:
+            self.eng._agree_step(self)
         if self.graph is None and not self.eng._captures():
             return self.fn(self.inputs.dev)
         if self.graph is None:
@@ -613,9 +647,24 @@ def _pool_bytes(pool) -> int:
                if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
 
 
-# Engine kwargs of ray_tpu's InferenceEngine that this port does not
-# implement yet, with the value that means "off". Anything else raises.
-_NOT_PORTED = {"mesh": None}
+# The fields of the header the ranks of a mesh all-gather at each tick
+# ("tick" phase), before each step ("step" phase) and before
+# `run_until_idle` returns ("idle" phase): ints, or digests of
+# host arrays; -1 where a phase has no such field. "clock" is the mesh's
+# first rank's reading, adopted, not compared.
+MESH_FIELDS = ("phase", "tick", "version", "queue", "step", "tokens",
+               "window", "pos", "tables", "temps", "table", "start",
+               "length", "temp", "copies", "clock")
+_PHASES = {"tick": 1, "step": 2, "idle": 3}
+_STEP_KINDS = {"decode": 1, "prefill": 2, "verify": 3, "draft": 4,
+               "draft_prefill": 5}
+
+
+def _digest(x) -> int:
+    """A host value's digest for the mesh header (crc32 of its bytes)."""
+    if not isinstance(x, np.ndarray):
+        return zlib.crc32(repr(x).encode())
+    return zlib.crc32(np.ascontiguousarray(x).view(np.uint8))
 
 # Host carriers of pool dtypes in a handoff blob: numpy has no bfloat16,
 # so bf16 rows travel as their uint16 bit patterns and the blob names the
@@ -739,7 +788,13 @@ class InferenceEngine:
 
     ``telemetry_sample`` (default ``RAY_TPU_TELEMETRY_SAMPLE``, 1.0) is
     the share of requests the engine's `util.telemetry.FlightRecorder`
-    traces."""
+    traces.
+
+    ``mesh`` (default: the model's) serves over a `parallel.Mesh` of
+    ``data``, ``fsdp`` and ``tensor``; every rank builds the engine with
+    the same arguments and makes the same calls. ``model`` is a
+    `models.gpt.GPT` built on that mesh or one holding whole weights,
+    of which each rank keeps its blocks (module docstring)."""
 
     def __init__(self, model: gpt.GPT, cfg: gpt.GPTConfig, *,
                  slots: int = 4, max_len: int | None = None,
@@ -758,15 +813,21 @@ class InferenceEngine:
                  priority_weight_base: float | None = None,
                  role: str = "colocated",
                  telemetry_sample: float | None = None, device=None,
-                 **not_ported):
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"InferenceEngine got an unexpected "
-                                f"keyword argument {name!r}")
-            if value != _NOT_PORTED[name]:
-                raise NotImplementedError(
-                    f"InferenceEngine({name}=...) is not ported yet "
-                    "(ROADMAP A6 (b))")
+                 mesh: Mesh | None = None):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh, got "
+                            f"{type(mesh).__name__}")
+        mesh = active_mesh(mesh) or model.mesh
+        if mesh is not None:
+            gpt.check_serving_mesh(mesh, "InferenceEngine")
+            for what, bad in (("int8 weights", cfg.weight_dtype == "int8"),
+                              ("the draft proposer", spec == "draft"),
+                              (f"the {role} role", role != "colocated")):
+                if bad:
+                    raise NotImplementedError(
+                        f"InferenceEngine on a mesh: {what} is ROADMAP "
+                        "A6 (c)")
+        self.mesh = mesh
         if role not in ("colocated", "prefill", "decode"):
             raise ValueError(f"unknown engine role {role!r}")
         self.role = role
@@ -784,6 +845,13 @@ class InferenceEngine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine runs "
                              f"on {self.device}")
+        if mesh is not None and model.mesh is None:
+            # whole weights: this rank keeps its blocks
+            model = gpt.GPT(cfg, gpt.param_tree(model), device=self.device,
+                            dtype=model.embed.dtype, mesh=mesh)
+        elif model.mesh is not mesh:
+            raise ValueError(f"the model holds its blocks for {model.mesh}, "
+                             f"the engine runs on {mesh}")
         if self.device.type == "cuda":
             # f32 accumulation in every bf16 product and no TF32 in f32
             # ones: the numerics the JAX engine's einsums pin with
@@ -838,7 +906,7 @@ class InferenceEngine:
             | {self.prefill_chunk}))
         # +1: physical block 0 is the trash block (idle rows write there).
         self.cache = gpt.init_kv_pool(cfg, self.cache_blocks + 1,
-                                      block_size, self.device)
+                                      block_size, self.device, mesh=mesh)
         self.draft_cache, self._draft_alloc = None, None
         self.draft_cache_blocks = 0
         if draft is not None:
@@ -881,8 +949,15 @@ class InferenceEngine:
         self._graph_pool_bytes = 0
         # The flight recorder and the retrace sentinel (util.telemetry).
         self.name = telemetry.next_name("engine")
+        if mesh is not None and mesh.axis_index(mesh.axis_names):
+            telemetry_sample = 0.0    # the mesh's first rank records
         self._recorder = telemetry.FlightRecorder(self.name,
                                                   sample=telemetry_sample)
+        # On a mesh: the mesh clock this tick (the first rank's reading),
+        # its lead on this rank's clock, and the copy-on-write copies
+        # since the last step's header.
+        self._mesh_clock = self._mesh_skew = 0.0
+        self._mesh_copies: list = []
         self._sentinel = telemetry.RetraceSentinel(self.name)
         self._sentinel.watch("decode", lambda: self.decode_traces, cap=1,
                              registered=True)
@@ -991,7 +1066,79 @@ class InferenceEngine:
         self._sentinel.arm()
 
     def _captures(self) -> bool:
-        return self.device.type == "cuda" and self._capture
+        return (self.device.type == "cuda" and self._capture
+                and self.mesh is None)
+
+    # ------------------------------------------------------------------
+    # the mesh: every rank runs the same scheduler
+    # ------------------------------------------------------------------
+
+    def _mesh_agree(self, fields: dict) -> np.ndarray:
+        """All-gather this rank's header (`MESH_FIELDS`, -1 where absent)
+        over the whole mesh and hold every rank's to the first rank's:
+        any difference raises `MeshDivergenceError` on every rank (all
+        see the same table). Returns the first rank's header."""
+        row = np.full(len(MESH_FIELDS), -1, np.int64)
+        for name, val in fields.items():
+            row[MESH_FIELDS.index(name)] = val
+        mesh = self.mesh
+        table = col.all_gather(torch.from_numpy(row[None]).to(self.device),
+                               mesh.axis_names, mesh, dim=0).cpu().numpy()
+        cmp = [i for i, n in enumerate(MESH_FIELDS) if n != "clock"]
+        bad = {}
+        for r in range(1, table.shape[0]):
+            diff = [MESH_FIELDS[i] for i in cmp if table[r, i] != table[0, i]]
+            if diff:
+                bad[r] = diff
+        if bad:
+            ranks = mesh.group(mesh.axis_names)[1]
+            raise MeshDivergenceError(
+                f"engine {self.name}: the mesh's ranks diverge at tick "
+                f"{self._tick_seq}: " + "; ".join(
+                    f"rank {ranks[r]} differs from rank {ranks[0]} on "
+                    f"{', '.join(f)}" for r, f in bad.items()))
+        return table[0]
+
+    def _queue_digest(self) -> int:
+        state = [(q.rid, q.priority, q.max_new_tokens, q.temperature,
+                  _digest(q.prompt)) for q in self._pending]
+        state += [(s.rid, s.phase, s.filled, s.pos) for s in self._slots]
+        return _digest(state)
+
+    def _agree_tick(self):
+        """The tick's header: the scheduler's state, and the first rank's
+        clock, which stamps the requests queued since the last tick (the
+        aging clock; queue waits read this rank's clock plus its lag)."""
+        now = time.perf_counter()
+        head = self._mesh_agree({
+            "phase": _PHASES["tick"], "tick": self._tick_seq,
+            "version": self._params_version, "queue": self._queue_digest(),
+            "clock": np.float64(now).view(np.int64)})
+        self._mesh_clock = float(head[MESH_FIELDS.index("clock")].view(
+            np.float64))
+        self._mesh_skew = self._mesh_clock - now
+        for q in self._pending:
+            if q.ts == math.inf:
+                q.ts = self._mesh_clock
+
+    def _agree_idle(self):
+        """The idle header: a rank with nothing left to run meets the
+        other ranks at a collective before it returns, so a rank that
+        still has work (at its tick header) and this one both raise
+        `MeshDivergenceError` instead of one waiting forever."""
+        self._mesh_agree({"phase": _PHASES["idle"], "tick": self._tick_seq,
+                          "version": self._params_version,
+                          "queue": self._queue_digest()})
+
+    def _agree_step(self, step: "_StaticStep"):
+        """The step's header: its kind and a digest of each host input."""
+        fields = {"phase": _PHASES["step"], "tick": self._tick_seq,
+                  "step": _STEP_KINDS[step.kind],
+                  "copies": _digest(self._mesh_copies)}
+        for name, arr in step.inputs.host.items():
+            fields[name] = _digest(arr)
+        self._mesh_copies = []
+        self._mesh_agree(fields)
 
     # ------------------------------------------------------------------
     # request side
@@ -1080,9 +1227,10 @@ class InferenceEngine:
             rid = self._rid
             self._rid += 1
             self._out[rid] = collections.deque()
+            # on a mesh the next tick stamps it from the mesh clock
+            ts = math.inf if self.mesh is not None else time.perf_counter()
             self._pending.append(_Pending(rid, prompt, max_new_tokens,
-                                          temperature, eos_id,
-                                          time.perf_counter(),
+                                          temperature, eos_id, ts,
                                           priority=priority))
             self._class_counter(priority)["submitted"] += 1
             self._recorder.on_submit(rid, prompt.size)
@@ -1446,6 +1594,10 @@ class InferenceEngine:
         if self.role == "prefill":
             raise RuntimeError(
                 "a prefill-role engine cannot import handoffs")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "import_handoff on a mesh (a head-split pool) is ROADMAP "
+                "A6 (c)")
         prompt = np.asarray(blob["prompt"], np.int32).reshape(-1)
         p = prompt.size
         max_new = int(blob["max_new_tokens"])
@@ -1653,7 +1805,10 @@ class InferenceEngine:
         same kinds of tree, swaps the draft model of a ``spec="draft"``
         engine in the same call (quantized first on an int8 draft);
         every leaf of both is checked before anything is copied. Returns
-        the new ``params_version``."""
+        the new ``params_version``. On a mesh (every rank calls it) a
+        tree of whole leaves is cut to each rank's blocks, and a model
+        built on the same mesh (a learner's) gives its blocks as they
+        are."""
         if draft_params is not None and self.draft_model is None:
             raise ValueError("update_params: draft_params given but the "
                              "engine has no draft model")
@@ -1682,7 +1837,8 @@ class InferenceEngine:
         tree = (gpt.param_tree(new_params)
                 if isinstance(new_params, gpt.GPT) else new_params)
         placed = gpt.GPT(cfg, tree, device=self.device,
-                         dtype=model.embed.dtype)
+                         dtype=model.embed.dtype, mesh=model.mesh,
+                         rules=model.rules)
         if cfg.weight_dtype == "int8":
             placed = gpt.quantize_params(placed)
         old, new = (dict(m.named_parameters()) for m in (model, placed))
@@ -1770,6 +1926,7 @@ class InferenceEngine:
             # and before this slot's first chunk.
             src, dst = blocks[n_full], fresh[0]
             gpt.copy_block(self.cache, src, dst)
+            self._mesh_copies.append((src, dst))
             self._cow_copies += 1
             self._alloc.decref(src)
         table = np.zeros((self.max_blocks,), np.int32)
@@ -1810,7 +1967,9 @@ class InferenceEngine:
         the requests older than their aging bound,
         ``(priority_classes - class) * priority_aging_s``, oldest first.
         Within a class the order is FIFO."""
-        now = time.perf_counter()
+        # on a mesh the first rank's clock, the same on every rank
+        now = (self._mesh_clock if self.mesh is not None
+               else time.perf_counter())
         aged: list[_Pending] = []
         backlog: dict[int, collections.deque] = {}
         for req in self._pending:
@@ -2122,7 +2281,7 @@ class InferenceEngine:
             # TTFT closes at the first token (a resumed stream delivered
             # its own before it was preempted; on a prefill-role engine
             # the decode side never counts it again)
-            wait = time.perf_counter() - s.submit_ts
+            wait = time.perf_counter() + self._mesh_skew - s.submit_ts
             self._queue_waits.append(wait)
             self._class_waits[s.priority].append(wait)
             self._recorder.on_first_token(s.rid, wait)
@@ -2194,6 +2353,8 @@ class InferenceEngine:
             self._tick_seq += 1
             self._tick_started = t_tick
             try:
+                if self.mesh is not None:
+                    self._agree_tick()
                 # fault site: 'fail' reaches the pumping consumer as
                 # FaultInjected; 'delay' wedges the tick (the watchdog's
                 # case)
@@ -2374,6 +2535,8 @@ class InferenceEngine:
             with self._lock:
                 if not (self._pending or self._imports
                         or any(s.active for s in self._slots)):
+                    if self.mesh is not None:
+                        self._agree_idle()
                     return
                 self.step()
 
@@ -2595,7 +2758,10 @@ class InferenceEngine:
         ``kv_scatter_traces`` — the first gather and scatter on each pool
         geometry (target, and a draft pool of other shapes): the port
         builds nothing for them, so these are the reference's traces
-        counted by use, held to their caps by the sentinel."""
+        counted by use, held to their caps by the sentinel.
+        The port's own: ``captured`` (the steps replay CUDA graphs: on the
+        card, off a mesh of more than one rank) and ``mesh`` (its axis
+        sizes, or None)."""
         with self._lock:
             self._sentinel.check()
             times = sorted(self._step_times)
@@ -2708,6 +2874,8 @@ class InferenceEngine:
                 "kv_import_ms_p99": pct(ims, 99),
                 "kv_gather_traces": self.kv_gather_traces,
                 "kv_scatter_traces": self.kv_scatter_traces,
+                "captured": self._captures(),
+                "mesh": None if self.mesh is None else dict(self.mesh.shape),
             }
 
 

@@ -344,10 +344,6 @@ def state_from_tree(tree: StoredTrainState, cfg, device=None, mesh=None,
             f"count {int(torch.as_tensor(sched.count))}")
     kw = {}
     if mesh is not None and mesh.size > 1:
-        if _family(cfg) is not gpt:
-            raise NotImplementedError(
-                f"{type(cfg).__name__} trains on one card; meshes are "
-                "GPT's (ROADMAP A6 (b))")
         kw = dict(mesh=mesh, rules=rules)
     model = _family(cfg).params_from_numpy(
         tree.params, cfg, device=device, dtype=torch.float32, trainable=True,

@@ -6,9 +6,9 @@ microbatches, the GPT loss (`softmax_xent`, `gpt_loss_fn` with its
 padding mask, dense or fused), the one-call `make_gpt_trainer`
 (``init_state=False`` for the resume path, whose state `train.ft`
 restores), the GPipe `make_gpt_pipeline_trainer`, the MoE loss and
-trainer (`moe_loss_fn`, `make_moe_trainer`, one card: the expert axis is
-ROADMAP A6 (b)) and `train_flops_per_token` (copied as it is, so MFU
-reads the same work in both packages).
+trainer (`moe_loss_fn`, `make_moe_trainer`, on a mesh with the expert
+axis) and `train_flops_per_token` (copied as it is, so MFU reads the
+same work in both packages).
 
 On a mesh (``mesh=``, `ray_tpu_torch.parallel`: one process per rank,
 each holding its block of every leaf) the reference's sharding lattice
@@ -221,6 +221,21 @@ def sharded_global_norm(grads, model) -> torch.Tensor:
                               for axes, v in sums.items()))
 
 
+def apply_update(optimizer, grads, opt_state, model):
+    """``optimizer``'s in-place update of ``model`` with ``grads``; on the
+    model's mesh the gradients are summed first (`sync_grads`) and a
+    clipping optimizer (`AdamW`) gets the norm over every rank's blocks
+    (`sharded_global_norm`). Returns the optimizer's gradient norm (None
+    for `Adam`, which clips nothing)."""
+    if getattr(model, "mesh", None) is None:
+        return optimizer.update(grads, opt_state, model)
+    grads = sync_grads(grads, model)
+    if not hasattr(optimizer, "grad_clip"):
+        return optimizer.update(grads, opt_state, model)
+    return optimizer.update(grads, opt_state, model,
+                            norm=sharded_global_norm(grads, model))
+
+
 def make_train_step(loss_fn: Callable, optimizer: AdamW, accum: int = 1):
     """(state, batch) -> (state, metrics). ``loss_fn(model, batch)`` ->
     scalar loss. ``accum=k`` splits the batch's leading axis into k
@@ -268,12 +283,8 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW, accum: int = 1):
     def step(state: TrainState, batch):
         model = state.params
         loss, grads = value_and_mean_grad(model, batch)
-        if getattr(model, "mesh", None) is None:
-            gnorm = optimizer.update(grads, state.opt_state, model)
-        else:
-            grads = sync_grads(grads, model)
-            gnorm = optimizer.update(grads, state.opt_state, model,
-                                     norm=sharded_global_norm(grads, model))
+        gnorm = apply_update(optimizer, grads, state.opt_state, model)
+        if getattr(model, "mesh", None) is not None:
             with torch.no_grad():
                 loss = col.psum(loss, sharding.token_axes(model.mesh,
                                                      model.rules),
@@ -423,37 +434,44 @@ def make_gpt_pipeline_trainer(cfg, mesh, num_microbatches: int = 2,
         loss_fn, optimizer, 1, device, True, mesh_on, rules)
 
 
-def moe_loss_fn(model, batch: dict, cfg=None):
+def moe_loss_fn(model, batch: dict, cfg=None, mesh=None):
     """MoE counterpart of `gpt_loss_fn` (pre-shifted ``inputs``/``targets``,
     the same optional padding ``mask``) adding the router load-balance
     auxiliary loss (`ray_tpu.train.spmd.moe_loss_fn`): the dense f32
-    log-softmax over the logits."""
+    cross entropy of the logits (`models.gpt.logits_nll`, vocab-parallel
+    over a vocabulary split). On a mesh (the model's) the batch is this
+    rank's rows and the loss its share of the global one: its tokens'
+    cross entropy over the global count (`models.gpt.token_mean`) plus
+    the aux, which every rank computes whole, over the number of ranks
+    that split the tokens."""
     from ray_tpu_torch.models import moe
     cfg = model.cfg if cfg is None else cfg
+    mesh = gpt._mesh_of(model, mesh)
     logits, aux = moe.forward(model, batch["inputs"], cfg)
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = logp.gather(-1, batch["targets"].long()[..., None])[..., 0]
-    mask = batch.get("mask")
-    if mask is not None:
-        mask = mask.float()
-        ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    else:
-        ce = -ll.mean()
-    return ce + cfg.aux_loss_coeff * aux
+    ce = gpt.token_mean(gpt.logits_nll(model, logits, batch["targets"]),
+                        mesh, batch.get("mask"), model.rules)
+    ranks = 1 if mesh is None else mesh.axis_size(
+        sharding.token_axes(mesh, model.rules))
+    return ce + cfg.aux_loss_coeff * aux / ranks
 
 
 def make_moe_trainer(cfg, seed: int = 0, optimizer: AdamW | None = None,
-                     accum: int = 1, device=None, init_state: bool = True):
-    """`make_gpt_trainer` for the MoE family on one card
-    (`ray_tpu.train.spmd.make_moe_trainer` without the expert mesh axis:
-    every expert lives on the card). Returns ``(state, step_fn,
-    place)``."""
+                     accum: int = 1, device=None, init_state: bool = True,
+                     mesh=None, rules: dict | None = None):
+    """`make_gpt_trainer` for the MoE family
+    (`ray_tpu.train.spmd.make_moe_trainer`): on one card every expert
+    lives on the device; with ``mesh`` (every rank calls this, with the
+    same arguments) each rank keeps its experts and its block of every
+    other leaf (`models.moe.param_logical_axes` under ``rules``) and its
+    block of a host batch. Returns ``(state, step_fn, place)``."""
     from ray_tpu_torch.models import moe
+    mesh = active_mesh(mesh)
     return _make_lm_trainer(
         lambda dev: moe.MoE(cfg, moe.init_params(seed, cfg, dev), device=dev,
-                            dtype=torch.float32, trainable=True),
+                            dtype=torch.float32, trainable=True, mesh=mesh,
+                            rules=rules),
         lambda m, b: moe_loss_fn(m, b, cfg), optimizer, accum, device,
-        init_state)
+        init_state, mesh, rules)
 
 
 def create_sharded_state(build: Callable, optimizer,

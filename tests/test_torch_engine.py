@@ -169,9 +169,18 @@ def test_unported_features_refuse(tree):
     with pytest.raises(ValueError, match="unknown engine role 'bogus'"):
         _port(tree, role="bogus")
     # the flight recorder is ported: telemetry_sample constructs; device
-    # meshes still refuse, naming the roadmap item
+    # meshes are ported: a mesh of one rank serves as no mesh, bit for
+    # bit (the multi-rank cases and the refusals that stay, ROADMAP
+    # A6 (c), are tests/test_torch_serve_mesh.py's); a mesh must be one
     assert _port(tree, telemetry_sample=0.5)._recorder.sample == 0.5
-    with pytest.raises(NotImplementedError, match="mesh.*A6"):
+    from ray_tpu_torch.parallel import single_device_mesh
+    one = _port(tree, mesh=single_device_mesh())
+    assert one.mesh is None and one.stats()["mesh"] is None
+    prompts = _traffic()[:3]
+    assert [[(int(t), t.logprob) for t in o] for o in _run(one, prompts)] \
+        == [[(int(t), t.logprob) for t in o]
+            for o in _run(_port(tree), prompts)]
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         _port(tree, mesh=object())
     with pytest.raises(TypeError, match="bogus"):
         _port(tree, bogus=1)

@@ -140,11 +140,20 @@ def test_completion_logprobs_match_jax(trees, jax_logprobs):
 
 
 def test_completion_logprobs_refuses_a_mesh(trees):
+    """``mesh=`` is ported: a mesh of one rank is the single-card
+    function, bit for bit; a mesh the model was not built on raises (the
+    multi-rank cases, and the seq split that stays refused, ROADMAP
+    A6 (c), are tests/test_torch_rl_moe_mesh.py's and
+    tests/test_torch_spmd_mesh.py's)."""
+    from ray_tpu_torch.parallel import single_device_mesh
     model = _model(trees[0])
-    with pytest.raises(NotImplementedError, match="A6"):
-        tgpt.completion_logprobs(model, torch.zeros((1, 4), dtype=torch.int32),
-                                 torch.ones(1, dtype=torch.int32), 2,
-                                 mesh=object())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, CFG["vocab_size"], (2, 8)).astype(np.int32))
+    start = torch.tensor([1, 3], dtype=torch.int32)
+    want = tgpt.completion_logprobs(model, toks, start, 4)
+    got = tgpt.completion_logprobs(model, toks, start, 4,
+                                   mesh=single_device_mesh())
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -403,8 +412,13 @@ def test_engine_weights_change_only_at_the_publish(trees):
     # the caller's tree was copied, not trained in place
     np.testing.assert_array_equal(
         tgpt.params_to_numpy(_model(trees[0]))["embed"], trees[0]["embed"])
-    with pytest.raises(NotImplementedError, match="A6"):
-        FlywheelLoop(_tiny(), None, None, mesh=object(), device="cpu")
+    # mesh= is ported: a mesh of one rank is the single-card loop (the
+    # multi-rank loop is tests/test_torch_rl_moe_mesh.py's)
+    from ray_tpu_torch.parallel import single_device_mesh
+    one = FlywheelLoop(_tiny(), None, None, params=trees[0], device="cpu",
+                       mesh=single_device_mesh(), engine_kwargs=ENGINE)
+    assert one.mesh is None and one.engine.mesh is None
+    assert one.state.params.mesh is None
 
 
 class _RemoteTarget:

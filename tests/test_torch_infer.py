@@ -195,8 +195,13 @@ def test_validation_errors(tree):
     model = tgpt.params_from_numpy(tree, tcfg, device="cpu")
     with pytest.raises(ValueError, match="max_seq_len"):
         tgpt.init_kv_cache(tcfg, 2, CFG["max_seq_len"] + 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        tgpt.init_kv_cache(tcfg, 2, 8, device="cpu", mesh=object())
+    # a cache on a mesh of one rank is the single-card cache (the
+    # multi-rank caches are tests/test_torch_serve_mesh.py's)
+    from ray_tpu_torch.parallel import single_device_mesh
+    one = tgpt.init_kv_cache(tcfg, 2, 8, device="cpu",
+                             mesh=single_device_mesh())
+    assert one["k"].shape == (CFG["n_layers"], 2, 8, CFG["n_heads"],
+                              CFG["d_model"] // CFG["n_heads"])
     cache = tgpt.init_kv_cache(tcfg, 2, 8, device="cpu")
     toks = torch.zeros((2, 9), dtype=torch.int32)
     with pytest.raises(ValueError, match="exceeds cache"):
@@ -206,6 +211,8 @@ def test_validation_errors(tree):
                      tcfg)
     with pytest.raises(ValueError, match="tokens \\[1, T\\]"):
         tgpt.prefill(model, toks, cache, tcfg, slot=0)
+    with pytest.raises(ValueError, match="out of range"):
+        tgpt.prefill(model, toks[:1, :4], cache, tcfg, slot=2)
 
 
 def test_forward_features_with_kv_matches_jax(tree):

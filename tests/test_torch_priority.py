@@ -787,9 +787,10 @@ def test_parked_first_token_keeps_its_version(params):
 # Reference stats keys the port leaves out, and why: the port's weight
 # swap is an in-place copy_ with nothing to trace.
 NOT_IN_PORT = {"swap_traces"}
-# The port's own keys: its prefill rate, its CUDA graphs' pool and its
-# kernels' launches.
-PORT_ONLY = {"prefill_tok_s", "graph_pool_bytes", "kernel_launches"}
+# The port's own keys: its prefill rate, its CUDA graphs' pool, its
+# kernels' launches, whether its steps replay graphs, and its mesh.
+PORT_ONLY = {"prefill_tok_s", "graph_pool_bytes", "kernel_launches",
+             "captured", "mesh"}
 
 
 def test_stats_keys_and_per_class_rows_match_jax(params):

@@ -355,15 +355,17 @@ def test_mesh_of_one_is_the_single_card_trainer(world):
 
 
 def test_refusals_on_a_mesh(world):
-    """`completion_logprobs` and `init_kv_cache` on a mesh wait for A6 (b);
-    `loss_fn` slices tokens and refuses a split seq axis; the pipeline
-    trainer refuses a split seq axis."""
+    """On a data=2 x seq=2 mesh: `completion_logprobs` reads whole rows
+    and `init_kv_cache` serves on data, fsdp and tensor, so both refuse
+    the split seq axis (ROADMAP A6 (c)); `loss_fn` slices tokens and
+    refuses it; the pipeline trainer refuses it."""
     for res in world:
         errs = res["refusals"]
-        assert errs[0][0] == "NotImplementedError" and "A6 (b)" in errs[0][1]
+        assert errs[0][0] == "NotImplementedError" and "A6 (c)" in errs[0][1]
         assert errs[1][0] == "ValueError" and "seq" in errs[1][1]
         assert errs[2][0] == "ValueError" and "seq=2" in errs[2][1]
-        assert errs[3][0] == "NotImplementedError" and "A6 (b)" in errs[3][1]
+        assert errs[3][0] == "NotImplementedError" and "A6 (c)" in errs[3][1]
+        assert "'seq'" in errs[3][1]
 
 
 def test_train_step_takes_an_optimizer_without_a_norm():

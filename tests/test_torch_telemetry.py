@@ -509,8 +509,14 @@ def test_telemetry_sample_zero_records_nothing(params):
     rec = eng._recorder
     assert rec.requests_seen == 1 and rec.requests_traced == 0
     assert rec.get_spans() == [] and eng.stats()["ttft_ms_p50"] > 0
-    with pytest.raises(NotImplementedError, match="A6"):
-        _make("port", params, mesh=object())
+    # on a mesh of one rank the engine records as on one card (on a
+    # mesh of more, the first rank records: tests/test_torch_serve_mesh.py)
+    from ray_tpu_torch.parallel import single_device_mesh
+    one = _make("port", params, telemetry_sample=0.0,
+                mesh=single_device_mesh())
+    _drain(one, one.submit([4, 2], max_new_tokens=3))
+    assert one._recorder.requests_seen == 1
+    assert one._recorder.get_spans() == []
 
 
 def test_swap_crossing_and_engine_series(params):
