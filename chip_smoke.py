@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # one card, no arguments
     python3 chip_smoke.py --decode-times [CHECKOUT]
     python3 chip_smoke.py --ft-child    # phase 17 (b)'s trainer (env)
-    python3 chip_smoke.py --mesh-child  # one rank of phase 18 (b) or 19
+    python3 chip_smoke.py --mesh-child  # one rank of phase 18 (b), 19 or 20
 
 Builds the port's CUDA kernels from ``ray_tpu_torch/ops/csrc/`` with nvcc
 (sm_90a, one nvcc per source, all at once) and drives its paths, paged
@@ -270,6 +270,27 @@ the MoE, ViT and ResNet families) and unpaged decode, end to end:
    p50/p99, the collectives' seconds and bytes through the host, peak
    memory and launches by kernel name. Both ranks' tokens, decoded rows
    and flywheel histories must be equal.
+20. the rest of serving on a mesh: two ``--mesh-child`` ranks
+   (``MESH_PHASE=20``) on the one card over gloo, as 19, on 19's model
+   and cut requests at tensor=2 (8 heads a rank): (a) int8 weights with
+   the int8 pool (only int8 paged launches, one a layer per tick and
+   chunk; each rank's int8 and scale blocks the cut of one card's
+   ``quantize_params``, bit for bit); (b) the 1-layer draft proposer
+   (its pool at 8 heads a rank; one paged decode a draft layer for each
+   of a verify tick's W proposal steps and each draft prefill chunk);
+   (c) the greedy requests through a prefill-role engine on the mesh
+   (whole-head blobs: export ms, one multi-query a layer per chunk) into
+   a decode-role engine on the mesh (import ms, one paged decode a layer
+   per tick), then a single card's blobs, exported on the first rank and
+   sent to both, into a second decode-role engine; then every paged
+   kernel at 8 heads on the decode-role and int8 engines' pools against
+   its plain version, timed in turn beside plain, SDPA and the bound;
+   (d) seq=2 (16 heads a rank, the step repeated): the engine, and
+   ``completion_logprobs`` of 2 rows of 256 tokens over the split (the
+   ring) within 0.1 of one card's. Rank 0 holds every path's greedy
+   requests to phase 3's rule. Per rank: tick p50/p99, the collectives'
+   share of the wall, export and import ms, peak memory and launches by
+   kernel name. Both ranks' tokens and log-probabilities must be equal.
 
 Before the phases it prints the registers and spilled bytes of every
 tensor-core kernel and of the two split-K decode kernels from nvcc's
@@ -5216,7 +5237,8 @@ def mesh_one(dev, smi: str, ref_dir: str) -> dict:
 def mesh_child() -> int:
     """``--mesh-child``: one rank of a two-rank gloo world on the card
     (MESH_RANK, MESH_WORLD, MESH_PORT, MESH_OUT): phase 18 (b)'s runs,
-    or with MESH_PHASE=19 phase 19's (`serve_mesh_child`)."""
+    with MESH_PHASE=19 phase 19's (`serve_mesh_child`), with
+    MESH_PHASE=20 phase 20's (`roles_mesh_child`)."""
     import datetime
 
     import torch
@@ -5237,9 +5259,12 @@ def mesh_child() -> int:
         rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
     res = {"rank": rank, "backend": dist.get_backend(),
            "host_staged": col.stages_through_host(dist.group.WORLD, dev)}
-    runs = MESH_RUNS if os.environ.get("MESH_PHASE", "18") == "18" else ()
-    if not runs:
+    phase = os.environ.get("MESH_PHASE", "18")
+    runs = MESH_RUNS if phase == "18" else ()
+    if phase == "19":
         res.update(serve_mesh_child(dev))
+    if phase == "20":
+        res.update(roles_mesh_child(dev))
     for label, kw, layers, kind in runs:
         mesh = MeshSpec(**kw).build()
         cfg = _mesh_cfg(layers)
@@ -5495,12 +5520,14 @@ def _window_read(dev) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
 
 
-def _serve_mesh_engine(dev, mesh, model, cfg, reqs, new, which, **kw):
-    """One engine on the mesh through ``reqs``: the launches of each
-    decode tick, prefill chunk and verify tick (one a layer, the kernel
-    named by the pool's dtype), the ticks' wall p50/p99, the
-    collectives and peak memory of the run. Returns (engine, outputs,
-    summary)."""
+def _serve_mesh_engine(dev, mesh, model, cfg, reqs, new, which, axis="tensor",
+                       **kw):
+    """One engine on the mesh (2 ranks on ``axis``) through ``reqs``: the
+    launches of each decode tick, prefill chunk and verify tick (one a
+    layer, the kernel named by the pool's dtype; a draft model's one a
+    draft layer for each of a verify tick's W proposal steps and each
+    draft prefill chunk), the ticks' wall p50/p99, the collectives and
+    peak memory of the run. Returns (engine, outputs, summary)."""
     from ray_tpu_torch.serve import InferenceEngine
     eng = InferenceEngine(model, cfg, slots=8, max_len=1024, block_size=16,
                           prefill_chunk=64, seed=0, device=dev, mesh=mesh,
@@ -5518,18 +5545,24 @@ def _serve_mesh_engine(dev, mesh, model, cfg, reqs, new, which, **kw):
     for i, o in enumerate(outs):
         if len(o) != new:
             fail(f"(a) {which}: request {i} ended with {len(o)} tokens")
-    if st["captured"] is not False or st["mesh"]["tensor"] != 2:
+    if st["captured"] is not False or st["mesh"][axis] != 2:
         fail(f"(a) {which}: stats say captured {st['captured']}, mesh "
              f"{st['mesh']}")
     layers = cfg.n_layers
     ticks = st["decode_steps"] - st["spec_steps"]
     chunks, verifies = st["prefill_chunks"], st["spec_steps"]
     int8 = cfg.kv_dtype == "int8"
-    want = {"paged_decode_attention": layers * ticks,
-            "paged_prefill_attention": layers * chunks,
+    # the draft model's proposal steps and its pool's prefill chunks (it
+    # shares no prefixes: every prompt's every chunk)
+    dl = 0 if eng.draft_model is None else eng.draft_cfg.n_layers
+    dsteps = dl * eng.spec_window * verifies
+    dchunks = dl * sum(-(-len(p) // eng.prefill_chunk) for p, _ in reqs)
+    want = {"paged_decode_attention": layers * ticks + dsteps,
+            "paged_prefill_attention": layers * chunks + dchunks,
             "paged_verify_attention": layers * verifies,
             "paged_decode_int8": layers * ticks * int8,
-            "paged_mq_tc": layers * (chunks + verifies) * (not int8),
+            "paged_mq_tc": (layers * (chunks + verifies) + dchunks)
+            * (not int8),
             "paged_mq_tc_int8": layers * chunks * int8,
             "paged_mq_simt": 0, "paged_mq_simt_int8": 0}
     launches = got["launches"]
@@ -6023,6 +6056,304 @@ def phase_serve_mesh(dev, smi: str) -> dict:
             "part_s": {"ref": t1 - t0, "ranks": t2 - t1}}
 
 
+# phase 20: the rest of serving on a mesh. Two `--mesh-child` ranks
+# (MESH_PHASE=20) on the one card over gloo, as phase 19, on its model at
+# tensor=2 (8 heads a rank) and phase 19's cut requests: (a) int8 weights
+# with the int8 pool, (b) the 1-layer draft proposer, (c) prefill ->
+# decode roles on the mesh and a single card's blobs into the mesh, (d)
+# seq=2 (16 heads a rank, the step repeated): the engine and
+# `completion_logprobs` against one card
+LP_MESH_B, LP_MESH_T, LP_MESH_W = 2, 256, 64
+ROLES_MESH_TIMEOUT_S = 600
+
+
+def _int8_blocks_equal(dev, eng, tree) -> int:
+    """(a) Each of the rank's int8 and scale blocks against its cut of
+    the single card's `quantize_params` of the same bf16 weights, bit for
+    bit; returns the leaves held."""
+    import torch
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import sharding
+    whole = gpt.quantize_params(gpt.GPT(eng.cfg, tree, device=dev))
+    held = 0
+    for name, block in eng.model.layers.items():
+        if not name.startswith(gpt.QUANTIZED_WEIGHTS):
+            continue
+        want = sharding.local_shard(whole.layers[name],
+                                    eng.model.specs["layers." + name],
+                                    eng.mesh)
+        if block.dtype != want.dtype or not torch.equal(block, want):
+            fail(f"(a) the rank's {name} block is not the cut of the single "
+                 "card's quantize_params")
+        held += 1
+    del whole
+    _free()
+    return held
+
+
+def _roles_mesh_run(dev, mesh, model, cfg, reqs, new, single) -> dict:
+    """(c) Every greedy request of ``reqs`` through a prefill-role engine
+    on the mesh, its blob imported by a decode-role engine on the mesh
+    (the launches: one multi-query a layer per chunk on the prefill side,
+    one paged decode a layer per tick on the decode side, nothing else);
+    then a single card's blobs (``single``: the mesh's first rank exports
+    them on one card and sends them to every rank) into a second
+    decode-role engine on the mesh. Per engine: ticks p50/p99, export
+    and import ms, the collectives, peak memory, launches. Returns the
+    record and the decode engine (its pool feeds the kernel checks)."""
+    import torch.distributed as dist
+    from ray_tpu_torch.serve import InferenceEngine
+    kw = dict(slots=8, max_len=1024, block_size=16, prefill_chunk=64,
+              seed=0, device=dev)
+    greedy = [(p, t) for p, t in reqs if t == 0.0]
+    out = {}
+
+    def decode(blobs, which):
+        dec = InferenceEngine(model, cfg, role="decode", mesh=mesh, **kw)
+        _window(dev)
+        t0 = time.perf_counter()
+        rids = [dec.import_handoff(b) for b in blobs]
+        dec.run_until_idle()
+        outs = [list(dec.tokens_for(r)) for r in rids]
+        rec = {**_window_read(dev), "wall_s": time.perf_counter() - t0}
+        st = dec.stats()
+        dec.check_invariants()
+        want = {"paged_decode_attention": cfg.n_layers * st["decode_steps"],
+                "paged_prefill_attention": 0}
+        if {k: rec["launches"].get(k, 0) for k in want} != want:
+            fail(f"(c) {which} decode: launches {rec['launches']}, want "
+                 f"{want}")
+        if any(len(o) != new for o in outs):
+            fail(f"(c) {which}: a stream ended early")
+        rec.update({k: st[k] for k in (
+            "decode_steps", "p50_token_latency_ms", "p99_token_latency_ms",
+            "kv_import_ms_p50", "kv_import_ms_p99", "imports",
+            "kv_import_bytes", "captured")},
+            tokens=[[int(t) for t in o] for o in outs])
+        return dec, outs, rec
+
+    pre = InferenceEngine(model, cfg, role="prefill", mesh=mesh, **kw)
+    _window(dev)
+    t0 = time.perf_counter()
+    rids = [pre.submit(p, max_new_tokens=new) for p, _ in greedy]
+    blobs = [pre.handoff_for(r) for r in rids]
+    rec = {**_window_read(dev), "wall_s": time.perf_counter() - t0}
+    st = pre.stats()
+    want = {"paged_prefill_attention": cfg.n_layers * st["prefill_chunks"],
+            "paged_mq_tc": cfg.n_layers * st["prefill_chunks"],
+            "paged_decode_attention": 0}
+    if {k: rec["launches"].get(k, 0) for k in want} != want:
+        fail(f"(c) prefill role: launches {rec['launches']}, want {want}")
+    heads = blobs[0]["payload"][0]["k"].shape[2]
+    if heads != cfg.n_heads:
+        fail(f"(c) the mesh's blob holds {heads} heads, not the whole "
+             f"{cfg.n_heads}")
+    rec.update({k: st[k] for k in (
+        "prefill_chunks", "handoffs", "kv_export_ms_p50",
+        "kv_export_ms_p99", "kv_export_bytes")}, blob_heads=heads)
+    out["prefill"] = rec
+    del pre
+    dec, outs, out["decode"] = decode(blobs, "mesh")
+    out["outs"] = outs
+    del blobs
+    _free()
+    # a single card's blobs, made on the first rank and sent to both
+    box = [single() if mesh.axis_index(mesh.axis_names) == 0 else None]
+    dist.broadcast_object_list(box, src=mesh.group(mesh.axis_names)[1][0])
+    _, out["single_outs"], out["single_to_mesh"] = decode(box[0], "single")
+    out["greedy"] = greedy
+    return out, dec
+
+
+def _seq_mesh_logprobs(dev, tree, cfg) -> dict:
+    """(d) `completion_logprobs` of LP_MESH_B rows of LP_MESH_T tokens
+    over a seq=2 split (the rank's half of each row's positions: the seq
+    offset and the ring) against one card's on the whole rows, bf16
+    weights, f32 log-probabilities; the ring's launches."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import MeshSpec, sharding
+    mesh = MeshSpec(data=1, seq=2).build()
+    rng = np.random.default_rng(20)
+    toks = rng.integers(0, cfg.vocab_size, (LP_MESH_B, LP_MESH_T))
+    start = np.array([17, LP_MESH_T - LP_MESH_W], np.int64)[:LP_MESH_B]
+    one = gpt.GPT(cfg, tree, device=dev)
+    with torch.inference_mode():
+        want = gpt.completion_logprobs(one, torch.from_numpy(toks).to(dev),
+                                       torch.from_numpy(start), LP_MESH_W)
+    del one
+    model = gpt.GPT(cfg, tree, device=dev, mesh=mesh)
+    rows = sharding.shard_batch(toks, mesh)
+    _window(dev)
+    with torch.inference_mode():
+        got = gpt.completion_logprobs(model, torch.from_numpy(rows).to(dev),
+                                      torch.from_numpy(start), LP_MESH_W)
+    rec = _window_read(dev)
+    gap = float((got - want).abs().max())
+    if tuple(got.shape) != (LP_MESH_B, LP_MESH_W) or not gap <= LOGPROB_TOL:
+        fail(f"(d) completion_logprobs over seq=2: shape "
+             f"{tuple(got.shape)}, max|mesh - one card| {gap:.4f} (limit "
+             f"{LOGPROB_TOL})")
+    return {**rec, "max_abs_gap": gap, "rows_block": list(rows.shape),
+            "logprobs": got.float().cpu().tolist()}
+
+
+def roles_mesh_child(dev) -> dict:
+    """Phase 20 on this rank: (a)-(d); every path's counters zeroed just
+    before it and read just after."""
+    import numpy as np
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.serve import InferenceEngine
+    mesh = MeshSpec(data=1, tensor=2).build()
+    rank = mesh.axis_index("tensor")
+    res = {}
+    cfg = gpt.GPTConfig(**SERVE_CFG)
+    full = make_traffic(cfg.vocab_size, 0)
+    reqs = [full[i] for i in SERVE_MESH_REQS]
+    tree = gpt.init_params(0, cfg, dev)
+    model = gpt.GPT(cfg, tree, device=dev, mesh=mesh)
+    _free()
+    # (a) int8 weights with the int8 pool
+    c8 = {**SERVE_CFG, "kv_dtype": "int8", "weight_dtype": "int8"}
+    eng8, outs, res["int8"] = _serve_mesh_engine(
+        dev, mesh, model, gpt.GPTConfig(**c8), reqs, SERVE_MESH_NEW,
+        "int8 w+kv")
+    res["int8"]["blocks_held"] = _int8_blocks_equal(dev, eng8, tree)
+    if rank == 0:
+        res["int8"]["teacher_forced"] = phase_teacher_forced(
+            dev, c8, 0, reqs, outs, SERVE_MESH_CHECKED)
+    # (b) the draft proposer: a 1-layer draft of whole weights, cut by
+    # the engine
+    dcfg = gpt.GPTConfig(**{**SERVE_CFG, "n_layers": SPEC_DRAFT_LAYERS})
+    draft = gpt.GPT(dcfg, gpt.init_params(1, dcfg, dev), device=dev)
+    spec = [(p, 0.0) for p, _ in spec_traffic(cfg.vocab_size,
+                                              SERVE_MESH_SPEC)]
+    eng, outs, res["draft"] = _serve_mesh_engine(
+        dev, mesh, model, cfg, spec, SERVE_MESH_NEW, "draft",
+        spec="draft", spec_k=SPEC_K, draft_params=draft, draft_cfg=dcfg)
+    res["draft"]["draft_heads"] = eng.draft_cache["k"].shape[3]
+    if rank == 0:
+        res["draft"]["teacher_forced"] = phase_teacher_forced(
+            dev, SERVE_CFG, 0, spec, outs, tuple(range(len(spec))))
+    del eng, draft
+    _free()
+
+    # (c) the roles, then a single card's blobs into the mesh
+
+    def single():
+        one = InferenceEngine(gpt.GPT(cfg, tree, device=dev), cfg,
+                              role="prefill", slots=8, max_len=1024,
+                              block_size=16, prefill_chunk=64, seed=0,
+                              device=dev)
+        rids = [one.submit(p, max_new_tokens=SERVE_MESH_NEW)
+                for p, t in reqs if t == 0.0]
+        return [one.handoff_for(r) for r in rids]
+    roles, dec = _roles_mesh_run(dev, mesh, model, cfg, reqs,
+                                 SERVE_MESH_NEW, single)
+    if rank == 0:
+        for key in ("outs", "single_outs"):
+            roles[key + "_teacher_forced"] = phase_teacher_forced(
+                dev, SERVE_CFG, 0, roles["greedy"], roles[key])
+    res["roles"] = {k: v for k, v in roles.items()
+                    if k not in ("outs", "single_outs", "greedy")}
+    res["h8"] = _h8_kernels(dev, dec, eng8, mesh)
+    del dec, eng8, model
+    _free()
+    # (d) seq=2: the step repeated on both ranks, and the logprobs
+    smesh = MeshSpec(data=1, seq=2).build()
+    smodel = gpt.GPT(cfg, tree, device=dev, mesh=smesh)
+    eng, outs, res["seq"] = _serve_mesh_engine(
+        dev, smesh, smodel, cfg, reqs, SERVE_MESH_NEW, "seq=2", axis="seq")
+    if rank == 0:
+        res["seq"]["teacher_forced"] = phase_teacher_forced(
+            dev, SERVE_CFG, 0, reqs, outs, SERVE_MESH_CHECKED)
+    del eng, smodel
+    _free()
+    res["logprobs"] = _seq_mesh_logprobs(dev, tree, cfg)
+    res["tokens_digest"] = int(np.asarray(
+        [t for w in ("int8", "draft", "seq") for o in res[w]["tokens"]
+         for t in o]).sum())
+    return res
+
+
+def phase_serve_mesh_roles(dev, smi: str) -> dict:
+    """Phase 20: the rest of serving on a mesh, two `--mesh-child` ranks
+    on the card (MESH_PHASE=20), each running `roles_mesh_child`; both
+    ranks' outputs must be equal."""
+    t0 = time.perf_counter()
+    res, child_s = _mesh_children("20", {}, ROLES_MESH_TIMEOUT_S)
+    a, b = res
+    for key in ("int8", "draft", "seq"):
+        if a[key]["tokens"] != b[key]["tokens"]:
+            fail(f"{key}: the ranks served different tokens")
+    for key in ("decode", "single_to_mesh"):
+        if a["roles"][key]["tokens"] != b["roles"][key]["tokens"]:
+            fail(f"(c) {key}: the ranks decoded different tokens")
+    if a["logprobs"]["logprobs"] != b["logprobs"]["logprobs"]:
+        fail("(d) the ranks' completion_logprobs differ")
+    for r, x in enumerate(res):
+        for key, part in (("int8", "(a) int8 w+kv"), ("draft", "(b) draft"),
+                          ("seq", "(d) seq=2")):
+            s = x[key]
+            c = s["collectives"]
+            print(f"  {part} rank {r}: {s['decode_steps']} ticks "
+                  f"({s['spec_steps']} verify, acceptance "
+                  f"{s['acceptance_rate']}), {s['prefill_chunks']} chunks, "
+                  f"tick p50 {s['p50_token_latency_ms']:.2f} ms p99 "
+                  f"{s['p99_token_latency_ms']:.2f} ms, wall "
+                  f"{s['wall_s']:.2f} s; collectives {c['seconds']:.3f} s "
+                  f"({c['seconds'] / s['wall_s']:.1%} of the wall) in "
+                  f"{c['calls']} calls, {c['host_bytes'] / 2 ** 20:.1f} MiB "
+                  f"through the host; peak {s['peak_gb']:.2f} GiB; launches "
+                  f"{s['launches']}")
+        print(f"  (a) rank {r}: {x['int8']['blocks_held']} int8 and scale "
+              "blocks the cut of one card's quantize_params, bit for bit; "
+              f"(b) draft pool {x['draft']['draft_heads']} heads a rank")
+        ro = x["roles"]
+        for key in ("prefill", "decode", "single_to_mesh"):
+            s = ro[key]
+            c = s["collectives"]
+            extra = (f"{s['prefill_chunks']} chunks, {s['handoffs']}"
+                     f" exports of {s['blob_heads']} heads, export ms p50 "
+                     f"{s['kv_export_ms_p50']:.2f} p99 "
+                     f"{s['kv_export_ms_p99']:.2f}"
+                     if key == "prefill" else
+                     f"{s['decode_steps']} ticks, tick p50 "
+                     f"{s['p50_token_latency_ms']:.2f} ms p99 "
+                     f"{s['p99_token_latency_ms']:.2f} ms, "
+                     f"{s['imports']} imports, import ms p50 "
+                     f"{s['kv_import_ms_p50']:.2f} p99 "
+                     f"{s['kv_import_ms_p99']:.2f}")
+            print(f"  (c) rank {r} {key}: {extra}, wall {s['wall_s']:.2f} s; "
+                  f"collectives {c['seconds']:.3f} s "
+                  f"({c['seconds'] / s['wall_s']:.1%}) in {c['calls']} calls, "
+                  f"{c['host_bytes'] / 2 ** 20:.1f} MiB; peak "
+                  f"{s['peak_gb']:.2f} GiB; launches {s['launches']}")
+        for name, k in x["h8"].items():
+            print(f"  (c) rank {r} {name} at H {k['heads']}: kernel "
+                  f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, sdpa "
+                  f"{k['library_ms']} ms, bound {k['bound_ms']:.4f} ms "
+                  f"({k['bound_by']}), max|kernel-plain| "
+                  f"{k['max_abs_err']:.3e} ({smi})")
+        lp = x["logprobs"]
+        print(f"  (d) rank {r} completion_logprobs over seq=2 (rows block "
+              f"{lp['rows_block']}): max|mesh - one card| "
+              f"{lp['max_abs_gap']:.4f} (limit {LOGPROB_TOL}); collectives "
+              f"{lp['collectives']['seconds']:.3f} s; launches "
+              f"{lp['launches']}")
+    tf = [res[0][w].get("teacher_forced") for w in ("int8", "draft", "seq")]
+    tf += [res[0]["roles"].get(k + "_teacher_forced")
+           for k in ("outs", "single_outs")]
+    if not all(tf):
+        fail("rank 0 held a path to no rule")
+    total = time.perf_counter() - t0
+    print(f"  phase 20: children {child_s:.1f} s ({total:.1f} s with the "
+          "spawn)")
+    return {"card": smi, "ranks": res, "part_s": {"ranks": total}}
+
+
 def _readable_kernel(mangled: str):
     """A readable name for an instantiation of a tensor-core kernel or of
     a split-K decode kernel (``flash_dq_tc_kernel<64, true>``,
@@ -6241,12 +6572,16 @@ def main() -> int:
                        "card: the paged engine and the unpaged cache at 8 "
                        "heads a rank, the flywheel, MoE on expert=2)",
                        phase_serve_mesh, dev, smi)
+    roles_mesh = phase(20, "the rest of serving on a mesh (two ranks on the "
+                       "card: int8 weights, the draft proposer, prefill/"
+                       "decode roles and the handoff at 8 heads a rank; "
+                       "seq=2)", phase_serve_mesh_roles, dev, smi)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
                   flash=flash, train=train, xent=xent, fused_train=fused,
                   unpaged=unpaged, c1=c1, int8=int8, spec=spec,
                   capture=capture, pressure=pressure, disagg=disagg,
                   flywheel=flywheel, ft_models=ft_models, mesh=mesh,
-                  serve_mesh=serve_mesh)
+                  serve_mesh=serve_mesh, roles_mesh=roles_mesh)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -6479,6 +6814,30 @@ def main() -> int:
             row["mesh_h8"] = {k: h8[k] for k in (
                 "heads", "ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err")}
+    # phase 20's paths on rank 0, each counted from zero around its run:
+    # (a) int8 weights and pool, (b) the draft proposer (the target's and
+    # the draft's launches), (c) the prefill-role engine, the decode-role
+    # engines on the mesh's and on a single card's blobs, (d) seq=2
+    p0 = roles_mesh["ranks"][0]
+    paths20 = {"(a)": p0["int8"], "(b)": p0["draft"],
+               "(c) prefill role": p0["roles"]["prefill"],
+               "(c) decode role": p0["roles"]["decode"],
+               "(c) single-card blobs": p0["roles"]["single_to_mesh"],
+               "(d) seq=2": p0["seq"]}
+    mesh20 = {"paged_decode": "paged_decode_attention",
+              "paged_prefill": "paged_prefill_attention",
+              "paged_verify": "paged_verify_attention",
+              "paged_decode_int8": "paged_decode_int8",
+              "paged_prefill_int8": "paged_mq_tc_int8"}
+    for row in rows:
+        wrapper = mesh20.get(row["name"])
+        if wrapper is None:
+            continue
+        got = {f"phase 20 {k} rank 0": v["launches"].get(wrapper, 0)
+               for k, v in paths20.items() if v["launches"].get(wrapper)}
+        if not got:
+            fail(f"{wrapper} was not launched on phase 20's paths")
+        row.setdefault("launches_by_path", {}).update(got)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -65,17 +65,21 @@ one rank is the single-card model.
 
 Serving on a mesh: the same model serves the unpaged (`init_kv_cache`,
 `prefill`, `decode_step`) and paged (`init_kv_pool`, `prefill_paged`,
-`decode_step_paged`, `verify_step_paged`) forwards over ``data``,
-``fsdp`` and ``tensor``. Each rank allocates its heads' slice of a cache
-or pool (`kv_cache_logical_axes`, `kv_pool_logical_axes`: heads over
+`decode_step_paged`, `verify_step_paged`) forwards on any axes. Each
+rank allocates its heads' slice of a cache or pool
+(`kv_cache_logical_axes`, `kv_pool_logical_axes`: heads over
 ``tensor``; an unpaged cache's slots over the data axes, a pool's blocks
 whole), the attention kernels run on the rank's ``H / tensor`` heads,
 and the vocabulary-split logits are gathered over ``tensor``, so every
-rank holds the same f32 ``[B, V]``. `completion_logprobs` on a mesh
-takes a distributed log-sum-exp over the vocabulary split, with no
-``[B, T, V]`` gather. Int8 weights, the ``seq``, ``expert`` and
-``pipe`` axes on the serving forwards, and `completion_logprobs` over a
-``seq`` split raise (ROADMAP A6 (c)).
+rank holds the same f32 ``[B, V]``. No GPT leaf, cache or pool axis
+sits on ``seq``, ``expert`` or ``pipe``: their ranks repeat the step
+(a serving prefill takes whole rows there, with no ring). Int8 weights
+serve on a mesh too: each rank holds its int8 and scale blocks
+(`quantize_params` takes each channel's absmax over the ranks that
+split its input axis). `completion_logprobs` on a mesh takes a
+distributed log-sum-exp over the vocabulary split, with no ``[B, T,
+V]`` gather, and over a ``seq`` split gathers the ``[B, T]`` rows of
+target log-probabilities.
 """
 
 from __future__ import annotations
@@ -88,7 +92,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
-from ray_tpu_torch.models._stacked import check_axes, leaf_specs
+from ray_tpu_torch.models._stacked import leaf_specs
 from ray_tpu_torch.ops import decode_attention as da
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import fused_xent as fx
@@ -177,9 +181,12 @@ def check_quant_cfg(cfg: GPTConfig) -> bool:
 # parameters
 # ---------------------------------------------------------------------------
 
-def param_logical_axes(cfg: GPTConfig):
+def param_logical_axes(cfg: GPTConfig, quantized: bool = False):
     """Pytree of logical-axis tuples, mirroring init_params' structure.
-    Leading layer-stack axis is unsharded (None)."""
+    Leading layer-stack axis is unsharded (None). With ``quantized`` (a
+    tree from `quantize_params`) each ``"<name>_scale"`` ``[L, Out]``
+    follows its weight's output axis (the reference names no axes for
+    them)."""
     layer = {
         "ln1_scale": (None, "embed"),
         "ln2_scale": (None, "embed"),
@@ -191,6 +198,9 @@ def param_logical_axes(cfg: GPTConfig):
         "w_gate": (None, "embed", "mlp"),
         "w_down": (None, "mlp", "embed"),
     }
+    if quantized:
+        layer.update({w + "_scale": (None, layer[w][-1])
+                      for w in QUANTIZED_WEIGHTS})
     return {
         "embed": ("vocab", "embed"),
         "pos_embed": (None, "embed"),
@@ -205,10 +215,12 @@ def param_logical_axes(cfg: GPTConfig):
 _MODEL_AXES = {"tensor": ("heads", "mlp", "vocab"), "pipe": ("stage",)}
 
 
-def _leaf_specs(cfg: GPTConfig, mesh, rules, logical_axes) -> dict:
+def _leaf_specs(cfg: GPTConfig, mesh, rules, logical_axes,
+                quantized: bool = False) -> dict:
     """``{leaf name: PartitionSpec}`` ("layers.wq", ...) on ``mesh``;
     a split the model cannot compute on raises."""
-    tree = param_logical_axes(cfg) if logical_axes is None else logical_axes
+    tree = (param_logical_axes(cfg, quantized) if logical_axes is None
+            else logical_axes)
     return leaf_specs(tree, mesh, rules, _MODEL_AXES)
 
 
@@ -261,31 +273,14 @@ class GPT(nn.Module):
     A tree from `quantize_params` (the port's or the reference's, carried
     across) holds int8 `QUANTIZED_WEIGHTS` leaves, each beside an f32
     ``"<name>_scale"`` ``[L, Out]`` leaf: both keep their dtypes, and the
-    model is ``quantized`` (frozen, for the paged forwards)."""
+    model is ``quantized`` (frozen, for the paged forwards). On a mesh a
+    scale splits with its weight's output axis
+    (`param_logical_axes` with ``quantized``)."""
 
     def __init__(self, cfg: GPTConfig, params: dict, *, device=None,
                  dtype: torch.dtype | None = None, trainable: bool = False,
                  mesh=None, rules: dict | None = None, logical_axes=None):
         super().__init__()
-        self.cfg = cfg
-        self.mesh = active_mesh(mesh)
-        self.rules = rules
-        self.specs = ({} if self.mesh is None else
-                      _leaf_specs(cfg, self.mesh, rules, logical_axes))
-        # each layer leaf's spec without the layer axis (what `_block`
-        # gathers by)
-        self.layer_specs = {
-            k[len("layers."):]: sharding.PartitionSpec(*spec[1:])
-            for k, spec in self.specs.items() if k.startswith("layers.")}
-        dtype = cfg.activation_dtype() if dtype is None else dtype
-        device = resolve_device(device)
-
-        def leaf(x, dt=dtype):
-            t = (x if isinstance(x, torch.Tensor)
-                 else torch.from_numpy(np.array(x)))   # writable copy
-            t = t.to(device=device, dtype=dt)
-            return nn.Parameter(t.contiguous(), requires_grad=trainable)
-
         n, d, h, f = (cfg.n_layers, cfg.d_model,
                       cfg.n_heads * cfg.head_dim, cfg.d_ff)
         want = {"embed": (cfg.vocab_size, d), "pos_embed": (cfg.max_seq_len, d),
@@ -297,17 +292,32 @@ class GPT(nn.Module):
         layers = params["layers"]
         scales = {w + "_scale": (n, want_layers[w][-1])
                   for w in QUANTIZED_WEIGHTS if w + "_scale" in layers}
-        # each leaf's whole shape (on a mesh the model holds a block)
-        self.whole_shapes = {**want, **{f"layers.{k}": v for k, v in
-                                        {**want_layers, **scales}.items()}}
         self.quantized = bool(scales)
         if self.quantized and trainable:
             raise ValueError("a quantized model (int8 weights) cannot be "
                              "trained; train the f32 masters")
-        if self.quantized and self.mesh is not None:
-            raise NotImplementedError(
-                "a quantized model (int8 weights) serves on one card; int8 "
-                "weights on a mesh are ROADMAP A6 (c)")
+        self.cfg = cfg
+        self.mesh = active_mesh(mesh)
+        self.rules = rules
+        self.specs = ({} if self.mesh is None else
+                      _leaf_specs(cfg, self.mesh, rules, logical_axes,
+                                  self.quantized))
+        # each layer leaf's spec without the layer axis (what `_block`
+        # gathers by)
+        self.layer_specs = {
+            k[len("layers."):]: sharding.PartitionSpec(*spec[1:])
+            for k, spec in self.specs.items() if k.startswith("layers.")}
+        # each leaf's whole shape (on a mesh the model holds a block)
+        self.whole_shapes = {**want, **{f"layers.{k}": v for k, v in
+                                        {**want_layers, **scales}.items()}}
+        dtype = cfg.activation_dtype() if dtype is None else dtype
+        device = resolve_device(device)
+
+        def leaf(x, dt=dtype):
+            t = (x if isinstance(x, torch.Tensor)
+                 else torch.from_numpy(np.array(x)))   # writable copy
+            t = t.to(device=device, dtype=dt)
+            return nn.Parameter(t.contiguous(), requires_grad=trainable)
 
         def block(name, x, shape):
             # the whole leaf (this rank keeps its block) or the block
@@ -372,12 +382,16 @@ def param_tree(model: GPT) -> dict:
 
 
 def quantize_params(model: GPT) -> GPT:
-    """A new model on the same device for ``weight_dtype="int8"``
-    serving: every `QUANTIZED_WEIGHTS` leaf ``[L, In, Out]`` becomes an
-    int8 leaf beside an ``"<name>_scale"`` f32 ``[L, Out]`` leaf
-    (`ops.quant.quantize_channels` of the model's weights in f32); the
-    other leaves are copied in their dtype. ``model`` is left as it
-    was. Counterpart of the reference's ``quantize_params``."""
+    """A new model on the same device (and mesh) for
+    ``weight_dtype="int8"`` serving: every `QUANTIZED_WEIGHTS` leaf ``[L,
+    In, Out]`` becomes an int8 leaf beside an ``"<name>_scale"`` f32
+    ``[L, Out]`` leaf (`ops.quant.quantize_channels` of the model's
+    weights in f32); the other leaves are copied in their dtype.
+    ``model`` is left as it was. Counterpart of the reference's
+    ``quantize_params``. On a mesh each rank quantizes its block: a
+    channel's absmax is the max over the ranks that split its ``In``
+    axis, so every rank's int8 and scale blocks are the cut of the whole
+    tree's, bit for bit."""
     if model.quantized:
         raise ValueError("quantize_params: the model is quantized already")
     tree = {k: v.detach().clone() for k, v in param_tree(model).items()
@@ -387,11 +401,23 @@ def quantize_params(model: GPT) -> GPT:
         for name, w in model.layers.items():
             if name in QUANTIZED_WEIGHTS:
                 layers[name], layers[name + "_scale"] = \
-                    quant.quantize_channels(w)
+                    quant.quantize_channels(w, _in_axis_pmax(model, name))
             else:
                 layers[name] = w.detach().clone()
     return GPT(model.cfg, {**tree, "layers": layers}, device=model.device,
-               dtype=model.embed.dtype)
+               dtype=model.embed.dtype, mesh=model.mesh, rules=model.rules)
+
+
+def _in_axis_pmax(model: GPT, name: str):
+    """The max over the mesh axes that split layer weight ``name``'s
+    ``In`` axis (None where none does)."""
+    if model.mesh is None:
+        return None
+    axes = model.mesh.live_axes(sharding.spec_axes(
+        model.specs[f"layers.{name}"][1:2]))
+    if not axes:
+        return None
+    return functools.partial(col.pmax, axis_name=axes, mesh=model.mesh)
 
 
 def params_from_numpy(tree: dict, cfg: GPTConfig, device=None,
@@ -548,13 +574,15 @@ def tensor_conjugates(mesh):
 
 
 def _block(lp: dict, x, cfg: GPTConfig, kv: list | None = None, mesh=None,
-           specs: dict | None = None):
+           specs: dict | None = None, seq_split: bool = True):
     """One transformer block on ``x [B, T, D]`` in the activation dtype,
     attention through `_attention`; with ``kv`` the block's (k, v)
     ``[B, T, H, Dh]`` are appended to it (what a KV cache stores). On a
     mesh ``lp`` holds this rank's blocks (``specs``: each layer leaf's
     spec without the layer axis), gathered here, inside the remat
-    region, so the backward gathers again instead of saving them."""
+    region, so the backward gathers again instead of saving them.
+    Without ``seq_split`` the rows are whole sequences on every ``seq``
+    rank (a serving prefill repeats the step there): no ring."""
     b, t, d = x.shape
     enter = leave = None
     if mesh is not None:
@@ -566,7 +594,8 @@ def _block(lp: dict, x, cfg: GPTConfig, kv: list | None = None, mesh=None,
         q, k, v = (z.view(b, t, nh, hd) for z in (q, k, v))
         if kv is not None:
             kv.append((k, v))
-        return _attention(q, k, v, cfg, mesh).reshape(b * t, nh * hd)
+        return _attention(q, k, v, cfg, mesh if seq_split else None
+                          ).reshape(b * t, nh * hd)
 
     return _layer(lp, x.reshape(b * t, d), cfg, attend, enter,
                   leave).view(b, t, d)
@@ -641,7 +670,7 @@ def _lookup(model: GPT, emb, tokens):
 
 
 def _features(model: GPT, tokens, cfg: GPTConfig, emb, with_kv=False,
-              mesh=None):
+              mesh=None, seq_split=True):
     _full_precision(model, "the full-sequence forward")
     t = tokens.shape[1]
     adt = cfg.activation_dtype()
@@ -649,8 +678,9 @@ def _features(model: GPT, tokens, cfg: GPTConfig, emb, with_kv=False,
     if mesh is None:
         x = emb[tokens] + model.pos_embed[:t].to(adt)[None]
     else:
-        # a seq rank's tokens start at its block's first position
-        off = mesh.axis_index("seq") * t
+        # a seq rank's tokens start at its block's first position (whole
+        # rows, repeated on the seq ranks, without ``seq_split``)
+        off = mesh.axis_index("seq") * t if seq_split else 0
         pos = _whole(model.pos_embed, model.specs["pos_embed"], mesh)
         x = _lookup(model, emb, tokens) + pos[off:off + t].to(adt)[None]
         specs = model.layer_specs
@@ -658,7 +688,7 @@ def _features(model: GPT, tokens, cfg: GPTConfig, emb, with_kv=False,
     if with_kv:
         kv = []
         for lp in model.layer_params():
-            x = _block(lp, x, cfg, kv, mesh, specs)
+            x = _block(lp, x, cfg, kv, mesh, specs, seq_split)
         ks, vs = (torch.stack(z) for z in zip(*kv))
         return _rms_norm(x, final_ln.to(adt)), (ks, vs)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -850,16 +880,29 @@ def completion_logprobs(model: GPT, tokens, start, width: int,
     (`parallel.sharding.shard_batch`) and the result its rows' values;
     over a vocabulary split the log-softmax is a distributed
     log-sum-exp whose backward needs no collective (the window's
-    cotangent is the same on every rank of the split)."""
+    cotangent is the same on every rank of the split). Over a ``seq``
+    split ``tokens`` is the rank's block of positions ``[B, T / s]``:
+    each rank scores its own positions' next tokens, the ``[B, T]`` f32
+    rows are gathered over ``seq`` (`collectives.gather_from`: every seq
+    rank then holds the same windows, and the backward keeps each rank's
+    own positions' cotangent) and the windows are cut from them."""
     cfg = model.cfg if cfg is None else cfg
     mesh = _mesh_of(model, mesh)
-    if mesh is not None and mesh.shape["seq"] > 1:
-        raise NotImplementedError(
-            "completion_logprobs reads whole rows; over a seq split it is "
-            "ROADMAP A6 (c)")
     logits = forward(model, tokens, cfg, mesh)
     b, t, v = logits.shape
     start = torch.as_tensor(start, device=logits.device).long()
+    if mesh is not None and mesh.shape["seq"] > 1:
+        whole = col.all_gather(tokens.long(), "seq", mesh, dim=1)
+        off = mesh.axis_index("seq") * t
+        nxt = whole[:, torch.clamp(torch.arange(
+            off + 1, off + t + 1, device=logits.device),
+            max=whole.shape[1] - 1)]
+        # lp[:, q] = log p(tokens[:, q + 1] | tokens[:, :q + 1])
+        lp = col.gather_from(-logits_nll(model, logits, nxt), "seq", mesh,
+                             dim=1)
+        idx = torch.clamp(start[:, None] + torch.arange(
+            width, device=logits.device)[None, :], 1, lp.shape[1] - 1)
+        return lp.gather(1, idx - 1)
     # absolute position of completion token j, clipped into range so
     # padded tails index safely
     idx = torch.clamp(start[:, None] + torch.arange(
@@ -879,10 +922,6 @@ def completion_logprobs(model: GPT, tokens, start, width: int,
 # serving on a mesh: the caches' specs and the forwards' pieces
 # ---------------------------------------------------------------------------
 
-# The mesh axes the serving forwards run on; the others raise.
-SERVING_AXES = ("data", "fsdp", "tensor")
-
-
 def kv_cache_logical_axes() -> dict:
     """Logical axes of the unpaged cache {"k", "v"} ``[L, slots, max_len,
     H, Dh]``: slots over the batch rules, heads over the head rule (the
@@ -901,19 +940,6 @@ def kv_pool_logical_axes(quantized: bool = False) -> dict:
     if quantized:
         pool["k_scale"] = pool["v_scale"] = (None, None, None, "heads")
     return pool
-
-
-def check_serving_mesh(mesh, what: str) -> None:
-    """Raise unless the serving forwards run on ``mesh`` (an active one:
-    only `SERVING_AXES` of size > 1)."""
-    check_axes(mesh, SERVING_AXES, what)
-
-
-def _serving_mesh(model: GPT, what: str):
-    """The model's mesh (None on one card), checked for serving."""
-    if model.mesh is not None:
-        check_serving_mesh(model.mesh, what)
-    return model.mesh
 
 
 def _local_heads(model: GPT) -> int:
@@ -1000,7 +1026,6 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int, device=None,
     mesh = active_mesh(mesh)
     if mesh is not None:
         from ray_tpu_torch.parallel.sharding import kv_cache_specs
-        check_serving_mesh(mesh, "init_kv_cache")
         shape = sharding.local_shape(shape, kv_cache_specs(mesh)["k"], mesh)
     return {name: torch.zeros(shape, dtype=cfg.activation_dtype(),
                               device=device) for name in ("k", "v")}
@@ -1017,7 +1042,7 @@ def prefill(model: GPT, tokens, cache: dict, cfg: GPTConfig | None = None,
     unembedded. Padding past a row's length is written too and masked by
     decode's position mask."""
     cfg = model.cfg if cfg is None else cfg
-    mesh = _serving_mesh(model, "prefill")
+    mesh = model.mesh
     b, t = tokens.shape
     cache_b, max_len = cache["k"].shape[1], cache["k"].shape[2]
     axes = () if mesh is None else _batch_axes(mesh)
@@ -1048,7 +1073,8 @@ def prefill(model: GPT, tokens, cache: dict, cfg: GPTConfig | None = None,
         tokens = sharding.local_shard(tokens, spec, mesh)
         lengths = sharding.local_shard(lengths, spec, mesh)
     x, (ks, vs) = _features(model, tokens, cfg,
-                            _embed_table(model, cfg, mesh), True, mesh)
+                            _embed_table(model, cfg, mesh), True, mesh,
+                            seq_split=False)
     last = x[torch.arange(x.shape[0], device=x.device), lengths - 1]
     logits = _serve_logits(model, last, mesh)
     if slot is None:
@@ -1078,7 +1104,7 @@ def decode_step(model: GPT, tokens, cache: dict, pos,
     cfg = model.cfg if cfg is None else cfg
     check_quant_cfg(cfg)
     _full_precision(model, "decode_step")
-    mesh = _serving_mesh(model, "decode_step")
+    mesh = model.mesh
     axes = ()
     if mesh is not None:
         # each data rank steps its block of the slots
@@ -1141,7 +1167,6 @@ def init_kv_pool(cfg: GPTConfig, n_blocks: int, block_size: int,
     mesh = active_mesh(mesh)
     if mesh is not None:
         from ray_tpu_torch.parallel.sharding import kv_pool_specs
-        check_serving_mesh(mesh, "init_kv_pool")
         heads = sharding.local_shape(
             (cfg.n_layers, n_blocks, block_size, cfg.n_heads, cfg.head_dim),
             kv_pool_specs(mesh, quantized=quantized)["k"], mesh)[3]
@@ -1277,7 +1302,7 @@ def prefill_paged(model: GPT, tokens, cache: dict, cfg: GPTConfig, *,
     chunk's K/V at the write; a model from `quantize_params` dequantizes
     each weight at use."""
     check_quant_cfg(cfg)
-    mesh = _serving_mesh(model, "prefill_paged")
+    mesh = model.mesh
     b, c = tokens.shape
     if b != 1:
         raise ValueError(f"paged prefill wants tokens [1, C], got batch {b}")
@@ -1330,7 +1355,7 @@ def decode_step_paged(model: GPT, tokens, cache: dict, pos, tables,
     the pool is updated in place. Int8 pools and weights as in
     `prefill_paged`."""
     check_quant_cfg(cfg)
-    mesh = _serving_mesh(model, "decode_step_paged")
+    mesh = model.mesh
     nb, bs = cache["k"].shape[1], cache["k"].shape[2]
     mb = tables.shape[1]
     pos_l = pos.long()
@@ -1372,7 +1397,7 @@ def verify_step_paged(model: GPT, tokens, cache: dict, pos, tables,
     cleanup: their K/V sit past the slot's next pos, masked until
     overwritten. Int8 pools and weights as in `prefill_paged`."""
     check_quant_cfg(cfg)
-    mesh = _serving_mesh(model, "verify_step_paged")
+    mesh = model.mesh
     b, w = tokens.shape
     nb, bs = cache["k"].shape[1], cache["k"].shape[2]
     mb = tables.shape[1]

@@ -27,13 +27,15 @@ import torch
 INT8_MAX = 127.0
 
 
-def _quantize(x, dim: int):
+def _quantize(x, dim: int, combine=None):
     xf = x.float()
+    amax = xf.abs().amax(dim=dim)
+    if combine is not None:
+        amax = combine(amax)
     # The divisor is a tensor on x's device: PyTorch's CUDA division by a
     # host scalar multiplies by its reciprocal, which can differ by an
     # ulp from the division the CPU (and JAX) does.
-    scale = xf.abs().amax(dim=dim) / torch.full((), INT8_MAX,
-                                                device=xf.device)
+    scale = amax / torch.full((), INT8_MAX, device=xf.device)
     safe = torch.where(scale > 0.0, scale, 1.0)
     q = torch.round(xf / safe.unsqueeze(dim)).clamp_(-INT8_MAX, INT8_MAX)
     return q.to(torch.int8), scale
@@ -52,11 +54,13 @@ def dequantize_rows(q, scale):
     return q.float() * scale.float()[..., None]
 
 
-def quantize_channels(w):
+def quantize_channels(w, combine=None):
     """Symmetric per-output-channel int8 over axis -2 (the contraction
     axis of a ``[..., In, Out]`` weight): ``(q int8 [..., In, Out],
-    scale f32 [..., Out])``."""
-    return _quantize(w, -2)
+    scale f32 [..., Out])``. ``combine`` maps the block's per-channel
+    absmax to the whole weight's (a max over the ranks that split
+    ``In``) before the scale is taken."""
+    return _quantize(w, -2, combine)
 
 
 def dequantize_channels(q, scale):

@@ -10,7 +10,9 @@ written per shard is what every rank runs already. Each collective is a
 conjugates, for values every rank of an axis holds whole: `copy_to`
 (identity forward, all-reduce backward: a replicated input feeding a
 split computation) and `reduce_from` (all-reduce forward, identity
-backward: partial results combined into a replicated value). `pmax`
+backward: partial results combined into a replicated value), and
+`gather_from` (all-gather forward, this rank's block of the cotangent
+backward: a split value every rank then uses whole). `pmax`
 has no transpose and returns a tensor outside autograd.
 
 Backends: NCCL runs when every rank has a card of its own. gloo runs on
@@ -196,6 +198,19 @@ class _AllGather(Function):
         return _reduce_scatter(g, ctx.grp, ctx.dim), None, None
 
 
+class _GatherFrom(Function):
+    @staticmethod
+    def forward(ctx, x, grp, dim):
+        ctx.grp, ctx.dim = grp, dim
+        return _all_gather(x, grp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, members = ctx.grp
+        part = g.chunk(len(members), ctx.dim)[members.index(world_rank())]
+        return part.contiguous(), None, None
+
+
 class _ReduceScatter(Function):
     @staticmethod
     def forward(ctx, x, grp, dim):
@@ -284,6 +299,15 @@ def copy_to(x, axis_name, mesh: Mesh):
     over it."""
     grp = mesh.group(axis_name)
     return x if grp is None else _CopyTo.apply(x, grp)
+
+
+def gather_from(x, axis_name, mesh: Mesh, *, dim: int = 0):
+    """The all-gather of a split value that every rank of the axis then
+    uses whole, each computing the same loss from it: `all_gather`
+    forward, and a backward that keeps this rank's block of the
+    cotangent (a reduce-scatter would count the loss once a rank)."""
+    grp = mesh.group(axis_name)
+    return x if grp is None else _GatherFrom.apply(x, grp, dim)
 
 
 def reduce_from(x, axis_name, mesh: Mesh):

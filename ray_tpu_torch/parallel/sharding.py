@@ -238,6 +238,13 @@ def token_axes(mesh: Mesh, rules: dict | None = None) -> tuple:
         logical_to_spec(("batch", "length"), rules, mesh)))
 
 
+def row_axes(mesh: Mesh, rules: dict | None = None) -> tuple:
+    """The mesh axes (of size > 1) that split a batch's rows (the
+    ``"batch"`` rule)."""
+    return mesh.live_axes(spec_axes(logical_to_spec(("batch",), rules,
+                                                    mesh)))
+
+
 def shard_batch(batch, mesh: Mesh, rules: dict | None = None,
                 accum: int = 1):
     """A host batch (a dict of arrays, or one array) -> this rank's

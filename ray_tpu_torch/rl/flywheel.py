@@ -41,7 +41,11 @@ of the batch (the ``("batch", "length")`` rules); its loss is its rows'
 share of the global masked mean, so the gradients are summed over the
 data axes (`train.spmd.sync_grads`) and over ``tensor`` not at all.
 The publish copies each rank's blocks into its engine's, with no
-gather. A ``seq`` split of the learner's rows is ROADMAP A6 (c).
+gather. Over a ``seq`` split the learner keeps its block of each row's
+positions (the completion windows stay whole): every ``seq`` rank
+computes the same loss from the gathered windows
+(`models.gpt.completion_logprobs`), its gradients are its positions'
+share, and `train.spmd.sync_grads` sums them over ``seq`` too.
 """
 
 from __future__ import annotations
@@ -96,7 +100,7 @@ def surrogate_loss(model, batch, cfg, width: int, clip: float | None):
     total = m.sum()
     if model.mesh is not None:
         with torch.no_grad():
-            total = col.psum(total, sharding.token_axes(
+            total = col.psum(total, sharding.row_axes(
                 model.mesh, model.rules), model.mesh)
     denom = torch.clamp(total, min=1.0)
     return -(surr * m).sum() / denom, (lp, ratio, m, denom)
@@ -124,7 +128,7 @@ def make_learner_step(cfg, optimizer, width: int, clip: float | None):
                        "mean_logprob": (lp * m).sum() / denom,
                        "mean_ratio": (ratio * m).sum() / denom}
             if model.mesh is not None:
-                axes = sharding.token_axes(model.mesh, model.rules)
+                axes = sharding.row_axes(model.mesh, model.rules)
                 metrics = {k: col.psum(v, axes, model.mesh)
                            for k, v in metrics.items()}
         return state, metrics
@@ -158,10 +162,10 @@ class FlywheelLoop:
     ``.remote`` method sugar (a serve deployment handle) gets host numpy
     params (gathered whole on a mesh).
 
-    ``mesh`` (a `parallel.Mesh` of ``data``, ``fsdp`` and ``tensor``;
-    every rank builds the loop with the same arguments): the engine and
-    the learner hold each rank's blocks (module docstring); ``params``
-    may be whole or a model built on the mesh.
+    ``mesh`` (a `parallel.Mesh`; every rank builds the loop with the
+    same arguments): the engine and the learner hold each rank's blocks
+    (module docstring); ``params`` may be whole or a model built on the
+    mesh.
 
     `run(iterations)` returns ``(state, per-step host metrics)``;
     ``self.history`` holds one host-side record per iteration
@@ -177,8 +181,6 @@ class FlywheelLoop:
                  temperature: float = 1.0, pad_to: int | None = None,
                  publish_every: int = 1, publish_to=(), device=None):
         mesh = active_mesh(mesh)
-        if mesh is not None:
-            gpt.check_serving_mesh(mesh, "FlywheelLoop")
         self.mesh = mesh
         self.device = gpt.resolve_device(device)
         self.cfg = cfg
@@ -211,7 +213,18 @@ class FlywheelLoop:
         optimizer = optimizer if optimizer is not None else spmd.Adam(lr)
         self._step = make_learner_step(cfg, optimizer, int(max_new_tokens),
                                        clip)
-        self._place = _loop.make_placer(self.device, mesh=mesh)
+        # the rows' block of the token sequences (and of their positions
+        # over ``seq``); the rows' block of everything else, whose second
+        # axis is a completion window
+        place_tokens = _loop.make_placer(self.device, mesh=mesh)
+        place_rows = _loop.make_placer(self.device, mesh=mesh, rules={
+            **sharding.DEFAULT_RULES, "length": None})
+
+        def place(batch):
+            return {**place_rows({k: v for k, v in batch.items()
+                                  if k != "tokens"}),
+                    "tokens": place_tokens(batch["tokens"])}
+        self._place = place
         self.state = spmd.TrainState(
             learner, optimizer.init(learner),
             torch.zeros((), dtype=torch.int32, device=self.device))

@@ -111,18 +111,21 @@ device steps, and reads no tensor, so a tick's one host sync stays one.
 **Serving on a mesh** (``mesh=``, `ray_tpu_torch.parallel`: one process
 per rank, every rank building the engine with the same arguments and
 driving it with the same calls): the model holds each rank's block
-(`models.gpt` on a mesh: heads and vocabulary over ``tensor``), the pool
-each rank's heads (`parallel.sharding.kv_pool_specs`), and ranks on the
-data axes repeat the step, as the reference's replicated block axis
-does. Every rank runs the same host scheduler. At the start of each
-tick the ranks all-gather a header of the scheduler's state (tick,
-``params_version``, a digest of the queue and the slots) and adopt the
-mesh's first rank's clock reading, which stamps queued requests for
-aging; before each step they all-gather a digest of its host inputs
-(the `parallel.sharding.engine_io_shardings` names, the step's kind,
-a chunk's start and length, the copy-on-write copies since the last
-step). `run_until_idle` meets the other ranks at an idle header before
-it returns. A rank whose header differs (a rank idle while another has
+(`models.gpt` on a mesh: heads and vocabulary over ``tensor``; int8
+weights as int8 and scale blocks), the pool each rank's heads
+(`parallel.sharding.kv_pool_specs`; a draft model's and its pool's
+too), and ranks on every other axis (``data``, ``fsdp``, ``seq``,
+``expert``, ``pipe``) repeat the step, as the reference's replicated
+block axis does. Every rank runs the same host scheduler. At the start
+of each tick the ranks all-gather a header of the scheduler's state
+(tick, ``params_version``, a digest of the queue, the slots and the
+queued imports) and adopt the mesh's first rank's clock reading, which
+stamps queued requests for aging; before each step they all-gather a
+digest of its host inputs (the `parallel.sharding.engine_io_shardings`
+names, a draft step's tables, the step's kind, a chunk's start and
+length, the copy-on-write copies since the last step).
+`run_until_idle` meets the other ranks at an idle header before it
+returns. A rank whose header differs (a rank idle while another has
 work among them) makes every rank raise
 `ray_tpu_torch.exceptions.MeshDivergenceError` naming the fields, at
 the same collective, so nothing hangs. Sampling runs on every rank from
@@ -131,9 +134,13 @@ agree by construction. Collectives through the host (gloo) cannot be
 captured: on a mesh of more than one rank the steps run eagerly, the
 trace counters still count one build per geometry, and `stats` reports
 ``captured`` and ``mesh``. The flight recorder records on the mesh's
-first rank only. Refused on a mesh (`NotImplementedError`, ROADMAP
-A6 (c)): int8 weights, the draft proposer, the prefill and decode roles
-and handoff imports, and the ``seq``, ``expert`` and ``pipe`` axes.
+first rank only. The handoff on a mesh: an export gathers each rank's
+heads of the blocks and all-gathers them over the head axes, so every
+rank holds the same blob in the reference's layout with whole heads
+(any engine imports it: one card, a mesh, the JAX package's); an
+import is made on every rank with the same blob, each rank scattering
+its heads, and the blob's digest enters the tick header, so a rank
+given another blob raises `MeshDivergenceError` on every rank.
 
 The weight swap has no watch (nor ``swap_traces``):
 `InferenceEngine.update_params` copies in place, with nothing to
@@ -166,6 +173,7 @@ from ray_tpu_torch.exceptions import MeshDivergenceError, OverloadedError
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.ops import decode_attention as da
 from ray_tpu_torch.parallel import collectives as col
+from ray_tpu_torch.parallel import sharding
 from ray_tpu_torch.parallel.mesh import Mesh, active_mesh
 from ray_tpu_torch.serve import priority as _prio
 from ray_tpu_torch.util import faults as _faults
@@ -653,8 +661,8 @@ def _pool_bytes(pool) -> int:
 # host arrays; -1 where a phase has no such field. "clock" is the mesh's
 # first rank's reading, adopted, not compared.
 MESH_FIELDS = ("phase", "tick", "version", "queue", "step", "tokens",
-               "window", "pos", "tables", "temps", "table", "start",
-               "length", "temp", "copies", "clock")
+               "window", "pos", "tables", "dtables", "temps", "table",
+               "start", "length", "temp", "copies", "clock")
 _PHASES = {"tick": 1, "step": 2, "idle": 3}
 _STEP_KINDS = {"decode": 1, "prefill": 2, "verify": 3, "draft": 4,
                "draft_prefill": 5}
@@ -666,6 +674,40 @@ def _digest(x) -> int:
         return zlib.crc32(repr(x).encode())
     return zlib.crc32(np.ascontiguousarray(x).view(np.uint8))
 
+
+def _blob_digest(blob: dict) -> int:
+    """A handoff blob's digest for the mesh header: its prompt, its
+    stream state and the bytes of its payloads (``kv_host`` when it
+    carries one)."""
+    host = blob.get("kv_host")
+    if host is not None:
+        rows = _digest(host.numpy())
+    else:
+        rows = 0
+        for which in ("payload", "draft_payload"):
+            for blk in blob.get(which) or ():
+                for name in sorted(blk):
+                    rows = zlib.crc32(np.ascontiguousarray(
+                        blk[name]).view(np.uint8), rows)
+    return _digest((_digest(np.asarray(blob["prompt"], np.int32)),
+                    blob["token"], blob["token_ver"], blob["max_new_tokens"],
+                    blob["temperature"], blob["eos_id"],
+                    blob.get("priority", 0), blob["params_version"], rows))
+
+
+def _on_mesh(model: gpt.GPT, cfg: gpt.GPTConfig, mesh, what: str):
+    """``model`` as the engine on ``mesh`` serves it: a model of whole
+    weights is cut to this rank's blocks; one built on the mesh is
+    kept."""
+    if mesh is not None and model.mesh is None:
+        return gpt.GPT(cfg, gpt.param_tree(model), device=model.device,
+                       dtype=model.embed.dtype, mesh=mesh)
+    if model.mesh is not mesh:
+        raise ValueError(f"the {what} holds its blocks for {model.mesh}, "
+                         f"the engine runs on {mesh}")
+    return model
+
+
 # Host carriers of pool dtypes in a handoff blob: numpy has no bfloat16,
 # so bf16 rows travel as their uint16 bit patterns and the blob names the
 # logical dtype (the reference's ml_dtypes arrays print as "bfloat16").
@@ -675,15 +717,18 @@ _CARRIERS = {torch.float32: (np.float32, "float32"),
              torch.int8: (np.int8, "int8")}
 
 
-def _block_layout(pools) -> tuple[list, int]:
+def _block_layout(pools, heads: int = 1) -> tuple[list, int]:
     """The byte layout of ``pools`` (``[(pool, n_blocks)]``) in one flat
     buffer, block-major per entry: ``[(pool index, name, dtype, shape,
-    offset, nbytes)]`` and the total, each entry 16-byte aligned."""
+    offset, nbytes)]`` and the total, each entry 16-byte aligned. A pool
+    that holds ``1 / heads`` of the heads (a rank's share on a mesh) is
+    laid out with whole heads: a blob reads the same on any engine."""
     layout, total = [], 0
     for i, (cache, n) in enumerate(pools):
         for name in gpt.pool_entries(cache):
             t = cache[name]
-            shape = (n, t.shape[0]) + tuple(t.shape[2:])
+            shape = (n, t.shape[0], t.shape[2], t.shape[3] * heads) \
+                + tuple(t.shape[4:])
             nbytes = math.prod(shape) * t.element_size()
             layout.append((i, name, t.dtype, shape, total, nbytes))
             total += -(-nbytes // 16) * 16
@@ -790,11 +835,11 @@ class InferenceEngine:
     the share of requests the engine's `util.telemetry.FlightRecorder`
     traces.
 
-    ``mesh`` (default: the model's) serves over a `parallel.Mesh` of
-    ``data``, ``fsdp`` and ``tensor``; every rank builds the engine with
-    the same arguments and makes the same calls. ``model`` is a
-    `models.gpt.GPT` built on that mesh or one holding whole weights,
-    of which each rank keeps its blocks (module docstring)."""
+    ``mesh`` (default: the model's) serves over a `parallel.Mesh`; every
+    rank builds the engine with the same arguments and makes the same
+    calls. ``model`` (and ``draft_params``) is a `models.gpt.GPT` built
+    on that mesh or one holding whole weights, of which each rank keeps
+    its blocks (module docstring)."""
 
     def __init__(self, model: gpt.GPT, cfg: gpt.GPTConfig, *,
                  slots: int = 4, max_len: int | None = None,
@@ -818,15 +863,6 @@ class InferenceEngine:
             raise TypeError(f"mesh must be a parallel.Mesh, got "
                             f"{type(mesh).__name__}")
         mesh = active_mesh(mesh) or model.mesh
-        if mesh is not None:
-            gpt.check_serving_mesh(mesh, "InferenceEngine")
-            for what, bad in (("int8 weights", cfg.weight_dtype == "int8"),
-                              ("the draft proposer", spec == "draft"),
-                              (f"the {role} role", role != "colocated")):
-                if bad:
-                    raise NotImplementedError(
-                        f"InferenceEngine on a mesh: {what} is ROADMAP "
-                        "A6 (c)")
         self.mesh = mesh
         if role not in ("colocated", "prefill", "decode"):
             raise ValueError(f"unknown engine role {role!r}")
@@ -845,13 +881,7 @@ class InferenceEngine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine runs "
                              f"on {self.device}")
-        if mesh is not None and model.mesh is None:
-            # whole weights: this rank keeps its blocks
-            model = gpt.GPT(cfg, gpt.param_tree(model), device=self.device,
-                            dtype=model.embed.dtype, mesh=mesh)
-        elif model.mesh is not mesh:
-            raise ValueError(f"the model holds its blocks for {model.mesh}, "
-                             f"the engine runs on {mesh}")
+        model = _on_mesh(model, cfg, mesh, "model")
         if self.device.type == "cuda":
             # f32 accumulation in every bf16 product and no TF32 in f32
             # ones: the numerics the JAX engine's einsums pin with
@@ -870,6 +900,7 @@ class InferenceEngine:
             if draft.device != self.device:
                 raise ValueError(f"draft model lives on {draft.device}, "
                                  f"engine runs on {self.device}")
+            draft = _on_mesh(draft, draft_cfg, mesh, "draft model")
         # The reference counts traces of its jitted quantize, one per
         # distinct tree shape (target and draft): construction quantizes;
         # a swap's tree has the same shapes, so it adds none.
@@ -915,7 +946,7 @@ class InferenceEngine:
                                        else draft_cache_blocks)
             self.draft_cache = gpt.init_kv_pool(
                 draft_cfg, self.draft_cache_blocks + 1, block_size,
-                self.device)
+                self.device, mesh=mesh)
             self._draft_alloc = BlockAllocator(self.draft_cache_blocks + 1)
         # Capacity gauges: the pools' device bytes (sink rows and a draft
         # pool included) and the bytes one cached position costs over all
@@ -929,6 +960,12 @@ class InferenceEngine:
             t.numel() * t.element_size() for n, t in self.cache.items()
             if not n.endswith("_rows")) / ((self.cache_blocks + 1) *
                                            block_size)
+        # The mesh axes that split the pools' heads: a handoff's blocks
+        # travel with whole heads (`_block_layout`).
+        self._head_axes = () if mesh is None else mesh.live_axes(
+            sharding.spec_axes(sharding.kv_pool_specs(mesh)["k"][3:4]))
+        self._head_ranks = 1 if mesh is None else mesh.axis_size(
+            self._head_axes)
         self._alloc = BlockAllocator(self.cache_blocks + 1)
         self._tree = (RadixTree(block_size, self._alloc)
                       if prefix_cache else None)
@@ -1008,12 +1045,13 @@ class InferenceEngine:
         # host blob parked when the prompt's prefill completes, until
         # `handoff_for`/`take_handoff` collects it. Import side (any other
         # role): FIFO of (rid, blob) waiting for a slot, mirrored by
-        # `_import_rids`; and (event, host memory) per import whose
+        # `_import_rids` (rid -> the blob's digest, which a mesh's tick
+        # header carries); and (event, host memory) per import whose
         # host-to-device copies the stream may not have run yet: the
         # memory stays referenced until its event has passed.
         self._handoffs: dict[int, dict] = {}
         self._imports: collections.deque = collections.deque()
-        self._import_rids: set[int] = set()
+        self._import_rids: dict[int, int] = {}
         self._h2d_inflight: collections.deque = collections.deque()
 
         # Priority classes: stride pass values per backlogged class, and
@@ -1103,6 +1141,7 @@ class InferenceEngine:
         state = [(q.rid, q.priority, q.max_new_tokens, q.temperature,
                   _digest(q.prompt)) for q in self._pending]
         state += [(s.rid, s.phase, s.filled, s.pos) for s in self._slots]
+        state += list(self._import_rids.items())
         return _digest(state)
 
     def _agree_tick(self):
@@ -1300,7 +1339,7 @@ class InferenceEngine:
                 self._handoffs_abandoned += 1
                 hit = True
             if rid in self._import_rids:
-                self._import_rids.discard(rid)
+                del self._import_rids[rid]
                 for i, (irid, _) in enumerate(self._imports):
                     if irid == rid:
                         del self._imports[i]
@@ -1387,7 +1426,7 @@ class InferenceEngine:
         one; `disagg.DecodeReplica` receives a pulled blob's frames into
         one, so either imports with one copy an entry."""
         pools = self._handoff_pools(n_blocks, draft)
-        layout, total = _block_layout(pools)
+        layout, total = _block_layout(pools, self._head_ranks)
         host = torch.empty(total, dtype=torch.uint8,
                            pin_memory=self.device.type == "cuda")
         which = ("payload", "draft_payload")
@@ -1405,20 +1444,27 @@ class InferenceEngine:
         that buffer's ``(host, views, dtypes)``. The copy is synchronous,
         so a blob that only goes over the wire carries no stream use, and
         whichever thread drops its last view (a block server's) frees it
-        without a CUDA call."""
+        without a CUDA call. On a mesh each rank gathers its heads' rows
+        and all-gathers every rank's over the head axes, so every rank
+        holds the whole-head blob."""
         n = (slot.prompt.size - 1) // self.block_size + 1
         ids = [slot.blocks, slot.draft_blocks]
         pools = self._handoff_pools(n, True)
-        layout, total = _block_layout(pools)
+        layout, total = _block_layout(pools, self._head_ranks)
         host, views, dtypes = self.handoff_buffer(n, True)
         flat = host
         if self.device.type == "cuda":
             flat = torch.empty(total, dtype=torch.uint8, device=self.device)
         for i, (cache, _) in enumerate(pools):
             self._kv_first_use("gather", cache)
-            gpt.gather_blocks(cache, ids[i][:n], out={
-                name: flat[off:off + nb].view(dt).view(shape)
-                for j, name, dt, shape, off, nb in layout if j == i})
+            out = {name: flat[off:off + nb].view(dt).view(shape)
+                   for j, name, dt, shape, off, nb in layout if j == i}
+            if not self._head_axes:
+                gpt.gather_blocks(cache, ids[i][:n], out=out)
+                continue
+            for name, rows in gpt.gather_blocks(cache, ids[i][:n]).items():
+                out[name].copy_(col.all_gather(rows, self._head_axes,
+                                               self.mesh, dim=3))
         if flat is not host:
             host.copy_(flat)
         return host, views, dtypes
@@ -1440,13 +1486,15 @@ class InferenceEngine:
         freed or refilled memory, and nothing here waits for the
         device."""
         layout, total = _block_layout([(c, len(ids))
-                                       for c, _, _, ids in pools])
+                                       for c, _, _, ids in pools],
+                                      self._head_ranks)
         if total == 0:
             return
         cuda = self.device.type == "cuda"
         flat = torch.empty(total, dtype=torch.uint8, device=self.device)
         if host is not None:
-            src, _ = _block_layout([(c, len(b)) for c, b, _, _ in pools])
+            src, _ = _block_layout([(c, len(b)) for c, b, _, _ in pools],
+                                   self._head_ranks)
             for (i, _, _, _, off, nb), (_, _, _, _, soff, snb) in zip(
                     layout, src):
                 start = soff + pools[i][2] * (snb // len(pools[i][1]))
@@ -1470,9 +1518,18 @@ class InferenceEngine:
             if ids:
                 self._kv_first_use("scatter", cache)
                 gpt.scatter_blocks(cache, {
-                    name: flat[off:off + nb].view(dt).view(shape)
+                    name: self._my_heads(flat[off:off + nb].view(dt).view(
+                        shape))
                     for j, name, dt, shape, off, nb in layout if j == i},
                     ids)
+
+    def _my_heads(self, rows):
+        """This rank's heads of whole-head block rows ``[n, L, bs, H,
+        ...]`` (all of them on one card)."""
+        if not self._head_axes:
+            return rows
+        return sharding.local_shard(rows, sharding.PartitionSpec(
+            None, None, None, self._head_axes), self.mesh)
 
     def _export_handoff(self, slot_idx: int):
         """Prefill-role endgame of one slot (under the lock, from
@@ -1570,7 +1627,9 @@ class InferenceEngine:
                                  f"{sorted(blk)}, the pool {sorted(names)}")
             for name in names:
                 t, arr = cache[name], np.asarray(blk[name])
-                rows = (t.shape[0],) + tuple(t.shape[2:])
+                # whole heads (a mesh rank's pool holds its share)
+                rows = (t.shape[0], t.shape[2], t.shape[3] * self._head_ranks
+                        ) + tuple(t.shape[4:])
                 carrier = _CARRIERS[t.dtype][0]
                 if arr.shape != rows or not (
                         arr.dtype == carrier
@@ -1594,10 +1653,6 @@ class InferenceEngine:
         if self.role == "prefill":
             raise RuntimeError(
                 "a prefill-role engine cannot import handoffs")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "import_handoff on a mesh (a head-split pool) is ROADMAP "
-                "A6 (c)")
         prompt = np.asarray(blob["prompt"], np.int32).reshape(-1)
         p = prompt.size
         max_new = int(blob["max_new_tokens"])
@@ -1638,7 +1693,8 @@ class InferenceEngine:
                                 "draft payload")
         host = blob.get("kv_host")
         if host is not None:
-            need = _block_layout(self._handoff_pools(n_written, True))[1]
+            need = _block_layout(self._handoff_pools(n_written, True),
+                                 self._head_ranks)[1]
             if not (isinstance(host, torch.Tensor)
                     and host.dtype == torch.uint8 and host.dim() == 1
                     and host.device.type == "cpu" and host.numel() >= need):
@@ -1650,12 +1706,15 @@ class InferenceEngine:
             raise ValueError(
                 f"handoff priority {priority} outside "
                 f"[0, {self.priority_classes})")
+        # on a mesh the tick header carries each queued import's digest:
+        # a rank given another blob makes every rank raise
+        digest = 0 if self.mesh is None else _blob_digest(blob)
         with self._lock:
             rid = self._rid
             self._rid += 1
             self._out[rid] = collections.deque()
             self._imports.append((rid, blob))
-            self._import_rids.add(rid)
+            self._import_rids[rid] = digest
             self._class_counter(priority)["submitted"] += 1
             self._recorder.on_submit(rid, p)
         return rid
@@ -1679,7 +1738,7 @@ class InferenceEngine:
                 self._preempt(victim, "import-pressure")
                 continue
             self._imports.popleft()
-            self._import_rids.discard(rid)
+            del self._import_rids[rid]
             did = True
         return did
 
@@ -1832,14 +1891,15 @@ class InferenceEngine:
                 what: str) -> list:
         """``(engine leaf, new leaf)`` pairs for a swap into ``model``:
         ``new_params`` placed on the engine's device in the dtype the
-        model holds, quantized on an int8-weight config, and checked leaf
-        for leaf in name, shape and dtype."""
+        model holds (on a mesh: cut to the rank's blocks), quantized on an
+        int8-weight config unless it is an int8 tree already, and checked
+        leaf for leaf in name, shape and dtype."""
         tree = (gpt.param_tree(new_params)
                 if isinstance(new_params, gpt.GPT) else new_params)
         placed = gpt.GPT(cfg, tree, device=self.device,
                          dtype=model.embed.dtype, mesh=model.mesh,
                          rules=model.rules)
-        if cfg.weight_dtype == "int8":
+        if cfg.weight_dtype == "int8" and not placed.quantized:
             placed = gpt.quantize_params(placed)
         old, new = (dict(m.named_parameters()) for m in (model, placed))
         if list(old) != list(new):
@@ -2610,7 +2670,7 @@ class InferenceEngine:
         # and is scheduled nowhere else yet; a parked handoff's slot and
         # queue went at export, so its rid appears nowhere else.
         import_rids = {irid for irid, _ in self._imports}
-        assert import_rids == self._import_rids, \
+        assert import_rids == set(self._import_rids), \
             f"import registry drift: {import_rids} != {self._import_rids}"
         assert not import_rids & (set(pend_rids) | set(slot_rids)), \
             "import rid also pending/active"

@@ -170,8 +170,9 @@ def test_unported_features_refuse(tree):
         _port(tree, role="bogus")
     # the flight recorder is ported: telemetry_sample constructs; device
     # meshes are ported: a mesh of one rank serves as no mesh, bit for
-    # bit (the multi-rank cases and the refusals that stay, ROADMAP
-    # A6 (c), are tests/test_torch_serve_mesh.py's); a mesh must be one
+    # bit (the multi-rank cases are tests/test_torch_serve_mesh.py's,
+    # test_torch_serve_mesh_roles.py's and test_torch_mesh_axes.py's); a
+    # mesh must be one
     assert _port(tree, telemetry_sample=0.5)._recorder.sample == 0.5
     from ray_tpu_torch.parallel import single_device_mesh
     one = _port(tree, mesh=single_device_mesh())

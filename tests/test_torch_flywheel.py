@@ -142,9 +142,8 @@ def test_completion_logprobs_match_jax(trees, jax_logprobs):
 def test_completion_logprobs_refuses_a_mesh(trees):
     """``mesh=`` is ported: a mesh of one rank is the single-card
     function, bit for bit; a mesh the model was not built on raises (the
-    multi-rank cases, and the seq split that stays refused, ROADMAP
-    A6 (c), are tests/test_torch_rl_moe_mesh.py's and
-    tests/test_torch_spmd_mesh.py's)."""
+    multi-rank cases, the seq split among them, are
+    tests/test_torch_rl_moe_mesh.py's and tests/test_torch_mesh_axes.py's)."""
     from ray_tpu_torch.parallel import single_device_mesh
     model = _model(trees[0])
     toks = torch.from_numpy(np.random.default_rng(0).integers(

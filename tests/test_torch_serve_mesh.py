@@ -25,7 +25,11 @@ each rank holds 2 of the 4 heads, and the data ranks repeat the step.
 - a rank given a diverging input, or a request submitted on one rank
   alone, makes every rank raise `MeshDivergenceError` naming the field,
   and nothing hangs;
-- what stays refused on a mesh names ROADMAP A6 (c).
+- what a mesh once refused constructs (int8 weights, a quantized `GPT`,
+  the draft proposer, the prefill role, an import, the ``seq`` axis;
+  their numbers are `tests/test_torch_serve_mesh_roles.py`'s and
+  `tests/test_torch_mesh_axes.py`'s), and what stays refused (MoE and
+  ViT over ``seq`` or ``pipe``) names ROADMAP A6 (c).
 
 This module imports no JAX at its top: the spawned ranks import it to
 find their entry point.
@@ -207,10 +211,15 @@ def _serve_jobs(rank, payload):
     except MeshDivergenceError as e:
         out["diverge_idle"] = str(e)
 
-    # what stays refused on a mesh (ROADMAP A6 (c))
+    # what a mesh once refused constructs; what stays refused on a mesh
+    # (ROADMAP A6 (c))
+    from ray_tpu_torch.models import moe, vit
     errs = []
     seq_mesh = MeshSpec(data=2, seq=2).build()
+    pipe_mesh = MeshSpec(data=2, pipe=2).build()
     cfg_w8 = gpt.small(dtype="float32", weight_dtype="int8")
+    pre = engine("chunked_cow", role="prefill")
+    blob = pre.handoff_for(pre.submit(p, max_new_tokens=2))
     for fn in (lambda: InferenceEngine(
                    gpt.params_from_numpy(tree, cfg_w8, "cpu"), cfg_w8,
                    device="cpu", mesh=mesh, **ENGINE),
@@ -220,10 +229,14 @@ def _serve_jobs(rank, payload):
                               draft_params=gpt.params_from_numpy(
                                   tree, cfg, "cpu"), draft_cfg=cfg),
                lambda: engine("chunked_cow", role="prefill"),
-               lambda: engine("chunked_cow").import_handoff({}),
+               lambda: engine("chunked_cow").import_handoff(blob),
                lambda: InferenceEngine(gpt.params_from_numpy(
                    tree, cfg, "cpu"), cfg, device="cpu", mesh=seq_mesh,
-                   **ENGINE)):
+                   **ENGINE),
+               lambda: moe.MoE(moe.small(), moe.init_params(
+                   0, moe.small(), "cpu"), device="cpu", mesh=seq_mesh),
+               lambda: vit.ViT(vit.small(), vit.init_params(
+                   0, vit.small(), "cpu"), device="cpu", mesh=pipe_mesh)):
         try:
             fn()
             errs.append(None)
@@ -430,6 +443,13 @@ def test_a_rank_left_idle_raises_on_every_rank(world):
 
 
 def test_what_stays_refused_names_a6c(world):
+    """int8 weights, a quantized `GPT`, the draft proposer, the prefill
+    role, an import and the ``seq`` axis construct on a mesh; MoE over
+    ``seq`` and ViT over ``pipe`` still raise, naming A6 (c) and the
+    axis."""
     for res in world:
         errs = res["refusals"]
-        assert all(e is not None and "A6 (c)" in e for e in errs), errs
+        assert errs[:6] == [None] * 6, errs
+        assert all(e is not None and "A6 (c)" in e for e in errs[6:]), errs
+        assert "MoE" in errs[6] and "'seq'" in errs[6]
+        assert "ViT" in errs[7] and "'pipe'" in errs[7]
