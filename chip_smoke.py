@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # one card, no arguments
     python3 chip_smoke.py --decode-times [CHECKOUT]
     python3 chip_smoke.py --ft-child    # phase 17 (b)'s trainer (env)
-    python3 chip_smoke.py --mesh-child  # one rank of phase 18 (b), 19 or 20
+    python3 chip_smoke.py --mesh-child  # one rank of phases 18 (b) to 21
 
 Builds the port's CUDA kernels from ``ray_tpu_torch/ops/csrc/`` with nvcc
 (sm_90a, one nvcc per source, all at once) and drives its paths, paged
@@ -291,6 +291,26 @@ the MoE, ViT and ResNet families) and unpaged decode, end to end:
    requests to phase 3's rule. Per rank: tick p50/p99, the collectives'
    share of the wall, export and import ms, peak memory and launches by
    kernel name. Both ranks' tokens and log-probabilities must be equal.
+21. the rest of training on a mesh: single-card references in the
+   parent first (``MoEConfig()`` at 4 layers in bf16 and f32,
+   ``ViTConfig()``, ``bench.py``'s GPT at 4 layers), then two
+   ``--mesh-child`` ranks (``MESH_PHASE=21``): (a) ``make_moe_trainer``
+   over seq=2 (the ring; the route's slots over the global order) in f32,
+   held to 18 (b)'s limits, and in bf16, printed (the router turns
+   bf16 rounding into other experts), and over pipe=2 (the ranks repeat
+   the step), 2 steps, each leaf's gap and the router's and an expert's
+   printed; (b) ``ViTConfig()`` over pipe=2, 2 steps at batch 8; (d)
+   ``make_gpt_trainer`` on tensor=2 with an ``AsyncCheckpointer``
+   snapshotting every step: one commit a snapshot (rank 0's), the
+   manifest's specs equal to ``ft.state_specs``, ``maybe_snapshot``'s
+   host ms, the clones' device ms, the writer's gather and commit, the
+   next loss again from the checkpoint restored onto the mesh, and
+   restored onto this card in the parent within 18 (b)'s loss limit;
+   then four ranks (``MESH_PHASE=21c``): (c) ``make_gpt_pipeline_trainer``
+   on pipe=2 x tensor=2, 3 steps, each stage's blocks whole on both
+   tensor ranks (flash launches a rank at 16 heads), held to 18 (b)'s
+   limits, and the three flash kernels against their plain versions at
+   a stage's shapes on each rank in turn.
 
 Before the phases it prints the registers and spilled bytes of every
 tensor-core kernel and of the two split-K decode kernels from nvcc's
@@ -5169,11 +5189,12 @@ def _mesh_param_gaps(model, mesh, ref_path: str, init: dict, dev) -> dict:
     `_save_params`) after as many steps: the largest element gap, and
     the gap's norm over the norm of the single card's update (its leaf
     less ``init``'s, the seed's initial leaves by name); the worst leaf
-    of each."""
+    of each, and each leaf's gap over its update (``by_leaf``)."""
     import torch
     from ray_tpu_torch.parallel import sharding
     ref = torch.load(ref_path, mmap=True, weights_only=True)
-    out = {"max_abs": -1.0, "update_rel": -1.0, "leaves": len(ref)}
+    out = {"max_abs": -1.0, "update_rel": -1.0, "leaves": len(ref),
+           "by_leaf": {}}
     for name, p in model.named_parameters():
         full = sharding.gather_full(p.detach(), model.specs[name], mesh)
         want = ref[name].to(dev)
@@ -5184,6 +5205,8 @@ def _mesh_param_gaps(model, mesh, ref_path: str, init: dict, dev) -> dict:
         for key, v in (("max_abs", float(gap.max())),
                        ("update_rel",
                         float(torch.linalg.vector_norm(gap)) / update)):
+            if key == "update_rel":
+                out["by_leaf"][name] = v
             if v > out[key]:
                 out[key], out[f"{key}_leaf"] = v, name
         del full, want, gap
@@ -5238,7 +5261,10 @@ def mesh_child() -> int:
     """``--mesh-child``: one rank of a two-rank gloo world on the card
     (MESH_RANK, MESH_WORLD, MESH_PORT, MESH_OUT): phase 18 (b)'s runs,
     with MESH_PHASE=19 phase 19's (`serve_mesh_child`), with
-    MESH_PHASE=20 phase 20's (`roles_mesh_child`)."""
+    MESH_PHASE=20 phase 20's (`roles_mesh_child`), with MESH_PHASE=21
+    phase 21's (a), (b) and (d) (`train_rest_child`), with
+    MESH_PHASE=21c phase 21 (c) on one of four ranks
+    (`pipe_rest_child`)."""
     import datetime
 
     import torch
@@ -5265,6 +5291,10 @@ def mesh_child() -> int:
         res.update(serve_mesh_child(dev))
     if phase == "20":
         res.update(roles_mesh_child(dev))
+    if phase == "21":
+        res.update(train_rest_child(dev))
+    if phase == "21c":
+        res.update(pipe_rest_child(dev))
     for label, kw, layers, kind in runs:
         mesh = MeshSpec(**kw).build()
         cfg = _mesh_cfg(layers)
@@ -5339,11 +5369,12 @@ def _shard_xent_check(model, batch, mesh, dev) -> dict:
             "max_abs_err": err, **times}
 
 
-def _mesh_children(phase: str, env: dict, timeout_s: float) -> tuple:
-    """Two `--mesh-child` ranks of phase ``phase`` on the card (gloo over
-    a free localhost port, ``env`` added to each one's environment), each
-    printing its lines; returns (their results in rank order, the
-    seconds until both ended). A rank that fails or outlives
+def _mesh_children(phase: str, env: dict, timeout_s: float,
+                   n: int = 2) -> tuple:
+    """``n`` `--mesh-child` ranks of phase ``phase`` on the card (gloo
+    over a free localhost port, ``env`` added to each one's environment),
+    each printing its lines; returns (their results in rank order, the
+    seconds until all ended). A rank that fails or outlives
     ``timeout_s`` fails the phase; every child is stopped."""
     import shutil
     import socket
@@ -5354,8 +5385,8 @@ def _mesh_children(phase: str, env: dict, timeout_s: float) -> tuple:
         port = sock.getsockname()[1]
     procs, res = [], []
     try:
-        for r in range(2):
-            child_env = dict(os.environ, MESH_RANK=str(r), MESH_WORLD="2",
+        for r in range(n):
+            child_env = dict(os.environ, MESH_RANK=str(r), MESH_WORLD=str(n),
                              MESH_PORT=str(port), MESH_PHASE=phase,
                              MESH_OUT=os.path.join(base, f"rank{r}.json"),
                              **env)
@@ -5848,10 +5879,11 @@ def _serve_mesh_flywheel(dev, mesh) -> dict:
             "wq_block": list(fly.state.params.layers["wq"].shape)}
 
 
-def _moe_mesh_cfg():
+def _moe_mesh_cfg(dtype: str = "bfloat16"):
     import dataclasses
     from ray_tpu_torch.models import moe
-    return dataclasses.replace(moe.MoEConfig(), n_layers=MOE_MESH_LAYERS)
+    return dataclasses.replace(moe.MoEConfig(), n_layers=MOE_MESH_LAYERS,
+                               dtype=dtype)
 
 
 def _moe_mesh_batches(cfg) -> list:
@@ -5866,22 +5898,24 @@ def _moe_mesh_batches(cfg) -> list:
     return out
 
 
-def _moe_mesh_run(dev, mesh, ref_dir: str) -> dict:
+def _moe_mesh_run(dev, mesh, ref_dir: str,
+                  dtype: str = "bfloat16") -> dict:
     """(d) `make_moe_trainer` at MoEConfig()'s width cut to
-    MOE_MESH_LAYERS layers, batch MOE_MESH_BATCH, from MESH_SEED:
-    `_mesh_steps`' record (losses, grad norms, step times, collectives,
-    launches, peak memory) on ``mesh``. With ``mesh`` None (the single
-    card) its leaves after the last step go to ``ref_dir``; on a mesh
-    each leaf is held against them (`_mesh_param_gaps`)."""
+    MOE_MESH_LAYERS layers, batch MOE_MESH_BATCH, from MESH_SEED, in
+    ``dtype``: `_mesh_steps`' record (losses, grad norms, step times,
+    collectives, launches, peak memory) on ``mesh``. With ``mesh`` None
+    (the single card) its leaves after the last step go to ``ref_dir``;
+    on a mesh each leaf is held against them (`_mesh_param_gaps`)."""
     from ray_tpu_torch.models import moe
     from ray_tpu_torch.train import spmd
-    cfg = _moe_mesh_cfg()
+    cfg = _moe_mesh_cfg(dtype)
     state, step, place = spmd.make_moe_trainer(
         cfg, seed=MESH_SEED, optimizer=_mesh_optimizer(spmd), device=dev,
         mesh=mesh)
     rec, state = _mesh_steps(state, step, place, _moe_mesh_batches(cfg))
     rec["w_up_block"] = list(state.params.layers["w_up"].shape)
-    path = os.path.join(ref_dir, "moe_params.pt")
+    path = os.path.join(ref_dir, "moe_params.pt" if dtype == "bfloat16"
+                        else f"moe_params_{dtype}.pt")
     if mesh is None:
         _save_params(state.params, path)
     else:
@@ -6354,6 +6388,347 @@ def phase_serve_mesh_roles(dev, smi: str) -> dict:
     return {"card": smi, "ranks": res, "part_s": {"ranks": total}}
 
 
+# phase 21: the rest of training on a mesh. Two `--mesh-child` ranks
+# (MESH_PHASE=21) on the one card over gloo, as phase 18 (b): (a)
+# MoEConfig()'s width over seq=2 and over pipe=2, (b) ViTConfig()'s over
+# pipe=2, (d) the async checkpointer on tensor=2; then four ranks
+# (MESH_PHASE=21c) for (c), the GPipe trainer on pipe=2 x tensor=2. The
+# single-card references run in the parent first.
+TRAIN_REST_TIMEOUT_S = 600
+VIT_MESH_BATCH, VIT_MESH_STEPS = 8, 2
+CKPT_MESH_LAYERS, CKPT_MESH_STEPS = 4, 2
+PIPE_MESH_LAYERS, PIPE_MICROBATCHES = 4, 2
+# (label, mesh, dtype, held): MoE over seq in f32 and in bf16, over pipe
+# in bf16. A top-k router turns a last-bit difference into another
+# expert, and Adam's first steps move an element by about the learning
+# rate whatever its gradient's size: over seq the ranks sum their
+# rows' bf16-rounded gradient blocks where one card rounds the total, so
+# in bf16 the gap to one card measures those roundings, not the route
+# (the f32 run's gap is the route's). The f32 run is held to phase 18
+# (b)'s limits, the bf16 one printed; the pipe ranks repeat one card's
+# step exactly.
+TRAIN_REST_MOE = (("seq=2 f32", dict(data=1, seq=2), "float32", True),
+                  ("seq=2", dict(data=1, seq=2), "bfloat16", False),
+                  ("pipe=2", dict(data=1, pipe=2), "bfloat16", True))
+
+
+def _vit_mesh_cfg():
+    from ray_tpu_torch.models import vit
+    return vit.ViTConfig()
+
+
+def _vit_mesh_run(dev, mesh, ref_dir: str) -> dict:
+    """(b) ViTConfig() trained VIT_MESH_STEPS steps at batch
+    VIT_MESH_BATCH from MESH_SEED (`_mesh_optimizer`, rows placed by the
+    ``"batch"`` rule alone: a batch of images has no length axis), with
+    `_mesh_steps`' record. With ``mesh`` None the leaves after the last
+    step go to ``ref_dir``; on a mesh each is held against them."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.train import spmd
+    cfg = _vit_mesh_cfg()
+    rng = np.random.default_rng(MESH_SEED + 21)
+    batches = [{"images": rng.standard_normal(
+                    (VIT_MESH_BATCH, cfg.image_size, cfg.image_size,
+                     cfg.channels)).astype(np.float32),
+                "labels": rng.integers(0, cfg.num_classes,
+                                       VIT_MESH_BATCH).astype(np.int32)}
+               for _ in range(VIT_MESH_STEPS)]
+
+    def place(b):
+        if mesh is not None:
+            b = sharding.shard_batch(b, mesh, logical=("batch",))
+        return {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+    opt = _mesh_optimizer(spmd)
+    model = vit.ViT(cfg, vit.init_params(MESH_SEED, cfg, dev), device=dev,
+                    dtype=torch.float32, trainable=True, mesh=mesh)
+    state = spmd.TrainState(model, opt.init(model),
+                            torch.zeros((), dtype=torch.int32, device=dev))
+    step = spmd.make_train_step(lambda m, b: vit.loss_fn(m, b, cfg), opt)
+    rec, state = _mesh_steps(state, step, place, batches)
+    path = os.path.join(ref_dir, "vit_params.pt")
+    if mesh is None:
+        _save_params(state.params, path)
+    else:
+        rec["batch_axes"] = list(spmd.batch_axes(state.params))
+        rec["params"] = _mesh_param_gaps(
+            state.params, mesh, path,
+            _flat_params(vit.init_params(MESH_SEED, cfg, dev)), dev)
+    del state, step
+    _free()
+    return rec
+
+
+def _ckpt_mesh_run(dev, root: str) -> dict:
+    """(d) `make_gpt_trainer` at bench.py's width cut to CKPT_MESH_LAYERS
+    layers on tensor=2 with an `AsyncCheckpointer` snapshotting every
+    step: the host time of each `maybe_snapshot` on the training thread,
+    the clones' device ms, the writer's gather and commit seconds, the
+    commits, the manifest's specs against `ft.state_specs`, the next
+    step's loss, and that loss again from the checkpoint restored onto
+    the same mesh. Launches counted from zero around the checkpointed
+    steps."""
+    import torch
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.parallel import collectives as col
+    from ray_tpu_torch.train import ft, spmd
+    mesh = MeshSpec(data=1, tensor=2).build()
+    cfg = _mesh_cfg(CKPT_MESH_LAYERS)
+    state, step, place = spmd.make_gpt_trainer(
+        cfg, seed=MESH_SEED, optimizer=_mesh_optimizer(spmd), device=dev,
+        mesh=mesh)
+    batches = [place(b) for b in _mesh_batches(cfg)]
+    ckpt = ft.AsyncCheckpointer(root, every=1, keep=CKPT_MESH_STEPS + 1)
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    col.reset_stats()
+    snap_ms, losses = [], []
+    for i in range(CKPT_MESH_STEPS):
+        state, m = step(state, batches[i])
+        t0 = time.perf_counter()
+        ckpt.maybe_snapshot(state, i + 1)
+        snap_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    launches = {k: v for k, v in ops.kernel_launches().items() if v}
+    t0 = time.perf_counter()
+    ckpt.flush()
+    flush_s = time.perf_counter() - t0
+    manifest = ft.load_manifest(ft.latest_checkpoint(root))
+    specs_equal = ([e["spec"] for e in manifest["shards"]]
+                   == ft.state_specs(state))
+    nxt = float(step(state, batches[CKPT_MESH_STEPS])[1]["loss"])
+    ckpt.close()
+    rec = {"losses": losses, "next_loss": nxt, "snapshot_ms": snap_ms,
+           "timings": ckpt.timings, "commits": ckpt.commits,
+           "snapshots": ckpt.snapshots, "flush_s": flush_s,
+           "steps": [s for s, _ in ft.committed_steps(root)],
+           "specs_equal": specs_equal,
+           "split_specs": sum(any(e["spec"]) for e in manifest["shards"]),
+           "shards": len(manifest["shards"]), "launches": launches}
+    del state
+    _free()
+    tree, at = ft.restore_resharded(root, dev, mesh=mesh)
+    back = ft.state_from_tree(tree, cfg, dev, mesh=mesh)
+    rec["restored_at"] = at
+    rec["mesh_next_loss"] = float(step(back, batches[CKPT_MESH_STEPS])[1][
+        "loss"])
+    del tree, back, step
+    _free()
+    return rec
+
+
+def train_rest_child(dev) -> dict:
+    """Phase 21 (a), (b) and (d) on this rank of two; every path's
+    counters zeroed just before it and read just after."""
+    from ray_tpu_torch.parallel import MeshSpec
+    ref_dir = os.environ["MESH_REF_DIR"]
+    res = {"moe": {}}
+    for label, kw, dtype, _ in TRAIN_REST_MOE:
+        res["moe"][label] = _moe_mesh_run(dev, MeshSpec(**kw).build(),
+                                          ref_dir, dtype)
+    res["vit"] = _vit_mesh_run(dev, MeshSpec(data=1, pipe=2).build(),
+                               ref_dir)
+    res["ckpt"] = _ckpt_mesh_run(dev, os.path.join(ref_dir, "ckpt"))
+    return res
+
+
+def pipe_rest_child(dev) -> dict:
+    """Phase 21 (c) on this rank of four: `make_gpt_pipeline_trainer` at
+    bench.py's width cut to PIPE_MESH_LAYERS layers on pipe=2 x tensor=2
+    (each stage's blocks whole on both tensor ranks, flash on all 16
+    heads), `_mesh_steps`' record and the leaves against the parent's
+    single-card trainer; then the three flash kernels against their plain
+    versions at a stage's shapes ([MESH_BATCH / PIPE_MICROBATCHES, T, 16,
+    64], bf16, causal), on each rank in turn."""
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.train import spmd
+    mesh = MeshSpec(data=1, pipe=2, tensor=2).build()
+    cfg = _mesh_cfg(PIPE_MESH_LAYERS)
+    state, step, place = spmd.make_gpt_pipeline_trainer(
+        cfg, mesh, num_microbatches=PIPE_MICROBATCHES, seed=MESH_SEED,
+        optimizer=_mesh_optimizer(spmd), device=dev)
+    res, state = _mesh_steps(state, step, place, _mesh_batches(cfg))
+    res["wq_block"] = list(state.params.layers["wq"].shape)
+    res["params"] = _mesh_param_gaps(
+        state.params, mesh,
+        _mesh_ref_path(os.environ["MESH_REF_DIR"], PIPE_MESH_LAYERS),
+        _flat_params(gpt.init_params(MESH_SEED, cfg, dev)), dev)
+    del state, step
+    _free()
+    g = torch.Generator(device=dev).manual_seed(MESH_SEED + dist.get_rank())
+    for r in range(mesh.size):
+        dist.barrier()
+        if r == dist.get_rank():
+            res["flash"] = flash_case(
+                g, dev, MESH_BATCH // PIPE_MICROBATCHES, cfg.max_seq_len,
+                cfg.n_heads, cfg.head_dim, True, "bfloat16")
+    dist.barrier()
+    return res
+
+
+def _print_mesh_run(part: str, label: str, runs: list, ref: dict,
+                    steps: int, smi: str, held: bool = True) -> dict:
+    """Each rank's record of one mesh run against the single card's
+    ``ref`` (losses, grad norms, leaves), printed and (``held``) held to
+    phase 18 (b)'s limits; all ranks' losses equal. Returns the worst
+    gaps."""
+    dl = max(abs(a - b) for run in runs
+             for a, b in zip(run["losses"], ref["losses"]))
+    dg = max(abs(a - b) / abs(b) for run in runs
+             for a, b in zip(run["grad_norms"], ref["grad_norms"]))
+    for r, run in enumerate(runs):
+        c = run["collectives"]
+        print(f"  {part} {label} rank {r}: losses "
+              f"{[round(x, 5) for x in run['losses']]}, grad norms "
+              f"{[round(x, 4) for x in run['grad_norms']]}, step s "
+              f"{[round(x, 3) for x in run['step_s']]}, collectives "
+              f"{c['seconds']:.3f} s in {c['calls']} calls, "
+              f"{c['host_bytes'] / 2 ** 20:.1f} MiB through the host; peak "
+              f"{run['peak_gb']:.2f} GiB; launches {run['launches']}")
+    gaps = max((run["params"] for run in runs),
+               key=lambda g: g["update_rel"])
+    pa_run = max((run["params"] for run in runs), key=lambda g: g["max_abs"])
+    named = {k: max(run["params"]["by_leaf"][k] for run in runs)
+             for k in runs[0]["params"]["by_leaf"]}
+    picked = {k: v for k, v in named.items()
+              if k in ("layers.router", "layers.w_up", "layers.wq")}
+    print(f"  {part} {label}: worst |dloss| {dl:.3e} (limit {MESH_LOSS_TOL}),"
+          f" worst relative dgrad_norm {dg:.3e} (limit {MESH_GN_REL_TOL}) "
+          f"against the single card; after step {steps}, {gaps['leaves']} "
+          f"leaves: largest element gap {pa_run['max_abs']:.3e} "
+          f"({pa_run['max_abs_leaf']}), gap over the single card's update "
+          f"{gaps['update_rel']:.3e} ({gaps['update_rel_leaf']}; limit "
+          f"{MESH_UPDATE_REL_TOL}); by leaf {picked}"
+          f"{'' if held else ' (printed, not held)'} ({smi})")
+    if any(run["losses"] != runs[0]["losses"] for run in runs):
+        fail(f"{part} {label}: the ranks report different losses")
+    if held and not (dl <= MESH_LOSS_TOL and dg <= MESH_GN_REL_TOL):
+        fail(f"{part} {label} disagrees with the single card")
+    if held and not gaps["update_rel"] <= MESH_UPDATE_REL_TOL:
+        fail(f"{part} {label}: the leaves after step {steps} are not the "
+             "single card's")
+    return {"held": held, "worst_dloss": dl, "worst_rel_dgrad_norm": dg,
+            "worst_param_abs": pa_run["max_abs"],
+            "worst_update_rel": gaps["update_rel"], "by_leaf": named}
+
+
+def phase_train_mesh_rest(dev, smi: str) -> dict:
+    """Phase 21: the rest of training on a mesh. The single-card
+    references in the parent (MoE, ViT, the 4-layer GPT), two
+    `--mesh-child` ranks (MESH_PHASE=21, `train_rest_child`) for (a),
+    (b) and (d), four (MESH_PHASE=21c, `pipe_rest_child`) for (c); then
+    (d)'s checkpoint restored onto this one card."""
+    import shutil
+    import tempfile
+    from ray_tpu_torch.train import ft, spmd
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_rest_ref_")
+    out = {"card": smi}
+    try:
+        t0 = time.perf_counter()
+        refs = {"moe": _moe_mesh_run(dev, None, ref_dir),
+                "moe_f32": _moe_mesh_run(dev, None, ref_dir, "float32"),
+                "vit": _vit_mesh_run(dev, None, ref_dir)}
+        cfg = _mesh_cfg(PIPE_MESH_LAYERS)
+        state, step, place = spmd.make_gpt_trainer(
+            cfg, seed=MESH_SEED, optimizer=_mesh_optimizer(spmd), device=dev)
+        refs["gpt"], state = _mesh_steps(state, step, place,
+                                         _mesh_batches(cfg))
+        _save_params(state.params, _mesh_ref_path(ref_dir, PIPE_MESH_LAYERS))
+        del state, step
+        _free()
+        for k, v in refs.items():
+            print(f"  single-card {k}: losses {v['losses']}, grad norms "
+                  f"{v['grad_norms']}, launches {v['launches']}")
+        t1 = time.perf_counter()
+        res, child_s = _mesh_children("21", {"MESH_REF_DIR": ref_dir},
+                                      TRAIN_REST_TIMEOUT_S)
+        t2 = time.perf_counter()
+        res_c, child_c_s = _mesh_children("21c", {"MESH_REF_DIR": ref_dir},
+                                          TRAIN_REST_TIMEOUT_S, n=4)
+        t3 = time.perf_counter()
+        out["moe"] = {label: _print_mesh_run(
+            "(a) MoE", label, [x["moe"][label] for x in res],
+            refs["moe" if dtype == "bfloat16" else "moe_f32"],
+            MOE_MESH_STEPS, smi, held)
+            for label, _, dtype, held in TRAIN_REST_MOE}
+        if any(x["moe"]["pipe=2"]["launches"].get(k, 0) <= 0
+               for x in res for k in ("flash_forward", "flash_dq",
+                                      "flash_dkv")):
+            fail("(a) a flash kernel was not launched on MoE's pipe=2 ranks")
+        out["vit"] = _print_mesh_run("(b) ViT", "pipe=2",
+                                     [x["vit"] for x in res], refs["vit"],
+                                     VIT_MESH_STEPS, smi)
+        if any(x["vit"]["batch_axes"] for x in res):
+            fail("(b) ViT on pipe=2 sums over an axis whose ranks repeat")
+        out["pipe"] = _print_mesh_run("(c) GPipe", "pipe=2 x tensor=2",
+                                      res_c, refs["gpt"], MESH_STEPS, smi)
+        for r, x in enumerate(res_c):
+            fl = {k: x["launches"].get(k, 0) for k in (
+                "flash_forward", "flash_dq", "flash_dkv", "flash_fwd_tc",
+                "flash_dq_tc", "flash_dkv_tc")}
+            print(f"  (c) rank {r}: wq block {x['wq_block']} (the stage's "
+                  f"layers, heads split for storage); flash launches {fl}; "
+                  f"at the stage's shapes "
+                  f"{ {k: v['max_abs_err'] for k, v in x['flash'].items()} }")
+            if min(fl.values()) <= 0:
+                fail(f"(c) rank {r}: a flash kernel was not launched")
+        # (d) one commit a snapshot, the specs, a restore onto this card
+        ck = [x["ckpt"] for x in res]
+        for r, c in enumerate(ck):
+            t = c["timings"]
+            print(f"  (d) tensor=2 rank {r}: losses {c['losses']}, next "
+                  f"{c['next_loss']}, from the checkpoint on the mesh "
+                  f"{c['mesh_next_loss']}; {c['snapshots']} snapshots, "
+                  f"{c['commits']} commits, committed steps {c['steps']}; "
+                  f"maybe_snapshot on the training thread "
+                  f"{[round(v, 3) for v in c['snapshot_ms']]} ms; clones "
+                  f"{[round(x['clone_ms'] or 0, 3) for x in t]} device ms; "
+                  f"gather {[round(x.get('gather_s', 0), 3) for x in t]} s; "
+                  f"commit {[round(x['commit_s'], 3) for x in t]} s; "
+                  f"flush {c['flush_s']:.3f} s; specs equal to state_specs: "
+                  f"{c['specs_equal']} ({c['split_specs']} of "
+                  f"{c['shards']} split); launches {c['launches']}")
+        if [c["commits"] for c in ck] != [CKPT_MESH_STEPS, 0]:
+            fail(f"(d) commits {[c['commits'] for c in ck]}: one rank must "
+                 "commit each snapshot")
+        if not all(c["specs_equal"] and c["split_specs"] > 0 for c in ck):
+            fail("(d) the manifest's specs are not the state's")
+        if any(c["steps"] != list(range(1, CKPT_MESH_STEPS + 1))
+               or c["mesh_next_loss"] != c["next_loss"] for c in ck):
+            fail("(d) the checkpoint does not restore the mesh's state")
+        cfg = _mesh_cfg(CKPT_MESH_LAYERS)
+        tree, at = ft.restore_resharded(os.path.join(ref_dir, "ckpt"), dev)
+        state = ft.state_from_tree(tree, cfg, dev)
+        _, step, place = spmd.make_gpt_trainer(
+            cfg, optimizer=_mesh_optimizer(spmd), device=dev,
+            init_state=False)
+        one = float(step(state, place(_mesh_batches(cfg)[CKPT_MESH_STEPS]))[
+            1]["loss"])
+        del tree, state, step
+        _free()
+        print(f"  (d) restored onto one card at step {at}: next loss {one} "
+              f"against the mesh's {ck[0]['next_loss']} (limit "
+              f"{MESH_LOSS_TOL})")
+        if not (at == CKPT_MESH_STEPS
+                and abs(one - ck[0]["next_loss"]) <= MESH_LOSS_TOL):
+            fail("(d) the checkpoint restored onto one card does not "
+                 "continue the mesh's run")
+        out.update(refs=refs, ranks=res, pipe_ranks=res_c, ckpt_one=one)
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    print(f"  phase 21: references {t1 - t0:.1f} s, two ranks {child_s:.1f}"
+          f" s ({t2 - t1:.1f} s with the spawn), four ranks {child_c_s:.1f} "
+          f"s ({t3 - t2:.1f} s)")
+    out["part_s"] = {"refs": t1 - t0, "ranks": t2 - t1, "ranks4": t3 - t2}
+    return out
+
+
 def _readable_kernel(mangled: str):
     """A readable name for an instantiation of a tensor-core kernel or of
     a split-K decode kernel (``flash_dq_tc_kernel<64, true>``,
@@ -6576,12 +6951,18 @@ def main() -> int:
                        "card: int8 weights, the draft proposer, prefill/"
                        "decode roles and the handoff at 8 heads a rank; "
                        "seq=2)", phase_serve_mesh_roles, dev, smi)
+    train_rest = phase(21, "the rest of training on a mesh (two ranks on "
+                       "the card: MoE over seq and pipe, ViT over pipe, the "
+                       "async checkpointer on tensor=2; four ranks: the "
+                       "GPipe trainer on pipe=2 x tensor=2)",
+                       phase_train_mesh_rest, dev, smi)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
                   flash=flash, train=train, xent=xent, fused_train=fused,
                   unpaged=unpaged, c1=c1, int8=int8, spec=spec,
                   capture=capture, pressure=pressure, disagg=disagg,
                   flywheel=flywheel, ft_models=ft_models, mesh=mesh,
-                  serve_mesh=serve_mesh, roles_mesh=roles_mesh)
+                  serve_mesh=serve_mesh, roles_mesh=roles_mesh,
+                  train_rest=train_rest)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -6837,6 +7218,32 @@ def main() -> int:
                for k, v in paths20.items() if v["launches"].get(wrapper)}
         if not got:
             fail(f"{wrapper} was not launched on phase 20's paths")
+        row.setdefault("launches_by_path", {}).update(got)
+    # phase 21's paths on rank 0, each counted from zero around its run:
+    # (a) MoE over pipe=2 (flash; over seq=2 the ring, plain in both
+    # packages), (c) the GPipe trainer on pipe=2 x tensor=2 (flash at 16
+    # heads), (d) the checkpointed steps on tensor=2 (flash at 8 heads,
+    # the fused-xent kernels on the vocabulary shard)
+    r21 = train_rest["ranks"][0]
+    paths21 = {"(a) MoE pipe=2": r21["moe"]["pipe=2"]["launches"],
+               "(c) pipe=2 x tensor=2":
+                   train_rest["pipe_ranks"][0]["launches"],
+               "(d) tensor=2": r21["ckpt"]["launches"]}
+    mesh21 = {"flash_forward": ("flash_forward", paths21),
+              "flash_dq": ("flash_dq", paths21),
+              "flash_dkv": ("flash_dkv", paths21),
+              "fused_xent_fwd": ("fused_xent_fwd", ("(d) tensor=2",)),
+              "fused_xent_dx": ("xent_dx", ("(d) tensor=2",)),
+              "fused_xent_de": ("xent_de", ("(d) tensor=2",))}
+    for row in rows:
+        if row["name"] not in mesh21:
+            continue
+        wrapper, paths = mesh21[row["name"]]
+        got = {f"phase 21 {p} rank 0": paths21[p].get(wrapper, 0)
+               for p in paths}
+        if min(got.values()) <= 0:
+            fail(f"{wrapper} was not launched on one of phase 21's paths "
+                 f"{got}")
         row.setdefault("launches_by_path", {}).update(got)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -39,16 +39,6 @@ def leaf_specs(logical_tree: dict, mesh, rules, model_axes: dict) -> dict:
     return out
 
 
-def check_axes(mesh, allowed: tuple, what: str) -> None:
-    """Raise unless every axis of size > 1 of ``mesh`` is in
-    ``allowed``."""
-    other = [a for a in mesh.live_axes(mesh.axis_names) if a not in allowed]
-    if other:
-        raise NotImplementedError(
-            f"{what} on a mesh runs on {allowed}; {other} > 1 is ROADMAP "
-            "A6 (c)")
-
-
 class StackedModel(nn.Module):
     """``params`` is a tree shaped like the family's ``init_params``
     (tensors or numpy arrays); ``top`` and ``layer`` give each leaf's

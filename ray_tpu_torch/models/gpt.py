@@ -532,12 +532,16 @@ def _attention(q, k, v, cfg: GPTConfig, mesh=None):
     """Causal attention on ``[B, T, H, Dh]``: ``"auto"``/``"flash"`` take
     the flash kernels, ``"xla"`` the plain version (the only way to
     plain attention on the card, as in the reference), ``"ring"`` the
-    ring over the mesh's ``seq`` axis (``"auto"``'s choice when that
-    axis has more than one rank; T is then the rank's block)."""
+    ring over the mesh's ``seq`` axis. When that axis has more than one
+    rank T is the rank's block, and every choice takes the ring (the
+    reference's XLA attention over a seq-split array is the whole
+    sequence's, never a block's alone)."""
     impl = cfg.attn_impl
-    if impl == "auto":
-        impl = ("ring" if mesh is not None and mesh.shape["seq"] > 1
-                else "flash")
+    if mesh is not None and mesh.shape["seq"] > 1 and impl in (
+            "auto", "flash", "xla"):
+        impl = "ring"
+    elif impl == "auto":
+        impl = "flash"
     if impl == "flash":
         return fa.flash_attention(q, k, v, causal=True)
     if impl == "xla":
@@ -811,19 +815,22 @@ def logits_nll(model, logits, targets):
     return torch.logsumexp(logits, dim=-1) - tgt
 
 
-def token_mean(nll, mesh=None, mask=None, rules: dict | None = None):
+def token_mean(nll, mesh=None, mask=None, rules: dict | None = None,
+               axes: tuple | None = None):
     """The mean of a per-token loss over the GLOBAL batch (masked: over
     its unmasked tokens). On a mesh a rank returns its tokens' sum over
     the global count (the mask's all-reduced), so the sum over the axes
-    that split tokens is the mean: each rank's gradients are its tokens'
-    share."""
+    that split tokens (``axes``; default the ``("batch", "length")``
+    rules', `parallel.sharding.token_axes`) is the mean: each rank's
+    gradients are its tokens' share."""
     mesh = active_mesh(mesh)
     if mesh is None:
         if mask is None:
             return nll.mean()
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    axes = sharding.token_axes(mesh, rules)
+    if axes is None:
+        axes = sharding.token_axes(mesh, rules)
     if mask is None:
         return nll.sum() / (nll.numel() * mesh.axis_size(axes))
     mask = mask.float()

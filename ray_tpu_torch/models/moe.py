@@ -20,15 +20,21 @@ the rule table) each rank holds its block of every leaf: its experts'
 FFN weights over ``expert`` (and their ``mlp`` columns over
 ``tensor``), the router's expert columns over ``expert``, attention's
 heads and the vocabulary over ``tensor`` (Megatron, as `models.gpt`),
-``embed`` over ``fsdp`` (gathered at use). The reference's route sees
-the global batch: a rank's picks take their place in each expert's
-buffer after the earlier batch ranks' (an exclusive scan of the counts
-over the batch axes), under the global capacity, and the auxiliary
-loss's fractions are global means. Each rank routes with the whole
-``[N, E]`` router logits (gathered over ``expert``), runs its experts on
-its slices of the dispatch and combine, and the combine's partial sums
-leave through `parallel.collectives.reduce_from` over ``expert`` (and
-``tensor``). A ``seq`` or ``pipe`` split is ROADMAP A6 (c).
+``embed`` over ``fsdp`` (gathered at use); a rank's tokens are its
+block of the batch's ``("batch", "length")``: rows over the data axes,
+positions over ``seq`` (its positions offset by its block, attention
+through the ring, `parallel.ring_attention`, as `models.gpt`). The
+reference's route sees the global batch: a rank's picks take their place
+in each expert's buffer after every pick that comes before them in the
+global ``[B, T]`` order (`_Split.before`: the counts of the earlier row
+blocks and, row by row, of the earlier ``seq`` ranks' positions), under
+the global capacity, and the auxiliary loss's fractions are global
+means. Each rank routes with the whole ``[N, E]`` router logits
+(gathered over ``expert``), runs its experts on its slices of the
+dispatch and combine, and the combine's partial sums leave through
+`parallel.collectives.reduce_from` over ``expert`` (and ``tensor``).
+No leaf sits on ``pipe``: its ranks repeat the step, as in the
+reference, whose model has no ``stage`` axis.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ray_tpu_torch.models import gpt
-from ray_tpu_torch.models._stacked import StackedModel, check_axes
+from ray_tpu_torch.models._stacked import StackedModel
 from ray_tpu_torch.parallel import collectives as col
 from ray_tpu_torch.parallel import sharding
 
@@ -103,8 +109,6 @@ def param_logical_axes(cfg: MoEConfig) -> dict:
 # The mesh axes the model computes on split, by the logical axes they may
 # split (the others a leaf may sit on are gathered before use).
 _MODEL_AXES = {"tensor": ("heads", "mlp", "vocab"), "expert": ("expert",)}
-# The mesh axes the MoE forward runs on.
-MESH_AXES = ("data", "fsdp", "tensor", "expert")
 
 
 def _shapes(cfg: MoEConfig) -> tuple[dict, dict]:
@@ -167,8 +171,6 @@ class MoE(StackedModel):
                          dtype=dtype, trainable=trainable, mesh=mesh,
                          rules=rules, logical_axes=param_logical_axes(cfg),
                          model_axes=_MODEL_AXES)
-        if self.mesh is not None:
-            check_axes(self.mesh, MESH_AXES, "MoE")
 
 
 def params_from_numpy(tree: dict, cfg: MoEConfig, device=None,
@@ -188,27 +190,55 @@ def params_from_numpy(tree: dict, cfg: MoEConfig, device=None,
 # ---------------------------------------------------------------------------
 
 class _Split:
-    """How a rank's route sits in the global one: the mesh, the live
-    batch axes its tokens are split over (and its position along them),
-    the expert axes its experts are split over, and the global token
-    count."""
+    """How a rank's route sits in the global one: the mesh, the live axes
+    that split the batch's rows and its positions (the ``("batch",
+    "length")`` rules', in their order) and the rank's place along them,
+    the expert axes its experts are split over, the rank's rows ``b``
+    and the global token count."""
 
-    def __init__(self, mesh, n_local: int, rules=None):
+    def __init__(self, mesh, b: int, t: int, rules=None):
+        spec = sharding.logical_to_spec(("batch", "length"), rules, mesh)
+        live = [tuple(a for a in sharding.spec_axes((e,))
+                      if mesh.shape[a] > 1) for e in spec]
         self.mesh = mesh
-        self.batch = sharding.token_axes(mesh, rules)
+        self.rows, self.seq = live
+        self.batch = self.rows + self.seq
         self.expert = mesh.live_axes("expert")
-        self.n = n_local * mesh.axis_size(self.batch)
+        self.b = b
+        self.n = b * t * mesh.axis_size(self.batch)
 
-    def offset(self, counts):
-        """The picks of the earlier batch ranks, per expert (no grad)."""
-        if not self.batch:
-            return torch.zeros_like(counts)
-        every = col.all_gather(counts[None], self.batch, self.mesh, dim=0)
-        return every[:self.mesh.axis_index(self.batch)].sum(dim=0)
+    def before(self, onehot):
+        """``[N, E]``: for each of this rank's tokens, the picks of its
+        expert that come before it in the global batch's flattened
+        ``[B, T]`` order (the reference's exclusive ``cumsum`` over its
+        ``B * T`` tokens), no grad. A rank holds a block of rows and a
+        block of positions in each, so its tokens interleave with the
+        other ``seq`` ranks' row by row: a token's count is its row's
+        earlier positions here, the same row's blocks on the earlier
+        ``seq`` ranks, the earlier rows of this rank's row block (every
+        ``seq`` rank's part of them) and every row of the earlier row
+        blocks."""
+        mesh = self.mesh
+        n, e = onehot.shape
+        oh = onehot.view(self.b, n // self.b, e)
+        within = torch.cumsum(oh, dim=1) - oh
+        rows = oh.sum(dim=1)                                 # [b, E]
+        off = torch.zeros_like(rows)
+        if self.seq:
+            every = col.all_gather(rows[None], self.seq, mesh, dim=0)
+            off = off + every[:mesh.axis_index(self.seq)].sum(dim=0)
+            rows = every.sum(dim=0)
+        off = off + torch.cumsum(rows, dim=0) - rows
+        if self.rows:
+            every = col.all_gather(rows.sum(dim=0)[None], self.rows, mesh,
+                                   dim=0)
+            off = off + every[:mesh.axis_index(self.rows)].sum(dim=0)
+        return (within + off[:, None]).view(n, e)
 
     def total(self, x, grad: bool = False):
-        """``x`` summed over the batch ranks (differentiable with
-        ``grad``: its backward sums the cotangents back)."""
+        """``x`` summed over the ranks that split the tokens
+        (differentiable with ``grad``: its backward sums the cotangents
+        back)."""
         if grad:
             return col.psum(x, self.batch, self.mesh)
         with torch.no_grad():
@@ -253,9 +283,10 @@ def _route(h, router_w, cfg: MoEConfig, split: _Split | None = None):
             top1_assign = onehot
         gate = torch.sum(probs * onehot, dim=-1)             # [N]
         # position of each token within its chosen expert's buffer
-        pos = torch.cumsum(onehot, dim=0) - onehot + fill[None]
-        if split is not None:
-            pos = pos + split.offset(onehot.sum(dim=0))[None]
+        if split is None:
+            pos = torch.cumsum(onehot, dim=0) - onehot + fill[None]
+        else:
+            pos = split.before(onehot) + fill[None]
         pos_tok = torch.sum(pos * onehot, dim=-1)            # [N]
         keep = (pos_tok < capacity).float()
         # one_hot(pos_tok, capacity): all zero past the capacity, as JAX's
@@ -322,16 +353,17 @@ def _moe_ffn(x, lp: dict, cfg: MoEConfig, split: _Split | None = None):
     act = nn.functional.silu(gate) * up
     down = torch.bmm(act, lp["w_down"].to(adt))
     comb = combine.to(adt).reshape(b * t, E * c)
-    if split is None:
+    if split is not None:
+        down = col.reduce_from(down, "tensor", mesh)
+        aux = col.reduce_from(aux, split.expert, mesh)
+    if split is None or not split.expert:
         out = comb @ down.reshape(E * c, d)
     else:
         # each rank's experts' share accumulated in f32 and summed over
         # the expert ranks in f32, then rounded once, as the one product
         # over every expert is on one card
-        down = col.reduce_from(down, "tensor", mesh)
         out = col.reduce_from(gpt._mm_f32(comb, down.reshape(E * c, d)),
                               split.expert, mesh).to(adt)
-        aux = col.reduce_from(aux, split.expert, mesh)
     return out.view(b, t, d), aux
 
 
@@ -348,14 +380,16 @@ def _block(lp: dict, x, cfg: MoEConfig, gpt_cfg: gpt.GPTConfig,
     if model is not None:
         mesh = model.mesh
         lp = {k: model.whole(k, w) for k, w in lp.items()}
-        split = _Split(mesh, b * t, model.rules)
+        split = _Split(mesh, b, t, model.rules)
         enter, leave = gpt.tensor_conjugates(mesh)
 
     h = enter(gpt._rms_norm(x, lp["ln1_scale"].to(adt)))
     q = (h @ lp["wq"].to(adt)).view(b, t, -1, hd)
     k = (h @ lp["wk"].to(adt)).view(b, t, -1, hd)
     v = (h @ lp["wv"].to(adt)).view(b, t, -1, hd)
-    att = gpt._attention(q, k, v, gpt_cfg).reshape(b, t, -1)
+    att = gpt._attention(q, k, v, gpt_cfg,
+                         None if model is None else model.mesh
+                         ).reshape(b, t, -1)
     x = x + leave(att @ lp["wo"].to(adt))
 
     h = gpt._rms_norm(x, lp["ln2_scale"].to(adt))
@@ -373,8 +407,10 @@ def forward(model: MoE, tokens, cfg: MoEConfig | None = None):
     t = tokens.shape[1]
     mesh = model.mesh
     emb = gpt._embed_table(model, cfg, mesh)
+    # a seq rank's tokens start at its block's first position
+    off = 0 if mesh is None else mesh.axis_index("seq") * t
     x = gpt._lookup(model, emb, tokens) + model.whole(
-        "pos_embed")[:t].to(adt)[None]
+        "pos_embed")[off:off + t].to(adt)[None]
     gpt_cfg = gpt.GPTConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
                             dtype=cfg.dtype, attn_impl=cfg.attn_impl)
     args = () if mesh is None else (model,)

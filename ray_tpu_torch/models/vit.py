@@ -14,8 +14,12 @@ On a mesh (``mesh=``, one process per rank; `param_logical_axes` under
 the rule table) each rank holds its block of every leaf and its rows of
 a batch: heads and the MLP's columns over ``tensor`` (Megatron, as
 `models.gpt`), ``embed`` over ``fsdp`` (gathered at use); the loss is a
-rank's rows' share of the global mean. A ``seq``, ``expert`` or
-``pipe`` split is ROADMAP A6 (c).
+rank's rows' share of the global mean. A batch of images has no length
+axis and the block ignores the mesh, as the reference's does: the
+``seq``, ``expert`` and ``pipe`` ranks repeat the step on their rows
+(`ViT.batch_axes`, the axes whose ranks hold other rows, are the only
+ones a loss or gradient is summed over; place a batch with
+`parallel.sharding.shard_batch(..., logical=("batch",))`).
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ray_tpu_torch.models import gpt
-from ray_tpu_torch.models._stacked import StackedModel, check_axes
+from ray_tpu_torch.models._stacked import StackedModel
+from ray_tpu_torch.parallel import sharding
 
 
 @dataclass(frozen=True)
@@ -90,9 +95,8 @@ def param_logical_axes(cfg: ViTConfig) -> dict:
 
 
 # The mesh axis the model computes on split, by the logical axes it may
-# split, and the mesh axes the forward runs on.
+# split.
 _MODEL_AXES = {"tensor": ("heads", "mlp")}
-MESH_AXES = ("data", "fsdp", "tensor")
 
 
 def _shapes(cfg: ViTConfig) -> tuple[dict, dict]:
@@ -153,8 +157,9 @@ class ViT(StackedModel):
                          dtype=dtype, trainable=trainable, mesh=mesh,
                          rules=rules, logical_axes=param_logical_axes(cfg),
                          model_axes=_MODEL_AXES)
-        if self.mesh is not None:
-            check_axes(self.mesh, MESH_AXES, "ViT")
+        # the axes that split a batch: its rows' (no length axis)
+        self.batch_axes = (() if self.mesh is None else
+                           sharding.row_axes(self.mesh, rules))
 
 
 def params_from_numpy(tree: dict, cfg: ViTConfig, device=None,
@@ -231,11 +236,13 @@ def forward(model: ViT, images, cfg: ViTConfig | None = None):
 def loss_fn(model: ViT, batch: dict, cfg: ViTConfig | None = None):
     """Softmax cross entropy. batch: {"images": [B, H, W, C],
     "labels": [B]}. On a mesh: this rank's rows, and its share of the
-    global mean (`models.gpt.token_mean`)."""
+    global mean over the ranks that hold other rows (`models.gpt.
+    token_mean` over `ViT.batch_axes`)."""
     logits = forward(model, batch["images"], cfg)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, batch["labels"].long()[:, None])[:, 0]
-    return gpt.token_mean(nll, model.mesh, rules=model.rules)
+    return gpt.token_mean(nll, model.mesh, rules=model.rules,
+                          axes=model.batch_axes)
 
 
 def num_params(model: ViT) -> int:

@@ -17,10 +17,12 @@ from ray_tpu_torch.parallel.sharding import (
     PartitionSpec,
     engine_io_shardings,
     gather_full,
+    global_from_local,
     kv_cache_specs,
     kv_pool_specs,
     local_shard,
     logical_to_spec,
+    replicate_tree,
     replicated,
     shard_batch,
     tree_shardings,
@@ -33,8 +35,9 @@ __all__ = [
     "AXIS_ORDER", "BATCH_AXES", "Mesh", "MeshSpec", "active_mesh",
     "dp_mesh", "single_device_mesh",
     "DEFAULT_RULES", "PartitionSpec", "engine_io_shardings", "gather_full",
-    "kv_cache_specs", "kv_pool_specs", "local_shard", "logical_to_spec",
-    "replicated", "shard_batch", "tree_shardings",
+    "global_from_local", "kv_cache_specs", "kv_pool_specs", "local_shard",
+    "logical_to_spec", "replicate_tree", "replicated", "shard_batch",
+    "tree_shardings",
     "reference_attention", "ring_attention",
     "pipeline_apply", "stack_stage_params",
 ]

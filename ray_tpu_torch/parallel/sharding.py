@@ -246,16 +246,16 @@ def row_axes(mesh: Mesh, rules: dict | None = None) -> tuple:
 
 
 def shard_batch(batch, mesh: Mesh, rules: dict | None = None,
-                accum: int = 1):
+                accum: int = 1, logical: tuple = ("batch", "length")):
     """A host batch (a dict of arrays, or one array) -> this rank's
-    block of it: the leading two dimensions split by the
-    ``("batch", "length")`` rules, the rest whole (the reference places
-    the rows; its step then splits the tokens, a rank here takes its
-    block at once). With ``accum=k`` the batch is the k microbatches a
-    step splits it into, and the rank keeps its block of each,
-    microbatch-major."""
-    spec = PartitionSpec(None, *logical_to_spec(("batch", "length"),
-                                                rules, mesh))
+    block of it: the leading dimensions split by the ``logical`` axes'
+    rules (``("batch", "length")``: rows and positions; ``("batch",)``
+    for a batch with no length axis, such as images), the rest whole
+    (the reference places the rows; its step then splits the tokens, a
+    rank here takes its block at once). With ``accum=k`` the batch is
+    the k microbatches a step splits it into, and the rank keeps its
+    block of each, microbatch-major."""
+    spec = PartitionSpec(None, *logical_to_spec(logical, rules, mesh))
 
     def take(a):
         a = np.asarray(a)
@@ -268,6 +268,51 @@ def shard_batch(batch, mesh: Mesh, rules: dict | None = None,
     if isinstance(batch, dict):
         return {k: take(v) for k, v in batch.items()}
     return take(batch)
+
+
+def _put(a, device):
+    from ray_tpu_torch.models.gpt import resolve_device
+    return torch.as_tensor(np.asarray(a)).to(resolve_device(device))
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def global_from_local(mesh: Mesh, local_batch, rules: dict | None = None,
+                      device=None):
+    """Each rank's block of a global batch from its own rows: the
+    multi-host ingest path (`ray_tpu.parallel.global_from_local`), where
+    every process feeds its own data. A rank's block under ``("batch",
+    ...)`` is its local rows, whole past the leading axis, as a tensor on
+    ``device`` (the card unless told otherwise); the global batch has
+    `row_axes`' size times as many rows. The ranks that share a position
+    on the row axes hold one block, so they must be given the same rows
+    (as JAX's processes that share a shard must). Works on a mesh of one
+    rank too, whose local rows are the global batch."""
+    n = mesh.axis_size(row_axes(mesh, rules))
+
+    def place(arr):
+        arr = np.asarray(arr)
+        if arr.ndim == 0:
+            raise ValueError("a batch leaf needs a leading (row) axis")
+        local_shape((arr.shape[0] * n,) + arr.shape[1:],
+                    PartitionSpec(*logical_to_spec(("batch",), rules,
+                                                   mesh)), mesh)
+        return _put(arr, device)
+    return _tree_map(place, local_batch)
+
+
+def replicate_tree(mesh: Mesh, tree, device=None):
+    """Every leaf whole on every rank (`ray_tpu.parallel.replicate_tree`):
+    host values as tensors on ``device`` (the card unless told
+    otherwise). Each rank passes the same values, as each JAX process
+    does."""
+    return _tree_map(lambda a: _put(a, device), tree)
 
 
 # -- PartitionSpec (de)serialization for checkpoint manifests ---------------

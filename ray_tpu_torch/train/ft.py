@@ -1,7 +1,7 @@
-"""Fault-tolerant training on one device: asynchronous checkpoints and
-resume. The counterpart of `ray_tpu/train/ft.py`, with its on-disk
-format (``ray_tpu_ft_v1``), so each package restores what the other
-wrote.
+"""Fault-tolerant training on one device or a mesh: asynchronous
+checkpoints and resume. The counterpart of `ray_tpu/train/ft.py`, with
+its on-disk format (``ray_tpu_ft_v1``), so each package restores what
+the other wrote.
 
 - `AsyncCheckpointer`: every `every` steps `maybe_snapshot` queues a
   device-side clone of every leaf of the state on the training stream,
@@ -16,7 +16,14 @@ wrote.
   it waits on its own copy's event only. The clones stay referenced
   until their copy is complete. At most `max_in_flight` snapshots exist
   between device and disk; a slower disk stalls `maybe_snapshot`
-  (counted in `stalls`), never memory.
+  (counted in `stalls`), never memory. On a mesh (a train state whose
+  model holds its blocks, every rank snapshotting at the same steps)
+  the clones are the rank's blocks and each leaf's spec is recorded
+  (`state_specs`, as the reference records each leaf's PartitionSpec);
+  the writer threads gather the blocks to the mesh's lowest rank over a
+  gloo group of their own (`_MeshCommit`), which writes the checkpoint
+  while the other ranks wait for its word: one commit a snapshot, and
+  no collective on the training thread.
 - Atomic commit (`write_checkpoint`): one raw shard per leaf, a pickled
   tree skeleton whose leaves are `_ShardRef`s, and a manifest with a
   sha256 for each shard and for the skeleton and a ``spec`` list per
@@ -30,8 +37,9 @@ wrote.
   the reference's elastic resume). On one card every leaf is whole: the
   port records ``[None] * ndim`` as each leaf's spec and reads any
   recorded spec (a data-sharded leaf of the reference comes back
-  whole). A mesh trainer's state is saved by `write_sharded_state`:
-  every leaf gathered whole, rank 0 writes it with the leaf's spec.
+  whole). A mesh trainer's state is saved asynchronously as above, or
+  at once by `write_sharded_state`: every leaf gathered whole, rank 0
+  writes it with the leaf's spec.
 
 The skeleton names the reference's classes (``ray_tpu.train.spmd.
 TrainState``, ``ray_tpu.train.ft._ShardRef`` and optax's
@@ -215,17 +223,19 @@ def _lookup(tree, name: str):
     return tree
 
 
-def state_to_tree(state) -> StoredTrainState:
+def state_to_tree(state, whole: bool = True) -> StoredTrainState:
     """The port's `spmd.TrainState` as the reference's tree (the tensors
     themselves, no copy): ``params`` is the model's parameters as the
     reference's nested dict, ``opt_state`` `default_optimizer`'s optax
     state ``(EmptyState(), (ScaleByAdamState(count, mu, nu),
     EmptyState(), ScaleByScheduleState(count)))`` with ``mu``/``nu``
-    shaped like ``params``, and ``step``."""
+    shaped like ``params``, and ``step``. On a mesh each leaf is
+    gathered whole from every rank's block (every rank calls it), or,
+    without ``whole``, is this rank's block."""
     model, opt = state.params, state.opt_state
-    mesh = getattr(model, "mesh", None)
+    mesh = getattr(model, "mesh", None) if whole else None
 
-    def whole(n, t):
+    def whole_leaf(n, t):
         # on a mesh: the leaf gathered from every rank's block
         t = t.detach()
         if mesh is None:
@@ -234,9 +244,9 @@ def state_to_tree(state) -> StoredTrainState:
         return gather_full(t, model.specs[n], mesh)
 
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-    params = nest((n, whole(n, p)) for n, p in model.named_parameters())
-    mu = nest((n, whole(n, m)) for (n, _), m in zip(named, opt["mu"]))
-    nu = nest((n, whole(n, v)) for (n, _), v in zip(named, opt["nu"]))
+    params = nest((n, whole_leaf(n, p)) for n, p in model.named_parameters())
+    mu = nest((n, whole_leaf(n, m)) for (n, _), m in zip(named, opt["mu"]))
+    nu = nest((n, whole_leaf(n, v)) for (n, _), v in zip(named, opt["nu"]))
     count = opt["count"]
     adam = ScaleByAdamState(count, mu, nu)
     return StoredTrainState(
@@ -644,8 +654,10 @@ class _Snapshot:
     def __init__(self, state, staging: "_Staging"):
         from ray_tpu_torch.train import spmd
         self.staging = staging
-        tree = (state_to_tree(state) if isinstance(state, spmd.TrainState)
-                else state)
+        train = isinstance(state, spmd.TrainState)
+        self.mesh = getattr(state.params, "mesh", None) if train else None
+        # on a mesh: this rank's blocks, put together on the writer thread
+        tree = state_to_tree(state, whole=False) if train else state
         self.skeleton, leaves = _skeleton(tree)
         tensors = [torch.as_tensor(x) if not isinstance(x, torch.Tensor)
                    else x.detach() for x in leaves]
@@ -661,7 +673,8 @@ class _Snapshot:
         if self.device is not None:
             self.done = torch.cuda.Event(enable_timing=True)
             self.done.record()
-        self.specs = [[None] * t.dim() for t in self.leaves]
+        self.specs = (state_specs(state) if train
+                      else [[None] * t.dim() for t in self.leaves])
 
     def clone_ms(self) -> float | None:
         """Device time of the clones (valid once ``done`` has fired)."""
@@ -740,6 +753,69 @@ def _device_get(snap: _Snapshot) -> list:
     return host
 
 
+class _MeshCommit:
+    """How the ranks of a mesh commit one snapshot: the lowest rank of the
+    mesh (``root``) writes it, the others wait for its commit. Its own
+    gloo group, made at the first snapshot on every rank of the mesh,
+    carries the blocks on the writer threads, never on the group a
+    training step uses."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+        self.mesh = mesh
+        self.ranks = sorted(int(r) for r in mesh.devices.ravel())
+        self.root = self.ranks[0]
+        self.me = dist.get_rank()
+        self.group = dist.new_group(self.ranks, backend="gloo",
+                                    use_local_synchronization=True)
+
+    def gather(self, blocks: list, specs: list) -> list | None:
+        """Every leaf whole on the root from every rank's host blocks
+        (one gather of one flat buffer a rank), None elsewhere."""
+        import torch.distributed as dist
+        from ray_tpu_torch.parallel import sharding
+        flat = torch.cat([b.contiguous().reshape(-1).view(torch.uint8)
+                          for b in blocks]) if blocks else \
+            torch.empty(0, dtype=torch.uint8)
+        mine = self.me == self.root
+        got = [torch.empty_like(flat) for _ in self.ranks] if mine else None
+        dist.gather(flat, got, dst=self.root, group=self.group)
+        if not mine:
+            return None
+        mesh = self.mesh
+        out = []
+        off = 0
+        for b, entries in zip(blocks, specs):
+            spec = sharding.spec_from_json(entries)
+            n = b.numel() * b.element_size()
+            split = [mesh.axis_size(sharding.spec_axes((e,)))
+                     for e in tuple(spec)]
+            whole = torch.empty(
+                [d * k for d, k in zip(b.shape, split + [1] * (b.dim()
+                                                               - len(split)))],
+                dtype=b.dtype)
+            for rank, buf in zip(self.ranks, got):
+                coords = mesh._coord_of[rank]
+                part = buf[off:off + n].clone().view(b.dtype).view(b.shape)
+                view = whole
+                for i, e in enumerate(tuple(spec)):
+                    axes = sharding.spec_axes((e,))
+                    if mesh.axis_size(axes) > 1:
+                        j = mesh._linear(coords, axes)
+                        view = view.narrow(i, j * b.shape[i], b.shape[i])
+                view.copy_(part)
+            out.append(whole)
+            off += n
+        return out
+
+    def agree(self, ok: bool) -> bool:
+        """The root's word on its commit, on every rank."""
+        import torch.distributed as dist
+        flag = torch.tensor([1 if ok else 0], dtype=torch.int32)
+        dist.broadcast(flag, src=self.root, group=self.group)
+        return bool(flag.item())
+
+
 class AsyncCheckpointer:
     """Asynchronous checkpointer for `TrainLoop` (`train/loop.py`), the
     counterpart of `ray_tpu.train.ft.AsyncCheckpointer` (module
@@ -758,7 +834,10 @@ class AsyncCheckpointer:
     split lands in `timings`: the clones' device ms, the copy to the
     host (device ms, and the writer's wall seconds waiting for it), the
     seconds hashing and writing with fsync, the bytes, the commit's
-    wall seconds."""
+    wall seconds (on a mesh also ``gather_s``, the writer's gather of
+    the blocks). On a mesh only the lowest rank commits and counts
+    ``commits``; every rank's `flush` returns once the commits of its
+    snapshots are on disk."""
 
     def __init__(self, root: str, *, every: int = 100,
                  max_in_flight: int = 2, keep: int = 2,
@@ -782,6 +861,7 @@ class AsyncCheckpointer:
         self.stalls = 0         # times the in-flight bound back-pressured
         self.timings: list[dict] = []
         self._staging = _Staging()
+        self._mesh: _MeshCommit | None = None
         # The writer thread's spans nest under the span active when the
         # checkpointer was built (threads don't inherit it otherwise).
         self._trace_ctx = _tracing.capture_context()
@@ -806,6 +886,12 @@ class AsyncCheckpointer:
         if not force and last is None and step < self.every:
             return False
         snap = _Snapshot(state, self._staging)
+        if snap.mesh is not None and snap.mesh.size > 1:
+            if self._mesh is None:
+                self._mesh = _MeshCommit(snap.mesh)
+            elif self._mesh.mesh is not snap.mesh:
+                raise ValueError("AsyncCheckpointer: a snapshot on another "
+                                 "mesh than its first's")
         if self._queue.full():
             self.stalls += 1
         self._queue.put((int(step), snap))
@@ -851,26 +937,51 @@ class AsyncCheckpointer:
                     t1 = pc()
                     record = {"step": step, "clone_ms": snap.clone_ms(),
                               "d2h_ms": snap.d2h_ms, "fetch_s": t1 - t0}
-                    refs = iter(host)
-                    host_tree = tree_map(lambda _: next(refs), snap.skeleton)
                     specs = snap.specs
+                    mesh = self._mesh if snap.mesh is not None else None
+                    skeleton = snap.skeleton
                     del snap
-                    dest = write_checkpoint(self.root, step, host_tree,
-                                            specs, stats=record)
-                    del host, host_tree
-                    self.commits += 1
-                    if self.uri is not None:
-                        from ray_tpu_torch.util import storage
-                        storage.upload_dir_committed(
-                            dest, storage.uri_join(
-                                self.uri, os.path.basename(dest)))
-                    self._prune()
+                    if mesh is not None:
+                        # the blocks to the root, whole; it alone writes
+                        host = mesh.gather(host, specs)
+                        record["gather_s"] = pc() - t1
+                    if host is None:
+                        if not mesh.agree(False):
+                            raise CheckpointError(
+                                f"rank {mesh.root} did not commit step "
+                                f"{step}")
+                    else:
+                        self._commit(step, skeleton, host, specs, record,
+                                     mesh)
                     record["commit_s"] = pc() - t0
                     self.timings.append(record)
             except BaseException as e:       # surfaced on train thread
                 self._error = e
             finally:
                 self._queue.task_done()
+
+    def _commit(self, step, skeleton, host, specs, record, mesh) -> None:
+        """Write, mirror and prune (this rank alone); on a mesh tell the
+        other ranks whether it committed."""
+        try:
+            refs = iter(host)
+            host_tree = tree_map(lambda _: next(refs), skeleton)
+            del host
+            dest = write_checkpoint(self.root, step, host_tree, specs,
+                                    stats=record)
+            del host_tree
+            self.commits += 1
+            if self.uri is not None:
+                from ray_tpu_torch.util import storage
+                storage.upload_dir_committed(
+                    dest, storage.uri_join(self.uri, os.path.basename(dest)))
+            self._prune()
+        except BaseException:
+            if mesh is not None:
+                mesh.agree(False)
+            raise
+        if mesh is not None:
+            mesh.agree(True)
 
     def _prune(self):
         from ray_tpu_torch.util import storage

@@ -183,12 +183,23 @@ def _named_leaves(model) -> list[str]:
     return [n for n, p in model.named_parameters() if p.requires_grad]
 
 
+def batch_axes(model) -> tuple:
+    """The mesh axes whose ranks hold other parts of the model's batch:
+    its own ``batch_axes`` where it has them (`models.vit.ViT`: rows),
+    else the ``("batch", "length")`` rules' (`parallel.sharding.
+    token_axes`). The ranks on every other axis repeat the step, and
+    nothing is summed over them."""
+    axes = getattr(model, "batch_axes", None)
+    return (sharding.token_axes(model.mesh, model.rules) if axes is None
+            else axes)
+
+
 def sync_grads(grads, model) -> list:
-    """Each gradient summed over the axes that split the batch's tokens
-    and not the leaf (the model's mesh and rules), one all-reduce per
-    set of axes over one flat buffer."""
+    """Each gradient summed over the axes that split the model's batch
+    (`batch_axes`) and not the leaf, one all-reduce per set of axes over
+    one flat buffer."""
     mesh = model.mesh
-    tok = sharding.token_axes(mesh, model.rules)
+    tok = batch_axes(model)
     grads = list(grads)
     buckets: dict[tuple, list] = {}
     for i, name in enumerate(_named_leaves(model)):
@@ -250,7 +261,7 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW, accum: int = 1):
     its share of the global loss (`models.gpt.token_mean`); gradients
     are synchronised once, after the accumulation (`sync_grads`), the
     norm is `sharded_global_norm`, and the reported loss is summed over
-    the axes that split tokens."""
+    the axes that split the batch (`batch_axes`)."""
     accum = int(accum)
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
@@ -286,9 +297,7 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW, accum: int = 1):
         gnorm = apply_update(optimizer, grads, state.opt_state, model)
         if getattr(model, "mesh", None) is not None:
             with torch.no_grad():
-                loss = col.psum(loss, sharding.token_axes(model.mesh,
-                                                     model.rules),
-                                model.mesh)
+                loss = col.psum(loss, batch_axes(model), model.mesh)
         state.step.add_(1)
         return state, {"loss": loss, "grad_norm": gnorm,
                        "step": state.step.clone()}
@@ -370,6 +379,22 @@ def pipeline_logical_axes(cfg) -> dict:
     return axes
 
 
+def _stage_leaf(w, spec, mesh):
+    """A stage's layer leaf whole, as the reference's stages run their
+    blocks unsplit: gathered over each axis that splits it, innermost
+    first. Over a `parallel.sharding.ZERO_AXES` axis (ranks with other
+    tokens) the gradient is reduce-scattered back; over a model axis
+    (``tensor``: its ranks repeat the stage on the same tokens, each
+    computing the whole gradient) each rank keeps its block of it, with
+    no sum."""
+    for i, entry in enumerate(spec):
+        for a in reversed(mesh.live_axes(sharding.spec_axes((entry,)))):
+            gather = (col.all_gather if a in sharding.ZERO_AXES
+                      else col.gather_from)
+            w = gather(w, a, mesh, dim=i)
+    return w
+
+
 def make_gpt_pipeline_trainer(cfg, mesh, num_microbatches: int = 2,
                               seed: int = 0,
                               optimizer: AdamW | None = None,
@@ -377,20 +402,22 @@ def make_gpt_pipeline_trainer(cfg, mesh, num_microbatches: int = 2,
     """GPipe-staged GPT trainer: the layer stack splits into
     ``mesh.shape["pipe"]`` contiguous stages, rank s of the axis holding
     stage s's layers (`pipeline_logical_axes`), and activations stream
-    between neighbouring stages (`parallel.pipeline.pipeline_apply`),
-    combinable with the data-like axes (each pipe rank streams its rows).
-    As in the reference: the embedding lookup, the final norm, the dense
-    unembed and the loss (no mask) run on every pipe rank, the blocks
-    without remat. ``tensor``, ``seq`` and ``expert`` must be 1: the
-    reference runs its stages' blocks without a mesh. Returns ``(state,
-    step_fn, place)``."""
+    between neighbouring stages (`parallel.pipeline.pipeline_apply`).
+    As in the reference, whose stages run ``gpt._block(h, lp, cfg,
+    None)`` under ``batch_spec=P(None, ("data", "fsdp"))``: each pipe
+    rank streams its rows whole, the blocks run unsplit and without remat
+    on every head, and the embedding lookup, the final norm, the dense
+    unembed and the loss (no mask) run on every pipe rank. On the other
+    axes: a stage rank gathers its layers' blocks whole (`_stage_leaf`),
+    so the ``tensor`` and ``expert`` ranks repeat their stage and each
+    keeps its block of a split leaf's whole update; a ``seq`` rank
+    gathers its rows' positions (token ids) before the embedding, runs
+    the stages on whole rows and scores its own positions, so the seq
+    ranks' gradients sum to the whole one as the data ranks' do; the
+    lookup and the unembed are vocab-parallel over ``tensor``
+    (`models.gpt`). Returns ``(state, step_fn, place)``."""
     from ray_tpu_torch.parallel.pipeline import pipeline_apply
 
-    for axis in ("tensor", "seq", "expert"):
-        if mesh.shape[axis] > 1:
-            raise ValueError(f"make_gpt_pipeline_trainer: the stages run "
-                             f"their blocks unsplit; {axis}="
-                             f"{mesh.shape[axis]} must be 1")
     s_count = max(mesh.shape.get("pipe", 1), 1)
     if cfg.n_layers % s_count:
         raise ValueError(
@@ -402,28 +429,42 @@ def make_gpt_pipeline_trainer(cfg, mesh, num_microbatches: int = 2,
         adt = cfg.activation_dtype()
         tokens = batch["inputs"]
         t = tokens.shape[1]
+        seq = () if mesh_on is None else mesh_on.live_axes("seq")
+        if seq:
+            # the stages run whole rows: every seq rank's positions
+            tokens = col.all_gather(tokens, seq, mesh_on, dim=1)
         emb = gpt._embed_table(model, cfg, mesh_on)
-        pos = model.pos_embed
-        final_ln = model.final_ln_scale
+        pos, final_ln = model.pos_embed, model.final_ln_scale
+        layers = model.layer_params()
         if mesh_on is not None:
             pos = gpt._whole(pos, model.specs["pos_embed"], mesh_on)
             final_ln = gpt._whole(final_ln, model.specs["final_ln_scale"],
                                   mesh_on)
-        x = emb[tokens] + pos[:t].to(adt)[None]
+            layers = [{k: _stage_leaf(w, model.layer_specs[k], mesh_on)
+                       for k, w in lp.items()} for lp in layers]
+            x = gpt._lookup(model, emb, tokens)
+        else:
+            x = emb[tokens]
+        x = x + pos[:tokens.shape[1]].to(adt)[None]
         per_stage = [None] * s_count
-        per_stage[mesh.axis_index("pipe") if mesh_on else 0] = \
-            model.layer_params()
+        per_stage[mesh.axis_index("pipe") if mesh_on else 0] = layers
 
         def stage_fn(layers, h):
             for lp in layers:
-                h = gpt._block(lp, h, cfg_blocks, None, mesh_on,
-                               model.layer_specs if mesh_on else None)
+                h = gpt._block(lp, h, cfg_blocks)
             return h
 
         x = pipeline_apply(stage_fn, per_stage, x, mesh=mesh,
                            num_microbatches=num_microbatches)
+        if seq:
+            off = mesh_on.axis_index(seq) * t
+            x = x[:, off:off + t]
         x = gpt._rms_norm(x, final_ln.to(adt))
-        nll = softmax_xent(gpt._mm_f32(x, emb.t()), batch["targets"])
+        if gpt.vocab_axes(model):
+            # a column-split product: x's cotangent sums over the vocab axes
+            x = col.copy_to(x, gpt.vocab_axes(model), mesh_on)
+        nll = gpt.logits_nll(model, gpt._mm_f32(x, emb.t()),
+                             batch["targets"])
         return gpt.token_mean(nll, mesh_on, rules=rules)
 
     return _make_lm_trainer(

@@ -24,10 +24,12 @@ find their entry point, and run the port alone.
 import datetime
 import importlib
 import multiprocessing as mp
+import multiprocessing.connection as mp_connection
 import os
 import pickle
 import sys
 import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -57,9 +59,12 @@ def _world_main(rank, n, store, out_dir, module, target, payload):
 
 class World:
     """``n`` ranks of a gloo world on the CPU, spawned at construction;
-    rank r runs ``module.target(r, payload)``. `results` waits for them
-    and returns each rank's result, in rank order; a rank that fails or
-    outlives `WORLD_TIMEOUT_S` fails it (every rank is stopped)."""
+    rank r runs ``module.target(r, payload)``. `results` waits for all
+    ranks against one deadline, ``timeout`` seconds (`WORLD_TIMEOUT_S`)
+    from the start of the wait, and returns each rank's result, in rank
+    order. A rank that fails stops the wait at once; at the deadline, or
+    after a failure, every rank still alive is killed and the wait fails
+    with the ranks' exit codes."""
 
     def __init__(self, module: str, target: str, payload, n: int = WORLD):
         self.tmp = tempfile.TemporaryDirectory(prefix="torch_world_")
@@ -71,18 +76,32 @@ class World:
         for p in self.procs:
             p.start()
 
-    def results(self) -> list:
+    def results(self, timeout: float = WORLD_TIMEOUT_S) -> list:
+        deadline = time.monotonic() + timeout
         try:
-            for p in self.procs:
-                p.join(WORLD_TIMEOUT_S)
+            pending = {p.sentinel: p for p in self.procs}
+            while pending:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                for s in mp_connection.wait(list(pending), left):
+                    p = pending.pop(s)
+                    p.join()
+                    if p.exitcode != 0:
+                        pending = {}
+                        break
         finally:
             for p in self.procs:
                 if p.is_alive():
                     p.kill()
-                    p.join()
+            for p in self.procs:
+                p.join()
         try:
             codes = [p.exitcode for p in self.procs]
-            assert codes == [0] * len(codes), f"rank exit codes {codes}"
+            assert codes == [0] * len(codes), (
+                f"rank exit codes {codes} (a rank still running at the "
+                f"{timeout:g} s deadline, or after another rank failed, "
+                "was killed)")
             out = []
             for r in range(len(self.procs)):
                 with open(os.path.join(self.tmp.name, f"rank{r}.pkl"),
@@ -547,6 +566,22 @@ def test_vocab_sharded_xent_matches_jax(world, jax_ref, name):
         below += outside[0]
         above += outside[1]
     assert below > 0 and above > 0
+
+
+def _hang(rank, payload):
+    time.sleep(payload)
+
+
+def test_a_hung_world_fails_at_its_deadline():
+    """Two ranks that outlive the wait: `World.results` fails within its
+    one deadline, not a deadline per rank, and kills both."""
+    world = World(__name__, "_hang", 600, n=2)
+    t0 = time.monotonic()
+    with pytest.raises(AssertionError, match="exit codes"):
+        world.results(timeout=4)
+    assert time.monotonic() - t0 < 4 + 10
+    assert not any(p.is_alive() for p in world.procs)
+    assert all(p.exitcode != 0 for p in world.procs)
 
 
 def test_mesh_refusals():

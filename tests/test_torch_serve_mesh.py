@@ -26,10 +26,10 @@ each rank holds 2 of the 4 heads, and the data ranks repeat the step.
   alone, makes every rank raise `MeshDivergenceError` naming the field,
   and nothing hangs;
 - what a mesh once refused constructs (int8 weights, a quantized `GPT`,
-  the draft proposer, the prefill role, an import, the ``seq`` axis;
-  their numbers are `tests/test_torch_serve_mesh_roles.py`'s and
-  `tests/test_torch_mesh_axes.py`'s), and what stays refused (MoE and
-  ViT over ``seq`` or ``pipe``) names ROADMAP A6 (c).
+  the draft proposer, the prefill role, an import, the ``seq`` axis,
+  MoE over ``seq`` and ViT over ``pipe``; their numbers are
+  `tests/test_torch_serve_mesh_roles.py`'s, `tests/test_torch_mesh_axes.
+  py`'s and `tests/test_torch_train_mesh_rest.py`'s).
 
 This module imports no JAX at its top: the spawned ranks import it to
 find their entry point.
@@ -211,8 +211,7 @@ def _serve_jobs(rank, payload):
     except MeshDivergenceError as e:
         out["diverge_idle"] = str(e)
 
-    # what a mesh once refused constructs; what stays refused on a mesh
-    # (ROADMAP A6 (c))
+    # what a mesh once refused constructs (ROADMAP A6 (c))
     from ray_tpu_torch.models import moe, vit
     errs = []
     seq_mesh = MeshSpec(data=2, seq=2).build()
@@ -444,12 +443,9 @@ def test_a_rank_left_idle_raises_on_every_rank(world):
 
 def test_what_stays_refused_names_a6c(world):
     """int8 weights, a quantized `GPT`, the draft proposer, the prefill
-    role, an import and the ``seq`` axis construct on a mesh; MoE over
-    ``seq`` and ViT over ``pipe`` still raise, naming A6 (c) and the
-    axis."""
+    role, an import and the ``seq`` axis construct on a mesh, and so do
+    MoE over ``seq`` and ViT over ``pipe``, which once raised naming A6
+    (c): nothing of these stays refused."""
     for res in world:
         errs = res["refusals"]
-        assert errs[:6] == [None] * 6, errs
-        assert all(e is not None and "A6 (c)" in e for e in errs[6:]), errs
-        assert "MoE" in errs[6] and "'seq'" in errs[6]
-        assert "ViT" in errs[7] and "'pipe'" in errs[7]
+        assert errs == [None] * 8, errs
