@@ -312,6 +312,27 @@ the MoE, ViT and ResNet families) and unpaged decode, end to end:
    limits, and the three flash kernels against their plain versions at
    a stage's shapes on each rank in turn.
 
+22. the task and actor runtime on the card's machine:
+   ``ray_tpu_torch.init(num_cpus=4)`` in this driver, after phases 1-21
+   initialised CUDA in it, finds the card (its count held to torch's): (a)
+   10,000 no-op tasks submitted together (tasks/s), 1,000 sequential round
+   trips (p50/p99 ms), a dependency chain and a fan-out/fan-in; (b) a 256
+   MiB float32 array ``put`` and ``get`` back as a read-only zero-copy
+   view (GB/s each way) from the store's native arena (its backend read
+   out), and a task's 64 MiB return; (c) 32 actors x 100 calls (calls/s,
+   each actor's order), ``kill`` then ``ActorDiedError``, ``max_restarts=1``
+   back after ``os._exit``; (d) a ``num_gpus=1`` task (an exec'd worker,
+   one id in its ``CUDA_VISIBLE_DEVICES``) builds phase 1's paged-decode
+   inputs from a seed and calls ``paged_decode_attention`` on the card
+   (one split-K launch, counted in the worker): its output bit for bit the
+   driver's own call on the same inputs and within phase 1's tolerance of
+   the plain version; a ``num_gpus=1`` actor keeps a CUDA tensor across
+   three calls and names the card; a CPU task sees
+   ``CUDA_VISIBLE_DEVICES=""`` and no card; the GPU comes back to the
+   pool; (e) ``shutdown()``'s time, then no process of the session alive
+   (``os.kill(pid, 0)``) and its ``ray_tpu_torch_session_*`` directory
+   gone. The rates are host numbers of the card's machine.
+
 Before the phases it prints the registers and spilled bytes of every
 tensor-core kernel and of the two split-K decode kernels from nvcc's
 ptxas report.
@@ -6729,6 +6750,349 @@ def phase_train_mesh_rest(dev, smi: str) -> dict:
     return out
 
 
+# Phase 22: the task and actor runtime (`ray_tpu_torch.init`) on the
+# card's machine, after phases 1-21 initialised CUDA in this driver.
+RT_CPUS = 4
+RT_TASKS = 10_000            # (a) no-op tasks submitted together
+RT_ROUND_TRIPS = 1_000       # (a) sequential submit + get
+RT_CHAIN, RT_FAN = 20, 100   # (a) a dependency chain, a fan-out/fan-in
+RT_PUT_BYTES = 256 << 20     # (b) one float32 array put and got
+RT_RETURN_BYTES = 64 << 20   # (b) one float32 array a task returns
+RT_ACTORS, RT_ACTOR_CALLS = 32, 100   # (c)
+RT_SEED = 22                 # (d) the GPU task's paged-decode inputs
+RT_SHUTDOWN_BOUND_S = 1.0    # (e) runtime.shutdown() wall, 2 s deadline
+
+
+def paged_decode_inputs(dev, seed: int):
+    """Phase 1's paged-decode geometry (bf16 q [8, H, D], a bf16 pool of
+    NB blocks of BS positions, 64-entry tables, DECODE_POS) from a seed:
+    the same tensors wherever it runs on the card."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.randn((NB, BS, H, D), generator=g, device=dev)
+    v = torch.randn((NB, BS, H, D), generator=g, device=dev)
+    perm = torch.randperm(NB - 1, generator=g, device=dev) + 1
+    tables = perm[:8 * MB].view(8, MB).to(torch.int32).contiguous()
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
+    q = torch.randn((8, H, D), generator=g, device=dev)
+    return (q.bfloat16(), k.bfloat16(), v.bfloat16(), tables, pos)
+
+
+def rt_gpu_decode(device_type: str, seed: int):
+    """Phase 22 (d)'s GPU task: phase 1's paged-decode inputs from
+    ``seed`` through `paged_decode_attention` on this worker's card (the
+    split-K kernel; the wrapper counts the launch). Returns the output as
+    float32 numpy (bf16 widens exactly), the launch count, the worker's
+    CUDA_VISIBLE_DEVICES, its device count and the task's host seconds
+    by step."""
+    steps, t0 = {}, time.perf_counter()
+    import torch
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import decode_attention as da
+    steps["import_s"] = time.perf_counter() - t0
+    dev = torch.device(device_type)
+    on_card = dev.type == "cuda"
+    if on_card:
+        t0 = time.perf_counter()
+        torch.cuda.init()
+        torch.zeros(1, device=dev)
+        steps["cuda_context_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _build.load()            # the driver's build: nothing compiles here
+        steps["load_kernels_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    args = paged_decode_inputs(dev, seed)
+    da.paged_decode_attention.launches = 0
+    out = da.paged_decode_attention(*args)
+    if on_card:
+        torch.cuda.synchronize()
+    steps["inputs_and_call_s"] = time.perf_counter() - t0
+    return (out.float().cpu().numpy(), da.paged_decode_attention.launches,
+            os.environ.get("CUDA_VISIBLE_DEVICES"),
+            torch.cuda.device_count() if on_card else 0, steps)
+
+
+class RtCardHolder:
+    """Phase 22 (d)'s GPU actor: one CUDA tensor kept across calls."""
+
+    def __init__(self, device_type: str):
+        import torch
+        self.t = torch.zeros(4, device=device_type)
+
+    def add(self, x: float) -> float:
+        self.t += x
+        return float(self.t.sum())
+
+    def card(self):
+        import torch
+        return (torch.cuda.get_device_name()
+                if self.t.is_cuda else str(self.t.device))
+
+
+def rt_cpu_probe():
+    """Phase 22 (d)'s CPU task: what a CPU worker sees of the card."""
+    import torch
+    return os.environ.get("CUDA_VISIBLE_DEVICES"), torch.cuda.is_available()
+
+
+def rt_noop(x=None):
+    return x
+
+
+def rt_inc(x):
+    return x + 1
+
+
+def rt_square(x):
+    return x * x
+
+
+def rt_total(*xs):
+    return sum(xs)
+
+
+def rt_big(nbytes: int):
+    import numpy as np
+    return np.arange(nbytes // 4, dtype=np.float32)
+
+
+class RtCounter:
+    def __init__(self):
+        self.n = 0
+
+    def incr(self):
+        self.n += 1
+        return self.n
+
+    def die(self):
+        os._exit(1)
+
+
+def phase_runtime(dev, smi: str) -> dict:
+    """Phase 22: `ray_tpu_torch.init(num_cpus=4)` in this driver, whose
+    CUDA context phases 1-21 created (so the runtime must never fork it):
+    (a) tasks, (b) objects through the native arena, (c) actors, (d) the
+    card from a GPU task and actor, CPU workers without it, (e) shutdown.
+    The rates are host numbers of the card's machine."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops import decode_attention as da
+    rep = {"card": smi}
+    on_card = dev.type == "cuda"
+    found = rt._detect_gpus()
+    if on_card and found != torch.cuda.device_count():
+        fail(f"the runtime counts {found} GPUs, torch "
+             f"{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    rt.init(num_cpus=RT_CPUS)
+    rep["init_s"] = time.perf_counter() - t0
+    node = rt._worker.get_client().node
+    rep["resources"] = rt.cluster_resources()
+    rep["store_backend"] = node.store.backend
+    print(f"  init {rep['init_s']:.3f} s, resources {rep['resources']}, "
+          f"store backend {rep['store_backend']} [{smi}]")
+    if rep["store_backend"] != "native":
+        fail("the object store is not on the native arena")
+    if rep["resources"].get("GPU") != float(found):
+        fail(f"init() did not take the {found} GPUs it found")
+
+    # -- (a) tasks --------------------------------------------------------
+    noop, inc = rt.remote(rt_noop), rt.remote(rt_inc)
+    rt.get([noop.remote(i) for i in range(4 * RT_CPUS)], timeout=60)  # pool
+    t0 = time.perf_counter()
+    got = rt.get([noop.remote(i) for i in range(RT_TASKS)], timeout=300)
+    dt = time.perf_counter() - t0
+    if got != list(range(RT_TASKS)):
+        fail("(a) the no-op tasks returned other values")
+    rep["tasks_per_s"] = RT_TASKS / dt
+    trips = []
+    for i in range(RT_ROUND_TRIPS):
+        t0 = time.perf_counter()
+        if rt.get(noop.remote(i), timeout=60) != i:
+            fail("(a) a round trip returned another value")
+        trips.append((time.perf_counter() - t0) * 1e3)
+    trips.sort()
+    rep["round_trip_ms_p50"] = trips[len(trips) // 2]
+    rep["round_trip_ms_p99"] = trips[int(len(trips) * 0.99) - 1]
+    ref = inc.remote(0)
+    for _ in range(RT_CHAIN - 1):
+        ref = inc.remote(ref)
+    fan = rt.get(rt.remote(rt_total).remote(
+        *[rt.remote(rt_square).remote(i) for i in range(RT_FAN)]), timeout=60)
+    if rt.get(ref, timeout=60) != RT_CHAIN or \
+            fan != sum(i * i for i in range(RT_FAN)):
+        fail("(a) the chain or the fan-out/fan-in gave another value")
+    print(f"  (a) {RT_TASKS} no-op tasks at {rep['tasks_per_s']:.0f} tasks/s; "
+          f"{RT_ROUND_TRIPS} round trips p50 {rep['round_trip_ms_p50']:.3f} "
+          f"ms, p99 {rep['round_trip_ms_p99']:.3f} ms; a chain of "
+          f"{RT_CHAIN} and a fan-in of {RT_FAN} right [{smi}]")
+
+    # -- (b) objects ------------------------------------------------------
+    arr = np.random.default_rng(RT_SEED).standard_normal(
+        RT_PUT_BYTES // 4, dtype=np.float32)
+    t0 = time.perf_counter()
+    obj = rt.put(arr)
+    t1 = time.perf_counter()
+    out = rt.get(obj)
+    t2 = time.perf_counter()
+    if not np.array_equal(out, arr) or out.flags.writeable:
+        fail("(b) the array did not come back as a read-only equal view")
+    desc = node.directory[obj._id]
+    if not desc.arena:
+        fail("(b) the array is not in the native arena")
+    rep["put_gb_s"] = arr.nbytes / (t1 - t0) / 1e9
+    rep["get_gb_s"] = arr.nbytes / (t2 - t1) / 1e9
+    rep["put_get_gb_s"] = arr.nbytes / (t2 - t0) / 1e9
+    # the first put wrote pages the arena file had never touched; freed,
+    # its block is reused by the same put again, on resident pages
+    oid = obj._id
+    del out, obj
+    deadline = time.monotonic() + 30
+    while oid in node.directory and time.monotonic() < deadline:
+        rt._worker._drain_decs()
+        time.sleep(0.01)
+    t0 = time.perf_counter()
+    obj = rt.put(arr)
+    rep["put_again_gb_s"] = arr.nbytes / (time.perf_counter() - t0) / 1e9
+    del obj
+    t0 = time.perf_counter()
+    big = rt.get(rt.remote(rt_big).remote(RT_RETURN_BYTES), timeout=120)
+    rep["task_return_s"] = time.perf_counter() - t0
+    if big.nbytes != RT_RETURN_BYTES or big[12345] != 12345.0:
+        fail("(b) the task's 64 MiB array came back wrong")
+    del big
+    print(f"  (b) {RT_PUT_BYTES >> 20} MiB float32: put {rep['put_gb_s']:.2f} "
+          f"GB/s (again, on resident arena pages: "
+          f"{rep['put_again_gb_s']:.2f} GB/s), get {rep['get_gb_s']:.2f} "
+          f"GB/s (zero-copy, read-only), put+get {rep['put_get_gb_s']:.2f} "
+          f"GB/s; a task's "
+          f"{RT_RETURN_BYTES >> 20} MiB return {rep['task_return_s']:.3f} s; "
+          f"store {node.store.backend} [{smi}]")
+
+    # -- (c) actors -------------------------------------------------------
+    counter = rt.remote(RtCounter)
+    actors = [counter.remote() for _ in range(RT_ACTORS)]
+    rt.get([a.incr.remote() for a in actors], timeout=120)   # all up
+    t0 = time.perf_counter()
+    refs = [[a.incr.remote() for _ in range(RT_ACTOR_CALLS)] for a in actors]
+    got = [rt.get(r, timeout=300) for r in refs]
+    dt = time.perf_counter() - t0
+    if any(g != list(range(2, RT_ACTOR_CALLS + 2)) for g in got):
+        fail("(c) an actor's calls came back out of order or wrong")
+    rep["actor_calls_per_s"] = RT_ACTORS * RT_ACTOR_CALLS / dt
+    rt.kill(actors[0])
+    try:
+        rt.get(actors[0].incr.remote(), timeout=60)
+        fail("(c) a killed actor answered")
+    except rt.exceptions.ActorDiedError:
+        pass
+    phoenix = counter.options(max_restarts=1).remote()
+    first = rt.get(phoenix.incr.remote(), timeout=60)
+    phoenix.die.remote()
+    again = rt.get(phoenix.incr.remote(), timeout=120)
+    if (first, again) != (1, 1):
+        fail(f"(c) max_restarts=1 gave {first}, {again}, not a fresh 1")
+    print(f"  (c) {RT_ACTORS} actors x {RT_ACTOR_CALLS} calls at "
+          f"{rep['actor_calls_per_s']:.0f} calls/s; kill -> ActorDiedError; "
+          f"max_restarts=1 back after os._exit [{smi}]")
+    del actors, phoenix
+
+    # -- (d) the card -----------------------------------------------------
+    if found:
+        t0 = time.perf_counter()
+        out, launches, visible, count, steps = rt.get(
+            rt.remote(num_gpus=1)(rt_gpu_decode).remote(dev.type, RT_SEED),
+            timeout=300)
+        rep["gpu_task_s"] = time.perf_counter() - t0
+        # the rest of the wall: spawning the exec'd worker, its imports of
+        # the runtime and registration, the round trips
+        steps["outside_task_s"] = rep["gpu_task_s"] - sum(steps.values())
+        if on_card and (len(visible.split(",")) != 1 or count != 1):
+            fail(f"(d) the GPU task saw CUDA_VISIBLE_DEVICES={visible!r}, "
+                 f"{count} devices")
+        args = paged_decode_inputs(dev, RT_SEED)
+        mine = da.paged_decode_attention(*args)
+        plain = da.reference_paged_decode_attention(*args)
+        if not np.array_equal(out, mine.float().cpu().numpy()):
+            fail("(d) the GPU task's kernel output is not the driver's, "
+                 "bit for bit")
+        err = check("paged decode", torch.tensor(out, device=dev), plain,
+                    "bfloat16", "(d) the GPU task's paged decode vs plain")
+        if on_card and launches != 1:
+            fail(f"(d) the GPU task launched the kernel {launches} times")
+        rep["gpu_task"] = {"launches": launches, "visible": visible,
+                           "max_abs_err": err, "bit_identical": True,
+                           "wall_s": rep["gpu_task_s"], "steps": steps}
+        holder = rt.remote(num_gpus=1)(RtCardHolder).remote(dev.type)
+        sums = [rt.get(holder.add.remote(1.0), timeout=120)
+                for _ in range(3)]
+        card = rt.get(holder.card.remote(), timeout=60)
+        want = torch.cuda.get_device_name(0) if on_card else "cpu"
+        if sums != [4.0, 8.0, 12.0] or card != want:
+            fail(f"(d) the GPU actor gave {sums}, {card!r}")
+        rt.kill(holder)
+        rep["gpu_actor"] = {"sums": sums, "card": card}
+    cpu_visible, cpu_cuda = rt.get(rt.remote(rt_cpu_probe).remote(),
+                                   timeout=120)
+    if cpu_visible != "" or cpu_cuda:
+        fail(f"(d) a CPU worker saw CUDA_VISIBLE_DEVICES={cpu_visible!r}, "
+             f"cuda available {cpu_cuda}")
+    deadline = time.monotonic() + 30
+    while (rt.available_resources().get("GPU", 0.0) != float(found)
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+    rep["gpu_available_after"] = rt.available_resources().get("GPU", 0.0)
+    if rep["gpu_available_after"] != float(found):
+        fail(f"(d) GPU availability stayed at {rep['gpu_available_after']}")
+    print(f"  (d) GPU task: CUDA_VISIBLE_DEVICES="
+          f"{rep.get('gpu_task', {}).get('visible')!r}, paged decode "
+          f"launches {rep.get('gpu_task', {}).get('launches')}, bit for bit "
+          f"the driver's, {rep.get('gpu_task_s', 0.0):.2f} s "
+          f"({rep.get('gpu_task', {}).get('steps')}); GPU actor {rep.get('gpu_actor')}; CPU worker "
+          f"CUDA_VISIBLE_DEVICES='' and no card; GPU back to "
+          f"{rep['gpu_available_after']} [{smi}]")
+
+    # -- (e) shutdown -----------------------------------------------------
+    pids, session = node.pids(), node.session_dir
+    t0 = time.perf_counter()
+    rt.shutdown()
+    rep["shutdown_s"] = time.perf_counter() - t0
+    rep["shutdown_report"] = node.shutdown_report
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    states = {}
+    for pid in alive:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                states[pid] = f.read().rsplit(")", 1)[1].split()[0]
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                states[pid] += " " + f.read().replace(b"\0", b" ").decode()
+        except OSError:
+            pass
+    rep["processes"] = len(pids)
+    print(f"  (e) shutdown {rep['shutdown_s']:.3f} s "
+          f"({rep['shutdown_report']}); {len(pids)} processes, alive after: "
+          f"{states or 'none'}; session dir "
+          f"{'left' if os.path.exists(session) else 'gone'} [{smi}]")
+    if alive or os.path.exists(session):
+        fail(f"(e) after shutdown: live pids {states}, session dir "
+             f"{os.path.exists(session)}")
+    late = node.shutdown_report
+    if (rep["shutdown_s"] > RT_SHUTDOWN_BOUND_S or late["sigkilled"]
+            or late["threads_alive"]):
+        fail(f"(e) shutdown took {rep['shutdown_s']:.3f} s (bound "
+             f"{RT_SHUTDOWN_BOUND_S} s), SIGKILLed {late['sigkilled']}, "
+             f"node threads alive {late['threads_alive']}")
+    return rep
+
+
 def _readable_kernel(mangled: str):
     """A readable name for an instantiation of a tensor-core kernel or of
     a split-K decode kernel (``flash_dq_tc_kernel<64, true>``,
@@ -6956,13 +7320,17 @@ def main() -> int:
                        "async checkpointer on tensor=2; four ranks: the "
                        "GPipe trainer on pipe=2 x tensor=2)",
                        phase_train_mesh_rest, dev, smi)
+    runtime = phase(22, "the task and actor runtime (ray_tpu_torch.init: "
+                    "tasks, objects in the native arena, actors; a GPU task "
+                    "and actor on the card, CPU workers without it; "
+                    "shutdown)", phase_runtime, dev, smi)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
                   flash=flash, train=train, xent=xent, fused_train=fused,
                   unpaged=unpaged, c1=c1, int8=int8, spec=spec,
                   capture=capture, pressure=pressure, disagg=disagg,
                   flywheel=flywheel, ft_models=ft_models, mesh=mesh,
                   serve_mesh=serve_mesh, roles_mesh=roles_mesh,
-                  train_rest=train_rest)
+                  train_rest=train_rest, runtime=runtime)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -7245,6 +7613,12 @@ def main() -> int:
             fail(f"{wrapper} was not launched on one of phase 21's paths "
                  f"{got}")
         row.setdefault("launches_by_path", {}).update(got)
+    # phase 22 (d)'s GPU task, counted from zero in its worker process
+    gpu_task = runtime["gpu_task"]["launches"]
+    if gpu_task <= 0:
+        fail("paged_decode_attention was not launched in phase 22's GPU task")
+    next(r for r in rows if r["name"] == "paged_decode")[
+        "launches_by_path"]["phase 22 (d) GPU task"] = gpu_task
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,3 +37,118 @@ NODE_IP = define(
     "Advertised IP of this machine for cross-host dials; empty = "
     "autodetect via the outbound interface (reference: "
     "node_ip_address detection, services.py:1353).")
+
+# --- the task and actor runtime on one machine (`ray_tpu/_private/
+# constants.py`'s runtime options; the session, socket and spill names
+# are the port's own, so the two packages' sessions never meet) ---
+
+import os as _os
+import tempfile as _tempfile
+
+INLINE_OBJECT_MAX_BYTES = define(
+    "INLINE_OBJECT_MAX_BYTES", int, 100 * 1024,
+    "Objects at most this many serialized bytes ride inline in control "
+    "messages instead of the shared-memory store.")
+
+SHM_ROOT = define(
+    "SHM_ROOT", str, "/dev/shm" if _os.path.isdir("/dev/shm") else "/tmp",
+    "Root for session directories (object arena + sockets); tmpfs.")
+
+SESSION_PREFIX = "ray_tpu_torch_session_"
+
+# the forkserver's socket, inside the session directory
+FORKSERVER_SOCKET = "ray_tpu_torch_fs_{pid}.sock"
+
+MAX_WORKERS_CAP = define(
+    "MAX_WORKERS_CAP", int, 32,
+    "Hard cap on generic (pool) worker processes per node.")
+
+WORKER_REGISTER_TIMEOUT_S = define(
+    "WORKER_REGISTER_TIMEOUT_S", float, 60.0,
+    "Seconds to wait for a spawned worker to phone home before declaring "
+    "startup failure.")
+
+DEFAULT_TASK_NUM_CPUS = define(
+    "DEFAULT_TASK_NUM_CPUS", float, 1.0,
+    "CPUs a task holds when @remote doesn't say.")
+
+DEFAULT_ACTOR_LIFETIME_CPUS = define(
+    "DEFAULT_ACTOR_LIFETIME_CPUS", float, 0.0,
+    "CPUs an actor holds for its lifetime when @remote doesn't say.")
+
+BUFFER_ALIGNMENT = define(
+    "BUFFER_ALIGNMENT", int, 64,
+    "Byte alignment of buffers inside serialized envelopes so zero-copy "
+    "numpy views land 64-byte aligned.")
+
+# Env var handed to workers that were allocated GPUs (the reference's
+# TPU_VISIBLE_CHIPS); a CPU worker gets it empty, which hides every card.
+GPU_VISIBLE_DEVICES_ENV = "CUDA_VISIBLE_DEVICES"
+
+OBJECT_SPILL_ROOT = define(
+    "TORCH_OBJECT_SPILL_ROOT", str,
+    _os.path.join(_tempfile.gettempdir(), "ray_tpu_torch_spill"),
+    "Real-disk root for objects that do not fit the shared-memory arena "
+    "(or all store-backed objects when the native arena is switched off "
+    "with RAY_TPU_DISABLE_NATIVE=1).")
+
+OBJECT_STORE_BYTES = define(
+    "OBJECT_STORE_BYTES", int, 0,
+    "Shared-memory arena capacity per node. 0 = auto: 20% of system "
+    "memory, min 512 MiB (the arena file is sparse, so unused capacity "
+    "costs nothing).")
+
+SUBMIT_INLINE_BACKLOG = define(
+    "SUBMIT_INLINE_BACKLOG", int, 32,
+    "Pending-queue depth beyond which task submission skips its inline "
+    "dispatch attempt and becomes a pure enqueue.")
+
+SCHEDULER_DISPATCH_WINDOW = define(
+    "SCHEDULER_DISPATCH_WINDOW", int, 64,
+    "Max non-dispatchable tasks one schedule pass examines before "
+    "leaving the rest queued.")
+
+SCHEDULER_FREED_BATCH = define(
+    "SCHEDULER_FREED_BATCH", int, 16,
+    "How many queued plain tasks the completion fast path may dispatch "
+    "under ONE scheduler-lock acquisition when workers free up.")
+
+FREED_REFS_CAP = define(
+    "FREED_REFS_CAP", int, 100_000,
+    "Bounded FIFO of freed object ids kept as tombstones so racing "
+    "get/wait calls fail fast instead of hanging.")
+
+ARGS_RELEASED_CAP = define(
+    "ARGS_RELEASED_CAP", int, 200_000,
+    "Bounded FIFO of task ids whose args were already released "
+    "(exactly-once guard on the refcount decrement).")
+
+REF_FLUSH_INTERVAL_S = define(
+    "REF_FLUSH_INTERVAL_S", float, 0.5,
+    "Workers batch ObjectRef hold/release events and flush them to the "
+    "node at this cadence.")
+
+WORKER_LOG_REDIRECT = define(
+    "WORKER_LOG_REDIRECT", bool, True,
+    "Write each worker process's stdout+stderr to its own file under the "
+    "session's logs dir instead of inheriting the driver's terminal.")
+
+SUBMIT_WINDOW = define(
+    "SUBMIT_WINDOW", int, 1024,
+    "Max unacknowledged pipelined submissions per worker channel before "
+    "submit blocks waiting for credit.")
+
+SUBMIT_RESYNC_S = define(
+    "SUBMIT_RESYNC_S", float, 1.0,
+    "With unacked pipelined submissions and no credit progress for this "
+    "long, the worker replays its unacked ring.")
+
+# Bound on one write to a worker's channel (SO_SNDTIMEO). A worker that
+# reads nothing for this long (stopped, wedged) has its channel closed and
+# is treated as dead; no sender waits on it longer.
+SEND_TIMEOUT_S = 30.0
+
+# shutdown() waits this long, once for all workers together, for them to
+# exit after KillWorker and the closed channels; whatever is still alive
+# then is SIGKILLed.
+SHUTDOWN_DEADLINE_S = 2.0

@@ -47,7 +47,18 @@ def test_every_module_imports_without_jax_or_ray_tpu():
             "ray_tpu_torch.parallel.collectives",
             "ray_tpu_torch.parallel.sharding",
             "ray_tpu_torch.parallel.ring_attention",
-            "ray_tpu_torch.parallel.pipeline"} <= set(mods)
+            "ray_tpu_torch.parallel.pipeline",
+            "ray_tpu_torch.actor", "ray_tpu_torch.remote_function",
+            "ray_tpu_torch.runtime_context", "ray_tpu_torch._private.ids",
+            "ray_tpu_torch._private.serialization",
+            "ray_tpu_torch._private.native",
+            "ray_tpu_torch._private.native.arena",
+            "ray_tpu_torch._private.object_store",
+            "ray_tpu_torch._private.protocol", "ray_tpu_torch._private.spawn",
+            "ray_tpu_torch._private.forkserver",
+            "ray_tpu_torch._private.worker_main",
+            "ray_tpu_torch._private.worker",
+            "ray_tpu_torch._private.node"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -117,6 +128,37 @@ def test_chip_smoke_mesh_child_imports_no_jax_or_ray_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.stdout.strip().splitlines()[-1] == "[] True True", \
         out.stdout + out.stderr
+
+
+def test_runtime_processes_import_no_jax_ray_tpu_or_torch():
+    """The runtime's spawned processes stand alone too: a CPU worker
+    forked from the forkserver (so the forkserver's own imports are in its
+    modules) and a GPU worker exec'd as ``python -m
+    ray_tpu_torch._private.worker_main`` load neither JAX nor the JAX
+    package, and not ``torch`` either; nor does the driver's ``import
+    ray_tpu_torch``."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch as rt\n"
+        "def bad():\n"
+        "    import os, sys\n"
+        "    return os.environ.get('CUDA_VISIBLE_DEVICES'), sorted(\n"
+        "        n for n in sys.modules if n.split('.')[0] in\n"
+        "        ('jax', 'ray_tpu', 'optax', 'ml_dtypes', 'torch'))\n"
+        "driver = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "                ('jax', 'ray_tpu', 'torch'))\n"
+        "rt.init(num_cpus=1, num_gpus=1)\n"
+        "try:\n"
+        "    cpu = rt.get(rt.remote(bad).remote(), timeout=60)\n"
+        "    gpu = rt.get(rt.remote(num_gpus=1)(bad).remote(), timeout=60)\n"
+        "finally:\n"
+        "    rt.shutdown()\n"
+        "print(repr([driver, cpu, gpu]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == \
+        repr([[], ("", []), ("0", [])]), out.stdout
 
 
 def test_default_device_is_cuda_and_raises_without_one():
