@@ -332,6 +332,33 @@ the MoE, ViT and ResNet families) and unpaged decode, end to end:
    pool; (e) ``shutdown()``'s time, then no process of the session alive
    (``os.kill(pid, 0)``) and its ``ray_tpu_torch_session_*`` directory
    gone. The rates are host numbers of the card's machine.
+23. serving through the control plane (`ray_tpu_torch.serve`) on the
+   card, in a session of its own (``init(num_cpus=4)``): (a) ``serve.run``
+   of ``serve.deployment(InferenceReplica, num_replicas=2,
+   ray_actor_options={"num_gpus": 0.5}, max_concurrent_queries=16)`` at
+   phase 2's model (8 slots, ``max_len`` 1024, block 16, seed 0): two
+   GPU replicas sharing the card, each an exec'd worker; the time to
+   ready split into the worker's exec, its import and build, and the
+   first stream (the first captures); the controller's and the proxy's
+   processes hold no ``torch`` (no ``libtorch`` mapped); (b) phase 2's
+   16 greedy requests streamed concurrently through ``handle.stream``:
+   each stream phase 2's tokens, or its first difference where phase 3's
+   float32 reference has a top-2 margin under 0.2 (batch composition
+   differs, so bf16 bits may); each replica's paged decode and prefill
+   launches, counted in its own process, above 0; client TTFT and TPOT
+   p50/p99 and tokens/s on host clocks; (c) one greedy prompt through
+   ``serve.start()``'s proxy with ``http.client``: the chunked body
+   decodes to the same tokens under the same rule; (d) the replica
+   serving a live stream killed after 20 tokens: the stream finishes on
+   the other replica through ``token_resume`` under the same rule, and
+   the controller brings the deployment back to 2 replicas and
+   ``RUNNING`` within `SERVE23_RESTORE_BOUND_S`; (e) ``serve.delete``,
+   then ``serve.run_disagg`` of one prefill and one decode replica at
+   ``num_gpus=0.5`` each: `DisaggHandle` streams under the same rule,
+   the handoff's ``kv_transfer_gbps`` and pull ms; (f) ``serve.shutdown``
+   and ``ray_tpu_torch.shutdown``: no process of the session alive, its
+   directory gone, the seconds printed. Host clocks of the card's
+   machine.
 
 Before the phases it prints the registers and spilled bytes of every
 tensor-core kernel and of the two split-K decode kernels from nvcc's
@@ -7093,6 +7120,412 @@ def phase_runtime(dev, smi: str) -> dict:
     return rep
 
 
+SERVE23_CPUS = 4
+SERVE23_NEW = 64                # tokens a stream, as phase 2's
+SERVE23_KILL_AFTER = 20         # (d) tokens consumed before the kill
+SERVE23_MARGIN = 2 * LOGPROB_TOL   # phase 3's decisive top-2 margin
+SERVE23_READY_BOUND_S = 120.0   # (a) and (e): serve.run's own wait
+SERVE23_RESTORE_BOUND_S = 120.0  # (d) back to 2 replicas and RUNNING
+
+
+class _MarginRule:
+    """Phase 3's rule for two greedy streams of one prompt: equal, or
+    equal up to a first difference where the float32 dense reference
+    (plain attention, the same seed's weights) has a top-2 margin under
+    `SERVE23_MARGIN`: a position where bf16 bits of another batch may
+    pick the other token. The reference is built at the first
+    difference."""
+
+    def __init__(self, dev, cfg_kwargs, seed):
+        self.dev, self.cfg_kwargs, self.seed = dev, cfg_kwargs, seed
+        self.ref = None
+        self.diffs = []
+
+    def check(self, what, prompt, want, got):
+        want, got = [int(t) for t in want], [int(t) for t in got]
+        if len(got) != len(want):
+            fail(f"{what}: {len(got)} tokens, wanted {len(want)}")
+        if got == want:
+            return None
+        import numpy as np
+        import torch
+        from ray_tpu_torch.models import gpt
+        i = next(k for k, (a, b) in enumerate(zip(want, got)) if a != b)
+        if self.ref is None:
+            cfg = gpt.small(**{**self.cfg_kwargs, "dtype": "float32",
+                               "attn_impl": "xla"})
+            self.ref = gpt.GPT(cfg, gpt.init_params(self.seed, cfg,
+                                                    self.dev))
+        seq = torch.tensor(np.concatenate([np.asarray(prompt), want[:i]]),
+                           dtype=torch.long, device=self.dev)[None]
+        with torch.inference_mode():
+            top2 = torch.log_softmax(gpt.forward(self.ref, seq)[0, -1],
+                                     dim=-1).topk(2)
+        margin = float(top2.values[0] - top2.values[1])
+        self.diffs.append({"what": what, "position": i, "margin": margin})
+        if not margin < SERVE23_MARGIN:
+            fail(f"{what}: first difference at token {i} where the f32 "
+                 f"reference's top-2 margin is {margin:.3f} (decisive: "
+                 f">= {SERVE23_MARGIN})")
+        return i
+
+
+def _pct(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p / 100 * len(xs)))] if xs else 0.0
+
+
+def _proc_start_epoch(pid: int) -> float:
+    """When process ``pid`` started, on the epoch clock (its start ticks
+    after boot, /proc)."""
+    with open(f"/proc/{pid}/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        btime = next(int(line.split()[1]) for line in f
+                     if line.startswith("btime"))
+    return btime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _maps_torch(pid: int) -> bool:
+    with open(f"/proc/{pid}/maps") as f:
+        return "libtorch" in f.read()
+
+
+def _serve_streams(handle, prompts, new: int) -> dict:
+    """``handle.stream`` (or a `DisaggHandle`'s) of every prompt at
+    once, each drained by a thread: the tokens and each client's TTFT
+    and TPOT (host clocks)."""
+    import concurrent.futures
+
+    def one(p):
+        t0 = time.perf_counter()
+        toks, stamps = [], []
+        for t in handle.stream(list(map(int, p)), max_new_tokens=new,
+                               temperature=0.0):
+            toks.append(t)
+            stamps.append(time.perf_counter())
+        return toks, t0, stamps
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+        got = list(pool.map(one, prompts))
+    wall = time.perf_counter() - t0
+    ttft = [(st[0] - s) * 1e3 for _, s, st in got if st]
+    tpot = [(st[-1] - st[0]) * 1e3 / (len(st) - 1) for _, _, st in got
+            if len(st) > 1]
+    return {"tokens": [t for t, _, _ in got], "wall_s": wall,
+            "tok_s": sum(len(t) for t, _, _ in got) / wall,
+            "ttft_ms_p50": _pct(ttft, 50), "ttft_ms_p99": _pct(ttft, 99),
+            "tpot_ms_p50": _pct(tpot, 50), "tpot_ms_p99": _pct(tpot, 99)}
+
+
+def _first_stream(rt, replica, prompt) -> float:
+    """Seconds of one 2-token stream sent to ``replica`` itself (not
+    routed), drained through its ``next_chunks``."""
+    from ray_tpu_torch.serve.replica import STREAM_MARKER
+    t0 = time.perf_counter()
+    marker = rt.get(replica.handle_request.remote(
+        (prompt,), {"max_new_tokens": 2}), timeout=SERVE23_READY_BOUND_S)
+    done = False
+    while not done:
+        chunks, done = rt.get(replica.next_chunks.remote(
+            marker[STREAM_MARKER]), timeout=SERVE23_READY_BOUND_S)
+        if chunks is None:
+            fail("(a) a replica's first stream expired")
+    return time.perf_counter() - t0
+
+
+def _replica_stats(rt, controller, dep, app, key) -> list:
+    _, reps = rt.get(controller.get_replicas.remote(dep, app, -1),
+                     timeout=60)
+    return [rt.get(r.stats.remote(), timeout=60)[key] for r in reps]
+
+
+def _replica_launches(rt, controller, dep, app) -> list:
+    """Each replica's paged-attention launches, read from its own
+    process (the engine's stats)."""
+    _, reps = rt.get(controller.get_replicas.remote(dep, app, -1),
+                     timeout=60)
+    out = []
+    for r in reps:
+        kl = rt.get(r.stats.remote(), timeout=60)["kernel_launches"]
+        out.append({k: kl[k] for k in ("paged_decode_attention",
+                                       "paged_prefill_attention",
+                                       "paged_mq_tc", "paged_mq_simt")})
+    return out
+
+
+class Serve23Ingress:
+    """(c)'s HTTP ingress: the request's JSON prompt streamed through the
+    engine deployment's handle, one token id a line."""
+
+    def __init__(self, llm):
+        self.llm = llm
+
+    def __call__(self, req):
+        body = req.json()
+
+        def gen():
+            for t in self.llm.stream(body["prompt"], body["max_new_tokens"],
+                                     temperature=0.0):
+                yield f"{int(t)}\n"
+        return gen()
+
+
+def phase_serve(dev, smi: str, reqs, outs) -> dict:
+    """Phase 23: serving through the control plane on the card: phase 2's
+    model in two GPU replicas behind a deployment handle, HTTP, a killed
+    replica, the disaggregated pair, shutdown (see the docstring). ``reqs``
+    and ``outs`` are phase 2's traffic and streams, the reference."""
+    import http.client
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve import InferenceReplica, api
+    from ray_tpu_torch.serve.controller import CONTROLLER_NAME
+    on_card = dev.type == "cuda"
+    rep = {"card": smi}
+    rule = _MarginRule(dev, SERVE_CFG, 0)
+    greedy = [i for i, (_, temp) in enumerate(reqs) if not temp]
+    prompts = [reqs[i][0] for i in greedy]
+    ekw = dict(block_size=16)
+    init_kw = dict(slots=8, max_len=1024, seed=0, engine_kwargs=ekw,
+                   device=dev.type)
+    gpu = {"num_gpus": 0.5}
+
+    if on_card:
+        import torch
+        torch.cuda.empty_cache()     # the replicas' memory, not this cache
+    t0 = time.perf_counter()
+    rt.init(num_cpus=SERVE23_CPUS)
+    node = rt._worker.get_client().node
+    rep["init_s"] = time.perf_counter() - t0
+
+    # -- (a) deploy -------------------------------------------------------
+    t_submit = time.time()
+    t0 = time.perf_counter()
+    h = serve.run(serve.deployment(
+        InferenceReplica, num_replicas=2, ray_actor_options=gpu,
+        max_concurrent_queries=16).bind(SERVE_CFG, **init_kw), name="t23")
+    controller = rt.get_actor(CONTROLLER_NAME)
+    _, reps = rt.get(controller.get_replicas.remote(
+        "InferenceReplica", "t23", -1), timeout=60)
+    rt.get([r.check_health.remote() for r in reps],
+           timeout=SERVE23_READY_BOUND_S)
+    t_ready = time.time()
+    ready = {"run_s": time.perf_counter() - t0}
+    starts, uptimes = [], []
+    for r in reps:
+        starts.append(_proc_start_epoch(
+            node.actors[r._actor_id].worker.proc.pid))
+        uptimes.append(rt.get(r.stats.remote(), timeout=60)["uptime_s"])
+    built_at = [time.time() - u for u in uptimes]
+    ready["exec_s"] = max(s - t_submit for s in starts)
+    ready["import_and_build_s"] = max(b - s for b, s in zip(built_at,
+                                                            starts))
+    # each replica's first stream, straight to it: a fresh process's
+    # first steps (the decode graph and the smallest prefill bucket
+    # captured, CUDA modules loaded on first use); the 128-token prompts
+    # of (b) capture their bucket there, with other streams' threads live
+    warm = [int(t) for t in prompts[0][:WARM_PROMPTS[0]]]
+    ready["first_stream_s"] = [_first_stream(rt, r, warm) for r in reps]
+    ready["total_s"] = (t_ready - t_submit) + max(ready["first_stream_s"])
+    rep["ready"] = ready
+    serve.start(http_options={"port": 0})
+    torchless = {}
+    for name, actor in (("controller", controller),
+                        ("proxy", api._http_proxy)):
+        pid = node.actors[actor._actor_id].worker.proc.pid
+        torchless[name] = not _maps_torch(pid)
+    rep["torchless"] = torchless
+    if not all(torchless.values()):
+        fail(f"(a) control-plane processes loaded torch: {torchless}")
+    print(f"  (a) 2 replicas at num_gpus=0.5 ready in "
+          f"{ready['total_s']:.1f} s: exec {ready['exec_s']:.2f} s, import "
+          f"+ build {ready['import_and_build_s']:.2f} s, each one's first "
+          f"stream (its first captures) "
+          f"{[round(x, 2) for x in ready['first_stream_s']]} s; controller "
+          f"and proxy without torch {torchless} [{smi}]")
+
+    # -- (b) stream -------------------------------------------------------
+    traces0 = _replica_stats(rt, controller, "InferenceReplica", "t23",
+                             "prefill_traces")
+    b = _serve_streams(h, prompts, SERVE23_NEW)
+    traces = _replica_stats(rt, controller, "InferenceReplica", "t23",
+                            "prefill_traces")
+    for k, i in enumerate(greedy):
+        rule.check(f"(b) request {i}", reqs[i][0], outs[i],
+                   b["tokens"][k])
+    launches = _replica_launches(rt, controller, "InferenceReplica", "t23")
+    if on_card and any(min(x["paged_decode_attention"],
+                           x["paged_prefill_attention"]) <= 0
+                       for x in launches):
+        fail(f"(b) a replica launched no paged kernel: {launches}")
+    rep["b"] = {k: v for k, v in b.items() if k != "tokens"}
+    rep["b"]["replica_launches"] = launches
+    rep["b"]["captures_while_streaming"] = [
+        a - z for a, z in zip(traces, traces0)]
+    rep["b"]["differing"] = len(rule.diffs)
+    print(f"  (b) {len(prompts)} greedy streams x {SERVE23_NEW} tokens in "
+          f"{b['wall_s']:.2f} s ({b['tok_s']:.1f} tok/s); TTFT p50 "
+          f"{b['ttft_ms_p50']:.1f} ms p99 {b['ttft_ms_p99']:.1f} ms, TPOT "
+          f"p50 {b['tpot_ms_p50']:.2f} ms p99 {b['tpot_ms_p99']:.2f} ms; "
+          f"{len(rule.diffs)} streams differ from phase 2, each first at a "
+          f"margin < {SERVE23_MARGIN} {rule.diffs}; launches by replica "
+          f"{launches}; prefill buckets captured during the streams, by "
+          f"replica, {rep['b']['captures_while_streaming']} [{smi}]")
+
+    # -- (c) HTTP ---------------------------------------------------------
+    serve.run(serve.deployment(Serve23Ingress).bind(
+        serve.get_deployment_handle("InferenceReplica", "t23")),
+        name="t23http")
+    port = rt.get(api._http_proxy.ready.remote(), timeout=60)["port"]
+    serve.set_route("/generate", "Serve23Ingress", "t23http")
+    k = 1
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("POST", "/generate", body=json.dumps(
+        {"prompt": [int(t) for t in prompts[k]],
+         "max_new_tokens": SERVE23_NEW}))
+    resp = conn.getresponse()
+    body = resp.read()
+    conn.close()
+    http_s = time.perf_counter() - t0
+    if resp.status != 200 or resp.getheader("Transfer-Encoding") != \
+            "chunked":
+        fail(f"(c) HTTP {resp.status}, "
+             f"{resp.getheader('Transfer-Encoding')!r}")
+    got = [int(t) for t in body.split()]
+    rule.check("(c) HTTP", prompts[k], outs[greedy[k]], got)
+    rep["c"] = {"status": resp.status, "tokens": len(got), "wall_s": http_s,
+                "same_as_b": got == [int(t) for t in b["tokens"][k]]}
+    print(f"  (c) POST /generate: {resp.status}, chunked, {len(got)} "
+          f"tokens in {http_s:.2f} s; equal to (b)'s stream: "
+          f"{rep['c']['same_as_b']} [{smi}]")
+
+    # -- (d) failover -----------------------------------------------------
+    k = 2
+    it = h.stream(list(map(int, prompts[k])), max_new_tokens=SERVE23_NEW,
+                  temperature=0.0)
+    got = [next(it) for _ in range(SERVE23_KILL_AFTER)]
+    _, reps = rt.get(controller.get_replicas.remote(
+        "InferenceReplica", "t23", -1), timeout=60)
+    serving = [r for r in reps
+               if rt.get(r.stats.remote(), timeout=60)["streams"] > 0]
+    if len(serving) != 1:
+        fail(f"(d) {len(serving)} replicas hold the stream")
+    t_kill = time.perf_counter()
+    rt.kill(serving[0])
+    got += list(it)
+    resume_s = time.perf_counter() - t_kill
+    rule.check("(d) failover", prompts[k], outs[greedy[k]], got)
+    back = None
+    while time.perf_counter() - t_kill < SERVE23_RESTORE_BOUND_S:
+        st = serve.status()["t23:InferenceReplica"]
+        if st["status"] == "RUNNING" and st["replicas"] == 2:
+            _, reps = rt.get(controller.get_replicas.remote(
+                "InferenceReplica", "t23", -1), timeout=60)
+            if serving[0]._actor_id not in {r._actor_id for r in reps}:
+                rt.get([r.check_health.remote() for r in reps],
+                       timeout=SERVE23_RESTORE_BOUND_S)
+                back = time.perf_counter() - t_kill
+                break
+        time.sleep(0.1)
+    if back is None:
+        fail(f"(d) not back to 2 RUNNING replicas within "
+             f"{SERVE23_RESTORE_BOUND_S} s: {serve.status()}")
+    cstats = rt.get(controller.stats.remote(), timeout=60)
+    rep["d"] = {"resume_s": resume_s, "restored_s": back,
+                "bound_s": SERVE23_RESTORE_BOUND_S,
+                "replicas_restarted": cstats["replicas_restarted"]}
+    print(f"  (d) killed the serving replica after {SERVE23_KILL_AFTER} "
+          f"tokens; the stream finished on the other in {resume_s:.2f} s; "
+          f"2 replicas RUNNING again after {back:.1f} s (bound "
+          f"{SERVE23_RESTORE_BOUND_S} s); controller {cstats} [{smi}]")
+
+    # -- (e) disaggregated serving ----------------------------------------
+    serve.delete("t23http")
+    serve.delete("t23")
+    t0 = time.perf_counter()
+    dh = serve.run_disagg(SERVE_CFG, name="t23d", prefill_replicas=1,
+                          decode_replicas=1, slots=8, max_len=1024, seed=0,
+                          engine_kwargs=ekw, ray_actor_options=gpu,
+                          max_concurrent_queries=16, device=dev.type)
+    for dep in ("prefill", "decode"):
+        _, reps = rt.get(controller.get_replicas.remote(dep, "t23d", -1),
+                         timeout=60)
+        rt.get([r.check_health.remote() for r in reps],
+               timeout=SERVE23_READY_BOUND_S)
+    deploy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dh.generate(warm, max_new_tokens=2)      # both roles' first steps
+    first_s = time.perf_counter() - t0
+    e = _serve_streams(dh, prompts, SERVE23_NEW)
+    for k, i in enumerate(greedy):
+        rule.check(f"(e) request {i}", reqs[i][0], outs[i], e["tokens"][k])
+    ds = rt.get(serve.get_deployment_handle("decode", "t23d")
+                .stats.remote(), timeout=60)
+    ps = rt.get(serve.get_deployment_handle("prefill", "t23d")
+                .stats.remote(), timeout=60)
+    disagg_launches = {
+        "prefill": {k: ps["kernel_launches"][k] for k in (
+            "paged_decode_attention", "paged_prefill_attention")},
+        "decode": {k: ds["kernel_launches"][k] for k in (
+            "paged_decode_attention", "paged_prefill_attention")}}
+    if on_card and (disagg_launches["prefill"]["paged_prefill_attention"]
+                    <= 0 or disagg_launches["decode"][
+                        "paged_decode_attention"] <= 0):
+        fail(f"(e) the role replicas' launches {disagg_launches}")
+    if ds["handoff_fallbacks"] or ds["imports"] < len(prompts):
+        fail(f"(e) {ds['imports']} imports, {ds['handoff_fallbacks']} "
+             f"fallbacks")
+    rep["e"] = {k: v for k, v in e.items() if k != "tokens"}
+    rep["e"].update(deploy_s=deploy_s, first_stream_s=first_s,
+                    launches=disagg_launches, **{
+        k: ds[k] for k in ("kv_transfer_gbps", "handoff_pull_ms_p50",
+                           "handoff_pull_ms_p99", "kv_pulled_bytes",
+                           "imports", "handoff_fallbacks")})
+    print(f"  (e) run_disagg 1+1 at num_gpus=0.5 ready in {deploy_s:.1f} s, "
+          f"its first stream {first_s:.2f} s; "
+          f"{len(prompts)} streams in {e['wall_s']:.2f} s "
+          f"({e['tok_s']:.1f} tok/s), TTFT p50 {e['ttft_ms_p50']:.1f} ms "
+          f"p99 {e['ttft_ms_p99']:.1f} ms, TPOT p50 {e['tpot_ms_p50']:.2f} "
+          f"ms p99 {e['tpot_ms_p99']:.2f} ms; handoff "
+          f"{ds['kv_transfer_gbps']:.3f} GB/s, pull p50 "
+          f"{ds['handoff_pull_ms_p50']:.2f} ms p99 "
+          f"{ds['handoff_pull_ms_p99']:.2f} ms over {ds['imports']} "
+          f"imports; launches {disagg_launches} [{smi}]")
+
+    # -- (f) shutdown -----------------------------------------------------
+    pids, session = node.pids(), node.session_dir
+    t0 = time.perf_counter()
+    serve.shutdown()
+    rep["serve_shutdown_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rt.shutdown()
+    rep["shutdown_s"] = time.perf_counter() - t0
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    rep["processes"] = len(pids)
+    print(f"  (f) serve.shutdown {rep['serve_shutdown_s']:.2f} s, "
+          f"shutdown {rep['shutdown_s']:.3f} s; {len(pids)} processes, "
+          f"alive after: {alive or 'none'}; session dir "
+          f"{'left' if os.path.exists(session) else 'gone'} [{smi}]")
+    if alive or os.path.exists(session):
+        fail(f"(f) after shutdown: live pids {alive}, session dir "
+             f"{os.path.exists(session)}")
+    rep["diffs"] = rule.diffs
+    rep["launches"] = {        # (a) and (b): both replicas from their start
+        k: sum(x[k] for x in launches)
+        for k in ("paged_decode_attention", "paged_prefill_attention")}
+    rep["launches_e"] = disagg_launches
+    return rep
+
+
 def _readable_kernel(mangled: str):
     """A readable name for an instantiation of a tensor-core kernel or of
     a split-K decode kernel (``flash_dq_tc_kernel<64, true>``,
@@ -7324,13 +7757,17 @@ def main() -> int:
                     "tasks, objects in the native arena, actors; a GPU task "
                     "and actor on the card, CPU workers without it; "
                     "shutdown)", phase_runtime, dev, smi)
+    serving = phase(23, "serving through the control plane (two GPU "
+                    "replicas behind a handle, HTTP, a killed replica, the "
+                    "disaggregated pair, shutdown)", phase_serve, dev, smi,
+                    reqs, outs)
     result.update(kernels=kern, engine=eng, teacher_forced=tf, profile=prof,
                   flash=flash, train=train, xent=xent, fused_train=fused,
                   unpaged=unpaged, c1=c1, int8=int8, spec=spec,
                   capture=capture, pressure=pressure, disagg=disagg,
                   flywheel=flywheel, ft_models=ft_models, mesh=mesh,
                   serve_mesh=serve_mesh, roles_mesh=roles_mesh,
-                  train_rest=train_rest, runtime=runtime)
+                  train_rest=train_rest, runtime=runtime, serving=serving)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -7619,6 +8056,16 @@ def main() -> int:
         fail("paged_decode_attention was not launched in phase 22's GPU task")
     next(r for r in rows if r["name"] == "paged_decode")[
         "launches_by_path"]["phase 22 (d) GPU task"] = gpu_task
+    # phase 23's GPU replicas, each counted in its own process from its
+    # start: the colocated pair after (a) and (b), and the disaggregated
+    # pair of (e)
+    for key, wrapper in (("paged_decode", "paged_decode_attention"),
+                         ("paged_prefill", "paged_prefill_attention")):
+        row = next(r for r in rows if r["name"] == key)
+        row["launches_by_path"]["phase 23 serve replicas"] = \
+            serving["launches"][wrapper]
+        row["launches_by_path"]["phase 23 (e) disagg replicas"] = sum(
+            v[wrapper] for v in serving["launches_e"].values())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

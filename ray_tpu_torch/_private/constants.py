@@ -30,6 +30,110 @@ ENGINE_PRIORITY_WEIGHT_BASE = define(
     "keeps a nonzero guaranteed share (no starvation even before "
     "aging kicks in).")
 
+# --- the serve control plane (`serve.controller`, `serve.handle`,
+# `serve.replica`, `serve.http_proxy`): cadences ---
+
+SERVE_RECONCILE_PERIOD_S = define(
+    "SERVE_RECONCILE_PERIOD_S", float, 1.0,
+    "Serve controller reconcile loop period (deployment_state.py "
+    "analog).")
+
+SERVE_HANDLE_REFRESH_S = define(
+    "SERVE_HANDLE_REFRESH_S", float, 2.0,
+    "How often a ServeHandle refreshes its replica set from the "
+    "controller (long-poll refresh analog).")
+
+SERVE_STREAM_BATCH = define(
+    "SERVE_STREAM_BATCH", int, 16,
+    "Streaming responses ship this many chunks per proxy round-trip.")
+
+SERVE_STREAM_IDLE_TTL_S = define(
+    "SERVE_STREAM_IDLE_TTL_S", float, 300.0,
+    "Undrained response streams are reaped after this idle time.")
+
+SERVE_DOWNSCALE_DELAY_S = define(
+    "SERVE_DOWNSCALE_DELAY_S", float, 30.0,
+    "Default delay before the Serve autoscaler honors a downscale "
+    "decision (reference: downscale_delay_s).")
+
+SERVE_STATS_TIMEOUT_S = define(
+    "SERVE_STATS_TIMEOUT_S", float, 10.0,
+    "Timeout for the controller's replica stats fan-out each "
+    "autoscaling tick.")
+
+SERVE_DRAIN_TIMEOUT_S = define(
+    "SERVE_DRAIN_TIMEOUT_S", float, 30.0,
+    "On scale-down, how long the controller waits for a victim "
+    "replica's in-flight requests and response streams to drain "
+    "before it is killed anyway.")
+
+SERVE_DRAIN_POLL_S = define(
+    "SERVE_DRAIN_POLL_S", float, 0.1,
+    "Poll period for the scale-down drain loop's replica stats checks.")
+
+# --- the serve control plane's fault tolerance (health plane, retries,
+# breaker) ---
+
+SERVE_HEALTH_FAILURE_THRESHOLD = define(
+    "SERVE_HEALTH_FAILURE_THRESHOLD", int, 3,
+    "Consecutive failed health pings before the controller declares a "
+    "replica dead (an ActorDiedError is authoritative immediately). "
+    "Reference: health_check_failure_threshold, deployment_state.py.")
+
+SERVE_HEALTH_STARTUP_GRACE_S = define(
+    "SERVE_HEALTH_STARTUP_GRACE_S", float, 60.0,
+    "Startup probation: ping failures of a replica that has never yet "
+    "passed a health check don't count as strikes for this long after "
+    "creation (slow engine construction is not flapping). Real deaths "
+    "still replace immediately.")
+
+SERVE_BREAKER_THRESHOLD = define(
+    "SERVE_BREAKER_THRESHOLD", int, 3,
+    "Replica deaths within SERVE_BREAKER_WINDOW_S that trip a "
+    "deployment's circuit breaker from closed to open.")
+
+SERVE_BREAKER_WINDOW_S = define(
+    "SERVE_BREAKER_WINDOW_S", float, 30.0,
+    "Sliding window over replica deaths for the breaker trip decision.")
+
+SERVE_BREAKER_COOLDOWN_S = define(
+    "SERVE_BREAKER_COOLDOWN_S", float, 10.0,
+    "How long an open breaker quarantines a deployment (no replica "
+    "restarts) before moving to half-open and allowing one probe.")
+
+SERVE_BREAKER_PROBE_S = define(
+    "SERVE_BREAKER_PROBE_S", float, 5.0,
+    "How long a half-open breaker's single probe replica must stay "
+    "healthy before the breaker closes and normal restarts resume.")
+
+SERVE_RETRY_MAX_ATTEMPTS = define(
+    "SERVE_RETRY_MAX_ATTEMPTS", int, 3,
+    "Default attempt budget for handle-level request retries through "
+    "replica death (capped exponential backoff between attempts).")
+
+SERVE_RETRY_BASE_S = define(
+    "SERVE_RETRY_BASE_S", float, 0.05,
+    "Base delay of the handle retry backoff; attempt n sleeps "
+    "min(cap, base * 2**n) with jitter.")
+
+SERVE_RETRY_CAP_S = define(
+    "SERVE_RETRY_CAP_S", float, 2.0,
+    "Cap on a single handle retry backoff sleep.")
+
+SERVE_STREAM_FAILOVERS = define(
+    "SERVE_STREAM_FAILOVERS", int, 2,
+    "How many mid-stream failovers one streaming call may ride before "
+    "the replica-death error propagates to the consumer.")
+
+SERVE_HTTP_HOST = define(
+    "SERVE_HTTP_HOST", str, "127.0.0.1",
+    "Default bind host for the Serve HTTP proxy.")
+
+SERVE_HTTP_PORT = define(
+    "SERVE_HTTP_PORT", int, 8000,
+    "Default port for the Serve HTTP proxy (reference: "
+    "serve.start(http_options).")
+
 # --- channels (netaddr): addressing ---
 
 NODE_IP = define(

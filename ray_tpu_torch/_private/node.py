@@ -7,7 +7,9 @@ over a UNIX socket in the session directory; the message set is
 `protocol.py`. GPUs are the accelerator resource: a task or actor that
 asks for ``num_gpus`` runs in a worker exec'd with
 ``CUDA_VISIBLE_DEVICES`` set to the ids it was given, every other worker
-sees no card (`spawn.py`).
+sees no card (`spawn.py`). A fraction of a GPU shares one card with other
+fractions (Ray's rule for GPUs; the reference gives a fraction of a TPU
+chip no chip, since a chip opens in one process only).
 
 Not here (ROADMAP A5 (a2); the entry points that would reach them raise
 `NotImplementedError` naming it): remote nodes and the TCP listener, the
@@ -66,8 +68,11 @@ def _add(avail: dict, req: dict) -> None:
         avail[k] = avail.get(k, 0.0) + v
 
 
-def _n_gpus(req: dict) -> int:
-    return int(req.get("GPU", 0))
+def _gpu_share(req: dict) -> float:
+    """What a request books on each card it is given: a whole card, or
+    its fraction of one (``num_gpus=0.5`` shares a card, as in Ray)."""
+    g = float(req.get("GPU", 0))
+    return 0.0 if g <= 0 else (g if g < 1 else 1.0)
 
 
 @dataclass
@@ -144,7 +149,9 @@ class NodeServer:
         self.store = ObjectStore(session_dir)
         self.total_resources = dict(resources)
         self.available = dict(resources)
-        self.free_gpus = list(range(num_gpus))
+        # the share of each card booked now: 1.0 is a card handed out
+        # whole, a fraction is shared by workers asking for fractions
+        self.gpu_load = [0.0] * num_gpus
 
         self.lock = threading.RLock()
         self.cv = threading.Condition(self.lock)   # object-ready notification
@@ -864,24 +871,52 @@ class NodeServer:
         self._send_all(to_send)
         return n_dispatched, tripped
 
-    def _take_gpus(self, n: int) -> list:
-        ids_, self.free_gpus[:n] = self.free_gpus[:n], []
-        return ids_
+    def _gpu_pick(self, req: dict) -> list | None:
+        """The cards a request would be given now ([] if it asks for
+        none), or None when they are not free. ``num_gpus`` of 1 or more
+        takes ``int(num_gpus)`` idle cards; a fraction takes room on one
+        card, the fullest it fits on, so fractions pack and whole cards
+        stay whole. Caller holds the lock."""
+        share = _gpu_share(req)
+        if share == 0:
+            return []
+        if share < 1:
+            fits = [i for i, load in enumerate(self.gpu_load)
+                    if load + share <= 1.0 + 1e-9]
+            if not fits:
+                return None
+            return [max(fits, key=lambda i: (self.gpu_load[i], -i))]
+        n = int(float(req["GPU"]))
+        idle = [i for i, load in enumerate(self.gpu_load) if load == 0]
+        return idle[:n] if len(idle) >= n else None
+
+    def _take_gpus(self, req: dict, picked: list) -> list:
+        share = _gpu_share(req)
+        for i in picked:
+            self.gpu_load[i] += share
+        return picked
+
+    def _free_gpus(self, req: dict, gpu_ids: list) -> None:
+        share = _gpu_share(req)
+        for i in gpu_ids:
+            left = self.gpu_load[i] - share
+            # fractions that summed to 0.9 + a rounding error free to 0
+            self.gpu_load[i] = left if left > 1e-9 else 0.0
 
     def _try_dispatch_generic(self, t: _TaskState, to_send):
         """True=dispatched, False=doesn't fit right now, None=the resources
         fit but no idle worker (caller spawns). Caller holds the lock."""
         req = t.spec.resources
-        n_gpu = _n_gpus(req)
-        if not _fits(self.available, req) or len(self.free_gpus) < n_gpu:
+        picked = self._gpu_pick(req)
+        if not _fits(self.available, req) or picked is None:
             return False
-        if n_gpu > 0 or t.spec.runtime_env:
+        if picked or t.spec.runtime_env:
             # GPU tasks need CUDA_VISIBLE_DEVICES in the environment BEFORE
             # the process initializes CUDA; env_vars tasks need theirs at
             # birth. Both run on a fresh exec'd worker that retires after
             # the task.
             _sub(self.available, req)
-            t.gpu_ids = self._take_gpus(n_gpu)
+            t.gpu_ids = self._take_gpus(req, picked)
             threading.Thread(target=self._spawn_dedicated_worker,
                              args=(t,), daemon=True).start()
             return True
@@ -909,11 +944,11 @@ class NodeServer:
     def _try_dispatch_actor_creation(self, t: _TaskState, to_send):
         a = self.actors[t.spec.actor_id]
         req = a.resources
-        n_gpu = _n_gpus(req)
-        if not _fits(self.available, req) or len(self.free_gpus) < n_gpu:
+        picked = self._gpu_pick(req)
+        if not _fits(self.available, req) or picked is None:
             return False
         _sub(self.available, req)
-        a.gpu_ids = self._take_gpus(n_gpu)
+        a.gpu_ids = self._take_gpus(req, picked)
         if not a.gpu_ids and not t.spec.runtime_env:
             # Serve the creation from an idle pooled worker when one
             # exists — skips the whole spawn + register round. GPU and
@@ -1205,12 +1240,12 @@ class NodeServer:
 
     def _release_task_resources(self, t: _TaskState):
         _add(self.available, t.spec.resources)
-        self.free_gpus = sorted(self.free_gpus + t.gpu_ids)
+        self._free_gpus(t.spec.resources, t.gpu_ids)
         t.gpu_ids = []
 
     def _release_actor_resources(self, a: _ActorState):
         _add(self.available, a.resources)
-        self.free_gpus = sorted(self.free_gpus + a.gpu_ids)
+        self._free_gpus(a.resources, a.gpu_ids)
         a.gpu_ids = []
 
     def _store_error(self, return_ids, exc, spec=None):

@@ -373,10 +373,21 @@ class WorkerRuntime:
 
     async def _run_task_async(self, push: protocol.PushTask):
         import asyncio
+        import contextlib
         import inspect
         spec = push.spec
         loop = asyncio.get_running_loop()
-        async with self._async_sem:
+        # Control-plane exemption (the reference's concurrency groups): a
+        # class may declare `_control_plane_methods`, which skip the
+        # max_concurrency semaphore, so a stats scrape or a health ping
+        # is never queued behind a full window of long-blocking data
+        # calls (a serve replica whose every slot is parked in a
+        # next_chunks pull must still answer its controller).
+        gate = self._async_sem
+        if spec.method_name in getattr(type(self.actor_instance),
+                                       "_control_plane_methods", ()):
+            gate = contextlib.nullcontext()
+        async with gate:
             # each asyncio task has its own context, so the current-task
             # id survives interleaving (a thread-local cannot)
             _ASYNC_TASK_ID.set(spec.task_id)

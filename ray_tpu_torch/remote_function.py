@@ -46,8 +46,8 @@ def _resources_from_options(o: dict, default_cpus: float) -> dict:
     num_gpus = o.get("num_gpus", o.get("num_tpus"))
     res["CPU"] = float(default_cpus if num_cpus is None else num_cpus)
     if num_gpus:
-        # a fraction is booked as such; the task is given int(num_gpus)
-        # cards (node.py), as the reference gives int(num_tpus) chips
+        # a fraction is booked as such and shares one card with other
+        # fractions; 1 or more is given int(num_gpus) whole cards (node.py)
         res["GPU"] = float(num_gpus)
     mem = o.get("memory")
     if mem:

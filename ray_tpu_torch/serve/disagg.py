@@ -37,8 +37,9 @@ polls. They touch host arrays and sockets only, never a CUDA API.
 `DecodeReplica`'s pull records the end-to-end handoff on its engine's
 flight recorder (``on_handoff``), as the reference's does.
 
-Not ported yet (ROADMAP A5, with the serve control plane): the
-deployment-handle pairing `DisaggHandle` and ``serve.run_disagg``.
+`DisaggHandle` pairs the two role pools' deployment handles
+(``serve.run_disagg`` deploys them): the prompt goes to a prefill
+replica, its descriptor to a decode replica as a token stream.
 """
 
 from __future__ import annotations
@@ -464,3 +465,37 @@ def disagg_resume(args, kwargs, emitted):
     return (prompt,), {"max_new_tokens": remaining,
                        "temperature": float(desc["temperature"]),
                        "priority": int(desc.get("priority", 0))}
+
+
+class DisaggHandle:
+    """Client-side pairing of the two role pools: `stream(prompt, ...)`
+    routes the prompt to the prefill deployment (retrying `call` — a
+    prefill replica killed mid-handoff fails over through the standard
+    replica-death retry), then resumes the descriptor on the decode
+    deployment as a token stream with the disagg failover policy."""
+
+    def __init__(self, prefill_handle, decode_handle):
+        self.prefill = prefill_handle
+        self.decode = decode_handle
+
+    def options(self, *, priority: int | None = None) -> "DisaggHandle":
+        return DisaggHandle(
+            self.prefill.options(priority=priority)
+            if priority is not None else self.prefill,
+            self.decode.options(priority=priority)
+            if priority is not None else self.decode)
+
+    def stream(self, prompt, max_new_tokens: int = 8,
+               temperature: float = 0.0, *, timeout: float = 120.0,
+               deadline_s: float | None = None, **kw):
+        desc = self.prefill.call(
+            list(prompt), max_new_tokens=max_new_tokens,
+            temperature=temperature, timeout=timeout,
+            deadline_s=deadline_s, **kw)
+        return self.decode.stream(
+            desc, timeout=timeout, deadline_s=deadline_s,
+            failover=disagg_resume)
+
+    def generate(self, prompt, max_new_tokens: int = 8, **kw) -> list:
+        return list(self.stream(prompt, max_new_tokens=max_new_tokens,
+                                **kw))

@@ -176,30 +176,11 @@ from ray_tpu_torch.parallel import collectives as col
 from ray_tpu_torch.parallel import sharding
 from ray_tpu_torch.parallel.mesh import Mesh, active_mesh
 from ray_tpu_torch.serve import priority as _prio
+from ray_tpu_torch.serve.events import TokenEvent
 from ray_tpu_torch.util import faults as _faults
 from ray_tpu_torch.util import telemetry
 
 logger = logging.getLogger("ray_tpu_torch.serve")
-
-
-class TokenEvent(int):
-    """A generated token id that is also an ``int``, carrying
-    ``logprob`` (the model's natural log-likelihood of this token given
-    its prefix, f32 log_softmax of the logits) and ``params_version``."""
-
-    def __new__(cls, token: int, logprob: float = 0.0,
-                params_version: int = 0):
-        ev = super().__new__(cls, token)
-        ev.logprob = float(logprob)
-        ev.params_version = int(params_version)
-        return ev
-
-    def __reduce__(self):
-        return (TokenEvent, (int(self), self.logprob, self.params_version))
-
-    def __repr__(self):
-        return (f"TokenEvent({int(self)}, logprob={self.logprob:.4f}, "
-                f"params_version={self.params_version})")
 
 
 def _default_buckets(max_len: int) -> tuple[int, ...]:
@@ -634,8 +615,16 @@ class _StaticStep:
         collecting = gc.isenabled()
         gc.disable()
         try:
+            # Thread-local: the capture forbids unsafe CUDA calls in this
+            # thread only. A served engine captures lazily, under its
+            # lock, while other threads of the process go on: a decode
+            # replica's pull allocating a pinned handoff buffer, another
+            # stream freeing one, the runtime's threads. Under torch's
+            # default ("global") any such call fails and invalidates the
+            # capture; a device-wide synchronize still fails here.
             with torch.cuda.graph(graph, pool=eng._graph_pool,
-                                  stream=eng._side):
+                                  stream=eng._side,
+                                  capture_error_mode="thread_local"):
                 out = self.fn(self.inputs.dev)
         finally:
             if collecting:
@@ -2950,8 +2939,10 @@ class InferenceReplica:
     `models.gpt.init_params`). With ``engine_kwargs={"spec": "draft"}``
     and no ``draft_params`` the replica builds the draft too: the same
     config kwargs with ``draft_layers`` (default 1) layers, weights from
-    ``seed + 1``. The actor/HTTP control plane around it is a later slice
-    of the port."""
+    ``seed + 1``. Deployed through `serve` (``serve.deployment(
+    InferenceReplica).bind(...)``), the replica actor turns the generator
+    into a ``next_chunks`` stream, so ``handle.stream(prompt)`` yields
+    tokens as they are decoded."""
 
     def __init__(self, cfg_kwargs: dict | None = None, *, slots: int = 4,
                  max_len: int = 64, seed: int = 0,
@@ -2983,6 +2974,13 @@ class InferenceReplica:
 
     def cancel(self, rid: int) -> bool:
         return self.engine.cancel(rid)
+
+    def update_params(self, new_params, *, draft_params=None) -> int:
+        """Hot-swap weights into this replica's live engine (the serve
+        path the flywheel publishes through); returns the new
+        params_version."""
+        return self.engine.update_params(new_params,
+                                         draft_params=draft_params)
 
     def stats(self) -> dict:
         return self.engine.stats()

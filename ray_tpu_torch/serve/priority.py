@@ -10,10 +10,9 @@ kwarg, the replica pops it into a ContextVar before invoking user code,
 and `InferenceReplica.__call__` reads it back when no explicit
 ``priority=`` kwarg was given — so the class rides the whole serve path
 without threading a parameter through every hop. Deployments can set a
-baseline with ``@serve.deployment(default_priority=...)``. That handle,
-proxy and replica are the reference's serve control plane, which the
-port does not have yet (ROADMAP A5): here a caller sets the class with
-`_set_priority` or passes ``priority=`` itself.
+baseline with ``@serve.deployment(default_priority=...)``. Outside the
+serve path a caller sets the class with `_set_priority` or passes
+``priority=`` itself.
 
 Inside the engine the class drives weighted-share admission ordering
 (with aging so low classes never starve), class-ordered shedding, and

@@ -22,10 +22,10 @@ strings that production code consults at its fault points via
     every `ray_tpu_torch._private.netaddr.client()` connection while a
     plan with those sites is active; the disaggregated serving path's
     KV-block pulls ride them)
-
-The reference's ``replica.health_ping`` and ``controller.health_ping``
-sites belong to its serve control plane, which the port does not have
-yet (ROADMAP A5).
+  * ``replica.health_ping`` — a serve replica's health check (fail = a
+    missed ping the controller strikes, kill = the replica dies in it)
+  * ``controller.health_ping`` — the serve controller's health-probe
+    round (fail = every replica looks unreachable this round)
 
 Determinism: each site carries a visit counter and, for probabilistic
 specs, its own `random.Random` seeded from `(plan.seed, site)` — so a

@@ -58,7 +58,12 @@ def test_every_module_imports_without_jax_or_ray_tpu():
             "ray_tpu_torch._private.forkserver",
             "ray_tpu_torch._private.worker_main",
             "ray_tpu_torch._private.worker",
-            "ray_tpu_torch._private.node"} <= set(mods)
+            "ray_tpu_torch._private.node",
+            "ray_tpu_torch.serve.api", "ray_tpu_torch.serve.batching",
+            "ray_tpu_torch.serve.controller", "ray_tpu_torch.serve.events",
+            "ray_tpu_torch.serve.handle", "ray_tpu_torch.serve.http_proxy",
+            "ray_tpu_torch.serve.multiplex", "ray_tpu_torch.serve.replica",
+            "ray_tpu_torch.serve.schema"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -159,6 +164,31 @@ def test_runtime_processes_import_no_jax_ray_tpu_or_torch():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == \
         repr([[], ("", []), ("0", [])]), out.stdout
+
+
+def test_serve_control_plane_imports_no_torch_or_aiohttp():
+    """The serve control plane's modules load neither ``torch`` (the
+    controller and the HTTP proxy run in CPU workers that never load it,
+    and unpickle their classes from these modules) nor ``aiohttp`` (the
+    proxy serves on the standard library); the engine's names in
+    `ray_tpu_torch.serve` load only when asked for."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch.serve, ray_tpu_torch.serve.api\n"
+        "import ray_tpu_torch.serve.controller, ray_tpu_torch.serve.handle\n"
+        "import ray_tpu_torch.serve.replica, ray_tpu_torch.serve.http_proxy\n"
+        "import ray_tpu_torch.serve.schema, ray_tpu_torch.serve.events\n"
+        "from ray_tpu_torch.serve.controller import ServeController\n"
+        "from ray_tpu_torch.serve.http_proxy import HTTPProxy\n"
+        "before = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "                ('torch', 'aiohttp', 'jax', 'ray_tpu'))\n"
+        "ray_tpu_torch.serve.InferenceReplica\n"
+        "print(repr([before, 'torch' in sys.modules]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == repr([[], True]), \
+        out.stdout
 
 
 def test_default_device_is_cuda_and_raises_without_one():

@@ -1002,6 +1002,85 @@ def test_capture_runs_with_the_collector_off(dev, monkeypatch):
     assert gc.isenabled() and eng._steps[("decode", None)].graph is not None
 
 
+def _pinned_alloc(dev, keep):
+    keep.append(torch.empty(1 << 20, dtype=torch.uint8, pin_memory=True))
+
+
+def _pinned_free_after_copy(dev, keep):
+    host = torch.ones(1 << 18, pin_memory=True)
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        host.to(dev, non_blocking=True)
+    del host
+
+
+def _device_alloc(dev, keep):
+    keep.append(torch.empty((3 << 20) + 4096, dtype=torch.uint8,
+                            device=dev))
+
+
+def _default_stream_sync(dev, keep):
+    torch.ones(4, device=dev).sum().item()
+
+
+@pytest.mark.parametrize("act", [_pinned_alloc, _pinned_free_after_copy,
+                                 _device_alloc, _default_stream_sync],
+                         ids=lambda f: f.__name__[1:])
+def test_capture_beside_another_threads_cuda_calls(dev, act, monkeypatch):
+    """A served engine captures its steps lazily while other threads of
+    its process make CUDA calls of their own (a decode replica's pull
+    allocates a pinned handoff buffer, a stream frees one, the runtime
+    allocates). Each such call runs in a second thread exactly while the
+    first decode step is captured (the captured function waits for it):
+    both succeed and the tokens equal an eager engine's. Under torch's
+    default capture mode ("global") every one of these calls failed with
+    "operation not permitted when stream is capturing" and invalidated
+    the capture."""
+    import threading
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve import InferenceEngine
+    model, cfg, _ = _capture_model(dev)
+    prompt = _capture_traffic(cfg.vocab_size)[5][0]
+    eager = InferenceEngine(model, cfg, slots=2, max_len=96, block_size=16,
+                            prefill_chunk=32, device=dev)
+    eager._capture = False
+    want = [int(t) for t in eager.generate(prompt, max_new_tokens=6)]
+    real, start, done, res, keep = (gpt.decode_step_paged,
+                                    threading.Event(), threading.Event(),
+                                    {}, [])
+
+    def waiting(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            start.set()
+            done.wait(30)
+        return real(*a, **k)
+
+    def other():
+        start.wait(60)
+        try:
+            act(dev, keep)
+            torch.cuda.current_stream(dev).synchronize()
+            res["act"] = "ok"
+        except Exception as e:  # noqa: BLE001 — the outcome is the result
+            res["act"] = repr(e)
+        done.set()
+
+    monkeypatch.setattr(gpt, "decode_step_paged", waiting)
+    eng = InferenceEngine(model, cfg, slots=2, max_len=96, block_size=16,
+                          prefill_chunk=32, device=dev)
+    t = threading.Thread(target=other)
+    t.start()
+    try:
+        got = [int(x) for x in eng.generate(prompt, max_new_tokens=6)]
+    finally:
+        start.set()
+        done.set()
+        t.join(30)
+    assert res == {"act": "ok"} and start.is_set()
+    assert eng._steps[("decode", None)].graph is not None
+    assert got == want
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("spec", ["off", "ngram", "draft"])
 def test_captured_engine_under_preemption_matches_eager(dev, spec):
     """Scheduling under pressure on CUDA graphs: a pool of 12 blocks for

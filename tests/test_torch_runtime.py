@@ -142,3 +142,33 @@ def test_env_vars_reach_a_dedicated_worker(rt):
     def probe():
         return os.environ.get("RTT_PROBE")
     assert rt.get(probe.remote(), timeout=60) == "yes"
+
+
+def test_gpu_fractions_pack_on_one_card_and_free_it_whole(rt):
+    """Fractions of a GPU pack on the fullest card they fit on (three
+    0.1 share card 0), and once they end the card is whole again: a
+    2-card task gets both. The booking itself, taken and freed in one
+    order: 0.1 + 0.1 + 0.1 - 0.1 - 0.1 - 0.1 is not 0 in floating point,
+    and that residue must not keep card 0 booked."""
+    from ray_tpu_torch._private.node import NodeServer
+
+    @rt.remote(num_gpus=0.1)
+    def frac():
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    @rt.remote(num_gpus=2)
+    def both():
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+    assert rt.get([frac.remote() for _ in range(3)], timeout=120) == \
+        ["0"] * 3
+    assert rt.get(both.remote(), timeout=120) == "0,1"
+
+    book = object.__new__(NodeServer)
+    book.gpu_load = [0.0, 0.0]
+    req = {"GPU": 0.1}
+    taken = [book._take_gpus(req, book._gpu_pick(req)) for _ in range(3)]
+    assert taken == [[0]] * 3 and book._gpu_pick({"GPU": 2}) is None
+    for ids_ in taken:
+        book._free_gpus(req, ids_)
+    assert book.gpu_load == [0.0, 0.0]
+    assert book._gpu_pick({"GPU": 2}) == [0, 1]

@@ -28,8 +28,14 @@ import time
 
 import numpy as np
 
-TPU = {"opt": "num_tpus", "res": "TPU", "env": "TPU_VISIBLE_CHIPS"}
-GPU = {"opt": "num_gpus", "res": "GPU", "env": "CUDA_VISIBLE_DEVICES"}
+# ``fraction_sees``: whether a task given a fraction of an accelerator
+# sees a device. A TPU chip opens in one process only, so the reference
+# hands a fraction none; a GPU is shared, so the port hands a fraction
+# one card (Ray's rule), the one card the two halves below share.
+TPU = {"opt": "num_tpus", "res": "TPU", "env": "TPU_VISIBLE_CHIPS",
+       "fraction_sees": ""}
+GPU = {"opt": "num_gpus", "res": "GPU", "env": "CUDA_VISIBLE_DEVICES",
+       "fraction_sees": "0"}
 NUM_CPUS = NUM_ACCELERATORS = 2
 
 
@@ -259,15 +265,16 @@ def accelerator_ids(rt, acc):
 
 
 def fractional_accelerator(rt, acc):
-    """A fraction of an accelerator is booked as such and hands out no
-    device: the task sees none, and two halves run side by side."""
+    """A fraction of an accelerator is booked as such, and two halves run
+    side by side: each sees what ``acc["fraction_sees"]`` names (no chip
+    in the reference; in the port, both halves the same one card)."""
     @rt.remote(**{acc["opt"]: 0.5})
     def half(marker_dir, i):
         open(os.path.join(marker_dir, str(i)), "w").close()
         deadline = time.time() + 30
         while len(os.listdir(marker_dir)) < 2 and time.time() < deadline:
             time.sleep(0.01)
-        return [bool(os.environ.get(acc["env"])),
+        return [os.environ.get(acc["env"], "") == acc["fraction_sees"],
                 len(os.listdir(marker_dir))]
     with tempfile.TemporaryDirectory() as d:
         out = rt.get([half.remote(d, i) for i in range(2)], timeout=120)
